@@ -1,0 +1,615 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines and wall time, each ending in
+``torch.cuda.synchronize()``; any failure exits non-zero:
+
+1. environment and build: the card (as ``nvidia-smi`` names it, with its
+   power limit), torch/CUDA versions, the ``nvcc`` build of the kernels
+   from this checkout's sources and the compiler's register/spill report;
+2. kernels: each hand-written kernel against its plain PyTorch version at
+   the shapes the serve phase gives it (glm4-9b widths: h 32, kvh 2, d 128,
+   page 16, D 4096, bf16), with the error (fail unless
+   ``|kernel - plain| <= 2e-2 * |plain| + 2e-3 * rms(plain)``; for the
+   attention kernels the plain version with one key or one context page
+   too few must fail that limit), kernel, plain and library times (see
+   ``_time_ms``) and the bound: the larger of bytes over 3.35 TB/s and
+   flops over 989 TFLOP/s;
+3. check: reduced glm4-9b in float32 served on the card and on the CPU
+   from the same weights must emit the same greedy tokens;
+4. serve: full-width, full-depth glm4-9b (40 layers, random bf16 weights
+   from a seeded CUDA generator) through ``ServingEngine.serve_paged``;
+   every request must complete and every kernel must have been launched
+   (counts zeroed just before the first run, read just after), exactly 40
+   attention and 81 rmsnorm launches per decode step and per prefill
+   launch; two more runs of the same requests give the metrics' spread;
+5. where the time goes: device time by kernel class per prefill launch and
+   per decode step, per launch of each kernel, and the device's idle
+   share, from torch.profiler;
+6. one JSON line of kernel records, then the final line
+   ``{"ok": true, "device": {...}}``.
+
+Exits non-zero, printing no result, without CUDA or outside a checkout.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
+BF16_FLOPS_PER_S = 989e12       # dense bf16 tensor-core peak
+# |kernel - plain| <= TOL * |plain| + TOL_FLOOR * rms(plain): rounding the
+# output to bf16 moves it by at most 2**-7 of itself; the floor, scaled to
+# the output, covers values near zero
+TOL, TOL_FLOOR = 2e-2, 2e-3
+L2_BYTES = 50 * 2**20           # H100 L2 cache
+LAUNCHES = 24                   # calls per timing, back to back
+
+# serve phase (and the kernel shapes it implies)
+SLOTS, PAGE, MAX_SEQ, BUDGET = 8, 16, 2048, 2048
+REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS = 16, 64, 1024, 32
+SEED = 0
+REPEATS = 3                     # serve runs; launches are counted in the first
+
+
+def _phase(name):
+    print(f"== {name}", flush=True)
+    return time.perf_counter()
+
+
+def _done(torch, name, t0):
+    torch.cuda.synchronize()
+    print(f"== {name} done in {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def _sleep_cycles_per_ms(torch):
+    """Clock cycles of ``torch.cuda._sleep`` per millisecond on this card."""
+    torch.cuda._sleep(1000)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(20_000_000)
+    b.record()
+    b.synchronize()
+    return 20_000_000 / a.elapsed_time(b)
+
+
+def _rotation(nbytes, make):
+    """Input sets ``make(0), make(1), ...`` to rotate over: enough that about
+    twice the L2 passes between two uses of one set, so every call finds
+    its ``nbytes`` of inputs cold in memory."""
+    return [make(i) for i in range(math.ceil(2 * L2_BYTES / nbytes) + 1)]
+
+
+def _time_ms(torch, fn, sets, cycles_per_ms):
+    """Mean device time of one call of ``fn``: ``LAUNCHES`` calls back to
+    back, rotating over the input ``sets``, between one pair of CUDA events.
+    A sleep kernel queued first holds the card until the host has queued
+    every call, so the host's time per call (argument checks, ctypes) never
+    shows as a gap between launches; the sleep grows until that holds.  A
+    function that waits for the card itself (the plain ``varlen_prefill``
+    reads its metadata on the host) is timed with those waits.  Returns
+    (ms, whether the calls ran without host gaps)."""
+    for args in sets:                   # warm-up, every set once
+        fn(*args)
+    torch.cuda.synchronize()
+    hold_ms = 5.0
+    for _ in range(4):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(hold_ms * cycles_per_ms))
+        a.record()
+        for i in range(LAUNCHES):
+            fn(*sets[i % len(sets)])
+        queued = not a.query()          # the card still sleeps: nothing ran yet
+        b.record()
+        b.synchronize()
+        if queued:
+            break
+        hold_ms *= 4
+    return a.elapsed_time(b) / LAUNCHES, queued
+
+
+def _bound_ms(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _within(torch, out, want):
+    """(max |out - want|, whether out is finite and within the limit)."""
+    out, want = out.float(), want.float()
+    err = (out - want).abs()
+    limit = TOL * want.abs() + TOL_FLOOR * float(want.pow(2).mean().sqrt())
+    return float(err.max()), bool((err <= limit).all()) and bool(torch.isfinite(out).all())
+
+
+def _check(torch, name, out, want):
+    max_abs, ok = _within(torch, out, want)
+    print(f"   {name}: max_abs_err {max_abs:.3e} "
+          f"(|kernel - plain| <= {TOL}*|plain| + {TOL_FLOOR}*rms(plain), finite: {ok})")
+    if not ok:
+        raise SystemExit(f"{name}: kernel disagrees with its plain version")
+    return max_abs
+
+
+def _rejects(torch, name, wrong, want):
+    """The limit must reject a plain version that drops a little of the work:
+    proof that it is tight enough to catch such a fault in the kernel."""
+    max_abs, ok = _within(torch, wrong, want)
+    print(f"   {name}: max_abs_err {max_abs:.3e}, rejected by the limit: {not ok}")
+    if ok:
+        raise SystemExit(f"{name}: the limit does not tell it from the right answer")
+
+
+def _serve_lengths(seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return rng.integers(PROMPT_MIN, PROMPT_MAX + 1, size=REQUESTS)
+
+
+def kernels_phase(torch, dev):
+    """Each kernel vs its plain version at the serve phase's shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import varlen_prefill as vp
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev, dtype=bf)
+    cpm = _sleep_cycles_per_ms(torch)
+    h, kvh, d, D = 32, 2, 128, 4096
+    max_pages = MAX_SEQ // PAGE
+    num_pages = SLOTS * max_pages + 1
+    records = {}
+
+    def timed(kernel, plain, library, sets, library_sets):
+        """Kernel and plain version over ``sets``, library over its own."""
+        ms, ms_q = _time_ms(torch, kernel, sets, cpm)
+        plain_ms, plain_q = _time_ms(torch, plain, sets, cpm)
+        lib_ms, lib_q = _time_ms(torch, library, library_sets, cpm)
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    sets=(len(sets), len(library_sets)),
+                    gaps=[n for n, q in (("kernel", ms_q), ("plain", plain_q),
+                                         ("library", lib_q)) if not q])
+
+    # -- rmsnorm: a full packed-prefill buffer of rows (decode gives 8 rows)
+    x, w = randn(1, BUDGET, D), randn(D) * 0.1
+    err = 0.0
+    for rows in (SLOTS, BUDGET):
+        xs = x[:, :rows].contiguous()
+        err = max(err, _check(torch, f"rmsnorm rows={rows}", rn.rmsnorm(xs, w),
+                              ref.rmsnorm(xs, w)))
+    w1 = (1.0 + w.float()).to(bf)
+    nbytes = 2 * (2 * BUDGET * D + D)
+    sets = _rotation(nbytes, lambda i: (x if i == 0 else x.clone(), w))
+    records["rmsnorm"] = dict(
+        err=err,
+        **timed(rn.rmsnorm, ref.rmsnorm,
+                lambda x_: F.rms_norm(x_, (D,), w1, 1e-6),
+                sets, [(x_,) for x_, _ in sets]),
+        bound=_bound_ms(nbytes, 4.0 * BUDGET * D),
+        shape=f"x (1, {BUDGET}, {D}) bf16",
+    )
+    del sets
+
+    # -- paged_attention: one decode step of 8 slots at ragged lengths
+    k_pages, v_pages = randn(num_pages, PAGE, kvh, d), randn(num_pages, PAGE, kvh, d)
+    perm = torch.randperm(num_pages - 1, generator=gen, device=dev).to(torch.int32) + 1
+    table = perm[: SLOTS * max_pages].view(SLOTS, max_pages).contiguous()
+    lens_host = [int(n) + NEW_TOKENS for n in _serve_lengths(SEED)[:SLOTS]]
+    lengths = torch.tensor(lens_host, dtype=torch.int32, device=dev)
+    bound_pages = math.ceil(max(lens_host) / PAGE)
+    q = randn(SLOTS, 1, h, d)
+    tb = table[:, :bound_pages]
+    want = ref.paged_attention(q, k_pages, v_pages, tb, lengths)
+    err = _check(torch, "paged_attention",
+                 pa.paged_attention(q, k_pages, v_pages, table, lengths, pages_bound=bound_pages),
+                 want)
+    _rejects(torch, "paged_attention plain with lengths - 1",
+             ref.paged_attention(q, k_pages, v_pages, tb, lengths - 1), want)
+    # SDPA yardstick on K/V gathered and expanded to the query heads
+    # beforehand (neither the gather nor the expansion is timed)
+    S, rep = bound_pages * PAGE, h // kvh
+    gather = lambda pool: (pool[tb.long()].reshape(SLOTS, S, kvh, d)
+                           .transpose(1, 2).repeat_interleave(rep, dim=1))
+    mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    live = sum(lens_host)
+    nbytes = 2 * (2 * SLOTS * h * d + 2 * live * kvh * d) + 4 * (SLOTS + SLOTS * bound_pages)
+    sets = _rotation(nbytes, lambda i: (q.clone(), k_pages.clone(), v_pages.clone()))
+
+    def expanded(q_, k_, v_):
+        return q_.transpose(1, 2), gather(k_), gather(v_)
+
+    lib_sets = _rotation(2 * 2 * SLOTS * h * S * d, lambda i: expanded(*sets[i % len(sets)]))
+    records["paged_attention"] = dict(
+        err=err,
+        **timed(lambda q_, k_, v_: pa.paged_attention(q_, k_, v_, table, lengths,
+                                                      pages_bound=bound_pages),
+                lambda q_, k_, v_: ref.paged_attention(q_, k_, v_, tb, lengths),
+                lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask),
+                sets, lib_sets),
+        bound=_bound_ms(nbytes, 4.0 * h * d * live),
+        shape=f"q ({SLOTS}, 1, {h}, {d}), pool ({num_pages}, {PAGE}, {kvh}, {d}) bf16, "
+              f"lengths {lens_host}",
+    )
+    del sets, lib_sets
+
+    # -- varlen_prefill: one packed buffer of BUDGET tokens holding chunks
+    #    with committed context pages, ragged tails and a buffer-tail pad
+    chunk_specs = [(300, 40), (517, 0), (1, 63), (640, 12), (200, 0)]   # (take, ctx pages)
+    C = SLOTS
+    cu, lens_c, pos0, tables = [0], [], [], torch.zeros((C, max_pages), dtype=torch.int32)
+    nxt_page = 1
+    for c in range(C):
+        take, ctx = chunk_specs[c] if c < len(chunk_specs) else (0, 0)
+        span = -(-take // PAGE) * PAGE
+        cu.append(cu[-1] + span)
+        lens_c.append(take)
+        pos0.append(ctx * PAGE)
+        npg = ctx + -(-take // PAGE)
+        tables[c, :npg] = torch.arange(nxt_page, nxt_page + npg)
+        nxt_page += npg
+    T = BUDGET
+    if not (cu[-1] < T and nxt_page <= num_pages):
+        raise SystemExit("varlen_prefill: the test layout does not fit the buffer or pool")
+    qp, kp, vpk = randn(T, h, d), randn(T, kvh, d), randn(T, kvh, d)
+    meta = [torch.tensor(a, dtype=torch.int32, device=dev) for a in (cu, lens_c, pos0)]
+    tables = tables.to(dev)
+    ctx_bound = max(1, max(p // PAGE for p in pos0))
+    vargs = (qp, kp, vpk, k_pages, v_pages, *meta, tables)
+    out = vp.varlen_prefill(*vargs, pages_bound=ctx_bound)
+    want = ref.varlen_prefill(*vargs, pages_bound=ctx_bound)
+    err = _check(torch, "varlen_prefill", out, want)
+    short = list(pos0)
+    short[0] -= PAGE                     # chunk 0 sees one context page too few
+    _rejects(torch, "varlen_prefill plain with one context page dropped",
+             ref.varlen_prefill(*vargs[:7], torch.tensor(short, dtype=torch.int32, device=dev),
+                                tables, pages_bound=ctx_bound), want)
+    real = [(cu[c] + lens_c[c], cu[c + 1]) for c in range(C)] + [(cu[-1], T)]
+    pad_zero = all(bool((out[a:b] == 0).all()) for a, b in real)
+    print(f"   varlen_prefill: pad rows exactly zero: {pad_zero}")
+    if not pad_zero:
+        raise SystemExit("varlen_prefill: pad rows are not exactly zero")
+    # SDPA yardstick: one call over every chunk's gathered context plus the
+    # packed buffer, with the block mask of the packed layout (the gather
+    # and the expansion to the query heads are not timed)
+    ctx_owner = []
+    for c in range(C):
+        ctx_owner += [c] * pos0[c]
+    tok_chunk = torch.zeros(T, dtype=torch.long)
+    tok_off = torch.zeros(T, dtype=torch.long)
+    tok_ok = torch.zeros(T, dtype=torch.bool)
+    for c in range(C):
+        tok_chunk[cu[c]:cu[c + 1]] = c
+        tok_off[cu[c]:cu[c + 1]] = torch.arange(cu[c + 1] - cu[c])
+        tok_ok[cu[c]:cu[c] + lens_c[c]] = True
+    owner = torch.tensor(ctx_owner, dtype=torch.long)
+    m_ctx = (tok_chunk[:, None] == owner[None, :]) & tok_ok[:, None]
+    m_in = ((tok_chunk[:, None] == tok_chunk[None, :]) & tok_ok[:, None] & tok_ok[None, :]
+            & (tok_off[:, None] >= tok_off[None, :]))
+    lmask = torch.cat([m_ctx, m_in], dim=1).to(dev)[None, None]
+    ctx_pages = torch.cat([tables[c, : pos0[c] // PAGE] for c in range(C)]).long()
+
+    def packed(q_, k_, v_, kpool, vpool):
+        expand = lambda t: t.transpose(0, 1).repeat_interleave(rep, dim=0)[None]
+        return (q_.transpose(0, 1)[None],
+                expand(torch.cat([kpool[ctx_pages].reshape(-1, kvh, d), k_])),
+                expand(torch.cat([vpool[ctx_pages].reshape(-1, kvh, d), v_])))
+
+    pairs = sum(lens_c[c] * pos0[c] + lens_c[c] * (lens_c[c] + 1) // 2 for c in range(C))
+    ctx_rows = sum(pos0)
+    nbytes = (2 * (2 * T * h * d + 2 * T * kvh * d + 2 * ctx_rows * kvh * d)
+              + 4 * (3 * C + 1 + C * max_pages))
+    sets = _rotation(nbytes, lambda i: (qp.clone(), kp.clone(), vpk.clone(),
+                                        k_pages.clone(), v_pages.clone(), *meta, tables))
+    lib_sets = _rotation(2 * (T * h * d + 2 * h * (ctx_rows + T) * d),
+                         lambda i: packed(*sets[i % len(sets)][:5]))
+    records["varlen_prefill"] = dict(
+        err=err,
+        **timed(lambda *a: vp.varlen_prefill(*a, pages_bound=ctx_bound),
+                lambda *a: ref.varlen_prefill(*a, pages_bound=ctx_bound),
+                lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=lmask),
+                sets, lib_sets),
+        bound=_bound_ms(nbytes, 4.0 * h * d * pairs),
+        shape=f"T {T}, chunks (take, ctx pages) {chunk_specs} + {C - len(chunk_specs)} empty, bf16",
+    )
+    del sets, lib_sets
+    for name, r in records.items():
+        print(f"   {name}: kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+              f"library_ms {r['library_ms']:.4f} "
+              f"bound_ms {r['bound'][0]:.4f} ({r['bound'][1]}) at {r['shape']}; "
+              f"{LAUNCHES} calls back to back over (kernel and plain, library) "
+              f"{r['sets']} input sets; host gaps in: {r['gaps'] or 'none'}")
+    return records
+
+
+def check_phase(torch, dev):
+    """Reduced glm4-9b in float32: the card's greedy tokens equal the CPU's."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import DecoderLM
+    from repro_torch.serve.engine import ServingEngine
+
+    cfg = get_config("glm4-9b", reduced=True)
+    cpu_model = DecoderLM(cfg, device="cpu", dtype=torch.float32)
+    cpu_params = cpu_model.init(seed=SEED)
+    gpu_model = DecoderLM(cfg, device=dev, dtype=torch.float32)
+    gpu_params = _to_device(cpu_params, dev)
+    tokens = {}
+    for name, model, params in (("cpu", cpu_model, cpu_params), ("cuda", gpu_model, gpu_params)):
+        engine = ServingEngine(model, params, max_batch=3, max_seq=96, page_size=PAGE,
+                               device=model.device)
+        reqs = make_requests(6, 5, 60, 8, cfg.vocab_size, SEED)
+        stats = engine.serve_paged(reqs, prefill_budget=64)
+        tokens[name] = [r.tokens for r in stats.results]
+    same = all(np.array_equal(a, b) for a, b in zip(tokens["cpu"], tokens["cuda"]))
+    print(f"   reduced glm4-9b f32, 6 requests: cuda tokens == cpu tokens: {same}")
+    if not same:
+        raise SystemExit("the card's greedy tokens differ from the CPU reference")
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _serve_metrics(stats, percentile):
+    ttft = [r.ttft_s * 1e3 for r in stats.results]
+    decode_tokens = stats.total_tokens - len(stats.results)
+    return {
+        "prefill_tok_s": stats.prefill_tokens / stats.prefill_s,
+        "decode_tok_s": decode_tokens / stats.decode_s,
+        "decode_step_ms": stats.decode_s / stats.steps * 1e3,
+        "ttft_p50_ms": percentile(ttft, 50.0),
+        "ttft_p99_ms": percentile(ttft, 99.0),
+        "wall_s": stats.wall_s,
+    }
+
+
+def _fmt_metrics(m, stats):
+    return (f"prefill {stats.prefill_launches} launches, {stats.prefill_tokens} tokens, "
+            f"{m['prefill_tok_s']:.1f} tok/s; decode {stats.steps} steps, "
+            f"{m['decode_tok_s']:.1f} tok/s, mean step {m['decode_step_ms']:.3f} ms; "
+            f"ttft p50 {m['ttft_p50_ms']:.1f} ms, p99 {m['ttft_p99_ms']:.1f} ms; "
+            f"wall {m['wall_s']:.3f} s")
+
+
+def serve_phase(torch, dev, counters):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import DecoderLM, count_params
+    from repro_torch.serve.engine import ServingEngine, percentile
+
+    cfg = get_config("glm4-9b")
+    model = DecoderLM(cfg, device=dev, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = model.init(seed=SEED)
+    torch.cuda.synchronize()
+    n_params = count_params(model.param_defs())
+    print(f"   {cfg.name}: {cfg.num_layers} layers, {n_params / 1e9:.3f} B params, "
+          f"bf16 weights {n_params * 2 / 1e9:.2f} GB, init {time.perf_counter() - t0:.1f} s")
+    engine = ServingEngine(model, params, max_batch=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
+                           device=dev)
+    # warm-up (cuBLAS handles, allocator) on two short requests, not counted
+    engine.serve_paged(make_requests(2, 16, 32, 2, cfg.vocab_size, SEED + 1),
+                       prefill_budget=BUDGET)
+    reqs = make_requests(REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS, cfg.vocab_size, SEED)
+    if [len(r.prompt) for r in reqs] != list(_serve_lengths(SEED)):
+        raise SystemExit("serve prompts differ from the lengths the kernel phase used")
+    for mod in counters.values():
+        mod.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    stats = engine.serve_paged(reqs, num_slots=SLOTS, page_size=PAGE, prefill_budget=BUDGET)
+    counts = {name: mod.launches for name, mod in counters.items()}
+    done = [r for r in stats.results if r.status == "completed" and len(r.tokens) == NEW_TOKENS
+            and all(0 <= t < cfg.vocab_size for t in r.tokens)]
+    print(f"   requests {len(reqs)} (prompts {PROMPT_MIN}-{PROMPT_MAX}, {NEW_TOKENS} new), "
+          f"completed {len(done)}, slots {SLOTS}, page {PAGE}, max_seq {MAX_SEQ}, "
+          f"budget {BUDGET}, pool pages {stats.num_pages}, "
+          f"kv bytes/token {stats.kv_bytes_per_token:.0f}, peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    runs = [_serve_metrics(stats, percentile)]
+    print(f"   run 1: {_fmt_metrics(runs[0], stats)}")
+    print(f"   launches in run 1: {counts}")
+    if len(done) != len(reqs):
+        raise SystemExit(f"only {len(done)} of {len(reqs)} requests completed")
+    per_pass = stats.steps + stats.prefill_launches
+    expect = {
+        "rmsnorm": (2 * cfg.num_layers + 1) * per_pass,
+        "paged_attention": cfg.num_layers * stats.steps,
+        "varlen_prefill": cfg.num_layers * stats.prefill_launches,
+    }
+    for name, n in counts.items():
+        if n == 0 or n != expect[name]:
+            raise SystemExit(f"{name}: {n} launches in the serve phase, expected {expect[name]}")
+    # the same requests again: the spread of the end-to-end metrics
+    for i in range(2, REPEATS + 1):
+        again = engine.serve_paged(reqs, num_slots=SLOTS, page_size=PAGE, prefill_budget=BUDGET)
+        same = all(bool((a.tokens == b.tokens).all()) for a, b in zip(again.results, stats.results))
+        runs.append(_serve_metrics(again, percentile))
+        print(f"   run {i}: {_fmt_metrics(runs[-1], again)}; tokens as run 1: {same}")
+    med = {k: sorted(r[k] for r in runs)[len(runs) // 2] for k in runs[0]}
+    spread = {k: max(r[k] for r in runs) - min(r[k] for r in runs) for k in runs[0]}
+    print("   median of " + str(len(runs)) + " runs: " + ", ".join(
+        f"{k} {med[k]:.3f} (max-min {spread[k]:.3f})" for k in med))
+    return counts, engine, reqs
+
+
+_CLASSES = (
+    ("paged_attention", ("paged_attention_kernel",)),
+    ("varlen_prefill", ("varlen_prefill_kernel",)),
+    ("rmsnorm", ("rmsnorm_kernel",)),
+    ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
+)
+
+
+def _kernel_class(name):
+    for cls, keys in _CLASSES:
+        if any(k in name for k in keys):
+            return cls
+    return "other"
+
+
+def _profiled_run(torch, engine, reqs):
+    """Serve ``reqs`` under torch.profiler; device ms per kernel class."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stats = engine.serve_paged(reqs, num_slots=SLOTS, page_size=PAGE, prefill_budget=BUDGET)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_class = {cls: 0.0 for cls, _ in _CLASSES}
+    by_class["other"] = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        by_class[_kernel_class(e.key)] += float(us) / 1e3
+    return stats, wall_ms, by_class
+
+
+def profile_phase(torch, engine, reqs):
+    """Where the time goes: the first SLOTS serve requests run twice under
+    torch.profiler, once with one new token (prefill launches only) and once
+    with 16 (the same prefill plus 15 decode steps); decode = the
+    difference.  Host and profiler overhead count as device idle time."""
+    from repro_torch.serve.engine import ServeRequest
+
+    runs = {}
+    for new in (1, 16):
+        sub = [ServeRequest(r.request_id, r.prompt, new) for r in reqs[:SLOTS]]
+        runs[new] = _profiled_run(torch, engine, sub)
+    (s1, w1, c1), (s16, w16, c16) = runs[1], runs[16]
+    if sum(c16.values()) <= 0:
+        print("   profiler saw no device time: breakdown not measured")
+        return
+    fmt = lambda d, n: ", ".join(f"{k} {v / n:.3f}" for k, v in d.items())
+    busy1 = sum(c1.values())
+    print(f"   prefill only: {s1.prefill_launches} launches, {s1.prefill_tokens} tokens; per "
+          f"launch wall {w1 / s1.prefill_launches:.3f} ms, device busy "
+          f"{busy1 / s1.prefill_launches:.3f} ms (idle {1 - busy1 / w1:.3f}); "
+          f"device ms per launch: {fmt(c1, s1.prefill_launches)}")
+    steps = s16.steps
+    dec = {k: c16[k] - c1[k] for k in c16}
+    busy = sum(dec.values())
+    wall = w16 - w1
+    print(f"   decode: {steps} steps of {SLOTS} slots; per step wall {wall / steps:.3f} ms, "
+          f"device busy {busy / steps:.3f} ms (idle {1 - busy / wall:.3f}); "
+          f"device ms per step: {fmt(dec, steps)}")
+    # the same classes per launch: a check on phase 2's event timings
+    L = engine.model.cfg.num_layers
+    n1 = s1.prefill_launches
+    print(f"   device ms per kernel launch: varlen_prefill {c1['varlen_prefill'] / (L * n1):.4f}, "
+          f"rmsnorm at {BUDGET} rows {c1['rmsnorm'] / ((2 * L + 1) * n1):.4f}, "
+          f"paged_attention {dec['paged_attention'] / (L * steps):.4f}, "
+          f"rmsnorm at {SLOTS} rows {dec['rmsnorm'] / ((2 * L + 1) * steps):.4f}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
+        return 1
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: no port sources under {SRC}; run from a checkout", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    dev = torch.device("cuda")
+    # the float32 matmuls of the check phase stay full float32 (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = _phase("1. environment and build")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() \
+        else f"{torch.cuda.get_device_name(0)}, power limit not readable"
+    print(card)
+    print(f"   python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
+          f"count {torch.cuda.device_count()}")
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import varlen_prefill as vp
+
+    info = _build.build_info()
+    print(f"   kernels: {info.path} ({'built' if info.built else 'cached'} "
+          f"in {info.seconds:.1f} s by nvcc, one process per source)")
+    for line in info.log.splitlines():
+        if line.startswith("==") or "registers" in line or "spill" in line:
+            print(f"   ptxas {line.strip()}")
+    _done(torch, "1. environment and build", t0)
+
+    t0 = _phase("2. kernels vs plain versions (glm4-9b widths, bf16)")
+    records = kernels_phase(torch, dev)
+    _done(torch, "2. kernels", t0)
+
+    t0 = _phase("3. check: reduced glm4-9b, card vs CPU reference")
+    check_phase(torch, dev)
+    _done(torch, "3. check", t0)
+
+    t0 = _phase("4. serve: glm4-9b full width and depth, random bf16 weights")
+    counters = {"rmsnorm": rn, "paged_attention": pa, "varlen_prefill": vp}
+    counts, engine, reqs = serve_phase(torch, dev, counters)
+    _done(torch, "4. serve", t0)
+
+    t0 = _phase("5. where the time goes (torch.profiler, device time by kernel class)")
+    profile_phase(torch, engine, reqs)
+    _done(torch, "5. profile", t0)
+
+    replaces = {
+        "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:26"),
+        "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                            "src/repro/kernels/paged_attention.py:105"),
+        "varlen_prefill": ("src/repro_torch/kernels/csrc/varlen_prefill.cu",
+                           "src/repro/kernels/varlen_prefill.py:156"),
+    }
+    kernels = []
+    for name, r in records.items():
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": replaces[name][0],
+            "replaces": replaces[name][1],
+            "launches": counts[name],
+            "max_abs_err": r["err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"],
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

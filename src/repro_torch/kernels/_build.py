@@ -1,0 +1,190 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources in ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``.  The build
+happens at first use, from the checkout's own sources, into
+``build/repro_torch_kernels/<hash>/`` at the checkout's root, keyed by a
+hash of the sources and flags; a package that does not sit in a checkout
+(``<root>/src/repro_torch`` beside ``<root>/pyproject.toml``) refuses to
+build, so no build lands in a shared environment; each ``.cu`` file compiles in its own
+``nvcc`` process, all started together.  Nothing here runs at import time:
+the CPU tests import every module on a machine without ``nvcc``.  A missing
+``nvcc`` or a failed build raises; there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+PACKAGE = CSRC.parents[1]                  # <root>/src/repro_torch
+CHECKOUT = PACKAGE.parents[1]              # <root>
+SOURCES = ("rmsnorm.cu", "paged_attention.cu", "varlen_prefill.cu")
+HEADERS = ("common.cuh",)
+BUILD_ROOT = CHECKOUT / "build" / "repro_torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+LIB_NAME = "librepro_torch_kernels.so"
+
+# runtime dtype codes of csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# every C entry point, with its argument types (pointers and the stream as
+# c_void_p, so ctypes never truncates them to 32 bits)
+SIGNATURES = {
+    "rt_rmsnorm": (_P, _P, _P, _LL, _LL, _F, _I, _P),
+    "rt_paged_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _F, _F, _I, _P),
+    "rt_varlen_prefill": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
+}
+
+
+@dataclass(frozen=True)
+class BuildInfo:
+    """Where the library came from: path, whether this process compiled it,
+    the wall seconds that took, and the compiler's register/spill report."""
+
+    path: Path
+    built: bool
+    seconds: float
+    log: str
+
+
+_lib: Optional[ctypes.CDLL] = None
+_info: Optional[BuildInfo] = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the port's "
+        "CUDA kernels are built from source at first use"
+    )
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _compile(out_dir: Path) -> str:
+    """Compile every source in its own nvcc process, all at once, then link.
+    Returns the compilers' combined output (the -Xptxas -v report)."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir.parent) as tmp:
+        procs = []
+        for name in SOURCES:
+            obj = Path(tmp) / (name + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+            procs.append((name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )))
+        log, failed = [], []
+        for name, _, proc in procs:
+            text, _ = proc.communicate()
+            log.append(f"== {name}\n{text}")
+            if proc.returncode:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(
+                f"nvcc failed for {failed}:\n" + "\n".join(log)
+            )
+        tmp_lib = Path(tmp) / LIB_NAME
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp_lib), *(str(o) for _, o, _ in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        out_dir.mkdir(parents=True, exist_ok=True)
+        # atomic publish: a concurrent build never loads a half-written file
+        os.replace(tmp_lib, out_dir / LIB_NAME)
+    text = "\n".join(log)
+    (out_dir / "build.log").write_text(text)
+    return text
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib, _info
+    if _lib is not None:
+        return _lib
+    if PACKAGE.parent.name != "src" or not (CHECKOUT / "pyproject.toml").is_file():
+        raise RuntimeError(
+            f"the kernels build into the checkout that holds their sources, and "
+            f"{PACKAGE} is not <checkout>/src/repro_torch; run from a checkout "
+            f"(PYTHONPATH=<checkout>/src)"
+        )
+    out_dir = BUILD_ROOT / source_hash()
+    path = out_dir / LIB_NAME
+    built, seconds, log = False, 0.0, ""
+    if not path.exists():
+        BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        log = _compile(out_dir)
+        seconds = time.perf_counter() - t0
+        built = True
+    elif (out_dir / "build.log").exists():
+        log = (out_dir / "build.log").read_text()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    _lib, _info = lib, BuildInfo(path, built, seconds, log)
+    return lib
+
+
+def build_info() -> BuildInfo:
+    """How the library of this process was obtained (builds on first use)."""
+    library()
+    return _info
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The raw handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_launch(err: int, name: str) -> None:
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+
+
+def dtype_code(t: torch.Tensor, name: str) -> int:
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(
+            f"{name}: dtype {t.dtype} not supported by the CUDA kernel "
+            f"(expected one of {list(DTYPE_CODES)})"
+        )
+    return DTYPE_CODES[t.dtype]
+
+
+def require(cond: bool, msg: str) -> None:
+    """Argument check of a kernel wrapper: raise on what the kernel does not take."""
+    if not cond:
+        raise ValueError(msg)

@@ -1,0 +1,82 @@
+// Paged decode attention for Hopper (sm_90a).
+//
+// Replaces the TPU kernel repro/kernels/paged_attention.py:paged_attention.
+// One new query token per request attends its live positions [0, len) (or
+// [len - window, len)) in a global page pool (num_pages, page_size, kvh, d)
+// through a per-request page table; page j of a request covers the logical
+// positions [j*ps, (j+1)*ps) whatever physical page holds it.
+//
+// Bound on this card: bytes.  Every live K/V row is read once for only
+// 2 * rep * d multiply-adds per row (rep = 16 query heads per kv head at
+// glm4-9b width), far below the H100's ~295 operations per byte.
+// Design: one block per (request, kv head) holding the whole GQA group, so
+// each page is read from HBM once and not once per query head.  The block
+// walks exactly ceil(len/ps) pages (capped by pages_bound), not the padded
+// table width, with an fp32 online softmax (common.cuh tile).  Idle rows
+// whose table points at the scratch page read it like any page; their output
+// is never used.  The whole cache of a long request streams through one SM;
+// splitting the page range over blocks (flash-decoding) is later work.
+#include "common.cuh"
+
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(rt::kThreads)
+paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                       const T* __restrict__ v_pages, const int32_t* __restrict__ table,
+                       const int32_t* __restrict__ lengths, T* __restrict__ out, int h,
+                       int kvh, int d, int ps, int table_stride, int max_pages, int window,
+                       float scale, float softcap) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x, g = blockIdx.y, rep = h / kvh;
+  const rt::Tile t = rt::carve_tile(smem, rep, ps, d);
+  // query rows: heads g*rep .. g*rep + rep - 1 of request b
+  auto q_row = [&](int r) -> int64_t { return ((int64_t)b * h + g * rep + r) * d; };
+  rt::tile_load_q(t, q, q_row);
+  rt::tile_reset(t);
+  const int len = lengths[b];
+  const int n_pages = rt::imin((len + ps - 1) / ps, max_pages);
+  const int first = window > 0 ? rt::imax(len - window, 0) / ps : 0;
+  const int64_t row_stride = (int64_t)kvh * d;
+  for (int pj = first; pj < n_pages; ++pj) {
+    const int64_t page = table[(int64_t)b * table_stride + pj];
+    auto key_ok = [&](int j) {
+      const int pos = pj * ps + j;
+      return pos < len && (window <= 0 || pos >= len - window);
+    };
+    auto offset = [&](int j) -> int64_t { return (page * ps + j) * row_stride + (int64_t)g * d; };
+    __syncthreads();  // the previous step's readers are done with K/V
+    rt::tile_load_kv(t, k_pages, v_pages, offset, key_ok);
+    __syncthreads();
+    rt::tile_step(t, scale, softcap, [&](int, int j) { return key_ok(j); });
+  }
+  __syncthreads();
+  rt::tile_store(t, out, q_row);
+}
+
+}  // namespace
+
+// q, out: (b, 1, h, d); k_pages, v_pages: (num_pages, ps, kvh, d); table:
+// (b, table_stride) int32, of which the first max_pages columns are read;
+// lengths: (b,) int32.  All contiguous; q, pools and out of one dtype.
+// window <= 0 means none.
+extern "C" int rt_paged_attention(const void* q, const void* k_pages, const void* v_pages,
+                                  const void* table, const void* lengths, void* out, int b,
+                                  int h, int kvh, int d, int ps, int table_stride, int max_pages,
+                                  int window, float scale, float softcap, int dtype,
+                                  void* stream) {
+  if (b <= 0 || kvh <= 0 || h % kvh || d <= 0 || ps <= 0 || max_pages <= 0 ||
+      max_pages > table_stride || kvh > 65535)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = rt::tile_floats(h / kvh, ps, d) * sizeof(float);
+  cudaStream_t st = (cudaStream_t)stream;
+  RT_DISPATCH(dtype, T, {
+    cudaError_t e = rt::allow_smem(paged_attention_kernel<T>, smem);
+    if (e != cudaSuccess) return (int)e;
+    paged_attention_kernel<T><<<dim3(b, kvh), rt::kThreads, smem, st>>>(
+        (const T*)q, (const T*)k_pages, (const T*)v_pages, (const int32_t*)table,
+        (const int32_t*)lengths, (T*)out, h, kvh, d, ps, table_stride, max_pages, window, scale,
+        softcap);
+  });
+  return (int)cudaGetLastError();
+}

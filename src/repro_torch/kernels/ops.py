@@ -1,0 +1,71 @@
+"""Kernel dispatch layer (the port's counterpart of ``repro.kernels.ops``).
+
+Models call these ops; each dispatches on the device of its tensors.  A CPU
+tensor runs the plain version in :mod:`.ref`.  A CUDA tensor runs the
+hand-written kernel, or the call raises: there is no fallback, and unlike
+the JAX package there is no backend switch that would route the card's
+path around the kernels.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import ref
+from .paged_attention import paged_attention as _paged_attention
+from .rmsnorm import rmsnorm as _rmsnorm
+from .varlen_prefill import varlen_prefill as _varlen_prefill
+
+NEG_INF = ref.NEG_INF
+
+
+def varlen_prefill(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    cu_seqlens: torch.Tensor,
+    chunk_lens: torch.Tensor,
+    chunk_pos0: torch.Tensor,
+    page_tables: torch.Tensor,
+    *,
+    softcap: float = 0.0,
+    window=None,
+    scale: Optional[float] = None,
+    pages_bound: Optional[int] = None,
+) -> torch.Tensor:
+    """Packed ragged-prefill attention: chunks from many requests share one
+    token-packed buffer; each chunk attends its request's committed pages
+    plus the causal prefix of its own tokens.  ``pages_bound`` bounds
+    context pages per chunk (host-known, bucketed)."""
+    return _varlen_prefill(
+        q, k, v, k_pages, v_pages, cu_seqlens, chunk_lens, chunk_pos0,
+        page_tables, softcap=softcap, window=window, scale=scale,
+        pages_bound=pages_bound,
+    )
+
+
+def paged_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    softcap: float = 0.0,
+    window=None,
+    scale: Optional[float] = None,
+    pages_bound: Optional[int] = None,
+) -> torch.Tensor:
+    """Decode attention over a paged KV cache (global page pool + per-request
+    page table).  ``pages_bound`` bounds the live pages per request."""
+    return _paged_attention(
+        q, k_pages, v_pages, page_table, lengths, softcap=softcap,
+        window=window, scale=scale, pages_bound=pages_bound,
+    )
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    return _rmsnorm(x, weight, eps)

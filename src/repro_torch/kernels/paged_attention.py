@@ -1,0 +1,75 @@
+"""Paged decode attention: wrapper of the CUDA kernel
+``csrc/paged_attention.cu``.
+
+Replaces the TPU kernel ``repro/kernels/paged_attention.py:paged_attention``
+for a full-precision pool (the int8/fp8 pools with fused dequantization are
+later work).  A CPU tensor runs the plain version
+(:func:`repro_torch.kernels.ref.paged_attention`); a CUDA tensor launches
+the kernel or raises.  ``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import _build, ref
+
+launches = 0
+
+
+def paged_attention(
+    q: torch.Tensor,            # (b, 1, h, d)
+    k_pages: torch.Tensor,      # (num_pages, page_size, kvh, d) global pool
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,   # (b, max_pages) int32 page ids per request
+    lengths: torch.Tensor,      # (b,) int32 live tokens per request
+    *,
+    softcap: float = 0.0,
+    window=None,
+    scale: Optional[float] = None,
+    pages_bound: Optional[int] = None,
+) -> torch.Tensor:
+    """One-token decode attention over each request's live pages.
+    ``pages_bound`` caps the pages visited per request (the kernel otherwise
+    walks exactly ``ceil(len / page_size)`` of them)."""
+    global launches
+    width = page_table.shape[-1]
+    bound = width if pages_bound is None else max(min(int(pages_bound), width), 1)
+    if q.device.type == "cpu":
+        return ref.paged_attention(
+            q, k_pages, v_pages, page_table[:, :bound], lengths,
+            softcap=softcap, window=window, scale=scale,
+        )
+    req = _build.require
+    req(q.device.type == "cuda", f"paged_attention: unsupported device {q.device}")
+    req(q.dim() == 4 and q.shape[1] == 1, f"paged_attention: q {tuple(q.shape)} != (b, 1, h, d)")
+    b, _, h, d = q.shape
+    req(k_pages.dim() == 4 and k_pages.shape == v_pages.shape,
+        "paged_attention: pools must be (num_pages, page_size, kvh, d) and alike")
+    _, ps, kvh, dk = k_pages.shape
+    req(dk == d and h % kvh == 0, f"paged_attention: heads {h}/{kvh} or head dim {dk} != {d}")
+    req(page_table.dim() == 2 and page_table.shape[0] == b, "paged_attention: table must be (b, max_pages)")
+    req(lengths.shape == (b,), "paged_attention: lengths must be (b,)")
+    req(page_table.dtype == torch.int32 and lengths.dtype == torch.int32,
+        "paged_attention: table and lengths must be int32")
+    for t in (k_pages, v_pages, page_table, lengths):
+        req(t.device == q.device, "paged_attention: inputs on different devices")
+    req(k_pages.dtype == q.dtype and v_pages.dtype == q.dtype,
+        "paged_attention: q and pools must share a dtype (full-precision pool)")
+    for t in (q, k_pages, v_pages, page_table, lengths):
+        req(t.is_contiguous(), "paged_attention: inputs must be contiguous")
+    code = _build.dtype_code(q, "paged_attention")
+    scale = d ** -0.5 if scale is None else float(scale)
+    w = 0 if window is None else int(window)
+    out = torch.empty_like(q)
+    lib = _build.library()
+    err = lib.rt_paged_attention(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        b, h, kvh, d, ps, width, bound, w, scale, float(softcap),
+        code, _build.stream_of(q),
+    )
+    launches += 1
+    _build.check_launch(err, "paged_attention")
+    return out

@@ -1,0 +1,144 @@
+"""Plain PyTorch versions of the serving kernels.
+
+Each function computes what its hand-written CUDA kernel computes, with the
+signature and semantics of its TPU counterpart in ``repro.kernels``: masked
+scores at ``NEG_INF`` (never ``-inf``), ``l`` clamped at ``1e-37``, fully
+masked rows exactly zero, logical positions (page ``j`` covers
+``[j*ps, (j+1)*ps)``) and query head ``h`` reading kv head ``h // (h/kvh)``.
+On the CPU the kernel wrappers run these; on the card ``chip_smoke.py``
+holds each kernel against them.  They are naive and memory-hungry, and no
+yardstick of speed.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def _soft_cap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return cap * torch.tanh(x / cap) if cap > 0 else x
+
+
+def _windowed(window) -> bool:
+    # the kernels take the window as an int where 0 means "no window"
+    return window is not None and int(window) > 0
+
+
+def _attend(q, k, v, valid, scale: float, softcap: float) -> torch.Tensor:
+    """Grouped-query attention with an explicit mask and a safe softmax.
+
+    q ``(B, n, h, d)``, k/v ``(B, m, kvh, d)``, valid ``(B, n, m)`` bool.
+    Returns float32 ``(B, n, h, d)``; a row with no valid key is exactly 0.
+    """
+    B, n, h, d = q.shape
+    kvh = k.shape[2]
+    qg = q.float().reshape(B, n, kvh, h // kvh, d)
+    s = torch.einsum("bngrd,bmgd->bgrnm", qg, k.float()) * scale
+    s = _soft_cap(s, softcap)
+    mask = valid[:, None, None]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-37)
+    out = torch.einsum("bgrnm,bmgd->bngrd", p, v.float())
+    return out.reshape(B, n, h, d)
+
+
+def paged_attention(
+    q: torch.Tensor,            # (b, 1, h, d) one new token per request
+    k_pages: torch.Tensor,      # (num_pages, page_size, kvh, d) global pool
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,   # (b, max_pages) int32 page ids per request
+    lengths: torch.Tensor,      # (b,) int32 live tokens (incl. the new one)
+    *,
+    softcap: float = 0.0,
+    window=None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Decode attention over a paged pool: gather each request's pages back
+    into a contiguous cache and attend the live positions ``[0, len)`` (or
+    ``[len - window, len)``).  Only the table's ``max_pages`` columns are
+    visited, so a caller bounds the pages by slicing the table."""
+    b, _, h, d = q.shape
+    _, page_size, kvh, _ = k_pages.shape
+    max_pages = page_table.shape[1]
+    scale = d ** -0.5 if scale is None else scale
+    tbl = page_table.long()
+    S = max_pages * page_size
+    k = k_pages[tbl].reshape(b, S, kvh, d)
+    v = v_pages[tbl].reshape(b, S, kvh, d)
+    k_pos = torch.arange(S, device=q.device)[None, :]
+    L = lengths.to(q.device).long()[:, None]
+    valid = k_pos < L
+    if _windowed(window):
+        valid &= k_pos >= L - int(window)
+    out = _attend(q, k, v, valid[:, None, :], scale, softcap)
+    return out.to(q.dtype)
+
+
+def varlen_prefill(
+    q: torch.Tensor,            # (T, h, d) token-packed queries
+    k: torch.Tensor,            # (T, kvh, d) packed K of the chunks' tokens
+    v: torch.Tensor,            # (T, kvh, d)
+    k_pages: torch.Tensor,      # (num_pages, page_size, kvh, d) global pool
+    v_pages: torch.Tensor,
+    cu_seqlens: torch.Tensor,   # (C+1,) chunk c owns rows [cu[c], cu[c+1])
+    chunk_lens: torch.Tensor,   # (C,) real tokens per chunk
+    chunk_pos0: torch.Tensor,   # (C,) absolute start of each chunk (page-aligned)
+    page_tables: torch.Tensor,  # (C, max_pages) the owning request's pages
+    *,
+    softcap: float = 0.0,
+    window=None,
+    scale: Optional[float] = None,
+    pages_bound: Optional[int] = None,
+) -> torch.Tensor:
+    """Packed ragged prefill: per chunk, attend the request's committed
+    context pages ``[0, pos0)`` plus the causal prefix of the chunk itself.
+    Rows outside any chunk's real tokens (chunk pad and buffer tail) come
+    back exactly zero.  ``pages_bound`` caps the context pages read per
+    chunk, as in the TPU kernel.  A host loop over chunks."""
+    T, h, d = q.shape
+    page_size, kvh = k_pages.shape[1], k_pages.shape[2]
+    C, max_pages = page_tables.shape
+    scale = d ** -0.5 if scale is None else scale
+    ctx_bound = max_pages if pages_bound is None else min(pages_bound, max_pages)
+    cu = cu_seqlens.tolist()
+    lens = chunk_lens.tolist()
+    pos0s = chunk_pos0.tolist()
+    tables = page_tables.long()
+    out = torch.zeros_like(q)
+    for c in range(C):
+        n = int(lens[c])
+        if n == 0:
+            continue
+        s0, pos0 = int(cu[c]), int(pos0s[c])
+        n_ctx = min(-(-pos0 // page_size), ctx_bound)
+        ctx = min(pos0, n_ctx * page_size)
+        kc, vc = k[s0 : s0 + n], v[s0 : s0 + n]
+        if ctx:
+            rows = tables[c, :n_ctx]
+            kctx = k_pages[rows].reshape(n_ctx * page_size, kvh, d)[:ctx]
+            vctx = v_pages[rows].reshape(n_ctx * page_size, kvh, d)[:ctx]
+            kc = torch.cat([kctx.to(kc.dtype), kc])
+            vc = torch.cat([vctx.to(vc.dtype), vc])
+        q_pos = pos0 + torch.arange(n, device=q.device)
+        k_pos = torch.cat([torch.arange(ctx, device=q.device), q_pos])
+        valid = q_pos[:, None] >= k_pos[None, :]
+        if _windowed(window):
+            valid &= (q_pos[:, None] - k_pos[None, :]) < int(window)
+        o = _attend(q[None, s0 : s0 + n], kc[None], vc[None], valid[None],
+                    scale, softcap)
+        out[s0 : s0 + n] = o[0].to(q.dtype)
+    return out
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with float32 statistics and the ``(1 + w)`` weight
+    convention: ``x * rsqrt(mean(x^2) + eps) * (1 + w)``."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    return (normed * (1.0 + weight.float())).to(x.dtype)

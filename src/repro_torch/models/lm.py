@@ -1,0 +1,168 @@
+"""Dense decoder-only LM: the paged serving path of ``repro.models.lm``.
+
+What is ported: parameters, the paged KV pool, one paged decode step
+(:meth:`DecoderLM.decode_paged`) and one packed varlen-prefill launch
+(:meth:`DecoderLM.prefill_packed`).  The full-sequence ``forward`` and the
+dense-cache ``prefill``/``decode`` follow with the ``flash_attention`` and
+``decode_attention`` kernels.  Layers run as a Python loop over a list of
+per-layer parameter dicts (JAX scans stacked leaves); the pools stay stacked
+``(L, num_pages, page_size, kvh, d)`` and each layer writes its slice in
+place.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Union
+
+import torch
+
+from ..device import resolve_device, resolve_dtype
+from ..kernels import ops
+from .config import ArchConfig
+from .modules import (
+    attn_decode_paged,
+    attn_defs,
+    attn_prefill_packed,
+    mlp_apply,
+    mlp_defs,
+    norm_defs,
+)
+from .params import P, init_params
+
+
+class DecoderLM:
+    """Dense GQA decoder (``family="dense"``).
+
+    ``device`` defaults to ``cuda`` (and raises where there is none);
+    ``dtype`` is the weight and activation dtype: bf16 on the card, float32
+    on the CPU unless given.  Softmax statistics and accumulation are
+    float32 inside the kernels; logits are returned in float32."""
+
+    def __init__(self, cfg: ArchConfig, device: Union[str, torch.device, None] = None,
+                 dtype: Union[str, torch.dtype, None] = None) -> None:
+        cfg.validate()
+        unsupported = [
+            name for name, on in (
+                ("family != dense", cfg.family != "dense"),
+                ("qk_norm", cfg.qk_norm),
+                ("post_norms", cfg.post_norms),
+                ("tie_embeddings", cfg.tie_embeddings),
+                ("scale_embed", cfg.scale_embed),
+                ("logit_softcap", cfg.logit_softcap > 0),
+                ("sliding/global windows", cfg.global_every > 0 and cfg.sliding_window > 0),
+            ) if on
+        ]
+        if unsupported:
+            raise NotImplementedError(
+                f"{cfg.name}: not ported yet: {', '.join(unsupported)}"
+            )
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = resolve_dtype(dtype, self.device)
+
+    # -- params ---------------------------------------------------------------
+    def param_defs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        V, D = cfg.vocab_size, cfg.d_model
+        block = lambda: {
+            "ln1": norm_defs(cfg),
+            "attn": attn_defs(cfg),
+            "ln2": norm_defs(cfg),
+            "mlp": mlp_defs(cfg),
+        }
+        return {
+            "embed": P((V, D)),
+            "blocks": [block() for _ in range(cfg.num_layers)],
+            "final_norm": norm_defs(cfg),
+            "lm_head": P((D, V)),
+        }
+
+    def init(self, seed: int = 0):
+        """Random weights on the model's device and dtype from a seeded
+        ``torch.Generator`` on that device."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return init_params(self.param_defs(), gen, self.device, self.dtype)
+
+    # -- helpers ----------------------------------------------------------------
+    def _norm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return ops.rmsnorm(x, w, self.cfg.norm_eps)
+
+    def _embed_tokens(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed"][tokens.long()]
+
+    def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
+        x = self._norm(x, params["final_norm"])
+        return (x @ params["lm_head"]).float()
+
+    def _block_ffn(self, blk, x: torch.Tensor) -> torch.Tensor:
+        """ln2 + MLP, residual-added."""
+        return x + mlp_apply(blk["mlp"], self._norm(x, blk["ln2"]))
+
+    # -- paged KV pool --------------------------------------------------------------
+    def paged_cache_defs(self, num_pages: int, page_size: int) -> Dict[str, tuple]:
+        """Shapes of the paged KV layout: one global pool of ``page_size``-
+        token pages per layer, indexed through per-request page tables."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        return {"k_pages": shape, "v_pages": shape}
+
+    def init_paged_cache(self, num_pages: int, page_size: int) -> Dict[str, torch.Tensor]:
+        """Zeroed full-precision pools in the model's dtype (int8/fp8 pools
+        are later work)."""
+        return {
+            k: torch.zeros(shape, device=self.device, dtype=self.dtype)
+            for k, shape in self.paged_cache_defs(num_pages, page_size).items()
+        }
+
+    # -- serving ----------------------------------------------------------------------
+    def decode_paged(self, params, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
+                     page_table: torch.Tensor, lengths: torch.Tensor,
+                     pages_bound: Optional[int] = None) -> torch.Tensor:
+        """One paged decode step for a pool of slots.
+
+        ``tokens``: (b,) next-token ids; ``page_table``: (b, max_pages) int32
+        physical page ids; ``lengths``: (b,) int32 tokens already held per
+        slot.  The new token is appended at logical position ``lengths`` and
+        attention covers ``lengths + 1`` tokens; ``pages_bound`` bounds the
+        live pages per request.  The pools in ``cache`` are written in
+        place.  Returns float32 logits (b, V)."""
+        pos = lengths.to(torch.int32)
+        x = self._embed_tokens(params, tokens)[:, None, :]          # (b, 1, D)
+        for li, blk in enumerate(params["blocks"]):
+            h = self._norm(x, blk["ln1"])
+            a = attn_decode_paged(
+                blk["attn"], h, cache["k_pages"][li], cache["v_pages"][li],
+                page_table, pos, self.cfg, pages_bound=pages_bound,
+            )
+            x = self._block_ffn(blk, x + a)
+        return self._logits(params, x)[:, 0]
+
+    def prefill_packed(self, params, batch: Dict[str, torch.Tensor],
+                       cache: Dict[str, torch.Tensor],
+                       pages_bound: Optional[int] = None) -> torch.Tensor:
+        """One packed varlen-prefill launch over a token-packed ``(1, T)``
+        buffer of prompt chunks from many requests; each chunk attends its
+        request's committed pages plus the causal prefix of its own tokens,
+        and the packed K/V are written into the pools in place.
+
+        ``batch`` holds ``tokens`` plus the packing metadata of
+        :func:`~repro_torch.models.modules.attn_prefill_packed` and
+        ``last_idx`` (C,), the packed row of each chunk's last real token.
+        Returns float32 logits (C, V) at ``last_idx``; only rows of chunks
+        that complete their prompt are meaningful."""
+        meta = {
+            k: batch[k]
+            for k in ("tok_pos", "dst_page", "dst_off", "cu_seqlens",
+                      "chunk_lens", "chunk_pos0", "page_tables")
+        }
+        x = self._embed_tokens(params, batch["tokens"])             # (1, T, D)
+        for li, blk in enumerate(params["blocks"]):
+            h = self._norm(x, blk["ln1"])
+            a = attn_prefill_packed(
+                blk["attn"], h, cache["k_pages"][li], cache["v_pages"][li],
+                meta, self.cfg, pages_bound=pages_bound,
+            )
+            x = self._block_ffn(blk, x + a)
+        last = batch["last_idx"].long()
+        return self._logits(params, x[0, last][:, None, :])[:, 0]

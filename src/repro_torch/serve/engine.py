@@ -1,0 +1,522 @@
+"""Paged serving engine (the port's ``repro.serve.engine``, paged path).
+
+``ServingEngine.serve_paged`` is paged-KV continuous batching: a global pool
+of ``page_size``-token pages plus per-slot page tables; admission is keyed
+on free pages and on the pool's worst-case commitment (every active
+request's ``prompt + max_new_tokens``), so page growth never fails and
+nothing is preempted.  At each boundary every prefilling slot's next span is
+packed into ONE token-packed varlen-prefill launch of ``prefill_budget``
+tokens (oldest request first, capped by the :class:`PrefillBudget` ledger),
+then one fused decode step runs over the whole slot pool.
+
+The decode state lives on the device: the page table, positions, next
+tokens and the active mask are patched only for slots that changed
+(admission, page growth, release), in one small upload.  The decode step
+itself does argmax, the next-token update and the position bump on the
+device, so a steady boundary costs one small int32 fetch.
+
+What waits for later slices: chunked prefill and preemption
+(``overcommit > 1``), the prefix cache, speculative decoding, quantized
+pools, tensor parallelism, tenants and deadlines, checkpoints and the fault
+hook.
+"""
+from __future__ import annotations
+
+import math
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.lm import DecoderLM
+from .page_table import PagePool, PageTable, pages_needed
+from .scheduler import PagedSlotPool, PrefillBudget
+
+
+def bucket_pow2(n: int, floor: int = 1, cap: Optional[int] = None) -> int:
+    """Smallest power-of-two multiple of ``floor`` that is >= ``n``, clipped
+    to ``cap``.  Callers guarantee ``n <= cap``; the clip keeps the top
+    bucket from overshooting the cache."""
+    b = max(floor, 1)
+    while b < n:
+        b *= 2
+    return min(b, cap) if cap is not None else b
+
+
+def percentile(values: Sequence[float], pct: float) -> float:
+    """Nearest-rank percentile (pct in [0, 100]); a copy of
+    ``repro.core.analysis.percentile``."""
+    if not values:
+        raise ValueError("percentile of empty sequence")
+    if not 0.0 <= pct <= 100.0:
+        raise ValueError("pct must be in [0, 100]")
+    s = sorted(values)
+    rank = max(1, math.ceil(pct / 100.0 * len(s)))
+    return s[rank - 1]
+
+
+@dataclass
+class ServeRequest:
+    """One prompt for the paged loop."""
+
+    request_id: int
+    prompt: np.ndarray
+    max_new_tokens: int
+
+
+@dataclass
+class RequestResult:
+    """Per-request serving metrics."""
+
+    request_id: int
+    tokens: np.ndarray          # (max_new_tokens,)
+    slot: int
+    admit_step: int             # decode-step boundary at which it was admitted
+    finish_step: int
+    ttft_s: float               # submit -> first token (prefill argmax)
+    latency_s: float            # submit -> last token
+    tokens_per_s: float
+    itl_p50_s: float = 0.0      # inter-token latency (gaps between emissions)
+    itl_p99_s: float = 0.0
+    status: str = "completed"
+
+
+@dataclass
+class PagedStats:
+    """Aggregate output of one ``serve_paged`` run."""
+
+    results: List[RequestResult]
+    steps: int                  # decode steps executed
+    wall_s: float
+    total_tokens: int
+    throughput_tps: float
+    mean_slot_occupancy: float  # active slots per decode step
+    peak_slot_occupancy: int    # max concurrent requests observed
+    page_size: int
+    num_pages: int              # allocatable pages in the pool
+    mean_pages_in_use: float
+    peak_pages_in_use: int
+    preemptions: int
+    prefill_chunks: int         # prompt spans prefilled
+    prefill_mode: str = "packed"
+    prefill_launches: int = 0   # packed launches
+    prefill_s: float = 0.0      # wall time spent inside prefill launches
+    prefill_tokens: int = 0     # real prompt tokens computed by prefill
+    prefill_padded_tokens: int = 0  # packed-buffer slots spent on padding
+    prefill_budget: int = 0     # packed-buffer tokens per boundary
+    prefill_budget_stats: Dict[str, float] = field(default_factory=dict)
+    # prompt-token ledger; over any completed run
+    #   prompt_tokens_admitted ==
+    #       prefill_tokens + saved_prefill_tokens + prefill_tokens_dropped
+    # (no prefix cache and no preemption yet: the last two stay 0)
+    prompt_tokens_admitted: int = 0
+    saved_prefill_tokens: int = 0
+    prefill_tokens_dropped: int = 0
+    decode_s: float = 0.0       # wall time spent inside decode launches
+    itl_p50_ms: float = 0.0     # inter-token latency over every gap in the run
+    itl_p99_ms: float = 0.0
+    kv_dtype: str = "float32"   # pool storage dtype
+    kv_bytes_per_token: float = 0.0  # pool bytes per token, all layers
+
+
+def _upload(arrays: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
+    """Copy int32 host arrays to ``device`` in ONE transfer; the returned
+    tensors are contiguous views of the one device buffer."""
+    flat = np.concatenate([np.asarray(a, np.int32).ravel() for a in arrays.values()])
+    buf = torch.from_numpy(flat).to(device)
+    out, off = {}, 0
+    for k, a in arrays.items():
+        n = int(np.prod(a.shape))
+        out[k] = buf[off : off + n].view(a.shape)
+        off += n
+    return out
+
+
+class ServingEngine:
+    def __init__(
+        self,
+        model: DecoderLM,
+        params,
+        max_batch: int,
+        max_seq: int,
+        page_size: int = 16,
+        device: Union[str, torch.device, None] = None,
+    ) -> None:
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(
+                f"model lives on {model.device}, engine asked for {self.device}"
+            )
+        self.model = model
+        self.params = params
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        # tokens per KV page
+        self.page_size = page_size
+
+    def _kv_dtype_name(self) -> str:
+        return str(self.model.dtype).replace("torch.", "")
+
+    def _paged_decode_step(self, nxt: torch.Tensor, cache, table: torch.Tensor,
+                           pos: torch.Tensor, mask: torch.Tensor,
+                           pages_bound: int) -> torch.Tensor:
+        """One fused paged decode step: attention + on-device argmax + the
+        device-resident next-token / position bump for masked rows (in place
+        on the mirrors).  Returns the (b,) int32 greedy tokens, still on the
+        device: fetching them is the boundary's only host sync."""
+        logits = self.model.decode_paged(
+            self.params, nxt, cache, table, pos, pages_bound=pages_bound
+        )
+        tok = logits.argmax(dim=-1).to(torch.int32)
+        nxt.copy_(torch.where(mask, tok, nxt))
+        pos.copy_(torch.where(mask, pos + 1, pos))
+        return tok
+
+    @torch.no_grad()
+    def serve_paged(
+        self,
+        requests: List[ServeRequest],
+        num_slots: Optional[int] = None,
+        page_size: Optional[int] = None,
+        num_pages: Optional[int] = None,
+        prefill_budget: Optional[int] = None,
+        clock: Callable[[], float] = time.perf_counter,
+        tracer=None,
+    ) -> PagedStats:
+        """Paged-KV continuous batching with packed varlen prefill.
+
+        A request enters when a slot and its prompt's pages are free AND the
+        pool's committed worst-case pages stay within capacity, so growth
+        can never fail.  Each boundary retires finished requests, admits,
+        runs one packed prefill launch of ``prefill_budget`` tokens (default
+        16 pages) over every prefilling slot's next span, grows tables that
+        cross a page, and runs one fused decode step over the pool.  Greedy
+        tokens equal the JAX engine's on the same weights."""
+        if not requests:
+            return PagedStats([], 0, 0.0, 0, 0.0, 0.0, 0, self.page_size, 0,
+                              0.0, 0, 0, 0, kv_dtype=self._kv_dtype_name())
+        dev = self.device
+        page_size = page_size or self.page_size
+        num_slots = num_slots or self.max_batch
+        # packed-buffer size: the per-boundary prefill token budget, snapped
+        # to a page multiple (chunk spans inside the buffer are page-aligned)
+        t_pack = max(page_size, ((prefill_budget or 16 * page_size) // page_size) * page_size)
+        budget = PrefillBudget(t_pack)
+        max_pages_per_seq = pages_needed(self.max_seq, page_size)
+        if num_pages is None:
+            num_pages = num_slots * max_pages_per_seq + 1
+        pool = PagePool(num_pages, page_size, reserved=1)
+        for r in requests:
+            if len(r.prompt) + r.max_new_tokens > self.max_seq:
+                raise ValueError(
+                    f"request {r.request_id}: prompt + generation exceeds max_seq"
+                )
+            if pool.pages_needed(len(r.prompt) + r.max_new_tokens) > pool.capacity:
+                raise ValueError(
+                    f"request {r.request_id}: needs more pages than the pool admits"
+                )
+        slots = PagedSlotPool(num_slots, pool, tracer=tracer, clock=clock)
+        table = PageTable(num_slots, max_pages_per_seq, scratch_page=0)
+        cache = self.model.init_paged_cache(num_pages, page_size)
+        queue = deque(requests)
+        nxt = np.zeros((num_slots,), np.int32)
+        lengths = np.zeros((num_slots,), np.int32)   # live tokens per slot
+        slot_tokens: Dict[int, List[int]] = {}
+        slot_times: Dict[int, List[float]] = {}      # token-emission clocks
+        slot_commit: Dict[int, int] = {}             # worst-case pages per slot
+        prefilling: Dict[int, int] = {}              # slot -> next chunk start
+        decoding: Set[int] = set()
+        admit_order: Dict[int, int] = {}             # slot -> admission sequence
+        admit_step: Dict[int, int] = {}
+        ttft: Dict[int, float] = {}
+        admit_seq = 0
+        finished: Dict[int, RequestResult] = {}
+        t_start = clock()
+        submit_s = {r.request_id: t_start for r in requests}
+        step = 0
+        occupancy_sum = 0
+        peak_occupancy = 0
+        pages_sum = 0.0
+        samples = 0
+        chunks_done = 0
+        prefill_launches = 0
+        prefill_s = 0.0
+        prefill_tokens = 0
+        prefill_padded = 0
+        prompt_admitted = 0
+        decode_s = 0.0
+        itl_all: List[float] = []
+        # device-resident decode state, patched only for slots that changed
+        dev_table = torch.zeros((num_slots, max_pages_per_seq), dtype=torch.int32, device=dev)
+        dev_pos = torch.zeros((num_slots,), dtype=torch.int32, device=dev)
+        dev_nxt = torch.zeros((num_slots,), dtype=torch.int32, device=dev)
+        dev_mask = torch.zeros((num_slots,), dtype=torch.bool, device=dev)
+        cur_mask = np.zeros((num_slots,), bool)
+        dirty: Set[int] = set()
+
+        def sync_device(active: List[int]) -> None:
+            """Patch the device mirrors for slots whose table row, position,
+            next token or active bit changed since the last launch: one
+            upload of the dirty rows, then in-place row writes (JAX donates
+            the mirrors to a jitted scatter instead).  Inactive rows point
+            at the scratch page."""
+            nonlocal cur_mask
+            new_mask = np.zeros((num_slots,), bool)
+            new_mask[active] = True
+            stale = dirty | set(np.nonzero(new_mask != cur_mask)[0].tolist())
+            if not stale:
+                return
+            idx = np.fromiter(sorted(stale), np.int64, len(stale))
+            on = new_mask[idx]
+            up = _upload({
+                "rows": np.where(on[:, None], table.table[idx], 0),
+                "pos": np.where(on, lengths[idx], 0),
+                "nxt": np.where(on, nxt[idx], 0),
+                "mask": on,
+                "idx": idx,
+            }, dev)
+            i = up["idx"].long()
+            dev_table[i] = up["rows"]
+            dev_pos[i] = up["pos"]
+            dev_nxt[i] = up["nxt"]
+            dev_mask[i] = up["mask"].bool()
+            cur_mask = new_mask
+            dirty.clear()
+
+        def release_slot(slot: int) -> None:
+            slots.release_paged(slot, table.clear(slot))
+            lengths[slot] = 0
+            for d in (slot_tokens, slot_times, prefilling, admit_order,
+                      slot_commit, admit_step, ttft):
+                d.pop(slot, None)
+            decoding.discard(slot)
+            dirty.add(slot)
+
+        while queue or slots.num_active:
+            progressed = False
+            # 1) retire finished sequences, returning their pages
+            for slot in list(decoding):
+                req = slots.active[slot]
+                if len(slot_tokens[slot]) >= req.max_new_tokens:
+                    now = clock()
+                    times = slot_times.get(slot, [])
+                    itls = [b - a for a, b in zip(times, times[1:])]
+                    itl_all.extend(itls)
+                    latency = now - submit_s[req.request_id]
+                    finished[req.request_id] = RequestResult(
+                        request_id=req.request_id,
+                        tokens=np.asarray(slot_tokens[slot], np.int32),
+                        slot=slot,
+                        admit_step=admit_step[slot],
+                        finish_step=step,
+                        ttft_s=ttft[slot],
+                        latency_s=latency,
+                        tokens_per_s=(
+                            req.max_new_tokens / latency if latency > 0 else float("inf")
+                        ),
+                        itl_p50_s=percentile(itls, 50.0) if itls else 0.0,
+                        itl_p99_s=percentile(itls, 99.0) if itls else 0.0,
+                    )
+                    release_slot(slot)
+                    progressed = True
+            # 2) admission keyed on free pages and worst-case commitment
+            while queue:
+                req = queue[0]
+                npages = pool.pages_needed(len(req.prompt))
+                worst = pool.pages_needed(len(req.prompt) + req.max_new_tokens)
+                if not slots.num_free:
+                    break
+                if sum(slot_commit.values()) + worst > pool.capacity:
+                    break
+                if pool.num_free < npages:
+                    break
+                queue.popleft()
+                slot, pages = slots.admit_paged(req, npages, step=step)
+                table.assign(slot, pages)
+                slot_tokens[slot] = []
+                slot_commit[slot] = worst
+                prompt_admitted += len(req.prompt)
+                admit_order[slot] = admit_seq
+                admit_seq += 1
+                admit_step[slot] = step
+                lengths[slot] = 0
+                prefilling[slot] = 0
+                progressed = True
+            # 3) packed prefill: every prefilling slot's next span in ONE
+            #    token-packed launch (oldest first, capped by the budget)
+            if prefilling:
+                t0p = clock()
+                budget.begin_step()
+                spans: List[Tuple[int, int, int, int]] = []
+                used = 0
+                for slot in sorted(prefilling, key=lambda s: admit_order[s]):
+                    req = slots.active[slot]
+                    rem = len(req.prompt) - prefilling[slot]
+                    if used >= t_pack:
+                        budget.defer(rem)   # left waiting: starvation signal
+                        continue
+                    take = budget.grant(min(rem, t_pack - used))
+                    if take <= 0:
+                        budget.defer(rem)
+                        continue
+                    if take < rem:
+                        budget.defer(rem - take)
+                    span = pages_needed(take, page_size) * page_size
+                    spans.append((slot, prefilling[slot], take, span))
+                    used += span
+                if spans:
+                    num_chunks = num_slots
+                    tokens_p = np.zeros((1, t_pack), np.int32)
+                    tok_pos = np.zeros((t_pack,), np.int32)
+                    # buffer-tail pads write their K/V into the scratch page;
+                    # offsets cycle so the writes spread over its rows
+                    dst_page = np.zeros((t_pack,), np.int32)
+                    dst_off = (np.arange(t_pack) % page_size).astype(np.int32)
+                    cu = np.zeros((num_chunks + 1,), np.int32)
+                    lens_c = np.zeros((num_chunks,), np.int32)
+                    pos0_c = np.zeros((num_chunks,), np.int32)
+                    last_idx = np.zeros((num_chunks,), np.int32)
+                    tables_c = np.zeros((num_chunks, max_pages_per_seq), np.int32)
+                    off = 0
+                    for ci, (slot, start, take, span) in enumerate(spans):
+                        req = slots.active[slot]
+                        tokens_p[0, off : off + take] = req.prompt[start : start + take]
+                        pos = start + np.arange(span, dtype=np.int32)
+                        tok_pos[off : off + span] = pos
+                        row = table.table[slot]
+                        # chunk-pad K/V lands inside the prompt's allocated
+                        # pages, length-masked until decode overwrites it
+                        dst_page[off : off + span] = row[pos // page_size]
+                        dst_off[off : off + span] = pos % page_size
+                        cu[ci + 1] = off + span
+                        lens_c[ci] = take
+                        pos0_c[ci] = start
+                        last_idx[ci] = off + take - 1
+                        tables_c[ci] = row
+                        off += span
+                    cu[len(spans) + 1 :] = off
+                    # bound on committed-context pages this launch, pow2-
+                    # bucketed as in the JAX engine
+                    ctx_pages = max(pages_needed(start, page_size) for _, start, _, _ in spans)
+                    bound = bucket_pow2(max(ctx_pages, 1), cap=max_pages_per_seq)
+                    batch = _upload({
+                        "tokens": tokens_p, "tok_pos": tok_pos,
+                        "dst_page": dst_page, "dst_off": dst_off,
+                        "cu_seqlens": cu, "chunk_lens": lens_c,
+                        "chunk_pos0": pos0_c, "page_tables": tables_c,
+                        "last_idx": last_idx,
+                    }, dev)
+                    logits = self.model.prefill_packed(
+                        self.params, batch, cache, pages_bound=bound
+                    )
+                    first_tok = logits.argmax(dim=-1).cpu().numpy()  # the sync
+                    for ci, (slot, start, take, span) in enumerate(spans):
+                        req = slots.active[slot]
+                        new_start = start + take
+                        lengths[slot] = new_start
+                        chunks_done += 1
+                        if new_start >= len(req.prompt):
+                            del prefilling[slot]
+                            tok0 = int(first_tok[ci])
+                            nxt[slot] = tok0
+                            slot_tokens[slot] = [tok0]
+                            decoding.add(slot)
+                            dirty.add(slot)
+                            tnow = clock()
+                            slot_times[slot] = [tnow]
+                            ttft[slot] = tnow - submit_s[req.request_id]
+                        else:
+                            prefilling[slot] = new_start
+                    real = sum(s[2] for s in spans)
+                    prefill_launches += 1
+                    prefill_tokens += real
+                    prefill_padded += t_pack - real
+                    now = clock()
+                    prefill_s += now - t0p
+                    if tracer is not None:
+                        tracer.event(
+                            "prefill:packed", t0p, now,
+                            tokens=real, padding=t_pack - real,
+                            chunks=len(spans), buffer=t_pack,
+                            budget=budget.tokens_per_step,
+                        )
+                    progressed = True
+            # 4) one decode step over the whole pool; rows whose next token
+            #    opens a page grow their table first (never fails: admission
+            #    committed worst-case pages)
+            active_dec = [
+                s for s in decoding
+                if len(slot_tokens[s]) < slots.active[s].max_new_tokens
+            ]
+            for s in sorted(active_dec, key=lambda s: admit_order[s]):
+                while table.num_pages_of(s) * page_size <= int(lengths[s]):
+                    grown = slots.grow(1)
+                    if grown is None:
+                        raise RuntimeError("page pool exhausted despite admission commitment")
+                    table.append(s, grown[0])
+                    dirty.add(s)
+            if active_dec:
+                t0d = clock()
+                sync_device(active_dec)
+                live = max(int(lengths[s]) + 1 for s in active_dec)
+                bound = bucket_pow2(pages_needed(live, page_size), cap=max_pages_per_seq)
+                tok = self._paged_decode_step(
+                    dev_nxt, cache, dev_table, dev_pos, dev_mask, bound
+                )
+                g = tok.cpu().numpy()                  # the boundary's one fetch
+                now = clock()
+                decode_s += now - t0d
+                step += 1
+                occupancy_sum += slots.num_active
+                for s in active_dec:
+                    t = int(g[s])
+                    slot_tokens[s].append(t)
+                    nxt[s] = t
+                    lengths[s] += 1
+                    slot_times[s].append(now)
+                progressed = True
+            peak_occupancy = max(peak_occupancy, slots.num_active)
+            pages_sum += pool.num_in_use
+            samples += 1
+            slots.record_occupancy(step)
+            if not progressed and not prefilling and not decoding:
+                raise RuntimeError("paged serve loop stalled (admission deadlock)")
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall = clock() - t_start
+        results = [finished[r.request_id] for r in requests]
+        total_tokens = sum(len(r.tokens) for r in results)
+        return PagedStats(
+            results=results,
+            steps=step,
+            wall_s=wall,
+            total_tokens=total_tokens,
+            throughput_tps=total_tokens / wall if wall > 0 else float("inf"),
+            mean_slot_occupancy=occupancy_sum / step if step else 0.0,
+            peak_slot_occupancy=peak_occupancy,
+            page_size=page_size,
+            num_pages=pool.capacity,
+            mean_pages_in_use=pages_sum / samples if samples else 0.0,
+            peak_pages_in_use=pool.peak_in_use,
+            preemptions=slots.preemptions,
+            prefill_chunks=chunks_done,
+            prefill_launches=prefill_launches,
+            prefill_s=prefill_s,
+            prefill_tokens=prefill_tokens,
+            prefill_padded_tokens=prefill_padded,
+            prefill_budget=t_pack,
+            prefill_budget_stats=budget.stats(),
+            prompt_tokens_admitted=prompt_admitted,
+            decode_s=decode_s,
+            itl_p50_ms=percentile(itl_all, 50.0) * 1e3 if itl_all else 0.0,
+            itl_p99_ms=percentile(itl_all, 99.0) * 1e3 if itl_all else 0.0,
+            kv_dtype=self._kv_dtype_name(),
+            kv_bytes_per_token=float(
+                sum(v.numel() * v.element_size() for v in cache.values())
+                / (num_pages * page_size)
+            ),
+        )

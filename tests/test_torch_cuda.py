@@ -1,0 +1,130 @@
+"""The hand-written CUDA kernels against their plain versions, on the card.
+
+Marked ``gpu``: each test skips (from the ``cuda`` fixture, never at import)
+where ``torch.cuda.is_available()`` is false.  Run them on the card with
+``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``;
+``chip_smoke.py`` holds the same kernels at full glm4-9b widths.  Tolerance
+``|kernel - plain| <= tol * (1 + |plain|)`` with tol 2e-2 for bf16
+(rounding and summation order) and 5e-5 for float32.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import paged_attention as pa_mod
+from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as rn_mod
+from repro_torch.kernels import varlen_prefill as vp_mod
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(out, want, dtype):
+    """|kernel - plain| <= tol * (1 + |plain|), tol by dtype."""
+    tol = 2e-2 if dtype == torch.bfloat16 else 5e-5
+    want = want.float().cpu()
+    assert bool(((out.float().cpu() - want).abs() <= tol * (1 + want.abs())).all())
+
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _randn(shape, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(8, 4096), (3, 5, 100)])
+def test_rmsnorm_kernel(cuda, dtype, shape):
+    x = _randn(shape, dtype, cuda, 0)
+    w = _randn(shape[-1:], dtype, cuda, 1) * 0.1
+    n = rn_mod.launches
+    out = rn_mod.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert rn_mod.launches == n + 1
+    _close(out, ref.rmsnorm(x, w), dtype)
+
+
+PAGED_SHAPES = [
+    # h, kvh, d, page_size, max_pages, lengths (the last one 0: an idle slot)
+    (32, 2, 128, 16, 8, [1, 17, 128, 0]),     # glm4-9b widths
+    (8, 8, 64, 8, 5, [40, 3, 0]),             # MHA
+    (32, 1, 256, 16, 4, [64, 33, 0]),         # 32-head group, > 48 KB smem
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", PAGED_SHAPES)
+@pytest.mark.parametrize("opts", [{}, {"window": 5}, {"softcap": 7.0}, {"pages_bound": 2}])
+def test_paged_attention_kernel(cuda, dtype, shape, opts):
+    h, kvh, d, ps, mp, lens = shape
+    b = len(lens)
+    q = _randn((b, 1, h, d), dtype, cuda, 2)
+    kp, vp = _randn((b * mp + 1, ps, kvh, d), dtype, cuda, 3), _randn((b * mp + 1, ps, kvh, d), dtype, cuda, 4)
+    table = torch.arange(1, b * mp + 1, dtype=torch.int32, device=cuda).view(b, mp).flip(0).contiguous()
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    n = pa_mod.launches
+    out = pa_mod.paged_attention(q, kp, vp, table, lengths, **opts)
+    torch.cuda.synchronize()
+    assert pa_mod.launches == n + 1
+    # the wrapper on CPU tensors runs the plain version (and applies pages_bound)
+    want = pa_mod.paged_attention(*(t.cpu() for t in (q, kp, vp, table, lengths)), **opts)
+    _close(out, want, dtype)
+    assert torch.all(out[-1] == 0)
+
+
+VARLEN_SHAPES = [
+    # h, kvh, d, page_size
+    (32, 2, 128, 16),       # glm4-9b widths
+    (8, 8, 64, 8),          # MHA, small pages
+    (32, 1, 256, 16),       # > 48 KB smem
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", VARLEN_SHAPES)
+@pytest.mark.parametrize("opts", [{}, {"window": 7}, {"softcap": 11.0}])
+def test_varlen_prefill_kernel(cuda, dtype, shape, opts):
+    h, kvh, d, ps = shape
+    mp = 8
+    chunks = [(37, 2), (0, 0), (16, 0), (5, 3)]        # (real_len, ctx_pages)
+    cu, lens, pos0 = [0], [], []
+    tables = torch.zeros((len(chunks), mp), dtype=torch.int32)
+    nxt = 1
+    for c, (n, cp) in enumerate(chunks):
+        cu.append(cu[-1] + -(-n // ps) * ps)
+        lens.append(n)
+        pos0.append(cp * ps)
+        tables[c, :cp] = torch.arange(nxt, nxt + cp)
+        nxt += cp
+    T = cu[-1] + 2 * ps                                 # buffer tail pad
+    q = _randn((T, h, d), dtype, cuda, 5)
+    k, v = _randn((T, kvh, d), dtype, cuda, 6), _randn((T, kvh, d), dtype, cuda, 7)
+    kp, vp = _randn((nxt, ps, kvh, d), dtype, cuda, 8), _randn((nxt, ps, kvh, d), dtype, cuda, 9)
+    meta = [torch.tensor(a, dtype=torch.int32, device=cuda) for a in (cu, lens, pos0)]
+    args = (q, k, v, kp, vp, *meta, tables.to(cuda))
+    n = vp_mod.launches
+    out = vp_mod.varlen_prefill(*args, **opts)
+    torch.cuda.synchronize()
+    assert vp_mod.launches == n + 1
+    _close(out, ref.varlen_prefill(*(t.cpu() for t in args), **opts), dtype)
+    assert torch.all(out[37:cu[1]] == 0) and torch.all(out[cu[-1]:] == 0)
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(4, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="weight"):
+        rn_mod.rmsnorm(x, torch.zeros(64, device=cuda, dtype=torch.float32))
+    with pytest.raises(ValueError, match="contiguous"):
+        rn_mod.rmsnorm(x.t().contiguous().t(), torch.zeros(64, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(TypeError, match="not supported"):
+        rn_mod.rmsnorm(x.double(), torch.zeros(64, device=cuda, dtype=torch.float64))
