@@ -11,20 +11,31 @@ Phases, each printing its own lines and wall time, each ending in
    from this checkout's sources and the compiler's register/spill report;
 2. kernels: each hand-written kernel against its plain PyTorch version at
    the shapes the serve phase gives it (glm4-9b widths: h 32, kvh 2, d 128,
-   page 16, D 4096, bf16), with the error (fail unless
-   ``|kernel - plain| <= 2e-2 * |plain| + 2e-3 * rms(plain)``; for the
-   attention kernels the plain version with one key or one context page
-   too few must fail that limit), kernel, plain and library times (see
-   ``_time_ms``) and the bound: the larger of bytes over 3.35 TB/s and
-   flops over 989 TFLOP/s;
+   page 16, D 4096, bf16; spec_verify with 8 slots and windows of 5), the
+   attention kernels on a bf16 pool and on int8 and fp8 pools, with the
+   error (fail unless ``|kernel - plain| <= 2e-2 * |plain| + 2e-3 *
+   rms(plain)``; the plain version with one key, one context page or one
+   window row too few must fail that limit), kernel, plain and library
+   times (see ``_time_ms``) and the bound: the larger of bytes over
+   3.35 TB/s and flops over 989 TFLOP/s;
 3. check: reduced glm4-9b in float32 served on the card and on the CPU
-   from the same weights must emit the same greedy tokens;
+   from the same weights must emit the same greedy tokens, with and
+   without speculative decoding (which must also equal each other); the
+   card-vs-CPU token agreement on int8 and fp8 pools is printed;
 4. serve: full-width, full-depth glm4-9b (40 layers, random bf16 weights
    from a seeded CUDA generator) through ``ServingEngine.serve_paged``;
    every request must complete and every kernel must have been launched
-   (counts zeroed just before the first run, read just after), exactly 40
+   (counts zeroed just before the run, read just after), exactly 40
    attention and 81 rmsnorm launches per decode step and per prefill
-   launch; two more runs of the same requests give the metrics' spread;
+   launch; two more runs of the same requests give the metrics' spread.
+   Then the same mix on int8 and fp8 pools, and speculative decoding
+   (``spec_k`` 4) on tiled prompts: ``spec_ngram`` 3 on the bf16 pool, and
+   ``spec_ngram`` 1 on each pool, each run counted alone: 40 spec_verify
+   launches per verify step, 40 paged_attention per plain decode step, and
+   more than 0 spec_verify launches in each ``spec_ngram`` 1 run (random
+   weights at the published vocabulary almost never repeat a 3-gram within
+   32 tokens, so 3-gram lookup rarely drafts); token agreement with the
+   bf16 plain run of the same prompts is printed;
 5. where the time goes: device time by kernel class per prefill launch and
    per decode step, per launch of each kernel, and the device's idle
    share, from torch.profiler;
@@ -58,6 +69,12 @@ SLOTS, PAGE, MAX_SEQ, BUDGET = 8, 16, 2048, 2048
 REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS = 16, 64, 1024, 32
 SEED = 0
 REPEATS = 3                     # serve runs; launches are counted in the first
+KV_MODES = (None, "int8", "fp8")  # pool storage: bf16, or codes + f32 scales
+SPEC_K = 4                      # draft depth of the speculative runs
+# prompt-lookup n-gram: 3 as in bench_spec, and 1, which drafts from any
+# earlier occurrence of the pending token and so finds drafts on random weights
+SPEC_NGRAM, DRAFT_NGRAM = 3, 1
+WINDOW_LENS = [5, 3, 1, 0, 5, 2, 4, 5]   # spec_verify check (slot 3 idle)
 
 
 def _phase(name):
@@ -148,6 +165,10 @@ def _rejects(torch, name, wrong, want):
         raise SystemExit(f"{name}: the limit does not tell it from the right answer")
 
 
+def _name(kernel, mode):
+    return kernel if mode is None else f"{kernel}[{mode}]"
+
+
 def _serve_lengths(seed):
     import numpy as np
 
@@ -155,21 +176,27 @@ def _serve_lengths(seed):
     return rng.integers(PROMPT_MIN, PROMPT_MAX + 1, size=REQUESTS)
 
 
+
+
 def kernels_phase(torch, dev):
-    """Each kernel vs its plain version at the serve phase's shapes."""
+    """Each kernel vs its plain version at the serve phase's shapes, the
+    attention kernels on a bf16 pool and on int8 and fp8 pools."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import kvquant, ref
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import spec_verify as sv
     from repro_torch.kernels import varlen_prefill as vp
 
     bf = torch.bfloat16
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     randn = lambda *s: torch.randn(s, generator=gen, device=dev, dtype=bf)
+    cl = lambda t: None if t is None else t.clone()
     cpm = _sleep_cycles_per_ms(torch)
     h, kvh, d, D = 32, 2, 128, 4096
+    rep = h // kvh
     max_pages = MAX_SEQ // PAGE
     num_pages = SLOTS * max_pages + 1
     records = {}
@@ -204,8 +231,24 @@ def kernels_phase(torch, dev):
     )
     del sets
 
-    # -- paged_attention: one decode step of 8 slots at ragged lengths
+    # the pools every attention kernel reads: bf16, and the same values as
+    # int8/fp8 codes with float32 per-row scales
     k_pages, v_pages = randn(num_pages, PAGE, kvh, d), randn(num_pages, PAGE, kvh, d)
+
+    def pools(mode):
+        """(k, v, k_scales, v_scales, bytes per pool row and kv head, and the
+        bf16 pools the library's SDPA reads: the dequantized codes)."""
+        if mode is None:
+            return k_pages, v_pages, None, None, 2 * d, k_pages, v_pages
+        store = kvquant.pool_dtype(mode)
+        (kq, ks), (vq, vs) = kvquant.quantize(k_pages, store), kvquant.quantize(v_pages, store)
+        return (kq, vq, ks, vs, d + 4,
+                kvquant.dequantize(kq, ks).to(bf), kvquant.dequantize(vq, vs).to(bf))
+
+    def pool_desc(mode):
+        return "bf16" if mode is None else f"{mode} + f32 scales"
+
+    # -- paged_attention: one decode step of 8 slots at ragged lengths
     perm = torch.randperm(num_pages - 1, generator=gen, device=dev).to(torch.int32) + 1
     table = perm[: SLOTS * max_pages].view(SLOTS, max_pages).contiguous()
     lens_host = [int(n) + NEW_TOKENS for n in _serve_lengths(SEED)[:SLOTS]]
@@ -213,38 +256,92 @@ def kernels_phase(torch, dev):
     bound_pages = math.ceil(max(lens_host) / PAGE)
     q = randn(SLOTS, 1, h, d)
     tb = table[:, :bound_pages]
-    want = ref.paged_attention(q, k_pages, v_pages, tb, lengths)
-    err = _check(torch, "paged_attention",
-                 pa.paged_attention(q, k_pages, v_pages, table, lengths, pages_bound=bound_pages),
-                 want)
-    _rejects(torch, "paged_attention plain with lengths - 1",
-             ref.paged_attention(q, k_pages, v_pages, tb, lengths - 1), want)
-    # SDPA yardstick on K/V gathered and expanded to the query heads
-    # beforehand (neither the gather nor the expansion is timed)
-    S, rep = bound_pages * PAGE, h // kvh
-    gather = lambda pool: (pool[tb.long()].reshape(SLOTS, S, kvh, d)
-                           .transpose(1, 2).repeat_interleave(rep, dim=1))
+    # SDPA yardstick on K/V gathered and expanded to the query heads (and
+    # dequantized) beforehand: neither is timed
+    S = bound_pages * PAGE
+    gather = lambda pool, t_=tb, s_=S: (pool[t_.long()].reshape(SLOTS, s_, kvh, d)
+                                        .transpose(1, 2).repeat_interleave(rep, dim=1))
     mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
     live = sum(lens_host)
-    nbytes = 2 * (2 * SLOTS * h * d + 2 * live * kvh * d) + 4 * (SLOTS + SLOTS * bound_pages)
-    sets = _rotation(nbytes, lambda i: (q.clone(), k_pages.clone(), v_pages.clone()))
+    for mode in KV_MODES:
+        kp, vpl, ks, vs, row_bytes, k_lib, v_lib = pools(mode)
+        name = _name("paged_attention", mode)
+        want = ref.paged_attention(q, kp, vpl, tb, lengths, k_scales=ks, v_scales=vs)
+        err = _check(torch, name,
+                     pa.paged_attention(q, kp, vpl, table, lengths, pages_bound=bound_pages,
+                                        k_scales=ks, v_scales=vs), want)
+        if mode is None:
+            _rejects(torch, "paged_attention plain with lengths - 1",
+                     ref.paged_attention(q, kp, vpl, tb, lengths - 1), want)
+        nbytes = (2 * 2 * SLOTS * h * d + 2 * live * kvh * row_bytes
+                  + 4 * (SLOTS + SLOTS * bound_pages))
+        sets = _rotation(nbytes, lambda i: (q.clone(), *map(cl, (kp, vpl, ks, vs))))
+        lib_sets = _rotation(2 * 2 * SLOTS * h * S * d,
+                             lambda i: (q.transpose(1, 2), gather(k_lib), gather(v_lib)))
+        records[name] = dict(
+            err=err,
+            **timed(lambda q_, k_, v_, ks_, vs_: pa.paged_attention(
+                        q_, k_, v_, table, lengths, pages_bound=bound_pages,
+                        k_scales=ks_, v_scales=vs_),
+                    lambda q_, k_, v_, ks_, vs_: ref.paged_attention(
+                        q_, k_, v_, tb, lengths, k_scales=ks_, v_scales=vs_),
+                    lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask),
+                    sets, lib_sets),
+            bound=_bound_ms(nbytes, 4.0 * h * d * live),
+            shape=f"q ({SLOTS}, 1, {h}, {d}) bf16, pool ({num_pages}, {PAGE}, {kvh}, {d}) "
+                  f"{pool_desc(mode)}, lengths {lens_host}",
+        )
+        del sets, lib_sets
 
-    def expanded(q_, k_, v_):
-        return q_.transpose(1, 2), gather(k_), gather(v_)
-
-    lib_sets = _rotation(2 * 2 * SLOTS * h * S * d, lambda i: expanded(*sets[i % len(sets)]))
-    records["paged_attention"] = dict(
-        err=err,
-        **timed(lambda q_, k_, v_: pa.paged_attention(q_, k_, v_, table, lengths,
-                                                      pages_bound=bound_pages),
-                lambda q_, k_, v_: ref.paged_attention(q_, k_, v_, tb, lengths),
-                lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask),
-                sets, lib_sets),
-        bound=_bound_ms(nbytes, 4.0 * h * d * live),
-        shape=f"q ({SLOTS}, 1, {h}, {d}), pool ({num_pages}, {PAGE}, {kvh}, {d}) bf16, "
-              f"lengths {lens_host}",
-    )
-    del sets, lib_sets
+    # -- spec_verify: one verify step of 8 slots, windows of SPEC_K + 1 at the
+    #    same committed lengths, ragged window lengths, one idle slot
+    W = SPEC_K + 1
+    wl_host = WINDOW_LENS[:SLOTS]
+    wlens = torch.tensor(wl_host, dtype=torch.int32, device=dev)
+    totals = [L + n if n else 0 for L, n in zip(lens_host, wl_host)]
+    spec_pages = math.ceil(max(totals) / PAGE)
+    ts = table[:, :spec_pages]
+    qs = randn(SLOTS, W, h, d)
+    S2 = spec_pages * PAGE
+    k_pos = torch.arange(S2, device=dev)[None, None, :]
+    w_idx = torch.arange(W, device=dev)[None, :, None]
+    smask = ((k_pos <= lengths[:, None, None] + w_idx)
+             & (w_idx < wlens[:, None, None]))[:, None]      # (b, 1, W, S)
+    pairs = sum(L + w + 1 for L, n in zip(lens_host, wl_host) for w in range(n))
+    for mode in KV_MODES:
+        kp, vpl, ks, vs, row_bytes, k_lib, v_lib = pools(mode)
+        name = _name("spec_verify", mode)
+        want = ref.spec_verify(qs, kp, vpl, ts, lengths, wlens, k_scales=ks, v_scales=vs)
+        out = sv.spec_verify(qs, kp, vpl, table, lengths, wlens, pages_bound=spec_pages,
+                             k_scales=ks, v_scales=vs)
+        err = _check(torch, name, out, want)
+        pad_zero = all(bool((out[b, n:] == 0).all()) for b, n in enumerate(wl_host))
+        print(f"   {name}: window pad rows and the idle slot exactly zero: {pad_zero}")
+        if not pad_zero:
+            raise SystemExit(f"{name}: pad rows are not exactly zero")
+        if mode is None:
+            _rejects(torch, "spec_verify plain with window_lens - 1",
+                     ref.spec_verify(qs, kp, vpl, ts, lengths, (wlens - 1).clamp_min(0)), want)
+        nbytes = (2 * 2 * SLOTS * W * h * d + 2 * sum(totals) * kvh * row_bytes
+                  + 4 * (2 * SLOTS + SLOTS * spec_pages))
+        sets = _rotation(nbytes, lambda i: (qs.clone(), *map(cl, (kp, vpl, ks, vs))))
+        lib_sets = _rotation(
+            2 * 2 * SLOTS * h * S2 * d,
+            lambda i: (qs.transpose(1, 2), gather(k_lib, ts, S2), gather(v_lib, ts, S2)))
+        records[name] = dict(
+            err=err,
+            **timed(lambda q_, k_, v_, ks_, vs_: sv.spec_verify(
+                        q_, k_, v_, table, lengths, wlens, pages_bound=spec_pages,
+                        k_scales=ks_, v_scales=vs_),
+                    lambda q_, k_, v_, ks_, vs_: ref.spec_verify(
+                        q_, k_, v_, ts, lengths, wlens, k_scales=ks_, v_scales=vs_),
+                    lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=smask),
+                    sets, lib_sets),
+            bound=_bound_ms(nbytes, 4.0 * h * d * pairs),
+            shape=f"q ({SLOTS}, {W}, {h}, {d}) bf16, pool {pool_desc(mode)}, committed "
+                  f"{lens_host}, window lens {wl_host}",
+        )
+        del sets, lib_sets
 
     # -- varlen_prefill: one packed buffer of BUDGET tokens holding chunks
     #    with committed context pages, ragged tails and a buffer-tail pad
@@ -264,27 +361,14 @@ def kernels_phase(torch, dev):
     T = BUDGET
     if not (cu[-1] < T and nxt_page <= num_pages):
         raise SystemExit("varlen_prefill: the test layout does not fit the buffer or pool")
-    qp, kp, vpk = randn(T, h, d), randn(T, kvh, d), randn(T, kvh, d)
+    qp, kp_, vpk = randn(T, h, d), randn(T, kvh, d), randn(T, kvh, d)
     meta = [torch.tensor(a, dtype=torch.int32, device=dev) for a in (cu, lens_c, pos0)]
     tables = tables.to(dev)
     ctx_bound = max(1, max(p // PAGE for p in pos0))
-    vargs = (qp, kp, vpk, k_pages, v_pages, *meta, tables)
-    out = vp.varlen_prefill(*vargs, pages_bound=ctx_bound)
-    want = ref.varlen_prefill(*vargs, pages_bound=ctx_bound)
-    err = _check(torch, "varlen_prefill", out, want)
-    short = list(pos0)
-    short[0] -= PAGE                     # chunk 0 sees one context page too few
-    _rejects(torch, "varlen_prefill plain with one context page dropped",
-             ref.varlen_prefill(*vargs[:7], torch.tensor(short, dtype=torch.int32, device=dev),
-                                tables, pages_bound=ctx_bound), want)
     real = [(cu[c] + lens_c[c], cu[c + 1]) for c in range(C)] + [(cu[-1], T)]
-    pad_zero = all(bool((out[a:b] == 0).all()) for a, b in real)
-    print(f"   varlen_prefill: pad rows exactly zero: {pad_zero}")
-    if not pad_zero:
-        raise SystemExit("varlen_prefill: pad rows are not exactly zero")
     # SDPA yardstick: one call over every chunk's gathered context plus the
-    # packed buffer, with the block mask of the packed layout (the gather
-    # and the expansion to the query heads are not timed)
+    # packed buffer, with the block mask of the packed layout (the gather,
+    # dequantization and expansion to the query heads are not timed)
     ctx_owner = []
     for c in range(C):
         ctx_owner += [c] * pos0[c]
@@ -310,22 +394,45 @@ def kernels_phase(torch, dev):
 
     pairs = sum(lens_c[c] * pos0[c] + lens_c[c] * (lens_c[c] + 1) // 2 for c in range(C))
     ctx_rows = sum(pos0)
-    nbytes = (2 * (2 * T * h * d + 2 * T * kvh * d + 2 * ctx_rows * kvh * d)
-              + 4 * (3 * C + 1 + C * max_pages))
-    sets = _rotation(nbytes, lambda i: (qp.clone(), kp.clone(), vpk.clone(),
-                                        k_pages.clone(), v_pages.clone(), *meta, tables))
-    lib_sets = _rotation(2 * (T * h * d + 2 * h * (ctx_rows + T) * d),
-                         lambda i: packed(*sets[i % len(sets)][:5]))
-    records["varlen_prefill"] = dict(
-        err=err,
-        **timed(lambda *a: vp.varlen_prefill(*a, pages_bound=ctx_bound),
-                lambda *a: ref.varlen_prefill(*a, pages_bound=ctx_bound),
-                lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=lmask),
-                sets, lib_sets),
-        bound=_bound_ms(nbytes, 4.0 * h * d * pairs),
-        shape=f"T {T}, chunks (take, ctx pages) {chunk_specs} + {C - len(chunk_specs)} empty, bf16",
-    )
-    del sets, lib_sets
+    for mode in KV_MODES:
+        kp, vpl, ks, vs, row_bytes, k_lib, v_lib = pools(mode)
+        name = _name("varlen_prefill", mode)
+        vargs = (qp, kp_, vpk, kp, vpl, *meta, tables)
+        out = vp.varlen_prefill(*vargs, pages_bound=ctx_bound, k_scales=ks, v_scales=vs)
+        want = ref.varlen_prefill(*vargs, pages_bound=ctx_bound, k_scales=ks, v_scales=vs)
+        err = _check(torch, name, out, want)
+        if mode is None:
+            short = list(pos0)
+            short[0] -= PAGE                     # chunk 0 sees one context page too few
+            _rejects(torch, "varlen_prefill plain with one context page dropped",
+                     ref.varlen_prefill(*vargs[:7],
+                                        torch.tensor(short, dtype=torch.int32, device=dev),
+                                        tables, pages_bound=ctx_bound), want)
+        pad_zero = all(bool((out[a:b] == 0).all()) for a, b in real)
+        print(f"   {name}: pad rows exactly zero: {pad_zero}")
+        if not pad_zero:
+            raise SystemExit(f"{name}: pad rows are not exactly zero")
+        nbytes = (2 * (2 * T * h * d + 2 * T * kvh * d) + 2 * ctx_rows * kvh * row_bytes
+                  + 4 * (3 * C + 1 + C * max_pages))
+        sets = _rotation(nbytes, lambda i: (qp.clone(), kp_.clone(), vpk.clone(),
+                                            *map(cl, (kp, vpl, ks, vs))))
+        lib_sets = _rotation(2 * (T * h * d + 2 * h * (ctx_rows + T) * d),
+                             lambda i: packed(qp.clone(), kp_, vpk, k_lib, v_lib))
+        records[name] = dict(
+            err=err,
+            **timed(lambda q_, k_, v_, kpool, vpool, ks_, vs_: vp.varlen_prefill(
+                        q_, k_, v_, kpool, vpool, *meta, tables, pages_bound=ctx_bound,
+                        k_scales=ks_, v_scales=vs_),
+                    lambda q_, k_, v_, kpool, vpool, ks_, vs_: ref.varlen_prefill(
+                        q_, k_, v_, kpool, vpool, *meta, tables, pages_bound=ctx_bound,
+                        k_scales=ks_, v_scales=vs_),
+                    lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=lmask),
+                    sets, lib_sets),
+            bound=_bound_ms(nbytes, 4.0 * h * d * pairs),
+            shape=f"T {T}, chunks (take, ctx pages) {chunk_specs} + {C - len(chunk_specs)} "
+                  f"empty, bf16, pool {pool_desc(mode)}",
+        )
+        del sets, lib_sets
     for name, r in records.items():
         print(f"   {name}: kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
               f"library_ms {r['library_ms']:.4f} "
@@ -335,10 +442,67 @@ def kernels_phase(torch, dev):
     return records
 
 
-def check_phase(torch, dev):
-    """Reduced glm4-9b in float32: the card's greedy tokens equal the CPU's."""
+def _tiled_requests(n, lo, hi, new_tokens, vocab, seed):
+    """Repetitive prompts, as ``benchmarks/bench_spec.py`` makes them: a
+    short random phrase (3-5 tokens) tiled to a length uniform in
+    ``[lo, hi]``, the document-grounded text that prompt lookup drafts
+    from."""
     import numpy as np
 
+    from repro_torch.serve.engine import ServeRequest
+
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n):
+        phrase = rng.integers(0, vocab, (int(rng.integers(3, 6)),))
+        length = int(rng.integers(lo, hi + 1))
+        prompt = np.tile(phrase, length // len(phrase) + 1)[:length].astype(np.int32)
+        reqs.append(ServeRequest(request_id=i, prompt=prompt, max_new_tokens=new_tokens))
+    return reqs
+
+
+def _agreement(want, got):
+    """(tokens equal position by position, tokens in all, the first
+    divergence as (request, index) at the smallest index, or None)."""
+    import numpy as np
+
+    same = total = 0
+    first = None
+    for i, (a, b) in enumerate(zip(want, got)):
+        a, b = np.asarray(a), np.asarray(b)
+        n = min(len(a), len(b))
+        eq = a[:n] == b[:n]
+        same += int(eq.sum())
+        total += len(a)
+        if not eq.all() or len(a) != len(b):
+            at = int(np.argmin(eq)) if not eq.all() else n
+            if first is None or at < first[1]:
+                first = (i, at)
+    return same, total, first
+
+
+def _fmt_repeats(results, n=3):
+    """How repetitive the greedy streams are: prompt lookup drafts only
+    from a repeat of the last ``n`` tokens."""
+    distinct = [len(set(r.tokens.tolist())) for r in results]
+    repeating = sum(
+        1 for r in results
+        if len({tuple(r.tokens[i:i + n]) for i in range(len(r.tokens) - n + 1)})
+        < len(r.tokens) - n + 1)
+    return (f"distinct tokens per request {min(distinct)}-{max(distinct)} of "
+            f"{len(results[0].tokens)}, requests repeating a {n}-gram {repeating}/{len(results)}")
+
+
+def _fmt_agreement(want, got):
+    same, total, first = _agreement(want, got)
+    where = "none" if first is None else f"request {first[0]} token {first[1]}"
+    return f"{same}/{total} tokens equal, first divergence: {where}"
+
+
+def check_phase(torch, dev):
+    """Reduced glm4-9b in float32: the card's greedy tokens equal the CPU's,
+    plain and speculative, and speculative equals plain; card vs CPU on
+    int8 and fp8 pools is printed."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import DecoderLM
@@ -349,17 +513,38 @@ def check_phase(torch, dev):
     cpu_params = cpu_model.init(seed=SEED)
     gpu_model = DecoderLM(cfg, device=dev, dtype=torch.float32)
     gpu_params = _to_device(cpu_params, dev)
-    tokens = {}
-    for name, model, params in (("cpu", cpu_model, cpu_params), ("cuda", gpu_model, gpu_params)):
-        engine = ServingEngine(model, params, max_batch=3, max_seq=96, page_size=PAGE,
-                               device=model.device)
-        reqs = make_requests(6, 5, 60, 8, cfg.vocab_size, SEED)
-        stats = engine.serve_paged(reqs, prefill_budget=64)
-        tokens[name] = [r.tokens for r in stats.results]
-    same = all(np.array_equal(a, b) for a, b in zip(tokens["cpu"], tokens["cuda"]))
-    print(f"   reduced glm4-9b f32, 6 requests: cuda tokens == cpu tokens: {same}")
-    if not same:
+    plain_reqs = lambda: make_requests(6, 5, 60, 8, cfg.vocab_size, SEED)
+    tiled_reqs = lambda: _tiled_requests(6, 16, 60, 16, cfg.vocab_size, SEED)
+    runs = {}
+    for kv_dtype in KV_MODES:
+        for name, model, params in (("cpu", cpu_model, cpu_params),
+                                    ("cuda", gpu_model, gpu_params)):
+            engine = ServingEngine(model, params, max_batch=3, max_seq=96, page_size=PAGE,
+                                   device=model.device, kv_dtype=kv_dtype)
+            runs[name, kv_dtype, 0] = engine.serve_paged(plain_reqs(), prefill_budget=64)
+            if kv_dtype is None:
+                for k in (0, SPEC_K):
+                    runs[name, "tiled", k] = engine.serve_paged(
+                        tiled_reqs(), prefill_budget=64, spec_k=k, spec_ngram=1)
+    tok = lambda key: [r.tokens for r in runs[key].results]
+    same = lambda a, b: _agreement(tok(a), tok(b))[2] is None
+    plain_ok = same(("cpu", None, 0), ("cuda", None, 0))
+    print(f"   reduced glm4-9b f32, 6 requests: cuda tokens == cpu tokens: {plain_ok}")
+    spec = runs["cuda", "tiled", SPEC_K]
+    spec_ok = (same(("cpu", "tiled", SPEC_K), ("cuda", "tiled", SPEC_K))
+               and same(("cuda", "tiled", 0), ("cuda", "tiled", SPEC_K))
+               and same(("cpu", "tiled", 0), ("cuda", "tiled", 0)))
+    print(f"   reduced glm4-9b f32, 6 tiled prompts, spec_k {SPEC_K}: cuda spec tokens == cpu "
+          f"spec tokens == cuda plain tokens: {spec_ok}; cuda {spec.spec_stats}")
+    if not plain_ok:
         raise SystemExit("the card's greedy tokens differ from the CPU reference")
+    if not spec_ok:
+        raise SystemExit("speculative tokens differ from the CPU's or from plain decoding")
+    if not spec.spec_stats["spec_launches"]:
+        raise SystemExit("the reduced speculative check ran no verify step")
+    for mode in KV_MODES[1:]:
+        print(f"   reduced glm4-9b f32, {mode} pool, card vs CPU: "
+              f"{_fmt_agreement(tok(('cpu', mode, 0)), tok(('cuda', mode, 0)))}")
 
 
 def _to_device(tree, dev):
@@ -391,8 +576,46 @@ def _fmt_metrics(m, stats):
             f"wall {m['wall_s']:.3f} s")
 
 
+
+
+def _expected_launches(stats, num_layers):
+    """Launches each kernel must show for one serve run: 81 rmsnorm per
+    pass (prefill launch or decode step), 40 attention per layer pass of
+    its kind (verify steps launch spec_verify, plain steps paged_attention)."""
+    verify = int(stats.spec_stats.get("spec_launches", 0))
+    return {
+        "rmsnorm": (2 * num_layers + 1) * (stats.steps + stats.prefill_launches),
+        "paged_attention": num_layers * (stats.steps - verify),
+        "spec_verify": num_layers * verify,
+        "varlen_prefill": num_layers * stats.prefill_launches,
+    }
+
+
+def _counted_serve(torch, engine, reqs, counters, need, **kw):
+    """One serve run with the launch counts zeroed just before and read just
+    after; fails unless every request completed, every count is what the
+    run's steps imply, and every kernel in ``need`` launched."""
+    for mod in counters.values():
+        mod.launches = 0
+    stats = engine.serve_paged(reqs, num_slots=SLOTS, page_size=PAGE, prefill_budget=BUDGET,
+                               **kw)
+    counts = {name: mod.launches for name, mod in counters.items()}
+    vocab = engine.model.cfg.vocab_size
+    done = [r for r in stats.results if r.status == "completed" and len(r.tokens) == NEW_TOKENS
+            and all(0 <= t < vocab for t in r.tokens)]
+    if len(done) != len(reqs):
+        raise SystemExit(f"only {len(done)} of {len(reqs)} requests completed")
+    expect = _expected_launches(stats, engine.model.cfg.num_layers)
+    for name, n in counts.items():
+        if n != expect[name] or (name in need and n == 0):
+            raise SystemExit(f"{name}: {n} launches in a serve run, expected {expect[name]}"
+                             f"{' and more than 0' if name in need else ''}")
+    return stats, counts
+
+
 def serve_phase(torch, dev, counters):
     from repro_torch.configs import get_config
+    from repro_torch.kernels import kvquant
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import DecoderLM, count_params
     from repro_torch.serve.engine import ServingEngine, percentile
@@ -405,40 +628,33 @@ def serve_phase(torch, dev, counters):
     n_params = count_params(model.param_defs())
     print(f"   {cfg.name}: {cfg.num_layers} layers, {n_params / 1e9:.3f} B params, "
           f"bf16 weights {n_params * 2 / 1e9:.2f} GB, init {time.perf_counter() - t0:.1f} s")
-    engine = ServingEngine(model, params, max_batch=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
-                           device=dev)
-    # warm-up (cuBLAS handles, allocator) on two short requests, not counted
-    engine.serve_paged(make_requests(2, 16, 32, 2, cfg.vocab_size, SEED + 1),
-                       prefill_budget=BUDGET)
+    engines = {
+        mode: ServingEngine(model, params, max_batch=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
+                            device=dev, kv_dtype=mode)
+        for mode in KV_MODES
+    }
+    engine = engines[None]
+    # warm-up (cuBLAS handles, allocator, each pool type and the verify
+    # step) on two short requests, not counted
+    for mode, eng in engines.items():
+        for k in (0, SPEC_K):
+            eng.serve_paged(_tiled_requests(2, 16, 32, 6, cfg.vocab_size, SEED + 1),
+                            prefill_budget=BUDGET, spec_k=k, spec_ngram=1)
     reqs = make_requests(REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS, cfg.vocab_size, SEED)
     if [len(r.prompt) for r in reqs] != list(_serve_lengths(SEED)):
         raise SystemExit("serve prompts differ from the lengths the kernel phase used")
-    for mod in counters.values():
-        mod.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
-    stats = engine.serve_paged(reqs, num_slots=SLOTS, page_size=PAGE, prefill_budget=BUDGET)
-    counts = {name: mod.launches for name, mod in counters.items()}
-    done = [r for r in stats.results if r.status == "completed" and len(r.tokens) == NEW_TOKENS
-            and all(0 <= t < cfg.vocab_size for t in r.tokens)]
+    plain_need = ("rmsnorm", "paged_attention", "varlen_prefill")
+    stats, counts = _counted_serve(torch, engine, reqs, counters, plain_need)
     print(f"   requests {len(reqs)} (prompts {PROMPT_MIN}-{PROMPT_MAX}, {NEW_TOKENS} new), "
-          f"completed {len(done)}, slots {SLOTS}, page {PAGE}, max_seq {MAX_SEQ}, "
+          f"completed {len(stats.results)}, slots {SLOTS}, page {PAGE}, max_seq {MAX_SEQ}, "
           f"budget {BUDGET}, pool pages {stats.num_pages}, "
           f"kv bytes/token {stats.kv_bytes_per_token:.0f}, peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
     runs = [_serve_metrics(stats, percentile)]
-    print(f"   run 1: {_fmt_metrics(runs[0], stats)}")
+    print(f"   run 1: {_fmt_metrics(runs[0], stats)}; {_fmt_repeats(stats.results)}")
     print(f"   launches in run 1: {counts}")
-    if len(done) != len(reqs):
-        raise SystemExit(f"only {len(done)} of {len(reqs)} requests completed")
-    per_pass = stats.steps + stats.prefill_launches
-    expect = {
-        "rmsnorm": (2 * cfg.num_layers + 1) * per_pass,
-        "paged_attention": cfg.num_layers * stats.steps,
-        "varlen_prefill": cfg.num_layers * stats.prefill_launches,
-    }
-    for name, n in counts.items():
-        if n == 0 or n != expect[name]:
-            raise SystemExit(f"{name}: {n} launches in the serve phase, expected {expect[name]}")
+    launches = {name: counts[name] for name in plain_need}
     # the same requests again: the spread of the end-to-end metrics
     for i in range(2, REPEATS + 1):
         again = engine.serve_paged(reqs, num_slots=SLOTS, page_size=PAGE, prefill_budget=BUDGET)
@@ -449,11 +665,48 @@ def serve_phase(torch, dev, counters):
     spread = {k: max(r[k] for r in runs) - min(r[k] for r in runs) for k in runs[0]}
     print("   median of " + str(len(runs)) + " runs: " + ", ".join(
         f"{k} {med[k]:.3f} (max-min {spread[k]:.3f})" for k in med))
-    return counts, engine, reqs
+
+    # speculative decoding on tiled prompts, and int8/fp8 pools: each run
+    # counted alone, tokens held against the bf16 plain run of its prompts
+    tiled = _tiled_requests(REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS, cfg.vocab_size, SEED)
+    base_tiled = engine.serve_paged(tiled, num_slots=SLOTS, page_size=PAGE,
+                                    prefill_budget=BUDGET)
+    print(f"   tiled prompts, bf16 plain: "
+          f"{_fmt_metrics(_serve_metrics(base_tiled, percentile), base_tiled)}; "
+          f"{_fmt_repeats(base_tiled.results)}")
+    bf16_bytes = kvquant.kv_bytes_per_token(cfg.num_layers, cfg.num_kv_heads,
+                                            cfg.resolved_head_dim, "bfloat16")
+    plan = [(None, SPEC_K, SPEC_NGRAM)]
+    for mode in KV_MODES:
+        plan += [(mode, 0, None)] if mode else []
+        plan += [(mode, SPEC_K, DRAFT_NGRAM)]
+    for mode, k, ngram in plan:
+        prompts, base = (tiled, base_tiled) if k else (reqs, stats)
+        need = plain_need if not k else ("rmsnorm", "varlen_prefill") + (
+            ("spec_verify",) if ngram == DRAFT_NGRAM else ())
+        st, cnt = _counted_serve(torch, engines[mode], prompts, counters, need,
+                                 spec_k=k, spec_ngram=ngram or 1)
+        label = f"{mode or 'bf16'} pool, " + (
+            f"spec_k {k} spec_ngram {ngram}, tiled prompts" if k else "plain, the run-1 prompts")
+        want_bytes = bf16_bytes if mode is None else kvquant.kv_bytes_per_token(
+            cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim, mode)
+        print(f"   {label}: {_fmt_metrics(_serve_metrics(st, percentile), st)}")
+        print(f"      spec_stats {st.spec_stats or 'off'}; pool bytes/token "
+              f"{st.kv_bytes_per_token:.0f} (bf16 {bf16_bytes}); launches {cnt}; vs bf16 "
+              f"plain: {_fmt_agreement([r.tokens for r in base.results], [r.tokens for r in st.results])}")
+        if st.kv_bytes_per_token != want_bytes:
+            raise SystemExit(f"{label}: {st.kv_bytes_per_token} pool bytes per token, "
+                             f"expected {want_bytes}")
+        if ngram != SPEC_NGRAM:
+            for name in need:
+                if name != "rmsnorm":
+                    launches.setdefault(_name(name, mode), cnt[name])
+    return launches, engine, reqs
 
 
 _CLASSES = (
     ("paged_attention", ("paged_attention_kernel",)),
+    ("spec_verify", ("spec_verify_kernel",)),
     ("varlen_prefill", ("varlen_prefill_kernel",)),
     ("rmsnorm", ("rmsnorm_kernel",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
@@ -553,6 +806,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import spec_verify as sv
     from repro_torch.kernels import varlen_prefill as vp
 
     info = _build.build_info()
@@ -563,7 +817,7 @@ def main() -> int:
             print(f"   ptxas {line.strip()}")
     _done(torch, "1. environment and build", t0)
 
-    t0 = _phase("2. kernels vs plain versions (glm4-9b widths, bf16)")
+    t0 = _phase("2. kernels vs plain versions (glm4-9b widths, bf16; bf16/int8/fp8 pools)")
     records = kernels_phase(torch, dev)
     _done(torch, "2. kernels", t0)
 
@@ -572,29 +826,32 @@ def main() -> int:
     _done(torch, "3. check", t0)
 
     t0 = _phase("4. serve: glm4-9b full width and depth, random bf16 weights")
-    counters = {"rmsnorm": rn, "paged_attention": pa, "varlen_prefill": vp}
-    counts, engine, reqs = serve_phase(torch, dev, counters)
+    counters = {"rmsnorm": rn, "paged_attention": pa, "spec_verify": sv, "varlen_prefill": vp}
+    launches, engine, reqs = serve_phase(torch, dev, counters)
     _done(torch, "4. serve", t0)
 
     t0 = _phase("5. where the time goes (torch.profiler, device time by kernel class)")
     profile_phase(torch, engine, reqs)
     _done(torch, "5. profile", t0)
 
-    replaces = {
+    sources = {
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:26"),
         "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention.py:105"),
+        "spec_verify": ("src/repro_torch/kernels/csrc/spec_verify.cu",
+                        "src/repro/kernels/spec_verify.py:130"),
         "varlen_prefill": ("src/repro_torch/kernels/csrc/varlen_prefill.cu",
                            "src/repro/kernels/varlen_prefill.py:156"),
     }
     kernels = []
     for name, r in records.items():
+        source, replaces = sources[name.split("[")[0]]
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": replaces[name][0],
-            "replaces": replaces[name][1],
-            "launches": counts[name],
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[name],
             "max_abs_err": r["err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],

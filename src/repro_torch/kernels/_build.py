@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 PACKAGE = CSRC.parents[1]                  # <root>/src/repro_torch
 CHECKOUT = PACKAGE.parents[1]              # <root>
-SOURCES = ("rmsnorm.cu", "paged_attention.cu", "varlen_prefill.cu")
+SOURCES = ("rmsnorm.cu", "paged_attention.cu", "varlen_prefill.cu", "spec_verify.cu")
 HEADERS = ("common.cuh",)
 BUILD_ROOT = CHECKOUT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
@@ -38,18 +38,25 @@ NVCC_FLAGS = (
 )
 LIB_NAME = "librepro_torch_kernels.so"
 
-# runtime dtype codes of csrc/common.cuh
+# runtime dtype codes of csrc/common.cuh: the compute dtype (q, activations,
+# outputs) and, apart from it, the storage of a paged K/V pool (KVStore):
+# 0 = the compute dtype, else 1-byte codes with float32 scales
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+KV_STORE_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
+# shared memory one block may use on an H100 (csrc/common.cuh allow_smem)
+SMEM_LIMIT = 227 * 1024
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # every C entry point, with its argument types (pointers and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
     "rt_rmsnorm": (_P, _P, _P, _LL, _LL, _F, _I, _P),
-    "rt_paged_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _F, _F, _I, _P),
-    "rt_varlen_prefill": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                          _I, _I, _I, _I, _I, _I, _F, _F, _I, _P),
+    "rt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _F, _F, _I, _I, _P),
+    "rt_varlen_prefill": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P),
+    "rt_spec_verify": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _F, _F, _I, _I, _P),
 }
 
 
@@ -188,3 +195,52 @@ def require(cond: bool, msg: str) -> None:
     """Argument check of a kernel wrapper: raise on what the kernel does not take."""
     if not cond:
         raise ValueError(msg)
+
+
+class SharedMemoryError(ValueError):
+    """An attention tile that needs more shared memory than one block of
+    the card has: the kernel cannot run it, and nothing falls back."""
+
+
+def check_tile(name: str, rows: int, page_size: int, d: int) -> None:
+    """Raise :class:`SharedMemoryError` when the common.cuh tile of ``rows``
+    query rows, ``page_size`` keys and head dim ``d`` (all float32, see
+    ``tile_floats``) exceeds :data:`SMEM_LIMIT`."""
+    floats = (rows * (d + 1) + page_size * (d + 1) + page_size * d
+              + rows * page_size + 3 * rows + rows * d)
+    if 4 * floats > SMEM_LIMIT:
+        raise SharedMemoryError(
+            f"{name}: a tile of {rows} query rows x {page_size} keys at head dim {d} "
+            f"needs {4 * floats} bytes of shared memory, above the card's {SMEM_LIMIT}"
+        )
+
+
+def kv_store_code(name: str, q: torch.Tensor, k_pages: torch.Tensor,
+                  v_pages: torch.Tensor, k_scales: Optional[torch.Tensor],
+                  v_scales: Optional[torch.Tensor]) -> int:
+    """The KVStore code of a pool pairing the kernels take: pools of q's
+    dtype with no scales (0), or int8/fp8 pools with float32 scales of the
+    pool's shape less its last axis (1, 2).  Raises on anything else."""
+    require(k_pages.dtype == v_pages.dtype, f"{name}: k and v pools differ in dtype")
+    if k_pages.dtype == q.dtype:
+        require(k_scales is None and v_scales is None,
+                f"{name}: scales given for a full-precision {k_pages.dtype} pool")
+        return 0
+    if k_pages.dtype not in KV_STORE_CODES:
+        raise TypeError(
+            f"{name}: pool dtype {k_pages.dtype} with q {q.dtype} not supported by the "
+            f"CUDA kernel (expected q's dtype or one of {list(KV_STORE_CODES)})"
+        )
+    require(k_scales is not None and v_scales is not None,
+            f"{name}: an {k_pages.dtype} pool needs k_scales and v_scales")
+    for s in (k_scales, v_scales):
+        require(s.dtype == torch.float32 and tuple(s.shape) == tuple(k_pages.shape[:-1]),
+                f"{name}: scales must be float32 {tuple(k_pages.shape[:-1])}")
+        require(s.device == q.device and s.is_contiguous(),
+                f"{name}: scales must be contiguous on {q.device}")
+    return KV_STORE_CODES[k_pages.dtype]
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's device pointer, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()

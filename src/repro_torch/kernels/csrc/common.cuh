@@ -1,9 +1,11 @@
 // Shared pieces of the port's hand-written sm_90a kernels: dtype handling,
-// the C-interface dtype dispatch, and the online-softmax attention tile that
-// paged_attention.cu and varlen_prefill.cu both step through.
+// the C-interface dtype and KV-storage dispatch, and the online-softmax
+// attention tile that paged_attention.cu, varlen_prefill.cu and
+// spec_verify.cu all step through.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -17,9 +19,14 @@ constexpr float kMinL = 1e-37f;  // softmax denominator clamp
 constexpr int kThreads = 256;    // every kernel of the port runs 256 threads
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
+// Storage of a paged K/V pool: the compute dtype, or 1-byte codes with one
+// float32 scale per (pool row, kv head) that the tile loader multiplies in.
+enum KVStore : int { kKVSame = 0, kKVInt8 = 1, kKVFp8 = 2 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
@@ -45,6 +52,33 @@ __host__ __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : 
     default:                                       \
       return (int)cudaErrorInvalidValue;           \
   }
+
+// Runs BODY with KV bound to the pool's storage type: T itself, int8_t or
+// __nv_fp8_e4m3 (e4m3fn bits, torch.float8_e4m3fn).  Nest it inside
+// RT_DISPATCH, which binds T.
+#define RT_DISPATCH_KV(store, T, KV, ...)          \
+  switch (store) {                                 \
+    case ::rt::kKVSame: {                          \
+      using KV = T;                                \
+      __VA_ARGS__;                                 \
+    } break;                                       \
+    case ::rt::kKVInt8: {                          \
+      using KV = int8_t;                           \
+      __VA_ARGS__;                                 \
+    } break;                                       \
+    case ::rt::kKVFp8: {                           \
+      using KV = __nv_fp8_e4m3;                    \
+      __VA_ARGS__;                                 \
+    } break;                                       \
+    default:                                       \
+      return (int)cudaErrorInvalidValue;           \
+  }
+
+// Scale pools are given (non-null, both) exactly when the pool stores codes.
+inline bool kv_args_ok(int store, const void* k_scales, const void* v_scales) {
+  const bool scaled = store != kKVSame;
+  return (k_scales != nullptr) == scaled && (v_scales != nullptr) == scaled;
+}
 
 // ---------------------------------------------------------------------------
 // Online-softmax attention tile in shared memory.
@@ -105,21 +139,31 @@ __device__ inline void tile_load_q(const Tile& t, const T* __restrict__ src, Row
   }
 }
 
-// Load PS key/value rows; key row j starts at offset(j) in k_src and v_src.
-// Rows no query may read (row_ok(j) false: past the live length, outside
-// the committed context, pad) are zeroed, so stale or uninitialised memory
-// can never reach the accumulator through a zero probability.
-template <typename T, class RowOffset, class RowOk>
-__device__ inline void tile_load_kv(const Tile& t, const T* __restrict__ k_src,
-                                    const T* __restrict__ v_src, RowOffset offset,
+// Load PS key/value rows; key row j starts at element offset(j) in k_src
+// and v_src.  Rows no query may read (row_ok(j) false: past the live length,
+// outside the committed context, pad) are zeroed, so stale or uninitialised
+// memory can never reach the accumulator through a zero probability.
+// With scales (k_scale non-null: an int8/fp8 pool) each loaded code is
+// dequantized at once, code * scale in float32: the scale of row j and its
+// kv head sits at offset(j) / d, because the scale pools (num_pages, ps, kvh)
+// index the pool rows (num_pages, ps, kvh, d) without their last axis.
+template <typename KV, class RowOffset, class RowOk>
+__device__ inline void tile_load_kv(const Tile& t, const KV* __restrict__ k_src,
+                                    const KV* __restrict__ v_src,
+                                    const float* __restrict__ k_scale,
+                                    const float* __restrict__ v_scale, RowOffset offset,
                                     RowOk row_ok) {
   for (int i = threadIdx.x; i < t.PS * t.d; i += blockDim.x) {
     const int j = i / t.d, c = i % t.d;
     float kv = 0.f, vv = 0.f;
     if (row_ok(j)) {
-      const int64_t o = offset(j) + c;
-      kv = to_f32(k_src[o]);
-      vv = to_f32(v_src[o]);
+      const int64_t row = offset(j);
+      kv = to_f32(k_src[row + c]);
+      vv = to_f32(v_src[row + c]);
+      if (k_scale != nullptr) {
+        kv *= k_scale[row / t.d];
+        vv *= v_scale[row / t.d];
+      }
     }
     t.k[j * (t.d + 1) + c] = kv;
     t.v[j * t.d + c] = vv;

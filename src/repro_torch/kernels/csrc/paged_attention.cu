@@ -16,14 +16,18 @@
 // whose table points at the scratch page read it like any page; their output
 // is never used.  The whole cache of a long request streams through one SM;
 // splitting the page range over blocks (flash-decoding) is later work.
+// An int8/fp8 pool (KV = int8_t or __nv_fp8_e4m3) halves the bytes of every
+// live row; each code is dequantized at load with its row's f32 scale, so
+// the tile math stays f32, as in the TPU kernel.
 #include "common.cuh"
 
 namespace {
 
-template <typename T>
+template <typename T, typename KV>
 __global__ void __launch_bounds__(rt::kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                       const T* __restrict__ v_pages, const int32_t* __restrict__ table,
+paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k_pages,
+                       const KV* __restrict__ v_pages, const float* __restrict__ k_scales,
+                       const float* __restrict__ v_scales, const int32_t* __restrict__ table,
                        const int32_t* __restrict__ lengths, T* __restrict__ out, int h,
                        int kvh, int d, int ps, int table_stride, int max_pages, int window,
                        float scale, float softcap) {
@@ -46,7 +50,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     };
     auto offset = [&](int j) -> int64_t { return (page * ps + j) * row_stride + (int64_t)g * d; };
     __syncthreads();  // the previous step's readers are done with K/V
-    rt::tile_load_kv(t, k_pages, v_pages, offset, key_ok);
+    rt::tile_load_kv(t, k_pages, v_pages, k_scales, v_scales, offset, key_ok);
     __syncthreads();
     rt::tile_step(t, scale, softcap, [&](int, int j) { return key_ok(j); });
   }
@@ -58,25 +62,28 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 
 // q, out: (b, 1, h, d); k_pages, v_pages: (num_pages, ps, kvh, d); table:
 // (b, table_stride) int32, of which the first max_pages columns are read;
-// lengths: (b,) int32.  All contiguous; q, pools and out of one dtype.
-// window <= 0 means none.
+// lengths: (b,) int32.  All contiguous; q and out of one dtype, the pools
+// of that dtype (kv_store 0, scales null) or int8/fp8 codes (kv_store 1/2)
+// with float32 k_scales, v_scales (num_pages, ps, kvh).  window <= 0 means
+// none.
 extern "C" int rt_paged_attention(const void* q, const void* k_pages, const void* v_pages,
+                                  const void* k_scales, const void* v_scales,
                                   const void* table, const void* lengths, void* out, int b,
                                   int h, int kvh, int d, int ps, int table_stride, int max_pages,
                                   int window, float scale, float softcap, int dtype,
-                                  void* stream) {
+                                  int kv_store, void* stream) {
   if (b <= 0 || kvh <= 0 || h % kvh || d <= 0 || ps <= 0 || max_pages <= 0 ||
-      max_pages > table_stride || kvh > 65535)
+      max_pages > table_stride || kvh > 65535 || !rt::kv_args_ok(kv_store, k_scales, v_scales))
     return (int)cudaErrorInvalidValue;
   const size_t smem = rt::tile_floats(h / kvh, ps, d) * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
-  RT_DISPATCH(dtype, T, {
-    cudaError_t e = rt::allow_smem(paged_attention_kernel<T>, smem);
+  RT_DISPATCH(dtype, T, RT_DISPATCH_KV(kv_store, T, KV, {
+    cudaError_t e = rt::allow_smem(paged_attention_kernel<T, KV>, smem);
     if (e != cudaSuccess) return (int)e;
-    paged_attention_kernel<T><<<dim3(b, kvh), rt::kThreads, smem, st>>>(
-        (const T*)q, (const T*)k_pages, (const T*)v_pages, (const int32_t*)table,
-        (const int32_t*)lengths, (T*)out, h, kvh, d, ps, table_stride, max_pages, window, scale,
-        softcap);
-  });
+    paged_attention_kernel<T, KV><<<dim3(b, kvh), rt::kThreads, smem, st>>>(
+        (const T*)q, (const KV*)k_pages, (const KV*)v_pages, (const float*)k_scales,
+        (const float*)v_scales, (const int32_t*)table, (const int32_t*)lengths, (T*)out, h, kvh,
+        d, ps, table_stride, max_pages, window, scale, softcap);
+  }));
   return (int)cudaGetLastError();
 }

@@ -19,16 +19,20 @@
 // by pages_bound) and its own packed blocks up to the diagonal, not a
 // padded stage count.  A block made only of pad rows writes zeros and
 // stops.  The fp32 online softmax is the common.cuh tile with an explicit
-// p mask, so fully masked rows keep l = 0.
+// p mask, so fully masked rows keep l = 0.  With an int8/fp8 pool only the
+// committed context pages are codes, dequantized at load with their rows'
+// f32 scales; the chunk's own K/V come full-precision from the packed
+// buffer, as in the TPU kernel.
 #include "common.cuh"
 
 namespace {
 
-template <typename T>
+template <typename T, typename KV>
 __global__ void __launch_bounds__(rt::kThreads)
 varlen_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ k_pages,
-                      const T* __restrict__ v_pages, const int32_t* __restrict__ cu,
+                      const T* __restrict__ v, const KV* __restrict__ k_pages,
+                      const KV* __restrict__ v_pages, const float* __restrict__ k_scales,
+                      const float* __restrict__ v_scales, const int32_t* __restrict__ cu,
                       const int32_t* __restrict__ chunk_lens,
                       const int32_t* __restrict__ chunk_pos0,
                       const int32_t* __restrict__ page_tables, T* __restrict__ out, int C,
@@ -64,7 +68,7 @@ varlen_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     auto key_ok = [&](int j) { return s * ps + j < pos0; };
     auto offset = [&](int j) -> int64_t { return (page * ps + j) * row_stride + (int64_t)g * d; };
     __syncthreads();
-    rt::tile_load_kv(t, k_pages, v_pages, offset, key_ok);
+    rt::tile_load_kv(t, k_pages, v_pages, k_scales, v_scales, offset, key_ok);
     __syncthreads();
     rt::tile_step(t, scale, softcap, [&](int r, int j) {
       return off_q0 + r < seq_len && key_ok(j) && in_window(r, s * ps + j);
@@ -77,7 +81,7 @@ varlen_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       return ((int64_t)(sblk + tb) * ps + j) * row_stride + (int64_t)g * d;
     };
     __syncthreads();
-    rt::tile_load_kv(t, k, v, offset, key_ok);
+    rt::tile_load_kv(t, k, v, nullptr, nullptr, offset, key_ok);
     __syncthreads();
     rt::tile_step(t, scale, softcap, [&](int r, int j) {
       const int off_k = tb * ps + j;
@@ -93,28 +97,31 @@ varlen_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // q, out: (T, h, d); k, v: (T, kvh, d); pools: (num_pages, ps, kvh, d);
 // cu: (C+1,), chunk_lens, chunk_pos0: (C,), page_tables: (C, max_pages), all
-// int32.  T is a multiple of ps.  All contiguous; q, k, v, pools and out of
-// one dtype.  ctx_bound caps context pages per chunk; window <= 0 means none.
+// int32.  T is a multiple of ps.  All contiguous; q, k, v and out of one
+// dtype, the pools of that dtype (kv_store 0, scales null) or int8/fp8
+// codes (kv_store 1/2) with float32 k_scales, v_scales (num_pages, ps, kvh).
+// ctx_bound caps context pages per chunk; window <= 0 means none.
 extern "C" int rt_varlen_prefill(const void* q, const void* k, const void* v,
-                                 const void* k_pages, const void* v_pages, const void* cu,
+                                 const void* k_pages, const void* v_pages,
+                                 const void* k_scales, const void* v_scales, const void* cu,
                                  const void* chunk_lens, const void* chunk_pos0,
                                  const void* page_tables, void* out, int T, int C, int h,
                                  int kvh, int d, int ps, int max_pages, int ctx_bound,
                                  int window, float scale, float softcap, int dtype,
-                                 void* stream) {
+                                 int kv_store, void* stream) {
   if (T <= 0 || C <= 0 || ps <= 0 || T % ps || kvh <= 0 || h % kvh || d <= 0 ||
-      max_pages <= 0 || h > 65535)
+      max_pages <= 0 || h > 65535 || !rt::kv_args_ok(kv_store, k_scales, v_scales))
     return (int)cudaErrorInvalidValue;
   const size_t smem = rt::tile_floats(ps, ps, d) * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
-  RT_DISPATCH(dtype, T_, {
-    cudaError_t e = rt::allow_smem(varlen_prefill_kernel<T_>, smem);
+  RT_DISPATCH(dtype, T_, RT_DISPATCH_KV(kv_store, T_, KV, {
+    cudaError_t e = rt::allow_smem(varlen_prefill_kernel<T_, KV>, smem);
     if (e != cudaSuccess) return (int)e;
-    varlen_prefill_kernel<T_><<<dim3(T / ps, h), rt::kThreads, smem, st>>>(
-        (const T_*)q, (const T_*)k, (const T_*)v, (const T_*)k_pages, (const T_*)v_pages,
-        (const int32_t*)cu, (const int32_t*)chunk_lens, (const int32_t*)chunk_pos0,
-        (const int32_t*)page_tables, (T_*)out, C, h, kvh, d, ps, max_pages, ctx_bound,
-        window, scale, softcap);
-  });
+    varlen_prefill_kernel<T_, KV><<<dim3(T / ps, h), rt::kThreads, smem, st>>>(
+        (const T_*)q, (const T_*)k, (const T_*)v, (const KV*)k_pages, (const KV*)v_pages,
+        (const float*)k_scales, (const float*)v_scales, (const int32_t*)cu,
+        (const int32_t*)chunk_lens, (const int32_t*)chunk_pos0, (const int32_t*)page_tables,
+        (T_*)out, C, h, kvh, d, ps, max_pages, ctx_bound, window, scale, softcap);
+  }));
   return (int)cudaGetLastError();
 }

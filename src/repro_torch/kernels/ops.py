@@ -15,6 +15,7 @@ import torch
 from . import ref
 from .paged_attention import paged_attention as _paged_attention
 from .rmsnorm import rmsnorm as _rmsnorm
+from .spec_verify import spec_verify as _spec_verify
 from .varlen_prefill import varlen_prefill as _varlen_prefill
 
 NEG_INF = ref.NEG_INF
@@ -35,15 +36,18 @@ def varlen_prefill(
     window=None,
     scale: Optional[float] = None,
     pages_bound: Optional[int] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Packed ragged-prefill attention: chunks from many requests share one
     token-packed buffer; each chunk attends its request's committed pages
     plus the causal prefix of its own tokens.  ``pages_bound`` bounds
-    context pages per chunk (host-known, bucketed)."""
+    context pages per chunk (host-known, bucketed); ``k_scales``/
+    ``v_scales`` come with an int8/fp8 pool."""
     return _varlen_prefill(
         q, k, v, k_pages, v_pages, cu_seqlens, chunk_lens, chunk_pos0,
         page_tables, softcap=softcap, window=window, scale=scale,
-        pages_bound=pages_bound,
+        pages_bound=pages_bound, k_scales=k_scales, v_scales=v_scales,
     )
 
 
@@ -58,12 +62,41 @@ def paged_attention(
     window=None,
     scale: Optional[float] = None,
     pages_bound: Optional[int] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Decode attention over a paged KV cache (global page pool + per-request
     page table).  ``pages_bound`` bounds the live pages per request."""
     return _paged_attention(
         q, k_pages, v_pages, page_table, lengths, softcap=softcap,
         window=window, scale=scale, pages_bound=pages_bound,
+        k_scales=k_scales, v_scales=v_scales,
+    )
+
+
+def spec_verify(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    window_lens: torch.Tensor,
+    *,
+    softcap: float = 0.0,
+    window=None,
+    scale: Optional[float] = None,
+    pages_bound: Optional[int] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Speculative multi-token verification over a paged KV cache: one
+    ``(b, W)`` launch scores each slot's ``[next_token, draft_1..]`` window
+    against its committed pages plus the window's own causal prefix.
+    ``pages_bound`` bounds committed-plus-in-flight pages per slot."""
+    return _spec_verify(
+        q, k_pages, v_pages, page_table, lengths, window_lens, softcap=softcap,
+        window=window, scale=scale, pages_bound=pages_bound,
+        k_scales=k_scales, v_scales=v_scales,
     )
 
 

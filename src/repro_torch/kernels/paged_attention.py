@@ -1,9 +1,9 @@
 """Paged decode attention: wrapper of the CUDA kernel
 ``csrc/paged_attention.cu``.
 
-Replaces the TPU kernel ``repro/kernels/paged_attention.py:paged_attention``
-for a full-precision pool (the int8/fp8 pools with fused dequantization are
-later work).  A CPU tensor runs the plain version
+Replaces the TPU kernel ``repro/kernels/paged_attention.py:paged_attention``,
+for a pool of q's dtype or an int8/fp8 pool with float32 per-row scales
+(dequantized inside the kernel).  A CPU tensor runs the plain version
 (:func:`repro_torch.kernels.ref.paged_attention`); a CUDA tensor launches
 the kernel or raises.  ``launches`` counts kernel launches.
 """
@@ -29,10 +29,13 @@ def paged_attention(
     window=None,
     scale: Optional[float] = None,
     pages_bound: Optional[int] = None,
+    k_scales: Optional[torch.Tensor] = None,  # (num_pages, page_size, kvh) f32
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One-token decode attention over each request's live pages.
     ``pages_bound`` caps the pages visited per request (the kernel otherwise
-    walks exactly ``ceil(len / page_size)`` of them)."""
+    walks exactly ``ceil(len / page_size)`` of them).  ``k_scales``/
+    ``v_scales`` come with an int8/fp8 pool, and only with one."""
     global launches
     width = page_table.shape[-1]
     bound = width if pages_bound is None else max(min(int(pages_bound), width), 1)
@@ -40,6 +43,7 @@ def paged_attention(
         return ref.paged_attention(
             q, k_pages, v_pages, page_table[:, :bound], lengths,
             softcap=softcap, window=window, scale=scale,
+            k_scales=k_scales, v_scales=v_scales,
         )
     req = _build.require
     req(q.device.type == "cuda", f"paged_attention: unsupported device {q.device}")
@@ -55,20 +59,21 @@ def paged_attention(
         "paged_attention: table and lengths must be int32")
     for t in (k_pages, v_pages, page_table, lengths):
         req(t.device == q.device, "paged_attention: inputs on different devices")
-    req(k_pages.dtype == q.dtype and v_pages.dtype == q.dtype,
-        "paged_attention: q and pools must share a dtype (full-precision pool)")
     for t in (q, k_pages, v_pages, page_table, lengths):
         req(t.is_contiguous(), "paged_attention: inputs must be contiguous")
     code = _build.dtype_code(q, "paged_attention")
+    store = _build.kv_store_code("paged_attention", q, k_pages, v_pages, k_scales, v_scales)
+    _build.check_tile("paged_attention", h // kvh, ps, d)
     scale = d ** -0.5 if scale is None else float(scale)
     w = 0 if window is None else int(window)
     out = torch.empty_like(q)
     lib = _build.library()
     err = lib.rt_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        _build.ptr(k_scales), _build.ptr(v_scales),
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         b, h, kvh, d, ps, width, bound, w, scale, float(softcap),
-        code, _build.stream_of(q),
+        code, store, _build.stream_of(q),
     )
     launches += 1
     _build.check_launch(err, "paged_attention")

@@ -7,7 +7,9 @@ masked rows exactly zero, logical positions (page ``j`` covers
 ``[j*ps, (j+1)*ps)``) and query head ``h`` reading kv head ``h // (h/kvh)``.
 On the CPU the kernel wrappers run these; on the card ``chip_smoke.py``
 holds each kernel against them.  They are naive and memory-hungry, and no
-yardstick of speed.
+yardstick of speed.  An int8/fp8 pool comes with float32 ``k_scales``/
+``v_scales`` ``(num_pages, page_size, kvh)``; the gathered pool rows are
+dequantized (``code * scale``) and everything is computed in float32.
 """
 from __future__ import annotations
 
@@ -25,6 +27,17 @@ def _soft_cap(x: torch.Tensor, cap: float) -> torch.Tensor:
 def _windowed(window) -> bool:
     # the kernels take the window as an int where 0 means "no window"
     return window is not None and int(window) > 0
+
+
+def _gather(pages: torch.Tensor, scales: Optional[torch.Tensor],
+            rows: torch.Tensor) -> torch.Tensor:
+    """Pool pages ``rows`` (any shape of page ids) as ``(*rows.shape *
+    page_size, kvh, d)`` rows: as stored for a full-precision pool,
+    dequantized to float32 for an int8/fp8 pool."""
+    out = pages[rows]
+    if scales is not None:
+        out = out.float() * scales[rows].float()[..., None]
+    return out.reshape(*rows.shape[:-1], -1, *pages.shape[2:])
 
 
 def _attend(q, k, v, valid, scale: float, softcap: float) -> torch.Tensor:
@@ -57,20 +70,19 @@ def paged_attention(
     softcap: float = 0.0,
     window=None,
     scale: Optional[float] = None,
+    k_scales: Optional[torch.Tensor] = None,  # (num_pages, page_size, kvh) f32
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Decode attention over a paged pool: gather each request's pages back
     into a contiguous cache and attend the live positions ``[0, len)`` (or
     ``[len - window, len)``).  Only the table's ``max_pages`` columns are
     visited, so a caller bounds the pages by slicing the table."""
-    b, _, h, d = q.shape
-    _, page_size, kvh, _ = k_pages.shape
-    max_pages = page_table.shape[1]
+    d = q.shape[-1]
     scale = d ** -0.5 if scale is None else scale
     tbl = page_table.long()
-    S = max_pages * page_size
-    k = k_pages[tbl].reshape(b, S, kvh, d)
-    v = v_pages[tbl].reshape(b, S, kvh, d)
-    k_pos = torch.arange(S, device=q.device)[None, :]
+    k = _gather(k_pages, k_scales, tbl)                      # (b, S, kvh, d)
+    v = _gather(v_pages, v_scales, tbl)
+    k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
     L = lengths.to(q.device).long()[:, None]
     valid = k_pos < L
     if _windowed(window):
@@ -94,14 +106,18 @@ def varlen_prefill(
     window=None,
     scale: Optional[float] = None,
     pages_bound: Optional[int] = None,
+    k_scales: Optional[torch.Tensor] = None,  # (num_pages, page_size, kvh) f32
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Packed ragged prefill: per chunk, attend the request's committed
     context pages ``[0, pos0)`` plus the causal prefix of the chunk itself.
     Rows outside any chunk's real tokens (chunk pad and buffer tail) come
     back exactly zero.  ``pages_bound`` caps the context pages read per
-    chunk, as in the TPU kernel.  A host loop over chunks."""
+    chunk, as in the TPU kernel.  With a quantized pool only the context
+    pages are dequantized; the chunk's own K/V are full precision.  A host
+    loop over chunks."""
     T, h, d = q.shape
-    page_size, kvh = k_pages.shape[1], k_pages.shape[2]
+    page_size = k_pages.shape[1]
     C, max_pages = page_tables.shape
     scale = d ** -0.5 if scale is None else scale
     ctx_bound = max_pages if pages_bound is None else min(pages_bound, max_pages)
@@ -120,10 +136,10 @@ def varlen_prefill(
         kc, vc = k[s0 : s0 + n], v[s0 : s0 + n]
         if ctx:
             rows = tables[c, :n_ctx]
-            kctx = k_pages[rows].reshape(n_ctx * page_size, kvh, d)[:ctx]
-            vctx = v_pages[rows].reshape(n_ctx * page_size, kvh, d)[:ctx]
-            kc = torch.cat([kctx.to(kc.dtype), kc])
-            vc = torch.cat([vctx.to(vc.dtype), vc])
+            kctx = _gather(k_pages, k_scales, rows)[:ctx]
+            vctx = _gather(v_pages, v_scales, rows)[:ctx]
+            kc = torch.cat([kctx.float(), kc.float()])
+            vc = torch.cat([vctx.float(), vc.float()])
         q_pos = pos0 + torch.arange(n, device=q.device)
         k_pos = torch.cat([torch.arange(ctx, device=q.device), q_pos])
         valid = q_pos[:, None] >= k_pos[None, :]
@@ -133,6 +149,42 @@ def varlen_prefill(
                     scale, softcap)
         out[s0 : s0 + n] = o[0].to(q.dtype)
     return out
+
+
+def spec_verify(
+    q: torch.Tensor,            # (b, W, h, d) one in-flight window per slot
+    k_pages: torch.Tensor,      # (num_pages, page_size, kvh, d) global pool
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,   # (b, max_pages) int32 page ids per request
+    lengths: torch.Tensor,      # (b,) int32 committed tokens BEFORE the window
+    window_lens: torch.Tensor,  # (b,) int32 real window tokens per row (0..W)
+    *,
+    softcap: float = 0.0,
+    window=None,
+    scale: Optional[float] = None,
+    k_scales: Optional[torch.Tensor] = None,  # (num_pages, page_size, kvh) f32
+    v_scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Speculative verification: row ``b`` holds ``window_lens[b]`` in-flight
+    tokens whose K/V are already in the request's pages at positions
+    ``[lengths[b], lengths[b] + window_lens[b])``.  Query ``w`` sits at
+    absolute position ``lengths[b] + w`` and attends every position ``<=
+    lengths[b] + w`` (inside the window, if any).  Rows ``w >=
+    window_lens[b]`` come back exactly zero (explicit p mask).  Gathers the
+    table's ``max_pages`` columns, so a caller bounds the pages by slicing
+    the table."""
+    W, d = q.shape[1], q.shape[-1]
+    scale = d ** -0.5 if scale is None else scale
+    tbl = page_table.long()
+    k = _gather(k_pages, k_scales, tbl)                      # (b, S, kvh, d)
+    v = _gather(v_pages, v_scales, tbl)
+    k_pos = torch.arange(k.shape[1], device=q.device)[None, None, :]
+    w_idx = torch.arange(W, device=q.device)[None, :, None]
+    q_pos = lengths.to(q.device).long()[:, None, None] + w_idx
+    valid = (k_pos <= q_pos) & (w_idx < window_lens.to(q.device).long()[:, None, None])
+    if _windowed(window):
+        valid &= (q_pos - k_pos) < int(window)
+    return _attend(q, k, v, valid, scale, softcap).to(q.dtype)
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

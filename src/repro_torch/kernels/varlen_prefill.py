@@ -1,9 +1,10 @@
 """Packed varlen prefill attention: wrapper of the CUDA kernel
 ``csrc/varlen_prefill.cu``.
 
-Replaces the TPU kernel ``repro/kernels/varlen_prefill.py:varlen_prefill``
-for a full-precision pool (fused dequantization of context pages is later
-work).  A CPU tensor runs the plain version
+Replaces the TPU kernel ``repro/kernels/varlen_prefill.py:varlen_prefill``,
+for a pool of q's dtype or an int8/fp8 pool with float32 per-row scales
+(the context pages are dequantized inside the kernel; the chunks' own packed
+K/V stay full precision).  A CPU tensor runs the plain version
 (:func:`repro_torch.kernels.ref.varlen_prefill`); a CUDA tensor launches
 the kernel or raises.  ``launches`` counts kernel launches.
 """
@@ -33,6 +34,8 @@ def varlen_prefill(
     window=None,
     scale: Optional[float] = None,
     pages_bound: Optional[int] = None,
+    k_scales: Optional[torch.Tensor] = None,  # (num_pages, page_size, kvh) f32
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Attention of every packed chunk over its request's committed pages
     plus its own causal prefix; pad rows come back exactly zero.  Chunk
@@ -42,7 +45,7 @@ def varlen_prefill(
         return ref.varlen_prefill(
             q, k, v, k_pages, v_pages, cu_seqlens, chunk_lens, chunk_pos0,
             page_tables, softcap=softcap, window=window, scale=scale,
-            pages_bound=pages_bound,
+            pages_bound=pages_bound, k_scales=k_scales, v_scales=v_scales,
         )
     req = _build.require
     req(q.device.type == "cuda", f"varlen_prefill: unsupported device {q.device}")
@@ -61,12 +64,14 @@ def varlen_prefill(
         "varlen_prefill: cu_seqlens (C+1,), chunk_lens and chunk_pos0 (C,)")
     ints = (cu_seqlens, chunk_lens, chunk_pos0, page_tables)
     req(all(t.dtype == torch.int32 for t in ints), "varlen_prefill: metadata must be int32")
-    req(all(t.dtype == q.dtype for t in (k, v, k_pages, v_pages)),
-        "varlen_prefill: q, k, v and pools must share a dtype (full-precision pool)")
+    req(k.dtype == q.dtype and v.dtype == q.dtype,
+        "varlen_prefill: q and the packed k, v must share a dtype")
     for t in (q, k, v, k_pages, v_pages, *ints):
         req(t.device == q.device, "varlen_prefill: inputs on different devices")
         req(t.is_contiguous(), "varlen_prefill: inputs must be contiguous")
     code = _build.dtype_code(q, "varlen_prefill")
+    store = _build.kv_store_code("varlen_prefill", q, k_pages, v_pages, k_scales, v_scales)
+    _build.check_tile("varlen_prefill", ps, ps, d)
     scale = d ** -0.5 if scale is None else float(scale)
     ctx_bound = max_pages if pages_bound is None else min(int(pages_bound), max_pages)
     w = 0 if window is None else int(window)
@@ -74,10 +79,11 @@ def varlen_prefill(
     lib = _build.library()
     err = lib.rt_varlen_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), k_pages.data_ptr(),
-        v_pages.data_ptr(), cu_seqlens.data_ptr(), chunk_lens.data_ptr(),
+        v_pages.data_ptr(), _build.ptr(k_scales), _build.ptr(v_scales),
+        cu_seqlens.data_ptr(), chunk_lens.data_ptr(),
         chunk_pos0.data_ptr(), page_tables.data_ptr(), out.data_ptr(),
         T, C, h, kvh, d, ps, max_pages, ctx_bound, w, scale, float(softcap),
-        code, _build.stream_of(q),
+        code, store, _build.stream_of(q),
     )
     launches += 1
     _build.check_launch(err, "varlen_prefill")

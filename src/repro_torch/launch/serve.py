@@ -5,8 +5,10 @@ plus ``--device`` and ``--dtype``.  Runs on ``cuda`` unless ``--device cpu``
 is given.  The model config is the reduced one unless ``--full`` asks for
 the published widths and depth; weights are random, from ``--seed``.
 Prompts are random tokens with lengths drawn uniformly from
-``[--prompt-len-min, --prompt-len]``.  Prints a plain summary (the
-analysis report sections of the JAX driver come with a later slice).
+``[--prompt-len-min, --prompt-len]``.  ``--spec-k``/``--spec-ngram`` turn
+on speculative decoding, ``--kv-dtype int8|fp8`` a quantized pool.  Prints
+a plain summary (the analysis report sections of the JAX driver come with a
+later slice).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from ..configs import get_config, list_archs
 from ..device import DTYPES, resolve_device
+from ..kernels.kvquant import KV_DTYPES
 from ..models.lm import DecoderLM
 from ..serve.engine import ServeRequest, ServingEngine, percentile
 
@@ -64,6 +67,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="global KV page pool size (0 = slots * max pages + 1)")
     ap.add_argument("--prefill-budget", type=int, default=0,
                     help="packed-prefill tokens per boundary (0 = 16 pages)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative draft depth: prompt lookup proposes up to k "
+                         "tokens per slot, one verify step scores all k+1 (0 = off)")
+    ap.add_argument("--spec-ngram", type=int, default=3,
+                    help="prompt-lookup n-gram match length for drafting")
+    ap.add_argument("--kv-dtype", default=None, choices=sorted(KV_DTYPES),
+                    help="store the KV pool as int8/fp8 codes with float32 per-row "
+                         "scales (default: the pool in --dtype)")
     args = ap.parse_args(argv)
     lo = args.prompt_len_min or args.prompt_len
     if not 1 <= lo <= args.prompt_len:
@@ -78,15 +89,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     params = model.init(seed=args.seed)
     engine = ServingEngine(model, params, max_batch=args.engine_batch,
                            max_seq=args.max_seq, page_size=args.page_size,
-                           device=device)
+                           device=device, kv_dtype=args.kv_dtype)
     reqs = make_requests(args.requests, lo, args.prompt_len, args.max_new_tokens,
                          cfg.vocab_size, args.seed)
     print(f"[serve] {cfg.name} on {device} ({model.dtype}), "
-          f"{args.engine_batch} slots, page {args.page_size}, max_seq {args.max_seq}")
+          f"{args.engine_batch} slots, page {args.page_size}, max_seq {args.max_seq}, "
+          f"kv_dtype {engine._kv_dtype_name()}, spec_k {args.spec_k}")
     stats = engine.serve_paged(
         reqs, num_slots=args.engine_batch, page_size=args.page_size,
         num_pages=args.num_pages or None,
         prefill_budget=args.prefill_budget or None,
+        spec_k=args.spec_k, spec_ngram=args.spec_ngram,
     )
     for r in stats.results:
         print(f"[serve] req {r.request_id}: slot {r.slot} (admitted step "
@@ -109,6 +122,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         "ttft_p99_ms": percentile(ttfts, 99.0),
         "peak_pages_in_use": stats.peak_pages_in_use,
         "kv_bytes_per_token": stats.kv_bytes_per_token,
+        **stats.spec_stats,
     }
     for k, v in summary.items():
         print(f"[serve]   {k:20s} {v:.2f}" if isinstance(v, float) else f"[serve]   {k:20s} {v}")

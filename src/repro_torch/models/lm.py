@@ -1,7 +1,9 @@
 """Dense decoder-only LM: the paged serving path of ``repro.models.lm``.
 
-What is ported: parameters, the paged KV pool, one paged decode step
-(:meth:`DecoderLM.decode_paged`) and one packed varlen-prefill launch
+What is ported: parameters, the paged KV pool (full precision, or int8/fp8
+codes with float32 scale pools), one paged decode step
+(:meth:`DecoderLM.decode_paged`), one speculative verify step
+(:meth:`DecoderLM.decode_spec`) and one packed varlen-prefill launch
 (:meth:`DecoderLM.prefill_packed`).  The full-sequence ``forward`` and the
 dense-cache ``prefill``/``decode`` follow with the ``flash_attention`` and
 ``decode_attention`` kernels.  Layers run as a Python loop over a list of
@@ -16,10 +18,11 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from ..device import resolve_device, resolve_dtype
-from ..kernels import ops
+from ..kernels import kvquant, ops
 from .config import ArchConfig
 from .modules import (
     attn_decode_paged,
+    attn_decode_spec,
     attn_defs,
     attn_prefill_packed,
     mlp_apply,
@@ -99,21 +102,40 @@ class DecoderLM:
         return x + mlp_apply(blk["mlp"], self._norm(x, blk["ln2"]))
 
     # -- paged KV pool --------------------------------------------------------------
-    def paged_cache_defs(self, num_pages: int, page_size: int) -> Dict[str, tuple]:
+    def paged_cache_defs(self, num_pages: int, page_size: int,
+                         kv_dtype: Optional[str] = None) -> Dict[str, tuple]:
         """Shapes of the paged KV layout: one global pool of ``page_size``-
-        token pages per layer, indexed through per-request page tables."""
+        token pages per layer, indexed through per-request page tables.  An
+        int8/fp8 ``kv_dtype`` adds the float32 scale pools, one scale per
+        page row per kv head."""
         cfg = self.cfg
-        shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
-        return {"k_pages": shape, "v_pages": shape}
+        L, kv, dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+        shapes = {"k_pages": (L, num_pages, page_size, kv, dh),
+                  "v_pages": (L, num_pages, page_size, kv, dh)}
+        if kvquant.is_quantized(kv_dtype):
+            shapes.update(k_scales=(L, num_pages, page_size, kv),
+                          v_scales=(L, num_pages, page_size, kv))
+        return shapes
 
-    def init_paged_cache(self, num_pages: int, page_size: int) -> Dict[str, torch.Tensor]:
-        """Zeroed full-precision pools in the model's dtype (int8/fp8 pools
-        are later work)."""
+    def init_paged_cache(self, num_pages: int, page_size: int,
+                         kv_dtype: Optional[str] = None) -> Dict[str, torch.Tensor]:
+        """Zeroed pools: in the model's dtype, or int8/fp8 codes (``kv_dtype``
+        ``"int8"``/``"fp8"``) with float32 scale pools."""
+        quantized = kvquant.is_quantized(kv_dtype)
+        store = kvquant.pool_dtype(kv_dtype) if quantized else self.dtype
         return {
-            k: torch.zeros(shape, device=self.device, dtype=self.dtype)
-            for k, shape in self.paged_cache_defs(num_pages, page_size).items()
+            k: torch.zeros(shape, device=self.device,
+                           dtype=torch.float32 if k.endswith("scales") else store)
+            for k, shape in self.paged_cache_defs(num_pages, page_size, kv_dtype).items()
         }
+
+    @staticmethod
+    def _layer_pools(cache: Dict[str, torch.Tensor], li: int) -> tuple:
+        """Layer ``li``'s K/V pools and scale pools (None for a full-precision
+        pool), as views that the layer writes in place."""
+        scales = ((cache["k_scales"][li], cache["v_scales"][li])
+                  if "k_scales" in cache else (None, None))
+        return cache["k_pages"][li], cache["v_pages"][li], *scales
 
     # -- serving ----------------------------------------------------------------------
     def decode_paged(self, params, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -130,13 +152,44 @@ class DecoderLM:
         pos = lengths.to(torch.int32)
         x = self._embed_tokens(params, tokens)[:, None, :]          # (b, 1, D)
         for li, blk in enumerate(params["blocks"]):
+            kp, vp, ks, vs = self._layer_pools(cache, li)
             h = self._norm(x, blk["ln1"])
             a = attn_decode_paged(
-                blk["attn"], h, cache["k_pages"][li], cache["v_pages"][li],
-                page_table, pos, self.cfg, pages_bound=pages_bound,
+                blk["attn"], h, kp, vp, page_table, pos, self.cfg,
+                pages_bound=pages_bound, k_scales=ks, v_scales=vs,
             )
             x = self._block_ffn(blk, x + a)
         return self._logits(params, x)[:, 0]
+
+    def decode_spec(self, params, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
+                    page_table: torch.Tensor, lengths: torch.Tensor,
+                    window_lens: torch.Tensor,
+                    pages_bound: Optional[int] = None) -> torch.Tensor:
+        """One speculative verify step for a pool of slots.
+
+        ``tokens``: (b, W) int32 windows, per slot the pending next token
+        and up to ``W - 1`` draft tokens, right-padded; ``window_lens``: (b,)
+        real tokens per window (0 for idle slots); ``lengths``: (b,) tokens
+        already committed, so the window occupies positions ``[lengths,
+        lengths + window_lens)``.  Every layer writes the window's K/V into
+        the pools in place and attends the committed context plus the
+        window's causal prefix in one launch.  ``pages_bound`` bounds the
+        committed-plus-in-flight pages.  Returns float32 logits (b, W, V):
+        row ``w`` is the next-token distribution after ``tokens[:, :w + 1]``,
+        so greedy acceptance compares ``argmax(logits[:, w - 1])`` with
+        ``tokens[:, w]``."""
+        pos = lengths.to(torch.int32)
+        wlens = window_lens.to(torch.int32)
+        x = self._embed_tokens(params, tokens)                       # (b, W, D)
+        for li, blk in enumerate(params["blocks"]):
+            kp, vp, ks, vs = self._layer_pools(cache, li)
+            h = self._norm(x, blk["ln1"])
+            a = attn_decode_spec(
+                blk["attn"], h, kp, vp, page_table, pos, wlens, self.cfg,
+                pages_bound=pages_bound, k_scales=ks, v_scales=vs,
+            )
+            x = self._block_ffn(blk, x + a)
+        return self._logits(params, x)
 
     def prefill_packed(self, params, batch: Dict[str, torch.Tensor],
                        cache: Dict[str, torch.Tensor],
@@ -158,10 +211,11 @@ class DecoderLM:
         }
         x = self._embed_tokens(params, batch["tokens"])             # (1, T, D)
         for li, blk in enumerate(params["blocks"]):
+            kp, vp, ks, vs = self._layer_pools(cache, li)
             h = self._norm(x, blk["ln1"])
             a = attn_prefill_packed(
-                blk["attn"], h, cache["k_pages"][li], cache["v_pages"][li],
-                meta, self.cfg, pages_bound=pages_bound,
+                blk["attn"], h, kp, vp, meta, self.cfg,
+                pages_bound=pages_bound, k_scales=ks, v_scales=vs,
             )
             x = self._block_ffn(blk, x + a)
         last = batch["last_idx"].long()

@@ -7,7 +7,10 @@ normalisation go through :mod:`repro_torch.kernels.ops`, which sends CUDA
 tensors to the hand-written kernels.  The projections, MLP and LM head are
 plain matrix products, as the JAX package leaves them to XLA.  Public
 functions keep the JAX layouts: activations ``(b, s, D)``, heads
-``(b, s, h, d)``, pools ``(num_pages, page_size, kvh, d)``.
+``(b, s, h, d)``, pools ``(num_pages, page_size, kvh, d)``.  An int8/fp8
+pool comes with float32 scale pools ``(num_pages, page_size, kvh)``: every
+write quantizes its rows (:func:`~repro_torch.kernels.kvquant.quantize`)
+and writes their scales at the same indices, and the kernels dequantize.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels import ops
+from ..kernels import kvquant, ops
 from .config import ArchConfig
 from .params import P
 
@@ -90,6 +93,27 @@ def _project_qkv(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
     return q, k, v
 
 
+SCRATCH_PAGE = 0   # never allocated: writes no request may read land here
+
+
+def _write_kv(k_pages: torch.Tensor, v_pages: torch.Tensor,
+              k_scales: Optional[torch.Tensor], v_scales: Optional[torch.Tensor],
+              idx, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write K/V rows ``k``/``v`` (..., kvh, d) into the pools at ``idx``
+    (page ids, offsets) in place; into an int8/fp8 pool as codes, with
+    their scales at the same indices."""
+    if k_scales is None:
+        k_pages.index_put_(idx, k)
+        v_pages.index_put_(idx, v)
+        return
+    kq, ks = kvquant.quantize(k, k_pages.dtype)
+    vq, vs = kvquant.quantize(v, v_pages.dtype)
+    k_pages.index_put_(idx, kq)
+    v_pages.index_put_(idx, vq)
+    k_scales.index_put_(idx, ks)
+    v_scales.index_put_(idx, vs)
+
+
 def attn_decode_paged(
     p: Dict[str, torch.Tensor],
     x1: torch.Tensor,                     # (b, 1, D) one new token per slot
@@ -101,6 +125,8 @@ def attn_decode_paged(
     *,
     window=None,
     pages_bound: Optional[int] = None,
+    k_scales: Optional[torch.Tensor] = None,  # (num_pages, page_size, kv) f32
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Single-token attention against a paged KV pool.
 
@@ -116,11 +142,58 @@ def attn_decode_paged(
     rows = torch.arange(b, device=pos.device)
     page_ids = page_table[rows, pos_l // page_size].long()
     offsets = pos_l % page_size
-    k_pages.index_put_((page_ids, offsets), k[:, 0])
-    v_pages.index_put_((page_ids, offsets), v[:, 0])
+    _write_kv(k_pages, v_pages, k_scales, v_scales, (page_ids, offsets), k[:, 0], v[:, 0])
     out = ops.paged_attention(
         q, k_pages, v_pages, page_table, pos + 1,
         softcap=cfg.attn_softcap, window=window, pages_bound=pages_bound,
+        k_scales=k_scales, v_scales=v_scales,
+    )
+    return _heads_out(out, p["wo"])
+
+
+def attn_decode_spec(
+    p: Dict[str, torch.Tensor],
+    xw: torch.Tensor,                     # (b, W, D) one in-flight window per slot
+    k_pages: torch.Tensor,                # (num_pages, page_size, kv, dh)
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,             # (b, max_pages) int32
+    lengths: torch.Tensor,                # (b,) int32 committed tokens before the window
+    window_lens: torch.Tensor,            # (b,) int32 real window tokens (0..W)
+    cfg: ArchConfig,
+    *,
+    window=None,
+    pages_bound: Optional[int] = None,
+    k_scales: Optional[torch.Tensor] = None,  # (num_pages, page_size, kv) f32
+    v_scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Speculative-verification attention: each slot's ``[next_token,
+    draft_1..]`` window is scored against the paged pool in one launch.
+
+    The window's K/V are written first, at positions ``lengths[b] + w``
+    through the page table, then every query attends its absolute-position
+    causal prefix, so the window's own tokens are seen as by a run of
+    one-token decode steps.  Pad rows (``w >= window_lens[b]``: window pad
+    and idle slots) write into the scratch page, never into a live one.
+    (The JAX module scatters them through the table with the page index
+    clamped to the last column, which overwrites a committed row of a
+    request whose pad positions run past the table.)  A rejected suffix
+    rolls back by rewinding ``lengths``.  Returns y (b, W, D)."""
+    b, W, _ = xw.shape
+    page_size = k_pages.shape[1]
+    max_pages = page_table.shape[1]
+    w_idx = torch.arange(W, device=xw.device, dtype=torch.int32)
+    tok_pos = lengths[:, None].to(torch.int32) + w_idx[None, :]     # (b, W)
+    q, k, v = _project_qkv(p, xw, cfg, tok_pos)
+    tok_l = tok_pos.long()
+    pidx = (tok_l // page_size).clamp_max(max_pages - 1)
+    real = w_idx[None, :] < window_lens[:, None]
+    page_ids = torch.where(real, page_table.long().gather(1, pidx),
+                           torch.full_like(pidx, SCRATCH_PAGE))
+    _write_kv(k_pages, v_pages, k_scales, v_scales, (page_ids, tok_l % page_size), k, v)
+    out = ops.spec_verify(
+        q, k_pages, v_pages, page_table, lengths, window_lens,
+        softcap=cfg.attn_softcap, window=window, pages_bound=pages_bound,
+        k_scales=k_scales, v_scales=v_scales,
     )
     return _heads_out(out, p["wo"])
 
@@ -135,6 +208,8 @@ def attn_prefill_packed(
     *,
     window=None,
     pages_bound: Optional[int] = None,
+    k_scales: Optional[torch.Tensor] = None,  # (num_pages, page_size, kv) f32
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One packed varlen-prefill step: chunks of many requests share the
     packed buffer; each attends its request's committed pages plus the
@@ -158,9 +233,9 @@ def attn_prefill_packed(
         meta["cu_seqlens"], meta["chunk_lens"], meta["chunk_pos0"],
         meta["page_tables"],
         softcap=cfg.attn_softcap, window=window, pages_bound=pages_bound,
+        k_scales=k_scales, v_scales=v_scales,
     )
     y = _heads_out(out[None], p["wo"])
     dst = (meta["dst_page"].long(), meta["dst_off"].long())
-    k_pages.index_put_(dst, k[0])
-    v_pages.index_put_(dst, v[0])
+    _write_kv(k_pages, v_pages, k_scales, v_scales, dst, k[0], v[0])
     return y

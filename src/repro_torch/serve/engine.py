@@ -15,10 +15,18 @@ tokens and the active mask are patched only for slots that changed
 itself does argmax, the next-token update and the position bump on the
 device, so a steady boundary costs one small int32 fetch.
 
+``spec_k > 0`` adds self-speculative decoding: a prompt-lookup drafter
+(:func:`ngram_propose`) proposes up to ``spec_k`` tokens per slot, one
+verify step scores every slot's ``[next_token, drafts]`` window in one
+launch per layer, and the greedy acceptance (a cumulative product of
+matches), the position bump by ``accepted + 1`` and the next-token update
+all run on the device.  A rejected suffix rolls back by rewinding the
+length and handing any page it opened back to the pool.  ``kv_dtype``
+``"int8"``/``"fp8"`` stores the pool as codes with float32 per-row scales.
+
 What waits for later slices: chunked prefill and preemption
-(``overcommit > 1``), the prefix cache, speculative decoding, quantized
-pools, tensor parallelism, tenants and deadlines, checkpoints and the fault
-hook.
+(``overcommit > 1``), the prefix cache, tensor parallelism, tenants and
+deadlines, checkpoints and the fault hook.
 """
 from __future__ import annotations
 
@@ -32,9 +40,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels import kvquant
 from ..models.lm import DecoderLM
 from .page_table import PagePool, PageTable, pages_needed
-from .scheduler import PagedSlotPool, PrefillBudget
+from .scheduler import PagedSlotPool, PrefillBudget, SpecLedger
 
 
 def bucket_pow2(n: int, floor: int = 1, cap: Optional[int] = None) -> int:
@@ -45,6 +54,31 @@ def bucket_pow2(n: int, floor: int = 1, cap: Optional[int] = None) -> int:
     while b < n:
         b *= 2
     return min(b, cap) if cap is not None else b
+
+
+def ngram_propose(context: np.ndarray, ngram: int, max_tokens: int) -> List[int]:
+    """Prompt-lookup drafting (a copy of ``repro.serve.engine.ngram_propose``):
+    match the last ``ngram`` tokens of ``context`` (prompt + everything
+    committed so far, ending at the pending next token) against earlier
+    context; the tokens that FOLLOWED the match become the draft.  Scanning
+    from the most recent match backwards, the first one with a full
+    ``max_tokens`` continuation wins (a short repetition period would
+    otherwise cap every draft at the period); if none has a full
+    continuation the most recent match is used.  Returns up to
+    ``max_tokens`` draft ids, empty when nothing matches."""
+    n = len(context)
+    if max_tokens <= 0 or ngram < 1 or n < ngram + 1:
+        return []
+    pat = context[-ngram:]
+    windows = np.lib.stride_tricks.sliding_window_view(context, ngram)
+    hits = np.nonzero((windows == pat).all(axis=1))[0]
+    hits = hits[hits < n - ngram]          # drop the suffix occurrence itself
+    if hits.size == 0:
+        return []
+    full = hits[hits + ngram + max_tokens <= n]
+    best = int(full[-1]) if full.size else int(hits[-1])
+    cont = context[best + ngram : best + ngram + max_tokens]
+    return [int(t) for t in cont]
 
 
 def percentile(values: Sequence[float], pct: float) -> float:
@@ -83,6 +117,8 @@ class RequestResult:
     itl_p50_s: float = 0.0      # inter-token latency (gaps between emissions)
     itl_p99_s: float = 0.0
     status: str = "completed"
+    draft_proposed: int = 0     # speculative drafts proposed for this request
+    draft_accepted: int = 0
 
 
 @dataclass
@@ -117,9 +153,11 @@ class PagedStats:
     saved_prefill_tokens: int = 0
     prefill_tokens_dropped: int = 0
     decode_s: float = 0.0       # wall time spent inside decode launches
+    spec_k: int = 0             # draft depth (0 = speculation off)
+    spec_stats: Dict[str, float] = field(default_factory=dict)  # SpecLedger.stats()
     itl_p50_ms: float = 0.0     # inter-token latency over every gap in the run
     itl_p99_ms: float = 0.0
-    kv_dtype: str = "float32"   # pool storage dtype
+    kv_dtype: str = "float32"   # pool storage (int8/fp8: codes + f32 scales)
     kv_bytes_per_token: float = 0.0  # pool bytes per token, all layers
 
 
@@ -145,8 +183,17 @@ class ServingEngine:
         max_seq: int,
         page_size: int = 16,
         device: Union[str, torch.device, None] = None,
+        kv_dtype: Optional[str] = None,
     ) -> None:
         self.device = resolve_device(device)
+        # None: the pool in the model's dtype; "int8"/"fp8": codes with
+        # float32 per-row scales, dequantized inside the attention kernels
+        if kv_dtype is not None and not kvquant.is_quantized(kv_dtype):
+            raise ValueError(
+                f"kv_dtype {kv_dtype!r}: expected None (the model's dtype) or one "
+                f"of {sorted(kvquant.KV_DTYPES)}"
+            )
+        self.kv_dtype = kv_dtype
         if model.device != self.device:
             raise ValueError(
                 f"model lives on {model.device}, engine asked for {self.device}"
@@ -159,7 +206,7 @@ class ServingEngine:
         self.page_size = page_size
 
     def _kv_dtype_name(self) -> str:
-        return str(self.model.dtype).replace("torch.", "")
+        return self.kv_dtype or str(self.model.dtype).replace("torch.", "")
 
     def _paged_decode_step(self, nxt: torch.Tensor, cache, table: torch.Tensor,
                            pos: torch.Tensor, mask: torch.Tensor,
@@ -176,6 +223,35 @@ class ServingEngine:
         pos.copy_(torch.where(mask, pos + 1, pos))
         return tok
 
+    def _spec_decode_step(self, win: np.ndarray, wlens: np.ndarray, cache,
+                          table: torch.Tensor, pos: torch.Tensor, nxt: torch.Tensor,
+                          pages_bound: int) -> Tuple[np.ndarray, np.ndarray]:
+        """One fused verify step over every slot's ``[next_token, drafts]``
+        window (``win`` (b, W), ``wlens`` (b,) real tokens, 0 for idle rows):
+        attention, greedy argmax and acceptance on the device.  Draft ``j``
+        survives iff it equals the greedy choice after position ``j - 1`` and
+        every earlier draft survived (cumulative product); positions advance
+        by ``accepted + 1`` and the next-token mirror to the last emitted
+        token, in place.  Returns the host's (greedy (b, W), accepted (b,))
+        from one fetch; the emitted tokens ``greedy[:, :accepted + 1]`` are
+        those a run of one-token decode steps gives."""
+        W = win.shape[1]
+        up = _upload({"win": win, "wlens": wlens}, self.device)
+        win_d, wl = up["win"], up["wlens"]
+        logits = self.model.decode_spec(
+            self.params, win_d, cache, table, pos, wl, pages_bound=pages_bound
+        )
+        greedy = logits.argmax(dim=-1).to(torch.int32)                   # (b, W)
+        drafts = torch.arange(1, W, device=self.device)[None, :] < wl[:, None]
+        match = (win_d[:, 1:] == greedy[:, :-1]) & drafts
+        n_accept = match.to(torch.int32).cumprod(dim=1).sum(dim=1).to(torch.int32)
+        active = wl > 0
+        pos.copy_(torch.where(active, pos + n_accept + 1, pos))
+        last = greedy.gather(1, n_accept.long()[:, None])[:, 0]
+        nxt.copy_(torch.where(active, last, nxt))
+        out = torch.cat([greedy, n_accept[:, None]], dim=1).cpu().numpy()  # the sync
+        return out[:, :W], out[:, W]
+
     @torch.no_grad()
     def serve_paged(
         self,
@@ -186,6 +262,8 @@ class ServingEngine:
         prefill_budget: Optional[int] = None,
         clock: Callable[[], float] = time.perf_counter,
         tracer=None,
+        spec_k: int = 0,
+        spec_ngram: int = 3,
     ) -> PagedStats:
         """Paged-KV continuous batching with packed varlen prefill.
 
@@ -195,7 +273,18 @@ class ServingEngine:
         runs one packed prefill launch of ``prefill_budget`` tokens (default
         16 pages) over every prefilling slot's next span, grows tables that
         cross a page, and runs one fused decode step over the pool.  Greedy
-        tokens equal the JAX engine's on the same weights."""
+        tokens equal the JAX engine's on the same weights.
+
+        ``spec_k > 0`` drafts up to ``spec_k`` tokens per slot by matching
+        the last ``spec_ngram`` tokens against the request's prompt and
+        output; a boundary with a draft anywhere runs one verify step of
+        window ``spec_k + 1`` (slots without a draft verify just their next
+        token), one with none the plain decode step.  Tokens equal the
+        non-speculative run's; ``spec_stats`` holds the draft ledger."""
+        if spec_k < 0:
+            raise ValueError("spec_k must be >= 0")
+        if spec_ngram < 1:
+            raise ValueError("spec_ngram must be >= 1")
         if not requests:
             return PagedStats([], 0, 0.0, 0, 0.0, 0.0, 0, self.page_size, 0,
                               0.0, 0, 0, 0, kv_dtype=self._kv_dtype_name())
@@ -221,7 +310,9 @@ class ServingEngine:
                 )
         slots = PagedSlotPool(num_slots, pool, tracer=tracer, clock=clock)
         table = PageTable(num_slots, max_pages_per_seq, scratch_page=0)
-        cache = self.model.init_paged_cache(num_pages, page_size)
+        cache = self.model.init_paged_cache(num_pages, page_size, self.kv_dtype)
+        spec = spec_k > 0
+        ledger = SpecLedger() if spec else None
         queue = deque(requests)
         nxt = np.zeros((num_slots,), np.int32)
         lengths = np.zeros((num_slots,), np.int32)   # live tokens per slot
@@ -306,6 +397,7 @@ class ServingEngine:
                     times = slot_times.get(slot, [])
                     itls = [b - a for a, b in zip(times, times[1:])]
                     itl_all.extend(itls)
+                    prop, acc = ledger.of(req.request_id) if spec else (0, 0)
                     latency = now - submit_s[req.request_id]
                     finished[req.request_id] = RequestResult(
                         request_id=req.request_id,
@@ -320,6 +412,8 @@ class ServingEngine:
                         ),
                         itl_p50_s=percentile(itls, 50.0) if itls else 0.0,
                         itl_p99_s=percentile(itls, 99.0) if itls else 0.0,
+                        draft_proposed=prop,
+                        draft_accepted=acc,
                     )
                     release_slot(slot)
                     progressed = True
@@ -445,15 +539,30 @@ class ServingEngine:
                             budget=budget.tokens_per_step,
                         )
                     progressed = True
-            # 4) one decode step over the whole pool; rows whose next token
-            #    opens a page grow their table first (never fails: admission
-            #    committed worst-case pages)
+            # 4) one decode step over the whole pool.  With ``spec_k > 0``
+            #    the drafter proposes up to ``spec_k`` tokens per slot and
+            #    ONE verify step scores every slot's window; a boundary with
+            #    no draft anywhere runs the plain decode step.  Rows whose
+            #    next token or window opens a page grow their table first
+            #    (never fails: admission committed worst-case pages, and a
+            #    draft never reaches past prompt + max_new_tokens)
             active_dec = [
                 s for s in decoding
                 if len(slot_tokens[s]) < slots.active[s].max_new_tokens
             ]
+            drafts: Dict[int, List[int]] = {}
+            if spec:
+                for s in active_dec:
+                    req = slots.active[s]
+                    rem = req.max_new_tokens - len(slot_tokens[s])
+                    # a boundary emits accepted + 1 tokens: never draft past
+                    # the request's token budget or max_seq
+                    cap = min(spec_k, rem - 1, self.max_seq - int(lengths[s]) - 1)
+                    if cap > 0:
+                        ctx = np.concatenate([req.prompt, np.asarray(slot_tokens[s], np.int32)])
+                        drafts[s] = ngram_propose(ctx, spec_ngram, cap)
             for s in sorted(active_dec, key=lambda s: admit_order[s]):
-                while table.num_pages_of(s) * page_size <= int(lengths[s]):
+                while table.num_pages_of(s) * page_size <= int(lengths[s]) + len(drafts.get(s, ())):
                     grown = slots.grow(1)
                     if grown is None:
                         raise RuntimeError("page pool exhausted despite admission commitment")
@@ -461,23 +570,51 @@ class ServingEngine:
                     dirty.add(s)
             if active_dec:
                 t0d = clock()
+                use_spec = spec and any(drafts.get(s) for s in active_dec)
                 sync_device(active_dec)
-                live = max(int(lengths[s]) + 1 for s in active_dec)
+                live = max(int(lengths[s]) + 1 + len(drafts.get(s, ())) for s in active_dec)
                 bound = bucket_pow2(pages_needed(live, page_size), cap=max_pages_per_seq)
-                tok = self._paged_decode_step(
-                    dev_nxt, cache, dev_table, dev_pos, dev_mask, bound
-                )
-                g = tok.cpu().numpy()                  # the boundary's one fetch
+                if use_spec:
+                    W = spec_k + 1
+                    win = np.zeros((num_slots, W), np.int32)
+                    wlens_h = np.zeros((num_slots,), np.int32)
+                    for s in active_dec:
+                        d = drafts.get(s, [])
+                        win[s, 0] = nxt[s]
+                        win[s, 1 : 1 + len(d)] = d
+                        wlens_h[s] = 1 + len(d)
+                    g, na = self._spec_decode_step(
+                        win, wlens_h, cache, dev_table, dev_pos, dev_nxt, bound
+                    )
+                else:
+                    tok = self._paged_decode_step(
+                        dev_nxt, cache, dev_table, dev_pos, dev_mask, bound
+                    )
+                    g = tok.cpu().numpy()[:, None]     # the boundary's one fetch
+                    na = np.zeros((num_slots,), np.int32)
                 now = clock()
                 decode_s += now - t0d
                 step += 1
                 occupancy_sum += slots.num_active
                 for s in active_dec:
-                    t = int(g[s])
-                    slot_tokens[s].append(t)
-                    nxt[s] = t
-                    lengths[s] += 1
-                    slot_times[s].append(now)
+                    a = int(na[s])
+                    emitted = g[s, : a + 1]
+                    slot_tokens[s].extend(int(t) for t in emitted)
+                    nxt[s] = int(emitted[-1])
+                    lengths[s] += a + 1
+                    slot_times[s].extend([now] * (a + 1))
+                    if spec:
+                        ledger.record(slots.active[s].request_id, len(drafts.get(s, ())), a)
+                        # rollback: the length is already the committed
+                        # prefix; a rejected suffix that opened a page hands
+                        # it back to the pool
+                        freed = table.truncate(s, pages_needed(int(lengths[s]), page_size))
+                        if freed:
+                            pool.free(freed)
+                            ledger.record_rollback(len(freed))
+                            dirty.add(s)
+                if spec:
+                    ledger.record_launch(use_spec)
                 progressed = True
             peak_occupancy = max(peak_occupancy, slots.num_active)
             pages_sum += pool.num_in_use
@@ -512,6 +649,8 @@ class ServingEngine:
             prefill_budget_stats=budget.stats(),
             prompt_tokens_admitted=prompt_admitted,
             decode_s=decode_s,
+            spec_k=spec_k,
+            spec_stats=ledger.stats() if spec else {},
             itl_p50_ms=percentile(itl_all, 50.0) * 1e3 if itl_all else 0.0,
             itl_p99_ms=percentile(itl_all, 99.0) * 1e3 if itl_all else 0.0,
             kv_dtype=self._kv_dtype_name(),

@@ -1,7 +1,7 @@
 """Slot and prefill-budget bookkeeping of the paged serving loop.
 
-A copy of ``SlotPool``, ``PrefillBudget`` and ``PagedSlotPool`` from
-``repro.serve.scheduler`` (pure Python; the port keeps its own copy so that
+A copy of ``SlotPool``, ``PrefillBudget``, ``SpecLedger`` and
+``PagedSlotPool`` from ``repro.serve.scheduler`` (pure Python; the port keeps its own copy so that
 it never imports ``repro``).  The tracer argument stays optional.
 """
 from __future__ import annotations
@@ -9,7 +9,7 @@ from __future__ import annotations
 import time
 from typing import Any, Callable, Dict, List, Optional
 
-__all__ = ["PagedSlotPool", "PrefillBudget", "SlotPool"]
+__all__ = ["PagedSlotPool", "PrefillBudget", "SlotPool", "SpecLedger"]
 
 
 class SlotPool:
@@ -130,6 +130,67 @@ class PrefillBudget:
             "cached_tokens": float(self.cached_total),
             "budget_utilization": self.granted_total / cap if cap else 0.0,
             "starved_tokens": float(self.requested_total - self.granted_total),
+        }
+
+
+class SpecLedger:
+    """Per-request draft accounting for speculative decoding.
+
+    The paged engine's draft/verify/accept loop records, per request, how
+    many draft tokens the prompt-lookup drafter proposed and how many the
+    verification launch accepted — the acceptance rate is the whole story
+    of whether speculation pays (accepted drafts are free tokens; rejected
+    ones are wasted verify FLOPs).  Pure bookkeeping, testable without a
+    model; the engine owns the draft/verify loop itself.
+    """
+
+    def __init__(self) -> None:
+        self.proposed: Dict[int, int] = {}   # request_id -> drafts proposed
+        self.accepted: Dict[int, int] = {}   # request_id -> drafts accepted
+        self.launches = 0                    # verify launches (windows > 1)
+        self.fallback_steps = 0              # boundaries with no drafts at all
+        self.rollback_pages = 0              # pages freed by rejected suffixes
+
+    def record(self, request_id: int, proposed: int, accepted: int) -> None:
+        """Record one request's share of a verify launch."""
+        if proposed < 0 or accepted < 0 or accepted > proposed:
+            raise ValueError(
+                f"invalid draft accounting: proposed={proposed} "
+                f"accepted={accepted}"
+            )
+        self.proposed[request_id] = self.proposed.get(request_id, 0) + proposed
+        self.accepted[request_id] = self.accepted.get(request_id, 0) + accepted
+
+    def record_launch(self, speculative: bool) -> None:
+        if speculative:
+            self.launches += 1
+        else:
+            self.fallback_steps += 1
+
+    def record_rollback(self, pages: int) -> None:
+        """Pages handed back because a rejected draft had opened them."""
+        if pages < 0:
+            raise ValueError("cannot roll back a negative page count")
+        self.rollback_pages += pages
+
+    def of(self, request_id: int) -> tuple:
+        """(proposed, accepted) for one request."""
+        return (
+            self.proposed.get(request_id, 0),
+            self.accepted.get(request_id, 0),
+        )
+
+    def stats(self) -> Dict[str, float]:
+        """Scalar summary of the draft economy over one run."""
+        prop = float(sum(self.proposed.values()))
+        acc = float(sum(self.accepted.values()))
+        return {
+            "spec_launches": float(self.launches),
+            "fallback_steps": float(self.fallback_steps),
+            "draft_proposed": prop,
+            "draft_accepted": acc,
+            "acceptance_rate": acc / prop if prop else 0.0,
+            "rollback_pages": float(self.rollback_pages),
         }
 
 

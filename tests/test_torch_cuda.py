@@ -11,9 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import _build, kvquant, ref
 from repro_torch.kernels import paged_attention as pa_mod
-from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as rn_mod
+from repro_torch.kernels import spec_verify as sv_mod
 from repro_torch.kernels import varlen_prefill as vp_mod
 
 pytestmark = pytest.mark.gpu
@@ -120,6 +121,123 @@ def test_varlen_prefill_kernel(cuda, dtype, shape, opts):
     assert torch.all(out[37:cu[1]] == 0) and torch.all(out[cu[-1]:] == 0)
 
 
+def _spec_inputs(rows, W, h, kvh, d, ps, mp, dtype, dev, seed):
+    """Windows [(committed, window_len)] with pages covering committed plus
+    in-flight tokens; window starts are not page-aligned."""
+    b = len(rows)
+    table = torch.zeros((b, mp), dtype=torch.int32)
+    nxt = 1
+    for i, (L, wl) in enumerate(rows):
+        n = -(-(L + wl) // ps)
+        table[i, :n] = torch.arange(nxt, nxt + n)
+        nxt += n
+    q = _randn((b, W, h, d), dtype, dev, seed)
+    kp = _randn((nxt, ps, kvh, d), dtype, dev, seed + 1)
+    vp = _randn((nxt, ps, kvh, d), dtype, dev, seed + 2)
+    lens = torch.tensor([r[0] for r in rows], dtype=torch.int32, device=dev)
+    wlens = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=dev)
+    return q, kp, vp, table.to(dev), lens, wlens
+
+
+SPEC_SHAPES = [
+    # h, kvh, d, page_size, max_pages, W, rows [(committed, window_len)]
+    (32, 2, 128, 16, 8, 5, [(13, 4), (7, 2), (0, 0), (20, 5), (48, 1)]),  # glm4-9b widths
+    (8, 8, 64, 8, 5, 3, [(15, 3), (8, 1), (0, 2)]),                      # MHA, fresh pages
+    (32, 1, 128, 16, 4, 4, [(30, 4), (3, 3)]),                           # 128 tile rows
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SPEC_SHAPES)
+@pytest.mark.parametrize("opts", [{}, {"window": 5}, {"softcap": 7.0}, {"pages_bound": 2}])
+def test_spec_verify_kernel(cuda, dtype, shape, opts):
+    h, kvh, d, ps, mp, W, rows = shape
+    args = _spec_inputs(rows, W, h, kvh, d, ps, mp, dtype, cuda, 10)
+    n = sv_mod.launches
+    out = sv_mod.spec_verify(*args, **opts)
+    torch.cuda.synchronize()
+    assert sv_mod.launches == n + 1
+    want = sv_mod.spec_verify(*(t.cpu() for t in args), **opts)
+    _close(out, want, dtype)
+    for i, (_, wl) in enumerate(rows):
+        assert torch.all(out[i, wl:] == 0)          # window pad, idle slot
+
+
+def test_spec_verify_rows_equal_paged_attention(cuda):
+    """Window row w runs the arithmetic of a one-token decode at length
+    len + w + 1 in paged_attention: the same pages, keys and order."""
+    rows = [(13, 4), (7, 3), (31, 2)]
+    q, kp, vp, table, lens, wlens = _spec_inputs(rows, 4, 32, 2, 128, 16, 4,
+                                                 torch.float32, cuda, 20)
+    out = sv_mod.spec_verify(q, kp, vp, table, lens, wlens)
+    for i, (L, wl) in enumerate(rows):
+        for w in range(wl):
+            one = pa_mod.paged_attention(
+                q[i : i + 1, w : w + 1].contiguous(), kp, vp, table[i : i + 1].contiguous(),
+                torch.tensor([L + w + 1], dtype=torch.int32, device=cuda))
+            assert torch.equal(out[i, w], one[0, 0])
+
+
+def _quantized(kp, vp, mode):
+    store = kvquant.pool_dtype(mode)
+    (kq, ks), (vq, vs) = kvquant.quantize(kp, store), kvquant.quantize(vp, store)
+    return kq.contiguous(), vq.contiguous(), ks.contiguous(), vs.contiguous()
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_attention_kernel_quantized(cuda, mode, dtype):
+    h, kvh, d, ps, mp, lens = PAGED_SHAPES[0]
+    b = len(lens)
+    q = _randn((b, 1, h, d), dtype, cuda, 30)
+    kq, vq, ks, vs = _quantized(_randn((b * mp + 1, ps, kvh, d), torch.float32, cuda, 31),
+                                _randn((b * mp + 1, ps, kvh, d), torch.float32, cuda, 32), mode)
+    table = torch.arange(1, b * mp + 1, dtype=torch.int32, device=cuda).view(b, mp).flip(0).contiguous()
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out = pa_mod.paged_attention(q, kq, vq, table, lengths, k_scales=ks, v_scales=vs, window=60)
+    want = ref.paged_attention(*(t.cpu() for t in (q, kq, vq, table, lengths)), window=60,
+                               k_scales=ks.cpu(), v_scales=vs.cpu())
+    _close(out, want, dtype)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_varlen_prefill_kernel_quantized(cuda, mode, dtype):
+    h, kvh, d, ps = VARLEN_SHAPES[0]
+    chunks, mp = [(37, 2), (0, 0), (16, 0), (5, 3)], 8
+    cu, lens, pos0 = [0], [], []
+    tables = torch.zeros((len(chunks), mp), dtype=torch.int32)
+    nxt = 1
+    for c, (n, cp) in enumerate(chunks):
+        cu.append(cu[-1] + -(-n // ps) * ps)
+        lens.append(n)
+        pos0.append(cp * ps)
+        tables[c, :cp] = torch.arange(nxt, nxt + cp)
+        nxt += cp
+    T = cu[-1] + ps
+    q = _randn((T, h, d), dtype, cuda, 40)
+    k, v = _randn((T, kvh, d), dtype, cuda, 41), _randn((T, kvh, d), dtype, cuda, 42)
+    kq, vq, ks, vs = _quantized(_randn((nxt, ps, kvh, d), torch.float32, cuda, 43),
+                                _randn((nxt, ps, kvh, d), torch.float32, cuda, 44), mode)
+    meta = [torch.tensor(a, dtype=torch.int32, device=cuda) for a in (cu, lens, pos0)]
+    args = (q, k, v, kq, vq, *meta, tables.to(cuda))
+    out = vp_mod.varlen_prefill(*args, k_scales=ks, v_scales=vs)
+    want = ref.varlen_prefill(*(t.cpu() for t in args), k_scales=ks.cpu(), v_scales=vs.cpu())
+    _close(out, want, dtype)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_spec_verify_kernel_quantized(cuda, mode, dtype):
+    h, kvh, d, ps, mp, W, rows = SPEC_SHAPES[0]
+    q, kp, vp, table, lens, wlens = _spec_inputs(rows, W, h, kvh, d, ps, mp, dtype, cuda, 50)
+    kq, vq, ks, vs = _quantized(kp.float(), vp.float(), mode)
+    out = sv_mod.spec_verify(q, kq, vq, table, lens, wlens, k_scales=ks, v_scales=vs)
+    want = ref.spec_verify(*(t.cpu() for t in (q, kq, vq, table, lens, wlens)),
+                           k_scales=ks.cpu(), v_scales=vs.cpu())
+    _close(out, want, dtype)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(4, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="weight"):
@@ -128,3 +246,28 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         rn_mod.rmsnorm(x.t().contiguous().t(), torch.zeros(64, device=cuda, dtype=torch.bfloat16))
     with pytest.raises(TypeError, match="not supported"):
         rn_mod.rmsnorm(x.double(), torch.zeros(64, device=cuda, dtype=torch.float64))
+
+
+def test_attention_wrappers_raise_on_pool_pairings(cuda):
+    """A CUDA tensor runs the kernel or raises: a pool of another float
+    dtype, codes without scales, scales beside a full-precision pool, and a
+    window whose tile exceeds the card's shared memory."""
+    q, kp, vp, table, lens, wlens = _spec_inputs([(5, 3)], 4, 8, 2, 64, 8, 2,
+                                                 torch.bfloat16, cuda, 60)
+    kq, vq, ks, vs = _quantized(kp.float(), vp.float(), "int8")
+    with pytest.raises(TypeError, match="not supported"):
+        sv_mod.spec_verify(q, kp.float(), vp.float(), table, lens, wlens)
+    with pytest.raises(ValueError, match="needs k_scales"):
+        sv_mod.spec_verify(q, kq, vq, table, lens, wlens)
+    with pytest.raises(ValueError, match="full-precision"):
+        sv_mod.spec_verify(q, kp, vp, table, lens, wlens, k_scales=ks, v_scales=vs)
+    with pytest.raises(ValueError, match="float32"):
+        pa_mod.paged_attention(q[:, :1].contiguous(), kq, vq, table, lens,
+                               k_scales=ks.half(), v_scales=vs.half())
+    big = _randn((1, 5, 32, 256), torch.bfloat16, cuda, 61)        # 160 rows at d 256
+    pool = _randn((3, 16, 1, 256), torch.bfloat16, cuda, 62)
+    n = sv_mod.launches
+    with pytest.raises(_build.SharedMemoryError, match="shared memory"):
+        sv_mod.spec_verify(big, pool, pool, torch.ones((1, 2), dtype=torch.int32, device=cuda),
+                           lens, wlens)
+    assert sv_mod.launches == n
