@@ -17,11 +17,19 @@ Phases, each printing its own lines and wall time, each ending in
    rms(plain)``; the plain version with one key, one context page or one
    window row too few must fail that limit), kernel, plain and library
    times (see ``_time_ms``) and the bound: the larger of bytes over
-   3.35 TB/s and flops over 989 TFLOP/s;
+   3.35 TB/s and flops over 989 TFLOP/s.  The dense engines' kernels
+   likewise: ``flash_attention`` on a static prefill pass (q (8, 1024, 32,
+   128), causal) and small cases with a window, softcap, q_offset and no
+   causal mask (the plain version without key 0 must fail the limit);
+   ``decode_attention`` on a decode step of 8 rows over a 2048-token cache
+   at the serve lengths, and with a window and a row of length 0, which
+   must be exactly zero (with ``lengths - 1`` the plain version must fail);
 3. check: reduced glm4-9b in float32 served on the card and on the CPU
    from the same weights must emit the same greedy tokens, with and
    without speculative decoding (which must also equal each other); the
-   card-vs-CPU token agreement on int8 and fp8 pools is printed;
+   card-vs-CPU token agreement on int8 and fp8 pools is printed.  On the
+   dense engines ``generate`` and ``serve_continuous`` tokens must equal
+   the CPU's and ``forward`` logits agree within 1e-4 + 1e-4 |cpu|;
 4. serve: full-width, full-depth glm4-9b (40 layers, random bf16 weights
    from a seeded CUDA generator) through ``ServingEngine.serve_paged``;
    every request must complete and every kernel must have been launched
@@ -35,10 +43,18 @@ Phases, each printing its own lines and wall time, each ending in
    more than 0 spec_verify launches in each ``spec_ngram`` 1 run (random
    weights at the published vocabulary almost never repeat a 3-gram within
    32 tokens, so 3-gram lookup rarely drafts); token agreement with the
-   bf16 plain run of the same prompts is printed;
+   bf16 plain run of the same prompts is printed.  Then the dense engines
+   on the same requests, three runs each: the static path (Poisson
+   arrivals at 20 Hz through the threaded ``RequestScheduler`` into
+   ``generate`` batches of up to 8) and ``serve_continuous`` (8 slots);
+   every request must complete, each run must launch exactly 40
+   ``flash_attention`` and 81 rmsnorm per prefill pass, 40
+   ``decode_attention`` and 81 rmsnorm per decode step and no paged
+   kernel (and the paged runs neither dense kernel);
 5. where the time goes: device time by kernel class per prefill launch and
    per decode step, per launch of each kernel, and the device's idle
-   share, from torch.profiler;
+   share, from torch.profiler, for the paged engine and for a dense
+   prefill pass and decode step;
 6. one JSON line of kernel records, then the final line
    ``{"ok": true, "device": {...}}``.
 
@@ -75,6 +91,11 @@ SPEC_K = 4                      # draft depth of the speculative runs
 # earlier occurrence of the pending token and so finds drafts on random weights
 SPEC_NGRAM, DRAFT_NGRAM = 3, 1
 WINDOW_LENS = [5, 3, 1, 0, 5, 2, 4, 5]   # spec_verify check (slot 3 idle)
+# dense engines: static batches of up to SLOTS prompts right-padded to the
+# power-of-two bucket of the longest (1024 once a batch holds a prompt above
+# 512); Poisson arrivals and the batching window of the driver's defaults
+PREFILL_LEN = 1024
+RATE_HZ, BATCH_TIMEOUT_MS = 20.0, 10.0
 
 
 def _phase(name):
@@ -131,6 +152,26 @@ def _time_ms(torch, fn, sets, cycles_per_ms):
             break
         hold_ms *= 4
     return a.elapsed_time(b) / LAUNCHES, queued
+
+
+def _timed(torch, cpm, kernel, plain, library, sets, library_sets):
+    """Kernel and plain version over ``sets``, library over its own."""
+    ms, ms_q = _time_ms(torch, kernel, sets, cpm)
+    plain_ms, plain_q = _time_ms(torch, plain, sets, cpm)
+    lib_ms, lib_q = _time_ms(torch, library, library_sets, cpm)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                sets=(len(sets), len(library_sets)),
+                gaps=[n for n, q in (("kernel", ms_q), ("plain", plain_q),
+                                     ("library", lib_q)) if not q])
+
+
+def _print_records(records):
+    for name, r in records.items():
+        print(f"   {name}: kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+              f"library_ms {r['library_ms']:.4f} "
+              f"bound_ms {r['bound'][0]:.4f} ({r['bound'][1]}) at {r['shape']}; "
+              f"{LAUNCHES} calls back to back over (kernel and plain, library) "
+              f"{r['sets']} input sets; host gaps in: {r['gaps'] or 'none'}")
 
 
 def _bound_ms(nbytes, flops):
@@ -200,16 +241,7 @@ def kernels_phase(torch, dev):
     max_pages = MAX_SEQ // PAGE
     num_pages = SLOTS * max_pages + 1
     records = {}
-
-    def timed(kernel, plain, library, sets, library_sets):
-        """Kernel and plain version over ``sets``, library over its own."""
-        ms, ms_q = _time_ms(torch, kernel, sets, cpm)
-        plain_ms, plain_q = _time_ms(torch, plain, sets, cpm)
-        lib_ms, lib_q = _time_ms(torch, library, library_sets, cpm)
-        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                    sets=(len(sets), len(library_sets)),
-                    gaps=[n for n, q in (("kernel", ms_q), ("plain", plain_q),
-                                         ("library", lib_q)) if not q])
+    timed = lambda *a: _timed(torch, cpm, *a)
 
     # -- rmsnorm: a full packed-prefill buffer of rows (decode gives 8 rows)
     x, w = randn(1, BUDGET, D), randn(D) * 0.1
@@ -433,12 +465,101 @@ def kernels_phase(torch, dev):
                   f"empty, bf16, pool {pool_desc(mode)}",
         )
         del sets, lib_sets
-    for name, r in records.items():
-        print(f"   {name}: kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
-              f"library_ms {r['library_ms']:.4f} "
-              f"bound_ms {r['bound'][0]:.4f} ({r['bound'][1]}) at {r['shape']}; "
-              f"{LAUNCHES} calls back to back over (kernel and plain, library) "
-              f"{r['sets']} input sets; host gaps in: {r['gaps'] or 'none'}")
+    _print_records(records)
+    return records
+
+
+def dense_kernels_phase(torch, dev):
+    """flash_attention and decode_attention against their plain versions at
+    the shapes of the dense engines' serve runs (a static prefill pass of
+    SLOTS prompts padded to PREFILL_LEN; a decode step of SLOTS rows over a
+    MAX_SEQ cache at the serve phase's lengths), plus small cases with a
+    window, softcap, q_offset, no causal mask and a row of length 0."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.serve.engine import bucket_pow2
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev, dtype=bf)
+    cpm = _sleep_cycles_per_ms(torch)
+    timed = lambda *a: _timed(torch, cpm, *a)
+    h, kvh, d = 32, 2, 128
+    rep = h // kvh
+    expand = lambda t: t.transpose(1, 2).repeat_interleave(rep, dim=1)   # (b, h, s, d)
+    records = {}
+
+    # -- flash_attention: one static prefill pass, causal
+    b, s = SLOTS, PREFILL_LEN
+    q, k, v = randn(b, s, h, d), randn(b, s, kvh, d), randn(b, s, kvh, d)
+    want = ref.attention(q, k, v)
+    err = _check(torch, "flash_attention causal", fa.flash_attention(q, k, v), want)
+    # key 0 dropped from every row (row 0 then has no key at all)
+    _rejects(torch, "flash_attention plain without key 0",
+             ref.attention(q, k[:, 1:], v[:, 1:], q_offset=-1), want)
+    del want
+    qs, ks, vs = randn(2, 128, h, d), randn(2, 384, kvh, d), randn(2, 384, kvh, d)
+    for opts in ({"window": 64, "q_offset": 256}, {"softcap": 30.0, "q_offset": 256},
+                 {"causal": False}):
+        err = max(err, _check(torch, f"flash_attention q (2, 128), k (2, 384), {opts}",
+                              fa.flash_attention(qs, ks, vs, **opts),
+                              ref.attention(qs, ks, vs, **opts)))
+    nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kvh * d)
+    sets = _rotation(nbytes, lambda i: (q.clone(), k.clone(), v.clone()))
+    lib_sets = _rotation(2 * 4 * b * s * h * d,
+                         lambda i: (q.transpose(1, 2).contiguous(), expand(k), expand(v)))
+    records["flash_attention"] = dict(
+        err=err,
+        **timed(fa.flash_attention, ref.attention,
+                lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, is_causal=True),
+                sets, lib_sets),
+        bound=_bound_ms(nbytes, 4.0 * h * d * b * s * (s + 1) / 2),
+        shape=f"q ({b}, {s}, {h}, {d}), k/v ({b}, {s}, {kvh}, {d}) bf16, causal",
+    )
+    del q, k, v, sets, lib_sets
+
+    # -- decode_attention: one decode step over the dense cache
+    lens_host = [int(n) + NEW_TOKENS for n in _serve_lengths(SEED)[:SLOTS]]
+    lengths = torch.tensor(lens_host, dtype=torch.int32, device=dev)
+    bound = bucket_pow2(max(lens_host), floor=PAGE, cap=MAX_SEQ)
+    q, kc, vc = randn(SLOTS, 1, h, d), randn(SLOTS, MAX_SEQ, kvh, d), randn(SLOTS, MAX_SEQ, kvh, d)
+    want = ref.decode_attention(q, kc, vc, lengths, kv_bound=bound)
+    err = _check(torch, f"decode_attention kv_bound {bound}",
+                 da.decode_attention(q, kc, vc, lengths, kv_bound=bound), want)
+    _rejects(torch, "decode_attention plain with lengths - 1",
+             ref.decode_attention(q, kc, vc, lengths - 1, kv_bound=bound), want)
+    with_zero = lengths.clone()
+    with_zero[3] = 0
+    out = da.decode_attention(q, kc, vc, with_zero, window=100, kv_bound=bound)
+    err = max(err, _check(torch, "decode_attention window 100, row 3 of length 0", out,
+                          ref.decode_attention(q, kc, vc, with_zero, window=100, kv_bound=bound)))
+    zero = bool((out[3] == 0).all())
+    print(f"   decode_attention: the row of length 0 exactly zero: {zero}")
+    if not zero:
+        raise SystemExit("decode_attention: a row of length 0 is not exactly zero")
+    live = sum(lens_host)
+    nbytes = 2 * 2 * SLOTS * h * d + 2 * 2 * live * kvh * d + 4 * SLOTS
+    sets = _rotation(nbytes, lambda i: (q.clone(), kc.clone(), vc.clone()))
+    mask = (torch.arange(bound, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    lib_sets = _rotation(2 * 2 * SLOTS * h * bound * d,
+                         lambda i: (q.transpose(1, 2).contiguous(), expand(kc[:, :bound]),
+                                    expand(vc[:, :bound])))
+    records["decode_attention"] = dict(
+        err=err,
+        **timed(lambda q_, k_, v_: da.decode_attention(q_, k_, v_, lengths, kv_bound=bound),
+                lambda q_, k_, v_: ref.decode_attention(q_, k_, v_, lengths, kv_bound=bound),
+                lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask),
+                sets, lib_sets),
+        bound=_bound_ms(nbytes, 4.0 * h * d * live),
+        shape=f"q ({SLOTS}, 1, {h}, {d}), cache ({SLOTS}, {MAX_SEQ}, {kvh}, {d}) bf16, "
+              f"lengths {lens_host}, kv_bound {bound}",
+    )
+    del sets, lib_sets
+    _print_records(records)
     return records
 
 
@@ -547,6 +668,46 @@ def check_phase(torch, dev):
               f"{_fmt_agreement(tok(('cpu', mode, 0)), tok(('cuda', mode, 0)))}")
 
 
+def dense_check_phase(torch, dev):
+    """Reduced glm4-9b in float32 on the dense engines: the card's greedy
+    tokens from ``generate`` and ``serve_continuous`` equal the CPU's, and
+    ``forward`` logits agree."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import DecoderLM
+    from repro_torch.serve.engine import ServingEngine
+
+    cfg = get_config("glm4-9b", reduced=True)
+    cpu_model = DecoderLM(cfg, device="cpu", dtype=torch.float32)
+    cpu_params = cpu_model.init(seed=SEED)
+    gpu_model = DecoderLM(cfg, device=dev, dtype=torch.float32)
+    gpu_params = _to_device(cpu_params, dev)
+    reqs = make_requests(6, 5, 60, 8, cfg.vocab_size, SEED)
+    prompts = [r.prompt for r in reqs]
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab_size, (2, 48)))
+    out = {}
+    for name, model, params in (("cpu", cpu_model, cpu_params), ("cuda", gpu_model, gpu_params)):
+        engine = ServingEngine(model, params, max_batch=3, max_seq=96, page_size=PAGE,
+                               device=model.device)
+        static = np.concatenate([engine.generate(prompts[i:i + 3], 8).tokens for i in (0, 3)])
+        cont = engine.serve_continuous(make_requests(6, 5, 60, 8, cfg.vocab_size, SEED))
+        logits, _ = model.forward(params, {"tokens": tokens.to(model.device)})
+        out[name] = (static, [r.tokens for r in cont.results], logits.cpu())
+    static_ok = bool((out["cpu"][0] == out["cuda"][0]).all())
+    cont_ok = _agreement(out["cpu"][1], out["cuda"][1])[2] is None
+    diff = float((out["cpu"][2] - out["cuda"][2]).abs().max())
+    logits_ok = bool(torch.allclose(out["cuda"][2], out["cpu"][2], rtol=1e-4, atol=1e-4))
+    print(f"   reduced glm4-9b f32, 6 requests: generate cuda tokens == cpu tokens: {static_ok}; "
+          f"serve_continuous cuda == cpu: {cont_ok}; forward logits {tuple(out['cpu'][2].shape)} "
+          f"max |cuda - cpu| {diff:.3e} (within 1e-4 + 1e-4 |cpu|: {logits_ok}); "
+          f"continuous == generate on the card: "
+          f"{_agreement(list(out['cuda'][0]), out['cuda'][1])[2] is None}")
+    if not (static_ok and cont_ok and logits_ok):
+        raise SystemExit("the dense engines on the card differ from the CPU reference")
+
+
 def _to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_device(v, dev) for k, v in tree.items()}
@@ -591,34 +752,50 @@ def _expected_launches(stats, num_layers):
     }
 
 
+def _zero(counters):
+    for mod in counters.values():
+        mod.launches = 0
+
+
+def _check_counts(label, counters, expect, done, total):
+    """Fail unless every request completed and each kernel launched exactly
+    as often as the run's passes imply."""
+    counts = {name: mod.launches for name, mod in counters.items()}
+    if done != total:
+        raise SystemExit(f"{label}: only {done} of {total} requests completed")
+    for name, n in counts.items():
+        if n != expect.get(name, 0):
+            raise SystemExit(f"{label}: {n} {name} launches, expected {expect.get(name, 0)}")
+    return counts
+
+
+def _completed(token_lists, vocab):
+    """Requests that hold NEW_TOKENS tokens, all inside the vocabulary."""
+    return sum(1 for t in token_lists if len(t) == NEW_TOKENS and all(0 <= x < vocab for x in t))
+
+
 def _counted_serve(torch, engine, reqs, counters, need, **kw):
     """One serve run with the launch counts zeroed just before and read just
     after; fails unless every request completed, every count is what the
     run's steps imply, and every kernel in ``need`` launched."""
-    for mod in counters.values():
-        mod.launches = 0
+    _zero(counters)
     stats = engine.serve_paged(reqs, num_slots=SLOTS, page_size=PAGE, prefill_budget=BUDGET,
                                **kw)
-    counts = {name: mod.launches for name, mod in counters.items()}
-    vocab = engine.model.cfg.vocab_size
-    done = [r for r in stats.results if r.status == "completed" and len(r.tokens) == NEW_TOKENS
-            and all(0 <= t < vocab for t in r.tokens)]
-    if len(done) != len(reqs):
-        raise SystemExit(f"only {len(done)} of {len(reqs)} requests completed")
-    expect = _expected_launches(stats, engine.model.cfg.num_layers)
-    for name, n in counts.items():
-        if n != expect[name] or (name in need and n == 0):
-            raise SystemExit(f"{name}: {n} launches in a serve run, expected {expect[name]}"
-                             f"{' and more than 0' if name in need else ''}")
+    done = _completed([r.tokens for r in stats.results if r.status == "completed"],
+                      engine.model.cfg.vocab_size)
+    counts = _check_counts("serve_paged", counters,
+                           _expected_launches(stats, engine.model.cfg.num_layers), done, len(reqs))
+    missing = [name for name in need if counts[name] == 0]
+    if missing:
+        raise SystemExit(f"serve_paged: no launch of {missing} in a run that needs them")
     return stats, counts
 
 
-def serve_phase(torch, dev, counters):
+def full_model(torch, dev):
+    """glm4-9b at published width and depth, random bf16 weights from a
+    seeded CUDA generator."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import kvquant
-    from repro_torch.launch.serve import make_requests
     from repro_torch.models import DecoderLM, count_params
-    from repro_torch.serve.engine import ServingEngine, percentile
 
     cfg = get_config("glm4-9b")
     model = DecoderLM(cfg, device=dev, dtype=torch.bfloat16)
@@ -628,6 +805,15 @@ def serve_phase(torch, dev, counters):
     n_params = count_params(model.param_defs())
     print(f"   {cfg.name}: {cfg.num_layers} layers, {n_params / 1e9:.3f} B params, "
           f"bf16 weights {n_params * 2 / 1e9:.2f} GB, init {time.perf_counter() - t0:.1f} s")
+    return model, params
+
+
+def serve_phase(torch, dev, counters, model, params):
+    from repro_torch.kernels import kvquant
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve.engine import ServingEngine, percentile
+
+    cfg = model.cfg
     engines = {
         mode: ServingEngine(model, params, max_batch=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
                             device=dev, kv_dtype=mode)
@@ -704,7 +890,89 @@ def serve_phase(torch, dev, counters):
     return launches, engine, reqs
 
 
+def dense_serve_phase(torch, dev, counters, model, params):
+    """glm4-9b through the dense engines: the static path (Poisson arrivals,
+    the threaded scheduler batching ``generate``) and ``serve_continuous``,
+    REPEATS runs each on the serve phase's requests, each run counted alone:
+    40 flash_attention and 81 rmsnorm launches per prefill pass, 40
+    decode_attention and 81 rmsnorm per decode step, no paged kernel."""
+    from repro_torch.core.workload import PoissonLoad
+    from repro_torch.launch.serve import make_requests, serve_static
+    from repro_torch.serve.engine import ServingEngine, percentile
+
+    cfg = model.cfg
+    L, vocab = cfg.num_layers, cfg.vocab_size
+    engine = ServingEngine(model, params, max_batch=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
+                           device=dev)
+    reqs = make_requests(REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS, vocab, SEED)
+    prompts = [r.prompt for r in reqs]
+    arrivals = [r.arrival_s for r in PoissonLoad(REQUESTS, RATE_HZ, seed=SEED).requests()]
+    # warm-up (allocator, cuBLAS handles, the scheduler thread), not counted
+    warm = make_requests(2, 16, 32, 4, vocab, SEED + 1)
+    serve_static(engine, [r.prompt for r in warm], [0.0, 0.0], 4, BATCH_TIMEOUT_MS,
+                 log=lambda _: None)
+    engine.serve_continuous(warm, num_slots=SLOTS)
+    metrics = {"static": [], "continuous": []}
+    launches, tokens = {}, {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(1, REPEATS + 1):
+        _zero(counters)
+        run = serve_static(engine, prompts, arrivals, NEW_TOKENS, BATCH_TIMEOUT_MS,
+                           log=lambda _: None)
+        passes = len(run.batches)
+        steps = passes * NEW_TOKENS
+        counts = _check_counts(f"static run {i}", counters, {
+            "flash_attention": L * passes, "decode_attention": L * steps,
+            "rmsnorm": (2 * L + 1) * (passes + steps)}, _completed(run.tokens, vocab), len(reqs))
+        prefill_s = sum(bt[2] for bt in run.batches)
+        decode_s = sum(bt[3] for bt in run.batches)
+        ttft = [t * 1e3 for t in run.ttfts_s]
+        m = {"prefill_tok_s": sum(bt[1] for bt in run.batches) / prefill_s,
+             "decode_tok_s": sum(bt[0] for bt in run.batches) * NEW_TOKENS / decode_s,
+             "decode_step_ms": decode_s / steps * 1e3,
+             "ttft_p50_ms": percentile(ttft, 50.0), "ttft_p99_ms": percentile(ttft, 99.0),
+             "wall_s": run.wall_s}
+        metrics["static"].append(m)
+        print(f"   static run {i}: batches {[bt[0] for bt in run.batches]}, prefill passes "
+              f"{passes} ({sum(bt[1] for bt in run.batches)} prompt tokens, padded to the "
+              f"batch bucket), decode steps {steps}; "
+              + ", ".join(f"{k} {v:.3f}" for k, v in m.items()) + f"; launches {counts}")
+        if i == 1:
+            launches.update(counts)
+            tokens["static"] = run.tokens
+        _zero(counters)
+        st = engine.serve_continuous(reqs, num_slots=SLOTS)
+        counts = _check_counts(f"continuous run {i}", counters, {
+            "flash_attention": L * len(reqs), "decode_attention": L * st.steps,
+            "rmsnorm": (2 * L + 1) * (len(reqs) + st.steps)},
+            _completed([r.tokens for r in st.results], vocab), len(reqs))
+        ttft = [r.ttft_s * 1e3 for r in st.results]
+        m = {"prefill_tok_s": st.prefill_tokens / st.prefill_s,
+             "decode_tok_s": (st.total_tokens - len(st.results)) / st.decode_s,
+             "decode_step_ms": st.decode_s / st.steps * 1e3,
+             "ttft_p50_ms": percentile(ttft, 50.0), "ttft_p99_ms": percentile(ttft, 99.0),
+             "wall_s": st.wall_s}
+        metrics["continuous"].append(m)
+        print(f"   continuous run {i}: {len(reqs)} admissions (batch-1 prefills padded to "
+              f"{PREFILL_LEN}), decode steps {st.steps}, mean slot occupancy "
+              f"{st.mean_slot_occupancy:.2f}; " + ", ".join(f"{k} {v:.3f}" for k, v in m.items())
+              + f"; launches {counts}")
+        if i == 1:
+            tokens["continuous"] = [r.tokens for r in st.results]
+    for path, runs in metrics.items():
+        med = {k: sorted(r[k] for r in runs)[len(runs) // 2] for k in runs[0]}
+        spread = {k: max(r[k] for r in runs) - min(r[k] for r in runs) for k in runs[0]}
+        print(f"   {path}, median of {len(runs)} runs: " + ", ".join(
+            f"{k} {med[k]:.3f} (max-min {spread[k]:.3f})" for k in med))
+    print(f"   peak device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; "
+          f"continuous vs static tokens (bf16, other batch shapes): "
+          f"{_fmt_agreement(tokens['static'], tokens['continuous'])}")
+    return launches, engine, prompts
+
+
 _CLASSES = (
+    ("flash_attention", ("flash_attention_kernel",)),
+    ("decode_attention", ("decode_attention_kernel",)),
     ("paged_attention", ("paged_attention_kernel",)),
     ("spec_verify", ("spec_verify_kernel",)),
     ("varlen_prefill", ("varlen_prefill_kernel",)),
@@ -720,14 +988,15 @@ def _kernel_class(name):
     return "other"
 
 
-def _profiled_run(torch, engine, reqs):
-    """Serve ``reqs`` under torch.profiler; device ms per kernel class."""
+def _profiled(torch, fn):
+    """Run ``fn()`` under torch.profiler; (its result, wall ms, device ms
+    per kernel class)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        stats = engine.serve_paged(reqs, num_slots=SLOTS, page_size=PAGE, prefill_budget=BUDGET)
+        stats = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_class = {cls: 0.0 for cls, _ in _CLASSES}
@@ -750,7 +1019,8 @@ def profile_phase(torch, engine, reqs):
     runs = {}
     for new in (1, 16):
         sub = [ServeRequest(r.request_id, r.prompt, new) for r in reqs[:SLOTS]]
-        runs[new] = _profiled_run(torch, engine, sub)
+        runs[new] = _profiled(torch, lambda: engine.serve_paged(
+            sub, num_slots=SLOTS, page_size=PAGE, prefill_budget=BUDGET))
     (s1, w1, c1), (s16, w16, c16) = runs[1], runs[16]
     if sum(c16.values()) <= 0:
         print("   profiler saw no device time: breakdown not measured")
@@ -775,6 +1045,33 @@ def profile_phase(torch, engine, reqs):
           f"rmsnorm at {BUDGET} rows {c1['rmsnorm'] / ((2 * L + 1) * n1):.4f}, "
           f"paged_attention {dec['paged_attention'] / (L * steps):.4f}, "
           f"rmsnorm at {SLOTS} rows {dec['rmsnorm'] / ((2 * L + 1) * steps):.4f}")
+
+
+def dense_profile_phase(torch, engine, prompts):
+    """Where the time goes on the dense path: ``generate`` on the first
+    SLOTS prompts under torch.profiler with 0 and with 16 new tokens (one
+    prefill pass, then 16 decode steps); a decode step is the difference
+    over 16 steps.  Host and profiler overhead count as device idle time."""
+    runs = {new: _profiled(torch, lambda n=new: engine.generate(prompts[:SLOTS], n))
+            for new in (0, 16)}
+    (_, pre_wall, prefill), (_, w16, c16) = runs[0], runs[16]
+    if sum(c16.values()) <= 0:
+        print("   profiler saw no device time: breakdown not measured")
+        return
+    fmt = lambda dct: ", ".join(f"{k} {v:.3f}" for k, v in dct.items())
+    step = {k: (c16[k] - prefill[k]) / 16 for k in c16}
+    step_wall = (w16 - pre_wall) / 16
+    L = engine.model.cfg.num_layers
+    lens = [len(p) for p in prompts[:SLOTS]]
+    print(f"   dense prefill pass ({SLOTS} prompts of {min(lens)}-{max(lens)} tokens, padded to "
+          f"{engine._pad_prompts(prompts[:SLOTS])[0].shape[1]}): wall {pre_wall:.3f} ms, device "
+          f"busy {sum(prefill.values()):.3f} ms (idle {1 - sum(prefill.values()) / pre_wall:.3f}); "
+          f"device ms: {fmt(prefill)}")
+    print(f"   dense decode step ({SLOTS} rows): wall {step_wall:.3f} ms, device busy "
+          f"{sum(step.values()):.3f} ms (idle {1 - sum(step.values()) / step_wall:.3f}); "
+          f"device ms: {fmt(step)}")
+    print(f"   device ms per kernel launch: flash_attention {prefill['flash_attention'] / L:.4f}, "
+          f"decode_attention {step['decode_attention'] / L:.4f}")
 
 
 def main() -> int:
@@ -804,6 +1101,8 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}")
     from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import spec_verify as sv
@@ -819,19 +1118,28 @@ def main() -> int:
 
     t0 = _phase("2. kernels vs plain versions (glm4-9b widths, bf16; bf16/int8/fp8 pools)")
     records = kernels_phase(torch, dev)
+    records.update(dense_kernels_phase(torch, dev))
     _done(torch, "2. kernels", t0)
 
     t0 = _phase("3. check: reduced glm4-9b, card vs CPU reference")
     check_phase(torch, dev)
+    dense_check_phase(torch, dev)
     _done(torch, "3. check", t0)
 
     t0 = _phase("4. serve: glm4-9b full width and depth, random bf16 weights")
-    counters = {"rmsnorm": rn, "paged_attention": pa, "spec_verify": sv, "varlen_prefill": vp}
-    launches, engine, reqs = serve_phase(torch, dev, counters)
+    counters = {"rmsnorm": rn, "paged_attention": pa, "spec_verify": sv, "varlen_prefill": vp,
+                "flash_attention": fa, "decode_attention": da}
+    model, params = full_model(torch, dev)
+    launches, engine, reqs = serve_phase(torch, dev, counters, model, params)
+    print("   -- the dense engines (static generate behind the scheduler; serve_continuous)")
+    dense_launches, dense_engine, prompts = dense_serve_phase(torch, dev, counters, model, params)
+    for name in ("flash_attention", "decode_attention"):
+        launches[name] = dense_launches[name]
     _done(torch, "4. serve", t0)
 
     t0 = _phase("5. where the time goes (torch.profiler, device time by kernel class)")
     profile_phase(torch, engine, reqs)
+    dense_profile_phase(torch, dense_engine, prompts)
     _done(torch, "5. profile", t0)
 
     sources = {
@@ -842,6 +1150,10 @@ def main() -> int:
                         "src/repro/kernels/spec_verify.py:130"),
         "varlen_prefill": ("src/repro_torch/kernels/csrc/varlen_prefill.cu",
                            "src/repro/kernels/varlen_prefill.py:156"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:101"),
+        "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                             "src/repro/kernels/decode_attention.py:82"),
     }
     kernels = []
     for name, r in records.items():

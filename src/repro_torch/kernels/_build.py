@@ -29,7 +29,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 PACKAGE = CSRC.parents[1]                  # <root>/src/repro_torch
 CHECKOUT = PACKAGE.parents[1]              # <root>
-SOURCES = ("rmsnorm.cu", "paged_attention.cu", "varlen_prefill.cu", "spec_verify.cu")
+SOURCES = ("rmsnorm.cu", "paged_attention.cu", "varlen_prefill.cu", "spec_verify.cu",
+           "flash_attention.cu", "decode_attention.cu")
 HEADERS = ("common.cuh",)
 BUILD_ROOT = CHECKOUT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
@@ -57,6 +58,10 @@ SIGNATURES = {
                           _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P),
     "rt_spec_verify": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _I, _I, _I, _F, _F, _I, _I, _P),
+    "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _F, _F, _I, _P),
+    "rt_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                            _F, _I, _P),
 }
 
 

@@ -13,12 +13,49 @@ from typing import Optional
 import torch
 
 from . import ref
+from .decode_attention import decode_attention as _decode_attention
+from .flash_attention import flash_attention as _flash_attention
 from .paged_attention import paged_attention as _paged_attention
 from .rmsnorm import rmsnorm as _rmsnorm
 from .spec_verify import spec_verify as _spec_verify
 from .varlen_prefill import varlen_prefill as _varlen_prefill
 
 NEG_INF = ref.NEG_INF
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window=None,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Full-sequence GQA attention (prefill, ``forward``): q ``(b, sq, h,
+    d)`` at positions ``q_offset + i`` over k/v ``(b, sk, kvh, d)``."""
+    return _flash_attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                            q_offset=q_offset, scale=scale)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    softcap: float = 0.0,
+    window=None,
+    scale: Optional[float] = None,
+    kv_bound: Optional[int] = None,
+) -> torch.Tensor:
+    """Single-token decode attention over a dense ``(b, S, kvh, d)`` cache.
+    ``kv_bound`` is a host-known bound on ``lengths`` (the engines bucket it
+    to a power of two): keys past it are never read."""
+    return _decode_attention(q, k_cache, v_cache, lengths, softcap=softcap,
+                             window=window, scale=scale, kv_bound=kv_bound)
 
 
 def varlen_prefill(

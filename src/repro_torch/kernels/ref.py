@@ -60,6 +60,66 @@ def _attend(q, k, v, valid, scale: float, softcap: float) -> torch.Tensor:
     return out.reshape(B, n, h, d)
 
 
+def attention(
+    q: torch.Tensor,            # (b, sq, h, d)
+    k: torch.Tensor,            # (b, sk, kvh, d)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window=None,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Full-sequence attention (training, prefill): query row ``i`` sits at
+    position ``q_offset + i`` and attends key ``j`` when (causal) ``q_pos >=
+    j`` and (window) ``q_pos - j < window``.  A row with no live key is
+    exactly zero (the TPU kernel leaves a value there that depends on its
+    block size; the reference ``repro.kernels.ref.attention`` the mean of
+    V)."""
+    sq, d = q.shape[1], q.shape[-1]
+    scale = d ** -0.5 if scale is None else scale
+    q_pos = q_offset + torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
+    valid = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= q_pos >= k_pos
+    if _windowed(window):
+        valid &= (q_pos - k_pos) < int(window)
+    out = _attend(q, k, v, valid[None].expand(q.shape[0], -1, -1), scale, softcap)
+    return out.to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,            # (b, 1, h, d) one new token per row
+    k_cache: torch.Tensor,      # (b, S, kvh, d) dense cache
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,      # (b,) int32 live tokens (incl. the new one)
+    *,
+    softcap: float = 0.0,
+    window=None,
+    scale: Optional[float] = None,
+    kv_bound: Optional[int] = None,
+) -> torch.Tensor:
+    """Decode attention over a dense cache: row ``b`` attends positions
+    ``[0, len)`` (or ``[len - window, len)``), only the first ``kv_bound``
+    of them.  V rows at positions no row may read are zeroed before use, so
+    a row of length 0 is exactly zero (the reference
+    ``repro.kernels.ref.decode_attention`` gives the mean of V there)."""
+    d = q.shape[-1]
+    scale = d ** -0.5 if scale is None else scale
+    S = k_cache.shape[1] if kv_bound is None else min(k_cache.shape[1], int(kv_bound))
+    k, v = k_cache[:, :S], v_cache[:, :S]
+    k_pos = torch.arange(S, device=q.device)[None, :]
+    L = lengths.to(q.device).long()[:, None]
+    valid = k_pos < L
+    if _windowed(window):
+        valid &= k_pos >= L - int(window)
+    v = torch.where(valid[:, :, None, None], v, torch.zeros((), dtype=v.dtype, device=v.device))
+    out = _attend(q, k, v, valid[:, None, :], scale, softcap)
+    return out.to(q.dtype)
+
+
 def paged_attention(
     q: torch.Tensor,            # (b, 1, h, d) one new token per request
     k_pages: torch.Tensor,      # (num_pages, page_size, kvh, d) global pool

@@ -1,15 +1,16 @@
-"""Dense decoder-only LM: the paged serving path of ``repro.models.lm``.
+"""Dense decoder-only LM: the serving paths of ``repro.models.lm``.
 
-What is ported: parameters, the paged KV pool (full precision, or int8/fp8
-codes with float32 scale pools), one paged decode step
-(:meth:`DecoderLM.decode_paged`), one speculative verify step
-(:meth:`DecoderLM.decode_spec`) and one packed varlen-prefill launch
-(:meth:`DecoderLM.prefill_packed`).  The full-sequence ``forward`` and the
-dense-cache ``prefill``/``decode`` follow with the ``flash_attention`` and
-``decode_attention`` kernels.  Layers run as a Python loop over a list of
-per-layer parameter dicts (JAX scans stacked leaves); the pools stay stacked
-``(L, num_pages, page_size, kvh, d)`` and each layer writes its slice in
-place.
+What is ported: parameters; the full-sequence :meth:`DecoderLM.forward`;
+the dense KV cache ``(L, b, max_seq, kvh, d)`` with one right-padded
+prefill (:meth:`DecoderLM.prefill`) and one decode step
+(:meth:`DecoderLM.decode`), as the static and continuous engines drive
+them; the paged KV pool (full precision, or int8/fp8 codes with float32
+scale pools), one paged decode step (:meth:`DecoderLM.decode_paged`), one
+speculative verify step (:meth:`DecoderLM.decode_spec`) and one packed
+varlen-prefill launch (:meth:`DecoderLM.prefill_packed`).  Layers run as a
+Python loop over a list of per-layer parameter dicts (JAX scans stacked
+leaves); caches and pools stay stacked on a leading layer axis and each
+layer writes its slice in place, where JAX returns updated arrays.
 """
 from __future__ import annotations
 
@@ -21,9 +22,11 @@ from ..device import resolve_device, resolve_dtype
 from ..kernels import kvquant, ops
 from .config import ArchConfig
 from .modules import (
+    attn_decode,
     attn_decode_paged,
     attn_decode_spec,
     attn_defs,
+    attn_full,
     attn_prefill_packed,
     mlp_apply,
     mlp_defs,
@@ -100,6 +103,91 @@ class DecoderLM:
     def _block_ffn(self, blk, x: torch.Tensor) -> torch.Tensor:
         """ln2 + MLP, residual-added."""
         return x + mlp_apply(blk["mlp"], self._norm(x, blk["ln2"]))
+
+    # -- full sequence ------------------------------------------------------------
+    def forward(self, params, batch: Dict[str, torch.Tensor]):
+        """Logits of every position of ``batch["tokens"]`` (b, s): float32
+        (b, s, V), and the auxiliary loss (0 for a dense model), as the JAX
+        model returns them.  ``remat`` (a training option) is not ported."""
+        x = self._embed_tokens(params, batch["tokens"])
+        for blk in params["blocks"]:
+            x = x + attn_full(blk["attn"], self._norm(x, blk["ln1"]), self.cfg)
+            x = self._block_ffn(blk, x)
+        return self._logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    # -- dense KV cache -------------------------------------------------------------
+    # the batch axis of each cache tensor (the continuous engine's slot copy)
+    CACHE_BATCH_AXIS = {"pos": 0, "k": 1, "v": 1}
+
+    def cache_defs(self, batch: int, max_seq: int) -> Dict[str, tuple]:
+        """Shapes of the dense cache: ``pos`` (b,) int32, the next position
+        of each row, and K/V stacks (L, b, max_seq, kvh, d)."""
+        cfg = self.cfg
+        L, kv, dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+        return {"pos": (batch,), "k": (L, batch, max_seq, kv, dh),
+                "v": (L, batch, max_seq, kv, dh)}
+
+    def init_cache(self, batch: int, max_seq: int) -> Dict[str, torch.Tensor]:
+        """A zeroed dense cache: K/V in the model's dtype (bf16 on the card,
+        float32 on the CPU), ``pos`` int32."""
+        return {
+            k: torch.zeros(shape, device=self.device,
+                           dtype=torch.int32 if k == "pos" else self.dtype)
+            for k, shape in self.cache_defs(batch, max_seq).items()
+        }
+
+    def _prefill_logits(self, params, batch, x: torch.Tensor,
+                        cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Last-token logits, and each row's next position into
+        ``cache["pos"]``.  With ``batch["lengths"]`` the prompts are
+        right-padded to a common length: causal attention never reads the
+        trailing pads, so the logits at ``lengths - 1`` are those of the
+        unpadded prompts."""
+        b, s = x.shape[:2]
+        lengths = batch.get("lengths")
+        if lengths is None:
+            cache["pos"].fill_(s)
+            x_last = x[:, -1:]
+        else:
+            lengths = lengths.to(device=x.device, dtype=torch.int32)
+            cache["pos"].copy_(lengths)
+            x_last = x[torch.arange(b, device=x.device), lengths.long() - 1][:, None]
+        return self._logits(params, x_last)[:, 0]
+
+    def prefill(self, params, batch: Dict[str, torch.Tensor],
+                cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Prefill ``batch["tokens"]`` (b, s), optionally right-padded with
+        ``batch["lengths"]`` (b,): every layer attends the prompt with one
+        flash-attention launch and writes its K/V into positions ``[0, s)``
+        of the dense cache, in place.  Returns float32 last-token logits
+        (b, V)."""
+        x = self._embed_tokens(params, batch["tokens"])
+        s = x.shape[1]
+        for li, blk in enumerate(params["blocks"]):
+            a, (k, v) = attn_full(blk["attn"], self._norm(x, blk["ln1"]), self.cfg,
+                                  return_kv=True)
+            cache["k"][li, :, :s] = k
+            cache["v"][li, :, :s] = v
+            x = self._block_ffn(blk, x + a)
+        return self._prefill_logits(params, batch, x, cache)
+
+    def decode(self, params, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
+               uniform_pos: bool = True, kv_bound: Optional[int] = None) -> torch.Tensor:
+        """One token step over a dense cache.  ``tokens``: (b,) int32, the
+        token at position ``cache["pos"]`` of each row; its K/V are written
+        there in place and ``pos`` advances by one.  ``uniform_pos=False``
+        writes each row at its own position (continuous batching);
+        ``kv_bound`` is a host-known bound on the live lengths, so attention
+        reads only that prefix of the cache.  Returns float32 logits (b, V)."""
+        pos = cache["pos"]
+        x = self._embed_tokens(params, tokens)[:, None, :]          # (b, 1, D)
+        for li, blk in enumerate(params["blocks"]):
+            a = attn_decode(blk["attn"], self._norm(x, blk["ln1"]), cache["k"][li],
+                            cache["v"][li], pos, self.cfg, uniform_pos=uniform_pos,
+                            kv_bound=kv_bound)
+            x = self._block_ffn(blk, x + a)
+        pos.add_(1)
+        return self._logits(params, x)[:, 0]
 
     # -- paged KV pool --------------------------------------------------------------
     def paged_cache_defs(self, num_pages: int, page_size: int,

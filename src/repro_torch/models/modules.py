@@ -1,13 +1,15 @@
 """Block-level model components (the port's ``repro.models.modules``).
 
 ``*_defs(cfg)`` describe parameters as :class:`~repro_torch.models.params.P`
-trees; the apply functions run one token per slot (paged decode) or a
+trees; the apply functions run a whole sequence (prefill, ``forward``), one
+token per row against a dense cache, one token per slot (paged decode) or a
 token-packed buffer of prompt chunks (packed prefill).  Attention and
 normalisation go through :mod:`repro_torch.kernels.ops`, which sends CUDA
 tensors to the hand-written kernels.  The projections, MLP and LM head are
 plain matrix products, as the JAX package leaves them to XLA.  Public
 functions keep the JAX layouts: activations ``(b, s, D)``, heads
-``(b, s, h, d)``, pools ``(num_pages, page_size, kvh, d)``.  An int8/fp8
+``(b, s, h, d)``, dense caches ``(b, S, kvh, d)``, pools
+``(num_pages, page_size, kvh, d)``.  An int8/fp8
 pool comes with float32 scale pools ``(num_pages, page_size, kvh)``: every
 write quantizes its rows (:func:`~repro_torch.kernels.kvquant.quantize`)
 and writes their scales at the same indices, and the kernels dequantize.
@@ -91,6 +93,72 @@ def _project_qkv(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
     k = rope(_heads_in(x, p["wk"]), positions, cfg.rope_theta)
     v = _heads_in(x, p["wv"])
     return q, k, v
+
+
+def attn_full(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,                      # (b, s, D)
+    cfg: ArchConfig,
+    *,
+    causal: bool = True,
+    window=None,
+    q_offset: int = 0,
+    return_kv: bool = False,
+):
+    """Full-sequence attention (prefill, ``forward``): positions ``q_offset
+    + i``, RoPE on q and k, then one flash-attention launch.  Returns y
+    ``(b, s, D)``, and ``(k, v)`` ``(b, s, kvh, d)`` with ``return_kv`` (the
+    prefill writes them into the dense cache)."""
+    s = x.shape[1]
+    positions = q_offset + torch.arange(s, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    out = ops.attention(q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap,
+                        q_offset=q_offset)
+    y = _heads_out(out, p["wo"])
+    return (y, (k, v)) if return_kv else y
+
+
+def attn_decode(
+    p: Dict[str, torch.Tensor],
+    x1: torch.Tensor,                     # (b, 1, D) one new token per row
+    k_cache: torch.Tensor,                # (b, S, kv, dh) dense cache
+    v_cache: torch.Tensor,
+    pos: torch.Tensor,                    # (b,) int32 position of the new token
+    cfg: ArchConfig,
+    *,
+    window=None,
+    ring: bool = False,
+    uniform_pos: bool = True,
+    kv_bound: Optional[int] = None,
+) -> torch.Tensor:
+    """Single-token attention against a dense KV cache.
+
+    The new token's K/V are written at ``pos`` in place (the JAX module
+    returns updated caches): with ``uniform_pos`` every row shares ``pos[0]``
+    (one slice write, the start clamped into the cache as
+    ``dynamic_update_slice`` clamps it); otherwise each row writes its own
+    position, and a row whose position lies past the cache (an idle slot
+    of the continuous engine keeps counting) writes nothing.  Then
+    attention covers ``pos + 1`` keys per row, at most ``kv_bound``.
+    ``ring`` (the hybrid family's windowed ring cache) is not ported yet.
+    Returns y (b, 1, D)."""
+    if ring:
+        raise NotImplementedError("ring-buffer caches come with the hybrid family")
+    b, S = k_cache.shape[:2]
+    q, k, v = _project_qkv(p, x1, cfg, pos[:, None])
+    if uniform_pos:
+        at = pos[:1].long().clamp(max=S - 1)
+        k_cache.index_copy_(1, at, k)
+        v_cache.index_copy_(1, at, v)
+    else:
+        rows = torch.arange(b, device=pos.device)
+        at = pos.long().clamp(max=S - 1)
+        inside = (pos < S)[:, None, None]
+        k_cache.index_put_((rows, at), torch.where(inside, k[:, 0], k_cache[rows, at]))
+        v_cache.index_put_((rows, at), torch.where(inside, v[:, 0], v_cache[rows, at]))
+    out = ops.decode_attention(q, k_cache, v_cache, pos + 1, softcap=cfg.attn_softcap,
+                               window=window, kv_bound=kv_bound)
+    return _heads_out(out, p["wo"])
 
 
 SCRATCH_PAGE = 0   # never allocated: writes no request may read land here

@@ -1,4 +1,14 @@
-"""Paged serving engine (the port's ``repro.serve.engine``, paged path).
+"""Serving engines (the port's ``repro.serve.engine``): the static and
+continuous engines on a dense KV cache, and the paged engine.
+
+``ServingEngine.generate`` is the static engine: one batch of prompts,
+right-padded to a power-of-two bucket, is prefilled in one pass into a
+dense ``(L, b, max_seq, kvh, d)`` cache, then decoded in lockstep.
+``ServingEngine.serve_continuous`` is slot-based continuous batching on the
+same dense cache: each admission prefills its prompt at batch 1 and copies
+that cache into a free slot; every decode step advances all slots, each at
+its own position.  Both decode with a power-of-two bound on the live
+lengths, so attention reads only that prefix of the cache.
 
 ``ServingEngine.serve_paged`` is paged-KV continuous batching: a global pool
 of ``page_size``-token pages plus per-slot page tables; admission is keyed
@@ -24,26 +34,27 @@ all run on the device.  A rejected suffix rolls back by rewinding the
 length and handing any page it opened back to the pool.  ``kv_dtype``
 ``"int8"``/``"fp8"`` stores the pool as codes with float32 per-row scales.
 
-What waits for later slices: chunked prefill and preemption
-(``overcommit > 1``), the prefix cache, tensor parallelism, tenants and
-deadlines, checkpoints and the fault hook.
+What waits for later slices: encoder inputs (``extra_inputs``) and
+sampling in ``generate``; chunked prefill and preemption (``overcommit >
+1``), the prefix cache, tensor parallelism, tenants and deadlines,
+checkpoints and the fault hook in ``serve_paged``.
 """
 from __future__ import annotations
 
-import math
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple, Union
+from typing import Callable, Dict, List, Optional, Set, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..core.analysis import percentile
 from ..device import resolve_device
 from ..kernels import kvquant
 from ..models.lm import DecoderLM
 from .page_table import PagePool, PageTable, pages_needed
-from .scheduler import PagedSlotPool, PrefillBudget, SpecLedger
+from .scheduler import PagedSlotPool, PrefillBudget, SlotPool, SpecLedger
 
 
 def bucket_pow2(n: int, floor: int = 1, cap: Optional[int] = None) -> int:
@@ -81,16 +92,15 @@ def ngram_propose(context: np.ndarray, ngram: int, max_tokens: int) -> List[int]
     return [int(t) for t in cont]
 
 
-def percentile(values: Sequence[float], pct: float) -> float:
-    """Nearest-rank percentile (pct in [0, 100]); a copy of
-    ``repro.core.analysis.percentile``."""
-    if not values:
-        raise ValueError("percentile of empty sequence")
-    if not 0.0 <= pct <= 100.0:
-        raise ValueError("pct must be in [0, 100]")
-    s = sorted(values)
-    rank = max(1, math.ceil(pct / 100.0 * len(s)))
-    return s[rank - 1]
+@dataclass
+class GenerationResult:
+    """Output of one static ``generate`` batch."""
+
+    tokens: np.ndarray          # (b, new_tokens)
+    prefill_s: float
+    decode_s: float
+    tokens_per_s: float
+    first_token_s: float = 0.0  # time.perf_counter() when the prefill's tokens were out
 
 
 @dataclass
@@ -119,6 +129,21 @@ class RequestResult:
     status: str = "completed"
     draft_proposed: int = 0     # speculative drafts proposed for this request
     draft_accepted: int = 0
+
+
+@dataclass
+class ContinuousStats:
+    """Aggregate output of one ``serve_continuous`` run."""
+
+    results: List[RequestResult]
+    steps: int                  # decode steps executed
+    wall_s: float
+    total_tokens: int
+    throughput_tps: float
+    mean_slot_occupancy: float  # active slots per decode step
+    prefill_s: float = 0.0      # host wall time inside admission prefills
+    prefill_tokens: int = 0     # real prompt tokens prefilled
+    decode_s: float = 0.0       # host wall time inside decode steps
 
 
 @dataclass
@@ -174,6 +199,12 @@ def _upload(arrays: Dict[str, np.ndarray], device: torch.device) -> Dict[str, to
     return out
 
 
+def _sync(device: torch.device) -> None:
+    """Wait for the card (a host clock read after it times finished work)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 class ServingEngine:
     def __init__(
         self,
@@ -208,6 +239,207 @@ class ServingEngine:
     def _kv_dtype_name(self) -> str:
         return self.kv_dtype or str(self.model.dtype).replace("torch.", "")
 
+    # -- dense-cache engines ------------------------------------------------------
+    def _kv_bucket(self, live_len: int) -> int:
+        """The decode bound on live lengths: a power-of-two multiple of the
+        page size (or ``max_seq``), at most ``max_seq``."""
+        return bucket_pow2(live_len, floor=min(self.page_size, self.max_seq), cap=self.max_seq)
+
+    def _pad_prompts(self, prompts: List[np.ndarray],
+                     max_new_tokens: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+        """Right-pad a prompt batch to one prefill length, a power-of-two
+        bucket floored at the page size: causal attention never reads the
+        trailing pads and the model takes the logits at ``lengths - 1``.
+        Returns (tokens (b, padded) int32, lengths (b,) int32)."""
+        b = len(prompts)
+        if b > self.max_batch:
+            raise ValueError(f"batch {b} > max_batch {self.max_batch}")
+        lens = np.asarray([len(p) for p in prompts], np.int32)
+        max_len = int(lens.max())
+        if max_len + max_new_tokens > self.max_seq:
+            raise ValueError("prompt + generation exceeds max_seq")
+        padded = bucket_pow2(max_len, floor=min(self.page_size, self.max_seq),
+                             cap=max(self.max_seq - max_new_tokens, max_len))
+        out = np.zeros((b, padded), np.int32)
+        for i, p in enumerate(prompts):
+            out[i, : len(p)] = p
+        return out, lens
+
+    @torch.no_grad()
+    def generate(self, prompts: List[np.ndarray], max_new_tokens: int) -> GenerationResult:
+        """Static batched greedy generation: one prefill of the padded batch
+        into a fresh dense cache, then ``max_new_tokens`` decode steps in
+        lockstep (the last one's token is not kept, as in the JAX engine).
+        Rows of one length decode at one shared position; a ragged batch
+        writes each row at its own.  The tokens stay on the device until
+        the end: the loop never waits for the card."""
+        dev = self.device
+        tokens, lens = self._pad_prompts(prompts, max_new_tokens)
+        b = tokens.shape[0]
+        max_len = int(lens.max())
+        cache = self.model.init_cache(b, self.max_seq)
+        batch = {"tokens": torch.from_numpy(tokens).to(dev),
+                 "lengths": torch.from_numpy(lens).to(dev)}
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits = self.model.prefill(self.params, batch, cache)
+        _sync(dev)
+        t1 = time.perf_counter()
+        out = torch.zeros((b, max_new_tokens), dtype=torch.int32, device=dev)
+        nxt = logits.argmax(dim=-1).to(torch.int32)
+        uniform = bool((lens == lens[0]).all())
+        for i in range(max_new_tokens):
+            out[:, i] = nxt
+            logits = self.model.decode(self.params, nxt, cache, uniform_pos=uniform,
+                                       kv_bound=self._kv_bucket(max_len + i + 1))
+            nxt = logits.argmax(dim=-1).to(torch.int32)
+        result = out.cpu().numpy()        # waits for the last decode step
+        decode_s = time.perf_counter() - t1
+        return GenerationResult(
+            tokens=result,
+            prefill_s=t1 - t0,
+            decode_s=decode_s,
+            tokens_per_s=b * max_new_tokens / decode_s if decode_s > 0 else float("inf"),
+            first_token_s=t1,
+        )
+
+    def _write_slot(self, cache: Dict[str, torch.Tensor], one: Dict[str, torch.Tensor],
+                    slot: int) -> None:
+        """Copy a batch-1 cache into slot ``slot`` of every cache tensor, in
+        place (JAX scatters with a donated ``dynamic_update_slice``)."""
+        for name, ax in self.model.CACHE_BATCH_AXIS.items():
+            cache[name].select(ax, slot).copy_(one[name].select(ax, 0))
+
+    @torch.no_grad()
+    def serve_continuous(
+        self,
+        requests: List[ServeRequest],
+        num_slots: Optional[int] = None,
+        clock: Callable[[], float] = time.perf_counter,
+    ) -> ContinuousStats:
+        """Slot-based continuous batching on the dense cache.
+
+        Every prompt is right-padded to one bucketed prefill length.  At each
+        decode-step boundary finished requests retire, then every free slot
+        admits the next queued request: a batch-1 prefill whose cache is
+        copied into the slot.  One decode step then advances every slot
+        (idle slots too; their output is ignored), each at its own
+        position.  ``clock`` is injectable so tests measure deterministic
+        timings: it stamps the requests and the run, read where the JAX
+        engine reads it; ``prefill_s``/``decode_s`` are host wall times.
+        Greedy tokens equal the JAX engine's on the same weights."""
+        if not requests:
+            return ContinuousStats([], 0, 0.0, 0, 0.0, 0.0)
+        dev = self.device
+        num_slots = num_slots or self.max_batch
+        max_prompt = max(len(r.prompt) for r in requests)
+        prefill_len = bucket_pow2(max_prompt, floor=min(self.page_size, self.max_seq),
+                                  cap=self.max_seq)
+        for r in requests:
+            if len(r.prompt) + r.max_new_tokens > self.max_seq:
+                raise ValueError(
+                    f"request {r.request_id}: prompt + generation exceeds max_seq"
+                )
+        pool = SlotPool(num_slots)
+        cache = self.model.init_cache(num_slots, self.max_seq)
+        # one reusable batch-1 cache for admission prefills: a prefill writes
+        # only positions [0, prefill_len), so the rest stays zero
+        cache1 = self.model.init_cache(1, self.max_seq)
+        queue = deque(requests)
+        nxt = np.zeros((num_slots,), np.int32)
+        slot_tokens: Dict[int, List[int]] = {}
+        slot_len: Dict[int, int] = {}             # live length (prompt + generated)
+        admit_step: Dict[int, int] = {}
+        ttft: Dict[int, float] = {}
+        finished: Dict[int, RequestResult] = {}
+        t_start = clock()
+        submit_s = {r.request_id: t_start for r in requests}
+        step = 0
+        occupancy_sum = 0
+        prefill_s = decode_s = 0.0
+        prefill_tokens = 0
+        while queue or pool.num_active:
+            # retire sequences that already hold all their tokens, so their
+            # slots are free for admission at this same step boundary
+            for slot in list(pool.active):
+                req = pool.active[slot]
+                if len(slot_tokens[slot]) >= req.max_new_tokens:
+                    now = clock()
+                    latency = now - submit_s[req.request_id]
+                    finished[req.request_id] = RequestResult(
+                        request_id=req.request_id,
+                        tokens=np.asarray(slot_tokens.pop(slot), np.int32),
+                        slot=slot,
+                        admit_step=admit_step.pop(slot),
+                        finish_step=step,
+                        ttft_s=ttft.pop(slot),
+                        latency_s=latency,
+                        tokens_per_s=(
+                            req.max_new_tokens / latency if latency > 0 else float("inf")
+                        ),
+                    )
+                    pool.release(slot)
+                    slot_len.pop(slot, None)
+            # admission at the decode-step boundary: fill every free slot
+            while queue and pool.num_free:
+                req = queue.popleft()
+                slot = pool.admit(req, step=step)
+                padded = np.zeros((1, prefill_len), np.int32)
+                padded[0, : len(req.prompt)] = req.prompt
+                batch1 = {"tokens": torch.from_numpy(padded).to(dev),
+                          "lengths": torch.tensor([len(req.prompt)], dtype=torch.int32,
+                                                  device=dev)}
+                t0 = time.perf_counter()
+                logits1 = self.model.prefill(self.params, batch1, cache1)
+                tok0 = int(logits1[0].argmax())            # the sync
+                prefill_s += time.perf_counter() - t0
+                prefill_tokens += len(req.prompt)
+                self._write_slot(cache, cache1, slot)
+                nxt[slot] = tok0
+                slot_tokens[slot] = [tok0]
+                slot_len[slot] = len(req.prompt)
+                admit_step[slot] = step
+                ttft[slot] = clock() - submit_s[req.request_id]
+            if not pool.num_active:
+                if queue:
+                    continue            # freshly-retired slots admit the queue
+                break
+            if all(len(slot_tokens[s]) >= pool.active[s].max_new_tokens
+                   for s in pool.active):
+                continue  # every active slot is at budget: retire, don't decode
+            # one decode step for the whole pool (idle slots are ignored);
+            # the kv bound tracks the longest live slot, not padded max_seq
+            t0 = time.perf_counter()
+            logits = self.model.decode(
+                self.params, torch.from_numpy(nxt).to(dev), cache, uniform_pos=False,
+                kv_bound=self._kv_bucket(max(slot_len.values()) + 1),
+            )
+            tokens_all = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()   # the sync
+            decode_s += time.perf_counter() - t0
+            step += 1
+            occupancy_sum += pool.num_active
+            for slot in pool.active:
+                if len(slot_tokens[slot]) < pool.active[slot].max_new_tokens:
+                    slot_tokens[slot].append(int(tokens_all[slot]))
+                    nxt[slot] = tokens_all[slot]
+                    slot_len[slot] += 1
+        _sync(dev)
+        wall = clock() - t_start
+        results = [finished[r.request_id] for r in requests]
+        total_tokens = sum(len(r.tokens) for r in results)
+        return ContinuousStats(
+            results=results,
+            steps=step,
+            wall_s=wall,
+            total_tokens=total_tokens,
+            throughput_tps=total_tokens / wall if wall > 0 else float("inf"),
+            mean_slot_occupancy=occupancy_sum / step if step else float(num_slots),
+            prefill_s=prefill_s,
+            prefill_tokens=prefill_tokens,
+            decode_s=decode_s,
+        )
+
+    # -- paged engine ---------------------------------------------------------------
     def _paged_decode_step(self, nxt: torch.Tensor, cache, table: torch.Tensor,
                            pos: torch.Tensor, mask: torch.Tensor,
                            pages_bound: int) -> torch.Tensor:
@@ -622,8 +854,7 @@ class ServingEngine:
             slots.record_occupancy(step)
             if not progressed and not prefilling and not decoding:
                 raise RuntimeError("paged serve loop stalled (admission deadlock)")
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        _sync(dev)
         wall = clock() - t_start
         results = [finished[r.request_id] for r in requests]
         total_tokens = sum(len(r.tokens) for r in results)

@@ -1,15 +1,254 @@
-"""Slot and prefill-budget bookkeeping of the paged serving loop.
+"""Request scheduling and slot bookkeeping of the serving engines.
 
-A copy of ``SlotPool``, ``PrefillBudget``, ``SpecLedger`` and
-``PagedSlotPool`` from ``repro.serve.scheduler`` (pure Python; the port keeps its own copy so that
-it never imports ``repro``).  The tracer argument stays optional.
+:class:`RequestScheduler` is the FIFO threaded core of
+``repro.serve.scheduler.RequestScheduler``: a bounded request queue, a
+worker thread that coalesces up to ``max_batch`` requests arriving within
+a ``batch_timeout_ms`` window into one micro-batch, and per-request
+completion futures.  The static engine's driver runs ``generate`` behind
+it.  What waits for the tenants/SLO work: tenants, token buckets and
+priority tiers (the dequeue order here is arrival order), deadlines,
+retries with backoff, SLO shedding, and the synchronous discrete-event
+drive (``step``/``run_until_idle``; here a future of a scheduler that is
+not running raises) and the tracer events.
+
+``SlotPool``, ``PrefillBudget``, ``SpecLedger`` and ``PagedSlotPool`` are
+copies of the classes of the same names (their tracer argument stays
+optional).  Everything is pure Python; the port keeps its own copy so that
+it never imports ``repro``.
 """
 from __future__ import annotations
 
+import threading
 import time
-from typing import Any, Callable, Dict, List, Optional
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
-__all__ = ["PagedSlotPool", "PrefillBudget", "SlotPool", "SpecLedger"]
+__all__ = [
+    "CompletionFuture",
+    "PagedSlotPool",
+    "PrefillBudget",
+    "RequestScheduler",
+    "ScheduledRequest",
+    "SchedulerConfig",
+    "SchedulerQueueFull",
+    "SlotPool",
+    "SpecLedger",
+]
+
+
+class SchedulerQueueFull(RuntimeError):
+    """Admission control: the bounded request queue is full."""
+
+
+@dataclass
+class SchedulerConfig:
+    """Knobs of the request scheduler."""
+
+    max_batch: int = 8             # micro-batch coalescing limit (requests)
+    batch_timeout_ms: float = 2.0  # admission window for a non-full batch
+    queue_depth: int = 1024        # bounded queue (admission control)
+
+
+@dataclass
+class ScheduledRequest:
+    """One unit of scheduled work plus its measured lifecycle times, all in
+    scheduler-clock units (``clock()`` values)."""
+
+    request_id: int
+    arrival_s: float = 0.0      # when submit() was called
+    payload: Any = None
+    start_s: float = 0.0        # micro-batch execution start
+    end_s: float = 0.0          # micro-batch execution end
+    status: str = "queued"      # queued | completed | failed
+    future: "CompletionFuture" = None  # type: ignore[assignment]
+
+    @property
+    def latency_s(self) -> float:
+        """End-to-end latency including queueing delay."""
+        return self.end_s - self.arrival_s
+
+
+class CompletionFuture:
+    """Per-request completion handle: ``result()`` blocks until the worker
+    has run the request's micro-batch."""
+
+    __slots__ = ("request", "_scheduler", "_event", "_value", "_error", "_done")
+
+    def __init__(self, scheduler: "RequestScheduler", request: ScheduledRequest):
+        self.request = request
+        self._scheduler = scheduler
+        self._event = threading.Event()
+        self._value: Any = None
+        self._error: Optional[BaseException] = None
+        self._done = False
+
+    def _set(self, value: Any = None, error: Optional[BaseException] = None) -> None:
+        self._value = value
+        self._error = error
+        self._done = True
+        self._event.set()
+
+    def result(self, timeout: Optional[float] = None) -> Any:
+        if not self._done:
+            if not self._scheduler.running:
+                raise RuntimeError(
+                    f"request {self.request.request_id} is queued on a scheduler that "
+                    f"is not running (start() it; the synchronous drive is not ported)"
+                )
+            if not self._event.wait(timeout):
+                raise TimeoutError(
+                    f"request {self.request.request_id} not done in {timeout}s"
+                )
+        if self._error is not None:
+            raise self._error
+        return self._value
+
+
+class RequestScheduler:
+    """Bounded-queue, micro-batching request scheduler (threaded, FIFO).
+
+    ``execute`` runs one coalesced micro-batch: it receives the list of
+    :class:`ScheduledRequest` and returns either one result per request, or
+    a single value shared by all of them (or ``None``).  An exception
+    fails every request of the batch through its future.
+    """
+
+    def __init__(
+        self,
+        execute: Callable[[List[ScheduledRequest]], Any],
+        config: Optional[SchedulerConfig] = None,
+        *,
+        clock: Callable[[], float] = time.perf_counter,
+    ) -> None:
+        self.execute = execute
+        self.config = config or SchedulerConfig()
+        if self.config.max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        if self.config.queue_depth < 1:
+            raise ValueError("queue_depth must be >= 1")
+        self.clock = clock
+        self._cond = threading.Condition()
+        # pending requests in arrival order
+        self._queue: List[ScheduledRequest] = []
+        self._next_id = 0
+        self._thread: Optional[threading.Thread] = None
+        self.running = False
+        # (time, value) samples recorded at each batch execution
+        self.queue_depth_series: List[tuple] = []
+        self.batch_occupancy_series: List[tuple] = []
+        self.submitted = 0
+        self.completed = 0
+        self.rejected = 0
+        self.batches = 0
+
+    # -- submission ----------------------------------------------------------
+    def submit(self, payload: Any = None, block: bool = True) -> CompletionFuture:
+        """Enqueue one request; returns its completion future.  A full queue
+        blocks the caller while the worker runs, or raises
+        :class:`SchedulerQueueFull` with ``block=False``."""
+        with self._cond:
+            if len(self._queue) >= self.config.queue_depth:
+                if not block:
+                    self.rejected += 1
+                    raise SchedulerQueueFull(
+                        f"queue depth {self.config.queue_depth} exceeded"
+                    )
+                while self.running and len(self._queue) >= self.config.queue_depth:
+                    self._cond.wait()
+            req = ScheduledRequest(request_id=self._next_id, arrival_s=self.clock(),
+                                   payload=payload)
+            self._next_id += 1
+            req.future = CompletionFuture(self, req)
+            self._queue.append(req)
+            self.submitted += 1
+            self._cond.notify_all()
+        return req.future
+
+    # -- threaded drive ------------------------------------------------------
+    def start(self) -> "RequestScheduler":
+        if self._thread is not None:
+            return self
+        self.running = True
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self, wait: bool = True) -> None:
+        """Stop the worker once the queue has drained."""
+        with self._cond:
+            self.running = False
+            self._cond.notify_all()
+        if self._thread is not None and wait:
+            self._thread.join()
+            self._thread = None
+
+    def _worker(self) -> None:
+        timeout_s = self.config.batch_timeout_ms / 1e3
+        while True:
+            batch: List[ScheduledRequest] = []
+            with self._cond:
+                while self.running and not self._queue:
+                    self._cond.wait()
+                if not self.running and not self._queue:
+                    return
+                batch.append(self._queue.pop(0))
+                deadline = time.monotonic() + timeout_s
+                while len(batch) < self.config.max_batch:
+                    if self._queue:
+                        batch.append(self._queue.pop(0))
+                        continue
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0 or not self.running:
+                        break
+                    self._cond.wait(remaining)
+                    if not self._queue and time.monotonic() >= deadline:
+                        break
+                self._cond.notify_all()
+            self._run_batch(batch)
+
+    # -- execution -----------------------------------------------------------
+    def _run_batch(self, batch: List[ScheduledRequest]) -> None:
+        start = self.clock()
+        with self._cond:
+            depth = len(self._queue)
+        error: Optional[BaseException] = None
+        out: Any = None
+        try:
+            out = self.execute(batch)
+        except BaseException as e:  # noqa: BLE001 - propagated via futures
+            error = e
+        end = self.clock()
+        results: Sequence[Any]
+        if isinstance(out, (list, tuple)) and len(out) == len(batch):
+            results = out
+        else:
+            results = [out] * len(batch)
+        for req, value in zip(batch, results):
+            req.start_s = start
+            req.end_s = end
+            req.status = "failed" if error is not None else "completed"
+            req.future._set(value, error)
+        self.batches += 1
+        self.completed += len(batch)
+        self.queue_depth_series.append((start, depth))
+        self.batch_occupancy_series.append((start, len(batch)))
+        with self._cond:
+            self._cond.notify_all()
+
+    # -- reporting -----------------------------------------------------------
+    def stats(self) -> Dict[str, float]:
+        """Scalar summary of the queue/batching series."""
+        occ = [v for _, v in self.batch_occupancy_series]
+        dep = [v for _, v in self.queue_depth_series]
+        return {
+            "batches": float(self.batches),
+            "submitted": float(self.submitted),
+            "completed": float(self.completed),
+            "rejected": float(self.rejected),
+            "mean_batch_occupancy": sum(occ) / len(occ) if occ else 0.0,
+            "max_queue_depth": float(max(dep)) if dep else 0.0,
+            "mean_queue_depth": sum(dep) / len(dep) if dep else 0.0,
+        }
 
 
 class SlotPool:

@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build, kvquant, ref
+from repro_torch.kernels import decode_attention as da_mod
+from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import paged_attention as pa_mod
 from repro_torch.kernels import rmsnorm as rn_mod
 from repro_torch.kernels import spec_verify as sv_mod
@@ -271,3 +273,114 @@ def test_attention_wrappers_raise_on_pool_pairings(cuda):
         sv_mod.spec_verify(big, pool, pool, torch.ones((1, 2), dtype=torch.int32, device=cuda),
                            lens, wlens)
     assert sv_mod.launches == n
+
+
+# ---------------------------------------------------------------------------
+# the dense-cache kernels: flash_attention and decode_attention
+# ---------------------------------------------------------------------------
+FLASH_SHAPES = [
+    # b, sq, sk, h, kvh, d
+    (2, 100, 100, 32, 2, 128),      # glm4-9b widths, 25 tiles of 4 positions
+    (1, 70, 70, 8, 8, 64),          # MHA: 64 positions per tile, a ragged last tile
+    (2, 37, 37, 32, 1, 128),        # MQA: 2 positions per tile
+    (1, 40, 40, 16, 2, 256),        # > 48 KB shared memory at d 256
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("opts", [{}, {"window": 7}, {"softcap": 11.0}, {"causal": False},
+                                  {"q_offset": 30, "window": 50}])
+def test_flash_attention_kernel(cuda, dtype, shape, opts):
+    b, sq, sk, h, kvh, d = shape
+    q = _randn((b, sq, h, d), dtype, cuda, 70)
+    k, v = _randn((b, sk, kvh, d), dtype, cuda, 71), _randn((b, sk, kvh, d), dtype, cuda, 72)
+    n = fa_mod.launches
+    out = fa_mod.flash_attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert fa_mod.launches == n + 1
+    _close(out, fa_mod.flash_attention(q.cpu(), k.cpu(), v.cpu(), **opts), dtype)
+
+
+def test_flash_attention_kernel_rows_without_live_keys(cuda):
+    """q_offset 60 with window 4 over 40 keys: no row has a live key, and
+    with q_offset 40 only the first three rows do; the rest are exact zeros."""
+    q = _randn((1, 16, 32, 128), torch.bfloat16, cuda, 73)
+    k, v = _randn((1, 40, 2, 128), torch.bfloat16, cuda, 74), _randn((1, 40, 2, 128), torch.bfloat16, cuda, 75)
+    assert torch.all(fa_mod.flash_attention(q, k, v, window=4, q_offset=60) == 0)
+    out = fa_mod.flash_attention(q, k, v, window=4, q_offset=40)
+    assert torch.all(out[:, 3:] == 0) and bool((out[:, :3] != 0).any())
+    _close(out, ref.attention(q.cpu(), k.cpu(), v.cpu(), window=4, q_offset=40), torch.bfloat16)
+
+
+DECODE_SHAPES = [
+    # h, kvh, d, S, lengths (the last one 0: an idle row)
+    (32, 2, 128, 160, [1, 17, 128, 0]),      # glm4-9b widths
+    (8, 8, 64, 64, [40, 3, 0]),              # MHA
+    (32, 1, 256, 80, [64, 33, 0]),           # 32-head group, > 48 KB smem
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+@pytest.mark.parametrize("opts", [{}, {"window": 5}, {"softcap": 7.0}, {"kv_bound": 64}])
+def test_decode_attention_kernel(cuda, dtype, shape, opts):
+    h, kvh, d, S, lens = shape
+    b = len(lens)
+    q = _randn((b, 1, h, d), dtype, cuda, 80)
+    kc, vc = _randn((b, S, kvh, d), dtype, cuda, 81), _randn((b, S, kvh, d), dtype, cuda, 82)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    n = da_mod.launches
+    out = da_mod.decode_attention(q, kc, vc, lengths, **opts)
+    torch.cuda.synchronize()
+    assert da_mod.launches == n + 1
+    want = da_mod.decode_attention(*(t.cpu() for t in (q, kc, vc, lengths)), **opts)
+    _close(out, want, dtype)
+    assert torch.all(out[-1] == 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("opts", [{}, {"window": 20}])
+def test_decode_attention_rows_equal_paged_attention(cuda, dtype, opts):
+    """The same keys laid out densely and in 16-token pages give the same
+    output bit for bit: the dense kernel steps through 16 keys at a time
+    with paged_attention's tile arithmetic."""
+    lens = [1, 17, 100, 0, 64]
+    b, S, kvh, d, ps = len(lens), 128, 2, 128, 16
+    q = _randn((b, 1, 32, d), dtype, cuda, 90)
+    kc, vc = _randn((b, S, kvh, d), dtype, cuda, 91), _randn((b, S, kvh, d), dtype, cuda, 92)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    mp = S // ps
+    table = (torch.randperm(b * mp, generator=torch.Generator().manual_seed(0)) + 1)
+    table = table.view(b, mp).to(torch.int32).to(cuda)
+    kp = torch.zeros((b * mp + 1, ps, kvh, d), dtype=dtype, device=cuda)
+    vp = torch.zeros_like(kp)
+    kp[table.long()] = kc.view(b, mp, ps, kvh, d)
+    vp[table.long()] = vc.view(b, mp, ps, kvh, d)
+    dense = da_mod.decode_attention(q, kc, vc, lengths, **opts)
+    paged = pa_mod.paged_attention(q, kp, vp, table, lengths, **opts)
+    assert torch.equal(dense, paged)
+
+
+def test_dense_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    q = _randn((1, 8, 4, 64), torch.bfloat16, cuda, 93)
+    k = _randn((1, 8, 2, 64), torch.bfloat16, cuda, 94)
+    with pytest.raises(ValueError, match="share a dtype"):
+        fa_mod.flash_attention(q, k.float(), k.float())
+    with pytest.raises(TypeError, match="not supported"):
+        fa_mod.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_mod.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, k)
+    with pytest.raises(ValueError, match="pair"):
+        fa_mod.flash_attention(q, k[..., :32].contiguous(), k[..., :32].contiguous())
+    q1 = q[:, :1].contiguous()
+    with pytest.raises(ValueError, match="int32"):
+        da_mod.decode_attention(q1, k, k, torch.ones(1, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="\\(b, 1, h, d\\)"):
+        da_mod.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32, device=cuda))
+    big = _randn((1, 4, 128, 256), torch.bfloat16, cuda, 95)        # 128 rows at d 256
+    kv = _randn((1, 4, 1, 256), torch.bfloat16, cuda, 96)
+    n = fa_mod.launches
+    with pytest.raises(_build.SharedMemoryError, match="shared memory"):
+        fa_mod.flash_attention(big, kv, kv)
+    assert fa_mod.launches == n
