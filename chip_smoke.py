@@ -716,27 +716,29 @@ def _to_device(tree, dev):
     return tree.to(dev)
 
 
-def _serve_metrics(stats, percentile):
-    ttft = [r.ttft_s * 1e3 for r in stats.results]
-    decode_tokens = stats.total_tokens - len(stats.results)
-    return {
-        "prefill_tok_s": stats.prefill_tokens / stats.prefill_s,
-        "decode_tok_s": decode_tokens / stats.decode_s,
-        "decode_step_ms": stats.decode_s / stats.steps * 1e3,
-        "ttft_p50_ms": percentile(ttft, 50.0),
-        "ttft_p99_ms": percentile(ttft, 99.0),
-        "wall_s": stats.wall_s,
-    }
+# the end-to-end metrics this script prints, as the driver defines them
+# (repro_torch.launch.serve.static_metrics / engine_metrics)
+SERVE_KEYS = ("prefill_tok_per_s", "decode_tok_per_s", "decode_step_ms", "ttft_p50_ms",
+              "ttft_p99_ms", "wall_s")
+
+
+def _serve_metrics(m):
+    return {k: m[k] for k in SERVE_KEYS}
 
 
 def _fmt_metrics(m, stats):
     return (f"prefill {stats.prefill_launches} launches, {stats.prefill_tokens} tokens, "
-            f"{m['prefill_tok_s']:.1f} tok/s; decode {stats.steps} steps, "
-            f"{m['decode_tok_s']:.1f} tok/s, mean step {m['decode_step_ms']:.3f} ms; "
+            f"{m['prefill_tok_per_s']:.1f} tok/s; decode {stats.steps} steps, "
+            f"{m['decode_tok_per_s']:.1f} tok/s, mean step {m['decode_step_ms']:.3f} ms; "
             f"ttft p50 {m['ttft_p50_ms']:.1f} ms, p99 {m['ttft_p99_ms']:.1f} ms; "
             f"wall {m['wall_s']:.3f} s")
 
 
+def _median_spread(label, runs):
+    med = {k: sorted(r[k] for r in runs)[len(runs) // 2] for k in runs[0]}
+    spread = {k: max(r[k] for r in runs) - min(r[k] for r in runs) for k in runs[0]}
+    print(f"   {label}median of {len(runs)} runs: " + ", ".join(
+        f"{k} {med[k]:.3f} (max-min {spread[k]:.3f})" for k in med))
 
 
 def _expected_launches(stats, num_layers):
@@ -810,8 +812,8 @@ def full_model(torch, dev):
 
 def serve_phase(torch, dev, counters, model, params):
     from repro_torch.kernels import kvquant
-    from repro_torch.launch.serve import make_requests
-    from repro_torch.serve.engine import ServingEngine, percentile
+    from repro_torch.launch.serve import engine_metrics, make_requests
+    from repro_torch.serve.engine import ServingEngine
 
     cfg = model.cfg
     engines = {
@@ -837,7 +839,7 @@ def serve_phase(torch, dev, counters, model, params):
           f"budget {BUDGET}, pool pages {stats.num_pages}, "
           f"kv bytes/token {stats.kv_bytes_per_token:.0f}, peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
-    runs = [_serve_metrics(stats, percentile)]
+    runs = [_serve_metrics(engine_metrics(stats))]
     print(f"   run 1: {_fmt_metrics(runs[0], stats)}; {_fmt_repeats(stats.results)}")
     print(f"   launches in run 1: {counts}")
     launches = {name: counts[name] for name in plain_need}
@@ -845,12 +847,9 @@ def serve_phase(torch, dev, counters, model, params):
     for i in range(2, REPEATS + 1):
         again = engine.serve_paged(reqs, num_slots=SLOTS, page_size=PAGE, prefill_budget=BUDGET)
         same = all(bool((a.tokens == b.tokens).all()) for a, b in zip(again.results, stats.results))
-        runs.append(_serve_metrics(again, percentile))
+        runs.append(_serve_metrics(engine_metrics(again)))
         print(f"   run {i}: {_fmt_metrics(runs[-1], again)}; tokens as run 1: {same}")
-    med = {k: sorted(r[k] for r in runs)[len(runs) // 2] for k in runs[0]}
-    spread = {k: max(r[k] for r in runs) - min(r[k] for r in runs) for k in runs[0]}
-    print("   median of " + str(len(runs)) + " runs: " + ", ".join(
-        f"{k} {med[k]:.3f} (max-min {spread[k]:.3f})" for k in med))
+    _median_spread("", runs)
 
     # speculative decoding on tiled prompts, and int8/fp8 pools: each run
     # counted alone, tokens held against the bf16 plain run of its prompts
@@ -858,7 +857,7 @@ def serve_phase(torch, dev, counters, model, params):
     base_tiled = engine.serve_paged(tiled, num_slots=SLOTS, page_size=PAGE,
                                     prefill_budget=BUDGET)
     print(f"   tiled prompts, bf16 plain: "
-          f"{_fmt_metrics(_serve_metrics(base_tiled, percentile), base_tiled)}; "
+          f"{_fmt_metrics(engine_metrics(base_tiled), base_tiled)}; "
           f"{_fmt_repeats(base_tiled.results)}")
     bf16_bytes = kvquant.kv_bytes_per_token(cfg.num_layers, cfg.num_kv_heads,
                                             cfg.resolved_head_dim, "bfloat16")
@@ -876,7 +875,7 @@ def serve_phase(torch, dev, counters, model, params):
             f"spec_k {k} spec_ngram {ngram}, tiled prompts" if k else "plain, the run-1 prompts")
         want_bytes = bf16_bytes if mode is None else kvquant.kv_bytes_per_token(
             cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim, mode)
-        print(f"   {label}: {_fmt_metrics(_serve_metrics(st, percentile), st)}")
+        print(f"   {label}: {_fmt_metrics(engine_metrics(st), st)}")
         print(f"      spec_stats {st.spec_stats or 'off'}; pool bytes/token "
               f"{st.kv_bytes_per_token:.0f} (bf16 {bf16_bytes}); launches {cnt}; vs bf16 "
               f"plain: {_fmt_agreement([r.tokens for r in base.results], [r.tokens for r in st.results])}")
@@ -897,8 +896,8 @@ def dense_serve_phase(torch, dev, counters, model, params):
     40 flash_attention and 81 rmsnorm launches per prefill pass, 40
     decode_attention and 81 rmsnorm per decode step, no paged kernel."""
     from repro_torch.core.workload import PoissonLoad
-    from repro_torch.launch.serve import make_requests, serve_static
-    from repro_torch.serve.engine import ServingEngine, percentile
+    from repro_torch.launch.serve import engine_metrics, make_requests, serve_static, static_metrics
+    from repro_torch.serve.engine import ServingEngine
 
     cfg = model.cfg
     L, vocab = cfg.num_layers, cfg.vocab_size
@@ -924,14 +923,7 @@ def dense_serve_phase(torch, dev, counters, model, params):
         counts = _check_counts(f"static run {i}", counters, {
             "flash_attention": L * passes, "decode_attention": L * steps,
             "rmsnorm": (2 * L + 1) * (passes + steps)}, _completed(run.tokens, vocab), len(reqs))
-        prefill_s = sum(bt[2] for bt in run.batches)
-        decode_s = sum(bt[3] for bt in run.batches)
-        ttft = [t * 1e3 for t in run.ttfts_s]
-        m = {"prefill_tok_s": sum(bt[1] for bt in run.batches) / prefill_s,
-             "decode_tok_s": sum(bt[0] for bt in run.batches) * NEW_TOKENS / decode_s,
-             "decode_step_ms": decode_s / steps * 1e3,
-             "ttft_p50_ms": percentile(ttft, 50.0), "ttft_p99_ms": percentile(ttft, 99.0),
-             "wall_s": run.wall_s}
+        m = _serve_metrics(static_metrics(run))
         metrics["static"].append(m)
         print(f"   static run {i}: batches {[bt[0] for bt in run.batches]}, prefill passes "
               f"{passes} ({sum(bt[1] for bt in run.batches)} prompt tokens, padded to the "
@@ -946,12 +938,7 @@ def dense_serve_phase(torch, dev, counters, model, params):
             "flash_attention": L * len(reqs), "decode_attention": L * st.steps,
             "rmsnorm": (2 * L + 1) * (len(reqs) + st.steps)},
             _completed([r.tokens for r in st.results], vocab), len(reqs))
-        ttft = [r.ttft_s * 1e3 for r in st.results]
-        m = {"prefill_tok_s": st.prefill_tokens / st.prefill_s,
-             "decode_tok_s": (st.total_tokens - len(st.results)) / st.decode_s,
-             "decode_step_ms": st.decode_s / st.steps * 1e3,
-             "ttft_p50_ms": percentile(ttft, 50.0), "ttft_p99_ms": percentile(ttft, 99.0),
-             "wall_s": st.wall_s}
+        m = _serve_metrics(engine_metrics(st))
         metrics["continuous"].append(m)
         print(f"   continuous run {i}: {len(reqs)} admissions (batch-1 prefills padded to "
               f"{PREFILL_LEN}), decode steps {st.steps}, mean slot occupancy "
@@ -960,10 +947,7 @@ def dense_serve_phase(torch, dev, counters, model, params):
         if i == 1:
             tokens["continuous"] = [r.tokens for r in st.results]
     for path, runs in metrics.items():
-        med = {k: sorted(r[k] for r in runs)[len(runs) // 2] for k in runs[0]}
-        spread = {k: max(r[k] for r in runs) - min(r[k] for r in runs) for k in runs[0]}
-        print(f"   {path}, median of {len(runs)} runs: " + ", ".join(
-            f"{k} {med[k]:.3f} (max-min {spread[k]:.3f})" for k in med))
+        _median_spread(f"{path}, ", runs)
     print(f"   peak device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; "
           f"continuous vs static tokens (bf16, other batch shapes): "
           f"{_fmt_agreement(tokens['static'], tokens['continuous'])}")

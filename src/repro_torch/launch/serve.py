@@ -62,12 +62,14 @@ class StaticRun:
     """One static serve: per request (in submission order) its tokens,
     latency (arrival to batch end) and TTFT (arrival to its batch's prefill
     end); per ``generate`` batch its size, real prompt tokens, prefill and
-    decode seconds; the wall time and the scheduler's stats."""
+    decode seconds; the tokens each request asked for, the wall time and
+    the scheduler's stats."""
 
     tokens: List[np.ndarray]
     latencies_s: List[float]
     ttfts_s: List[float]
     batches: List[tuple]
+    max_new_tokens: int
     wall_s: float
     sched_stats: Dict[str, float]
 
@@ -105,58 +107,71 @@ def serve_static(engine: ServingEngine, prompts: Sequence[np.ndarray], arrivals_
         latencies_s=[f.request.latency_s for f in futs],
         ttfts_s=[ttft for _, ttft in out],
         batches=batches,
+        max_new_tokens=max_new_tokens,
         wall_s=time.perf_counter() - t_start,
         sched_stats=sched.stats(),
     )
+
+
+def _metrics(latencies_s, ttfts_s, requests, generated, wall_s, prefill_tokens, prefill_s,
+             steps, decode_tokens, decode_s) -> Dict[str, float]:
+    """The end-to-end metrics every engine reports: latency summary, TTFT
+    p50/p99, prefill tok/s over real prompt tokens and prefill wall time,
+    decode tok/s and mean step ms over decode wall time."""
+    ttfts = [t * 1e3 for t in ttfts_s]
+    return {
+        **latency_summary(latencies_s),
+        "requests": requests,
+        "generated_tokens": generated,
+        "wall_s": wall_s,
+        "tokens_per_s": generated / wall_s if wall_s > 0 else float("inf"),
+        "prefill_tok_per_s": prefill_tokens / prefill_s if prefill_s else 0.0,
+        "decode_steps": steps,
+        "decode_step_ms": decode_s / steps * 1e3 if steps else 0.0,
+        "decode_tok_per_s": decode_tokens / decode_s if decode_s else 0.0,
+        "ttft_p50_ms": percentile(ttfts, 50.0),
+        "ttft_p99_ms": percentile(ttfts, 99.0),
+    }
+
+
+def static_metrics(run: StaticRun) -> Dict[str, float]:
+    """End-to-end metrics of a static serve.  Every batch runs
+    ``max_new_tokens`` lockstep decode steps, and all its rows decode."""
+    n = len(run.tokens)
+    steps = len(run.batches) * run.max_new_tokens
+    return _metrics(run.latencies_s, run.ttfts_s, n, n * run.max_new_tokens, run.wall_s,
+                    sum(b[1] for b in run.batches), sum(b[2] for b in run.batches), steps,
+                    n * run.max_new_tokens, sum(b[3] for b in run.batches))
+
+
+def engine_metrics(stats) -> Dict[str, float]:
+    """End-to-end metrics of a ``serve_continuous`` (``ContinuousStats``) or
+    ``serve_paged`` (``PagedStats``) run.  Each request's first token comes
+    from its prefill, the rest from decode steps."""
+    res = stats.results
+    return _metrics([r.latency_s for r in res], [r.ttft_s for r in res], len(res),
+                    stats.total_tokens, stats.wall_s, stats.prefill_tokens, stats.prefill_s,
+                    stats.steps, stats.total_tokens - len(res), stats.decode_s)
 
 
 def _static(engine, reqs, args) -> Dict[str, float]:
     load = PoissonLoad(len(reqs), args.rate_hz, seed=args.seed).requests()
     run = serve_static(engine, [r.prompt for r in reqs], [r.arrival_s for r in load],
                        args.max_new_tokens, args.batch_timeout_ms)
-    prefill_s = sum(b[2] for b in run.batches)
-    decode_s = sum(b[3] for b in run.batches)
-    steps = len(run.batches) * args.max_new_tokens
-    ttfts = [t * 1e3 for t in run.ttfts_s]
-    return {
-        **latency_summary(run.latencies_s),
-        "requests": len(run.tokens),
-        "generated_tokens": len(run.tokens) * args.max_new_tokens,
-        "wall_s": run.wall_s,
-        "tokens_per_s": len(run.tokens) * args.max_new_tokens / run.wall_s,
-        "prefill_tok_per_s": sum(b[1] for b in run.batches) / prefill_s if prefill_s else 0.0,
-        "decode_steps": steps,
-        "decode_step_ms": decode_s / steps * 1e3 if steps else 0.0,
-        "decode_tok_per_s": sum(b[0] for b in run.batches) * args.max_new_tokens / decode_s
-        if decode_s else 0.0,
-        "ttft_p50_ms": percentile(ttfts, 50.0),
-        "ttft_p99_ms": percentile(ttfts, 99.0),
-        **{f"sched_{k}": v for k, v in run.sched_stats.items()},
-    }
+    return {**static_metrics(run), **{f"sched_{k}": v for k, v in run.sched_stats.items()}}
 
 
-def _continuous(engine, reqs, args) -> Dict[str, float]:
-    stats = engine.serve_continuous(reqs, num_slots=args.engine_batch)
+def _print_requests(stats) -> None:
     for r in stats.results:
         print(f"[serve] req {r.request_id}: slot {r.slot} (admitted step "
               f"{r.admit_step}), ttft {r.ttft_s * 1e3:.1f} ms, "
               f"{r.tokens_per_s:,.1f} tok/s")
-    ttfts = [r.ttft_s * 1e3 for r in stats.results]
-    return {
-        **latency_summary([r.latency_s for r in stats.results]),
-        "requests": len(stats.results),
-        "generated_tokens": stats.total_tokens,
-        "wall_s": stats.wall_s,
-        "tokens_per_s": stats.throughput_tps,
-        "prefill_tok_per_s": stats.prefill_tokens / stats.prefill_s if stats.prefill_s else 0.0,
-        "decode_steps": stats.steps,
-        "decode_step_ms": stats.decode_s / stats.steps * 1e3 if stats.steps else 0.0,
-        "decode_tok_per_s": (stats.total_tokens - len(stats.results)) / stats.decode_s
-        if stats.decode_s else 0.0,
-        "ttft_p50_ms": percentile(ttfts, 50.0),
-        "ttft_p99_ms": percentile(ttfts, 99.0),
-        "mean_slot_occupancy": stats.mean_slot_occupancy,
-    }
+
+
+def _continuous(engine, reqs, args) -> Dict[str, float]:
+    stats = engine.serve_continuous(reqs, num_slots=args.engine_batch)
+    _print_requests(stats)
+    return {**engine_metrics(stats), "mean_slot_occupancy": stats.mean_slot_occupancy}
 
 
 def _paged(engine, reqs, args) -> Dict[str, float]:
@@ -166,25 +181,11 @@ def _paged(engine, reqs, args) -> Dict[str, float]:
         prefill_budget=args.prefill_budget or None,
         spec_k=args.spec_k, spec_ngram=args.spec_ngram,
     )
-    for r in stats.results:
-        print(f"[serve] req {r.request_id}: slot {r.slot} (admitted step "
-              f"{r.admit_step}), ttft {r.ttft_s * 1e3:.1f} ms, "
-              f"{r.tokens_per_s:,.1f} tok/s")
-    ttfts = [r.ttft_s * 1e3 for r in stats.results]
+    _print_requests(stats)
     return {
-        "requests": len(stats.results),
-        "generated_tokens": stats.total_tokens,
-        "wall_s": stats.wall_s,
-        "tokens_per_s": stats.throughput_tps,
+        **engine_metrics(stats),
         "prefill_launches": stats.prefill_launches,
         "prefill_tokens": stats.prefill_tokens,
-        "prefill_tok_per_s": stats.prefill_tokens / stats.prefill_s if stats.prefill_s else 0.0,
-        "decode_steps": stats.steps,
-        "decode_step_ms": stats.decode_s / stats.steps * 1e3 if stats.steps else 0.0,
-        "decode_tok_per_s": (stats.total_tokens - len(stats.results)) / stats.decode_s
-        if stats.decode_s else 0.0,
-        "ttft_p50_ms": percentile(ttfts, 50.0),
-        "ttft_p99_ms": percentile(ttfts, 99.0),
         "peak_pages_in_use": stats.peak_pages_in_use,
         "kv_bytes_per_token": stats.kv_bytes_per_token,
         **stats.spec_stats,

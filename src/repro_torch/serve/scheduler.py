@@ -8,8 +8,9 @@ completion futures.  The static engine's driver runs ``generate`` behind
 it.  What waits for the tenants/SLO work: tenants, token buckets and
 priority tiers (the dequeue order here is arrival order), deadlines,
 retries with backoff, SLO shedding, and the synchronous discrete-event
-drive (``step``/``run_until_idle``; here a future of a scheduler that is
-not running raises) and the tracer events.
+drive (``step``/``run_until_idle`` and the injectable clock it runs on;
+here a future of a scheduler that is not running raises, and times are
+``time.perf_counter()``) and the tracer events.
 
 ``SlotPool``, ``PrefillBudget``, ``SpecLedger`` and ``PagedSlotPool`` are
 copies of the classes of the same names (their tracer argument stays
@@ -51,8 +52,8 @@ class SchedulerConfig:
 
 @dataclass
 class ScheduledRequest:
-    """One unit of scheduled work plus its measured lifecycle times, all in
-    scheduler-clock units (``clock()`` values)."""
+    """One unit of scheduled work plus its measured lifecycle times, all
+    ``time.perf_counter()`` values."""
 
     request_id: int
     arrival_s: float = 0.0      # when submit() was called
@@ -117,8 +118,6 @@ class RequestScheduler:
         self,
         execute: Callable[[List[ScheduledRequest]], Any],
         config: Optional[SchedulerConfig] = None,
-        *,
-        clock: Callable[[], float] = time.perf_counter,
     ) -> None:
         self.execute = execute
         self.config = config or SchedulerConfig()
@@ -126,7 +125,6 @@ class RequestScheduler:
             raise ValueError("max_batch must be >= 1")
         if self.config.queue_depth < 1:
             raise ValueError("queue_depth must be >= 1")
-        self.clock = clock
         self._cond = threading.Condition()
         # pending requests in arrival order
         self._queue: List[ScheduledRequest] = []
@@ -155,7 +153,7 @@ class RequestScheduler:
                     )
                 while self.running and len(self._queue) >= self.config.queue_depth:
                     self._cond.wait()
-            req = ScheduledRequest(request_id=self._next_id, arrival_s=self.clock(),
+            req = ScheduledRequest(request_id=self._next_id, arrival_s=time.perf_counter(),
                                    payload=payload)
             self._next_id += 1
             req.future = CompletionFuture(self, req)
@@ -173,12 +171,12 @@ class RequestScheduler:
         self._thread.start()
         return self
 
-    def stop(self, wait: bool = True) -> None:
-        """Stop the worker once the queue has drained."""
+    def stop(self) -> None:
+        """Stop the worker once the queue has drained, and join it."""
         with self._cond:
             self.running = False
             self._cond.notify_all()
-        if self._thread is not None and wait:
+        if self._thread is not None:
             self._thread.join()
             self._thread = None
 
@@ -208,7 +206,7 @@ class RequestScheduler:
 
     # -- execution -----------------------------------------------------------
     def _run_batch(self, batch: List[ScheduledRequest]) -> None:
-        start = self.clock()
+        start = time.perf_counter()
         with self._cond:
             depth = len(self._queue)
         error: Optional[BaseException] = None
@@ -217,7 +215,7 @@ class RequestScheduler:
             out = self.execute(batch)
         except BaseException as e:  # noqa: BLE001 - propagated via futures
             error = e
-        end = self.clock()
+        end = time.perf_counter()
         results: Sequence[Any]
         if isinstance(out, (list, tuple)) and len(out) == len(batch):
             results = out

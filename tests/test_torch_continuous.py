@@ -258,6 +258,20 @@ def test_scheduler_waits_for_stragglers_within_the_timeout():
     assert sizes == [2]
 
 
+def test_scheduler_stamps_requests_with_perf_counter():
+    sched = tsch.RequestScheduler(lambda batch: None, tsch.SchedulerConfig(max_batch=2)).start()
+    t0 = time.perf_counter()
+    futs = [sched.submit(payload=i) for i in range(3)]
+    for f in futs:
+        f.result(timeout=10)
+    sched.stop()
+    t1 = time.perf_counter()
+    assert sched._thread is None                         # stop() joined the worker
+    for f in futs:
+        r = f.request
+        assert t0 <= r.arrival_s <= r.start_s <= r.end_s <= t1
+
+
 def test_scheduler_failures_and_admission_control():
     def execute(batch):
         raise RuntimeError("boom")
@@ -341,3 +355,39 @@ def test_static_run_reports_every_request(engines):
 def test_driver_rejects_paged_options_on_dense_engines():
     with pytest.raises(SystemExit):
         tlaunch.main(["--device", "cpu", "--engine", "static", "--spec-k", "2"])
+
+
+# ---------------------------------------------------------------------------
+# the end-to-end metrics (one definition for the driver and chip_smoke.py)
+# ---------------------------------------------------------------------------
+def test_static_metrics_definitions():
+    run = tlaunch.StaticRun(
+        tokens=[np.zeros(4, np.int32)] * 3, latencies_s=[0.5, 0.7, 0.9],
+        ttfts_s=[0.1, 0.3, 0.2], batches=[(1, 10, 0.2, 0.4), (2, 30, 0.3, 0.8)],
+        max_new_tokens=4, wall_s=2.0, sched_stats={})
+    m = tlaunch.static_metrics(run)
+    assert m["requests"] == 3 and m["generated_tokens"] == 12 and m["tokens_per_s"] == 6.0
+    assert m["prefill_tok_per_s"] == pytest.approx(40 / 0.5, rel=1e-12)
+    assert m["decode_steps"] == 8
+    assert m["decode_step_ms"] == pytest.approx(1.2 / 8 * 1e3, rel=1e-12)
+    assert m["decode_tok_per_s"] == pytest.approx(12 / 1.2, rel=1e-12)
+    assert (m["ttft_p50_ms"], m["ttft_p99_ms"]) == (200.0, 300.0)
+    assert m["p90_ms"] == tanalysis.latency_summary(run.latencies_s)["p90_ms"]
+
+
+@pytest.mark.parametrize("engine_kind", ["continuous", "paged"])
+def test_engine_metrics_definitions(engines, engine_kind):
+    cfg, _, tengine = engines
+    reqs = _requests(teng, _prompts(cfg, (5, 9, 7), 3), (3, 2, 4))
+    if engine_kind == "continuous":
+        stats = tengine.serve_continuous(reqs, num_slots=2)
+    else:
+        stats = tengine.serve_paged(reqs, num_slots=2, page_size=4, prefill_budget=8)
+    m = tlaunch.engine_metrics(stats)
+    assert m["requests"] == 3 and m["generated_tokens"] == stats.total_tokens == 9
+    assert m["decode_steps"] == stats.steps > 0
+    assert m["prefill_tok_per_s"] == stats.prefill_tokens / stats.prefill_s
+    assert m["decode_tok_per_s"] == (9 - 3) / stats.decode_s
+    assert m["decode_step_ms"] == stats.decode_s / stats.steps * 1e3
+    ttfts = [r.ttft_s * 1e3 for r in stats.results]
+    assert m["ttft_p99_ms"] == max(ttfts) and m["ttft_p50_ms"] in ttfts
