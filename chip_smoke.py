@@ -24,12 +24,20 @@ Phases, each printing its own lines and wall time, each ending in
    ``decode_attention`` on a decode step of 8 rows over a 2048-token cache
    at the serve lengths, and with a window and a row of length 0, which
    must be exactly zero (with ``lengths - 1`` the plain version must fail);
+   ``ssd`` (mamba2-130m widths: h 24, p 64, n 128, chunk 64, bf16) on the
+   static prefill pass of 8 rows of the longest of the first 8 serve
+   prompts (a partial trailing chunk), a partial chunk, a sequence shorter
+   than a chunk and an initial state, y and the final state each (the plain
+   version without the initial state, and its final state one timestep
+   short, must fail the limit; no single PyTorch call computes SSD, so
+   there is no library time), and its time at a batch-1 admission;
 3. check: reduced glm4-9b in float32 served on the card and on the CPU
    from the same weights must emit the same greedy tokens, with and
    without speculative decoding (which must also equal each other); the
    card-vs-CPU token agreement on int8 and fp8 pools is printed.  On the
    dense engines ``generate`` and ``serve_continuous`` tokens must equal
-   the CPU's and ``forward`` logits agree within 1e-4 + 1e-4 |cpu|;
+   the CPU's and ``forward`` logits agree within 1e-4 + 1e-4 |cpu|; the
+   same for reduced mamba2-130m;
 4. serve: full-width, full-depth glm4-9b (40 layers, random bf16 weights
    from a seeded CUDA generator) through ``ServingEngine.serve_paged``;
    every request must complete and every kernel must have been launched
@@ -50,11 +58,15 @@ Phases, each printing its own lines and wall time, each ending in
    every request must complete, each run must launch exactly 40
    ``flash_attention`` and 81 rmsnorm per prefill pass, 40
    ``decode_attention`` and 81 rmsnorm per decode step and no paged
-   kernel (and the paged runs neither dense kernel);
+   kernel (and the paged runs neither dense kernel).  Then full-width,
+   full-depth mamba2-130m (24 layers, random bf16 weights) through the
+   same two dense engines on the same requests, three runs each: exactly
+   24 ``ssd`` and 49 rmsnorm launches per prefill pass, 0 ``ssd`` and 49
+   rmsnorm per decode step, and no attention kernel;
 5. where the time goes: device time by kernel class per prefill launch and
    per decode step, per launch of each kernel, and the device's idle
    share, from torch.profiler, for the paged engine and for a dense
-   prefill pass and decode step;
+   prefill pass and decode step of glm4-9b and of mamba2-130m;
 6. one JSON line of kernel records, then the final line
    ``{"ok": true, "device": {...}}``.
 
@@ -155,10 +167,12 @@ def _time_ms(torch, fn, sets, cycles_per_ms):
 
 
 def _timed(torch, cpm, kernel, plain, library, sets, library_sets):
-    """Kernel and plain version over ``sets``, library over its own."""
+    """Kernel and plain version over ``sets``, library (None where no single
+    PyTorch call computes the function) over its own."""
     ms, ms_q = _time_ms(torch, kernel, sets, cpm)
     plain_ms, plain_q = _time_ms(torch, plain, sets, cpm)
-    lib_ms, lib_q = _time_ms(torch, library, library_sets, cpm)
+    lib_ms, lib_q = (_time_ms(torch, library, library_sets, cpm) if library is not None
+                     else (None, True))
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 sets=(len(sets), len(library_sets)),
                 gaps=[n for n, q in (("kernel", ms_q), ("plain", plain_q),
@@ -167,8 +181,9 @@ def _timed(torch, cpm, kernel, plain, library, sets, library_sets):
 
 def _print_records(records):
     for name, r in records.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"   {name}: kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
-              f"library_ms {r['library_ms']:.4f} "
+              f"library_ms {lib} "
               f"bound_ms {r['bound'][0]:.4f} ({r['bound'][1]}) at {r['shape']}; "
               f"{LAUNCHES} calls back to back over (kernel and plain, library) "
               f"{r['sets']} input sets; host gaps in: {r['gaps'] or 'none'}")
@@ -563,6 +578,85 @@ def dense_kernels_phase(torch, dev):
     return records
 
 
+def _ssd_flops(b, s, h, p, n, chunk):
+    """Operations of the chunked scan on these shapes: per chunk of L live
+    timesteps, C.B^T over its causal pairs (shared by the heads) and, per
+    head, the intra-chunk product over the causal pairs, the inter-chunk
+    term and the state update (2 per multiply-add)."""
+    total = 0
+    for t0 in range(0, s, chunk):
+        L = min(chunk, s - t0)
+        pairs = L * (L + 1) // 2
+        total += 2 * pairs * n + h * (2 * pairs * p + 4 * L * p * n)
+    return b * total
+
+
+def ssd_kernels_phase(torch, dev):
+    """ssd against its plain version at mamba2-130m widths: the static
+    prefill pass (SLOTS rows of the longest of the first SLOTS serve
+    prompts: 13 full chunks and a partial one), a partial trailing chunk, a
+    sequence shorter than a chunk and an initial state; y and the final
+    state each.  dt and A span the ranges mamba2's inits give."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as sd
+
+    cfg = get_config("mamba2-130m")
+    h, p, n, chunk = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    cpm = _sleep_cycles_per_ms(torch)
+
+    def inputs(b, s, init):
+        randn = lambda *shape, dt_=torch.bfloat16: torch.randn(shape, generator=gen, device=dev,
+                                                               dtype=dt_)
+        uniform = lambda shape, lo, hi: torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+        x, B, C = randn(b, s, h, p), randn(b, s, n), randn(b, s, n)
+        dt, A = uniform((b, s, h), 1e-3, 1e-1), -uniform((h,), 1.0, 16.0)
+        return x, dt, A, B, C, (randn(b, h, p, n, dt_=torch.float32) if init else None)
+
+    s_pass = int(max(_serve_lengths(SEED)[:SLOTS]))
+    err = 0.0
+    for label, b, s, init in (("static pass", SLOTS, s_pass, False),
+                              ("partial trailing chunk", 2, 100, False),
+                              ("s < chunk", 2, 40, False), ("initial state", 2, 130, True)):
+        x, dt, A, B, C, s0 = inputs(b, s, init)
+        y, sf = sd.ssd(x, dt, A, B, C, chunk=chunk, initial_state=s0, return_state=True)
+        y_want, sf_want = ref.ssd(x, dt, A, B, C, initial_state=s0, return_state=True)
+        shape = f"({b}, {s}, {h}, {p}), n {n}, chunk {chunk}"
+        err = max(err, _check(torch, f"ssd {label} {shape}: y", y, y_want),
+                  _check(torch, f"ssd {label}: final state", sf, sf_want))
+        if init:
+            _rejects(torch, "ssd plain without the initial state", ref.ssd(x, dt, A, B, C), y_want)
+        if label == "static pass":
+            short = ref.ssd(x[:, :-1], dt[:, :-1], A, B[:, :-1], C[:, :-1], return_state=True)[1]
+            _rejects(torch, "ssd plain final state one timestep short", short, sf_want)
+            pass_inputs = (x, dt, A, B, C)
+    x, dt, A, B, C = pass_inputs
+    b, s = SLOTS, s_pass
+    nbytes = 2 * 2 * b * s * h * p + 2 * 2 * b * s * n + 4 * b * s * h + 4 * h + 2 * b * h * p * n
+    sets = _rotation(nbytes, lambda i: (x.clone(), dt.clone(), A, B.clone(), C.clone()))
+    records = {"ssd": dict(
+        err=err,
+        **_timed(torch, cpm,
+                 lambda *a: sd.ssd(*a, chunk=chunk, return_state=True),
+                 lambda *a: ref.ssd(*a, return_state=True), None, sets, []),
+        bound=_bound_ms(nbytes, _ssd_flops(b, s, h, p, n, chunk)),
+        shape=f"x ({b}, {s}, {h}, {p}) bf16, B/C n {n}, chunk {chunk}, final state out",
+    )}
+    del sets
+    # a continuous admission: one row of the longest serve prompt, h blocks
+    s1 = int(max(_serve_lengths(SEED)))
+    one = inputs(1, s1, False)[:5]
+    ms1, _ = _time_ms(torch, lambda *a: sd.ssd(*a, chunk=chunk, return_state=True),
+                      _rotation(nbytes * s1 // (SLOTS * s), lambda i: tuple(t.clone() for t in one)),
+                      cpm)
+    print(f"   ssd at a batch-1 admission x (1, {s1}, {h}, {p}): kernel_ms {ms1:.4f} "
+          f"({h} blocks on the card's 132 SMs; the static pass runs {SLOTS * h})")
+    _print_records(records)
+    return records
+
+
 def _tiled_requests(n, lo, hi, new_tokens, vocab, seed):
     """Repetitive prompts, as ``benchmarks/bench_spec.py`` makes them: a
     short random phrase (3-5 tokens) tiled to a length uniform in
@@ -668,8 +762,8 @@ def check_phase(torch, dev):
               f"{_fmt_agreement(tok(('cpu', mode, 0)), tok(('cuda', mode, 0)))}")
 
 
-def dense_check_phase(torch, dev):
-    """Reduced glm4-9b in float32 on the dense engines: the card's greedy
+def dense_check_phase(torch, dev, arch="glm4-9b"):
+    """Reduced ``arch`` in float32 on the dense engines: the card's greedy
     tokens from ``generate`` and ``serve_continuous`` equal the CPU's, and
     ``forward`` logits agree."""
     import numpy as np
@@ -679,7 +773,7 @@ def dense_check_phase(torch, dev):
     from repro_torch.models import DecoderLM
     from repro_torch.serve.engine import ServingEngine
 
-    cfg = get_config("glm4-9b", reduced=True)
+    cfg = get_config(arch, reduced=True)
     cpu_model = DecoderLM(cfg, device="cpu", dtype=torch.float32)
     cpu_params = cpu_model.init(seed=SEED)
     gpu_model = DecoderLM(cfg, device=dev, dtype=torch.float32)
@@ -699,13 +793,13 @@ def dense_check_phase(torch, dev):
     cont_ok = _agreement(out["cpu"][1], out["cuda"][1])[2] is None
     diff = float((out["cpu"][2] - out["cuda"][2]).abs().max())
     logits_ok = bool(torch.allclose(out["cuda"][2], out["cpu"][2], rtol=1e-4, atol=1e-4))
-    print(f"   reduced glm4-9b f32, 6 requests: generate cuda tokens == cpu tokens: {static_ok}; "
+    print(f"   {cfg.name} f32, 6 requests: generate cuda tokens == cpu tokens: {static_ok}; "
           f"serve_continuous cuda == cpu: {cont_ok}; forward logits {tuple(out['cpu'][2].shape)} "
           f"max |cuda - cpu| {diff:.3e} (within 1e-4 + 1e-4 |cpu|: {logits_ok}); "
           f"continuous == generate on the card: "
           f"{_agreement(list(out['cuda'][0]), out['cuda'][1])[2] is None}")
     if not (static_ok and cont_ok and logits_ok):
-        raise SystemExit("the dense engines on the card differ from the CPU reference")
+        raise SystemExit(f"{cfg.name}: the dense engines on the card differ from the CPU reference")
 
 
 def _to_device(tree, dev):
@@ -793,13 +887,13 @@ def _counted_serve(torch, engine, reqs, counters, need, **kw):
     return stats, counts
 
 
-def full_model(torch, dev):
-    """glm4-9b at published width and depth, random bf16 weights from a
+def full_model(torch, dev, arch="glm4-9b"):
+    """``arch`` at published width and depth, random bf16 weights from a
     seeded CUDA generator."""
     from repro_torch.configs import get_config
     from repro_torch.models import DecoderLM, count_params
 
-    cfg = get_config("glm4-9b")
+    cfg = get_config(arch)
     model = DecoderLM(cfg, device=dev, dtype=torch.bfloat16)
     t0 = time.perf_counter()
     params = model.init(seed=SEED)
@@ -889,18 +983,35 @@ def serve_phase(torch, dev, counters, model, params):
     return launches, engine, reqs
 
 
+def _dense_expected(model, passes, steps):
+    """Launches a dense-engine run of ``passes`` prefill passes and
+    ``steps`` decode steps must show: 2L + 1 rmsnorm per pass and per step;
+    per layer one flash_attention per pass and one decode_attention per step
+    (dense family), or one ssd per pass and none per step (SSM family, whose
+    decode step is plain torch).  Every other kernel: none."""
+    L = model.cfg.num_layers
+    expect = {"rmsnorm": (2 * L + 1) * (passes + steps)}
+    if model.ssm:
+        expect["ssd"] = L * passes
+    else:
+        expect.update(flash_attention=L * passes, decode_attention=L * steps)
+    return expect
+
+
 def dense_serve_phase(torch, dev, counters, model, params):
-    """glm4-9b through the dense engines: the static path (Poisson arrivals,
-    the threaded scheduler batching ``generate``) and ``serve_continuous``,
-    REPEATS runs each on the serve phase's requests, each run counted alone:
-    40 flash_attention and 81 rmsnorm launches per prefill pass, 40
-    decode_attention and 81 rmsnorm per decode step, no paged kernel."""
+    """``model`` through the dense engines: the static path (Poisson
+    arrivals, the threaded scheduler batching ``generate``) and
+    ``serve_continuous``, REPEATS runs each on the serve phase's requests,
+    each run counted alone (``_dense_expected``): for glm4-9b 40
+    flash_attention and 81 rmsnorm launches per prefill pass, 40
+    decode_attention and 81 rmsnorm per decode step; for mamba2-130m 24 ssd
+    and 49 rmsnorm per pass, 49 rmsnorm per step; no other kernel."""
     from repro_torch.core.workload import PoissonLoad
     from repro_torch.launch.serve import engine_metrics, make_requests, serve_static, static_metrics
     from repro_torch.serve.engine import ServingEngine
 
     cfg = model.cfg
-    L, vocab = cfg.num_layers, cfg.vocab_size
+    vocab = cfg.vocab_size
     engine = ServingEngine(model, params, max_batch=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
                            device=dev)
     reqs = make_requests(REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS, vocab, SEED)
@@ -913,6 +1024,12 @@ def dense_serve_phase(torch, dev, counters, model, params):
     engine.serve_continuous(warm, num_slots=SLOTS)
     metrics = {"static": [], "continuous": []}
     launches, tokens = {}, {}
+    # the SSM family left-pads to the exact longest prompt of each batch or
+    # admission set; the dense family right-pads to the pow2 bucket
+    pad = ("left-padded to the batch's longest" if model.ssm
+           else "right-padded to the batch bucket")
+    cont_len = max(len(p) for p in prompts) if model.ssm else PREFILL_LEN
+    resident = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     for i in range(1, REPEATS + 1):
         _zero(counters)
@@ -920,35 +1037,36 @@ def dense_serve_phase(torch, dev, counters, model, params):
                            log=lambda _: None)
         passes = len(run.batches)
         steps = passes * NEW_TOKENS
-        counts = _check_counts(f"static run {i}", counters, {
-            "flash_attention": L * passes, "decode_attention": L * steps,
-            "rmsnorm": (2 * L + 1) * (passes + steps)}, _completed(run.tokens, vocab), len(reqs))
+        counts = _check_counts(f"{cfg.name} static run {i}", counters,
+                               _dense_expected(model, passes, steps),
+                               _completed(run.tokens, vocab), len(reqs))
         m = _serve_metrics(static_metrics(run))
         metrics["static"].append(m)
         print(f"   static run {i}: batches {[bt[0] for bt in run.batches]}, prefill passes "
-              f"{passes} ({sum(bt[1] for bt in run.batches)} prompt tokens, padded to the "
-              f"batch bucket), decode steps {steps}; "
+              f"{passes} ({sum(bt[1] for bt in run.batches)} prompt tokens, {pad}), decode "
+              f"steps {steps}; "
               + ", ".join(f"{k} {v:.3f}" for k, v in m.items()) + f"; launches {counts}")
         if i == 1:
             launches.update(counts)
             tokens["static"] = run.tokens
         _zero(counters)
         st = engine.serve_continuous(reqs, num_slots=SLOTS)
-        counts = _check_counts(f"continuous run {i}", counters, {
-            "flash_attention": L * len(reqs), "decode_attention": L * st.steps,
-            "rmsnorm": (2 * L + 1) * (len(reqs) + st.steps)},
-            _completed([r.tokens for r in st.results], vocab), len(reqs))
+        counts = _check_counts(f"{cfg.name} continuous run {i}", counters,
+                               _dense_expected(model, len(reqs), st.steps),
+                               _completed([r.tokens for r in st.results], vocab), len(reqs))
         m = _serve_metrics(engine_metrics(st))
         metrics["continuous"].append(m)
         print(f"   continuous run {i}: {len(reqs)} admissions (batch-1 prefills padded to "
-              f"{PREFILL_LEN}), decode steps {st.steps}, mean slot occupancy "
+              f"{cont_len}), decode steps {st.steps}, mean slot occupancy "
               f"{st.mean_slot_occupancy:.2f}; " + ", ".join(f"{k} {v:.3f}" for k, v in m.items())
               + f"; launches {counts}")
         if i == 1:
             tokens["continuous"] = [r.tokens for r in st.results]
     for path, runs in metrics.items():
         _median_spread(f"{path}, ", runs)
-    print(f"   peak device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; "
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"   peak device memory {peak / 1e9:.2f} GB, {(peak - resident) / 1e9:.2f} GB above "
+          f"the {resident / 1e9:.2f} GB resident before the runs; "
           f"continuous vs static tokens (bf16, other batch shapes): "
           f"{_fmt_agreement(tokens['static'], tokens['continuous'])}")
     return launches, engine, prompts
@@ -960,6 +1078,7 @@ _CLASSES = (
     ("paged_attention", ("paged_attention_kernel",)),
     ("spec_verify", ("spec_verify_kernel",)),
     ("varlen_prefill", ("varlen_prefill_kernel",)),
+    ("ssd", ("ssd_kernel",)),
     ("rmsnorm", ("rmsnorm_kernel",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
 )
@@ -1045,17 +1164,22 @@ def dense_profile_phase(torch, engine, prompts):
     fmt = lambda dct: ", ".join(f"{k} {v:.3f}" for k, v in dct.items())
     step = {k: (c16[k] - prefill[k]) / 16 for k in c16}
     step_wall = (w16 - pre_wall) / 16
-    L = engine.model.cfg.num_layers
+    model = engine.model
+    L = model.cfg.num_layers
     lens = [len(p) for p in prompts[:SLOTS]]
-    print(f"   dense prefill pass ({SLOTS} prompts of {min(lens)}-{max(lens)} tokens, padded to "
+    print(f"   {model.cfg.name}: dense prefill pass ({SLOTS} prompts of {min(lens)}-{max(lens)} tokens, padded to "
           f"{engine._pad_prompts(prompts[:SLOTS])[0].shape[1]}): wall {pre_wall:.3f} ms, device "
           f"busy {sum(prefill.values()):.3f} ms (idle {1 - sum(prefill.values()) / pre_wall:.3f}); "
           f"device ms: {fmt(prefill)}")
-    print(f"   dense decode step ({SLOTS} rows): wall {step_wall:.3f} ms, device busy "
+    print(f"   {model.cfg.name}: dense decode step ({SLOTS} rows): wall {step_wall:.3f} ms, device busy "
           f"{sum(step.values()):.3f} ms (idle {1 - sum(step.values()) / step_wall:.3f}); "
           f"device ms: {fmt(step)}")
-    print(f"   device ms per kernel launch: flash_attention {prefill['flash_attention'] / L:.4f}, "
-          f"decode_attention {step['decode_attention'] / L:.4f}")
+    per_launch = ([("ssd", prefill["ssd"] / L)] if model.ssm else
+                  [("flash_attention", prefill["flash_attention"] / L),
+                   ("decode_attention", step["decode_attention"] / L)])
+    per_launch += [("rmsnorm per pass", prefill["rmsnorm"] / (2 * L + 1)),
+                   ("rmsnorm per step", step["rmsnorm"] / (2 * L + 1))]
+    print("   device ms per kernel launch: " + ", ".join(f"{k} {v:.4f}" for k, v in per_launch))
 
 
 def main() -> int:
@@ -1090,6 +1214,7 @@ def main() -> int:
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import spec_verify as sv
+    from repro_torch.kernels import ssd as sd
     from repro_torch.kernels import varlen_prefill as vp
 
     info = _build.build_info()
@@ -1100,30 +1225,39 @@ def main() -> int:
             print(f"   ptxas {line.strip()}")
     _done(torch, "1. environment and build", t0)
 
-    t0 = _phase("2. kernels vs plain versions (glm4-9b widths, bf16; bf16/int8/fp8 pools)")
+    t0 = _phase("2. kernels vs plain versions (glm4-9b and mamba2-130m widths, bf16; "
+                "bf16/int8/fp8 pools)")
     records = kernels_phase(torch, dev)
     records.update(dense_kernels_phase(torch, dev))
+    records.update(ssd_kernels_phase(torch, dev))
     _done(torch, "2. kernels", t0)
 
-    t0 = _phase("3. check: reduced glm4-9b, card vs CPU reference")
+    t0 = _phase("3. check: reduced glm4-9b and mamba2-130m, card vs CPU reference")
     check_phase(torch, dev)
     dense_check_phase(torch, dev)
+    dense_check_phase(torch, dev, "mamba2-130m")
     _done(torch, "3. check", t0)
 
-    t0 = _phase("4. serve: glm4-9b full width and depth, random bf16 weights")
+    t0 = _phase("4. serve: glm4-9b and mamba2-130m, full width and depth, random bf16 weights")
     counters = {"rmsnorm": rn, "paged_attention": pa, "spec_verify": sv, "varlen_prefill": vp,
-                "flash_attention": fa, "decode_attention": da}
+                "flash_attention": fa, "decode_attention": da, "ssd": sd}
     model, params = full_model(torch, dev)
     launches, engine, reqs = serve_phase(torch, dev, counters, model, params)
     print("   -- the dense engines (static generate behind the scheduler; serve_continuous)")
     dense_launches, dense_engine, prompts = dense_serve_phase(torch, dev, counters, model, params)
     for name in ("flash_attention", "decode_attention"):
         launches[name] = dense_launches[name]
+    print("   -- mamba2-130m (SSM) through the same two engines")
+    ssm_model, ssm_params = full_model(torch, dev, "mamba2-130m")
+    ssm_launches, ssm_engine, ssm_prompts = dense_serve_phase(torch, dev, counters, ssm_model,
+                                                              ssm_params)
+    launches["ssd"] = ssm_launches["ssd"]
     _done(torch, "4. serve", t0)
 
     t0 = _phase("5. where the time goes (torch.profiler, device time by kernel class)")
     profile_phase(torch, engine, reqs)
     dense_profile_phase(torch, dense_engine, prompts)
+    dense_profile_phase(torch, ssm_engine, ssm_prompts)
     _done(torch, "5. profile", t0)
 
     sources = {
@@ -1138,6 +1272,7 @@ def main() -> int:
                             "src/repro/kernels/flash_attention.py:101"),
         "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention.py:82"),
+        "ssd": ("src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd_scan.py:95"),
     }
     kernels = []
     for name, r in records.items():

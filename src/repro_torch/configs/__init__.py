@@ -1,9 +1,10 @@
 """Architecture configs the port supports so far (copies of ``repro.configs``).
 
 Each ``<id>.py`` exports ``CONFIG`` (the published configuration) and
-``REDUCED`` (a same-family small config for CPU tests).  Only the dense
-decoder ``glm4-9b`` is ported; the other architectures of ``repro.configs``
-follow with the model families that need them.
+``REDUCED`` (a same-family small config for CPU tests).  Ported so far: the
+dense decoder ``glm4-9b`` and the attention-free SSM ``mamba2-130m``; the
+other architectures of ``repro.configs`` follow with the model families
+that need them.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from ..models.config import ArchConfig
 # canonical ids (dashes) -> module names
 _ALIASES = {
     "glm4-9b": "glm4_9b",
+    "mamba2-130m": "mamba2_130m",
 }
 
 

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 PACKAGE = CSRC.parents[1]                  # <root>/src/repro_torch
 CHECKOUT = PACKAGE.parents[1]              # <root>
 SOURCES = ("rmsnorm.cu", "paged_attention.cu", "varlen_prefill.cu", "spec_verify.cu",
-           "flash_attention.cu", "decode_attention.cu")
+           "flash_attention.cu", "decode_attention.cu", "ssd.cu")
 HEADERS = ("common.cuh",)
 BUILD_ROOT = CHECKOUT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
@@ -62,6 +62,8 @@ SIGNATURES = {
                            _I, _F, _F, _I, _P),
     "rt_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                             _F, _I, _P),
+    "rt_ssd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
+               _LL, _LL, _I, _P),
 }
 
 

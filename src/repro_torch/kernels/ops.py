@@ -18,6 +18,7 @@ from .flash_attention import flash_attention as _flash_attention
 from .paged_attention import paged_attention as _paged_attention
 from .rmsnorm import rmsnorm as _rmsnorm
 from .spec_verify import spec_verify as _spec_verify
+from .ssd import ssd as _ssd
 from .varlen_prefill import varlen_prefill as _varlen_prefill
 
 NEG_INF = ref.NEG_INF
@@ -139,3 +140,29 @@ def spec_verify(
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return _rmsnorm(x, weight, eps)
+
+
+def ssd(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    C: torch.Tensor,
+    *,
+    chunk: int = 64,
+    initial_state: Optional[torch.Tensor] = None,
+    return_state: bool = False,
+):
+    """Mamba-2 SSD scan of a whole sequence (prefill, ``forward``): x ``(b,
+    s, h, p)``, dt ``(b, s, h)`` float32, A ``(h,)`` float32, B/C ``(b, s,
+    n)``; y and, with ``return_state``, the final state in x's dtype."""
+    return _ssd(x, dt, A, B, C, chunk=chunk, initial_state=initial_state,
+                return_state=return_state)
+
+
+def ssd_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, state: torch.Tensor):
+    """One decode step of the SSD recurrence: the plain version on every
+    device, as the JAX package shares one implementation (no Pallas
+    kernel); promoted to a kernel only if a profile shows it matters."""
+    return ref.ssd_step(x, dt, A, B, C, state)

@@ -10,10 +10,12 @@ holds each kernel against them.  They are naive and memory-hungry, and no
 yardstick of speed.  An int8/fp8 pool comes with float32 ``k_scales``/
 ``v_scales`` ``(num_pages, page_size, kvh)``; the gathered pool rows are
 dequantized (``code * scale``) and everything is computed in float32.
+The Mamba-2 scan :func:`ssd` is the sequential recurrence, one
+:func:`ssd_step` per timestep, in float32.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -254,3 +256,49 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.T
     var = (xf * xf).mean(dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
     return (normed * (1.0 + weight.float())).to(x.dtype)
+
+
+def ssd_step(
+    x: torch.Tensor,        # (b, h, p)
+    dt: torch.Tensor,       # (b, h) softplus'd time deltas (> 0)
+    A: torch.Tensor,        # (h,) negative decay rates
+    B: torch.Tensor,        # (b, n)
+    C: torch.Tensor,        # (b, n)
+    state: torch.Tensor,    # (b, h, p, n)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step of the SSD recurrence in float32 (``repro.kernels.ref.
+    ssd_step``): ``S' = exp(dt A) S + dt x B^T``, ``y = S' C``.  Returns
+    (y in x's dtype, the new state in the state's dtype)."""
+    xf, dtf = x.float(), dt.float()
+    dec = torch.exp(dtf * A.float()[None, :])                        # (b, h)
+    dB = torch.einsum("bh,bhp,bn->bhpn", dtf, xf, B.float())
+    new_state = dec[..., None, None] * state.float() + dB
+    y = torch.einsum("bhpn,bn->bhp", new_state, C.float())
+    return y.to(x.dtype), new_state.to(state.dtype)
+
+
+def ssd(
+    x: torch.Tensor,        # (b, s, h, p) inner activations split into heads
+    dt: torch.Tensor,       # (b, s, h) softplus'd time deltas (> 0)
+    A: torch.Tensor,        # (h,) negative decay rates (A < 0)
+    B: torch.Tensor,        # (b, s, n) input projection (one group)
+    C: torch.Tensor,        # (b, s, n) output projection
+    *,
+    initial_state: Optional[torch.Tensor] = None,   # (b, h, p, n)
+    return_state: bool = False,
+):
+    """Mamba-2 SSD as the sequential recurrence over time in float32
+    (``repro.kernels.ref.ssd``): ``S_t = exp(dt_t A) S_{t-1} + dt_t x_t
+    B_t^T``, ``y_t = S_t C_t``, from ``initial_state`` (zeros when None).
+    Returns y (b, s, h, p) in x's dtype and, with ``return_state``, the
+    final state cast to x's dtype, as all three JAX versions return it."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    state = (initial_state.float() if initial_state is not None
+             else torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device))
+    ys = []
+    for t in range(s):
+        y_t, state = ssd_step(x[:, t], dt[:, t], A, B[:, t], C[:, t], state)
+        ys.append(y_t)
+    y = torch.stack(ys, dim=1)
+    return (y, state.to(x.dtype)) if return_state else y

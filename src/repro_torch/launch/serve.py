@@ -15,7 +15,10 @@ plus ``--device`` and ``--dtype``.  Three engines (``--engine``):
   (``serve_continuous``) over the same prompts, offline; prints each
   request's TTFT and tokens/s and a summary.
 
-Runs on ``cuda`` unless ``--device cpu`` is given.  The model config is the
+``--arch`` picks the model: ``glm4-9b`` (dense, every engine) or
+``mamba2-130m`` (SSM: ``static`` and ``continuous``; its state is not
+paged, so ``--engine paged`` stops with the reference's reason).  Runs on
+``cuda`` unless ``--device cpu`` is given.  The model config is the
 reduced one unless ``--full`` asks for the published widths and depth;
 weights are random, from ``--seed``.  Prompts are random tokens with
 lengths drawn uniformly from ``[--prompt-len-min, --prompt-len]``.  Prints a
@@ -37,7 +40,7 @@ from ..core.analysis import latency_summary, percentile
 from ..core.workload import PoissonLoad
 from ..device import DTYPES, resolve_device
 from ..kernels.kvquant import KV_DTYPES
-from ..models.lm import DecoderLM
+from ..models.lm import NOT_PAGED, DecoderLM
 from ..serve.engine import ServeRequest, ServingEngine
 from ..serve.scheduler import RequestScheduler, SchedulerConfig
 
@@ -253,6 +256,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.arch, reduced=not args.full)
     model = DecoderLM(cfg, device=device, dtype=args.dtype)
+    if args.engine == "paged" and model.ssm:
+        ap.error(f"--engine paged with {cfg.name}: {NOT_PAGED}")
     params = model.init(seed=args.seed)
     engine = ServingEngine(model, params, max_batch=args.engine_batch,
                            max_seq=args.max_seq, page_size=args.page_size,

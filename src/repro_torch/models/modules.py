@@ -12,7 +12,10 @@ functions keep the JAX layouts: activations ``(b, s, D)``, heads
 ``(num_pages, page_size, kvh, d)``.  An int8/fp8
 pool comes with float32 scale pools ``(num_pages, page_size, kvh)``: every
 write quantizes its rows (:func:`~repro_torch.kernels.kvquant.quantize`)
-and writes their scales at the same indices, and the kernels dequantize.
+and writes their scales at the same indices, and the kernels dequantize.  The Mamba-2 block (:func:`mamba_forward`,
+:func:`mamba_step`) runs its sequence scan through ``ops.ssd`` and its
+gated norm through ``ops.rmsnorm``; its depthwise causal convolution and
+its one-token decode recurrence stay plain torch, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -307,3 +310,123 @@ def attn_prefill_packed(
     dst = (meta["dst_page"].long(), meta["dst_off"].long())
     _write_kv(k_pages, v_pages, k_scales, v_scales, dst, k[0], v[0])
     return y
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD) block
+# ---------------------------------------------------------------------------
+def mamba_defs(cfg: ArchConfig) -> Dict[str, P]:
+    D = cfg.d_model
+    din, n, h, K = cfg.ssm_inner, cfg.ssm_state, cfg.ssm_heads, cfg.conv_kernel
+    conv_dim = din + 2 * n
+    std_out = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
+    f32 = torch.float32
+    return {
+        "in_proj": P((D, 2 * din + 2 * n + h)),
+        "conv_w": P((K, conv_dim), std=0.2),
+        "conv_b": P((conv_dim,), "zeros"),
+        "A_log": P((h,), "ssm_a", dtype=f32),
+        "D": P((h,), "ones", dtype=f32),
+        "dt_bias": P((h,), "dt_bias", dtype=f32),
+        "norm": P((din,), "zeros"),
+        "out_proj": P((din, D), std=std_out),
+    }
+
+
+def _mamba_split(cfg: ArchConfig, zxbcdt: torch.Tensor):
+    """``in_proj``'s output as (z, xBC, dt_raw): views, no copies."""
+    din, n = cfg.ssm_inner, cfg.ssm_state
+    conv_dim = din + 2 * n
+    return zxbcdt[..., :din], zxbcdt[..., din:din + conv_dim], zxbcdt[..., din + conv_dim:]
+
+
+def causal_conv1d(
+    x: torch.Tensor,                       # (b, s, C)
+    w: torch.Tensor,                       # (K, C) depthwise taps
+    bias: torch.Tensor,                    # (C,)
+    init: Optional[torch.Tensor] = None,   # (b, K-1, C) carried state
+) -> torch.Tensor:
+    """Depthwise causal convolution then SiLU, the taps summed in order as
+    the JAX version sums them."""
+    K = w.shape[0]
+    b, s, C = x.shape
+    if init is None:
+        init = torch.zeros((b, K - 1, C), dtype=x.dtype, device=x.device)
+    xp = torch.cat([init.to(x.dtype), x], dim=1)                   # (b, s+K-1, C)
+    y = sum(xp[:, i:i + s] * w[i] for i in range(K))
+    return F.silu(y + bias)
+
+
+def _ssd_inputs(p: Dict[str, torch.Tensor], xBC: torch.Tensor, dt_raw: torch.Tensor,
+                cfg: ArchConfig):
+    """(x_in, B, C, dt, A) of the scan: x_in, B and C are views of the
+    convolved projection; dt and A are float32."""
+    din, n = cfg.ssm_inner, cfg.ssm_state
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    return xBC[..., :din], xBC[..., din:din + n], xBC[..., din + n:], dt, A
+
+
+def _mamba_out(p: Dict[str, torch.Tensor], y: torch.Tensor, xh: torch.Tensor,
+               z: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Skip term, gated norm and output projection.  D is cast to y's dtype
+    as in JAX (a bf16 y plus a float32 term would promote to float32)."""
+    y = y + p["D"][:, None].to(y.dtype) * xh
+    y = y.reshape(*z.shape)
+    return ops.rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps) @ p["out_proj"]
+
+
+def mamba_forward(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,                       # (b, s, D)
+    cfg: ArchConfig,
+    *,
+    ssm_state: Optional[torch.Tensor] = None,
+    conv_state: Optional[torch.Tensor] = None,
+    return_state: bool = False,
+):
+    """The Mamba-2 block over a whole sequence: in_proj, causal conv, one
+    ``ops.ssd`` scan (from ``ssm_state``, with ``conv_state`` as the
+    convolution's history), gated norm, out_proj.  With ``return_state``
+    also returns the final SSD state (x's dtype) and the new conv state: the
+    last ``K-1`` rows of ``[conv_state, xBC]`` before the convolution."""
+    b, s, _ = x.shape
+    h, ph = cfg.ssm_heads, cfg.ssm_head_dim
+    zxbcdt = x @ p["in_proj"]
+    z, xBC_raw, dt_raw = _mamba_split(cfg, zxbcdt)
+    xBC = causal_conv1d(xBC_raw, p["conv_w"], p["conv_b"], init=conv_state)
+    x_in, B, C, dt, A = _ssd_inputs(p, xBC, dt_raw, cfg)
+    xh = x_in.reshape(b, s, h, ph)
+    result = ops.ssd(xh, dt, A, B, C, chunk=cfg.ssm_chunk, initial_state=ssm_state,
+                     return_state=return_state)
+    y, final_state = result if return_state else (result, None)
+    out = _mamba_out(p, y, xh, z, cfg)
+    if not return_state:
+        return out
+    km1 = cfg.conv_kernel - 1
+    prev = (conv_state.to(xBC_raw.dtype) if conv_state is not None
+            else torch.zeros((b, km1, xBC_raw.shape[-1]), dtype=xBC_raw.dtype, device=x.device))
+    hist = torch.cat([prev, xBC_raw], dim=1)
+    return out, final_state, hist[:, hist.shape[1] - km1:]
+
+
+def mamba_step(
+    p: Dict[str, torch.Tensor],
+    x1: torch.Tensor,                      # (b, D) one token
+    ssm_state: torch.Tensor,               # (b, h, ph, n)
+    conv_state: torch.Tensor,              # (b, K-1, conv_dim)
+    cfg: ArchConfig,
+):
+    """One decode token through the Mamba-2 block: the convolution over
+    ``[conv_state, xBC]`` and one ``ops.ssd_step``.  Returns (y (b, D), the
+    new SSD state, the new conv state in ``conv_state``'s dtype)."""
+    h, ph = cfg.ssm_heads, cfg.ssm_head_dim
+    zxbcdt = x1 @ p["in_proj"]
+    z, xBC_raw, dt_raw = _mamba_split(cfg, zxbcdt)
+    window = torch.cat([conv_state.to(xBC_raw.dtype), xBC_raw[:, None]], dim=1)
+    y_conv = sum(window[:, i] * p["conv_w"][i] for i in range(cfg.conv_kernel))
+    xBC = F.silu(y_conv + p["conv_b"])
+    x_in, B, C, dt, A = _ssd_inputs(p, xBC, dt_raw, cfg)
+    xh = x_in.reshape(-1, h, ph)
+    y, new_ssm = ops.ssd_step(xh, dt, A, B, C, ssm_state)
+    return _mamba_out(p, y, xh, z, cfg), new_ssm, window[:, 1:].to(conv_state.dtype)

@@ -8,7 +8,12 @@ dense ``(L, b, max_seq, kvh, d)`` cache, then decoded in lockstep.
 same dense cache: each admission prefills its prompt at batch 1 and copies
 that cache into a free slot; every decode step advances all slots, each at
 its own position.  Both decode with a power-of-two bound on the live
-lengths, so attention reads only that prefix of the cache.
+lengths, so attention reads only that prefix of the cache.  The SSM family
+(Mamba-2) runs the same two engines on its cache of per-layer states, with
+the reference's exact-length shapes: every batch or admission is LEFT-padded
+to the longest prompt of its set, with no bucket and no lengths (the pads
+flow through the state, so the shapes must be the reference's for its
+tokens), and decodes at one shared position with no bound.
 
 ``ServingEngine.serve_paged`` is paged-KV continuous batching: a global pool
 of ``page_size``-token pages plus per-slot page tables; admission is keyed
@@ -235,21 +240,30 @@ class ServingEngine:
         self.max_seq = max_seq
         # tokens per KV page
         self.page_size = page_size
+        # right-padded ragged prefill (and kv-bounded decode) is exact only
+        # for pure-attention caches; ssm state scans absorb pads, so the SSM
+        # family keeps exact-length, left-padded shapes
+        self._ragged_ok = not model.ssm
 
     def _kv_dtype_name(self) -> str:
         return self.kv_dtype or str(self.model.dtype).replace("torch.", "")
 
     # -- dense-cache engines ------------------------------------------------------
-    def _kv_bucket(self, live_len: int) -> int:
+    def _kv_bucket(self, live_len: int) -> Optional[int]:
         """The decode bound on live lengths: a power-of-two multiple of the
-        page size (or ``max_seq``), at most ``max_seq``."""
+        page size (or ``max_seq``), at most ``max_seq``; None (no bound) for
+        the SSM family, whose cache has no sequence axis."""
+        if not self._ragged_ok:
+            return None
         return bucket_pow2(live_len, floor=min(self.page_size, self.max_seq), cap=self.max_seq)
 
     def _pad_prompts(self, prompts: List[np.ndarray],
                      max_new_tokens: int = 0) -> Tuple[np.ndarray, np.ndarray]:
-        """Right-pad a prompt batch to one prefill length, a power-of-two
-        bucket floored at the page size: causal attention never reads the
-        trailing pads and the model takes the logits at ``lengths - 1``.
+        """Pad a prompt batch to one prefill length.  Attention families
+        right-pad to a power-of-two bucket floored at the page size: causal
+        attention never reads the trailing pads and the model takes the
+        logits at ``lengths - 1``.  The SSM family left-pads to the exact
+        longest prompt, so every row's last token sits at the end.
         Returns (tokens (b, padded) int32, lengths (b,) int32)."""
         b = len(prompts)
         if b > self.max_batch:
@@ -258,6 +272,11 @@ class ServingEngine:
         max_len = int(lens.max())
         if max_len + max_new_tokens > self.max_seq:
             raise ValueError("prompt + generation exceeds max_seq")
+        if not self._ragged_ok:
+            out = np.zeros((b, max_len), np.int32)
+            for i, p in enumerate(prompts):
+                out[i, max_len - len(p):] = p
+            return out, lens
         padded = bucket_pow2(max_len, floor=min(self.page_size, self.max_seq),
                              cap=max(self.max_seq - max_new_tokens, max_len))
         out = np.zeros((b, padded), np.int32)
@@ -270,16 +289,18 @@ class ServingEngine:
         """Static batched greedy generation: one prefill of the padded batch
         into a fresh dense cache, then ``max_new_tokens`` decode steps in
         lockstep (the last one's token is not kept, as in the JAX engine).
-        Rows of one length decode at one shared position; a ragged batch
-        writes each row at its own.  The tokens stay on the device until
-        the end: the loop never waits for the card."""
+        Rows of one length, and the left-padded rows of the SSM family,
+        decode at one shared position; a ragged attention batch writes each
+        row at its own.  The tokens stay on the device until the end: the
+        loop never waits for the card."""
         dev = self.device
         tokens, lens = self._pad_prompts(prompts, max_new_tokens)
         b = tokens.shape[0]
         max_len = int(lens.max())
         cache = self.model.init_cache(b, self.max_seq)
-        batch = {"tokens": torch.from_numpy(tokens).to(dev),
-                 "lengths": torch.from_numpy(lens).to(dev)}
+        batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+        if self._ragged_ok:
+            batch["lengths"] = torch.from_numpy(lens).to(dev)
         _sync(dev)
         t0 = time.perf_counter()
         logits = self.model.prefill(self.params, batch, cache)
@@ -287,7 +308,7 @@ class ServingEngine:
         t1 = time.perf_counter()
         out = torch.zeros((b, max_new_tokens), dtype=torch.int32, device=dev)
         nxt = logits.argmax(dim=-1).to(torch.int32)
-        uniform = bool((lens == lens[0]).all())
+        uniform = (not self._ragged_ok) or bool((lens == lens[0]).all())
         for i in range(max_new_tokens):
             out[:, i] = nxt
             logits = self.model.decode(self.params, nxt, cache, uniform_pos=uniform,
@@ -319,12 +340,13 @@ class ServingEngine:
     ) -> ContinuousStats:
         """Slot-based continuous batching on the dense cache.
 
-        Every prompt is right-padded to one bucketed prefill length.  At each
-        decode-step boundary finished requests retire, then every free slot
-        admits the next queued request: a batch-1 prefill whose cache is
-        copied into the slot.  One decode step then advances every slot
-        (idle slots too; their output is ignored), each at its own
-        position.  ``clock`` is injectable so tests measure deterministic
+        Every prompt is right-padded to one bucketed prefill length (the SSM
+        family: left-padded to the longest prompt, and every slot then
+        starts at that length).  At each decode-step boundary finished
+        requests retire, then every free slot admits the next queued
+        request: a batch-1 prefill whose cache is copied into the slot.
+        One decode step then advances every slot (idle slots too; their
+        output is ignored), each at its own position.  ``clock`` is injectable so tests measure deterministic
         timings: it stamps the requests and the run, read where the JAX
         engine reads it; ``prefill_s``/``decode_s`` are host wall times.
         Greedy tokens equal the JAX engine's on the same weights."""
@@ -333,17 +355,21 @@ class ServingEngine:
         dev = self.device
         num_slots = num_slots or self.max_batch
         max_prompt = max(len(r.prompt) for r in requests)
-        prefill_len = bucket_pow2(max_prompt, floor=min(self.page_size, self.max_seq),
-                                  cap=self.max_seq)
+        prefill_len = (bucket_pow2(max_prompt, floor=min(self.page_size, self.max_seq),
+                                   cap=self.max_seq) if self._ragged_ok else max_prompt)
+        # a left-padded slot starts at prefill_len, a right-padded one at
+        # its prompt's length: the decode budget counts from there
+        start = lambda r: len(r.prompt) if self._ragged_ok else prefill_len
         for r in requests:
-            if len(r.prompt) + r.max_new_tokens > self.max_seq:
+            if start(r) + r.max_new_tokens > self.max_seq:
                 raise ValueError(
                     f"request {r.request_id}: prompt + generation exceeds max_seq"
                 )
         pool = SlotPool(num_slots)
         cache = self.model.init_cache(num_slots, self.max_seq)
         # one reusable batch-1 cache for admission prefills: a prefill writes
-        # only positions [0, prefill_len), so the rest stays zero
+        # only positions [0, prefill_len), so the rest stays zero (an SSM
+        # prefill rewrites all of its state)
         cache1 = self.model.init_cache(1, self.max_seq)
         queue = deque(requests)
         nxt = np.zeros((num_slots,), np.int32)
@@ -385,10 +411,14 @@ class ServingEngine:
                 req = queue.popleft()
                 slot = pool.admit(req, step=step)
                 padded = np.zeros((1, prefill_len), np.int32)
-                padded[0, : len(req.prompt)] = req.prompt
-                batch1 = {"tokens": torch.from_numpy(padded).to(dev),
-                          "lengths": torch.tensor([len(req.prompt)], dtype=torch.int32,
-                                                  device=dev)}
+                if self._ragged_ok:
+                    padded[0, : len(req.prompt)] = req.prompt
+                else:
+                    padded[0, prefill_len - len(req.prompt):] = req.prompt
+                batch1 = {"tokens": torch.from_numpy(padded).to(dev)}
+                if self._ragged_ok:
+                    batch1["lengths"] = torch.tensor([len(req.prompt)], dtype=torch.int32,
+                                                     device=dev)
                 t0 = time.perf_counter()
                 logits1 = self.model.prefill(self.params, batch1, cache1)
                 tok0 = int(logits1[0].argmax())            # the sync
@@ -397,7 +427,7 @@ class ServingEngine:
                 self._write_slot(cache, cache1, slot)
                 nxt[slot] = tok0
                 slot_tokens[slot] = [tok0]
-                slot_len[slot] = len(req.prompt)
+                slot_len[slot] = start(req)
                 admit_step[slot] = step
                 ttft[slot] = clock() - submit_s[req.request_id]
             if not pool.num_active:

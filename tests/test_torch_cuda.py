@@ -3,9 +3,12 @@
 Marked ``gpu``: each test skips (from the ``cuda`` fixture, never at import)
 where ``torch.cuda.is_available()`` is false.  Run them on the card with
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``;
-``chip_smoke.py`` holds the same kernels at full glm4-9b widths.  Tolerance
-``|kernel - plain| <= tol * (1 + |plain|)`` with tol 2e-2 for bf16
-(rounding and summation order) and 5e-5 for float32.
+``chip_smoke.py`` holds the same kernels at full glm4-9b and mamba2-130m
+widths.  Tolerance ``|kernel - plain| <= tol * (1 + |plain|)`` with tol 2e-2
+for bf16 (rounding and summation order) and 5e-5 for float32; the float32
+``ssd`` scan takes 5e-4, the JAX suite's own tolerance between the chunked
+scan and the sequential recurrence (another summation order over hundreds
+of timesteps).
 """
 import numpy as np
 import pytest
@@ -17,6 +20,7 @@ from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import paged_attention as pa_mod
 from repro_torch.kernels import rmsnorm as rn_mod
 from repro_torch.kernels import spec_verify as sv_mod
+from repro_torch.kernels import ssd as ssd_mod
 from repro_torch.kernels import varlen_prefill as vp_mod
 
 pytestmark = pytest.mark.gpu
@@ -30,9 +34,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _close(out, want, dtype):
+def _close(out, want, dtype, f32_tol=5e-5):
     """|kernel - plain| <= tol * (1 + |plain|), tol by dtype."""
-    tol = 2e-2 if dtype == torch.bfloat16 else 5e-5
+    tol = 2e-2 if dtype == torch.bfloat16 else f32_tol
     want = want.float().cpu()
     assert bool(((out.float().cpu() - want).abs() <= tol * (1 + want.abs())).all())
 
@@ -384,3 +388,83 @@ def test_dense_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(_build.SharedMemoryError, match="shared memory"):
         fa_mod.flash_attention(big, kv, kv)
     assert fa_mod.launches == n
+
+
+# ---------------------------------------------------------------------------
+# ssd (the Mamba-2 chunked scan)
+# ---------------------------------------------------------------------------
+SSD_SHAPES = [
+    # b, s, h, p, n, chunk
+    (8, 881, 24, 64, 128, 64),      # mamba2-130m's static pass: 13 chunks + 49
+    (2, 100, 4, 16, 32, 64),        # a partial trailing chunk
+    (3, 40, 3, 8, 16, 64),          # s < chunk
+    (1, 1, 2, 64, 128, 64),         # one timestep
+    (2, 37, 5, 16, 16, 8),          # mamba2-130m reduced widths, ragged
+]
+
+
+def _ssd_inputs(b, s, h, p, n, dtype, dev, seed, init):
+    """x, dt, A, B, C (and an initial state) with mamba2's ranges: dt in
+    [1e-3, 1e-1] and A in [-16, -1], as its dt_bias and A_log inits give."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    x, B, C = (t.to(dev, dtype) for t in (f(b, s, h, p), f(b, s, n), f(b, s, n)))
+    dt = torch.from_numpy(rng.uniform(1e-3, 1e-1, (b, s, h)).astype(np.float32)).to(dev)
+    A = torch.from_numpy(-rng.uniform(1.0, 16.0, (h,)).astype(np.float32)).to(dev)
+    s0 = f(b, h, p, n).to(dev) if init else None
+    return x, dt, A, B, C, s0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_kernel(cuda, dtype, shape, init):
+    b, s, h, p, n, chunk = shape
+    x, dt, A, B, C, s0 = _ssd_inputs(b, s, h, p, n, dtype, cuda, s + h, init)
+    n0 = ssd_mod.launches
+    y, sf = ssd_mod.ssd(x, dt, A, B, C, chunk=chunk, initial_state=s0, return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_mod.launches == n0 + 1
+    assert y.dtype == sf.dtype == dtype and y.shape == x.shape and sf.shape == (b, h, p, n)
+    y_want, sf_want = ref.ssd(x, dt, A, B, C, initial_state=s0, return_state=True)
+    _close(y, y_want, dtype, f32_tol=5e-4)
+    _close(sf, sf_want, dtype, f32_tol=5e-4)
+    assert torch.equal(ssd_mod.ssd(x, dt, A, B, C, chunk=chunk, initial_state=s0), y)
+
+
+def test_ssd_kernel_takes_strided_slices(cuda):
+    """x, B and C as the model hands them over: views of one projection
+    with a row stride of the whole projection, no copy."""
+    b, s, h, p, n = 2, 70, 4, 16, 32
+    din = h * p
+    rng = np.random.default_rng(7)
+    proj = torch.from_numpy(rng.normal(size=(b, s, din + 2 * n + 5)).astype(np.float32))
+    proj = proj.to(cuda, torch.bfloat16)
+    x = proj[..., :din].reshape(b, s, h, p)
+    B, C = proj[..., din:din + n], proj[..., din + n:din + 2 * n]
+    dt = torch.from_numpy(rng.uniform(1e-3, 1e-1, (b, s, h)).astype(np.float32)).to(cuda)
+    A = -torch.arange(1, h + 1, dtype=torch.float32, device=cuda)
+    assert not (x.is_contiguous() or B.is_contiguous())
+    got = ssd_mod.ssd(x, dt, A, B, C, chunk=16)
+    want = ssd_mod.ssd(x.contiguous(), dt, A, B.contiguous(), C.contiguous(), chunk=16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    x, dt, A, B, C, s0 = _ssd_inputs(1, 8, 2, 64, 128, torch.bfloat16, cuda, 9, True)
+    with pytest.raises(ValueError, match="dt must be float32"):
+        ssd_mod.ssd(x, dt.double(), A, B, C)
+    with pytest.raises(ValueError, match="share a dtype"):
+        ssd_mod.ssd(x, dt, A, B.float(), C)
+    with pytest.raises(ValueError, match="initial_state"):
+        ssd_mod.ssd(x, dt, A, B, C, initial_state=s0.bfloat16())
+    with pytest.raises(ValueError, match="contiguous within a timestep"):
+        ssd_mod.ssd(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, B, C)
+    with pytest.raises(TypeError, match="not supported"):
+        ssd_mod.ssd(x.half(), dt, A, B.half(), C.half())
+    long = _ssd_inputs(1, 256, 2, 64, 128, torch.bfloat16, cuda, 10, False)
+    n0 = ssd_mod.launches
+    with pytest.raises(_build.SharedMemoryError, match="shared memory"):
+        ssd_mod.ssd(*long[:5], chunk=256)
+    assert ssd_mod.launches == n0

@@ -17,7 +17,7 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.models import build_model
 from repro.models import modules as jmod
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.models import DecoderLM, from_jax
 from repro_torch.models import modules as tmod
 
@@ -44,12 +44,14 @@ def models():
 
 
 def test_config_copy_matches():
-    for reduced in (False, True):
-        port, ref = get_config("glm4-9b", reduced=reduced), jax_get_config("glm4-9b", reduced=reduced)
-        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
-        assert port.param_count() == ref.param_count()
+    assert list_archs() == ["glm4-9b", "mamba2-130m"]
+    for arch in list_archs():
+        for reduced in (False, True):
+            port, ref = get_config(arch, reduced=reduced), jax_get_config(arch, reduced=reduced)
+            assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+            assert port.param_count() == ref.param_count()
     with pytest.raises(ValueError, match="not ported"):
-        get_config("mamba2-130m")
+        get_config("zamba2-2.7b")
 
 
 def test_from_jax_splits_stacked_blocks(models):
