@@ -8,7 +8,10 @@ Phases, each printing its own lines and wall time, each ending in
 
 1. environment and build: the card (as ``nvidia-smi`` names it, with its
    power limit), torch/CUDA versions, the ``nvcc`` build of the kernels
-   from this checkout's sources and the compiler's register/spill report;
+   from this checkout's sources, each kernel's registers and spills from
+   the compiler's report, and the tensor-core instructions (HMMA, HGMMA) in
+   the SASS of the bf16 ``flash_attention`` kernels (``cuobjdump``): fail
+   unless each has some and the one at head dim 128 spills nothing;
 2. kernels: each hand-written kernel against its plain PyTorch version at
    the shapes the serve phase gives it (glm4-9b widths: h 32, kvh 2, d 128,
    page 16, D 4096, bf16; spec_verify with 8 slots and windows of 5), the
@@ -20,7 +23,11 @@ Phases, each printing its own lines and wall time, each ending in
    3.35 TB/s and flops over 989 TFLOP/s.  The dense engines' kernels
    likewise: ``flash_attention`` on a static prefill pass (q (8, 1024, 32,
    128), causal) and small cases with a window, softcap, q_offset and no
-   causal mask (the plain version without key 0 must fail the limit);
+   causal mask (the plain version without key 0 must fail the limit), its
+   time at a continuous admission (q (1, 1024, 32, 128)), and the longest
+   of the first 8 serve prompts padded with other values to 1024 and to
+   2048 tokens, and batched beside another row, which must give the same
+   bits on its real rows;
    ``decode_attention`` on a decode step of 8 rows over a 2048-token cache
    at the serve lengths, and with a window and a row of length 0, which
    must be exactly zero (with ``lengths - 1`` the plain version must fail);
@@ -76,6 +83,8 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -232,6 +241,80 @@ def _serve_lengths(seed):
     return rng.integers(PROMPT_MIN, PROMPT_MAX + 1, size=REQUESTS)
 
 
+
+
+def _demangle(names):
+    """C++ names as ``c++filt`` reads them (unchanged where it is missing)."""
+    exe = shutil.which("c++filt")
+    if not names or exe is None:
+        return {n: n for n in names}
+    out = subprocess.run([exe], input="\n".join(names), capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
+    return dict(zip(names, out)) if len(out) == len(names) else {n: n for n in names}
+
+
+def _ptxas_report(log):
+    """{kernel: (registers, spill store bytes, spill load bytes)} from the
+    ``-Xptxas -v`` report of the build."""
+    report, cur, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            report[cur] = (int(m.group(1)), *spill)
+    return report
+
+
+def _sass_counts(nvcc, lib_path):
+    """{kernel: (HMMA, HGMMA)}: tensor-core instructions in each kernel's
+    SASS, from ``cuobjdump --dump-sass`` on the built library."""
+    exe = Path(nvcc).parent / "cuobjdump"
+    out = subprocess.run([str(exe if exe.exists() else "cuobjdump"), "--dump-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode:
+        raise SystemExit(f"cuobjdump failed: {out.stderr[-2000:]}")
+    counts, cur = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = [0, 0]
+        elif cur and re.search(r"\bHGMMA\.", line):
+            counts[cur][1] += 1
+        elif cur and re.search(r"\bHMMA\.", line):
+            counts[cur][0] += 1
+    return {k: tuple(v) for k, v in counts.items()}
+
+
+def build_report(info, nvcc):
+    """Print every kernel's registers and spills, and the tensor-core
+    instructions of the bf16 flash_attention kernels; fail unless each of
+    those has some and the one the wrapper plans at d 128 spills nothing."""
+    from repro_torch.kernels import flash_attention as fa
+
+    ptxas = _ptxas_report(info.log)
+    sass = _sass_counts(nvcc, info.path)
+    names = _demangle(sorted(set(ptxas) | set(sass)))
+    for mangled, (regs, st, ld) in sorted(ptxas.items(), key=lambda kv: names[kv[0]]):
+        print(f"   ptxas {names[mangled]}: {regs} registers, spill stores {st} B, loads {ld} B")
+    flash = {m: c for m, c in sass.items() if "flash_attention_kernel_bf16" in m}
+    for mangled, (hmma, hgmma) in sorted(flash.items(), key=lambda kv: names[kv[0]]):
+        print(f"   sass {names[mangled]}: HMMA {hmma}, HGMMA {hgmma}")
+    if not flash or any(sum(c) == 0 for c in flash.values()):
+        raise SystemExit("flash_attention bf16: no tensor-core instruction in its SASS")
+    _, bk, rows, stages = fa.BF16_TILES[128]
+    targs = (bk, stages, rows // 64)            # wgmma kernel <BK, ST, warpgroups>
+    at128 = [r for m, r in ptxas.items()
+             if f"flash_attention_kernel_bf16_wgmma<{', '.join(map(str, targs))}>" in names[m]
+             or "flash_attention_kernel_bf16_wgmmaI" + "".join(f"Li{a}E" for a in targs) in m]
+    if len(at128) != 1 or at128[0][1] or at128[0][2]:
+        raise SystemExit(f"flash_attention bf16 at d 128: ptxas report {at128}, expected no spill")
 
 
 def kernels_phase(torch, dev):
@@ -523,19 +606,51 @@ def dense_kernels_phase(torch, dev):
         err = max(err, _check(torch, f"flash_attention q (2, 128), k (2, 384), {opts}",
                               fa.flash_attention(qs, ks, vs, **opts),
                               ref.attention(qs, ks, vs, **opts)))
-    nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kvh * d)
-    sets = _rotation(nbytes, lambda i: (q.clone(), k.clone(), v.clone()))
-    lib_sets = _rotation(2 * 4 * b * s * h * d,
-                         lambda i: (q.transpose(1, 2).contiguous(), expand(k), expand(v)))
+    sdpa = lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, is_causal=True)
+
+    def flash_sets(q_, k_, v_):
+        """Kernel and library input sets of a causal pass (q_ (b, s, h, d))."""
+        b_, s_ = q_.shape[:2]
+        nbytes = 2 * (2 * b_ * s_ * h * d + 2 * b_ * s_ * kvh * d)
+        return (nbytes, _rotation(nbytes, lambda i: (q_.clone(), k_.clone(), v_.clone())),
+                _rotation(2 * 4 * b_ * s_ * h * d,
+                          lambda i: (q_.transpose(1, 2).contiguous(), expand(k_), expand(v_))))
+
+    nbytes, sets, lib_sets = flash_sets(q, k, v)
     records["flash_attention"] = dict(
         err=err,
-        **timed(fa.flash_attention, ref.attention,
-                lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, is_causal=True),
-                sets, lib_sets),
+        **timed(fa.flash_attention, ref.attention, sdpa, sets, lib_sets),
         bound=_bound_ms(nbytes, 4.0 * h * d * b * s * (s + 1) / 2),
         shape=f"q ({b}, {s}, {h}, {d}), k/v ({b}, {s}, {kvh}, {d}) bf16, causal",
     )
     del q, k, v, sets, lib_sets
+    # a continuous admission: one row padded to PREFILL_LEN
+    q1, k1, v1 = randn(1, s, h, d), randn(1, s, kvh, d), randn(1, s, kvh, d)
+    _check(torch, "flash_attention causal, batch 1", fa.flash_attention(q1, k1, v1),
+           ref.attention(q1, k1, v1))
+    nbytes1, sets, lib_sets = flash_sets(q1, k1, v1)
+    one = timed(fa.flash_attention, ref.attention, sdpa, sets, lib_sets)
+    bound1 = _bound_ms(nbytes1, 4.0 * h * d * s * (s + 1) / 2)
+    print(f"   flash_attention at a continuous admission q (1, {s}, {h}, {d}): kernel_ms "
+          f"{one['ms']:.4f} plain_ms {one['plain_ms']:.4f} library_ms {one['library_ms']:.4f} "
+          f"bound_ms {bound1[0]:.4f} ({bound1[1]}); host gaps in: {one['gaps'] or 'none'}")
+    del q1, k1, v1, sets, lib_sets
+    # padding independence: the longest of the first SLOTS serve prompts,
+    # right-padded with other values to PREFILL_LEN and to MAX_SEQ, and
+    # batched beside another row, must give the same bits on its real rows
+    n = int(max(_serve_lengths(SEED)[:SLOTS]))
+    real = [randn(1, n, c, d) for c in (h, kvh, kvh)]
+    padded = lambda length: [torch.cat([t, randn(1, length - n, t.shape[2], d)], 1) for t in real]
+    rows = [fa.flash_attention(*padded(PREFILL_LEN))[0, :n]]
+    rows.append(fa.flash_attention(*padded(MAX_SEQ))[0, :n])
+    pair = [torch.cat([t, randn(1, MAX_SEQ, t.shape[2], d)]) for t in padded(MAX_SEQ)]
+    rows.append(fa.flash_attention(*pair)[0, :n])
+    same = all(torch.equal(rows[0], r) for r in rows[1:])
+    print(f"   flash_attention: a {n}-token prompt padded to {PREFILL_LEN} and to {MAX_SEQ}, and "
+          f"batched beside another row, gives the same bits on its real rows: {same}")
+    if not same:
+        raise SystemExit("flash_attention: a row's output depends on the padding or the batch")
+    del real, rows, pair
 
     # -- decode_attention: one decode step over the dense cache
     lens_host = [int(n) + NEW_TOKENS for n in _serve_lengths(SEED)[:SLOTS]]
@@ -1220,9 +1335,7 @@ def main() -> int:
     info = _build.build_info()
     print(f"   kernels: {info.path} ({'built' if info.built else 'cached'} "
           f"in {info.seconds:.1f} s by nvcc, one process per source)")
-    for line in info.log.splitlines():
-        if line.startswith("==") or "registers" in line or "spill" in line:
-            print(f"   ptxas {line.strip()}")
+    build_report(info, _build._nvcc())
     _done(torch, "1. environment and build", t0)
 
     t0 = _phase("2. kernels vs plain versions (glm4-9b and mamba2-130m widths, bf16; "

@@ -31,7 +31,7 @@ PACKAGE = CSRC.parents[1]                  # <root>/src/repro_torch
 CHECKOUT = PACKAGE.parents[1]              # <root>
 SOURCES = ("rmsnorm.cu", "paged_attention.cu", "varlen_prefill.cu", "spec_verify.cu",
            "flash_attention.cu", "decode_attention.cu", "ssd.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "mma.cuh")
 BUILD_ROOT = CHECKOUT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -58,8 +58,10 @@ SIGNATURES = {
                           _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P),
     "rt_spec_verify": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _I, _I, _I, _F, _F, _I, _I, _P),
-    "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _F, _F, _I, _P),
+    "rt_flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _F, _F, _P),
+    "rt_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _F, _F, _P),
     "rt_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                             _F, _I, _P),
     "rt_ssd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
@@ -209,12 +211,17 @@ class SharedMemoryError(ValueError):
     the card has: the kernel cannot run it, and nothing falls back."""
 
 
+def tile_floats(rows: int, page_size: int, d: int) -> int:
+    """Floats of the common.cuh tile (``tile_floats`` there)."""
+    return (rows * (d + 1) + page_size * (d + 1) + page_size * d
+            + rows * page_size + 3 * rows + rows * d)
+
+
 def check_tile(name: str, rows: int, page_size: int, d: int) -> None:
     """Raise :class:`SharedMemoryError` when the common.cuh tile of ``rows``
-    query rows, ``page_size`` keys and head dim ``d`` (all float32, see
-    ``tile_floats``) exceeds :data:`SMEM_LIMIT`."""
-    floats = (rows * (d + 1) + page_size * (d + 1) + page_size * d
-              + rows * page_size + 3 * rows + rows * d)
+    query rows, ``page_size`` keys and head dim ``d`` (all float32)
+    exceeds :data:`SMEM_LIMIT`."""
+    floats = tile_floats(rows, page_size, d)
     if 4 * floats > SMEM_LIMIT:
         raise SharedMemoryError(
             f"{name}: a tile of {rows} query rows x {page_size} keys at head dim {d} "

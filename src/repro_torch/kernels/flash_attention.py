@@ -1,15 +1,24 @@
-"""Forward flash attention: wrapper of the CUDA kernel
+"""Forward flash attention: wrapper of the CUDA kernels
 ``csrc/flash_attention.cu``.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py:flash_attention``
 (the forward pass; the training backward is not ported yet).  A CPU tensor
 runs the plain version (:func:`repro_torch.kernels.ref.attention`); a CUDA
-tensor launches the kernel or raises, also when the GQA group's tile does
-not fit in shared memory (:class:`~repro_torch.kernels._build.SharedMemoryError`).
-``launches`` counts kernel launches.
+tensor launches a kernel or raises.  ``launches`` counts kernel launches.
+
+The kernel is chosen by dtype and head dim (:func:`plan`), a dispatch and
+not a fallback.  bfloat16 runs on the tensor cores with float32
+accumulation: ``wgmma`` at head dim 128 (the models'), ``mma.sync`` at 16,
+64 and 256; any other head dim raises ``ValueError``
+(:data:`BF16_HEAD_DIMS`).  float32 runs the fp32 CUDA-core tile of
+``csrc/common.cuh``, since the tensor cores have no full-precision float32
+product and the float32 checks hold the card's tokens equal to the CPU's.
+A tile that needs more shared memory than one block of the card has raises
+:class:`~repro_torch.kernels._build.SharedMemoryError`; nothing falls back.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -18,8 +27,70 @@ from . import _build, ref
 
 launches = 0
 
-TILE_ROWS = 64    # query rows per block: bq positions x the GQA group
-BLOCK_K = 32      # keys per online-softmax step
+# float32 tile: query rows per block (bq positions x the GQA group) and keys
+# per online-softmax step
+TILE_ROWS = 64
+BLOCK_K = 32
+# bf16 tensor-core kernels, per head dim they are built for: the kernel,
+# keys per K/V tile, query rows per block and K/V tiles in the ring (the
+# tuples instantiated in csrc/flash_attention.cu)
+BF16_TILES = {
+    16: ("mma", 64, 64, 3),
+    64: ("mma", 32, 64, 3),
+    128: ("wgmma", 32, 128, 3),
+    256: ("mma", 32, 64, 2),
+}
+BF16_HEAD_DIMS = tuple(sorted(BF16_TILES))
+
+
+@dataclass(frozen=True)
+class Plan:
+    """The kernel a call takes and its tile: ``kernel`` is ``"wgmma"`` or
+    ``"mma"`` (bf16, tensor cores) or ``"f32"`` (CUDA cores); ``rows`` query
+    rows per block, ``block_k`` keys per K/V step, ``positions`` query
+    positions per block of the f32 tile (0 for bf16, whose tiles cut the
+    rows of a kv head at multiples of ``rows``), ``stages`` K/V tiles in the
+    bf16 ring (1 for f32), and the block's ``smem_bytes``."""
+
+    kernel: str
+    rows: int
+    block_k: int
+    positions: int
+    stages: int
+    smem_bytes: int
+
+
+def bf16_smem_bytes(kernel: str, d: int, block_k: int, rows: int, stages: int) -> int:
+    """Shared memory of a bf16 kernel (csrc/flash_attention.cu
+    ``bf16_smem_bytes``): the Q tile, then K and V tiles per ring stage;
+    wgmma's swizzle blocks take 1 KB more to align on 1024 bytes."""
+    return 2 * (rows * d + stages * 2 * block_k * d) + (1024 if kernel == "wgmma" else 0)
+
+
+def plan(dtype: torch.dtype, d: int, rep: int) -> Plan:
+    """The kernel and tile for q of ``dtype`` at head dim ``d`` with ``rep``
+    query heads per kv head.  Raises ``ValueError`` for a bf16 head dim the
+    kernel is not built for, ``TypeError`` for another dtype, and
+    :class:`~repro_torch.kernels._build.SharedMemoryError` for a tile that
+    does not fit a block."""
+    if dtype == torch.bfloat16:
+        _build.require(d in BF16_TILES,
+                       f"flash_attention: bf16 head dim {d} not supported (the kernel is "
+                       f"built for head dims {BF16_HEAD_DIMS})")
+        kernel, bk, rows, stages = BF16_TILES[d]
+        p = Plan(kernel, rows, bk, 0, stages, bf16_smem_bytes(kernel, d, bk, rows, stages))
+        if p.smem_bytes > _build.SMEM_LIMIT:
+            raise _build.SharedMemoryError(
+                f"flash_attention: the bf16 tile at head dim {d} needs {p.smem_bytes} bytes "
+                f"of shared memory, above the card's {_build.SMEM_LIMIT}")
+        return p
+    if dtype != torch.float32:
+        raise TypeError(f"flash_attention: dtype {dtype} not supported by the CUDA kernels "
+                        f"(expected one of {list(_build.DTYPE_CODES)})")
+    bq = max(1, TILE_ROWS // rep)
+    rows = bq * rep
+    _build.check_tile("flash_attention", rows, BLOCK_K, d)
+    return Plan("f32", rows, BLOCK_K, bq, 1, 4 * _build.tile_floats(rows, BLOCK_K, d))
 
 
 def flash_attention(
@@ -56,19 +127,25 @@ def flash_attention(
         req(t.device == q.device, "flash_attention: inputs on different devices")
     for t in (q, k, v):
         req(t.is_contiguous(), "flash_attention: inputs must be contiguous")
-    code = _build.dtype_code(q, "flash_attention")
-    rep = h // kvh
-    bq = max(1, TILE_ROWS // rep)
-    _build.check_tile("flash_attention", bq * rep, BLOCK_K, d)
+    p = plan(q.dtype, d, h // kvh)
     scale = d ** -0.5 if scale is None else float(scale)
     w = 0 if window is None else int(window)
     out = torch.empty_like(q)
     lib = _build.library()
-    err = lib.rt_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, sk, h, kvh, d, bq, BLOCK_K, int(bool(causal)), w, int(q_offset),
-        scale, float(softcap), code, _build.stream_of(q),
-    )
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if p.kernel != "f32":
+        # 16-byte copies: every row starts on a 16-byte boundary
+        req(all(x % 16 == 0 for x in ptrs[:3]),
+            "flash_attention: bf16 inputs must be 16-byte aligned")
+        err = lib.rt_flash_attention_bf16(
+            *ptrs, b, sq, sk, h, kvh, d, p.block_k, p.rows, p.stages, int(bool(causal)), w,
+            int(q_offset), scale, float(softcap), _build.stream_of(q),
+        )
+    else:
+        err = lib.rt_flash_attention_f32(
+            *ptrs, b, sq, sk, h, kvh, d, p.positions, p.block_k, int(bool(causal)), w,
+            int(q_offset), scale, float(softcap), _build.stream_of(q),
+        )
     launches += 1
     _build.check_launch(err, "flash_attention")
     return out

@@ -317,6 +317,68 @@ def test_flash_attention_kernel_rows_without_live_keys(cuda):
     _close(out, ref.attention(q.cpu(), k.cpu(), v.cpu(), window=4, q_offset=40), torch.bfloat16)
 
 
+FLASH_BF16_EDGES = [
+    # b, sq, sk, h, kvh, d, opts: the tile edges of the bf16 kernels (rows
+    # numbered position * rep + head; d 128: 128 rows, 32-key tiles on wgmma;
+    # d 16/64/256: 64 rows on mma.sync)
+    (2, 37, 37, 32, 2, 128, {}),                           # sq not a multiple of 8 positions
+    (2, 50, 177, 32, 2, 128, {"q_offset": 127}),           # sk > sq: positions 127..176
+    (1, 130, 130, 32, 2, 128, {"window": 9}),              # a window narrower than a key tile
+    (1, 77, 77, 32, 1, 128, {}),                           # rep 32 (MQA at h 32)
+    (1, 9, 9, 256, 1, 128, {"softcap": 6.0}),              # rep 256: a group over two tiles
+    (1, 45, 45, 128, 1, 64, {"softcap": 6.0}),             # rep 128: a group over two tiles
+    (2, 33, 70, 6, 2, 16, {"q_offset": 37, "window": 20}),  # rep 3: tiles straddle positions
+    (1, 90, 90, 4, 2, 256, {"window": 40, "q_offset": 3}),  # d 256, rows beyond the window
+    (1, 70, 200, 8, 2, 64, {"causal": False, "window": 30}),  # non-causal window
+]
+
+
+@pytest.mark.parametrize("case", FLASH_BF16_EDGES)
+def test_flash_attention_bf16_tile_edges(cuda, case):
+    b, sq, sk, h, kvh, d, opts = case
+    q = _randn((b, sq, h, d), torch.bfloat16, cuda, 76)
+    k = _randn((b, sk, kvh, d), torch.bfloat16, cuda, 77)
+    v = _randn((b, sk, kvh, d), torch.bfloat16, cuda, 78)
+    out = fa_mod.flash_attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    want = ref.attention(q.cpu(), k.cpu(), v.cpu(), **opts)
+    _close(out, want, torch.bfloat16)
+    dead = (want == 0).flatten(2).all(-1)          # (b, sq): rows with no live key
+    assert torch.all(out.cpu()[dead] == 0)
+
+
+@pytest.mark.parametrize("opts", [{}, {"window": 50}, {"softcap": 9.0}])
+def test_flash_attention_bf16_rows_independent_of_padding_and_batch(cuda, opts):
+    """One prompt right-padded to two lengths, and batched beside another
+    row, gives the same bits on its real rows: what lets the static engine
+    (bucket padding) and the continuous engine (padding to its bucket)
+    compute the same prefill."""
+    n, h, kvh, d = 150, 32, 2, 128
+
+    def padded(length, seed):
+        real = [_randn((1, n, c, d), torch.bfloat16, cuda, 60 + i) for i, c in enumerate((h, kvh, kvh))]
+        return [torch.cat([t, _randn((1, length - n, t.shape[2], d), torch.bfloat16, cuda, seed + i)], 1)
+                for i, t in enumerate(real)]
+
+    a = fa_mod.flash_attention(*padded(192, 100), **opts)[0, :n]
+    b = fa_mod.flash_attention(*padded(256, 200), **opts)[0, :n]
+    other = [_randn((1, 256, c, d), torch.bfloat16, cuda, 300 + i) for i, c in enumerate((h, kvh, kvh))]
+    batched = [torch.cat([t, o]) for t, o in zip(padded(256, 400), other)]
+    c = fa_mod.flash_attention(*batched, **opts)[0, :n]
+    assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_flash_attention_bf16_raises_at_an_unsupported_head_dim(cuda):
+    q = _randn((1, 8, 4, 96), torch.bfloat16, cuda, 97)
+    k = _randn((1, 8, 2, 96), torch.bfloat16, cuda, 98)
+    n = fa_mod.launches
+    with pytest.raises(ValueError, match="head dim 96 not supported"):
+        fa_mod.flash_attention(q, k, k)
+    assert fa_mod.launches == n
+    fa_mod.flash_attention(q.float(), k.float(), k.float())   # float32 takes any head dim
+    assert fa_mod.launches == n + 1
+
+
 DECODE_SHAPES = [
     # h, kvh, d, S, lengths (the last one 0: an idle row)
     (32, 2, 128, 160, [1, 17, 128, 0]),      # glm4-9b widths
@@ -382,8 +444,10 @@ def test_dense_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         da_mod.decode_attention(q1, k, k, torch.ones(1, dtype=torch.int64, device=cuda))
     with pytest.raises(ValueError, match="\\(b, 1, h, d\\)"):
         da_mod.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32, device=cuda))
-    big = _randn((1, 4, 128, 256), torch.bfloat16, cuda, 95)        # 128 rows at d 256
-    kv = _randn((1, 4, 1, 256), torch.bfloat16, cuda, 96)
+    # the float32 tile holds the whole GQA group: 128 rows at d 256 do not
+    # fit a block (the bf16 kernel spans such a group over two tiles)
+    big = _randn((1, 4, 128, 256), torch.float32, cuda, 95)
+    kv = _randn((1, 4, 1, 256), torch.float32, cuda, 96)
     n = fa_mod.launches
     with pytest.raises(_build.SharedMemoryError, match="shared memory"):
         fa_mod.flash_attention(big, kv, kv)
