@@ -10,15 +10,23 @@ Phases, each printing its own lines and wall time, each ending in
    power limit), torch/CUDA versions, the ``nvcc`` build of the kernels
    from this checkout's sources, each kernel's registers and spills from
    the compiler's report, and the tensor-core instructions (HMMA, HGMMA) in
-   the SASS of the bf16 ``flash_attention`` kernels (``cuobjdump``): fail
-   unless each has some and the one at head dim 128 spills nothing;
+   the SASS of the bf16 ``flash_attention`` kernels and of every head-dim
+   instance of the bf16 decode family's split-KV routine
+   (``csrc/decode_split.cuh``; ``cuobjdump``): fail unless each has some,
+   the flash kernel at head dim 128 spills nothing and no split-KV instance
+   spills;
 2. kernels: each hand-written kernel against its plain PyTorch version at
    the shapes the serve phase gives it (glm4-9b widths: h 32, kvh 2, d 128,
    page 16, D 4096, bf16; spec_verify with 8 slots and windows of 5), the
    attention kernels on a bf16 pool and on int8 and fp8 pools, with the
    error (fail unless ``|kernel - plain| <= 2e-2 * |plain| + 2e-3 *
    rms(plain)``; the plain version with one key, one context page or one
-   window row too few must fail that limit), kernel, plain and library
+   window row too few must fail that limit); the split-KV routine's
+   splits at these shapes, each spec_verify window row bit-equal to a
+   one-token ``paged_attention`` at ``len + w + 1`` on all three pools, and
+   the verify windows of W 13 at glm4-9b's heads and of W 5 at
+   granite-20b's 48 heads on one kv head, bf16 and float32, against their
+   plain versions; kernel, plain and library
    times (see ``_time_ms``) and the bound: the larger of bytes over
    3.35 TB/s and flops over 989 TFLOP/s.  The dense engines' kernels
    likewise: ``flash_attention`` on a static prefill pass (q (8, 1024, 32,
@@ -30,7 +38,9 @@ Phases, each printing its own lines and wall time, each ending in
    bits on its real rows;
    ``decode_attention`` on a decode step of 8 rows over a 2048-token cache
    at the serve lengths, and with a window and a row of length 0, which
-   must be exactly zero (with ``lengths - 1`` the plain version must fail);
+   must be exactly zero (with ``lengths - 1`` the plain version must fail),
+   and equal bit for bit to ``paged_attention`` over the cache viewed as a
+   pool with the identity table;
    ``ssd`` (mamba2-130m widths: h 24, p 64, n 128, chunk 64, bf16) on the
    static prefill pass of 8 rows of the longest of the first 8 serve
    prompts (a partial trailing chunk), a partial chunk, a sequence shorter
@@ -294,8 +304,10 @@ def _sass_counts(nvcc, lib_path):
 
 def build_report(info, nvcc):
     """Print every kernel's registers and spills, and the tensor-core
-    instructions of the bf16 flash_attention kernels; fail unless each of
-    those has some and the one the wrapper plans at d 128 spills nothing."""
+    instructions of the bf16 flash_attention kernels and of the split-KV
+    decode routine; fail unless each of those has some, the flash kernel the
+    wrapper plans at d 128 spills nothing and no split-KV instance spills."""
+    from repro_torch.kernels import decode_split as ds
     from repro_torch.kernels import flash_attention as fa
 
     ptxas = _ptxas_report(info.log)
@@ -308,6 +320,19 @@ def build_report(info, nvcc):
         print(f"   sass {names[mangled]}: HMMA {hmma}, HGMMA {hgmma}")
     if not flash or any(sum(c) == 0 for c in flash.values()):
         raise SystemExit("flash_attention bf16: no tensor-core instruction in its SASS")
+    # the split-KV decode routine: every head-dim instance on the tensor
+    # cores, none spilling
+    split = {m: c for m, c in sass.items() if "decode_split_kernel" in m}
+    for mangled, (hmma, _) in sorted(split.items(), key=lambda kv: names[kv[0]]):
+        regs, st, ld = ptxas.get(mangled, (None, None, None))
+        print(f"   sass {names[mangled]}: HMMA {hmma}; {regs} registers, spill stores {st} B, "
+              f"loads {ld} B")
+    if len(split) != 2 * len(ds.BF16_HEAD_DIMS) or any(c[0] == 0 for c in split.values()):
+        raise SystemExit(f"decode_split: {len(split)} kernels in the SASS, expected "
+                         f"{2 * len(ds.BF16_HEAD_DIMS)}, each with HMMA")
+    spilled = [names[m] for m in split if ptxas.get(m, (0, 1, 1))[1:] != (0, 0)]
+    if spilled:
+        raise SystemExit(f"decode_split: spills (or no ptxas report) in {spilled}")
     _, bk, rows, stages = fa.BF16_TILES[128]
     targs = (bk, stages, rows // 64)            # wgmma kernel <BK, ST, warpgroups>
     at128 = [r for m, r in ptxas.items()
@@ -322,6 +347,7 @@ def kernels_phase(torch, dev):
     attention kernels on a bf16 pool and on int8 and fp8 pools."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import decode_split as ds
     from repro_torch.kernels import kvquant, ref
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import rmsnorm as rn
@@ -473,6 +499,44 @@ def kernels_phase(torch, dev):
         )
         del sets, lib_sets
 
+    # -- the split-KV routine behind both: its splits at these shapes, spec
+    #    row w bit-equal to a one-token decode at len + w + 1 on every pool,
+    #    and the verify windows a single block of rep * W rows refused
+    pp, sp = ds.plan(bf, d, rep, 1, PAGE), ds.plan(bf, d, rep, W, PAGE)
+    live_blocks = kvh * sum(-(-L // pp.split_keys) for L in lens_host)
+    print(f"   split-KV routine: {pp.split_keys}-key splits; paged_attention "
+          f"{ds.n_splits(pp, bound_pages, PAGE, None)} splits x {SLOTS * kvh} (slot, kv head) "
+          f"blocks of {pp.rows} rows, {live_blocks} with live keys; spec_verify "
+          f"{ds.n_splits(sp, spec_pages, PAGE, None)} splits, {sp.row_chunks} row chunk(s) of "
+          f"{sp.rows} rows")
+    one_len = lambda i, w: torch.tensor([lens_host[i] + w + 1], dtype=torch.int32, device=dev)
+    for mode in KV_MODES:
+        kp, vpl, ks, vs = pools(mode)[:4]
+        out = sv.spec_verify(qs, kp, vpl, table, lengths, wlens, pages_bound=spec_pages,
+                             k_scales=ks, v_scales=vs)
+        same = all(torch.equal(out[i, w], pa.paged_attention(
+                       qs[i:i + 1, w:w + 1].contiguous(), kp, vpl, table[i:i + 1].contiguous(),
+                       one_len(i, w), k_scales=ks, v_scales=vs)[0, 0])
+                   for i, n in enumerate(wl_host) for w in range(n))
+        print(f"   {_name('spec_verify', mode)}: every window row equals a one-token "
+              f"paged_attention at len + w + 1 bit for bit: {same}")
+        if not same:
+            raise SystemExit(f"{_name('spec_verify', mode)}: a verify row differs from decoding")
+    wide_pool = randn(num_pages, PAGE, 1, d)
+    for label, (hh, pool, W_) in (("glm4-9b heads, W 13 (spec_k 12)", (h, k_pages, 13)),
+                                  ("granite-20b heads (48 on 1 kv head), W 5", (48, wide_pool, W))):
+        qw = randn(SLOTS, W_, hh, d)
+        wl_w = torch.tensor([W_ if n else 0 for n in wl_host], dtype=torch.int32, device=dev)
+        pages_w = math.ceil((max(lens_host) + W_) / PAGE)
+        for dt in (bf, torch.float32):
+            args = (qw.to(dt), pool.to(dt), pool.to(dt), table, lengths, wl_w)
+            p_w = ds.plan(dt, d, hh // pool.shape[2], W_, PAGE)
+            _check(torch, f"spec_verify {label}, {dt} ({p_w.kernel}: {p_w.row_chunks} row chunks "
+                          f"of {p_w.rows})",
+                   sv.spec_verify(*args, pages_bound=pages_w),
+                   ref.spec_verify(*args[:3], table[:, :pages_w], *args[4:]))
+    del wide_pool
+
     # -- varlen_prefill: one packed buffer of BUDGET tokens holding chunks
     #    with committed context pages, ragged tails and a buffer-tail pad
     chunk_specs = [(300, 40), (517, 0), (1, 63), (640, 12), (200, 0)]   # (take, ctx pages)
@@ -577,6 +641,7 @@ def dense_kernels_phase(torch, dev):
 
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
     from repro_torch.serve.engine import bucket_pow2
 
@@ -671,6 +736,16 @@ def dense_kernels_phase(torch, dev):
     print(f"   decode_attention: the row of length 0 exactly zero: {zero}")
     if not zero:
         raise SystemExit("decode_attention: a row of length 0 is not exactly zero")
+    # bf16 runs paged_attention's split-KV routine over the cache viewed as
+    # a pool: the same bits as paged_attention over the identity table
+    kp, vp_, pages, _ = da.pool_view(kc, vc, bound)
+    tbl = da.identity_table(SLOTS, MAX_SEQ // da.BLOCK_K, dev)
+    same = torch.equal(da.decode_attention(q, kc, vc, lengths, kv_bound=bound),
+                       pa.paged_attention(q, kp, vp_, tbl, lengths, pages_bound=pages))
+    print(f"   decode_attention kv_bound {bound} == paged_attention over the identity table "
+          f"({pages} of {tbl.shape[1]} pages a row): {same}")
+    if not same:
+        raise SystemExit("decode_attention: differs from paged_attention over the same keys")
     live = sum(lens_host)
     nbytes = 2 * 2 * SLOTS * h * d + 2 * 2 * live * kvh * d + 4 * SLOTS
     sets = _rotation(nbytes, lambda i: (q.clone(), kc.clone(), vc.clone()))
@@ -1199,16 +1274,21 @@ _CLASSES = (
 )
 
 
-def _kernel_class(name):
+def _kernel_class(name, split_class):
+    """The class of a device kernel by name; the bf16 decode family's
+    split-KV routine (``decode_split_kernel`` and its combine) is reported
+    under ``split_class``, the kernel of the engine being profiled."""
+    if "decode_split" in name:
+        return split_class
     for cls, keys in _CLASSES:
         if any(k in name for k in keys):
             return cls
     return "other"
 
 
-def _profiled(torch, fn):
+def _profiled(torch, fn, split_class):
     """Run ``fn()`` under torch.profiler; (its result, wall ms, device ms
-    per kernel class)."""
+    per kernel class, the split-KV routine's under ``split_class``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1223,7 +1303,7 @@ def _profiled(torch, fn):
         if e.device_type != DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-        by_class[_kernel_class(e.key)] += float(us) / 1e3
+        by_class[_kernel_class(e.key, split_class)] += float(us) / 1e3
     return stats, wall_ms, by_class
 
 
@@ -1238,7 +1318,7 @@ def profile_phase(torch, engine, reqs):
     for new in (1, 16):
         sub = [ServeRequest(r.request_id, r.prompt, new) for r in reqs[:SLOTS]]
         runs[new] = _profiled(torch, lambda: engine.serve_paged(
-            sub, num_slots=SLOTS, page_size=PAGE, prefill_budget=BUDGET))
+            sub, num_slots=SLOTS, page_size=PAGE, prefill_budget=BUDGET), "paged_attention")
     (s1, w1, c1), (s16, w16, c16) = runs[1], runs[16]
     if sum(c16.values()) <= 0:
         print("   profiler saw no device time: breakdown not measured")
@@ -1270,7 +1350,8 @@ def dense_profile_phase(torch, engine, prompts):
     SLOTS prompts under torch.profiler with 0 and with 16 new tokens (one
     prefill pass, then 16 decode steps); a decode step is the difference
     over 16 steps.  Host and profiler overhead count as device idle time."""
-    runs = {new: _profiled(torch, lambda n=new: engine.generate(prompts[:SLOTS], n))
+    runs = {new: _profiled(torch, lambda n=new: engine.generate(prompts[:SLOTS], n),
+                           "decode_attention")
             for new in (0, 16)}
     (_, pre_wall, prefill), (_, w16, c16) = runs[0], runs[16]
     if sum(c16.values()) <= 0:
@@ -1375,15 +1456,17 @@ def main() -> int:
 
     sources = {
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:26"),
-        "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+        # the bf16 decode family (every record here is bf16) runs the split-KV
+        # routine; float32 keeps csrc/{paged_attention,spec_verify,decode_attention}.cu
+        "paged_attention": ("src/repro_torch/kernels/csrc/decode_split.cuh",
                             "src/repro/kernels/paged_attention.py:105"),
-        "spec_verify": ("src/repro_torch/kernels/csrc/spec_verify.cu",
+        "spec_verify": ("src/repro_torch/kernels/csrc/decode_split.cuh",
                         "src/repro/kernels/spec_verify.py:130"),
         "varlen_prefill": ("src/repro_torch/kernels/csrc/varlen_prefill.cu",
                            "src/repro/kernels/varlen_prefill.py:156"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:101"),
-        "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+        "decode_attention": ("src/repro_torch/kernels/csrc/decode_split.cuh",
                              "src/repro/kernels/decode_attention.py:82"),
         "ssd": ("src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd_scan.py:95"),
     }

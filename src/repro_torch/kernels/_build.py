@@ -30,8 +30,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 PACKAGE = CSRC.parents[1]                  # <root>/src/repro_torch
 CHECKOUT = PACKAGE.parents[1]              # <root>
 SOURCES = ("rmsnorm.cu", "paged_attention.cu", "varlen_prefill.cu", "spec_verify.cu",
-           "flash_attention.cu", "decode_attention.cu", "ssd.cu")
-HEADERS = ("common.cuh", "mma.cuh")
+           "flash_attention.cu", "decode_attention.cu", "ssd.cu", "decode_split_bf16.cu",
+           "decode_split_quant.cu")
+HEADERS = ("common.cuh", "mma.cuh", "decode_split.cuh")
 BUILD_ROOT = CHECKOUT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -52,18 +53,21 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # c_void_p, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
     "rt_rmsnorm": (_P, _P, _P, _LL, _LL, _F, _I, _P),
-    "rt_paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _F, _F, _I, _I, _P),
+    "rt_paged_attention_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _F, _F, _I, _P),
     "rt_varlen_prefill": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                           _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P),
-    "rt_spec_verify": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _I, _I, _I, _I, _F, _F, _I, _I, _P),
+    "rt_spec_verify_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _F, _F, _I, _I, _P),
     "rt_flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _F, _F, _P),
     "rt_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _F, _F, _P),
-    "rt_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                            _F, _I, _P),
+    "rt_decode_attention_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                _F, _P),
+    # the split-KV decode routine, over a bf16 pool and over int8/fp8 codes
+    **{f"rt_decode_split_{kind}": (_P,) * 12 + (_I,) * 15 + (_F, _F, _P)
+       for kind in ("bf16", "quant")},
     "rt_ssd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
                _LL, _LL, _I, _P),
 }

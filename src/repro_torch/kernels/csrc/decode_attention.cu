@@ -1,33 +1,30 @@
-// Dense-cache decode attention for Hopper (sm_90a).
+// Dense-cache decode attention for Hopper (sm_90a), float32.
 //
-// Replaces the TPU kernel repro/kernels/decode_attention.py:decode_attention.
+// Replaces the TPU kernel repro/kernels/decode_attention.py:decode_attention
+// for float32 queries; bf16 runs the split-KV tensor-core routine of
+// decode_split.cuh over the cache viewed as a pool of 16-key pages
+// (kernels/decode_attention.py: a dispatch by dtype).
 // One new query token per batch row attends its row of a dense cache
 // (b, S, kvh, d): keys [0, len) (or [len - window, len)), at most the first
 // kv_bound of them and never past S.  K/V rows outside that range are
 // zeroed at load, never read; a row with length 0 visits no key and comes
 // out exactly zero.
 //
-// Bound on this card: bytes.  Every live K/V row is read once for only
-// 2 * rep * d multiply-adds per row (rep = 16 query heads per kv head at
-// glm4-9b width), far below the H100's ~295 operations per byte.
-// Design: paged_attention.cu's, over a dense row instead of pages: one
-// block per (batch row, kv head) holding the whole GQA group, so each K/V
-// row is read from HBM once and not once per query head, stepping through
-// exactly the live keys in blocks of bk with the fp32 online softmax of the
-// common.cuh tile.  With bk equal to a page size the arithmetic, and so the
-// output, is paged_attention's bit for bit on the same keys.  The TPU
-// kernel's sequential kv grid becomes that loop.  The whole cache of a long
-// row streams through one SM; splitting the key range over blocks
-// (flash-decoding) is later work.
+// Bound on this card: bytes (2 * rep * d multiply-adds per K/V row read).
+// Design: paged_attention.cu's float32 tile over a dense row instead of
+// pages: one block per (batch row, kv head) holding the whole GQA group,
+// stepping through exactly the live keys in blocks of bk with the fp32
+// online softmax of the common.cuh tile.  With bk equal to a page size the
+// arithmetic, and so the output, is paged_attention's bit for bit on the
+// same keys.
 #include "common.cuh"
 
 namespace {
 
-template <typename T>
 __global__ void __launch_bounds__(rt::kThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
-                        const T* __restrict__ v_cache, const int32_t* __restrict__ lengths,
-                        T* __restrict__ out, int S, int h, int kvh, int d, int bk,
+decode_attention_kernel(const float* __restrict__ q, const float* __restrict__ k_cache,
+                        const float* __restrict__ v_cache, const int32_t* __restrict__ lengths,
+                        float* __restrict__ out, int S, int h, int kvh, int d, int bk,
                         int kv_bound, int window, float scale, float softcap) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, g = blockIdx.y, rep = h / kvh;
@@ -59,23 +56,21 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
 }  // namespace
 
 // q, out: (b, 1, h, d); k_cache, v_cache: (b, S, kvh, d); lengths: (b,)
-// int32.  All contiguous; q, the caches and out of one dtype.  bk keys per
-// step; kv_bound caps the keys visited per row; window <= 0 means none.
-extern "C" int rt_decode_attention(const void* q, const void* k_cache, const void* v_cache,
-                                   const void* lengths, void* out, int b, int S, int h, int kvh,
-                                   int d, int bk, int kv_bound, int window, float scale,
-                                   float softcap, int dtype, void* stream) {
+// int32.  All contiguous float32.  bk keys per step; kv_bound caps the
+// keys visited per row; window <= 0 means none.
+extern "C" int rt_decode_attention_f32(const void* q, const void* k_cache, const void* v_cache,
+                                       const void* lengths, void* out, int b, int S, int h,
+                                       int kvh, int d, int bk, int kv_bound, int window,
+                                       float scale, float softcap, void* stream) {
   if (b <= 0 || S <= 0 || kvh <= 0 || h % kvh || d <= 0 || bk <= 0 || kv_bound <= 0 ||
       kvh > 65535)
     return (int)cudaErrorInvalidValue;
   const size_t smem = rt::tile_floats(h / kvh, bk, d) * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
-  RT_DISPATCH(dtype, T, {
-    cudaError_t e = rt::allow_smem(decode_attention_kernel<T>, smem);
-    if (e != cudaSuccess) return (int)e;
-    decode_attention_kernel<T><<<dim3(b, kvh), rt::kThreads, smem, st>>>(
-        (const T*)q, (const T*)k_cache, (const T*)v_cache, (const int32_t*)lengths, (T*)out, S,
-        h, kvh, d, bk, kv_bound, window, scale, softcap);
-  });
+  cudaError_t e = rt::allow_smem(decode_attention_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  decode_attention_kernel<<<dim3(b, kvh), rt::kThreads, smem, st>>>(
+      (const float*)q, (const float*)k_cache, (const float*)v_cache, (const int32_t*)lengths,
+      (float*)out, S, h, kvh, d, bk, kv_bound, window, scale, softcap);
   return (int)cudaGetLastError();
 }

@@ -35,6 +35,14 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool ok)
                : "memory");
 }
 
+// 4 bytes global -> shared through L1, zero-filled with ok false (src must
+// still be a valid address).
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -104,6 +112,20 @@ struct Swizzle {
   }
 };
 
+// A shared-memory tile of rows of D bf16 (D a multiple of 16) padded to
+// D + 8: a row spans an odd number of 16-byte chunks, so the 8 rows one
+// ldmatrix matrix reads at the same chunk fall in 8 different 16-byte bank
+// groups for every such D, powers of two or not (80, 96, ...).
+template <int D>
+struct Padded {
+  static_assert(D % 16 == 0, "rows of whole k16 steps");
+  static constexpr int kStride = D + 8;
+
+  // element offset of the first element of (row, chunk)
+  __device__ static __forceinline__ int at(int row, int chunk) {
+    return row * kStride + (chunk << 3);
+  }
+};
 
 // ---------------------------------------------------------------------------
 // wgmma: warpgroup (4 warps, 128 threads) products from shared memory

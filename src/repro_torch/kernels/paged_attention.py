@@ -1,11 +1,15 @@
-"""Paged decode attention: wrapper of the CUDA kernel
-``csrc/paged_attention.cu``.
+"""Paged decode attention: wrapper of the CUDA kernels.
 
 Replaces the TPU kernel ``repro/kernels/paged_attention.py:paged_attention``,
 for a pool of q's dtype or an int8/fp8 pool with float32 per-row scales
 (dequantized inside the kernel).  A CPU tensor runs the plain version
 (:func:`repro_torch.kernels.ref.paged_attention`); a CUDA tensor launches
-the kernel or raises.  ``launches`` counts kernel launches.
+a kernel or raises.  ``launches`` counts calls that launched.
+
+The kernel is chosen by dtype (:func:`.decode_split.plan`), a dispatch and
+not a fallback: bfloat16 runs the one-token instance of the split-KV
+tensor-core routine ``csrc/decode_split.cuh`` (two CUDA launches a call),
+float32 the exact CUDA-core tile of ``csrc/paged_attention.cu``.
 """
 from __future__ import annotations
 
@@ -13,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from . import _build, ref
+from . import _build, decode_split, ref
 
 launches = 0
 
@@ -61,20 +65,26 @@ def paged_attention(
         req(t.device == q.device, "paged_attention: inputs on different devices")
     for t in (q, k_pages, v_pages, page_table, lengths):
         req(t.is_contiguous(), "paged_attention: inputs must be contiguous")
-    code = _build.dtype_code(q, "paged_attention")
     store = _build.kv_store_code("paged_attention", q, k_pages, v_pages, k_scales, v_scales)
-    _build.check_tile("paged_attention", h // kvh, ps, d)
+    p = decode_split.plan(q.dtype, d, h // kvh, 1, ps, quantized=store != 0)
     scale = d ** -0.5 if scale is None else float(scale)
     w = 0 if window is None else int(window)
-    out = torch.empty_like(q)
-    lib = _build.library()
-    err = lib.rt_paged_attention(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        _build.ptr(k_scales), _build.ptr(v_scales),
-        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, h, kvh, d, ps, width, bound, w, scale, float(softcap),
-        code, store, _build.stream_of(q),
-    )
+    if p.kernel == "mma":
+        out = decode_split.launch(
+            "paged_attention", p, q, k_pages, v_pages, page_table, lengths, None,
+            max_pages=bound, key_cap=None, window=w, scale=scale, softcap=float(softcap),
+            store=store, k_scales=k_scales, v_scales=v_scales)
+    else:
+        # the float32 tile holds the whole GQA group
+        _build.check_tile("paged_attention", h // kvh, ps, d)
+        out = torch.empty_like(q)
+        err = _build.library().rt_paged_attention_f32(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            _build.ptr(k_scales), _build.ptr(v_scales),
+            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            b, h, kvh, d, ps, width, bound, w, scale, float(softcap), store,
+            _build.stream_of(q),
+        )
+        _build.check_launch(err, "paged_attention")
     launches += 1
-    _build.check_launch(err, "paged_attention")
     return out

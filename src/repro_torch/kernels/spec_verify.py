@@ -1,13 +1,18 @@
-"""Speculative-decoding verification attention: wrapper of the CUDA kernel
-``csrc/spec_verify.cu``.
+"""Speculative-decoding verification attention: wrapper of the CUDA kernels.
 
 Replaces the TPU kernel ``repro/kernels/spec_verify.py:spec_verify``, for a
 pool of q's dtype or an int8/fp8 pool with float32 per-row scales
 (dequantized inside the kernel).  A CPU tensor runs the plain version
-(:func:`repro_torch.kernels.ref.spec_verify`); a CUDA tensor launches the
-kernel or raises, also when the window's tile does not fit in shared
-memory (:class:`~repro_torch.kernels._build.SharedMemoryError`).
-``launches`` counts kernel launches.
+(:func:`repro_torch.kernels.ref.spec_verify`); a CUDA tensor launches a
+kernel or raises.  ``launches`` counts calls that launched.
+
+The kernel is chosen by dtype (:func:`.decode_split.plan`), a dispatch and
+not a fallback: bfloat16 runs the W-token instance of the split-KV
+tensor-core routine ``csrc/decode_split.cuh`` (two CUDA launches a call),
+float32 the exact CUDA-core tile of ``csrc/spec_verify.cu`` with the
+``rep * W`` rows of a kv head in chunks that fit a block.  Either way row
+``w`` computes what a one-token ``paged_attention`` at ``len + w + 1``
+does, bit for bit.
 """
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from . import _build, ref
+from . import _build, decode_split, ref
 
 launches = 0
 
@@ -66,20 +71,24 @@ def spec_verify(
     for t in (q, k_pages, v_pages, *ints):
         req(t.device == q.device, "spec_verify: inputs on different devices")
         req(t.is_contiguous(), "spec_verify: inputs must be contiguous")
-    code = _build.dtype_code(q, "spec_verify")
     store = _build.kv_store_code("spec_verify", q, k_pages, v_pages, k_scales, v_scales)
-    _build.check_tile("spec_verify", (h // kvh) * W, ps, d)
+    p = decode_split.plan(q.dtype, d, h // kvh, W, ps, quantized=store != 0)
     scale = d ** -0.5 if scale is None else float(scale)
     w = 0 if window is None else int(window)
-    out = torch.empty_like(q)
-    lib = _build.library()
-    err = lib.rt_spec_verify(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        _build.ptr(k_scales), _build.ptr(v_scales),
-        page_table.data_ptr(), lengths.data_ptr(), window_lens.data_ptr(), out.data_ptr(),
-        b, W, h, kvh, d, ps, width, bound, w, scale, float(softcap),
-        code, store, _build.stream_of(q),
-    )
+    if p.kernel == "mma":
+        out = decode_split.launch(
+            "spec_verify", p, q, k_pages, v_pages, page_table, lengths, window_lens,
+            max_pages=bound, key_cap=None, window=w, scale=scale, softcap=float(softcap),
+            store=store, k_scales=k_scales, v_scales=v_scales)
+    else:
+        out = torch.empty_like(q)
+        err = _build.library().rt_spec_verify_f32(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            _build.ptr(k_scales), _build.ptr(v_scales),
+            page_table.data_ptr(), lengths.data_ptr(), window_lens.data_ptr(), out.data_ptr(),
+            b, W, h, kvh, d, ps, width, bound, w, scale, float(softcap), p.rows, store,
+            _build.stream_of(q),
+        )
+        _build.check_launch(err, "spec_verify")
     launches += 1
-    _build.check_launch(err, "spec_verify")
     return out

@@ -169,19 +169,104 @@ def test_spec_verify_kernel(cuda, dtype, shape, opts):
         assert torch.all(out[i, wl:] == 0)          # window pad, idle slot
 
 
-def test_spec_verify_rows_equal_paged_attention(cuda):
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_spec_verify_rows_equal_paged_attention(cuda, dtype, mode):
     """Window row w runs the arithmetic of a one-token decode at length
-    len + w + 1 in paged_attention: the same pages, keys and order."""
-    rows = [(13, 4), (7, 3), (31, 2)]
-    q, kp, vp, table, lens, wlens = _spec_inputs(rows, 4, 32, 2, 128, 16, 4,
-                                                 torch.float32, cuda, 20)
-    out = sv_mod.spec_verify(q, kp, vp, table, lens, wlens)
+    len + w + 1 in paged_attention: the same pages, keys and order (bf16:
+    the same splits and key chunks of the split-KV routine), on a pool of
+    q's dtype and on int8/fp8 codes."""
+    rows = [(13, 4), (7, 3), (31, 2), (60, 4), (0, 1)]
+    q, kp, vp, table, lens, wlens = _spec_inputs(rows, 4, 32, 2, 128, 16, 5, dtype, cuda, 20)
+    scales = {}
+    if mode is not None:
+        kp, vp, ks, vs = _quantized(kp.float(), vp.float(), mode)
+        scales = {"k_scales": ks, "v_scales": vs}
+    out = sv_mod.spec_verify(q, kp, vp, table, lens, wlens, **scales)
     for i, (L, wl) in enumerate(rows):
         for w in range(wl):
             one = pa_mod.paged_attention(
                 q[i : i + 1, w : w + 1].contiguous(), kp, vp, table[i : i + 1].contiguous(),
+                torch.tensor([L + w + 1], dtype=torch.int32, device=cuda), **scales)
+            assert torch.equal(out[i, w], one[0, 0])
+
+
+SPEC_WIDE = [
+    # h, kvh, d, page_size, max_pages, W, rows [(committed, window_len)]: the
+    # windows a single-block tile of rep * W rows refused
+    (32, 2, 128, 16, 8, 13, [(40, 13), (7, 9), (0, 13), (100, 1)]),   # glm4-9b at spec_k 12
+    (48, 1, 128, 16, 8, 5, [(40, 5), (7, 3), (90, 5), (0, 0)]),       # granite-20b at spec_k 4
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SPEC_WIDE)
+def test_spec_verify_wide_windows(cuda, dtype, shape):
+    """rep * W rows above one block's share (208 and 240) run in both
+    dtypes, spread over row chunks, and each row still equals a one-token
+    decode."""
+    h, kvh, d, ps, mp, W, rows = shape
+    q, kp, vp, table, lens, wlens = _spec_inputs(rows, W, h, kvh, d, ps, mp, dtype, cuda, 25)
+    out = sv_mod.spec_verify(q, kp, vp, table, lens, wlens)
+    torch.cuda.synchronize()
+    _close(out, ref.spec_verify(*(t.cpu() for t in (q, kp, vp, table, lens, wlens))), dtype)
+    for i, (L, wl) in enumerate(rows):
+        assert torch.all(out[i, wl:] == 0)
+        for w in range(0, wl, 4):
+            one = pa_mod.paged_attention(
+                q[i : i + 1, w : w + 1].contiguous(), kp, vp, table[i : i + 1].contiguous(),
                 torch.tensor([L + w + 1], dtype=torch.int32, device=cuda))
             assert torch.equal(out[i, w], one[0, 0])
+
+
+SPLIT_EDGES = [
+    # h, kvh, d, page_size, max_pages, lengths: bf16 splits hold 64 keys
+    (32, 2, 128, 16, 10, [63, 64, 65, 127, 128, 129, 1, 0]),  # split edges, one key either side
+    (32, 2, 128, 16, 128, [2048, 1500, 5]),                   # a 2048-key row
+    (32, 32, 80, 16, 6, [80, 33, 64, 0]),                     # head dim 80 (zamba2's attention)
+    (8, 8, 64, 8, 20, [64, 65, 63, 150]),                     # 8-key pages
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SPLIT_EDGES)
+@pytest.mark.parametrize("opts", [{}, {"window": 64}, {"pages_bound": 4}])
+def test_paged_attention_split_edges(cuda, dtype, shape, opts):
+    h, kvh, d, ps, mp, lens = shape
+    b = len(lens)
+    q = _randn((b, 1, h, d), dtype, cuda, 26)
+    kp = _randn((b * mp + 1, ps, kvh, d), dtype, cuda, 27)
+    vp = _randn((b * mp + 1, ps, kvh, d), dtype, cuda, 28)
+    table = torch.arange(1, b * mp + 1, dtype=torch.int32, device=cuda).view(b, mp).flip(0).contiguous()
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out = pa_mod.paged_attention(q, kp, vp, table, lengths, **opts)
+    torch.cuda.synchronize()
+    want = pa_mod.paged_attention(*(t.cpu() for t in (q, kp, vp, table, lengths)), **opts)
+    _close(out, want, dtype)
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert torch.all(out[i] == 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kv_bound", [70, 100, 129])
+@pytest.mark.parametrize("opts", [{}, {"window": 40}])
+def test_decode_attention_kv_bound_off_the_pages(cuda, dtype, kv_bound, opts):
+    """A kv_bound that is not a multiple of 16 caps the keys of rows longer
+    than it (bf16: a key cap inside the last page of the pool view)."""
+    lens = [128, 70, 69, 100, 1, 0, 160]
+    b, S, h, kvh, d = len(lens), 160, 32, 2, 128
+    q = _randn((b, 1, h, d), dtype, cuda, 29)
+    kc, vc = _randn((b, S, kvh, d), dtype, cuda, 30), _randn((b, S, kvh, d), dtype, cuda, 31)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    n = da_mod.launches
+    out = da_mod.decode_attention(q, kc, vc, lengths, kv_bound=kv_bound, **opts)
+    torch.cuda.synchronize()
+    assert da_mod.launches == n + 1
+    want = ref.decode_attention(*(t.cpu() for t in (q, kc, vc, lengths)), kv_bound=kv_bound,
+                                **opts)
+    _close(out, want, dtype)
+    assert torch.all(out[5] == 0)
 
 
 def _quantized(kp, vp, mode):
@@ -270,13 +355,27 @@ def test_attention_wrappers_raise_on_pool_pairings(cuda):
     with pytest.raises(ValueError, match="float32"):
         pa_mod.paged_attention(q[:, :1].contiguous(), kq, vq, table, lens,
                                k_scales=ks.half(), v_scales=vs.half())
-    big = _randn((1, 5, 32, 256), torch.bfloat16, cuda, 61)        # 160 rows at d 256
+    n_pa = pa_mod.launches
+    # 160 rows at d 256: bf16 spans them over two row chunks of the split
+    # routine and runs; float32 cuts them into chunks of the tile, which
+    # raises only where one row of a page does not fit a block
+    big = _randn((1, 5, 32, 256), torch.bfloat16, cuda, 61)
     pool = _randn((3, 16, 1, 256), torch.bfloat16, cuda, 62)
+    one = torch.ones((1, 2), dtype=torch.int32, device=cuda)
+    out = sv_mod.spec_verify(big, pool, pool, one, lens, wlens)
+    _close(out, ref.spec_verify(*(t.cpu() for t in (big, pool, pool, one, lens, wlens))),
+           torch.bfloat16)
     n = sv_mod.launches
+    huge = _randn((1, 256, 1, 256), torch.float32, cuda, 63)       # 256-key pages
     with pytest.raises(_build.SharedMemoryError, match="shared memory"):
-        sv_mod.spec_verify(big, pool, pool, torch.ones((1, 2), dtype=torch.int32, device=cuda),
-                           lens, wlens)
-    assert sv_mod.launches == n
+        sv_mod.spec_verify(big.float(), huge, huge, one, lens, wlens)
+    with pytest.raises(ValueError, match="head dim 72 not supported"):
+        sv_mod.spec_verify(big[..., :72].contiguous(), pool[..., :72].contiguous(),
+                           pool[..., :72].contiguous(), one, lens, wlens)
+    with pytest.raises(ValueError, match="page size 12 not supported"):
+        pa_mod.paged_attention(big[:, :1].contiguous(), pool[:, :12].contiguous(),
+                               pool[:, :12].contiguous(), one, lens)
+    assert sv_mod.launches == n and pa_mod.launches == n_pa
 
 
 # ---------------------------------------------------------------------------
@@ -444,6 +543,16 @@ def test_dense_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         da_mod.decode_attention(q1, k, k, torch.ones(1, dtype=torch.int64, device=cuda))
     with pytest.raises(ValueError, match="\\(b, 1, h, d\\)"):
         da_mod.decode_attention(q, k, k, torch.ones(1, dtype=torch.int32, device=cuda))
+    # bf16 views the cache as 16-key pages: an 8-key cache is refused, and
+    # float32 (the CUDA-core tile) takes it
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    n = da_mod.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        da_mod.decode_attention(q1, k, k, one)
+    assert da_mod.launches == n
+    _close(da_mod.decode_attention(q1.float(), k.float(), k.float(), one),
+           ref.decode_attention(q1.cpu().float(), k.cpu().float(), k.cpu().float(), one.cpu()),
+           torch.float32)
     # the float32 tile holds the whole GQA group: 128 rows at d 256 do not
     # fit a block (the bf16 kernel spans such a group over two tiles)
     big = _randn((1, 4, 128, 256), torch.float32, cuda, 95)
