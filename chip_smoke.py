@@ -12,9 +12,10 @@ Phases, each printing its own lines and wall time, each ending in
    the compiler's report, and the tensor-core instructions (HMMA, HGMMA) in
    the SASS of the bf16 ``flash_attention`` kernels and of every head-dim
    instance of the bf16 decode family's split-KV routine
-   (``csrc/decode_split.cuh``; ``cuobjdump``): fail unless each has some,
-   the flash kernel at head dim 128 spills nothing and no split-KV instance
-   spills;
+   (``csrc/decode_split.cuh``) and of the bf16 ``varlen_prefill`` routine
+   (``csrc/varlen_prefill_tc.cuh``; ``cuobjdump``): fail unless each has
+   some (HGMMA in varlen's d-128 instances), the flash and varlen kernels at
+   head dim 128 spill nothing and no split-KV instance spills;
 2. kernels: each hand-written kernel against its plain PyTorch version at
    the shapes the serve phase gives it (glm4-9b widths: h 32, kvh 2, d 128,
    page 16, D 4096, bf16; spec_verify with 8 slots and windows of 5), the
@@ -26,7 +27,10 @@ Phases, each printing its own lines and wall time, each ending in
    one-token ``paged_attention`` at ``len + w + 1`` on all three pools, and
    the verify windows of W 13 at glm4-9b's heads and of W 5 at
    granite-20b's 48 heads on one kv head, bf16 and float32, against their
-   plain versions; kernel, plain and library
+   plain versions; ``varlen_prefill``'s bf16 plan, and the longest of the
+   first 8 serve prompts prefilled whole and split at key 208 (13 context
+   pages), which must give the same bits on the split part's rows;
+   ``rmsnorm``'s time at the decode shape (8 rows) too; kernel, plain and library
    times (see ``_time_ms``) and the bound: the larger of bytes over
    3.35 TB/s and flops over 989 TFLOP/s.  The dense engines' kernels
    likewise: ``flash_attention`` on a static prefill pass (q (8, 1024, 32,
@@ -304,11 +308,13 @@ def _sass_counts(nvcc, lib_path):
 
 def build_report(info, nvcc):
     """Print every kernel's registers and spills, and the tensor-core
-    instructions of the bf16 flash_attention kernels and of the split-KV
-    decode routine; fail unless each of those has some, the flash kernel the
-    wrapper plans at d 128 spills nothing and no split-KV instance spills."""
+    instructions of the bf16 flash_attention kernels, of the split-KV decode
+    routine and of the varlen prefill routine; fail unless each of those has
+    some (HGMMA for varlen at d 128), the flash and varlen kernels at d 128
+    spill nothing and no split-KV instance spills."""
     from repro_torch.kernels import decode_split as ds
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import varlen_prefill as vpf
 
     ptxas = _ptxas_report(info.log)
     sass = _sass_counts(nvcc, info.path)
@@ -333,6 +339,25 @@ def build_report(info, nvcc):
     spilled = [names[m] for m in split if ptxas.get(m, (0, 1, 1))[1:] != (0, 0)]
     if spilled:
         raise SystemExit(f"decode_split: spills (or no ptxas report) in {spilled}")
+    # the varlen prefill tensor-core routine: every head-dim instance of both
+    # pool kinds on the tensor cores (HGMMA at d 128, HMMA elsewhere), none
+    # at d 128 spilling
+    varlen = {m: c for m, c in sass.items()
+              if "varlen_prefill_kernel_wgmma" in m or "varlen_prefill_kernel_mma" in m}
+    for mangled, (hmma, hgmma) in sorted(varlen.items(), key=lambda kv: names[kv[0]]):
+        regs, st, ld = ptxas.get(mangled, (None, None, None))
+        print(f"   sass {names[mangled]}: HMMA {hmma}, HGMMA {hgmma}; {regs} registers, spill "
+              f"stores {st} B, loads {ld} B")
+    wg = {m: c for m, c in varlen.items() if "wgmma" in m}
+    if (len(varlen) != 2 * len(vpf.BF16_HEAD_DIMS) or len(wg) != 2
+            or any(c[1] == 0 for c in wg.values())
+            or any(c[0] == 0 for m, c in varlen.items() if m not in wg)):
+        raise SystemExit(f"varlen_prefill: {len(varlen)} tensor-core kernels in the SASS, expected "
+                         f"{2 * len(vpf.BF16_HEAD_DIMS)}, HGMMA in the two at d 128, HMMA in "
+                         f"the others")
+    spilled = [names[m] for m in wg if ptxas.get(m, (0, 1, 1))[1:] != (0, 0)]
+    if spilled:
+        raise SystemExit(f"varlen_prefill at d 128: spills (or no ptxas report) in {spilled}")
     _, bk, rows, stages = fa.BF16_TILES[128]
     targs = (bk, stages, rows // 64)            # wgmma kernel <BK, ST, warpgroups>
     at128 = [r for m, r in ptxas.items()
@@ -385,6 +410,16 @@ def kernels_phase(torch, dev):
         bound=_bound_ms(nbytes, 4.0 * BUDGET * D),
         shape=f"x (1, {BUDGET}, {D}) bf16",
     )
+    del sets
+    # the decode shape: SLOTS rows, 81 launches a glm4-9b decode step
+    nbytes8 = 2 * (2 * SLOTS * D + D)
+    sets = _rotation(nbytes8, lambda i: (x[:, :SLOTS].clone(), w))
+    r8 = timed(rn.rmsnorm, ref.rmsnorm, lambda x_: F.rms_norm(x_, (D,), w1, 1e-6),
+               sets, [(x_,) for x_, _ in sets])
+    b8 = _bound_ms(nbytes8, 4.0 * SLOTS * D)
+    print(f"   rmsnorm at the decode shape x (1, {SLOTS}, {D}): kernel_ms {r8['ms']:.4f} "
+          f"plain_ms {r8['plain_ms']:.4f} library_ms {r8['library_ms']:.4f} bound_ms "
+          f"{b8[0]:.6f} ({b8[1]}); host gaps in: {r8['gaps'] or 'none'}")
     del sets
 
     # the pools every attention kernel reads: bf16, and the same values as
@@ -627,6 +662,38 @@ def kernels_phase(torch, dev):
                   f"empty, bf16, pool {pool_desc(mode)}",
         )
         del sets, lib_sets
+    # whole vs split: the longest of the first SLOTS serve prompts prefilled
+    # as one chunk and split at page 13 (208 keys: a page boundary inside a
+    # 32-key tile), its first part committed to a bf16 pool, must give the
+    # same bits for the rows of the second part
+    p_v = vp.plan(bf, d, rep, PAGE)
+    print(f"   varlen_prefill bf16 plan: {p_v}")
+    n = int(max(_serve_lengths(SEED)[:SLOTS]))
+    cut = 13 * PAGE
+    rows = [randn(n, c, d) for c in (h, kvh, kvh)]
+    pages = -(-n // PAGE)
+    pool = [torch.zeros((pages + 1, PAGE, kvh, d), dtype=bf, device=dev) for _ in range(2)]
+    for pl, t in zip(pool, rows[1:]):
+        pl.view(-1, kvh, d)[PAGE:PAGE + n] = t
+    tbl = torch.arange(1, pages + 1, dtype=torch.int32, device=dev).view(1, pages)
+
+    def one_chunk(start):
+        part = [t[start:] for t in rows]
+        length = n - start
+        packed = [torch.cat([t, randn(BUDGET - length, t.shape[1], d)]) for t in part]
+        meta = [torch.tensor(a, dtype=torch.int32, device=dev)
+                for a in ([0, -(-length // PAGE) * PAGE], [length], [start])]
+        return vp.varlen_prefill(*packed, *pool, *meta, tbl)[:length]
+
+    whole, split = one_chunk(0), one_chunk(cut)
+    same = torch.equal(whole[cut:], split)
+    _check(torch, f"varlen_prefill one {n}-token chunk vs flash_attention's plain version", whole,
+           ref.attention(rows[0][None], rows[1][None], rows[2][None])[0])
+    print(f"   varlen_prefill: a {n}-token prompt whole, and split at key {cut} over {cut // PAGE} "
+          f"context pages, gives the same bits on its last {n - cut} rows: {same}")
+    if not same:
+        raise SystemExit("varlen_prefill: a split prompt differs from the whole one")
+    del rows, pool
     _print_records(records)
     return records
 
@@ -1462,7 +1529,9 @@ def main() -> int:
                             "src/repro/kernels/paged_attention.py:105"),
         "spec_verify": ("src/repro_torch/kernels/csrc/decode_split.cuh",
                         "src/repro/kernels/spec_verify.py:130"),
-        "varlen_prefill": ("src/repro_torch/kernels/csrc/varlen_prefill.cu",
+        # bf16 (every record here) runs the tensor-core routine; float32 and
+        # other head dims keep csrc/varlen_prefill.cu
+        "varlen_prefill": ("src/repro_torch/kernels/csrc/varlen_prefill_tc.cuh",
                            "src/repro/kernels/varlen_prefill.py:156"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:101"),

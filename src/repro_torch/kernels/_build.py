@@ -31,8 +31,8 @@ PACKAGE = CSRC.parents[1]                  # <root>/src/repro_torch
 CHECKOUT = PACKAGE.parents[1]              # <root>
 SOURCES = ("rmsnorm.cu", "paged_attention.cu", "varlen_prefill.cu", "spec_verify.cu",
            "flash_attention.cu", "decode_attention.cu", "ssd.cu", "decode_split_bf16.cu",
-           "decode_split_quant.cu")
-HEADERS = ("common.cuh", "mma.cuh", "decode_split.cuh")
+           "decode_split_quant.cu", "varlen_prefill_bf16.cu", "varlen_prefill_quant.cu")
+HEADERS = ("common.cuh", "mma.cuh", "flash_tile.cuh", "decode_split.cuh", "varlen_prefill_tc.cuh")
 BUILD_ROOT = CHECKOUT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -57,6 +57,9 @@ SIGNATURES = {
                                _I, _I, _I, _F, _F, _I, _P),
     "rt_varlen_prefill": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                           _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P),
+    # the varlen prefill tensor-core routine, over a bf16 pool and over int8/fp8 codes
+    **{f"rt_varlen_prefill_{kind}": (_P,) * 13 + (_I,) * 13 + (_F, _F, _P)
+       for kind in ("bf16", "quant")},
     "rt_spec_verify_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _F, _F, _I, _I, _P),
     "rt_flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -38,7 +38,8 @@
 //    read), so the next chunk loads while this one is multiplied.  An
 //    int8/fp8 pool rides the ring as 1-byte codes (half the bytes) with its
 //    f32 row scales, and each chunk's codes are widened to bf16 in shared
-//    memory: an int8 code and an e4m3 value are both exact in bf16.
+//    memory (flash_tile.cuh widen): an int8 code and an e4m3 value are both
+//    exact in bf16.
 //  - The math: S = Q K^T and O += P V by mma.sync m16n8k16, bf16 in, f32
 //    accumulate; k_scale multiplies S's column in f32; the online softmax
 //    runs in f32 registers (log2 units); v_scale multiplies P's column, and
@@ -56,24 +57,19 @@
 // keys: not on W, the rows beside it, pages_bound or the table's width.
 #pragma once
 
-#include "common.cuh"
-#include "mma.cuh"
+#include "flash_tile.cuh"
 
 namespace rt {
 namespace split {
 namespace {  // each source that includes this builds its own instances
 
 using bf16 = __nv_bfloat16;
-constexpr float kLog2e = 1.4426950408889634f;
+using tile::exp2_approx;
+using tile::kLog2e;
+using tile::widen;
 constexpr int kMaxWarps = 8;  // warps (16 query rows each) of a block
 constexpr int kStages = 2;    // K/V chunks in the ring
 constexpr int kCombineThreads = 128;
-
-__device__ __forceinline__ float exp2_approx(float x) {  // 2^x; -huge gives +0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 struct Args {
   const bf16* q;            // (b, W, h, d)
@@ -102,28 +98,6 @@ __device__ __forceinline__ Slot slot_of(const Args& a, int bi) {
   const int len = a.lengths[bi];
   if (a.window_lens != nullptr) return {len, a.window_lens[bi]};
   return {len - 1, len > 0 ? 1 : 0};
-}
-
-// code i of a little-endian word
-__device__ __forceinline__ float code_f32(uint32_t word, int i, bool fp8) {
-  const uint32_t byte = (word >> (8 * i)) & 0xffu;
-  if (fp8) {
-    __nv_fp8_e4m3 v;
-    v.__x = (__nv_fp8_storage_t)byte;
-    return to_f32(v);
-  }
-  return (float)(int8_t)byte;
-}
-
-// 8 codes (int8, or e4m3 when fp8) as 8 bf16, exactly
-__device__ __forceinline__ uint4 widen(uint2 c, bool fp8) {
-  uint32_t w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t word = i < 2 ? c.x : c.y;
-    w[i] = mma::pack_bf16(code_f32(word, 2 * (i & 1), fp8), code_f32(word, 2 * (i & 1) + 1, fp8));
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 __host__ __device__ constexpr int block_k(int d) { return d <= 128 ? 32 : 16; }

@@ -52,39 +52,18 @@
 // rows, row r being position q0 + r / rep of head g * rep + r % rep, over
 // the same key range as above in steps of bk keys.  Query rows past sq (the
 // ragged last tile) load row sq - 1 and are never stored.
-#include "common.cuh"
-#include "mma.cuh"
+#include "flash_tile.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float exp2_approx(float x) {  // 2^x; -huge gives +0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+using rt::tile::Rows;
 
 // ---------------------------------------------------------------------------
-// Pieces of both bf16 kernels
+// Pieces of both bf16 kernels (the rest is flash_tile.cuh)
 // ---------------------------------------------------------------------------
-// The query rows of a block and the keys they can see.  The block owns rows
-// [row0, row0 + ROWS) of kv head g of batch row bi; rows past `total` do not
-// exist and load the last one.
-struct Rows {
-  int sq, h, rep, total, row0, bi, g;
-  int pos_first, pos_last;  // positions of its first and last existing rows
-  int lo, hi;               // the live keys of those rows: [lo, hi)
-
-  // first element of tile row `row` in q and out
-  template <int D>
-  __device__ __forceinline__ int64_t elem(int row) const {
-    const int r = rt::imin(row0 + row, total - 1);
-    return (((int64_t)bi * sq + r / rep) * h + g * rep + r % rep) * D;
-  }
-};
-
+// The block's rows: blockIdx.x walks row tiles of ROWS rows from the last
+// (the heaviest causal work first), kv heads and batch rows inner.
 template <int ROWS>
 __device__ __forceinline__ Rows block_rows(int b, int sq, int sk, int h, int kvh, int causal,
                                            int window, int q_offset) {
@@ -107,18 +86,6 @@ __device__ __forceinline__ Rows block_rows(int b, int sq, int sk, int h, int kvh
   return r;
 }
 
-// The block's ROWS query rows into a tile laid out by at(row, chunk), by
-// THREADS threads in 16-byte copies.
-template <int D, int ROWS, int THREADS, class At>
-__device__ __forceinline__ void copy_q(bf16* dst, At at, const bf16* __restrict__ q,
-                                       const Rows& r) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += THREADS) {
-    const int row = i / kChunks, c = i % kChunks;
-    rt::mma::cp_async_16(dst + at(row, c), q + r.elem<D>(row) + c * 8, true);
-  }
-}
-
 // Keys [key0, key0 + N) of k and v (row `key` at base + key * stride) into
 // tiles laid out by at(row, chunk); keys from `hi` on are zero-filled.  Each
 // thread copies one chunk column of every THREADS / (D/8)-th key.
@@ -139,138 +106,24 @@ __device__ __forceinline__ void copy_kv(bf16* dk, bf16* dv, At at, const bf16* _
   }
 }
 
-// One online-softmax step on a warp's S fragment over keys [k0, k0 + BK):
-// scores to log2 units, the mask unless every row of the block sees every
-// key of the tile, the running max m, the numerators p in place of the
-// scores, this lane's share of the row sums l and the factor alpha that
-// rescales the accumulator.  A row with no live key in the tile keeps m and
-// l exactly (alpha 1, every p 0).  q_pos: positions of this lane's rows.
-template <int BK>
-__device__ __forceinline__ void softmax_step(float (&s)[BK / 8][4], float (&m)[2], float (&l)[2],
-                                             float (&alpha)[2], const Rows& r, int k0,
-                                             const int (&q_pos)[2], int causal, int window,
-                                             float scale, float softcap) {
-  const int quad_t = threadIdx.x & 3;
-  // each branch is uniform and outside the unrolled loops
-  if (softcap > 0.f) {
-    const float cap = softcap * kLog2e, in = scale / softcap;
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = cap * tanhf(s[n][e] * in);
-  } else {
-    const float sl2 = scale * kLog2e;
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] *= sl2;
-  }
-  const bool full = k0 + BK <= r.hi && (!causal || k0 + BK - 1 <= r.pos_first) &&
-                    (window <= 0 || r.pos_last - k0 < window);
-  if (!full) {
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * n + 2 * quad_t + (e & 1);
-        const int qp = q_pos[e >> 1];
-        const bool live =
-            key < r.hi && (!causal || qp >= key) && (window <= 0 || qp - key < window);
-        s[n][e] = live ? s[n][e] : rt::kNegInf;
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float mx = rt::kNegInf;
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m[i], mx);
-    alpha[i] = m_new == m[i] ? 1.f : exp2_approx(m[i] - m_new);
-    m[i] = m_new;
-  }
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float x = s[n][e];
-      // a masked score is exactly NEG_INF; its p is an explicit 0
-      const float p = (!full && x == rt::kNegInf) ? 0.f : exp2_approx(x - m[e >> 1]);
-      s[n][e] = p;
-      sum[e >> 1] += p;
-    }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
-}
-
-template <int N>
-__device__ __forceinline__ void rescale(float (&o)[N][4], const float (&alpha)[2]) {
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    o[n][0] *= alpha[0];
-    o[n][1] *= alpha[0];
-    o[n][2] *= alpha[1];
-    o[n][3] *= alpha[1];
-  }
-}
-
-// P of keys 16kk..16kk+15 as the A fragments of its two bf16 terms.
-template <int BK>
-__device__ __forceinline__ void split_p(const float (&s)[BK / 8][4], int kk, uint32_t (&big)[4],
-                                        uint32_t (&small)[4]) {
-  using rt::mma::split_bf16;
-  split_bf16(s[2 * kk][0], s[2 * kk][1], big[0], small[0]);
-  split_bf16(s[2 * kk][2], s[2 * kk][3], big[1], small[1]);
-  split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], big[2], small[2]);
-  split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], big[3], small[3]);
-}
-
-// This warp's 16 rows (wrow..wrow+15) of O / max(l, 1e-37) as bf16 into its
-// own rows of the staging tile laid out by at(row, chunk), then 16-byte
-// stores of the rows that exist.
-template <int D, class At>
-__device__ __forceinline__ void store_rows(bf16* stage, At at, const float (&o)[D / 8][4],
-                                           const float (&l)[2], int wrow, const Rows& r,
-                                           bf16* __restrict__ out) {
-  constexpr int kChunks = D / 8;
-  const int lane = threadIdx.x & 31, group = lane >> 2, quad_t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float li = l[i];
-    li += __shfl_xor_sync(0xffffffffu, li, 1);
-    li += __shfl_xor_sync(0xffffffffu, li, 2);
-    const float inv = 1.f / fmaxf(li, rt::kMinL);
-    const int row = wrow + group + 8 * i;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(stage + at(row, n) + 2 * quad_t) =
-          rt::mma::pack_bf16(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
-  }
-  __syncwarp();
-  for (int i = lane; i < 16 * kChunks; i += 32) {
-    const int row = wrow + i / kChunks, c = i % kChunks;
-    if (r.row0 + row < r.total)
-      *reinterpret_cast<uint4*>(out + r.elem<D>(row) + c * 8) =
-          *reinterpret_cast<const uint4*>(stage + at(row, c));
-  }
-}
-
 // Q tile of `rows` rows, then K and V tiles per ring stage
 __host__ __device__ constexpr size_t bf16_smem_bytes(int d, int bk, int rows, int stages) {
   return sizeof(bf16) * ((size_t)rows * d + (size_t)stages * 2 * bk * d);
 }
 
-// ---------------------------------------------------------------------------
-// bf16, d 128: wgmma, WG warpgroups of 64 rows, operands in 128-byte-swizzled
-// blocks: [64-column block][row][64], 16-byte chunk c of a row at c ^ (row % 8)
-// ---------------------------------------------------------------------------
-template <int ROWS>
-__device__ __forceinline__ int sw128(int row, int chunk) {
-  return (chunk >> 3) * ROWS * 64 + row * 64 + (((chunk & 7) ^ (row & 7)) << 3);
+// The mask of a block's rows: key < hi, (causal) q_pos >= key and (window)
+// q_pos - key < window; `full` when every row of the block sees every key of
+// the tile [k0, k0 + BK).
+template <int BK>
+__device__ __forceinline__ bool tile_full(const Rows& r, int k0, int causal, int window) {
+  return k0 + BK <= r.hi && (!causal || k0 + BK - 1 <= r.pos_first) &&
+         (window <= 0 || r.pos_last - k0 < window);
 }
 
+// ---------------------------------------------------------------------------
+// bf16, d 128: wgmma, WG warpgroups of 64 rows, operands in 128-byte-swizzled
+// blocks (flash_tile.cuh sw128)
+// ---------------------------------------------------------------------------
 template <int BK, int ST, int WG>
 __global__ void __launch_bounds__(128 * WG)
 flash_attention_kernel_bf16_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -278,8 +131,8 @@ flash_attention_kernel_bf16_wgmma(const bf16* __restrict__ q, const bf16* __rest
                                   int sq, int sk, int h, int kvh, int causal, int window,
                                   int q_offset, float scale, float softcap) {
   using namespace rt::mma;
+  using namespace rt::tile;
   constexpr int D = 128, kRows = 64 * WG, kThreads = 128 * WG;
-  static_assert(BK == 32, "S is one m64n32 wgmma (mma.cuh wgmma_ss)");
   static_assert(ST >= 2, "a ring of at least two K/V tiles");
 
   extern __shared__ unsigned char smem_raw[];
@@ -292,7 +145,7 @@ flash_attention_kernel_bf16_wgmma(const bf16* __restrict__ q, const bf16* __rest
   const Rows r = block_rows<kRows>(b, sq, sk, h, kvh, causal, window, q_offset);
   auto at_q = [](int row, int c) { return sw128<kRows>(row, c); };
   auto at_kv = [](int row, int c) { return sw128<BK>(row, c); };
-  copy_q<D, kRows, kThreads>(sQ, at_q, q, r);
+  copy_q<D>(sQ, at_q, q, r, kRows, kThreads);
   cp_async_commit();
   const int kb_lo = r.lo / BK, kb_hi = r.hi > r.lo ? (r.hi + BK - 1) / BK : kb_lo;
   const int64_t stride = (int64_t)kvh * D, kv_base = (int64_t)r.bi * sk * stride + (int64_t)r.g * D;
@@ -312,8 +165,11 @@ flash_attention_kernel_bf16_wgmma(const bf16* __restrict__ q, const bf16* __rest
   int q_pos[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) q_pos[i] = q_offset + (r.row0 + wrow + group + 8 * i) / r.rep;
+  auto live = [&](int key, int i) {
+    const int qp = q_pos[i];
+    return key < r.hi && (!causal || qp >= key) && (window <= 0 || qp - key < window);
+  };
   float o[D / 8][4] = {};
-  float(&oacc)[D / 2] = *reinterpret_cast<float(*)[D / 2]>(&o[0][0]);
   float m[2] = {rt::kNegInf, rt::kNegInf}, l[2] = {0.f, 0.f};
 
   for (int kb = kb_lo; kb < kb_hi; ++kb) {
@@ -325,41 +181,13 @@ flash_attention_kernel_bf16_wgmma(const bf16* __restrict__ q, const bf16* __rest
     __syncthreads();
     if (kb + ST - 1 < kb_hi) load(kb + ST - 1, (t + ST - 1) % ST);
     cp_async_commit();
-    const bf16* tk = sK + (t % ST) * BK * D;
-    const bf16* tv = sV + (t % ST) * BK * D;
-
-    // S = Q K^T: D/16 k16 steps along the two 64-column blocks
     float s[BK / 8][4];
-    float(&sacc)[BK / 2] = *reinterpret_cast<float(*)[BK / 2]>(&s[0][0]);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int qoff = (kk >> 2) * kRows * 64 + (warp >> 2) * 64 * 64 + (kk & 3) * 16;
-      const int koff = (kk >> 2) * BK * 64 + (kk & 3) * 16;
-      wgmma_ss(sacc, wgmma_desc(sQ + qoff, 16, 1024), wgmma_desc(tk + koff, 16, 1024), kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sacc);
-
+    wgmma_scores<kRows, BK>(s, sQ, sK + (t % ST) * BK * D, warp);
     float alpha[2];
-    softmax_step<BK>(s, m, l, alpha, r, kb * BK, q_pos, causal, window, scale, softcap);
+    softmax_step<BK>(s, m, l, alpha, tile_full<BK>(r, kb * BK, causal, window), kb * BK, live,
+                     scale, softcap);
     rescale(o, alpha);
-
-    // O += P V: per 16 keys, the two bf16 terms of P against V read transposed
-    uint32_t pb[BK / 16][4], ps[BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) split_p<BK>(s, kk, pb[kk], ps[kk]);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t dv = wgmma_desc(tv + 16 * kk * 64, BK * 128, 1024);
-      wgmma_rs(oacc, pb[kk], dv, 1);
-      wgmma_rs(oacc, ps[kk], dv, 1);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(oacc);
+    wgmma_pv<BK>(o, s, sV + (t % ST) * BK * D);
   }
   cp_async_wait<0>();
   __syncthreads();  // every wgmma of the block is done with sQ
@@ -380,6 +208,7 @@ flash_attention_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__
                             int sk, int h, int kvh, int causal, int window, int q_offset,
                             float scale, float softcap) {
   using namespace rt::mma;
+  using namespace rt::tile;
   using Sw = Swizzle<D>;
   constexpr int kRows = 16 * kMmaWarps;
   constexpr bool kQInRegs = D <= 128;  // 32 registers at d 128; 64 at d 256
@@ -393,7 +222,7 @@ flash_attention_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__
 
   const Rows r = block_rows<kRows>(b, sq, sk, h, kvh, causal, window, q_offset);
   auto at = [](int row, int c) { return Sw::at(row, c); };
-  copy_q<D, kRows, kMmaThreads>(sQ, at, q, r);
+  copy_q<D>(sQ, at, q, r, kRows, kMmaThreads);
   cp_async_commit();
   const int kb_lo = r.lo / BK, kb_hi = r.hi > r.lo ? (r.hi + BK - 1) / BK : kb_lo;
   const int64_t stride = (int64_t)kvh * D, kv_base = (int64_t)r.bi * sk * stride + (int64_t)r.g * D;
@@ -408,20 +237,21 @@ flash_attention_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__
     cp_async_commit();
   }
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, group = lane >> 2;
+  const int warp = threadIdx.x >> 5, group = (threadIdx.x & 31) >> 2;
   const int wrow = warp * 16;
   int q_pos[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) q_pos[i] = q_offset + (r.row0 + wrow + group + 8 * i) / r.rep;
-  auto q_frag = [&](int kk, uint32_t (&a)[4]) {
-    ldmatrix_x4(a, sQ + Sw::at(wrow + (lane & 15), 2 * kk + (lane >> 4)));
+  auto live = [&](int key, int i) {
+    const int qp = q_pos[i];
+    return key < r.hi && (!causal || qp >= key) && (window <= 0 || qp - key < window);
   };
   uint32_t qf[kQInRegs ? D / 16 : 1][4];
   cp_async_wait<ST - 1>();  // Q has landed
   __syncthreads();
   if constexpr (kQInRegs) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) q_frag(kk, qf[kk]);
+    for (int kk = 0; kk < D / 16; ++kk) q_frag<Sw>(qf[kk], sQ, wrow, kk);
   }
   float o[D / 8][4] = {};
   float m[2] = {rt::kNegInf, rt::kNegInf}, l[2] = {0.f, 0.f};
@@ -434,57 +264,13 @@ flash_attention_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__
     __syncthreads();
     if (kb + ST - 1 < kb_hi) load(kb + ST - 1, (t + ST - 1) % ST);
     cp_async_commit();
-    const bf16* tk = sK + (t % ST) * BK * D;
-    const bf16* tv = sV + (t % ST) * BK * D;
-
-    // S = Q K^T: 16 rows x BK keys per warp
-    float s[BK / 8][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      if constexpr (kQInRegs) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
-      } else {
-        q_frag(kk, a);
-      }
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t kf[4];  // keys 16np..+7 and +8..+15, d chunks 2kk and 2kk+1
-        ldmatrix_x4(kf, tk + Sw::at(16 * np + (lane & 7) + ((lane >> 4) << 3),
-                                    2 * kk + ((lane >> 3) & 1)));
-        mma_bf16(s[2 * np], a, kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], a, kf[2], kf[3]);
-      }
-    }
-
+    float s[BK / 8][4];
+    mma_scores<D, BK, Sw, kQInRegs>(s, qf, sQ, sK + (t % ST) * BK * D, wrow);
     float alpha[2];
-    softmax_step<BK>(s, m, l, alpha, r, kb * BK, q_pos, causal, window, scale, softcap);
+    softmax_step<BK>(s, m, l, alpha, tile_full<BK>(r, kb * BK, causal, window), kb * BK, live,
+                     scale, softcap);
     rescale(o, alpha);
-
-    // O += P V: per 16 keys, the two bf16 terms of P against V fragments by
-    // ldmatrix.trans; the small terms trail the big ones by one column pair,
-    // so that two products into one accumulator never run back to back
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pb[4], ps[4];
-      split_p<BK>(s, kk, pb, ps);
-      uint32_t vf[2][4];  // keys 16kk..+7 / +8..+15 of d chunks 2dp and 2dp+1
-#pragma unroll
-      for (int dp = 0; dp <= D / 16; ++dp) {
-        if (dp < D / 16) {
-          ldmatrix_x4_trans(vf[dp & 1], tv + Sw::at(16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                                    2 * dp + (lane >> 4)));
-          mma_bf16(o[2 * dp], pb, vf[dp & 1][0], vf[dp & 1][1]);
-          mma_bf16(o[2 * dp + 1], pb, vf[dp & 1][2], vf[dp & 1][3]);
-        }
-        if (dp > 0) {
-          const int e = (dp - 1) & 1;
-          mma_bf16(o[2 * dp - 2], ps, vf[e][0], vf[e][1]);
-          mma_bf16(o[2 * dp - 1], ps, vf[e][2], vf[e][3]);
-        }
-      }
-    }
+    mma_pv<D, BK, Sw>(o, s, sV + (t % ST) * BK * D);
   }
   cp_async_wait<0>();
   // each warp reads only its own rows of sQ, so it may overwrite them with O

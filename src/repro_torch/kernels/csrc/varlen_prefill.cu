@@ -9,10 +9,14 @@
 // the packed K/V; pad rows (chunk tails, buffer tail) come out exactly zero
 // and no row ever sees another request's tokens.
 //
-// Bound on this card: operations for long prompts (a block of ps query rows
-// does 4 * ps * d flops per key row it reads), bytes for short ones.  This
-// first kernel does the products on the CUDA cores in fp32, so it sits well
-// above the tensor-core bound; a wgmma/TMA version is later work.
+// This source holds the CUDA-core kernel: float32 (the tensor cores have no
+// full-precision float32 product, and the float32 checks hold the card's
+// tokens equal to the CPU's), and bf16 at a head dim the tensor-core routine
+// (varlen_prefill_tc.cuh, at multiples of 16 up to 256) is not built for;
+// kernels/varlen_prefill.py plan chooses.  Bound on this card: operations for
+// long prompts (a block of ps query rows does 4 * ps * d flops per key row it
+// reads), bytes for short ones; this kernel does the products on the CUDA
+// cores in fp32, well above the tensor-core bound.
 // Design: one 256-thread block per (query block of page_size rows, query
 // head).  The block finds its chunk by scanning cu_seqlens (C is the slot
 // count), then walks exactly the chunk's ceil(pos0/ps) context pages (capped

@@ -41,7 +41,8 @@ def _close(out, want, dtype, f32_tol=5e-5):
     assert bool(((out.float().cpu() - want).abs() <= tol * (1 + want.abs())).all())
 
 
-DTYPES = [torch.float32, torch.bfloat16]
+# named cases, so that -k "flash and float32" selects what it says
+DTYPES = [pytest.param(torch.float32, id="float32"), pytest.param(torch.bfloat16, id="bfloat16")]
 
 
 def _randn(shape, dtype, dev, seed):
@@ -59,6 +60,33 @@ def test_rmsnorm_kernel(cuda, dtype, shape):
     torch.cuda.synchronize()
     assert rn_mod.launches == n + 1
     _close(out, ref.rmsnorm(x, w), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [
+    (2049, 4096),   # a packed-prefill buffer plus one: 16-byte vectors, 256 threads a row
+    (3, 128),       # rows that do not fill a block (32 rows of 8 threads a block)
+    (5, 16384),     # eight vectors a thread
+    (2, 24),        # three vectors a row (bf16), a thread holding the third alone
+    (4, 20),        # float32 vectors; bf16 rows not a whole number of vectors: scalar
+    (2, 20000),     # a row wider than 256 x 8 vectors: scalar
+])
+def test_rmsnorm_kernel_paths(cuda, dtype, shape):
+    """The vector path at every vector count a thread holds and the scalar
+    path where a row is not a whole number of 16-byte vectors or too wide."""
+    x = _randn(shape, dtype, cuda, 3) * 3.0
+    w = _randn(shape[-1:], dtype, cuda, 4) * 0.1
+    _close(rn_mod.rmsnorm(x, w), ref.rmsnorm(x, w), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernel_misaligned_rows(cuda, dtype):
+    """A view that starts off a 16-byte boundary takes the scalar path."""
+    buf = _randn((1 + 8 * 64,), dtype, cuda, 5)
+    x = buf[1:].view(8, 64)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    w = _randn((64,), dtype, cuda, 6) * 0.1
+    _close(rn_mod.rmsnorm(x, w), ref.rmsnorm(x, w), dtype)
 
 
 PAGED_SHAPES = [
@@ -315,6 +343,153 @@ def test_varlen_prefill_kernel_quantized(cuda, mode, dtype):
     out = vp_mod.varlen_prefill(*args, k_scales=ks, v_scales=vs)
     want = ref.varlen_prefill(*(t.cpu() for t in args), k_scales=ks.cpu(), v_scales=vs.cpu())
     _close(out, want, dtype)
+
+
+# ---------------------------------------------------------------------------
+# varlen_prefill's bf16 tensor-core routine: tile edges and bit-identities
+# ---------------------------------------------------------------------------
+def _varlen_layout(chunks, ps, mp, tail):
+    """cu, lens, pos0 and tables for chunks [(real_len, ctx_pages)], context
+    pages numbered from 1, a buffer tail of `tail` pad rows."""
+    cu, lens, pos0 = [0], [], []
+    tables = torch.zeros((len(chunks), mp), dtype=torch.int32)
+    nxt = 1
+    for c, (n, cp) in enumerate(chunks):
+        cu.append(cu[-1] + -(-n // ps) * ps)
+        lens.append(n)
+        pos0.append(cp * ps)
+        tables[c, :cp] = torch.arange(nxt, nxt + cp)
+        nxt += cp
+    return cu, lens, pos0, tables, nxt, cu[-1] + tail
+
+
+def _varlen_inputs(chunks, h, kvh, d, ps, mp, dtype, dev, seed, tail=0):
+    cu, lens, pos0, tables, pages, T = _varlen_layout(chunks, ps, mp, tail)
+    q = _randn((T, h, d), dtype, dev, seed)
+    k, v = _randn((T, kvh, d), dtype, dev, seed + 1), _randn((T, kvh, d), dtype, dev, seed + 2)
+    kp = _randn((pages, ps, kvh, d), dtype, dev, seed + 3)
+    vp = _randn((pages, ps, kvh, d), dtype, dev, seed + 4)
+    meta = [torch.tensor(a, dtype=torch.int32, device=dev) for a in (cu, lens, pos0)]
+    return (q, k, v, kp, vp, *meta, tables.to(dev)), cu, lens
+
+
+VARLEN_EDGES = [
+    # h, kvh, d, page_size, chunks [(real_len, ctx_pages)], opts
+    (32, 2, 128, 16, [(1, 5), (33, 2)], {}),                           # a 1-token chunk
+    (32, 2, 128, 16, [(40, 6), (20, 3)], {"pages_bound": 2}),          # context cut short
+    (32, 2, 128, 16, [(70, 2), (9, 1)], {"window": 5}),                # window < a key tile
+    (48, 1, 128, 12, [(50, 3), (7, 1)], {}),                           # rep 48: a partial block
+    (8, 8, 64, 8, [(1, 3), (30, 4)], {"pages_bound": 1, "window": 12}),  # mma.sync, 8-key pages
+    (16, 2, 256, 16, [(45, 2), (3, 0)], {"softcap": 8.0}),             # d 256, two-stage ring
+    (6, 2, 80, 16, [(33, 2), (0, 0)], {}),                             # d 80: padded rows
+    (4, 2, 72, 8, [(20, 1)], {"window": 9}),                           # d 72: the CUDA-core kernel
+]
+
+
+@pytest.mark.parametrize("case", VARLEN_EDGES)
+def test_varlen_prefill_bf16_tile_edges(cuda, case):
+    h, kvh, d, ps, chunks, opts = case
+    args, cu, lens = _varlen_inputs(chunks, h, kvh, d, ps, 8, torch.bfloat16, cuda, 100, tail=ps)
+    n = vp_mod.launches
+    out = vp_mod.varlen_prefill(*args, **opts)
+    torch.cuda.synchronize()
+    assert vp_mod.launches == n + 1
+    kernel = vp_mod.plan(torch.bfloat16, d, h // kvh, ps).kernel
+    assert kernel == ("wgmma" if d == 128 else "f32" if d == 72 else "mma")
+    _close(out, ref.varlen_prefill(*(t.cpu() for t in args), **opts), torch.bfloat16)
+    for c, n_c in enumerate(lens):
+        assert torch.all(out[cu[c] + n_c:cu[c + 1]] == 0)
+    assert torch.all(out[cu[-1]:] == 0)
+
+
+VARLEN_SPLITS = [
+    # h, kvh, d, page_size, prompt length, split: a page boundary that is not a
+    # multiple of the 32-key tile, so one tile holds context and own keys
+    (32, 2, 128, 16, 150, 48),     # glm4-9b widths, wgmma
+    (8, 8, 64, 8, 90, 40),         # d 64 on mma.sync, 8-key pages
+]
+
+
+@pytest.mark.parametrize("case", VARLEN_SPLITS)
+@pytest.mark.parametrize("opts", [{}, {"window": 37}, {"softcap": 9.0}])
+def test_varlen_prefill_bf16_whole_equals_split(cuda, case, opts):
+    """A prompt prefilled as one chunk and the same prompt split at a page
+    boundary (its first part committed to the pool, the rest a chunk over
+    those context pages) give the same bits for the rows of the second part."""
+    h, kvh, d, ps, n, cut = case
+    bf = torch.bfloat16
+    q, k, v = _randn((n, h, d), bf, cuda, 110), _randn((n, kvh, d), bf, cuda, 111), \
+        _randn((n, kvh, d), bf, cuda, 112)
+    pages = -(-n // ps)
+    kp = torch.zeros((pages + 1, ps, kvh, d), dtype=bf, device=cuda)
+    vp = torch.zeros_like(kp)
+    kp.view(-1, kvh, d)[ps:ps + n] = k
+    vp.view(-1, kvh, d)[ps:ps + n] = v
+    table = torch.arange(1, pages + 1, dtype=torch.int32, device=cuda).view(1, pages)
+
+    def run(start, rows, seed):
+        length = rows[0].shape[0]
+        T = -(-length // ps) * ps + ps                     # chunk pad and a tail page
+        packed = [torch.cat([t, _randn((T - length, *t.shape[1:]), bf, cuda, seed + i)])
+                  for i, t in enumerate(rows)]
+        meta = [torch.tensor(a, dtype=torch.int32, device=cuda)
+                for a in ([0, T - ps], [length], [start])]
+        return vp_mod.varlen_prefill(*packed, kp, vp, *meta, table, **opts)[:length]
+
+    whole = run(0, (q, k, v), 120)
+    split = run(cut, (q[cut:], k[cut:], v[cut:]), 130)
+    assert torch.equal(whole[cut:], split)
+    _close(whole, ref.attention(q.cpu()[None], k.cpu()[None], v.cpu()[None],
+                                **{key: val for key, val in opts.items()})[0], bf)
+
+
+def test_varlen_prefill_bf16_chunk_independent_of_its_place(cuda):
+    """One chunk (with context pages) first in the packed buffer, and after
+    two other chunks with different neighbours' values, gives the same bits."""
+    h, kvh, d, ps, mp = 32, 2, 128, 16, 8
+    bf = torch.bfloat16
+    n, cp = 70, 3
+    rows = [_randn((n, c, d), bf, cuda, 140 + i) for i, c in enumerate((h, kvh, kvh))]
+    kp = _randn((12, ps, kvh, d), bf, cuda, 143)
+    vp = _randn((12, ps, kvh, d), bf, cuda, 144)
+
+    def run(before, seed):
+        """The chunk after `before` chunks [(len, ctx_pages)] of random rows."""
+        chunks = before + [(n, cp)]
+        cu, lens, pos0, _, _, T = _varlen_layout(chunks, ps, mp, ps)
+        tables = torch.zeros((len(chunks), mp), dtype=torch.int32)
+        tables[:, :cp] = torch.tensor([9, 4, 7])        # the chunk's pages; others' alike
+        packed = [_randn((T, t.shape[1], d), bf, cuda, seed + i) for i, t in enumerate(rows)]
+        for t, r in zip(packed, rows):
+            t[cu[-2]:cu[-2] + n] = r
+        meta = [torch.tensor(a, dtype=torch.int32, device=cuda) for a in (cu, lens, pos0)]
+        out = vp_mod.varlen_prefill(*packed, kp, vp, *meta, tables.to(cuda))
+        return out[cu[-2]:cu[-2] + n]
+
+    first = run([], 150)
+    later = run([(37, 2), (16, 0)], 160)
+    other = run([(5, 1), (1, 4)], 170)
+    assert torch.equal(first, later) and torch.equal(first, other)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("case", [
+    (32, 2, 128, 16, [(37, 2), (0, 0), (16, 0), (5, 3)], {"window": 40}),
+    (8, 8, 64, 8, [(30, 3), (1, 5)], {"pages_bound": 2}),
+])
+def test_varlen_prefill_tensor_cores_quantized(cuda, mode, case):
+    """int8/fp8 context pages on the bf16 tensor-core routine: codes widened
+    in shared memory, scales folded into S and P, own keys at full precision."""
+    h, kvh, d, ps, chunks, opts = case
+    args, cu, lens = _varlen_inputs(chunks, h, kvh, d, ps, 8, torch.bfloat16, cuda, 180, tail=ps)
+    kq, vq, ks, vs = _quantized(args[3].float(), args[4].float(), mode)
+    args = (*args[:3], kq, vq, *args[5:])
+    assert vp_mod.plan(torch.bfloat16, d, h // kvh, ps, quantized=True).kernel != "f32"
+    out = vp_mod.varlen_prefill(*args, k_scales=ks, v_scales=vs, **opts)
+    want = ref.varlen_prefill(*(t.cpu() for t in args), k_scales=ks.cpu(), v_scales=vs.cpu(),
+                              **opts)
+    _close(out, want, torch.bfloat16)
+    assert torch.all(out[cu[-1]:] == 0)
 
 
 @pytest.mark.parametrize("mode", ["int8", "fp8"])
