@@ -13,9 +13,11 @@ Phases, each printing its own lines and wall time, each ending in
    the SASS of the bf16 ``flash_attention`` kernels and of every head-dim
    instance of the bf16 decode family's split-KV routine
    (``csrc/decode_split.cuh``) and of the bf16 ``varlen_prefill`` routine
-   (``csrc/varlen_prefill_tc.cuh``; ``cuobjdump``): fail unless each has
-   some (HGMMA in varlen's d-128 instances), the flash and varlen kernels at
-   head dim 128 spill nothing and no split-KV instance spills;
+   (``csrc/varlen_prefill_tc.cuh``) and of the chunk launches of the bf16
+   ``ssd`` (``csrc/ssd_tc.cu``; ``cuobjdump``): fail unless each has some
+   (HGMMA in varlen's d-128 instances), the flash and varlen kernels at
+   head dim 128 spill nothing and no split-KV or ``ssd_tc`` instance
+   spills;
 2. kernels: each hand-written kernel against its plain PyTorch version at
    the shapes the serve phase gives it (glm4-9b widths: h 32, kvh 2, d 128,
    page 16, D 4096, bf16; spec_verify with 8 slots and windows of 5), the
@@ -45,13 +47,15 @@ Phases, each printing its own lines and wall time, each ending in
    must be exactly zero (with ``lengths - 1`` the plain version must fail),
    and equal bit for bit to ``paged_attention`` over the cache viewed as a
    pool with the identity table;
-   ``ssd`` (mamba2-130m widths: h 24, p 64, n 128, chunk 64, bf16) on the
-   static prefill pass of 8 rows of the longest of the first 8 serve
-   prompts (a partial trailing chunk), a partial chunk, a sequence shorter
-   than a chunk and an initial state, y and the final state each (the plain
-   version without the initial state, and its final state one timestep
-   short, must fail the limit; no single PyTorch call computes SSD, so
-   there is no library time), and its time at a batch-1 admission;
+   ``ssd`` (mamba2-130m widths: h 24, p 64, n 128, chunk 64, bf16; the
+   tensor-core route's three launches) on the static prefill pass of 8
+   rows of the longest of the first 8 serve prompts (a partial trailing
+   chunk), a partial chunk, a sequence shorter than a chunk, an initial
+   state and zamba2's state width (n 64), y and the final state each (the
+   plain version without the initial state, and its final state one
+   timestep short, must fail the limit; no single PyTorch call computes
+   SSD, so there is no library time), its plan and blocks per launch, and
+   its time at a batch-1 admission;
 3. check: reduced glm4-9b in float32 served on the card and on the CPU
    from the same weights must emit the same greedy tokens, with and
    without speculative decoding (which must also equal each other); the
@@ -87,7 +91,8 @@ Phases, each printing its own lines and wall time, each ending in
 5. where the time goes: device time by kernel class per prefill launch and
    per decode step, per launch of each kernel, and the device's idle
    share, from torch.profiler, for the paged engine and for a dense
-   prefill pass and decode step of glm4-9b and of mamba2-130m;
+   prefill pass and decode step of glm4-9b and of mamba2-130m (with the
+   device time of each of ``ssd``'s three launches per pass);
 6. one JSON line of kernel records, then the final line
    ``{"ok": true, "device": {...}}``.
 
@@ -309,11 +314,13 @@ def _sass_counts(nvcc, lib_path):
 def build_report(info, nvcc):
     """Print every kernel's registers and spills, and the tensor-core
     instructions of the bf16 flash_attention kernels, of the split-KV decode
-    routine and of the varlen prefill routine; fail unless each of those has
-    some (HGMMA for varlen at d 128), the flash and varlen kernels at d 128
-    spill nothing and no split-KV instance spills."""
+    routine, of the varlen prefill routine and of the bf16 ssd's chunk
+    launches; fail unless each of those has some (HGMMA for varlen at d
+    128), the flash and varlen kernels at d 128 spill nothing and no
+    split-KV or ssd_tc instance spills."""
     from repro_torch.kernels import decode_split as ds
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd as sdm
     from repro_torch.kernels import varlen_prefill as vpf
 
     ptxas = _ptxas_report(info.log)
@@ -365,6 +372,21 @@ def build_report(info, nvcc):
              or "flash_attention_kernel_bf16_wgmmaI" + "".join(f"Li{a}E" for a in targs) in m]
     if len(at128) != 1 or at128[0][1] or at128[0][2]:
         raise SystemExit(f"flash_attention bf16 at d 128: ptxas report {at128}, expected no spill")
+    # the bf16 ssd (csrc/ssd_tc.cu): its two chunk launches on the tensor
+    # cores at every chunk instance, the state pass beside them, none spilling
+    tc = {m: ptxas[m] for m in ptxas if "ssd_kernel_" in m}
+    for mangled in sorted(tc, key=lambda m: names[m]):
+        regs, st, ld = tc[mangled]
+        print(f"   ssd_tc {names[mangled]}: HMMA {sass.get(mangled, (0, 0))[0]}; {regs} registers, "
+              f"spill stores {st} B, loads {ld} B")
+    chunked = [m for m in tc if "ssd_kernel_chunk_" in m]
+    if (len(tc) != 3 * len(sdm.TC_CHUNKS) or len(chunked) != 2 * len(sdm.TC_CHUNKS)
+            or any(sass.get(m, (0, 0))[0] == 0 for m in chunked)):
+        raise SystemExit(f"ssd_tc: {len(tc)} kernels ({len(chunked)} chunk launches), expected "
+                         f"{3 * len(sdm.TC_CHUNKS)} ({2 * len(sdm.TC_CHUNKS)}, each with HMMA)")
+    spilled = [names[m] for m, r in tc.items() if r[1:] != (0, 0)]
+    if spilled:
+        raise SystemExit(f"ssd_tc: spills in {spilled}")
 
 
 def kernels_phase(torch, dev):
@@ -852,8 +874,9 @@ def ssd_kernels_phase(torch, dev):
     """ssd against its plain version at mamba2-130m widths: the static
     prefill pass (SLOTS rows of the longest of the first SLOTS serve
     prompts: 13 full chunks and a partial one), a partial trailing chunk, a
-    sequence shorter than a chunk and an initial state; y and the final
-    state each.  dt and A span the ranges mamba2's inits give."""
+    sequence shorter than a chunk, an initial state and zamba2's state
+    width (n 64); y and the final state each.  dt and A span the ranges
+    mamba2's inits give."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd as sd
@@ -864,26 +887,36 @@ def ssd_kernels_phase(torch, dev):
     gen.manual_seed(SEED + 3)
     cpm = _sleep_cycles_per_ms(torch)
 
-    def inputs(b, s, init):
+    def inputs(b, s, init, n_=n):
         randn = lambda *shape, dt_=torch.bfloat16: torch.randn(shape, generator=gen, device=dev,
                                                                dtype=dt_)
         uniform = lambda shape, lo, hi: torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
-        x, B, C = randn(b, s, h, p), randn(b, s, n), randn(b, s, n)
+        x, B, C = randn(b, s, h, p), randn(b, s, n_), randn(b, s, n_)
         dt, A = uniform((b, s, h), 1e-3, 1e-1), -uniform((h,), 1.0, 16.0)
-        return x, dt, A, B, C, (randn(b, h, p, n, dt_=torch.float32) if init else None)
+        return x, dt, A, B, C, (randn(b, h, p, n_, dt_=torch.float32) if init else None)
 
+    pl = sd.plan(torch.bfloat16, p, n, chunk)
     s_pass = int(max(_serve_lengths(SEED)[:SLOTS]))
+    s1 = int(max(_serve_lengths(SEED)))
+    print(f"   ssd plan (bf16, p {p}, n {n}, chunk {chunk}): {pl.kernel}, {pl.head_group} heads a "
+          f"block, shared memory per launch {pl.smem_bytes} B; blocks per launch "
+          f"{sd.blocks(pl, SLOTS, s_pass, h, p, n, chunk)} at the static pass, "
+          f"{sd.blocks(pl, 1, s1, h, p, n, chunk)} at a batch-1 admission (1, {s1}); workspace "
+          f"{sd.workspace_bytes(pl, SLOTS, s_pass, h, p, n, chunk) / 1e6:.1f} MB / "
+          f"{sd.workspace_bytes(pl, 1, s1, h, p, n, chunk) / 1e6:.1f} MB")
     err = 0.0
-    for label, b, s, init in (("static pass", SLOTS, s_pass, False),
-                              ("partial trailing chunk", 2, 100, False),
-                              ("s < chunk", 2, 40, False), ("initial state", 2, 130, True)):
-        x, dt, A, B, C, s0 = inputs(b, s, init)
+    for label, b, s, init, n_ in (("static pass", SLOTS, s_pass, False, n),
+                                  ("partial trailing chunk", 2, 100, False, n),
+                                  ("s < chunk", 2, 40, False, n),
+                                  ("initial state", 2, 130, True, n),
+                                  ("zamba2 state width", 2, 150, True, 64)):
+        x, dt, A, B, C, s0 = inputs(b, s, init, n_)
         y, sf = sd.ssd(x, dt, A, B, C, chunk=chunk, initial_state=s0, return_state=True)
         y_want, sf_want = ref.ssd(x, dt, A, B, C, initial_state=s0, return_state=True)
-        shape = f"({b}, {s}, {h}, {p}), n {n}, chunk {chunk}"
+        shape = f"({b}, {s}, {h}, {p}), n {n_}, chunk {chunk}"
         err = max(err, _check(torch, f"ssd {label} {shape}: y", y, y_want),
                   _check(torch, f"ssd {label}: final state", sf, sf_want))
-        if init:
+        if label == "initial state":
             _rejects(torch, "ssd plain without the initial state", ref.ssd(x, dt, A, B, C), y_want)
         if label == "static pass":
             short = ref.ssd(x[:, :-1], dt[:, :-1], A, B[:, :-1], C[:, :-1], return_state=True)[1]
@@ -902,14 +935,13 @@ def ssd_kernels_phase(torch, dev):
         shape=f"x ({b}, {s}, {h}, {p}) bf16, B/C n {n}, chunk {chunk}, final state out",
     )}
     del sets
-    # a continuous admission: one row of the longest serve prompt, h blocks
-    s1 = int(max(_serve_lengths(SEED)))
+    # a continuous admission: one row of the longest serve prompt
     one = inputs(1, s1, False)[:5]
     ms1, _ = _time_ms(torch, lambda *a: sd.ssd(*a, chunk=chunk, return_state=True),
                       _rotation(nbytes * s1 // (SLOTS * s), lambda i: tuple(t.clone() for t in one)),
                       cpm)
     print(f"   ssd at a batch-1 admission x (1, {s1}, {h}, {p}): kernel_ms {ms1:.4f} "
-          f"({h} blocks on the card's 132 SMs; the static pass runs {SLOTS * h})")
+          f"(blocks per launch {sd.blocks(pl, 1, s1, h, p, n, chunk)} on the card's 132 SMs)")
     _print_records(records)
     return records
 
@@ -1355,7 +1387,8 @@ def _kernel_class(name, split_class):
 
 def _profiled(torch, fn, split_class):
     """Run ``fn()`` under torch.profiler; (its result, wall ms, device ms
-    per kernel class, the split-KV routine's under ``split_class``)."""
+    per kernel class, the split-KV routine's under ``split_class``, and
+    device ms and launches of each ``ssd`` kernel by name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1366,12 +1399,17 @@ def _profiled(torch, fn, split_class):
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_class = {cls: 0.0 for cls, _ in _CLASSES}
     by_class["other"] = 0.0
+    ssd_kernels = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-        by_class[_kernel_class(e.key, split_class)] += float(us) / 1e3
-    return stats, wall_ms, by_class
+        cls = _kernel_class(e.key, split_class)
+        by_class[cls] += float(us) / 1e3
+        if cls == "ssd":
+            m = re.search(r"ssd_kernel\w*(<[^>]*>)?", e.key)
+            ssd_kernels[m.group(0) if m else e.key] = (float(us) / 1e3, e.count)
+    return stats, wall_ms, by_class, ssd_kernels
 
 
 def profile_phase(torch, engine, reqs):
@@ -1386,7 +1424,7 @@ def profile_phase(torch, engine, reqs):
         sub = [ServeRequest(r.request_id, r.prompt, new) for r in reqs[:SLOTS]]
         runs[new] = _profiled(torch, lambda: engine.serve_paged(
             sub, num_slots=SLOTS, page_size=PAGE, prefill_budget=BUDGET), "paged_attention")
-    (s1, w1, c1), (s16, w16, c16) = runs[1], runs[16]
+    (s1, w1, c1, _), (s16, w16, c16, _) = runs[1], runs[16]
     if sum(c16.values()) <= 0:
         print("   profiler saw no device time: breakdown not measured")
         return
@@ -1420,7 +1458,7 @@ def dense_profile_phase(torch, engine, prompts):
     runs = {new: _profiled(torch, lambda n=new: engine.generate(prompts[:SLOTS], n),
                            "decode_attention")
             for new in (0, 16)}
-    (_, pre_wall, prefill), (_, w16, c16) = runs[0], runs[16]
+    (_, pre_wall, prefill, ssd_kernels), (_, w16, c16, _) = runs[0], runs[16]
     if sum(c16.values()) <= 0:
         print("   profiler saw no device time: breakdown not measured")
         return
@@ -1443,6 +1481,13 @@ def dense_profile_phase(torch, engine, prompts):
     per_launch += [("rmsnorm per pass", prefill["rmsnorm"] / (2 * L + 1)),
                    ("rmsnorm per step", step["rmsnorm"] / (2 * L + 1))]
     print("   device ms per kernel launch: " + ", ".join(f"{k} {v:.4f}" for k, v in per_launch))
+    if model.ssm:
+        # the tensor-core ssd is three CUDA launches a call (one ``launches`` count)
+        print(f"   {model.cfg.name}: ssd kernels in the prefill pass ({L} calls): " + ", ".join(
+            f"{k} {ms:.3f} ms over {cnt} launches" for k, (ms, cnt) in sorted(ssd_kernels.items())))
+        if not any("ssd_kernel_chunk_" in k for k in ssd_kernels):
+            raise SystemExit(f"ssd: no ssd_kernel_chunk_* launch in the profiled pass "
+                             f"({sorted(ssd_kernels)})")
 
 
 def main() -> int:
@@ -1537,7 +1582,9 @@ def main() -> int:
                             "src/repro/kernels/flash_attention.py:101"),
         "decode_attention": ("src/repro_torch/kernels/csrc/decode_split.cuh",
                              "src/repro/kernels/decode_attention.py:82"),
-        "ssd": ("src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd_scan.py:95"),
+        # bf16 (the record here) runs the tensor-core route; float32 and other
+        # widths or chunks keep csrc/ssd.cu
+        "ssd": ("src/repro_torch/kernels/csrc/ssd_tc.cu", "src/repro/kernels/ssd_scan.py:95"),
     }
     kernels = []
     for name, r in records.items():

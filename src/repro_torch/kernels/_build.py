@@ -31,7 +31,8 @@ PACKAGE = CSRC.parents[1]                  # <root>/src/repro_torch
 CHECKOUT = PACKAGE.parents[1]              # <root>
 SOURCES = ("rmsnorm.cu", "paged_attention.cu", "varlen_prefill.cu", "spec_verify.cu",
            "flash_attention.cu", "decode_attention.cu", "ssd.cu", "decode_split_bf16.cu",
-           "decode_split_quant.cu", "varlen_prefill_bf16.cu", "varlen_prefill_quant.cu")
+           "decode_split_quant.cu", "varlen_prefill_bf16.cu", "varlen_prefill_quant.cu",
+           "ssd_tc.cu")
 HEADERS = ("common.cuh", "mma.cuh", "flash_tile.cuh", "decode_split.cuh", "varlen_prefill_tc.cuh")
 BUILD_ROOT = CHECKOUT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
@@ -73,6 +74,8 @@ SIGNATURES = {
        for kind in ("bf16", "quant")},
     "rt_ssd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
                _LL, _LL, _I, _P),
+    # the bf16 chunk-parallel scan on the tensor cores, with its two workspaces
+    "rt_ssd_tc": (_P,) * 10 + (_I,) * 6 + (_LL,) * 6 + (_P,),
 }
 
 

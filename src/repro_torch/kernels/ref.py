@@ -11,7 +11,8 @@ yardstick of speed.  An int8/fp8 pool comes with float32 ``k_scales``/
 ``v_scales`` ``(num_pages, page_size, kvh)``; the gathered pool rows are
 dequantized (``code * scale``) and everything is computed in float32.
 The Mamba-2 scan :func:`ssd` is the sequential recurrence, one
-:func:`ssd_step` per timestep, in float32.
+:func:`ssd_step` per timestep, in float32; :func:`ssd_chunk_phases` is the
+same scan in the three phases of the tensor-core kernel, for tests.
 """
 from __future__ import annotations
 
@@ -302,3 +303,53 @@ def ssd(
         ys.append(y_t)
     y = torch.stack(ys, dim=1)
     return (y, state.to(x.dtype)) if return_state else y
+
+
+def ssd_chunk_phases(
+    x: torch.Tensor,        # (b, s, h, p)
+    dt: torch.Tensor,       # (b, s, h) softplus'd time deltas (> 0)
+    A: torch.Tensor,        # (h,) negative decay rates (A < 0)
+    B: torch.Tensor,        # (b, s, n)
+    C: torch.Tensor,        # (b, s, n)
+    *,
+    chunk: int = 64,
+    initial_state: Optional[torch.Tensor] = None,   # (b, h, p, n)
+    return_state: bool = False,
+):
+    """The chunk-parallel SSD in the three phases of ``csrc/ssd_tc.cu``, in
+    float32, for tests.  Per chunk of ``chunk`` timesteps (the trailing one
+    holds its live rows only) with ``cum`` the inclusive cumsum of dt A and
+    ``w_k = exp(cum_last - cum_k) dt_k``: (1) chunk states ``dS_c = (x_c o
+    w)^T B_c``; (2) the state pass ``S_in[c] = S; S = exp(cum_last) S +
+    dS_c`` from ``initial_state`` (zeros when None); (3) the output ``y =
+    (C_c B_c^T o exp(cum_q - cum_k) dt_k)[k <= q] X_c + exp(cum_q) C_c
+    S_in[c]^T``, exp taken only where k <= q.  Returns what :func:`ssd`
+    returns."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    xf, dtf, Bf, Cf, Af = (t.float() for t in (x, dt, B, C, A))
+    spans = [slice(t0, min(s, t0 + chunk)) for t0 in range(0, s, chunk)]
+    cums, dS = [], []
+    for sl in spans:                                              # 1. chunk states
+        cum = torch.cumsum(dtf[:, sl] * Af, dim=1)                # (b, L, h)
+        w = torch.exp(cum[:, -1:] - cum) * dtf[:, sl]
+        dS.append(torch.einsum("bkh,bkhp,bkn->bhpn", w, xf[:, sl], Bf[:, sl]))
+        cums.append(cum)
+    S = (initial_state.float() if initial_state is not None
+         else torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device))
+    s_in = []
+    for cum, d in zip(cums, dS):                                  # 2. state pass
+        s_in.append(S)
+        S = torch.exp(cum[:, -1])[..., None, None] * S + d
+    ys = []
+    for sl, cum, Sc in zip(spans, cums, s_in):                    # 3. output
+        L = cum.shape[1]
+        causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))[None, :, :, None]
+        seg = cum[:, :, None, :] - cum[:, None, :, :]             # (b, q, k, h)
+        decay = torch.where(causal, torch.exp(seg.masked_fill(~causal, 0.0)), 0.0)
+        cb = torch.einsum("bqn,bkn->bqk", Cf[:, sl], Bf[:, sl])
+        G = cb[..., None] * decay * dtf[:, sl][:, None]
+        ys.append(torch.einsum("bqkh,bkhp->bqhp", G, xf[:, sl])
+                  + torch.exp(cum)[..., None] * torch.einsum("bqn,bhpn->bqhp", Cf[:, sl], Sc))
+    y = torch.cat(ys, dim=1).to(x.dtype)
+    return (y, S.to(x.dtype)) if return_state else y

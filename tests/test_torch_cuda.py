@@ -748,6 +748,10 @@ SSD_SHAPES = [
     (3, 40, 3, 8, 16, 64),          # s < chunk
     (1, 1, 2, 64, 128, 64),         # one timestep
     (2, 37, 5, 16, 16, 8),          # mamba2-130m reduced widths, ragged
+    # bf16 below runs the tensor-core route (kernels/ssd.py plan)
+    (2, 96, 4, 32, 64, 32),         # chunk 32, s an exact multiple of it, n 64
+    (3, 50, 5, 16, 32, 16),         # chunk 16, ragged; 5 heads: the last group holds one
+    (2, 128, 3, 64, 64, 64),        # zamba2's widths (p 64, n 64), two whole chunks
 ]
 
 
@@ -797,6 +801,65 @@ def test_ssd_kernel_takes_strided_slices(cuda):
     want = ssd_mod.ssd(x.contiguous(), dt, A, B.contiguous(), C.contiguous(), chunk=16)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def test_ssd_kernel_takes_aligned_strided_slices(cuda):
+    """Views of a projection whose rows stay 16-byte aligned (width din +
+    2n + 8): the vector loads of the tensor-core route, the same bits as
+    the contiguous call and within the limit of the plain version."""
+    b, s, h, p, n = 2, 90, 4, 32, 64
+    din = h * p
+    rng = np.random.default_rng(8)
+    proj = torch.from_numpy(rng.normal(size=(b, s, din + 2 * n + 8)).astype(np.float32))
+    proj = proj.to(cuda, torch.bfloat16)
+    x = proj[..., :din].reshape(b, s, h, p)
+    B, C = proj[..., din:din + n], proj[..., din + n:din + 2 * n]
+    dt = torch.from_numpy(rng.uniform(1e-3, 1e-1, (b, s, h)).astype(np.float32)).to(cuda)
+    A = -torch.arange(1, h + 1, dtype=torch.float32, device=cuda)
+    assert ssd_mod.plan(x.dtype, p, n, 32).kernel == "mma" and not x.is_contiguous()
+    got = ssd_mod.ssd(x, dt, A, B, C, chunk=32)
+    want = ssd_mod.ssd(x.contiguous(), dt, A, B.contiguous(), C.contiguous(), chunk=32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    _close(got, ref.ssd(x, dt, A, B, C), torch.bfloat16)
+
+
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_kernel_row_alone_equals_row_in_a_batch(cuda, init):
+    """A row's output and final state depend on that row's inputs only: row
+    5 of a batch of 8 equals the same row run alone, bit for bit."""
+    b, s, h, p, n = 8, 150, 4, 64, 128
+    x, dt, A, B, C, s0 = _ssd_inputs(b, s, h, p, n, torch.bfloat16, cuda, 11, init)
+    y, sf = ssd_mod.ssd(x, dt, A, B, C, initial_state=s0, return_state=True)
+    one = lambda t: None if t is None else t[5:6].contiguous()
+    y1, sf1 = ssd_mod.ssd(one(x), one(dt), A, one(B), one(C), initial_state=one(s0),
+                          return_state=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y[5:6], y1) and torch.equal(sf[5:6], sf1)
+
+
+@pytest.mark.parametrize("dtype, kernels", [
+    pytest.param(torch.bfloat16, {"ssd_kernel_chunk_state", "ssd_kernel_state_pass",
+                                  "ssd_kernel_chunk_out"}, id="bfloat16"),
+    pytest.param(torch.float32, {"ssd_kernel<float>"}, id="float32"),
+])
+def test_ssd_plan_routes_the_launches(cuda, dtype, kernels):
+    """bf16 at mamba2-130m's widths (p 64, n 128, chunk 64) runs the three
+    launches of csrc/ssd_tc.cu; float32 runs csrc/ssd.cu.  Read from the
+    kernel names the profiler records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    assert ssd_mod.plan(dtype, 64, 128, 64).kernel == ("mma" if dtype == torch.bfloat16
+                                                       else "f32")
+    x, dt, A, B, C, _ = _ssd_inputs(1, 70, 2, 64, 128, dtype, cuda, 12, False)
+    ssd_mod.ssd(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ssd_mod.ssd(x, dt, A, B, C)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if "ssd_kernel" in e.key}
+    assert {k for k in kernels if any(k in nm for nm in names)} == kernels
+    assert len(names) == len(kernels), names
 
 
 def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
