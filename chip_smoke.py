@@ -55,7 +55,11 @@ Phases, each printing its own lines and wall time, each ending in
    plain version without the initial state, and its final state one
    timestep short, must fail the limit; no single PyTorch call computes
    SSD, so there is no library time), its plan and blocks per launch, and
-   its time at a batch-1 admission;
+   its time at a batch-1 admission.  Then ``flash_attention``, rmsnorm
+   and ``ssd`` at the shapes phase 6 gives them, bf16, batches 1 to 8 of
+   128 tokens: glm4-9b's causal attention and norms (D 4096),
+   mamba2-130m's scan (two whole chunks, y and the final state, x/B/C
+   views of one projection) and norms (768 and the gated 1536);
 3. check: reduced glm4-9b in float32 served on the card and on the CPU
    from the same weights must emit the same greedy tokens, with and
    without speculative decoding (which must also equal each other); the
@@ -93,7 +97,23 @@ Phases, each printing its own lines and wall time, each ending in
    share, from torch.profiler, for the paged engine and for a dense
    prefill pass and decode step of glm4-9b and of mamba2-130m (with the
    device time of each of ``ssd``'s three launches per pass);
-6. one JSON line of kernel records, then the final line
+6. platform: the evaluation platform of ``repro_torch.core`` (server,
+   agent, scenario, scheduler, the torch predictor).  Reduced glm4-9b and
+   mamba2-130m through the predictor on the CPU and on the card (its
+   handle holding the float32 model with the CPU's weights): logits within 1e-4 + 1e-4 |cpu|, the same
+   last-position argmax, FRAMEWORK logits bit-equal to MODEL.  Then
+   ``LocalPlatform(backends=("torch",), reduced_models=False)`` evaluates
+   full-width glm4-9b (online, batched 1/2/4/8, server at 20 Hz with a
+   250 ms SLO, offline, online at FRAMEWORK and at SYSTEM) and mamba2-130m
+   (online, offline), 128 tokens, each evaluation opening its own model
+   (random bf16 weights, seed 0): each kernel must launch exactly its
+   per-pass count (glm4-9b: 40 ``flash_attention`` and 81 rmsnorm;
+   mamba2-130m: 24 ``ssd`` and 49 rmsnorm) times the evaluation's
+   ``inference`` spans and no other kernel; the SYSTEM evaluation's
+   ``system:cuda`` launches must add up to the counters and its device
+   busy time (torch.profiler) must be above 0; the evaldb must
+   hold one record per evaluation; the report is printed;
+7. one JSON line of kernel records, then the final line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -192,6 +212,19 @@ def _time_ms(torch, fn, sets, cycles_per_ms):
             break
         hold_ms *= 4
     return a.elapsed_time(b) / LAUNCHES, queued
+
+
+def _time_few(torch, fn, calls=3):
+    """Mean device time of ``calls`` calls of a slow ``fn`` after one
+    warm-up call, between one pair of CUDA events."""
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
 
 
 def _timed(torch, cpm, kernel, plain, library, sets, library_sets):
@@ -870,6 +903,12 @@ def _ssd_flops(b, s, h, p, n, chunk):
     return b * total
 
 
+def _ssd_bytes(b, s, h, p, n):
+    """Bytes of one ssd call: x and y (bf16), B and C (bf16), dt (f32), A
+    and the final state."""
+    return 2 * 2 * b * s * h * p + 2 * 2 * b * s * n + 4 * b * s * h + 4 * h + 2 * b * h * p * n
+
+
 def ssd_kernels_phase(torch, dev):
     """ssd against its plain version at mamba2-130m widths: the static
     prefill pass (SLOTS rows of the longest of the first SLOTS serve
@@ -924,7 +963,7 @@ def ssd_kernels_phase(torch, dev):
             pass_inputs = (x, dt, A, B, C)
     x, dt, A, B, C = pass_inputs
     b, s = SLOTS, s_pass
-    nbytes = 2 * 2 * b * s * h * p + 2 * 2 * b * s * n + 4 * b * s * h + 4 * h + 2 * b * h * p * n
+    nbytes = _ssd_bytes(b, s, h, p, n)
     sets = _rotation(nbytes, lambda i: (x.clone(), dt.clone(), A, B.clone(), C.clone()))
     records = {"ssd": dict(
         err=err,
@@ -937,10 +976,14 @@ def ssd_kernels_phase(torch, dev):
     del sets
     # a continuous admission: one row of the longest serve prompt
     one = inputs(1, s1, False)[:5]
+    nbytes1 = _ssd_bytes(1, s1, h, p, n)
     ms1, _ = _time_ms(torch, lambda *a: sd.ssd(*a, chunk=chunk, return_state=True),
-                      _rotation(nbytes * s1 // (SLOTS * s), lambda i: tuple(t.clone() for t in one)),
-                      cpm)
+                      _rotation(nbytes1, lambda i: tuple(t.clone() for t in one)), cpm)
+    # the plain version is a sequential loop of ~0.3 s a call: a few calls
+    plain1 = _time_few(torch, lambda: ref.ssd(*one, return_state=True))
+    bound1 = _bound_ms(nbytes1, _ssd_flops(1, s1, h, p, n, chunk))
     print(f"   ssd at a batch-1 admission x (1, {s1}, {h}, {p}): kernel_ms {ms1:.4f} "
+          f"plain_ms {plain1:.4f} bound_ms {bound1[0]:.4f} ({bound1[1]}; {nbytes1} bytes) "
           f"(blocks per launch {sd.blocks(pl, 1, s1, h, p, n, chunk)} on the card's 132 SMs)")
     _print_records(records)
     return records
@@ -1490,6 +1533,236 @@ def dense_profile_phase(torch, engine, prompts):
                              f"({sorted(ssd_kernels)})")
 
 
+# platform phase: the evaluation platform (client -> server -> agent ->
+# scenario -> scheduler -> torch predictor) at published width
+PLATFORM_SEQ = 128
+# launches of each kernel per forward pass at published depth
+PER_PASS = {"glm4-9b": {"flash_attention": 40, "rmsnorm": 81},
+            "mamba2-130m": {"ssd": 24, "rmsnorm": 49}}
+PLATFORM_TOL = 1e-4             # reduced f32 logits, card vs CPU: 1e-4 + 1e-4 |cpu|
+# every batch the evaluations can form: batched's 1/2/4/8, the server's up
+# to 4 and offline's up to 8 coalesced requests
+PLATFORM_BATCHES = range(1, 9)
+
+
+def platform_kernels_phase(torch, dev):
+    """flash_attention, rmsnorm and ssd against their plain versions at the
+    shapes the platform phase gives them, bf16, every batch of
+    PLATFORM_BATCHES at PLATFORM_SEQ tokens: glm4-9b's causal attention and
+    its norms at d_model; mamba2-130m's scan (two whole chunks, final state
+    out) with x, B and C views of one convolved projection as the block
+    makes them, and its norms at d_model and over the gated d_inner.  One
+    line a kernel; returns each kernel's worst error."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd as sd
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    uniform = lambda shape, lo, hi: torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+    glm, ssm = get_config("glm4-9b"), get_config("mamba2-130m")
+    h, kvh, d = glm.num_heads, glm.num_kv_heads, glm.head_dim
+    sh, p, n, din = ssm.ssm_heads, ssm.ssm_head_dim, ssm.ssm_state, ssm.ssm_inner
+    s = PLATFORM_SEQ
+    norm_w = {D: randn(D) * 0.1 for D in (glm.d_model, ssm.d_model, din)}
+    A = -uniform((sh,), 1.0, 16.0)
+
+    def cases():
+        for b in PLATFORM_BATCHES:
+            q, k, v = randn(b, s, h, d), randn(b, s, kvh, d), randn(b, s, kvh, d)
+            yield ("flash_attention", f"causal q ({b}, {s}, {h}, {d})",
+                   fa.flash_attention(q, k, v), ref.attention(q, k, v))
+            for D, w in norm_w.items():
+                x = randn(b, s, D)
+                yield "rmsnorm", f"({b}, {s}, {D})", rn.rmsnorm(x, w), ref.rmsnorm(x, w)
+            xBC = randn(b, s, din + 2 * n)
+            x, B, C = xBC[..., :din].reshape(b, s, sh, p), xBC[..., din:din + n], xBC[..., din + n:]
+            dt = uniform((b, s, sh), 1e-3, 1e-1)
+            y, sf = sd.ssd(x, dt, A, B, C, chunk=ssm.ssm_chunk, return_state=True)
+            y_want, sf_want = ref.ssd(x, dt, A, B, C, return_state=True)
+            shape = f"({b}, {s}, {sh}, {p}), n {n}, chunk {ssm.ssm_chunk}"
+            yield "ssd", f"{shape}: y", y, y_want
+            yield "ssd", f"{shape}: final state", sf, sf_want
+
+    worst, count = {}, {}
+    for name, label, out, want in cases():
+        max_abs, ok = _within(torch, out, want)
+        if not ok:
+            raise SystemExit(f"{name} {label}: kernel disagrees with its plain version "
+                             f"(max_abs_err {max_abs:.3e})")
+        worst[name] = max(worst.get(name, 0.0), max_abs)
+        count[name] = count.get(name, 0) + 1
+    for name, err in worst.items():
+        print(f"   {name} at the platform's shapes (batches {PLATFORM_BATCHES[0]}-"
+              f"{PLATFORM_BATCHES[-1]} of {s} tokens, {count[name]} cases): max_abs_err "
+              f"{err:.3e} (|kernel - plain| <= {TOL}*|plain| + {TOL_FLOOR}*rms(plain), "
+              f"finite: True)")
+    return worst
+
+
+def _evaluations():
+    """(label, arch, trace level, scenario kwargs, scheduler kwargs) of
+    each full-width evaluation."""
+    online = dict(kind="online", num_requests=4, warmup=1)
+    offline = (dict(kind="offline", num_requests=16, warmup=1),
+               dict(max_batch=8, batch_timeout_ms=0.0))
+    return [
+        ("online", "glm4-9b", "MODEL", online, None),
+        ("batched", "glm4-9b", "MODEL",
+         dict(kind="batched", num_requests=2, batch_sizes=[1, 2, 4, 8], warmup=1), None),
+        ("server", "glm4-9b", "MODEL",
+         dict(kind="server", num_requests=16, rate_hz=20.0, slo_ms=250.0, warmup=1),
+         dict(max_batch=4)),
+        ("offline", "glm4-9b", "MODEL") + offline,
+        ("online FRAMEWORK", "glm4-9b", "FRAMEWORK", dict(online, num_requests=2), None),
+        ("online SYSTEM", "glm4-9b", "SYSTEM", dict(online, num_requests=2), None),
+        ("online", "mamba2-130m", "MODEL", online, None),
+        ("offline", "mamba2-130m", "MODEL") + offline,
+    ]
+
+
+def platform_check(torch, dev):
+    """Reduced glm4-9b and mamba2-130m through the torch predictor on the
+    CPU and on the card, the card's handle holding the float32 model with
+    the CPU's weights: logits within PLATFORM_TOL, the same last-position
+    argmax, and the FRAMEWORK path's logits bit-equal to the MODEL path's
+    on the card."""
+    import numpy as np
+
+    from repro_torch.core import NullTracer, OpenRequest, Tracer, TraceLevel, TracingServer
+    from repro_torch.core import make_predictor
+    from repro_torch.core.platform import builtin_manifests
+    from repro_torch.models.lm import DecoderLM
+
+    pred = make_predictor("torch")
+    tokens = np.random.default_rng(SEED).integers(0, 256, (4, 96)).astype(np.int32)
+    for manifest in builtin_manifests(reduced=True):
+        card, cpu = (pred.open(OpenRequest(manifest=manifest, device=d), NullTracer())
+                     for d in ("cuda", "cpu"))
+        card.state["model"] = DecoderLM(card.state["cfg"], device=dev, dtype=torch.float32)
+        card.state["params"] = _to_device(cpu.state["params"], dev)
+        got = pred.predict(card, tokens, NullTracer())
+        want = pred.predict(cpu, tokens, NullTracer())
+        err = float(np.abs(got - want).max())
+        ok = bool(np.isfinite(got).all()) and bool(
+            (np.abs(got - want) <= PLATFORM_TOL + PLATFORM_TOL * np.abs(want)).all())
+        same_argmax = bool((got[:, -1].argmax(-1) == want[:, -1].argmax(-1)).all())
+        framework = pred.predict(card, tokens, Tracer("t", TracingServer(), TraceLevel.FRAMEWORK))
+        bits = bool(np.array_equal(framework, got))
+        print(f"   reduced {manifest.name} f32, logits {tuple(got.shape)}: max |card - cpu| "
+              f"{err:.3e} (<= {PLATFORM_TOL} + {PLATFORM_TOL}|cpu|: {ok}), last-position argmax "
+              f"equal: {same_argmax}, FRAMEWORK == MODEL bits: {bits}")
+        if not (ok and same_argmax and bits):
+            raise SystemExit(f"platform check: reduced {manifest.name} disagrees")
+        pred.close(card)
+        pred.close(cpu)
+
+
+def _span_ms(spans, name):
+    return [(s["end"] - s["begin"]) * 1e3 for s in spans if s["name"] == name]
+
+
+def _fmt_evaluation(kind, m, spans):
+    """Latency, throughput and (by kind) the optimal batch or the achieved
+    QPS and SLO attainment, from the metrics and the trace."""
+    from repro_torch.core.analysis import trimmed_mean
+
+    predict = _span_ms(spans, "predict")
+    if kind == "batched":
+        per = m["per_batch"]
+        lat = ", ".join(f"b{b} {v['trimmed_mean_ms']:.2f} ms / {v['throughput_ips']:.1f}/s"
+                        for b, v in per.items())
+        return (f"per batch (trimmed mean, throughput): {lat}; max throughput "
+                f"{m['max_throughput_ips']:.2f} inputs/s at optimal batch "
+                f"{m['optimal_batch_size']}")
+    # nearest-rank p99 over at most 100 requests is their maximum
+    if "p99_ms" not in m and m["num_requests"] > 100:
+        raise SystemExit("platform: p99 of more than 100 requests is not their maximum")
+    p99 = m.get("p99_ms", m["max_ms"])
+    out = f"trimmed mean {m['trimmed_mean_ms']:.3f} ms, p99 {p99:.3f} ms"
+    if kind == "online":
+        (scen,) = _span_ms(spans, "scenario:online")
+        out += f", throughput {m['num_requests'] / scen * 1e3:.3f} requests/s"
+    elif kind == "server":
+        out += (f", achieved {m['achieved_qps']:.3f} QPS of {m['offered_qps']:.1f} offered, SLO "
+                f"{m['slo_ms']:.0f} ms attainment {m['slo_attainment']:.3f}, mean batch "
+                f"{m['sched_mean_batch_occupancy']:.2f}")
+    elif kind == "offline":
+        out += (f", throughput {m['throughput_ips']:.3f} inputs/s, mean batch "
+                f"{m['sched_mean_batch_occupancy']:.2f}")
+    inference = _span_ms(spans, "inference")
+    return out + (f"; predict trimmed mean {trimmed_mean(predict):.3f} ms over {len(predict)}, "
+                  f"of which inference (the forward, synchronized) "
+                  f"{trimmed_mean(inference):.3f} ms over {len(inference)}")
+
+
+def platform_phase(torch, counters):
+    """The platform at published width on the card (bf16, random weights
+    from seed 0): each evaluation opens its own predictor; each kernel must
+    launch exactly its per-pass count times the evaluation's ``inference``
+    spans, and no other kernel; the SYSTEM evaluation's ``system:cuda``
+    launches must add up to the counters; the evaldb holds one record per
+    evaluation."""
+    from repro_torch.core import EvaluationRequest, ScenarioSpec, SchedulerConfig, Span
+    from repro_torch.core.analysis import top_layers
+    from repro_torch.core.platform import LocalPlatform
+
+    platform = LocalPlatform(backends=("torch",), reduced_models=False)
+    try:
+        evaluations = _evaluations()
+        for label, arch, level, scen, sched in evaluations:
+            req = EvaluationRequest(model=arch, scenario=ScenarioSpec(seed=SEED, **scen),
+                                    trace_level=level, seq_len=PLATFORM_SEQ,
+                                    scheduler=SchedulerConfig(**sched) if sched else None)
+            _zero(counters)
+            t0 = time.perf_counter()
+            res = platform.evaluate(req)[0]
+            wall = time.perf_counter() - t0
+            counts = {name: mod.launches for name, mod in counters.items()}
+            spans = platform.evaldb.spans(res["eval_id"])
+            passes = len(_span_ms(spans, "inference"))
+            expect = {k: n * passes for k, n in PER_PASS[arch].items()}
+            got = {k: n for k, n in counts.items() if n}
+            (load,) = _span_ms(spans, "model_load")
+            print(f"   {arch} {label}: model_load {load:.1f} ms, {passes} passes, launches {got} "
+                  f"(expected {expect}), evaluation wall {wall:.2f} s")
+            if not passes or got != expect:
+                raise SystemExit(f"platform {arch} {label}: launches {got}, expected {expect}")
+            print(f"      {_fmt_evaluation(scen['kind'], res['metrics'], spans)}")
+            if level == "FRAMEWORK":
+                top = top_layers([Span.from_dict(d) for d in spans], k=5)
+                print("      FRAMEWORK top 5 layers: " + ", ".join(
+                    f"{t.name} {t.mean_s * 1e3:.3f} ms x{t.count}" for t in top))
+            if level == "SYSTEM":
+                events = [s["tags"] for s in spans if s["name"] == "system:cuda"]
+                summed = {}
+                for e in events:
+                    for k, n in e["launches"].items():
+                        summed[k] = summed.get(k, 0) + n
+                if len(events) != passes or summed != got:
+                    raise SystemExit(f"platform SYSTEM: system:cuda launches {summed} over "
+                                     f"{len(events)} events, counters {got}")
+                ms = [e["device_ms"] for e in events]
+                if not all(x > 0 for x in ms):
+                    raise SystemExit(f"platform SYSTEM: system:cuda device_ms {ms}: the "
+                                     f"profiler recorded no device time")
+                print(f"      SYSTEM system:cuda: device busy ms per predict "
+                      f"{', '.join(f'{x:.3f}' for x in ms)}; "
+                      f"max_memory_allocated {max(e['max_memory_allocated'] for e in events) / 1e9:.2f} GB; "
+                      f"launches agree with the counters")
+        records = platform.evaldb.query()
+        if len(records) != len(evaluations):
+            raise SystemExit(f"evaldb holds {len(records)} records for {len(evaluations)} "
+                             f"evaluations")
+        print(f"   evaldb: {len(records)} records, one per evaluation")
+        print(platform.report(model="glm4-9b"))
+    finally:
+        platform.shutdown()
+
+
 def main() -> int:
     import torch
 
@@ -1517,13 +1790,7 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}")
     from repro_torch.kernels import _build
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import rmsnorm as rn
-    from repro_torch.kernels import spec_verify as sv
-    from repro_torch.kernels import ssd as sd
-    from repro_torch.kernels import varlen_prefill as vp
+    from repro_torch.kernels import kernel_counters
 
     info = _build.build_info()
     print(f"   kernels: {info.path} ({'built' if info.built else 'cached'} "
@@ -1536,6 +1803,8 @@ def main() -> int:
     records = kernels_phase(torch, dev)
     records.update(dense_kernels_phase(torch, dev))
     records.update(ssd_kernels_phase(torch, dev))
+    for name, err in platform_kernels_phase(torch, dev).items():
+        records[name]["err"] = max(records[name]["err"], err)
     _done(torch, "2. kernels", t0)
 
     t0 = _phase("3. check: reduced glm4-9b and mamba2-130m, card vs CPU reference")
@@ -1545,8 +1814,8 @@ def main() -> int:
     _done(torch, "3. check", t0)
 
     t0 = _phase("4. serve: glm4-9b and mamba2-130m, full width and depth, random bf16 weights")
-    counters = {"rmsnorm": rn, "paged_attention": pa, "spec_verify": sv, "varlen_prefill": vp,
-                "flash_attention": fa, "decode_attention": da, "ssd": sd}
+    # every kernel wrapper's launch counter, by kernel name
+    counters = kernel_counters()
     model, params = full_model(torch, dev)
     launches, engine, reqs = serve_phase(torch, dev, counters, model, params)
     print("   -- the dense engines (static generate behind the scheduler; serve_continuous)")
@@ -1565,6 +1834,13 @@ def main() -> int:
     dense_profile_phase(torch, dense_engine, prompts)
     dense_profile_phase(torch, ssm_engine, ssm_prompts)
     _done(torch, "5. profile", t0)
+    del model, params, engine, dense_engine, ssm_model, ssm_params, ssm_engine
+    torch.cuda.empty_cache()
+
+    t0 = _phase("6. platform: client -> server -> agent -> scenario -> torch predictor")
+    platform_check(torch, dev)
+    platform_phase(torch, counters)
+    _done(torch, "6. platform", t0)
 
     sources = {
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:26"),

@@ -19,7 +19,7 @@ arrays.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
@@ -148,6 +148,14 @@ class DecoderLM:
                                     self.cfg)
         return x1 + y, state, conv
 
+    def _attn_block_full(self, blk, x: torch.Tensor) -> torch.Tensor:
+        """ln1 + attention over the sequence and ln2 + MLP, residual-added."""
+        return self._block_ffn(blk, x + attn_full(blk["attn"], self._norm(x, blk["ln1"]),
+                                                  self.cfg))
+
+    def _block_full(self, blk, x: torch.Tensor) -> torch.Tensor:
+        return self._mamba_block_full(blk, x) if self.ssm else self._attn_block_full(blk, x)
+
     # -- full sequence ------------------------------------------------------------
     def forward(self, params, batch: Dict[str, torch.Tensor]):
         """Logits of every position of ``batch["tokens"]`` (b, s): float32
@@ -155,12 +163,24 @@ class DecoderLM:
         model returns them.  ``remat`` (a training option) is not ported."""
         x = self._embed_tokens(params, batch["tokens"])
         for blk in params["blocks"]:
-            if self.ssm:
-                x = self._mamba_block_full(blk, x)
-                continue
-            x = x + attn_full(blk["attn"], self._norm(x, blk["ln1"]), self.cfg)
-            x = self._block_ffn(blk, x)
+            x = self._block_full(blk, x)
         return self._logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def forward_instrumented(self, params, batch: Dict[str, torch.Tensor],
+                             hook: Callable[[str, Callable[[], torch.Tensor]], torch.Tensor]
+                             ) -> torch.Tensor:
+        """:meth:`forward`'s logits, computed layer by layer with
+        ``hook(name, thunk)`` around each piece (the FRAMEWORK trace level;
+        the counterpart of ``repro.models.lm._forward_instrumented_decoder``).
+        The pieces are ``embed``, ``layer_{l:03d}_attn`` (dense) or
+        ``layer_{l:03d}_mamba`` (ssm), and ``logits``; the port refuses the
+        windowed configs whose layer names carry the reference's ``_w``
+        suffix.  Each piece runs the ops ``forward`` runs, in its order."""
+        x = hook("embed", lambda: self._embed_tokens(params, batch["tokens"]))
+        kind = "mamba" if self.ssm else "attn"
+        for l, blk in enumerate(params["blocks"]):
+            x = hook(f"layer_{l:03d}_{kind}", lambda blk=blk, x=x: self._block_full(blk, x))
+        return hook("logits", lambda: self._logits(params, x))
 
     # -- dense cache ------------------------------------------------------------------
     def cache_defs(self, batch: int, max_seq: int) -> Dict[str, tuple]:

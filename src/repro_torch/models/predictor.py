@@ -1,0 +1,142 @@
+"""The port's model-zoo predictor: the platform's ``torch`` framework
+predictor (the counterpart of ``repro.models.predictor.JaxModelPredictor``).
+
+Implements the 3-function predictor interface (:mod:`repro_torch.core.
+predictor`) over the port's architectures.  ``open`` builds a
+:class:`DecoderLM` at the manifest's width on the agent's device (bf16 on
+the card, float32 on the CPU) with random weights from the manifest's seed;
+``predict`` turns int32 tokens into ``forward``'s
+float32 logits, returned as numpy like the reference's ``np.asarray(out)``,
+so the timed predict of a scenario includes the logits' copy to the host.
+
+Trace levels:
+
+* MODEL     — ``model_load``/``weight_init``/``inference`` spans; on the card
+              the ``inference`` span closes after ``torch.cuda.synchronize``,
+              so it times the device work
+* FRAMEWORK — per-layer spans through ``DecoderLM.forward_instrumented``,
+              each layer synchronized with the device (the reference's
+              ``jax.block_until_ready`` per layer): more visibility, more
+              overhead
+* SYSTEM    — on the card one ``system:cuda`` event per predict: the
+              forward's device busy time (``device_ms``: the durations of
+              the device's kernels, copies and sets that torch.profiler
+              records during the forward, summed), the launches of each
+              hand-written kernel during the predict (the change of each
+              ``repro_torch.kernels`` wrapper's ``launches`` counter) and
+              ``torch.cuda.max_memory_allocated``.  On the CPU there is no
+              such event.  (The reference reads FLOPs and bytes from XLA's
+              cost analysis; the port's counters of those wait for its
+              roofline.)
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..configs import get_config
+from ..core.predictor import OpenRequest, Predictor, PredictorHandle, _handles
+from ..core.tracing import Tracer, TraceLevel
+from ..device import resolve_device
+from ..kernels import kernel_counters
+from .lm import DecoderLM
+
+
+class TorchModelPredictor(Predictor):
+    name = "torch"
+    version = "1.0.0"
+
+    # -- ModelLoad ---------------------------------------------------------------
+    def open(self, req: OpenRequest, tracer: Tracer) -> PredictorHandle:
+        manifest = req.manifest
+        arch = manifest.arch or manifest.name
+        with tracer.span("model_load", TraceLevel.MODEL, arch=arch, backend=self.name):
+            if arch.startswith("resnet"):
+                raise NotImplementedError(
+                    f"{arch}: not ported (ROADMAP Queue 1 item 6)")
+            cfg = get_config(arch, reduced=req.manifest.reduced)
+            model = DecoderLM(cfg, device=resolve_device(req.device))
+            seed = int(manifest.model_assets.get("seed", 0))
+            with tracer.span("weight_init", TraceLevel.MODEL):
+                params = model.init(seed)
+                _sync(model.device)
+        state = {"kind": "lm", "cfg": cfg, "model": model, "params": params,
+                 "seq_len": req.seq_len}
+        return PredictorHandle(
+            handle_id=next(_handles),
+            backend=self.name,
+            model_key=manifest.key,
+            state=state,
+        )
+
+    # -- Predict ------------------------------------------------------------------
+    def predict(self, handle: PredictorHandle, batch: Any, tracer: Tracer) -> Any:
+        state = handle.state
+        model, params = state["model"], state["params"]
+        tokens = torch.from_numpy(np.asarray(batch, dtype=np.int32))
+        if tokens.ndim == 1:
+            tokens = tokens[None]
+        model_batch = {"tokens": tokens.to(model.device)}
+        system = tracer.enabled(TraceLevel.SYSTEM) and model.device.type == "cuda"
+        with contextlib.ExitStack() as stack:
+            if system:
+                from torch.profiler import ProfilerActivity, profile
+
+                counters = kernel_counters()
+                before = {name: mod.launches for name, mod in counters.items()}
+                torch.cuda.reset_peak_memory_stats(model.device)
+                prof = stack.enter_context(profile(activities=[ProfilerActivity.CUDA]))
+            with torch.inference_mode():
+                if tracer.enabled(TraceLevel.FRAMEWORK):
+                    out = self._predict_instrumented(model, params, model_batch, tracer)
+                else:
+                    with tracer.span("inference", TraceLevel.MODEL,
+                                     batch=int(tokens.shape[0])):
+                        out = model.forward(params, model_batch)[0]
+                        _sync(model.device)
+        if system:
+            launches = {name: mod.launches - before[name] for name, mod in counters.items()}
+            tracer.event(
+                "system:cuda",
+                0.0,
+                0.0,
+                TraceLevel.SYSTEM,
+                device_ms=_device_ms(prof),
+                launches={k: v for k, v in sorted(launches.items()) if v},
+                max_memory_allocated=int(torch.cuda.max_memory_allocated(model.device)),
+            )
+        return out.cpu().numpy()
+
+    def _predict_instrumented(self, model: DecoderLM, params, model_batch,
+                              tracer: Tracer) -> torch.Tensor:
+        def hook(name: str, thunk):
+            with tracer.span(name, TraceLevel.FRAMEWORK):
+                out = thunk()
+                _sync(model.device)
+                return out
+
+        with tracer.span("inference", TraceLevel.MODEL, instrumented=True):
+            return model.forward_instrumented(params, model_batch, hook)
+
+    # -- ModelUnload ----------------------------------------------------------------
+    def close(self, handle: PredictorHandle) -> None:
+        handle.state = None
+
+
+def _device_ms(prof) -> float:
+    """The device's busy ms in a profile: the durations of its kernels,
+    copies and sets, summed (one stream: they do not overlap).  Read from
+    the profiler's raw results: its per-op tables cost ~1 s a predict to
+    build."""
+    from torch.autograd import DeviceType
+
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e6
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -212,7 +212,7 @@ def test_dense_engines_call_only_the_dense_kernels(engines, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# the request scheduler (FIFO threaded core)
+# the request scheduler (its threaded drive)
 # ---------------------------------------------------------------------------
 def test_scheduler_coalesces_fifo_batches():
     seen = []
@@ -278,12 +278,16 @@ def test_scheduler_failures_and_admission_control():
 
     sched = tsch.RequestScheduler(execute, tsch.SchedulerConfig(queue_depth=1))
     fut = sched.submit(payload=0)
-    with pytest.raises(RuntimeError, match="not running"):
-        fut.result()
     with pytest.raises(tsch.SchedulerQueueFull):
         sched.submit(payload=1, block=False)
     assert sched.rejected == 1 and sched.stats()["submitted"] == 1.0
+    # on a scheduler that is not running, result() drives it synchronously
+    with pytest.raises(RuntimeError, match="boom"):
+        fut.result()
+    assert fut.request.status == "failed" and sched.pending == 0
+    # the threaded drive fails the batch through its futures as well
     sched.start()
+    fut = sched.submit(payload=2)
     with pytest.raises(RuntimeError, match="boom"):
         fut.result(timeout=10)
     sched.stop()

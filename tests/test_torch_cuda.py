@@ -879,3 +879,82 @@ def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(_build.SharedMemoryError, match="shared memory"):
         ssd_mod.ssd(*long[:5], chunk=256)
     assert ssd_mod.launches == n0
+
+
+# ---------------------------------------------------------------------------
+# the platform's torch predictor on the card
+# ---------------------------------------------------------------------------
+def _predictor_pair(arch, dev):
+    """The torch predictor opened on the card and on the CPU for the reduced
+    ``arch``, the card's handle holding the float32 model with the CPU's
+    weights."""
+    from repro_torch.core import NullTracer, OpenRequest, make_predictor
+    from repro_torch.core.platform import builtin_manifests
+    from repro_torch.models.lm import DecoderLM
+
+    manifest = next(m for m in builtin_manifests(reduced=True) if m.name == arch)
+    pred = make_predictor("torch")
+    card, cpu = (pred.open(OpenRequest(manifest=manifest, device=str(d)), NullTracer())
+                 for d in (dev, "cpu"))
+    card.state["model"] = DecoderLM(card.state["cfg"], device=dev, dtype=torch.float32)
+    card.state["params"] = _to(cpu.state["params"], dev)
+    return pred, (card, cpu)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "mamba2-130m"])
+def test_predictor_card_vs_cpu(cuda, arch):
+    """Reduced float32 logits on the card within 1e-4 + 1e-4 |cpu| of the
+    CPU's (the CUDA-core float32 kernels against the plain versions), the
+    same last-position argmax, and FRAMEWORK logits bit-equal to MODEL."""
+    from repro_torch.core import NullTracer, Tracer, TraceLevel, TracingServer
+
+    pred, (card, cpu) = _predictor_pair(arch, cuda)
+    tokens = np.random.default_rng(5).integers(0, 256, (3, 21)).astype(np.int32)
+    got = pred.predict(card, tokens, NullTracer())
+    want = pred.predict(cpu, tokens, NullTracer())
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    assert np.array_equal(got[:, -1].argmax(-1), want[:, -1].argmax(-1))
+    framework = pred.predict(card, tokens, Tracer("t", TracingServer(), TraceLevel.FRAMEWORK))
+    assert np.array_equal(framework, got)
+
+
+@pytest.mark.parametrize("arch,per_pass", [("glm4-9b", {"flash_attention": 3, "rmsnorm": 7}),
+                                           ("mamba2-130m", {"ssd": 3, "rmsnorm": 7})])
+def test_system_level_counts_the_kernels(cuda, arch, per_pass):
+    """A SYSTEM evaluation on the card emits one ``system:cuda`` event per
+    predict, whose launches add up to the counters' change, one pass's worth
+    per ``inference`` span."""
+    from repro_torch.core import EvaluationRequest, ScenarioSpec
+    from repro_torch.core.platform import LocalPlatform
+    from repro_torch.kernels import kernel_counters
+
+    counters = kernel_counters()
+    before = {k: m.launches for k, m in counters.items()}
+    p = LocalPlatform(backends=("torch",), device="cuda")
+    try:
+        res = p.evaluate(EvaluationRequest(
+            model=arch, scenario=ScenarioSpec(kind="online", num_requests=2, rate_hz=1000.0,
+                                              warmup=1),
+            trace_level="SYSTEM", seq_len=32))[0]
+        spans = p.evaldb.spans(res["eval_id"])
+    finally:
+        p.shutdown()
+    delta = {k: m.launches - before[k] for k, m in counters.items() if m.launches != before[k]}
+    passes = sum(1 for s in spans if s["name"] == "inference")
+    assert passes == 3 and delta == {k: n * passes for k, n in per_pass.items()}
+    events = [s["tags"] for s in spans if s["name"] == "system:cuda"]
+    assert len(events) == passes
+    summed = {}
+    for e in events:
+        assert e["device_ms"] > 0 and e["max_memory_allocated"] > 0
+        for k, n in e["launches"].items():
+            summed[k] = summed.get(k, 0) + n
+    assert summed == delta
