@@ -57,22 +57,39 @@ Phases, each printing its own lines and wall time, each ending in
    SSD, so there is no library time), its plan and blocks per launch, and
    its time at a batch-1 admission.  Then ``flash_attention``, rmsnorm
    and ``ssd`` at the shapes phase 6 gives them, bf16, batches 1 to 8 of
-   128 tokens: glm4-9b's causal attention and norms (D 4096),
+   128 tokens: the causal attention and norms of glm4-9b (D 4096) and of
+   gemma2-27b (D 4608, softcap 50, each of its two windows),
    mamba2-130m's scan (two whole chunks, y and the final state, x/B/C
-   views of one projection) and norms (768 and the gated 1536);
+   views of one projection) and norms (768 and the gated 1536).  Then the
+   rest of the dense family's shapes (``zoo_kernels_phase``, d 128):
+   gemma2-27b (32 query heads on 16 kv heads, softcap 50, window 4096 on
+   its local layers, GLOBAL_WINDOW on its global ones):
+   flash over one 8192-token pass, timed with and without the window; a
+   packed 2048-token chunk at pos0 4096 over 256 context pages; the decode
+   family (``decode_attention``, ``paged_attention``, ``spec_verify`` at W
+   5) over 8 contexts of 4500-6000 tokens, each with the window (the plain
+   version without the window must fail the limit); gemma2-27b with each
+   of its two windows, granite-20b (48 on 1) and chameleon-34b (64 on 8):
+   flash on a static pass (8, 1024), a packed
+   buffer of two 1024-token chunks (one over 32 context pages), the decode
+   family at the serve lengths; rmsnorm at d_model 4608/6144/8192 and over
+   QK-norm rows of 128; each timed beside its bound (a windowed bound
+   counts the live (query, key) pairs);
 3. check: reduced glm4-9b in float32 served on the card and on the CPU
    from the same weights must emit the same greedy tokens, with and
    without speculative decoding (which must also equal each other); the
    card-vs-CPU token agreement on int8 and fp8 pools is printed.  On the
    dense engines ``generate`` and ``serve_continuous`` tokens must equal
    the CPU's and ``forward`` logits agree within 1e-4 + 1e-4 |cpu|; the
-   same for reduced mamba2-130m;
+   same for reduced mamba2-130m; and for reduced gemma2-27b (window 8),
+   chameleon-34b, granite-20b and deepseek-67b on prompts of 20-60 tokens,
+   ``serve_paged`` with ``spec_k`` 0 and 4 as well;
 4. serve: full-width, full-depth glm4-9b (40 layers, random bf16 weights
    from a seeded CUDA generator) through ``ServingEngine.serve_paged``;
    every request must complete and every kernel must have been launched
    (counts zeroed just before the run, read just after), exactly 40
    attention and 81 rmsnorm launches per decode step and per prefill
-   launch; two more runs of the same requests give the metrics' spread.
+   launch; one more run of the same requests gives the metrics' spread.
    Then the same mix on int8 and fp8 pools, and speculative decoding
    (``spec_k`` 4) on tiled prompts: ``spec_ngram`` 3 on the bf16 pool, and
    ``spec_ngram`` 1 on each pool, each run counted alone: 40 spec_verify
@@ -81,7 +98,7 @@ Phases, each printing its own lines and wall time, each ending in
    weights at the published vocabulary almost never repeat a 3-gram within
    32 tokens, so 3-gram lookup rarely drafts); token agreement with the
    bf16 plain run of the same prompts is printed.  Then the dense engines
-   on the same requests, three runs each: the static path (Poisson
+   on the same requests, two runs each: the static path (Poisson
    arrivals at 20 Hz through the threaded ``RequestScheduler`` into
    ``generate`` batches of up to 8) and ``serve_continuous`` (8 slots);
    every request must complete, each run must launch exactly 40
@@ -89,7 +106,7 @@ Phases, each printing its own lines and wall time, each ending in
    ``decode_attention`` and 81 rmsnorm per decode step and no paged
    kernel (and the paged runs neither dense kernel).  Then full-width,
    full-depth mamba2-130m (24 layers, random bf16 weights) through the
-   same two dense engines on the same requests, three runs each: exactly
+   same two dense engines on the same requests, two runs each: exactly
    24 ``ssd`` and 49 rmsnorm launches per prefill pass, 0 ``ssd`` and 49
    rmsnorm per decode step, and no attention kernel;
 5. where the time goes: device time by kernel class per prefill launch and
@@ -97,6 +114,20 @@ Phases, each printing its own lines and wall time, each ending in
    share, from torch.profiler, for the paged engine and for a dense
    prefill pass and decode step of glm4-9b and of mamba2-130m (with the
    device time of each of ``ssd``'s three launches per pass);
+5b. the rest of the dense family at published width and depth (random
+   bf16 weights, one model at a time, each set run once and counted
+   alone, exactly its attention and ``_norms_per_pass`` rmsnorm launches a
+   pass): gemma2-27b (46 layers; 46 + 185 a pass) through ``serve_paged``
+   on the mix, a long set of prompts of 6000 and 4500 tokens (``max_seq``
+   8192: past the 4096 window, over several prefill boundaries) through
+   ``serve_paged`` and one ``generate`` batch, and the static path and
+   ``serve_continuous`` on the mix (token agreement of the three engines
+   printed); granite-20b (52 + 105) through ``serve_paged`` with and
+   without ``spec_k`` 4; chameleon-34b (48 + 193) through ``serve_paged``,
+   the static path and ``serve_continuous``; each model's peak memory and
+   pool bytes per token.
+   deepseek-67b (125.6 GiB of bf16 weights) does not fit one card: it runs
+   reduced only (phase 3);
 6. platform: the evaluation platform of ``repro_torch.core`` (server,
    agent, scenario, scheduler, the torch predictor).  Reduced glm4-9b and
    mamba2-130m through the predictor on the CPU and on the card (its
@@ -105,13 +136,16 @@ Phases, each printing its own lines and wall time, each ending in
    ``LocalPlatform(backends=("torch",), reduced_models=False)`` evaluates
    full-width glm4-9b (online, batched 1/2/4/8, server at 20 Hz with a
    250 ms SLO, offline, online at FRAMEWORK and at SYSTEM) and mamba2-130m
-   (online, offline), 128 tokens, each evaluation opening its own model
-   (random bf16 weights, seed 0): each kernel must launch exactly its
-   per-pass count (glm4-9b: 40 ``flash_attention`` and 81 rmsnorm;
-   mamba2-130m: 24 ``ssd`` and 49 rmsnorm) times the evaluation's
+   (online, offline) and gemma2-27b (online, online at FRAMEWORK), 128
+   tokens, each evaluation opening its own model (random bf16 weights,
+   seed 0): each kernel must launch exactly its per-pass count (glm4-9b:
+   40 ``flash_attention`` and 81 rmsnorm; mamba2-130m: 24 ``ssd`` and 49
+   rmsnorm; gemma2-27b: 46 and 185) times the evaluation's
    ``inference`` spans and no other kernel; the SYSTEM evaluation's
    ``system:cuda`` launches must add up to the counters and its device
-   busy time (torch.profiler) must be above 0; the evaldb must
+   busy time (torch.profiler) must be above 0; the FRAMEWORK layer spans
+   must carry the reference's names (``_w4096``/``_w1073741824`` on
+   gemma2's layers); the evaldb must
    hold one record per evaluation; the report is printed;
 7. one JSON line of kernel records, then the final line
    ``{"ok": true, "device": {...}}``.
@@ -144,7 +178,7 @@ LAUNCHES = 24                   # calls per timing, back to back
 SLOTS, PAGE, MAX_SEQ, BUDGET = 8, 16, 2048, 2048
 REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS = 16, 64, 1024, 32
 SEED = 0
-REPEATS = 3                     # serve runs; launches are counted in the first
+REPEATS = 2                     # serve runs; launches are counted in the first
 KV_MODES = (None, "int8", "fp8")  # pool storage: bf16, or codes + f32 scales
 SPEC_K = 4                      # draft depth of the speculative runs
 # prompt-lookup n-gram: 3 as in bench_spec, and 1, which drafts from any
@@ -227,11 +261,16 @@ def _time_few(torch, fn, calls=3):
     return a.elapsed_time(b) / calls
 
 
-def _timed(torch, cpm, kernel, plain, library, sets, library_sets):
+def _timed(torch, cpm, kernel, plain, library, sets, library_sets, plain_calls=None):
     """Kernel and plain version over ``sets``, library (None where no single
-    PyTorch call computes the function) over its own."""
+    PyTorch call computes the function) over its own.  With ``plain_calls``
+    the plain version, slow at the case's shape, is timed as ``_time_few``
+    takes it: that many calls on the first set, host gaps in."""
     ms, ms_q = _time_ms(torch, kernel, sets, cpm)
-    plain_ms, plain_q = _time_ms(torch, plain, sets, cpm)
+    if plain_calls is None:
+        plain_ms, plain_q = _time_ms(torch, plain, sets, cpm)
+    else:
+        plain_ms, plain_q = _time_few(torch, lambda: plain(*sets[0]), plain_calls), False
     lib_ms, lib_q = (_time_ms(torch, library, library_sets, cpm) if library is not None
                      else (None, True))
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -1046,22 +1085,23 @@ def _fmt_agreement(want, got):
     return f"{same}/{total} tokens equal, first divergence: {where}"
 
 
-def check_phase(torch, dev):
-    """Reduced glm4-9b in float32: the card's greedy tokens equal the CPU's,
-    plain and speculative, and speculative equals plain; card vs CPU on
-    int8 and fp8 pools is printed."""
+def check_phase(torch, dev, arch="glm4-9b", prompt_min=5):
+    """Reduced ``arch`` in float32: the card's greedy tokens equal the CPU's,
+    plain and speculative, and speculative equals plain (prompts of
+    ``prompt_min``-60 tokens); card vs CPU on int8 and fp8 pools is
+    printed."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import DecoderLM
     from repro_torch.serve.engine import ServingEngine
 
-    cfg = get_config("glm4-9b", reduced=True)
+    cfg = get_config(arch, reduced=True)
     cpu_model = DecoderLM(cfg, device="cpu", dtype=torch.float32)
     cpu_params = cpu_model.init(seed=SEED)
     gpu_model = DecoderLM(cfg, device=dev, dtype=torch.float32)
     gpu_params = _to_device(cpu_params, dev)
-    plain_reqs = lambda: make_requests(6, 5, 60, 8, cfg.vocab_size, SEED)
-    tiled_reqs = lambda: _tiled_requests(6, 16, 60, 16, cfg.vocab_size, SEED)
+    plain_reqs = lambda: make_requests(6, prompt_min, 60, 8, cfg.vocab_size, SEED)
+    tiled_reqs = lambda: _tiled_requests(6, max(16, prompt_min), 60, 16, cfg.vocab_size, SEED)
     runs = {}
     for kv_dtype in KV_MODES:
         for name, model, params in (("cpu", cpu_model, cpu_params),
@@ -1076,28 +1116,28 @@ def check_phase(torch, dev):
     tok = lambda key: [r.tokens for r in runs[key].results]
     same = lambda a, b: _agreement(tok(a), tok(b))[2] is None
     plain_ok = same(("cpu", None, 0), ("cuda", None, 0))
-    print(f"   reduced glm4-9b f32, 6 requests: cuda tokens == cpu tokens: {plain_ok}")
+    print(f"   reduced {arch} f32, 6 requests: cuda tokens == cpu tokens: {plain_ok}")
     spec = runs["cuda", "tiled", SPEC_K]
     spec_ok = (same(("cpu", "tiled", SPEC_K), ("cuda", "tiled", SPEC_K))
                and same(("cuda", "tiled", 0), ("cuda", "tiled", SPEC_K))
                and same(("cpu", "tiled", 0), ("cuda", "tiled", 0)))
-    print(f"   reduced glm4-9b f32, 6 tiled prompts, spec_k {SPEC_K}: cuda spec tokens == cpu "
+    print(f"   reduced {arch} f32, 6 tiled prompts, spec_k {SPEC_K}: cuda spec tokens == cpu "
           f"spec tokens == cuda plain tokens: {spec_ok}; cuda {spec.spec_stats}")
     if not plain_ok:
-        raise SystemExit("the card's greedy tokens differ from the CPU reference")
+        raise SystemExit(f"{arch}: the card's greedy tokens differ from the CPU reference")
     if not spec_ok:
-        raise SystemExit("speculative tokens differ from the CPU's or from plain decoding")
+        raise SystemExit(f"{arch}: speculative tokens differ from the CPU's or from plain decoding")
     if not spec.spec_stats["spec_launches"]:
-        raise SystemExit("the reduced speculative check ran no verify step")
+        raise SystemExit(f"{arch}: the reduced speculative check ran no verify step")
     for mode in KV_MODES[1:]:
-        print(f"   reduced glm4-9b f32, {mode} pool, card vs CPU: "
+        print(f"   reduced {arch} f32, {mode} pool, card vs CPU: "
               f"{_fmt_agreement(tok(('cpu', mode, 0)), tok(('cuda', mode, 0)))}")
 
 
-def dense_check_phase(torch, dev, arch="glm4-9b"):
+def dense_check_phase(torch, dev, arch="glm4-9b", prompt_min=5):
     """Reduced ``arch`` in float32 on the dense engines: the card's greedy
-    tokens from ``generate`` and ``serve_continuous`` equal the CPU's, and
-    ``forward`` logits agree."""
+    tokens from ``generate`` and ``serve_continuous`` equal the CPU's
+    (prompts of ``prompt_min``-60 tokens), and ``forward`` logits agree."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1110,7 +1150,7 @@ def dense_check_phase(torch, dev, arch="glm4-9b"):
     cpu_params = cpu_model.init(seed=SEED)
     gpu_model = DecoderLM(cfg, device=dev, dtype=torch.float32)
     gpu_params = _to_device(cpu_params, dev)
-    reqs = make_requests(6, 5, 60, 8, cfg.vocab_size, SEED)
+    reqs = make_requests(6, prompt_min, 60, 8, cfg.vocab_size, SEED)
     prompts = [r.prompt for r in reqs]
     tokens = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab_size, (2, 48)))
     out = {}
@@ -1118,7 +1158,7 @@ def dense_check_phase(torch, dev, arch="glm4-9b"):
         engine = ServingEngine(model, params, max_batch=3, max_seq=96, page_size=PAGE,
                                device=model.device)
         static = np.concatenate([engine.generate(prompts[i:i + 3], 8).tokens for i in (0, 3)])
-        cont = engine.serve_continuous(make_requests(6, 5, 60, 8, cfg.vocab_size, SEED))
+        cont = engine.serve_continuous(make_requests(6, prompt_min, 60, 8, cfg.vocab_size, SEED))
         logits, _ = model.forward(params, {"tokens": tokens.to(model.device)})
         out[name] = (static, [r.tokens for r in cont.results], logits.cpu())
     static_ok = bool((out["cpu"][0] == out["cuda"][0]).all())
@@ -1167,13 +1207,24 @@ def _median_spread(label, runs):
         f"{k} {med[k]:.3f} (max-min {spread[k]:.3f})" for k in med))
 
 
-def _expected_launches(stats, num_layers):
-    """Launches each kernel must show for one serve run: 81 rmsnorm per
-    pass (prefill launch or decode step), 40 attention per layer pass of
-    its kind (verify steps launch spec_verify, plain steps paged_attention)."""
+def _norms_per_pass(cfg):
+    """rmsnorm launches of one pass (prefill launch or pass, decode step):
+    per layer ln1 and ln2 (a mamba block: ln and its gated norm), the two
+    post-norms and QK-norm's q and k where the config has them, then the
+    final norm (glm4-9b 81, mamba2-130m 49, gemma2-27b 185, granite-20b 105,
+    chameleon-34b 193)."""
+    return (2 + 2 * cfg.post_norms + 2 * cfg.qk_norm) * cfg.num_layers + 1
+
+
+def _expected_launches(stats, cfg):
+    """Launches each kernel must show for one serve run: ``_norms_per_pass``
+    rmsnorm per pass (prefill launch or decode step), one attention per
+    layer and pass of its kind (verify steps launch spec_verify, plain steps
+    paged_attention)."""
+    num_layers = cfg.num_layers
     verify = int(stats.spec_stats.get("spec_launches", 0))
     return {
-        "rmsnorm": (2 * num_layers + 1) * (stats.steps + stats.prefill_launches),
+        "rmsnorm": _norms_per_pass(cfg) * (stats.steps + stats.prefill_launches),
         "paged_attention": num_layers * (stats.steps - verify),
         "spec_verify": num_layers * verify,
         "varlen_prefill": num_layers * stats.prefill_launches,
@@ -1212,7 +1263,7 @@ def _counted_serve(torch, engine, reqs, counters, need, **kw):
     done = _completed([r.tokens for r in stats.results if r.status == "completed"],
                       engine.model.cfg.vocab_size)
     counts = _check_counts("serve_paged", counters,
-                           _expected_launches(stats, engine.model.cfg.num_layers), done, len(reqs))
+                           _expected_launches(stats, engine.model.cfg), done, len(reqs))
     missing = [name for name in need if counts[name] == 0]
     if missing:
         raise SystemExit(f"serve_paged: no launch of {missing} in a run that needs them")
@@ -1317,12 +1368,13 @@ def serve_phase(torch, dev, counters, model, params):
 
 def _dense_expected(model, passes, steps):
     """Launches a dense-engine run of ``passes`` prefill passes and
-    ``steps`` decode steps must show: 2L + 1 rmsnorm per pass and per step;
+    ``steps`` decode steps must show: ``_norms_per_pass`` rmsnorm per pass
+    and per step;
     per layer one flash_attention per pass and one decode_attention per step
     (dense family), or one ssd per pass and none per step (SSM family, whose
     decode step is plain torch).  Every other kernel: none."""
     L = model.cfg.num_layers
-    expect = {"rmsnorm": (2 * L + 1) * (passes + steps)}
+    expect = {"rmsnorm": _norms_per_pass(model.cfg) * (passes + steps)}
     if model.ssm:
         expect["ssd"] = L * passes
     else:
@@ -1330,11 +1382,11 @@ def _dense_expected(model, passes, steps):
     return expect
 
 
-def dense_serve_phase(torch, dev, counters, model, params):
+def dense_serve_phase(torch, dev, counters, model, params, repeats=REPEATS):
     """``model`` through the dense engines: the static path (Poisson
     arrivals, the threaded scheduler batching ``generate``) and
-    ``serve_continuous``, REPEATS runs each on the serve phase's requests,
-    each run counted alone (``_dense_expected``): for glm4-9b 40
+    ``serve_continuous``, ``repeats`` runs each on the serve phase's
+    requests, each run counted alone (``_dense_expected``): for glm4-9b 40
     flash_attention and 81 rmsnorm launches per prefill pass, 40
     decode_attention and 81 rmsnorm per decode step; for mamba2-130m 24 ssd
     and 49 rmsnorm per pass, 49 rmsnorm per step; no other kernel."""
@@ -1363,7 +1415,7 @@ def dense_serve_phase(torch, dev, counters, model, params):
     cont_len = max(len(p) for p in prompts) if model.ssm else PREFILL_LEN
     resident = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    for i in range(1, REPEATS + 1):
+    for i in range(1, repeats + 1):
         _zero(counters)
         run = serve_static(engine, prompts, arrivals, NEW_TOKENS, BATCH_TIMEOUT_MS,
                            log=lambda _: None)
@@ -1401,7 +1453,7 @@ def dense_serve_phase(torch, dev, counters, model, params):
           f"the {resident / 1e9:.2f} GB resident before the runs; "
           f"continuous vs static tokens (bf16, other batch shapes): "
           f"{_fmt_agreement(tokens['static'], tokens['continuous'])}")
-    return launches, engine, prompts
+    return launches, engine, prompts, tokens
 
 
 _CLASSES = (
@@ -1485,12 +1537,12 @@ def profile_phase(torch, engine, reqs):
           f"device busy {busy / steps:.3f} ms (idle {1 - busy / wall:.3f}); "
           f"device ms per step: {fmt(dec, steps)}")
     # the same classes per launch: a check on phase 2's event timings
-    L = engine.model.cfg.num_layers
+    L, norms = engine.model.cfg.num_layers, _norms_per_pass(engine.model.cfg)
     n1 = s1.prefill_launches
     print(f"   device ms per kernel launch: varlen_prefill {c1['varlen_prefill'] / (L * n1):.4f}, "
-          f"rmsnorm at {BUDGET} rows {c1['rmsnorm'] / ((2 * L + 1) * n1):.4f}, "
+          f"rmsnorm at {BUDGET} rows {c1['rmsnorm'] / (norms * n1):.4f}, "
           f"paged_attention {dec['paged_attention'] / (L * steps):.4f}, "
-          f"rmsnorm at {SLOTS} rows {dec['rmsnorm'] / ((2 * L + 1) * steps):.4f}")
+          f"rmsnorm at {SLOTS} rows {dec['rmsnorm'] / (norms * steps):.4f}")
 
 
 def dense_profile_phase(torch, engine, prompts):
@@ -1521,8 +1573,8 @@ def dense_profile_phase(torch, engine, prompts):
     per_launch = ([("ssd", prefill["ssd"] / L)] if model.ssm else
                   [("flash_attention", prefill["flash_attention"] / L),
                    ("decode_attention", step["decode_attention"] / L)])
-    per_launch += [("rmsnorm per pass", prefill["rmsnorm"] / (2 * L + 1)),
-                   ("rmsnorm per step", step["rmsnorm"] / (2 * L + 1))]
+    per_launch += [("rmsnorm per pass", prefill["rmsnorm"] / _norms_per_pass(model.cfg)),
+                   ("rmsnorm per step", step["rmsnorm"] / _norms_per_pass(model.cfg))]
     print("   device ms per kernel launch: " + ", ".join(f"{k} {v:.4f}" for k, v in per_launch))
     if model.ssm:
         # the tensor-core ssd is three CUDA launches a call (one ``launches`` count)
@@ -1533,12 +1585,419 @@ def dense_profile_phase(torch, engine, prompts):
                              f"({sorted(ssd_kernels)})")
 
 
+# the rest of the dense family: reduced configs checked card vs CPU (phase
+# 3), the three that fit one card served at full width (phase 5b)
+ZOO = ("gemma2-27b", "chameleon-34b", "granite-20b", "deepseek-67b")
+ZOO_FULL = ("gemma2-27b", "granite-20b", "chameleon-34b")
+ZOO_PROMPT_MIN = 20             # reduced checks: prompts past reduced gemma2's window of 8
+# gemma2's long set: two prompts past its 4096-key window, split over
+# several prefill boundaries
+LONG_LENS, LONG_MAX_SEQ = (6000, 4500), 8192
+
+
+def _live_pairs(s, window):
+    """(query, key) pairs a causal pass of ``s`` tokens leaves live under
+    ``window`` (None: no window)."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def zoo_kernels_phase(torch, dev):
+    """The kernels at the shapes the rest of the dense family gives them at
+    published width, bf16, d 128, each against its plain version within the
+    limit and timed beside its bound: gemma2-27b (32 query heads on 16 kv
+    heads, attention softcap 50, window 4096 on its local layers and
+    GLOBAL_WINDOW on its global ones), its flash pass of 8192 tokens, a
+    packed chunk at pos0 4096 over 256 context pages and the decode family
+    over contexts of 4500-6000 tokens, each with the 4096 window (the plain
+    version without it must fail the limit); gemma2-27b with each of its
+    two windows, granite-20b (48 on 1) and chameleon-34b (64 on 8) at the
+    serve phase's prefill and decode shapes; rmsnorm at d_model
+    4608/6144/8192 and over QK-norm rows of 128.  A windowed bound counts
+    the (query, key) pairs the window leaves live.  Returns each kernel's
+    worst error."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import spec_verify as sv
+    from repro_torch.kernels import varlen_prefill as vp
+    from repro_torch.models.lm import GLOBAL_WINDOW
+    from repro_torch.serve.engine import bucket_pow2
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev, dtype=bf)
+    cpm = _sleep_cycles_per_ms(torch)
+    clones = lambda *ts: (lambda i: tuple(t.clone() for t in ts))
+    worst = {}
+
+    def check(name, label, out, want):
+        worst[name] = max(worst.get(name, 0.0), _check(torch, f"{name} {label}", out, want))
+
+    def case(name, shape, kernel, plain, library, sets, lib_sets, nbytes, flops):
+        """One timed case (the plain version over 3 calls: at these shapes it
+        takes up to 0.1 s a call), printed as the other phases print theirs."""
+        record = dict(**_timed(torch, cpm, kernel, plain, library, sets, lib_sets, plain_calls=3),
+                      bound=_bound_ms(nbytes, flops), shape=shape)
+        _print_records({name: record})
+        return record
+
+    def heads(t, rep):
+        """(b, s, kvh, d) -> (b, h, s, d): K/V expanded to the query heads."""
+        return t.transpose(1, 2).repeat_interleave(rep, dim=1)
+
+    def opts_label(opts):
+        return "".join(f", {k} {v}" for k, v in opts.items())
+
+    gemma = get_config("gemma2-27b")
+    W, cap, d = gemma.sliding_window, gemma.attn_softcap, 128
+    win = dict(window=W, softcap=cap)
+    layouts = {a: (get_config(a).num_heads, get_config(a).num_kv_heads)
+               for a in ("gemma2-27b", "granite-20b", "chameleon-34b")}
+    # each arch with the attention options its layers pass: gemma2's local
+    # and global layers, the others none
+    serve_shapes = [("gemma2-27b", dict(window=w, softcap=cap)) for w in (W, GLOBAL_WINDOW)]
+    serve_shapes += [(a, {}) for a in ("granite-20b", "chameleon-34b")]
+
+    # -- flash_attention: gemma2's causal pass of LONG_MAX_SEQ tokens with its
+    #    window and softcap, against the same pass without the window
+    h, kvh = layouts["gemma2-27b"]
+    rep, s = h // kvh, LONG_MAX_SEQ
+    q, k, v = randn(1, s, h, d), randn(1, s, kvh, d), randn(1, s, kvh, d)
+
+    def plain_rows(q_, k_, v_, **opts):
+        """The plain version 2048 query rows at a time (its float32 scores of
+        the whole pass would take 8.6 GB a temporary)."""
+        return torch.cat([ref.attention(q_[:, i:i + 2048], k_, v_, q_offset=i, **opts)
+                          for i in range(0, q_.shape[1], 2048)], 1)
+
+    label = f"gemma2-27b q (1, {s}, {h}, {d}), kvh {kvh}"
+    want = plain_rows(q, k, v, **win)
+    check("flash_attention", f"{label}, window {W}, softcap {cap}",
+          fa.flash_attention(q, k, v, **win), want)
+    _rejects(torch, "flash_attention gemma2-27b plain without the window",
+             plain_rows(q, k, v, softcap=cap), want)
+    del want
+    pos = torch.arange(s, device=dev)
+    causal = pos[:, None] >= pos[None, :]
+    wmask = (causal & (pos[:, None] - pos[None, :] < W))[None, None]
+    nbytes = 2 * (2 * s * h * d + 2 * s * kvh * d)
+    sets = _rotation(nbytes, clones(q, k, v))
+    lib_sets = _rotation(2 * 4 * s * h * d,
+                         lambda i: (q.transpose(1, 2).contiguous(), heads(k, rep), heads(v, rep)))
+    live, every = _live_pairs(s, W), _live_pairs(s, None)
+    windowed = case(f"flash_attention {label}, window {W}, softcap {cap}",
+                    f"{live} live pairs; library: SDPA without the softcap, which it lacks",
+                    lambda *a: fa.flash_attention(*a, **win), lambda *a: plain_rows(*a, **win),
+                    lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_,
+                                                                      attn_mask=wmask),
+                    sets, lib_sets, nbytes, 4.0 * h * d * live)
+    whole = case(f"flash_attention {label}, no window, softcap {cap}",
+                 f"{every} live pairs; library: SDPA without the softcap",
+                 lambda *a: fa.flash_attention(*a, softcap=cap),
+                 lambda *a: plain_rows(*a, softcap=cap),
+                 lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, is_causal=True),
+                 sets, lib_sets, nbytes, 4.0 * h * d * every)
+    print(f"      windowed / unwindowed kernel time {windowed['ms'] / whole['ms']:.3f} "
+          f"(live pairs {live / every:.3f})")
+    del q, k, v, sets, lib_sets, wmask, causal
+
+    # -- varlen_prefill: a packed chunk of BUDGET tokens at pos0 4096 over
+    #    256 context pages of 16 (queries 4096..6143: the window starts
+    #    inside the context)
+    T, pos0 = BUDGET, W
+    ctx_pages, own_pages = pos0 // PAGE, T // PAGE
+    mp = ctx_pages + own_pages
+    kp, vpl = randn(mp + 1, PAGE, kvh, d), randn(mp + 1, PAGE, kvh, d)
+    table = torch.arange(1, mp + 1, dtype=torch.int32, device=dev)[None]
+    qp, kpk, vpk = randn(T, h, d), randn(T, kvh, d), randn(T, kvh, d)
+    meta = [torch.tensor(a, dtype=torch.int32, device=dev) for a in ([0, T], [T], [pos0])]
+    vargs = (qp, kpk, vpk, kp, vpl, *meta, table)
+    want = ref.varlen_prefill(*vargs, **win)
+    label = f"gemma2-27b T {T} at pos0 {pos0} over {ctx_pages} context pages"
+    check("varlen_prefill", f"{label}, window {W}, softcap {cap}",
+          vp.varlen_prefill(*vargs, **win), want)
+    _rejects(torch, "varlen_prefill gemma2-27b plain without the window",
+             ref.varlen_prefill(*vargs, softcap=cap), want)
+    qpos = pos0 + torch.arange(T, device=dev)
+    kpos = torch.arange(pos0 + T, device=dev)
+    lmask = ((qpos[:, None] >= kpos[None, :]) & (qpos[:, None] - kpos[None, :] < W))[None, None]
+    ctx_used = pos0 - (pos0 - W + 1)                 # context keys the first query still sees
+    nbytes = 2 * (2 * T * h * d + 2 * T * kvh * d) + 2 * 2 * ctx_used * kvh * d + 4 * (3 + mp)
+    sets = _rotation(nbytes, clones(qp, kpk, vpk, kp, vpl))
+    lib_sets = _rotation(
+        2 * (2 * T * h * d + 2 * h * (pos0 + T) * d),
+        lambda i: (qp.transpose(0, 1)[None].contiguous(),
+                   heads(torch.cat([kp[1:ctx_pages + 1].reshape(-1, kvh, d), kpk])[None], rep),
+                   heads(torch.cat([vpl[1:ctx_pages + 1].reshape(-1, kvh, d), vpk])[None], rep)))
+    case(f"varlen_prefill {label}, window {W}, softcap {cap}",
+         f"{T * W} live pairs; library: SDPA without the softcap",
+         lambda q_, k_, v_, kp_, vp_: vp.varlen_prefill(q_, k_, v_, kp_, vp_, *meta, table, **win),
+         lambda q_, k_, v_, kp_, vp_: ref.varlen_prefill(q_, k_, v_, kp_, vp_, *meta, table,
+                                                         **win),
+         lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=lmask),
+         sets, lib_sets, nbytes, 4.0 * h * d * T * W)
+    del kp, vpl, qp, kpk, vpk, sets, lib_sets, lmask, want
+
+    # -- the decode family: gemma2 over contexts of 4500-6000 tokens with its
+    #    4096 window; each of serve_shapes at the serve phase's lengths
+    lens_rng = np.random.default_rng(SEED + 5)
+    long_lens = [LONG_LENS[0]] + [int(n) for n in lens_rng.integers(LONG_LENS[1], LONG_LENS[0],
+                                                                    SLOTS - 1)]
+    serve_lens = [int(n) + NEW_TOKENS for n in _serve_lengths(SEED)[:SLOTS]]
+    decode_cases = [("gemma2-27b", long_lens, LONG_MAX_SEQ, win)]
+    decode_cases += [(arch, serve_lens, MAX_SEQ, opts) for arch, opts in serve_shapes]
+    for arch, lens_host, S, opts in decode_cases:
+        h, kvh = layouts[arch]
+        rep = h // kvh
+        window = opts.get("window")
+        lengths = torch.tensor(lens_host, dtype=torch.int32, device=dev)
+        bound = bucket_pow2(max(lens_host), floor=PAGE, cap=S)
+        q = randn(SLOTS, 1, h, d)
+        kc, vc = randn(SLOTS, S, kvh, d), randn(SLOTS, S, kvh, d)
+        seen = [min(n, window) if window else n for n in lens_host]
+        key_lo = torch.tensor([n - m for n, m in zip(lens_host, seen)], device=dev)
+        label = (f"{arch} q ({SLOTS}, 1, {h}, {d}), kvh {kvh}, lengths {min(lens_host)}-"
+                 f"{max(lens_host)}{opts_label(opts)}")
+        want = ref.decode_attention(q, kc, vc, lengths, kv_bound=bound, **opts)
+        check("decode_attention", label,
+              da.decode_attention(q, kc, vc, lengths, kv_bound=bound, **opts), want)
+        if seen != lens_host:                        # the window bites
+            _rejects(torch, f"decode_attention {arch} plain without the window",
+                     ref.decode_attention(q, kc, vc, lengths, kv_bound=bound,
+                                          softcap=opts["softcap"]), want)
+        # the same keys through a page table: pages of PAGE keys in a shuffled pool
+        pages = S // PAGE
+        perm = torch.randperm(SLOTS * pages, generator=gen, device=dev).to(torch.int32) + 1
+        table = perm.view(SLOTS, pages).contiguous()
+        kp = torch.zeros((SLOTS * pages + 1, PAGE, kvh, d), dtype=bf, device=dev)
+        vpl = torch.zeros_like(kp)
+        kp[table.long()] = kc.view(SLOTS, pages, PAGE, kvh, d)
+        vpl[table.long()] = vc.view(SLOTS, pages, PAGE, kvh, d)
+        pb = math.ceil(max(lens_host) / PAGE)
+        check("paged_attention", label,
+              pa.paged_attention(q, kp, vpl, table, lengths, pages_bound=pb, **opts),
+              ref.paged_attention(q, kp, vpl, table[:, :pb], lengths, **opts))
+        qw = randn(SLOTS, SPEC_K + 1, h, d)
+        wl = torch.tensor(WINDOW_LENS[:SLOTS], dtype=torch.int32, device=dev)
+        committed = lengths - SPEC_K - 1
+        check("spec_verify", f"{label}, W {SPEC_K + 1}",
+              sv.spec_verify(qw, kp, vpl, table, committed, wl, pages_bound=pb, **opts),
+              ref.spec_verify(qw, kp, vpl, table[:, :pb], committed, wl, **opts))
+        live = sum(seen)
+        nbytes = 2 * 2 * SLOTS * h * d + 2 * 2 * live * kvh * d + 4 * SLOTS
+        kpos = torch.arange(bound, device=dev)[None, :]
+        mask = ((kpos < lengths[:, None]) & (kpos >= key_lo[:, None]))[:, None, None, :]
+        lib_sets = _rotation(2 * 2 * SLOTS * h * bound * d,
+                             lambda i: (q.transpose(1, 2).contiguous(), heads(kc[:, :bound], rep),
+                                        heads(vc[:, :bound], rep)))
+        sdpa = lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask)
+        shape = (f"{live} live keys; library: SDPA"
+                 + (" without the softcap" if opts else ""))
+        sets = _rotation(nbytes, clones(q, kc, vc))
+        case(f"decode_attention {label}", shape,
+             lambda q_, k_, v_: da.decode_attention(q_, k_, v_, lengths, kv_bound=bound, **opts),
+             lambda q_, k_, v_: ref.decode_attention(q_, k_, v_, lengths, kv_bound=bound, **opts),
+             sdpa, sets, lib_sets, nbytes, 4.0 * h * d * live)
+        sets = _rotation(nbytes, clones(q, kp, vpl))
+        case(f"paged_attention {label}", shape,
+             lambda q_, k_, v_: pa.paged_attention(q_, k_, v_, table, lengths, pages_bound=pb,
+                                                   **opts),
+             lambda q_, k_, v_: ref.paged_attention(q_, k_, v_, table[:, :pb], lengths, **opts),
+             sdpa, sets, lib_sets, nbytes + 4 * SLOTS * pb, 4.0 * h * d * live)
+        del q, kc, vc, kp, vpl, sets, lib_sets, mask
+
+    # -- flash_attention and varlen_prefill at each of serve_shapes' prefill
+    #    shapes: a static pass of SLOTS x PREFILL_LEN, and a packed buffer of
+    #    two chunks, one over 32 context pages (every position below
+    #    gemma2's 4096 window: each of its layers sees every causal pair)
+    for arch, opts in serve_shapes:
+        h, kvh = layouts[arch]
+        rep = h // kvh
+        b, s = SLOTS, PREFILL_LEN
+        q, k, v = randn(b, s, h, d), randn(b, s, kvh, d), randn(b, s, kvh, d)
+        label = f"{arch} q ({b}, {s}, {h}, {d}), kvh {kvh}, causal{opts_label(opts)}"
+        check("flash_attention", label, fa.flash_attention(q, k, v, **opts),
+              ref.attention(q, k, v, **opts))
+        nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kvh * d)
+        lib = "library: SDPA" + (" without the softcap" if opts else "")
+        case(f"flash_attention {label}", f"static pass; {lib}",
+             lambda *a: fa.flash_attention(*a, **opts), lambda *a: ref.attention(*a, **opts),
+             lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, is_causal=True),
+             _rotation(nbytes, clones(q, k, v)),
+             _rotation(2 * 4 * b * s * h * d, lambda i: (q.transpose(1, 2).contiguous(),
+                                                         heads(k, rep), heads(v, rep))),
+             nbytes, 4.0 * h * d * b * _live_pairs(s, opts.get("window")))
+        del q, k, v
+        half, ctx = BUDGET // 2, 32
+        mp = ctx + 2 * (half // PAGE)
+        kp, vpl = randn(mp + 1, PAGE, kvh, d), randn(mp + 1, PAGE, kvh, d)
+        tables = torch.zeros((2, mp), dtype=torch.int32, device=dev)
+        tables[0, :ctx + half // PAGE] = torch.arange(1, ctx + half // PAGE + 1)
+        tables[1, :half // PAGE] = torch.arange(ctx + half // PAGE + 1, mp + 1)
+        qp, kpk, vpk = randn(BUDGET, h, d), randn(BUDGET, kvh, d), randn(BUDGET, kvh, d)
+        meta = [torch.tensor(a, dtype=torch.int32, device=dev)
+                for a in ([0, half, BUDGET], [half, half], [ctx * PAGE, 0])]
+        label = (f"{arch} T {BUDGET}: chunks of {half} at pos0 {ctx * PAGE} and at 0, "
+                 f"{PAGE * rep} rows a page{opts_label(opts)}")
+        vargs = (qp, kpk, vpk, kp, vpl, *meta, tables)
+        check("varlen_prefill", label, vp.varlen_prefill(*vargs, **opts),
+              ref.varlen_prefill(*vargs, **opts))
+        pairs = half * ctx * PAGE + 2 * half * (half + 1) // 2
+        nbytes = 2 * (2 * BUDGET * h * d + 2 * BUDGET * kvh * d) + 2 * 2 * ctx * PAGE * kvh * d
+        case(f"varlen_prefill {label}", "packed buffer; library: none",
+             lambda q_, k_, v_, kp_, vp_: vp.varlen_prefill(q_, k_, v_, kp_, vp_, *meta, tables,
+                                                            **opts),
+             lambda q_, k_, v_, kp_, vp_: ref.varlen_prefill(q_, k_, v_, kp_, vp_, *meta, tables,
+                                                             **opts),
+             None, _rotation(nbytes, clones(qp, kpk, vpk, kp, vpl)), [], nbytes,
+             4.0 * h * d * pairs)
+        del kp, vpl, qp, kpk, vpk
+
+    # -- rmsnorm: a packed-prefill buffer at each new d_model, and QK-norm's
+    #    rows of 128 (chameleon: 64 heads a token) at a buffer and a decode step
+    for D, rows in ((4608, (1, BUDGET)), (6144, (1, BUDGET)), (8192, (1, BUDGET)),
+                    (128, (1, BUDGET, 64)), (128, (SLOTS, 1, 64))):
+        x, w = randn(*rows, D), randn(D) * 0.1
+        n = x.numel() // D
+        label = f"x {tuple(x.shape)} ({n} rows of {D})"
+        check("rmsnorm", label, rn.rmsnorm(x, w), ref.rmsnorm(x, w))
+        w1 = (1.0 + w.float()).to(bf)
+        nbytes = 2 * (2 * n * D + D)
+        sets = _rotation(nbytes, clones(x, w))
+        case(f"rmsnorm {label}", f"{n} rows", rn.rmsnorm, ref.rmsnorm,
+             lambda x_: F.rms_norm(x_, (D,), w1, 1e-6),
+             sets, [(x_,) for x_, _ in sets], nbytes, 4.0 * n * D)
+        del x, sets
+    return worst
+
+
+def _long_requests(vocab):
+    """gemma2's long set: LONG_LENS random prompts, NEW_TOKENS new each."""
+    import numpy as np
+
+    from repro_torch.serve.engine import ServeRequest
+
+    rng = np.random.default_rng(SEED + 6)
+    return [ServeRequest(request_id=i, prompt=rng.integers(0, vocab, (n,)).astype(np.int32),
+                         max_new_tokens=NEW_TOKENS) for i, n in enumerate(LONG_LENS)]
+
+
+def zoo_serve_phase(torch, dev, counters):
+    """The rest of the dense family at published width and depth (random
+    bf16 weights from a seeded CUDA generator), one model at a time, each
+    freed before the next loads; each set run once, counted alone, every
+    request completed and every kernel launched exactly as the run's passes
+    imply (``_norms_per_pass`` rmsnorm and one attention per layer a pass).
+    gemma2-27b: ``serve_paged`` on the serve phase's mix; the long set (two
+    prompts of 6000 and 4500 tokens, ``max_seq`` 8192, 2 slots) through
+    ``serve_paged`` and as one ``generate`` batch; the static path and
+    ``serve_continuous`` on the mix; the engines' token agreement printed.
+    granite-20b: ``serve_paged`` on the mix, and with ``spec_k`` 4 on tiled
+    prompts.  chameleon-34b: ``serve_paged``, the static path and
+    ``serve_continuous`` on the mix.  Prints each model's peak memory and pool bytes per token (which
+    must be ``kvquant.kv_bytes_per_token``'s)."""
+    from repro_torch.kernels import kvquant
+    from repro_torch.launch.serve import engine_metrics, make_requests
+    from repro_torch.serve.engine import ServingEngine
+
+    paged_need = ("rmsnorm", "paged_attention", "varlen_prefill")
+    for arch in ZOO_FULL:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        model, params = full_model(torch, dev, arch)
+        cfg, vocab = model.cfg, model.cfg.vocab_size
+        windows = sorted({w for w in model.windows if w is not None})
+        print(f"   {arch}: {cfg.num_heads} query heads on {cfg.num_kv_heads} kv heads, "
+              f"{cfg.num_layers} attention and {_norms_per_pass(cfg)} rmsnorm launches a pass; "
+              f"windows {windows or 'none'}, attention softcap {cfg.attn_softcap}, logit softcap "
+              f"{cfg.logit_softcap}, post-norms {cfg.post_norms}, QK-norm {cfg.qk_norm}, scaled "
+              f"embeddings {cfg.scale_embed}")
+        engine = ServingEngine(model, params, max_batch=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
+                               device=dev)
+        for k in (0, SPEC_K):                        # warm-up, not counted
+            engine.serve_paged(_tiled_requests(2, 16, 32, 6, vocab, SEED + 1),
+                               prefill_budget=BUDGET, spec_k=k, spec_ngram=DRAFT_NGRAM)
+        reqs = make_requests(REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS, vocab, SEED)
+        stats, counts = _counted_serve(torch, engine, reqs, counters, paged_need)
+        want_bytes = kvquant.kv_bytes_per_token(cfg.num_layers, cfg.num_kv_heads,
+                                                cfg.resolved_head_dim, "bfloat16")
+        print(f"   {arch} serve_paged, the mix: {_fmt_metrics(engine_metrics(stats), stats)}; "
+              f"kv bytes/token {stats.kv_bytes_per_token:.0f}; launches {counts}")
+        if stats.kv_bytes_per_token != want_bytes:
+            raise SystemExit(f"{arch}: {stats.kv_bytes_per_token} pool bytes per token, "
+                             f"expected {want_bytes}")
+        tokens = {"paged": [r.tokens for r in stats.results]}
+        if arch == "gemma2-27b":
+            print(f"   {arch} where the time goes (torch.profiler, the paged engine):")
+            profile_phase(torch, engine, reqs)
+        if arch == "granite-20b":
+            tiled = _tiled_requests(REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS, vocab, SEED)
+            st, cnt = _counted_serve(torch, engine, tiled, counters,
+                                     ("rmsnorm", "varlen_prefill", "spec_verify"),
+                                     spec_k=SPEC_K, spec_ngram=DRAFT_NGRAM)
+            print(f"   {arch} serve_paged, tiled prompts, spec_k {SPEC_K} spec_ngram "
+                  f"{DRAFT_NGRAM}: {_fmt_metrics(engine_metrics(st), st)}; spec_stats "
+                  f"{st.spec_stats}; launches {cnt}")
+        if arch == "gemma2-27b":
+            long_engine = ServingEngine(model, params, max_batch=len(LONG_LENS),
+                                        max_seq=LONG_MAX_SEQ, page_size=PAGE, device=dev)
+            long_reqs = _long_requests(vocab)
+            _zero(counters)
+            st = long_engine.serve_paged(long_reqs, num_slots=len(LONG_LENS), page_size=PAGE,
+                                         prefill_budget=BUDGET)
+            cnt = _check_counts(f"{arch} long serve_paged", counters, _expected_launches(st, cfg),
+                                _completed([r.tokens for r in st.results], vocab), len(long_reqs))
+            print(f"   {arch} serve_paged, the long set {list(LONG_LENS)} (max_seq {LONG_MAX_SEQ}, "
+                  f"{len(LONG_LENS)} slots): {_fmt_metrics(engine_metrics(st), st)}; launches "
+                  f"{cnt}")
+            if st.prefill_launches < 3:
+                raise SystemExit(f"{arch}: the long set took {st.prefill_launches} prefill "
+                                 f"launches; it must span several boundaries")
+            _zero(counters)
+            t0 = time.perf_counter()
+            gen = long_engine.generate([r.prompt for r in long_reqs], NEW_TOKENS)
+            torch.cuda.synchronize()
+            cnt = _check_counts(f"{arch} long generate", counters,
+                                _dense_expected(model, 1, NEW_TOKENS),
+                                _completed(list(gen.tokens), vocab), len(long_reqs))
+            print(f"   {arch} generate, the long set as one batch of {len(LONG_LENS)} (max_seq "
+                  f"{LONG_MAX_SEQ}): prefill {gen.prefill_s * 1e3:.1f} ms, decode "
+                  f"{gen.decode_s * 1e3:.1f} ms ({gen.tokens_per_s:.1f} tok/s), wall "
+                  f"{time.perf_counter() - t0:.3f} s; launches {cnt}; vs serve_paged: "
+                  f"{_fmt_agreement([r.tokens for r in st.results], list(gen.tokens))}")
+            del long_engine
+        peak = torch.cuda.max_memory_allocated(dev)
+        if arch in ("gemma2-27b", "chameleon-34b"):
+            _, _, _, dense = dense_serve_phase(torch, dev, counters, model, params, repeats=1)
+            tokens.update(dense)
+            peak = max(peak, torch.cuda.max_memory_allocated(dev))
+        if len(tokens) == 3:
+            print(f"   {arch} greedy tokens on the mix (bf16; printed, not gated): paged vs "
+                  f"static {_fmt_agreement(tokens['paged'], tokens['static'])}; paged vs "
+                  f"continuous {_fmt_agreement(tokens['paged'], tokens['continuous'])}; static vs "
+                  f"continuous {_fmt_agreement(tokens['static'], tokens['continuous'])}")
+        print(f"   {arch}: peak device memory over its runs {peak / 1e9:.2f} GB")
+        del model, params, engine
+
+
 # platform phase: the evaluation platform (client -> server -> agent ->
 # scenario -> scheduler -> torch predictor) at published width
 PLATFORM_SEQ = 128
 # launches of each kernel per forward pass at published depth
 PER_PASS = {"glm4-9b": {"flash_attention": 40, "rmsnorm": 81},
-            "mamba2-130m": {"ssd": 24, "rmsnorm": 49}}
+            "mamba2-130m": {"ssd": 24, "rmsnorm": 49},
+            "gemma2-27b": {"flash_attention": 46, "rmsnorm": 185},
+            "granite-20b": {"flash_attention": 52, "rmsnorm": 105},
+            "chameleon-34b": {"flash_attention": 48, "rmsnorm": 193}}
 PLATFORM_TOL = 1e-4             # reduced f32 logits, card vs CPU: 1e-4 + 1e-4 |cpu|
 # every batch the evaluations can form: batched's 1/2/4/8, the server's up
 # to 4 and offline's up to 8 coalesced requests
@@ -1548,33 +2007,44 @@ PLATFORM_BATCHES = range(1, 9)
 def platform_kernels_phase(torch, dev):
     """flash_attention, rmsnorm and ssd against their plain versions at the
     shapes the platform phase gives them, bf16, every batch of
-    PLATFORM_BATCHES at PLATFORM_SEQ tokens: glm4-9b's causal attention and
-    its norms at d_model; mamba2-130m's scan (two whole chunks, final state
-    out) with x, B and C views of one convolved projection as the block
-    makes them, and its norms at d_model and over the gated d_inner.  One
-    line a kernel; returns each kernel's worst error."""
+    PLATFORM_BATCHES at PLATFORM_SEQ tokens: each dense arch the platform
+    phase evaluates (glm4-9b, gemma2-27b) with its heads, its attention
+    softcap and each window its layers pass, and its norms at d_model;
+    mamba2-130m's scan (two whole chunks, final state out) with x, B and C
+    views of one convolved projection as the block makes them, and its
+    norms at d_model and over the gated d_inner.  One line a kernel;
+    returns each kernel's worst error."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd as sd
+    from repro_torch.models import DecoderLM
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 4)
     randn = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
     uniform = lambda shape, lo, hi: torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
-    glm, ssm = get_config("glm4-9b"), get_config("mamba2-130m")
-    h, kvh, d = glm.num_heads, glm.num_kv_heads, glm.head_dim
+    dense = [get_config(a) for a in dict.fromkeys(arch for _, arch, *_ in _evaluations())
+             if get_config(a).family == "dense"]
+    ssm = get_config("mamba2-130m")
     sh, p, n, din = ssm.ssm_heads, ssm.ssm_head_dim, ssm.ssm_state, ssm.ssm_inner
     s = PLATFORM_SEQ
-    norm_w = {D: randn(D) * 0.1 for D in (glm.d_model, ssm.d_model, din)}
+    norm_w = {D: randn(D) * 0.1 for D in [c.d_model for c in dense] + [ssm.d_model, din]}
     A = -uniform((sh,), 1.0, 16.0)
+    # (arch, heads, attention options) of every distinct layer: the model's
+    # own per-layer windows and its softcap, as the model passes them
+    layers = [(c.name, (c.num_heads, c.num_kv_heads, c.resolved_head_dim),
+               dict(window=w, softcap=c.attn_softcap))
+              for c in dense for w in dict.fromkeys(DecoderLM(c, device=dev).windows)]
 
     def cases():
         for b in PLATFORM_BATCHES:
-            q, k, v = randn(b, s, h, d), randn(b, s, kvh, d), randn(b, s, kvh, d)
-            yield ("flash_attention", f"causal q ({b}, {s}, {h}, {d})",
-                   fa.flash_attention(q, k, v), ref.attention(q, k, v))
+            for arch, (h, kvh, d), opts in layers:
+                q, k, v = randn(b, s, h, d), randn(b, s, kvh, d), randn(b, s, kvh, d)
+                yield ("flash_attention", f"{arch} causal q ({b}, {s}, {h}, {d}), kvh {kvh}, "
+                       f"{opts}", fa.flash_attention(q, k, v, **opts),
+                       ref.attention(q, k, v, **opts))
             for D, w in norm_w.items():
                 x = randn(b, s, D)
                 yield "rmsnorm", f"({b}, {s}, {D})", rn.rmsnorm(x, w), ref.rmsnorm(x, w)
@@ -1595,6 +2065,8 @@ def platform_kernels_phase(torch, dev):
                              f"(max_abs_err {max_abs:.3e})")
         worst[name] = max(worst.get(name, 0.0), max_abs)
         count[name] = count.get(name, 0) + 1
+    print(f"   the platform's attention layers: "
+          f"{', '.join(f'{arch} {h}/{kvh} heads {opts}' for arch, (h, kvh, _), opts in layers)}")
     for name, err in worst.items():
         print(f"   {name} at the platform's shapes (batches {PLATFORM_BATCHES[0]}-"
               f"{PLATFORM_BATCHES[-1]} of {s} tokens, {count[name]} cases): max_abs_err "
@@ -1621,6 +2093,8 @@ def _evaluations():
         ("online SYSTEM", "glm4-9b", "SYSTEM", dict(online, num_requests=2), None),
         ("online", "mamba2-130m", "MODEL", online, None),
         ("offline", "mamba2-130m", "MODEL") + offline,
+        ("online", "gemma2-27b", "MODEL", online, None),
+        ("online FRAMEWORK", "gemma2-27b", "FRAMEWORK", dict(online, num_requests=2), None),
     ]
 
 
@@ -1699,6 +2173,32 @@ def _fmt_evaluation(kind, m, spans):
                   f"{trimmed_mean(inference):.3f} ms over {len(inference)}")
 
 
+def _check_layer_names(arch, spans, passes):
+    """The FRAMEWORK spans of every pass name the layers as the reference
+    names them: ``embed``, ``layer_{l:03d}_attn`` plus ``_w{window}`` on a
+    windowed config (``_w4096`` local, ``_w1073741824`` global), ``logits``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import GLOBAL_WINDOW
+
+    cfg = get_config(arch)
+    kind = "mamba" if cfg.family == "ssm" else "attn"
+    windowed = cfg.global_every > 0 and cfg.sliding_window > 0
+
+    def suffix(l):
+        if not windowed:
+            return ""
+        glob = l % cfg.global_every == cfg.global_every - 1
+        return f"_w{GLOBAL_WINDOW if glob else cfg.sliding_window}"
+
+    want = ["embed"] + [f"layer_{l:03d}_{kind}{suffix(l)}" for l in range(cfg.num_layers)] + \
+        ["logits"]
+    names = [s["name"] for s in spans if s["name"] in set(want)]
+    if names != want * passes:
+        raise SystemExit(f"platform {arch} FRAMEWORK: layer spans {names[:4]}... are not the "
+                         f"reference's {want[:4]}... x{passes}")
+    print(f"      FRAMEWORK layer names as the reference's: {want[1]}, {want[2]}, ... x{passes}")
+
+
 def platform_phase(torch, counters):
     """The platform at published width on the card (bf16, random weights
     from seed 0): each evaluation opens its own predictor; each kernel must
@@ -1733,6 +2233,7 @@ def platform_phase(torch, counters):
                 raise SystemExit(f"platform {arch} {label}: launches {got}, expected {expect}")
             print(f"      {_fmt_evaluation(scen['kind'], res['metrics'], spans)}")
             if level == "FRAMEWORK":
+                _check_layer_names(arch, spans, passes)
                 top = top_layers([Span.from_dict(d) for d in spans], k=5)
                 print("      FRAMEWORK top 5 layers: " + ", ".join(
                     f"{t.name} {t.mean_s * 1e3:.3f} ms x{t.count}" for t in top))
@@ -1805,12 +2306,19 @@ def main() -> int:
     records.update(ssd_kernels_phase(torch, dev))
     for name, err in platform_kernels_phase(torch, dev).items():
         records[name]["err"] = max(records[name]["err"], err)
+    print("   -- the rest of the dense family's shapes (gemma2-27b, granite-20b, chameleon-34b)")
+    for name, err in zoo_kernels_phase(torch, dev).items():
+        records[name]["err"] = max(records[name]["err"], err)
     _done(torch, "2. kernels", t0)
 
-    t0 = _phase("3. check: reduced glm4-9b and mamba2-130m, card vs CPU reference")
+    t0 = _phase("3. check: reduced glm4-9b, mamba2-130m and the rest of the dense family, "
+                "card vs CPU reference")
     check_phase(torch, dev)
     dense_check_phase(torch, dev)
     dense_check_phase(torch, dev, "mamba2-130m")
+    for arch in ZOO:
+        check_phase(torch, dev, arch, prompt_min=ZOO_PROMPT_MIN)
+        dense_check_phase(torch, dev, arch, prompt_min=ZOO_PROMPT_MIN)
     _done(torch, "3. check", t0)
 
     t0 = _phase("4. serve: glm4-9b and mamba2-130m, full width and depth, random bf16 weights")
@@ -1819,13 +2327,14 @@ def main() -> int:
     model, params = full_model(torch, dev)
     launches, engine, reqs = serve_phase(torch, dev, counters, model, params)
     print("   -- the dense engines (static generate behind the scheduler; serve_continuous)")
-    dense_launches, dense_engine, prompts = dense_serve_phase(torch, dev, counters, model, params)
+    dense_launches, dense_engine, prompts, _ = dense_serve_phase(torch, dev, counters, model,
+                                                                 params)
     for name in ("flash_attention", "decode_attention"):
         launches[name] = dense_launches[name]
     print("   -- mamba2-130m (SSM) through the same two engines")
     ssm_model, ssm_params = full_model(torch, dev, "mamba2-130m")
-    ssm_launches, ssm_engine, ssm_prompts = dense_serve_phase(torch, dev, counters, ssm_model,
-                                                              ssm_params)
+    ssm_launches, ssm_engine, ssm_prompts, _ = dense_serve_phase(torch, dev, counters, ssm_model,
+                                                                 ssm_params)
     launches["ssd"] = ssm_launches["ssd"]
     _done(torch, "4. serve", t0)
 
@@ -1836,6 +2345,12 @@ def main() -> int:
     _done(torch, "5. profile", t0)
     del model, params, engine, dense_engine, ssm_model, ssm_params, ssm_engine
     torch.cuda.empty_cache()
+
+    t0 = _phase("5b. serve: gemma2-27b, granite-20b and chameleon-34b, full width and depth, "
+                "random bf16 weights")
+    zoo_serve_phase(torch, dev, counters)
+    torch.cuda.empty_cache()
+    _done(torch, "5b. serve the rest of the dense family", t0)
 
     t0 = _phase("6. platform: client -> server -> agent -> scenario -> torch predictor")
     platform_check(torch, dev)

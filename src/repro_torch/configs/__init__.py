@@ -1,10 +1,13 @@
 """Architecture configs the port supports so far (copies of ``repro.configs``).
 
 Each ``<id>.py`` exports ``CONFIG`` (the published configuration) and
-``REDUCED`` (a same-family small config for CPU tests).  Ported so far: the
-dense decoder ``glm4-9b`` and the attention-free SSM ``mamba2-130m``; the
-other architectures of ``repro.configs`` follow with the model families
-that need them.
+``REDUCED`` (a same-family small config for CPU tests).  Ported so far:
+the dense decoders ``deepseek-67b``, ``granite-20b`` (MQA), ``glm4-9b``,
+``gemma2-27b`` (sliding/global windows, softcaps, post-norms, scaled
+embeddings) and ``chameleon-34b`` (QK-norm), and the attention-free SSM
+``mamba2-130m``, in the reference's order; the MoE, hybrid and enc-dec
+architectures of ``repro.configs`` follow with the model families that
+need them.
 """
 from __future__ import annotations
 
@@ -15,7 +18,11 @@ from ..models.config import ArchConfig
 
 # canonical ids (dashes) -> module names
 _ALIASES = {
+    "deepseek-67b": "deepseek_67b",
+    "granite-20b": "granite_20b",
     "glm4-9b": "glm4_9b",
+    "gemma2-27b": "gemma2_27b",
+    "chameleon-34b": "chameleon_34b",
     "mamba2-130m": "mamba2_130m",
 }
 

@@ -15,12 +15,15 @@ plus ``--device`` and ``--dtype``.  Three engines (``--engine``):
   (``serve_continuous``) over the same prompts, offline; prints each
   request's TTFT and tokens/s and a summary.
 
-``--arch`` picks the model: ``glm4-9b`` (dense, every engine) or
+``--arch`` picks the model: the dense ``deepseek-67b``, ``granite-20b``,
+``glm4-9b``, ``gemma2-27b`` and ``chameleon-34b`` (every engine) or
 ``mamba2-130m`` (SSM: ``static`` and ``continuous``; its state is not
 paged, so ``--engine paged`` stops with the reference's reason).  Runs on
 ``cuda`` unless ``--device cpu`` is given.  The model config is the
 reduced one unless ``--full`` asks for the published widths and depth;
-weights are random, from ``--seed``.  Prompts are random tokens with
+weights are random, from ``--seed``.  ``--full`` refuses a model whose
+weights alone exceed the card's memory: ``deepseek-67b`` (125.6 GiB in
+bf16) runs reduced only on one 80 GB card; the others fit at full width.  Prompts are random tokens with
 lengths drawn uniformly from ``[--prompt-len-min, --prompt-len]``.  Prints a
 plain summary (the analysis report sections of the JAX driver come with a
 later slice).
@@ -202,7 +205,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="glm4-9b", choices=list_archs())
     ap.add_argument("--full", action="store_true",
-                    help="published widths and depth (default: the reduced config)")
+                    help="published widths and depth (default: the reduced config); "
+                         "refused where the weights alone exceed the card's memory: "
+                         "deepseek-67b runs reduced only on one 80 GB card")
     ap.add_argument("--engine", default="paged", choices=list(ENGINES),
                     help="paged: paged-KV continuous batching; static: the request "
                          "scheduler batching generate() on a dense cache; continuous: "
@@ -258,7 +263,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     model = DecoderLM(cfg, device=device, dtype=args.dtype)
     if args.engine == "paged" and model.ssm:
         ap.error(f"--engine paged with {cfg.name}: {NOT_PAGED}")
-    params = model.init(seed=args.seed)
+    try:
+        params = model.init(seed=args.seed)
+    except MemoryError as e:
+        ap.error(f"{e} (drop --full)")
     engine = ServingEngine(model, params, max_batch=args.engine_batch,
                            max_seq=args.max_seq, page_size=args.page_size,
                            device=device, kv_dtype=args.kv_dtype)

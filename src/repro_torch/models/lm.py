@@ -1,7 +1,9 @@
 """Decoder-only LMs: the serving paths of ``repro.models.lm``.
 
 What is ported: parameters; the full-sequence :meth:`DecoderLM.forward`;
-for the dense family (``family="dense"``) the dense KV cache ``(L, b,
+for the dense family (``family="dense"``, with the options the zoo's dense
+configs set: QK-norm, post-norms, scaled embeddings, attention and logit
+softcaps, alternating sliding/global windows) the dense KV cache ``(L, b,
 max_seq, kvh, d)`` with one right-padded prefill (:meth:`DecoderLM.prefill`)
 and one decode step (:meth:`DecoderLM.decode`), as the static and
 continuous engines drive them; the paged KV pool (full precision, or
@@ -19,7 +21,8 @@ arrays.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Union
+import math
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 
@@ -43,6 +46,10 @@ from .modules import (
 from .params import P, init_params
 
 
+# the window of a global layer (``repro.models.lm._BIG_WINDOW``): wider than
+# any sequence, so it masks no key; the kernels' ``q_pos - window + 1`` stays
+# far inside int32 for any position below 2**30
+GLOBAL_WINDOW = 1 << 30
 # the reference's reason for refusing a paged cache (``repro.models.lm``)
 NOT_PAGED = ("paged KV cache supports dense/moe (non-interleaved) decoder caches only; "
              "ssm/hybrid state is not paged")
@@ -51,9 +58,25 @@ _NOT_RAGGED = ("ragged (right-padded) prefill requires a pure-attention cache; "
                "ssm/hybrid state would absorb the pad tokens")
 
 
+def weights_fit(cfg: ArchConfig, dtype: torch.dtype, capacity: int) -> Optional[str]:
+    """None if ``cfg``'s weights in ``dtype`` fit ``capacity`` bytes, else
+    why not."""
+    need = cfg.param_count() * torch.empty((), dtype=dtype).element_size()
+    if need <= capacity:
+        return None
+    return (f"{cfg.name} at this width needs {need / 2**30:.1f} GiB of {dtype} weights, more "
+            f"than the device's {capacity / 2**30:.1f} GiB: it runs reduced only on one card")
+
+
+def _device_memory(device: torch.device) -> Optional[int]:
+    """Bytes of memory on a CUDA device; None elsewhere (no limit checked)."""
+    return torch.cuda.get_device_properties(device).total_memory if device.type == "cuda" \
+        else None
+
+
 class DecoderLM:
     """Dense GQA decoder (``family="dense"``) or attention-free Mamba-2
-    stack (``family="ssm"``).
+    stack (``family="ssm"``); the MoE, hybrid and enc-dec families raise.
 
     ``device`` defaults to ``cuda`` (and raises where there is none);
     ``dtype`` is the weight and activation dtype: bf16 on the card, float32
@@ -63,24 +86,17 @@ class DecoderLM:
     def __init__(self, cfg: ArchConfig, device: Union[str, torch.device, None] = None,
                  dtype: Union[str, torch.dtype, None] = None) -> None:
         cfg.validate()
-        unsupported = [
-            name for name, on in (
-                (f"family {cfg.family}", cfg.family not in ("dense", "ssm")),
-                ("qk_norm", cfg.qk_norm),
-                ("post_norms", cfg.post_norms),
-                ("scale_embed", cfg.scale_embed),
-                ("logit_softcap", cfg.logit_softcap > 0),
-                ("sliding/global windows", cfg.global_every > 0 and cfg.sliding_window > 0),
-            ) if on
-        ]
-        if unsupported:
-            raise NotImplementedError(
-                f"{cfg.name}: not ported yet: {', '.join(unsupported)}"
-            )
+        if cfg.family not in ("dense", "ssm"):
+            raise NotImplementedError(f"{cfg.name}: not ported yet: family {cfg.family}")
         self.cfg = cfg
         self.ssm = cfg.family == "ssm"
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype, self.device)
+        self.windows = self._layer_windows()
+        # sqrt(d_model) rounded to the model dtype, as the reference scales a
+        # cast embedding by a weakly typed scalar
+        self._embed_scale = (torch.tensor(math.sqrt(cfg.d_model), dtype=self.dtype).item()
+                             if cfg.scale_embed else None)
         # the batch axis of each cache tensor (the continuous engine's slot copy)
         self.CACHE_BATCH_AXIS = ({"pos": 0, "ssm": 1, "conv": 1} if self.ssm
                                  else {"pos": 0, "k": 1, "v": 1})
@@ -92,12 +108,12 @@ class DecoderLM:
         if self.ssm:
             block = lambda: {"ln": norm_defs(cfg), "mamba": mamba_defs(cfg)}
         else:
-            block = lambda: {
-                "ln1": norm_defs(cfg),
-                "attn": attn_defs(cfg),
-                "ln2": norm_defs(cfg),
-                "mlp": mlp_defs(cfg),
-            }
+            def block():
+                blk = {"ln1": norm_defs(cfg), "attn": attn_defs(cfg), "ln2": norm_defs(cfg),
+                       "mlp": mlp_defs(cfg)}
+                if cfg.post_norms:
+                    blk.update(post_attn_norm=norm_defs(cfg), post_mlp_norm=norm_defs(cfg))
+                return blk
         defs = {
             "embed": P((V, D)),
             "blocks": [block() for _ in range(cfg.num_layers)],
@@ -109,26 +125,68 @@ class DecoderLM:
 
     def init(self, seed: int = 0):
         """Random weights on the model's device and dtype from a seeded
-        ``torch.Generator`` on that device."""
+        ``torch.Generator`` on that device.  Raises ``MemoryError`` before
+        allocating anything where the weights alone exceed the card's
+        memory (``weights_fit``)."""
+        capacity = _device_memory(self.device)
+        why = weights_fit(self.cfg, self.dtype, capacity) if capacity is not None else None
+        if why:
+            raise MemoryError(why)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         return init_params(self.param_defs(), gen, self.device, self.dtype)
 
     # -- helpers ----------------------------------------------------------------
+    def _layer_windows(self) -> List[Optional[int]]:
+        """Each layer's attention window (``repro.models.lm._layer_windows``):
+        with alternating local/global attention, layer ``l`` is global (and
+        takes :data:`GLOBAL_WINDOW`) iff ``l % global_every == global_every -
+        1``, else local with ``sliding_window``; otherwise None (no window)."""
+        cfg = self.cfg
+        if cfg.global_every <= 0 or cfg.sliding_window <= 0:
+            return [None] * cfg.num_layers
+        return [GLOBAL_WINDOW if l % cfg.global_every == cfg.global_every - 1
+                else cfg.sliding_window for l in range(cfg.num_layers)]
+
     def _norm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return ops.rmsnorm(x, w, self.cfg.norm_eps)
 
     def _embed_tokens(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens.long()]
+        x = params["embed"][tokens.long()]
+        return x if self._embed_scale is None else x * self._embed_scale
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
+        """Final norm, then the head product accumulated and returned in
+        float32 (a tied head reads ``embed`` transposed, no copy), then the
+        logit softcap where the config sets one."""
+        cfg = self.cfg
         x = self._norm(x, params["final_norm"])
-        head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
-        return (x @ head).float()
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        if x.dtype == torch.float32 or not x.is_cuda:
+            logits = (x @ head).float()
+        else:
+            # bf16 operands, float32 output from one cuBLAS call, as the
+            # reference's preferred_element_type=float32: nothing is rounded
+            # to bf16 before the softcap and the argmax
+            logits = torch.mm(x.reshape(-1, x.shape[-1]), head, out_dtype=torch.float32
+                              ).view(*x.shape[:-1], head.shape[1])
+        if cfg.logit_softcap > 0:
+            logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+        return logits
 
-    def _block_ffn(self, blk, x: torch.Tensor) -> torch.Tensor:
-        """ln2 + MLP, residual-added."""
-        return x + mlp_apply(blk["mlp"], self._norm(x, blk["ln2"]))
+    def _attn_residual(self, blk, x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+        """The rest of a dense block once attention has run on ``ln1(x)``:
+        the attention output ``a`` (post-normed where the config has
+        post-norms) added to the residual ``x``, then ln2 + MLP (post-normed
+        likewise), residual-added."""
+        post = self.cfg.post_norms
+        if post:
+            a = self._norm(a, blk["post_attn_norm"])
+        x = x + a
+        m = mlp_apply(blk["mlp"], self._norm(x, blk["ln2"]))
+        if post:
+            m = self._norm(m, blk["post_mlp_norm"])
+        return x + m
 
     def _mamba_block_full(self, blk, x: torch.Tensor, return_state: bool = False):
         """ln + Mamba-2 over the sequence, residual-added; with
@@ -148,13 +206,14 @@ class DecoderLM:
                                     self.cfg)
         return x1 + y, state, conv
 
-    def _attn_block_full(self, blk, x: torch.Tensor) -> torch.Tensor:
+    def _attn_block_full(self, blk, x: torch.Tensor, window: Optional[int]) -> torch.Tensor:
         """ln1 + attention over the sequence and ln2 + MLP, residual-added."""
-        return self._block_ffn(blk, x + attn_full(blk["attn"], self._norm(x, blk["ln1"]),
-                                                  self.cfg))
+        a = attn_full(blk["attn"], self._norm(x, blk["ln1"]), self.cfg, window=window)
+        return self._attn_residual(blk, x, a)
 
-    def _block_full(self, blk, x: torch.Tensor) -> torch.Tensor:
-        return self._mamba_block_full(blk, x) if self.ssm else self._attn_block_full(blk, x)
+    def _block_full(self, li: int, blk, x: torch.Tensor) -> torch.Tensor:
+        return (self._mamba_block_full(blk, x) if self.ssm
+                else self._attn_block_full(blk, x, self.windows[li]))
 
     # -- full sequence ------------------------------------------------------------
     def forward(self, params, batch: Dict[str, torch.Tensor]):
@@ -162,8 +221,8 @@ class DecoderLM:
         (b, s, V), and the auxiliary loss (0 for a dense model), as the JAX
         model returns them.  ``remat`` (a training option) is not ported."""
         x = self._embed_tokens(params, batch["tokens"])
-        for blk in params["blocks"]:
-            x = self._block_full(blk, x)
+        for li, blk in enumerate(params["blocks"]):
+            x = self._block_full(li, blk, x)
         return self._logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
     def forward_instrumented(self, params, batch: Dict[str, torch.Tensor],
@@ -172,14 +231,17 @@ class DecoderLM:
         """:meth:`forward`'s logits, computed layer by layer with
         ``hook(name, thunk)`` around each piece (the FRAMEWORK trace level;
         the counterpart of ``repro.models.lm._forward_instrumented_decoder``).
-        The pieces are ``embed``, ``layer_{l:03d}_attn`` (dense) or
-        ``layer_{l:03d}_mamba`` (ssm), and ``logits``; the port refuses the
-        windowed configs whose layer names carry the reference's ``_w``
-        suffix.  Each piece runs the ops ``forward`` runs, in its order."""
+        The pieces are ``embed``, ``layer_{l:03d}_attn`` (dense; a windowed
+        config's layers add ``_w{window}`` as the reference names them:
+        ``_w1073741824`` on a global layer) or ``layer_{l:03d}_mamba``
+        (ssm), and ``logits``.  Each piece runs the ops ``forward`` runs, in
+        its order."""
         x = hook("embed", lambda: self._embed_tokens(params, batch["tokens"]))
         kind = "mamba" if self.ssm else "attn"
         for l, blk in enumerate(params["blocks"]):
-            x = hook(f"layer_{l:03d}_{kind}", lambda blk=blk, x=x: self._block_full(blk, x))
+            w = self.windows[l]
+            name = f"layer_{l:03d}_{kind}" + ("" if w is None else f"_w{w}")
+            x = hook(name, lambda l=l, blk=blk, x=x: self._block_full(l, blk, x))
         return hook("logits", lambda: self._logits(params, x))
 
     # -- dense cache ------------------------------------------------------------------
@@ -249,10 +311,10 @@ class DecoderLM:
         s = x.shape[1]
         for li, blk in enumerate(params["blocks"]):
             a, (k, v) = attn_full(blk["attn"], self._norm(x, blk["ln1"]), self.cfg,
-                                  return_kv=True)
+                                  window=self.windows[li], return_kv=True)
             cache["k"][li, :, :s] = k
             cache["v"][li, :, :s] = v
-            x = self._block_ffn(blk, x + a)
+            x = self._attn_residual(blk, x, a)
         return self._prefill_logits(params, batch, x, cache)
 
     def decode(self, params, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -278,9 +340,9 @@ class DecoderLM:
             return self._logits(params, x1)
         for li, blk in enumerate(params["blocks"]):
             a = attn_decode(blk["attn"], self._norm(x, blk["ln1"]), cache["k"][li],
-                            cache["v"][li], pos, self.cfg, uniform_pos=uniform_pos,
-                            kv_bound=kv_bound)
-            x = self._block_ffn(blk, x + a)
+                            cache["v"][li], pos, self.cfg, window=self.windows[li],
+                            uniform_pos=uniform_pos, kv_bound=kv_bound)
+            x = self._attn_residual(blk, x, a)
         pos.add_(1)
         return self._logits(params, x)[:, 0]
 
@@ -340,10 +402,10 @@ class DecoderLM:
             kp, vp, ks, vs = self._layer_pools(cache, li)
             h = self._norm(x, blk["ln1"])
             a = attn_decode_paged(
-                blk["attn"], h, kp, vp, page_table, pos, self.cfg,
+                blk["attn"], h, kp, vp, page_table, pos, self.cfg, window=self.windows[li],
                 pages_bound=pages_bound, k_scales=ks, v_scales=vs,
             )
-            x = self._block_ffn(blk, x + a)
+            x = self._attn_residual(blk, x, a)
         return self._logits(params, x)[:, 0]
 
     def decode_spec(self, params, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -371,9 +433,9 @@ class DecoderLM:
             h = self._norm(x, blk["ln1"])
             a = attn_decode_spec(
                 blk["attn"], h, kp, vp, page_table, pos, wlens, self.cfg,
-                pages_bound=pages_bound, k_scales=ks, v_scales=vs,
+                window=self.windows[li], pages_bound=pages_bound, k_scales=ks, v_scales=vs,
             )
-            x = self._block_ffn(blk, x + a)
+            x = self._attn_residual(blk, x, a)
         return self._logits(params, x)
 
     def prefill_packed(self, params, batch: Dict[str, torch.Tensor],
@@ -399,9 +461,9 @@ class DecoderLM:
             kp, vp, ks, vs = self._layer_pools(cache, li)
             h = self._norm(x, blk["ln1"])
             a = attn_prefill_packed(
-                blk["attn"], h, kp, vp, meta, self.cfg,
+                blk["attn"], h, kp, vp, meta, self.cfg, window=self.windows[li],
                 pages_bound=pages_bound, k_scales=ks, v_scales=vs,
             )
-            x = self._block_ffn(blk, x + a)
+            x = self._attn_residual(blk, x, a)
         last = batch["last_idx"].long()
         return self._logits(params, x[0, last][:, None, :])[:, 0]

@@ -69,12 +69,16 @@ def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
 def attn_defs(cfg: ArchConfig) -> Dict[str, P]:
     D, H, KV, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     std_out = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
-    return {
+    defs = {
         "wq": P((D, H, dh)),
         "wk": P((D, KV, dh)),
         "wv": P((D, KV, dh)),
         "wo": P((H, dh, D), std=std_out),
     }
+    if cfg.qk_norm:
+        defs["q_norm"] = P((dh,), "zeros")
+        defs["k_norm"] = P((dh,), "zeros")
+    return defs
 
 
 def _heads_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -91,9 +95,16 @@ def _heads_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _project_qkv(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
                  positions: torch.Tensor):
-    """Project q, k, v from x and apply RoPE to q and k."""
-    q = rope(_heads_in(x, p["wq"]), positions, cfg.rope_theta)
-    k = rope(_heads_in(x, p["wk"]), positions, cfg.rope_theta)
+    """Project q, k, v from x; with QK-norm (``q_norm`` in ``p``) normalise
+    q and k over the head dim, then apply RoPE to q and k.  The projections
+    are contiguous, so ``ops.rmsnorm`` takes them as they are: rows of
+    ``head_dim``, one per (token, head)."""
+    q, k = _heads_in(x, p["wq"]), _heads_in(x, p["wk"])
+    if "q_norm" in p:
+        q = ops.rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = ops.rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
     v = _heads_in(x, p["wv"])
     return q, k, v
 

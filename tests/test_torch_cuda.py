@@ -22,6 +22,7 @@ from repro_torch.kernels import rmsnorm as rn_mod
 from repro_torch.kernels import spec_verify as sv_mod
 from repro_torch.kernels import ssd as ssd_mod
 from repro_torch.kernels import varlen_prefill as vp_mod
+from repro_torch.models.lm import GLOBAL_WINDOW
 
 pytestmark = pytest.mark.gpu
 
@@ -909,7 +910,8 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-@pytest.mark.parametrize("arch", ["glm4-9b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["glm4-9b", "gemma2-27b", "chameleon-34b", "granite-20b",
+                                  "deepseek-67b", "mamba2-130m"])
 def test_predictor_card_vs_cpu(cuda, arch):
     """Reduced float32 logits on the card within 1e-4 + 1e-4 |cpu| of the
     CPU's (the CUDA-core float32 kernels against the plain versions), the
@@ -927,6 +929,8 @@ def test_predictor_card_vs_cpu(cuda, arch):
 
 
 @pytest.mark.parametrize("arch,per_pass", [("glm4-9b", {"flash_attention": 3, "rmsnorm": 7}),
+                                           ("gemma2-27b", {"flash_attention": 4, "rmsnorm": 17}),
+                                           ("chameleon-34b", {"flash_attention": 3, "rmsnorm": 13}),
                                            ("mamba2-130m", {"ssd": 3, "rmsnorm": 7})])
 def test_system_level_counts_the_kernels(cuda, arch, per_pass):
     """A SYSTEM evaluation on the card emits one ``system:cuda`` event per
@@ -958,3 +962,112 @@ def test_system_level_counts_the_kernels(cuda, arch, per_pass):
         for k, n in e["launches"].items():
             summed[k] = summed.get(k, 0) + n
     assert summed == delta
+
+
+# ---------------------------------------------------------------------------
+# the rest of the dense family's head layouts: granite-20b's 48 query heads
+# on 1 kv head, chameleon-34b's 64 on 8, gemma2-27b's 32 on 16 with its
+# attention softcap; windows wider than a key tile over contexts past them,
+# and the global layers' GLOBAL_WINDOW
+# ---------------------------------------------------------------------------
+ZOO_LAYOUTS = [pytest.param((48, 1), id="granite"), pytest.param((64, 8), id="chameleon"),
+               pytest.param((32, 16), id="gemma2")]
+ZOO_OPTS = [pytest.param({}, id="plain"),
+            pytest.param({"window": 100, "softcap": 50.0}, id="window100-softcap50"),
+            # gemma2's global layers: the reference's window wider than any sequence
+            pytest.param({"window": GLOBAL_WINDOW, "softcap": 50.0}, id="global-softcap50")]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("layout", ZOO_LAYOUTS)
+@pytest.mark.parametrize("opts", ZOO_OPTS)
+def test_flash_attention_zoo_layouts(cuda, dtype, layout, opts):
+    h, kvh = layout
+    q = _randn((1, 300, h, 128), dtype, cuda, 500)
+    k, v = (_randn((1, 300, kvh, 128), dtype, cuda, 501 + i) for i in range(2))
+    _close(fa_mod.flash_attention(q, k, v, **opts),
+           ref.attention(q.cpu(), k.cpu(), v.cpu(), **opts), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("layout", ZOO_LAYOUTS)
+@pytest.mark.parametrize("opts", ZOO_OPTS)
+def test_decode_attention_zoo_layouts(cuda, dtype, layout, opts):
+    h, kvh = layout
+    lens = [300, 150, 17, 0]
+    q = _randn((4, 1, h, 128), dtype, cuda, 510)
+    kc, vc = (_randn((4, 320, kvh, 128), dtype, cuda, 511 + i) for i in range(2))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out = da_mod.decode_attention(q, kc, vc, lengths, kv_bound=320, **opts)
+    _close(out, ref.decode_attention(*(t.cpu() for t in (q, kc, vc, lengths)), **opts), dtype)
+    assert torch.all(out[-1] == 0)
+
+
+def _zoo_pools(kvh, mode, dtype, dev):
+    """A pool of 41 pages of 16 keys, as bf16/f32 or int8/fp8 codes with
+    float32 scales, and a table of two requests of 20 pages each."""
+    kp, vp = (_randn((41, 16, kvh, 128), dtype, dev, 520 + i) for i in range(2))
+    table = (torch.randperm(40, generator=torch.Generator().manual_seed(1)) + 1).view(2, 20)
+    pools = (kp, vp, None, None) if mode is None else _quantized(kp, vp, mode)
+    return pools, table.to(torch.int32).to(dev)
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+@pytest.mark.parametrize("layout", ZOO_LAYOUTS)
+@pytest.mark.parametrize("opts", ZOO_OPTS)
+def test_paged_attention_zoo_layouts(cuda, mode, layout, opts):
+    h, kvh = layout
+    (kp, vp, ks, vs), table = _zoo_pools(kvh, mode, torch.bfloat16, cuda)
+    q = _randn((2, 1, h, 128), torch.bfloat16, cuda, 525)
+    lengths = torch.tensor([313, 97], dtype=torch.int32, device=cuda)
+    args = (q, kp, vp, table, lengths)
+    out = pa_mod.paged_attention(*args, k_scales=ks, v_scales=vs, **opts)
+    cpu = lambda t: None if t is None else t.cpu()
+    want = ref.paged_attention(*(t.cpu() for t in args), k_scales=cpu(ks), v_scales=cpu(vs),
+                               **opts)
+    _close(out, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("mode", [None, "int8"])
+@pytest.mark.parametrize("layout", ZOO_LAYOUTS)
+@pytest.mark.parametrize("opts", ZOO_OPTS)
+def test_spec_verify_zoo_layouts(cuda, mode, layout, opts):
+    h, kvh = layout
+    (kp, vp, ks, vs), table = _zoo_pools(kvh, mode, torch.bfloat16, cuda)
+    q = _randn((2, 5, h, 128), torch.bfloat16, cuda, 526)
+    lengths = torch.tensor([300, 97], dtype=torch.int32, device=cuda)
+    wl = torch.tensor([5, 3], dtype=torch.int32, device=cuda)
+    args = (q, kp, vp, table, lengths, wl)
+    out = sv_mod.spec_verify(*args, k_scales=ks, v_scales=vs, **opts)
+    cpu = lambda t: None if t is None else t.cpu()
+    want = ref.spec_verify(*(t.cpu() for t in args), k_scales=cpu(ks), v_scales=cpu(vs), **opts)
+    _close(out, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("mode", [None, "int8"])
+@pytest.mark.parametrize("layout", ZOO_LAYOUTS)
+@pytest.mark.parametrize("opts", ZOO_OPTS)
+def test_varlen_prefill_zoo_layouts(cuda, mode, layout, opts):
+    """A 40-token chunk at pos0 256 over 16 context pages (the window of 100
+    leaves the first 12 of them dead) beside a fresh 23-token chunk."""
+    h, kvh = layout
+    (kp, vp, ks, vs), table = _zoo_pools(kvh, mode, torch.bfloat16, cuda)
+    T = 48 + 32
+    q = _randn((T, h, 128), torch.bfloat16, cuda, 527)
+    k, v = (_randn((T, kvh, 128), torch.bfloat16, cuda, 528 + i) for i in range(2))
+    meta = [torch.tensor(x, dtype=torch.int32, device=cuda)
+            for x in ([0, 48, 80], [40, 23], [256, 0])]
+    args = (q, k, v, kp, vp, *meta, table)
+    out = vp_mod.varlen_prefill(*args, k_scales=ks, v_scales=vs, **opts)
+    cpu = lambda t: None if t is None else t.cpu()
+    want = ref.varlen_prefill(*(t.cpu() for t in args), k_scales=cpu(ks), v_scales=cpu(vs),
+                              **opts)
+    _close(out, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("D", [128, 4608, 6144, 8192])
+def test_rmsnorm_zoo_widths(cuda, D):
+    """QK-norm rows of 128 (64 heads a token) and the zoo's d_model."""
+    x = _randn((64 * 5 if D == 128 else 5, D), torch.bfloat16, cuda, 530) * 3.0
+    w = _randn((D,), torch.bfloat16, cuda, 531) * 0.1
+    _close(rn_mod.rmsnorm(x, w), ref.rmsnorm(x, w), torch.bfloat16)

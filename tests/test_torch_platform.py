@@ -45,7 +45,8 @@ from repro_torch.core.platform import LocalPlatform, builtin_manifests
 from repro_torch.models import DecoderLM, from_jax
 
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
-ARCHS = ("glm4-9b", "mamba2-130m")
+# the port's architectures, in the reference's order
+ARCHS = ("deepseek-67b", "granite-20b", "glm4-9b", "gemma2-27b", "chameleon-34b", "mamba2-130m")
 
 
 @pytest.fixture(scope="module")
@@ -66,10 +67,10 @@ def _online(model, level="NONE", n=1, seq_len=8, backend="torch", cls=Evaluation
 # tests/test_system.py on the port
 # ---------------------------------------------------------------------------
 def test_initialization_workflow_registers_models_and_agents(platform):
-    assert sorted(m.name for m in platform.registry.manifests()) == list(ARCHS)
+    assert sorted(m.name for m in platform.registry.manifests()) == sorted(ARCHS)
     (agent,) = platform.registry.agents()
     assert agent.backend == "torch" and agent.system["platform"] == "cpu"
-    assert agent.models == ["glm4-9b:1.0.0", "mamba2-130m:1.0.0"]
+    assert sorted(agent.models) == sorted(f"{arch}:1.0.0" for arch in ARCHS)
 
 
 @pytest.mark.parametrize("reduced", [True, False])
@@ -194,6 +195,17 @@ def test_resnet_is_not_ported():
                                      NullTracer())
 
 
+def test_predictor_refuses_weights_past_the_card(monkeypatch):
+    """The platform's model load holds the rule the serve driver does:
+    weights that exceed the card's memory are refused before allocating."""
+    from repro_torch.models import lm
+
+    monkeypatch.setattr(lm, "_device_memory", lambda device: 1024)
+    manifest = next(m for m in builtin_manifests(reduced=True) if m.name == "deepseek-67b")
+    with pytest.raises(MemoryError, match="runs reduced only"):
+        make_predictor("torch").open(OpenRequest(manifest=manifest, device="cpu"), NullTracer())
+
+
 # ---------------------------------------------------------------------------
 # trace levels
 # ---------------------------------------------------------------------------
@@ -211,9 +223,13 @@ def test_framework_spans_are_named_as_the_reference_names_them(arch):
         got_spans, want_spans = port.evaldb.spans(got["eval_id"]), ref.evaldb.spans(want["eval_id"])
         layers = _span_names(got_spans, TraceLevel.FRAMEWORK)
         assert layers == _span_names(want_spans, TraceLevel.FRAMEWORK)
-        kind = "attn" if arch == "glm4-9b" else "mamba"
-        L = get_config(arch, reduced=True).num_layers
-        assert layers == 2 * (["embed"] + [f"layer_{l:03d}_{kind}" for l in range(L)] + ["logits"])
+        cfg = get_config(arch, reduced=True)
+        kind = "mamba" if cfg.family == "ssm" else "attn"
+        # gemma2's alternating windows: the reference's values in the names
+        suffix = (lambda l: f"_w{1 << 30 if l % 2 else 8}") if arch == "gemma2-27b" else \
+            (lambda l: "")
+        assert layers == 2 * (["embed"] + [f"layer_{l:03d}_{kind}{suffix(l)}"
+                                           for l in range(cfg.num_layers)] + ["logits"])
         assert sorted(set(_span_names(got_spans, TraceLevel.MODEL))) == \
             sorted(set(_span_names(want_spans, TraceLevel.MODEL)))
     finally:
@@ -284,6 +300,9 @@ def test_jax_and_torch_evaluations_land_in_one_evaldb(tmp_path, kind):
 # predictor parity on the JAX weights
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch,backend,seq_len", [("glm4-9b", "pallas", 12),
+                                                  ("gemma2-27b", "pallas", 20),
+                                                  ("chameleon-34b", "pallas", 12),
+                                                  ("granite-20b", "pallas", 12),
                                                   ("mamba2-130m", "ref", 12),
                                                   ("mamba2-130m", "pallas", 16)])
 def test_torch_predictor_matches_the_jax_predictor(arch, backend, seq_len):
