@@ -74,7 +74,16 @@ Phases, each printing its own lines and wall time, each ending in
    buffer of two 1024-token chunks (one over 32 context pages), the decode
    family at the serve lengths; rmsnorm at d_model 4608/6144/8192 and over
    QK-norm rows of 128; each timed beside its bound (a windowed bound
-   counts the live (query, key) pairs);
+   counts the live (query, key) pairs).  Then ``flash_attention`` at
+   chunked prefill's shapes (``chunked_kernels_phase``): at glm4-9b's
+   heads, every first and padded last chunk that phase 4's chunked run
+   gives it (a 64-token first chunk at ``q_offset`` 0; 16-, 32- and
+   48-token last chunks at multiples of 64) held against plain; a 64-token
+   chunk at ``q_offset`` 16, 48, 1008 and 1984 over ``q_offset + 64`` keys
+   at glm4-9b's heads, at 4160 past gemma2-27b's 4096 window with each of
+   its two windows and softcap 50, and at 1008 with granite-20b's 48 heads
+   on one kv head, each also timed beside its bound and SDPA with the same
+   mask;
 3. check: reduced glm4-9b in float32 served on the card and on the CPU
    from the same weights must emit the same greedy tokens, with and
    without speculative decoding (which must also equal each other); the
@@ -83,7 +92,13 @@ Phases, each printing its own lines and wall time, each ending in
    the CPU's and ``forward`` logits agree within 1e-4 + 1e-4 |cpu|; the
    same for reduced mamba2-130m; and for reduced gemma2-27b (window 8),
    chameleon-34b, granite-20b and deepseek-67b on prompts of 20-60 tokens,
-   ``serve_paged`` with ``spec_k`` 0 and 4 as well;
+   ``serve_paged`` with ``spec_k`` 0 and 4 as well.  The rest of
+   ``serve_paged`` on reduced glm4-9b (``paged_paths_check``): chunked
+   prefill, the prefix cache on shared-prefix prompts (partial and full
+   hits, copy-on-write) with packed and chunked prefill, and overcommit
+   on a 6-page pool (preemption): the card's tokens must equal the CPU's
+   and the card's packed, cache-off and undisturbed runs, and every run's
+   prompt-token ledger must balance;
 4. serve: full-width, full-depth glm4-9b (40 layers, random bf16 weights
    from a seeded CUDA generator) through ``ServingEngine.serve_paged``;
    every request must complete and every kernel must have been launched
@@ -97,7 +112,21 @@ Phases, each printing its own lines and wall time, each ending in
    more than 0 spec_verify launches in each ``spec_ngram`` 1 run (random
    weights at the published vocabulary almost never repeat a 3-gram within
    32 tokens, so 3-gram lookup rarely drafts); token agreement with the
-   bf16 plain run of the same prompts is printed.  Then the dense engines
+   bf16 plain run of the same prompts is printed.  The rest of
+   ``serve_paged`` (``paged_paths_serve_phase``), each run once and
+   counted alone: the mix with chunked prefill (exactly 40
+   ``flash_attention`` a chunk, no ``varlen_prefill``); SharedPrefixLoad's
+   prompts (a 512-token prefix shared by 75%, some prompts the prefix
+   alone) with the cache off and on (saved tokens, full hits and copies
+   above 0); the mix at overcommit 2.0 on 200 pages (preemptions above
+   0); each with prefill tok/s, TTFT p50, peak memory and its token
+   agreement with its baseline; every run's prompt-token ledger must
+   balance.  Whether the bf16 differences are rounding
+   (``first_token_check``): the same weights in float32 give reference
+   logits; the chunked path's first-token logits must be within twice
+   the static prefill's error of them, and every token where a run first
+   differs from its baseline must be one that float32 separates by at most
+   twice the largest bf16 error measured.  Then the dense engines
    on the same requests, two runs each: the static path (Poisson
    arrivals at 20 Hz through the threaded ``RequestScheduler`` into
    ``generate`` batches of up to 8) and ``serve_continuous`` (8 slots);
@@ -1174,12 +1203,16 @@ def dense_check_phase(torch, dev, arch="glm4-9b", prompt_min=5):
         raise SystemExit(f"{cfg.name}: the dense engines on the card differ from the CPU reference")
 
 
-def _to_device(tree, dev):
+def _tree_map(tree, fn):
     if isinstance(tree, dict):
-        return {k: _to_device(v, dev) for k, v in tree.items()}
+        return {k: _tree_map(v, fn) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to_device(v, dev) for v in tree]
-    return tree.to(dev)
+        return [_tree_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _to_device(tree, dev):
+    return _tree_map(tree, lambda t: t.to(dev))
 
 
 # the end-to-end metrics this script prints, as the driver defines them
@@ -1220,14 +1253,16 @@ def _expected_launches(stats, cfg):
     """Launches each kernel must show for one serve run: ``_norms_per_pass``
     rmsnorm per pass (prefill launch or decode step), one attention per
     layer and pass of its kind (verify steps launch spec_verify, plain steps
-    paged_attention)."""
+    paged_attention; a packed prefill launch varlen_prefill, a chunk of
+    chunked prefill flash_attention)."""
     num_layers = cfg.num_layers
     verify = int(stats.spec_stats.get("spec_launches", 0))
+    prefill = "flash_attention" if stats.prefill_mode == "chunked" else "varlen_prefill"
     return {
         "rmsnorm": _norms_per_pass(cfg) * (stats.steps + stats.prefill_launches),
         "paged_attention": num_layers * (stats.steps - verify),
         "spec_verify": num_layers * verify,
-        "varlen_prefill": num_layers * stats.prefill_launches,
+        prefill: num_layers * stats.prefill_launches,
     }
 
 
@@ -1253,13 +1288,23 @@ def _completed(token_lists, vocab):
     return sum(1 for t in token_lists if len(t) == NEW_TOKENS and all(0 <= x < vocab for x in t))
 
 
+def _check_ledger(label, stats):
+    """Every prompt token admitted was prefilled, served from the prefix
+    cache, or dropped by a preemption, and counted once."""
+    if stats.prompt_tokens_admitted != (stats.prefill_tokens + stats.saved_prefill_tokens
+                                        + stats.prefill_tokens_dropped):
+        raise SystemExit(f"{label}: the prompt-token ledger does not balance")
+
+
 def _counted_serve(torch, engine, reqs, counters, need, **kw):
     """One serve run with the launch counts zeroed just before and read just
     after; fails unless every request completed, every count is what the
-    run's steps imply, and every kernel in ``need`` launched."""
+    run's steps imply, the prompt-token ledger balances, and every kernel in
+    ``need`` launched."""
     _zero(counters)
     stats = engine.serve_paged(reqs, num_slots=SLOTS, page_size=PAGE, prefill_budget=BUDGET,
                                **kw)
+    _check_ledger("serve_paged", stats)
     done = _completed([r.tokens for r in stats.results if r.status == "completed"],
                       engine.model.cfg.vocab_size)
     counts = _check_counts("serve_paged", counters,
@@ -1363,7 +1408,7 @@ def serve_phase(torch, dev, counters, model, params):
             for name in need:
                 if name != "rmsnorm":
                     launches.setdefault(_name(name, mode), cnt[name])
-    return launches, engine, reqs
+    return launches, engine, reqs, stats
 
 
 def _dense_expected(model, passes, steps):
@@ -1989,6 +2034,333 @@ def zoo_serve_phase(torch, dev, counters):
         del model, params, engine
 
 
+# ---------------------------------------------------------------------------
+# the rest of serve_paged: chunked prefill, the prefix cache, preemption
+# ---------------------------------------------------------------------------
+CHUNK = 4 * PAGE                # chunked prefill's chunk: the engine's default of 4 pages
+# chunk starts the flash kernel is timed at: 16 and 48 put the causal diagonal
+# inside a 32-key tile of the bf16 d-128 kernel, the last is max_seq's last chunk
+CHUNK_STARTS = (16, 48, 1008, MAX_SEQ - CHUNK)
+# (pos0, chunk) held beside the serve mix's own (_serve_chunks): a 32-token
+# last chunk, which the mix's lengths happen not to give
+CHUNK_EXTRA = ((4 * CHUNK, 2 * PAGE),)
+GEMMA_CHUNK_START = 4160        # past gemma2-27b's 4096 window
+GRANITE_CHUNK_START = 1008
+# the shared-prefix run: SharedPrefixLoad's mix (75% share one 512-token
+# prefix, unique 128-token tails); from the slots' second wave on, every
+# other shared prompt is the prefix alone, which the cache then holds whole
+PREFIX_LEN, PREFIX_TAIL, PREFIX_SHARE = 512, 128, 0.75
+# the overcommit run: the serve mix on a pool of 200 pages (the default is
+# SLOTS * 128 + 1) admitted against twice its capacity
+OVERCOMMIT, OVERCOMMIT_PAGES = 2.0, 200
+
+
+def chunked_kernels_phase(torch, dev):
+    """flash_attention at chunked prefill's shapes, bf16, d 128: a chunk at
+    ``q_offset`` pos0 over pos0 + chunk keys.  glm4-9b (32 on 2) at every
+    first and padded last chunk of the serve mix that phase 4 serves
+    chunked (its first at q_offset 0, its 16- and 48-token last chunks) and
+    at CHUNK_EXTRA, held against plain; glm4-9b at each of CHUNK_STARTS,
+    gemma2-27b (32 on 16, softcap 50) past its 4096 window with each of its
+    two windows, and granite-20b (48 on 1: 3072 rows a kv head), CHUNK-token
+    chunks, each held against plain and timed beside its bound (the live
+    (query, key) pairs, the keys a window leaves) and SDPA with the same
+    mask (without the softcap, which it lacks).  Returns the worst error."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models.lm import GLOBAL_WINDOW
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev, dtype=torch.bfloat16)
+    cpm = _sleep_cycles_per_ms(torch)
+    d = 128
+    gemma = get_config("gemma2-27b")
+    # (arch, pos0, chunk, opts, timed): the serve mix's first and last chunks
+    # and CHUNK_EXTRA are held against plain; the fixed starts are also timed
+    served = sorted(set(_serve_chunks(_serve_lengths(SEED))) | set(CHUNK_EXTRA))
+    print(f"   the serve mix's chunks (pos0, chunk) at {CHUNK}-token chunks: {served}")
+    cases = [("glm4-9b", pos0, c, {}, False) for pos0, c in served]
+    cases += [("glm4-9b", pos0, CHUNK, {}, True) for pos0 in CHUNK_STARTS]
+    cases += [("gemma2-27b", GEMMA_CHUNK_START, CHUNK,
+               dict(window=w, softcap=gemma.attn_softcap), True)
+              for w in (gemma.sliding_window, GLOBAL_WINDOW)]
+    cases += [("granite-20b", GRANITE_CHUNK_START, CHUNK, {}, True)]
+    worst = 0.0
+    for arch, pos0, c, opts, timed in cases:
+        cfg = get_config(arch)
+        h, kvh = cfg.num_heads, cfg.num_kv_heads
+        rep, sk = h // kvh, pos0 + c
+        q, k, v = randn(1, c, h, d), randn(1, sk, kvh, d), randn(1, sk, kvh, d)
+        label = (f"flash_attention {arch} chunk q (1, {c}, {h}, {d}) at q_offset {pos0} over "
+                 f"{sk} keys, kvh {kvh}" + "".join(f", {n} {x}" for n, x in opts.items()))
+        kernel = lambda q_, k_, v_: fa.flash_attention(q_, k_, v_, q_offset=pos0, **opts)
+        plain = lambda q_, k_, v_: ref.attention(q_, k_, v_, q_offset=pos0, **opts)
+        worst = max(worst, _check(torch, label, kernel(q, k, v), plain(q, k, v)))
+        if not timed:
+            continue
+        qpos = pos0 + torch.arange(c, device=dev)[:, None]
+        kpos = torch.arange(sk, device=dev)[None, :]
+        live = qpos >= kpos
+        w = opts.get("window")
+        if w:
+            live &= qpos - kpos < w
+        pairs = int(live.sum())
+        first_key = max(0, pos0 - w + 1) if w else 0       # keys before it are dead
+        nbytes = 2 * (2 * c * h * d + 2 * (sk - first_key) * kvh * d)
+        sets = _rotation(nbytes, lambda i: (q.clone(), k.clone(), v.clone()))
+        lib_sets = _rotation(2 * (2 * c * h * d + 2 * sk * h * d),
+                             lambda i: (q.transpose(1, 2).contiguous(),
+                                        k.transpose(1, 2).repeat_interleave(rep, dim=1),
+                                        v.transpose(1, 2).repeat_interleave(rep, dim=1)))
+        mask = live[None, None]
+        library = lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask)
+        record = dict(**_timed(torch, cpm, kernel, plain, library, sets, lib_sets),
+                      bound=_bound_ms(nbytes, 4.0 * h * d * pairs),
+                      shape=f"{pairs} live pairs" + (
+                          "; library: SDPA without the softcap" if "softcap" in opts else ""))
+        _print_records({label: record})
+        del q, k, v, sets, lib_sets
+    return worst
+
+
+def _serve_chunks(lengths):
+    """(pos0, chunk) of each prompt's first and last chunk as chunked
+    prefill cuts it at CHUNK tokens: a last chunk of c tokens is right-
+    padded to a page multiple, so flash sees pos0 + padded keys."""
+    shapes = []
+    for n in lengths:
+        last = (int(n) - 1) // CHUNK * CHUNK
+        c = min(CHUNK, -(-(int(n) - last) // PAGE) * PAGE)
+        shapes += [(0, min(CHUNK, -(-int(n) // PAGE) * PAGE)), (last, c)]
+    return shapes
+
+
+def _shared_prompts(vocab, seed, n, prefix_len, tail, first_wave):
+    """``SharedPrefixLoad``'s prompts (share PREFIX_SHARE, one group), with
+    every other shared prompt from index ``first_wave`` on cut to the prefix
+    alone: a page-aligned prompt the cache holds whole once an earlier
+    request has prefilled it."""
+    from repro_torch.core.workload import SharedPrefixLoad, shared_prefix_prompts
+
+    load = list(SharedPrefixLoad(n, rate_hz=RATE_HZ, prefix_len=prefix_len, suffix_len=tail,
+                                 share_ratio=PREFIX_SHARE, num_groups=1, seed=seed).requests())
+    prompts = shared_prefix_prompts(load, vocab, seed=seed)
+    return [p[:prefix_len] if i >= first_wave and r.tags["prefix_group"] >= 0 and i % 2 == 0
+            else p for i, (r, p) in enumerate(zip(load, prompts))]
+
+
+def paged_paths_check(torch, dev):
+    """Reduced glm4-9b in float32, card against CPU on the rest of
+    ``serve_paged``: chunked prefill (one-page chunks), the prefix cache on
+    shared-prefix prompts (partial and full hits, with copy-on-write), with
+    packed and with chunked prefill, and overcommit on a 6-page pool
+    (preemption).  The card's tokens must equal the CPU's, and the card's
+    packed, cache-off and undisturbed runs of the same prompts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import DecoderLM
+    from repro_torch.serve.engine import ServeRequest, ServingEngine
+
+    cfg = get_config("glm4-9b", reduced=True)
+    cpu_model = DecoderLM(cfg, device="cpu", dtype=torch.float32)
+    cpu_params = cpu_model.init(seed=SEED)
+    gpu_model = DecoderLM(cfg, device=dev, dtype=torch.float32)
+    gpu_params = _to_device(cpu_params, dev)
+    shared = _shared_prompts(cfg.vocab_size, SEED, 8, 2 * PAGE, 12, first_wave=3)
+    plain_reqs = lambda: make_requests(6, 5, 60, 8, cfg.vocab_size, SEED)
+    # 24 new tokens: enough page growth that a 6-page pool runs dry
+    long_reqs = lambda: make_requests(6, 5, 60, 24, cfg.vocab_size, SEED)
+    shared_reqs = lambda: [ServeRequest(request_id=i, prompt=p, max_new_tokens=8)
+                           for i, p in enumerate(shared)]
+    variants = {
+        "packed": (plain_reqs, {}),
+        "chunked": (plain_reqs, dict(prefill_mode="chunked", prefill_chunk=PAGE)),
+        "cache off": (shared_reqs, {}),
+        "cache on": (shared_reqs, dict(prefix_cache=True)),
+        "cache on, chunked": (shared_reqs, dict(prefix_cache=True, prefill_mode="chunked")),
+        "24 new, undisturbed": (long_reqs, {}),
+        "24 new, overcommit": (long_reqs, dict(num_pages=7, overcommit=10.0)),
+    }
+    runs = {}
+    for name, model, params in (("cpu", cpu_model, cpu_params), ("cuda", gpu_model, gpu_params)):
+        engine = ServingEngine(model, params, max_batch=3, max_seq=96, page_size=PAGE,
+                               device=model.device)
+        for v, (reqs, kw) in variants.items():
+            runs[name, v] = engine.serve_paged(reqs(), prefill_budget=64, **kw)
+            _check_ledger(f"the rest of serve_paged, {name} {v}", runs[name, v])
+    tok = lambda key: [r.tokens for r in runs[key].results]
+    same = lambda a, b: _agreement(tok(a), tok(b))[2] is None
+    card_cpu = {v: same(("cpu", v), ("cuda", v)) for v in variants}
+    within = {"chunked": "packed", "cache on": "cache off", "cache on, chunked": "cache off",
+              "24 new, overcommit": "24 new, undisturbed"}
+    card_card = {v: same(("cuda", base), ("cuda", v)) for v, base in within.items()}
+    on, pre = runs["cuda", "cache on"], runs["cuda", "24 new, overcommit"]
+    print(f"   reduced glm4-9b f32, the rest of serve_paged: cuda tokens == cpu tokens "
+          f"{card_cpu}; on the card == {within}: {card_card}")
+    print(f"      cache on: {on.prefix_stats}, saved {on.saved_prefill_tokens} tokens, "
+          f"cow_copies {on.cow_copies}; overcommit: preemptions {pre.preemptions}, dropped "
+          f"{pre.prefill_tokens_dropped}; chunked: "
+          f"{runs['cuda', 'chunked'].prefill_launches} chunks")
+    if not (all(card_cpu.values()) and all(card_card.values())):
+        raise SystemExit("the rest of serve_paged: the card's tokens differ from the CPU's or "
+                         "between paths that must agree")
+    if not (on.prefix_stats["full_hits"] > 0 and on.prefix_stats["hits"] >
+            on.prefix_stats["full_hits"] and on.cow_copies > 0 and pre.preemptions > 0):
+        raise SystemExit("the rest of serve_paged: the reduced check hit no full and partial "
+                         "prefix, copied no page or preempted nothing")
+
+
+def _fmt_run(torch, dev, m, stats, label, base=None):
+    """One run's line: ``_fmt_metrics``, peak memory and, with ``base`` (its
+    name, its stats), the token agreement with it."""
+    agree = "" if base is None else f"; vs {base[0]}: " + _fmt_agreement(
+        [r.tokens for r in base[1].results], [r.tokens for r in stats.results])
+    return (f"   {label}: {_fmt_metrics(m, stats)}; peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB{agree}")
+
+
+def paged_paths_serve_phase(torch, dev, counters, engine, reqs, base):
+    """Full glm4-9b, bf16, the rest of ``serve_paged``, each run once and
+    counted alone: the serve mix with chunked prefill (exactly 40
+    flash_attention launches a chunk, no varlen_prefill); shared-prefix
+    prompts with the cache off and on (exact varlen_prefill launches, saved
+    prompt tokens, full hits and copies above 0); the serve mix at
+    overcommit OVERCOMMIT on OVERCOMMIT_PAGES pages (preemptions above 0).
+    Each prints prefill tok/s, TTFT p50, peak memory and its token
+    agreement with its baseline (bf16 at full width need not be bit-equal
+    across paths whose matmul row counts differ; phase 3 holds them exactly
+    in float32)."""
+    from repro_torch.launch.serve import engine_metrics
+    from repro_torch.serve.engine import ServeRequest
+
+    L = engine.model.cfg.num_layers
+
+    def run(label, prompts, need, base=None, **kw):
+        torch.cuda.reset_peak_memory_stats(dev)
+        stats, counts = _counted_serve(torch, engine, prompts, counters, need, **kw)
+        print(_fmt_run(torch, dev, engine_metrics(stats), stats, label, base))
+        print(f"      launches {counts}")
+        return stats, counts
+
+    chunked, counts = run(f"chunked prefill ({CHUNK}-token chunks), the run-1 prompts", reqs,
+                          ("rmsnorm", "paged_attention", "flash_attention"),
+                          ("packed run 1", base), prefill_mode="chunked")
+    if counts["flash_attention"] != L * chunked.prefill_launches or counts["varlen_prefill"]:
+        raise SystemExit("chunked prefill: not one flash_attention launch a layer and chunk")
+    shared = _shared_prompts(engine.model.cfg.vocab_size, SEED, REQUESTS, PREFIX_LEN,
+                             PREFIX_TAIL, first_wave=SLOTS)
+    shared_reqs = [ServeRequest(request_id=i, prompt=p, max_new_tokens=NEW_TOKENS)
+                   for i, p in enumerate(shared)]
+    need = ("rmsnorm", "paged_attention", "varlen_prefill")
+    label = f"shared {PREFIX_LEN}-token prefix ({PREFIX_SHARE} share, {PREFIX_TAIL}-token tails)"
+    off, _ = run(f"{label}, cache off", shared_reqs, need)
+    on, _ = run(f"{label}, cache on", shared_reqs, need, ("cache off", off), prefix_cache=True)
+    print(f"      cache on: {on.prefix_stats}; saved {on.saved_prefill_tokens} prompt tokens, "
+          f"cow_copies {on.cow_copies}")
+    if not (on.saved_prefill_tokens > 0 and on.cow_copies > 0
+            and on.prefix_stats["full_hits"] > 0):
+        raise SystemExit("prefix cache: no saved tokens, full hit or copy-on-write at full width")
+    pre, _ = run(f"overcommit {OVERCOMMIT} on {OVERCOMMIT_PAGES} pages, the run-1 prompts",
+                 reqs, need, ("undisturbed run 1", base), num_pages=OVERCOMMIT_PAGES,
+                 overcommit=OVERCOMMIT)
+    print(f"      preemptions {pre.preemptions}, prompt tokens dropped "
+          f"{pre.prefill_tokens_dropped}, admitted {pre.prompt_tokens_admitted}")
+    if not pre.preemptions:
+        raise SystemExit("overcommit: nothing was preempted at full width")
+    first_token_check(torch, dev, engine.model, engine.params, reqs, chunked, [
+        ("chunked vs packed", reqs, base, chunked),
+        ("cache on vs off", shared_reqs, off, on),
+        ("overcommit vs undisturbed", reqs, base, pre)])
+
+
+def first_token_check(torch, dev, model, params, reqs, chunked, pairs):
+    """Whether the bf16 token differences of the runs above are rounding.
+    The same bf16 weights in float32 give reference logits.  For each serve
+    prompt: the chunked path's last-token logits (``prefill_paged_chunk``
+    chunk by chunk, as the engine cuts them) and the static bf16 prefill's,
+    each one's max |logit - reference| beside the reference's top-2 margin;
+    the chunked argmax must be the chunked run's first token, and the
+    chunked error at most twice the static one (plus TOL_FLOOR times the
+    reference's rms, where both are float32 rounding).  Then for each (label,
+    requests, baseline, run) in ``pairs``, at every request's first
+    differing token: the reference's margin between the two tokens, which
+    two bf16 paths can flip only where it is at most twice their error.  It
+    must be at most twice E, the largest bf16 error measured here."""
+    import numpy as np
+
+    from repro_torch.models import DecoderLM
+
+    ref_model = DecoderLM(model.cfg, device=dev, dtype=torch.float32)
+    ref_params = _tree_map(params, lambda t: t.float())
+    max_pages = MAX_SEQ // PAGE
+    row = torch.arange(1, max_pages + 1, device=dev, dtype=torch.int32)
+
+    def dense(m, p, ctx):
+        tokens = torch.as_tensor(np.asarray(ctx, np.int32), device=dev)[None]
+        return m.prefill(p, {"tokens": tokens}, m.init_cache(1, len(ctx)))[0]
+
+    def chunk_path(ctx):
+        cache = model.init_paged_cache(max_pages + 1, PAGE)
+        for start in range(0, len(ctx), CHUNK):
+            c = min(CHUNK, len(ctx) - start)
+            chunk = torch.zeros((1, min(CHUNK, -(-c // PAGE) * PAGE)), dtype=torch.int32,
+                                device=dev)
+            chunk[0, :c] = torch.as_tensor(np.asarray(ctx[start:start + c], np.int32))
+            logits = model.prefill_paged_chunk(params, chunk, cache, row, c - 1, start)
+        return logits[0]
+
+    err = lambda a, b: float((a - b).abs().max())
+    e_dense, e_chunk, same_first, rms = [], [], 0, 0.0
+    print("      first-token logits, bf16 against the same weights in float32 "
+          "(request: |chunked - f32|, |static - f32|, f32 top-2 margin, chunked/static "
+          "argmax == f32's):")
+    for r, got in zip(reqs, chunked.results):
+        ctx = r.prompt.tolist()
+        ref = dense(ref_model, ref_params, ctx)
+        bf, ch = dense(model, params, ctx), chunk_path(ctx)
+        e_dense.append(err(bf, ref))
+        e_chunk.append(err(ch, ref))
+        top = ref.topk(2).values
+        rms = max(rms, float(ref.pow(2).mean().sqrt()))
+        same_first += int(ch.argmax()) == int(got.tokens[0])
+        print(f"      {r.request_id}: {e_chunk[-1]:.4f}, {e_dense[-1]:.4f}, "
+              f"{float(top[0] - top[1]):.4f}, {int(ch.argmax()) == int(ref.argmax())}/"
+              f"{int(bf.argmax()) == int(ref.argmax())}")
+    print(f"      the chunked run's first tokens == these chunked logits' argmax: "
+          f"{same_first}/{len(reqs)}; max error chunked {max(e_chunk):.4f}, "
+          f"static {max(e_dense):.4f}")
+    if same_first != len(reqs):
+        raise SystemExit("chunked prefill: the run's first tokens are not its logits' argmax")
+    if max(e_chunk) > 2 * max(e_dense) + TOL_FLOOR * rms:
+        raise SystemExit("chunked prefill: its logits are further from float32 than twice "
+                         "the static prefill's")
+    flips = []
+    for label, prompts, want, got in pairs:
+        for r, a, b in zip(prompts, want.results, got.results):
+            a, b = np.asarray(a.tokens), np.asarray(b.tokens)
+            if np.array_equal(a, b):
+                continue
+            t = int(np.argmin(a == b))
+            ctx = r.prompt.tolist() + a[:t].tolist()
+            ref = dense(ref_model, ref_params, ctx)
+            e_dense.append(err(dense(model, params, ctx), ref))
+            flips.append((label, r.request_id, t, abs(float(ref[int(a[t])] - ref[int(b[t])]))))
+    E = max(e_dense + e_chunk)
+    for label, _, _, _ in pairs:
+        mine = [(i, t, round(m, 4)) for lab, i, t, m in flips if lab == label]
+        print(f"      {label}: {len(mine)} requests differ; (request, first differing token, "
+              f"f32 margin of the two tokens) {mine}; 2E = {2 * E:.4f}")
+    del ref_params
+    torch.cuda.empty_cache()
+    if any(m > 2 * E for _, _, _, m in flips):
+        raise SystemExit("a bf16 run flips a token where float32 separates the two by more "
+                         "than twice the bf16 error: not rounding")
+
+
 # platform phase: the evaluation platform (client -> server -> agent ->
 # scenario -> scheduler -> torch predictor) at published width
 PLATFORM_SEQ = 128
@@ -2309,11 +2681,15 @@ def main() -> int:
     print("   -- the rest of the dense family's shapes (gemma2-27b, granite-20b, chameleon-34b)")
     for name, err in zoo_kernels_phase(torch, dev).items():
         records[name]["err"] = max(records[name]["err"], err)
+    print("   -- flash_attention at chunked prefill's shapes (glm4-9b, gemma2-27b, granite-20b)")
+    records["flash_attention"]["err"] = max(records["flash_attention"]["err"],
+                                            chunked_kernels_phase(torch, dev))
     _done(torch, "2. kernels", t0)
 
     t0 = _phase("3. check: reduced glm4-9b, mamba2-130m and the rest of the dense family, "
                 "card vs CPU reference")
     check_phase(torch, dev)
+    paged_paths_check(torch, dev)
     dense_check_phase(torch, dev)
     dense_check_phase(torch, dev, "mamba2-130m")
     for arch in ZOO:
@@ -2325,7 +2701,9 @@ def main() -> int:
     # every kernel wrapper's launch counter, by kernel name
     counters = kernel_counters()
     model, params = full_model(torch, dev)
-    launches, engine, reqs = serve_phase(torch, dev, counters, model, params)
+    launches, engine, reqs, base = serve_phase(torch, dev, counters, model, params)
+    print("   -- the rest of serve_paged: chunked prefill, the prefix cache, overcommit")
+    paged_paths_serve_phase(torch, dev, counters, engine, reqs, base)
     print("   -- the dense engines (static generate behind the scheduler; serve_continuous)")
     dense_launches, dense_engine, prompts, _ = dense_serve_phase(torch, dev, counters, model,
                                                                  params)

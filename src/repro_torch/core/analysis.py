@@ -6,11 +6,12 @@ scalability across batch sizes) plus the across-stack trace summaries
 (top-K most time-consuming layers, per-level breakdowns — Table 3 / Fig 8),
 and human-readable report generation.
 
-The port's copy of what the platform calls from ``repro.core.analysis``: the
-paper metrics, the scheduler summary, Jain's index and the trace and report
-helpers.  The serving-event summaries (page occupancy, prefill saturation,
-speculation, TP, prefix cache, fleet, recovery, SLO serving, KV divergence)
-wait for the slices that emit those events.  Every module of ``repro_torch``
+The port's copy of what the platform and the serving driver call from
+``repro.core.analysis``: the paper metrics, the scheduler summary, Jain's
+index, the trace and report helpers, and the summaries of the paged
+engine's events (page occupancy, prefill saturation, speculation, prefix
+cache, SLO serving), inter-token latency and KV divergence.  The TP, fleet
+and recovery summaries wait for the slices that emit those events.  Every module of ``repro_torch``
 keeps its own copy of what it needs so that it never imports ``repro``.
 """
 from __future__ import annotations
@@ -115,6 +116,374 @@ def jain_index(shares: Sequence[float]) -> float:
     total = sum(xs)
     sq = sum(x * x for x in xs)
     return total * total / (len(xs) * sq) if sq > 0 else 1.0
+
+
+# --------------------------------------------------------------------------
+# Serving-event summaries (copies of repro.core.analysis)
+# --------------------------------------------------------------------------
+def page_occupancy_summary(spans: Iterable[Span]) -> Dict[str, float]:
+    """Summarize the paged engine's KV-page occupancy trace series.
+
+    The paged slot pool publishes one ``pages:occupancy`` event per decode-
+    step boundary, tagged with ``pages_in_use`` / ``pages_free`` /
+    ``num_pages`` / ``active_slots``.  This aggregates them into the memory
+    block of the analysis workflow: utilization tells whether the HBM page
+    budget (not compute) caps concurrency."""
+    used: List[float] = []
+    active: List[float] = []
+    total = 0.0
+    for s in spans:
+        if s.name != "pages:occupancy":
+            continue
+        used.append(float(s.tags.get("pages_in_use", 0)))
+        active.append(float(s.tags.get("active_slots", 0)))
+        total = max(total, float(s.tags.get("num_pages", 0)))
+    if not used:
+        return {}
+    cap = max(total, 1.0)
+    return {
+        "samples": float(len(used)),
+        "num_pages": total,
+        "mean_pages_in_use": sum(used) / len(used),
+        "peak_pages_in_use": max(used),
+        "mean_page_utilization": sum(used) / len(used) / cap,
+        "peak_page_utilization": max(used) / cap,
+        "mean_active_slots": sum(active) / len(active),
+        "peak_active_slots": max(active),
+    }
+
+
+def page_occupancy_section(spans: Iterable[Span]) -> str:
+    """Render the page-occupancy block as a report section (markdown-safe
+    text table); empty string when no paged run was traced."""
+    summary = page_occupancy_summary(spans)
+    if not summary:
+        return ""
+    rows = [{"metric": k, "value": v} for k, v in summary.items()]
+    return comparison_table(rows, ("metric", "value"))
+
+
+def prefill_saturation_summary(spans: Iterable[Span]) -> Dict[str, float]:
+    """Summarize the packed-prefill pipeline's saturation trace series.
+
+    The paged engine publishes one ``prefill:packed`` event per packed
+    varlen launch, tagged with ``tokens`` (real prompt tokens), ``padding``
+    (buffer slots spent on chunk/tail pad), ``chunks`` (coalesced spans),
+    ``buffer`` (packed-buffer size) and ``budget`` (the per-boundary token
+    knob).  This aggregates them into the prefill block of the analysis
+    workflow: buffer utilization tells whether prompt traffic saturates the
+    packed launches, chunks/launch how much cross-request coalescing the
+    mix allows."""
+    tokens: List[float] = []
+    chunks: List[float] = []
+    pad = 0.0
+    buffer = 0.0
+    total_s = 0.0
+    for s in spans:
+        if s.name != "prefill:packed":
+            continue
+        tokens.append(float(s.tags.get("tokens", 0)))
+        chunks.append(float(s.tags.get("chunks", 0)))
+        pad += float(s.tags.get("padding", 0))
+        buffer = max(buffer, float(s.tags.get("buffer", 0)))
+        total_s += s.duration
+    if not tokens:
+        return {}
+    cap = max(buffer, 1.0) * len(tokens)
+    total = sum(tokens)
+    return {
+        "launches": float(len(tokens)),
+        "buffer_tokens": buffer,
+        "prefill_tokens": total,
+        "padded_tokens": pad,
+        "mean_chunks_per_launch": sum(chunks) / len(chunks),
+        "mean_buffer_utilization": total / cap,
+        "peak_buffer_utilization": max(tokens) / max(buffer, 1.0),
+        "pad_fraction": pad / max(total + pad, 1.0),
+        "prefill_tokens_per_s": total / total_s if total_s > 0 else 0.0,
+    }
+
+
+def prefill_saturation_section(spans: Iterable[Span]) -> str:
+    """Render the prefill-saturation block as a report section; empty string
+    when no packed-prefill run was traced."""
+    summary = prefill_saturation_summary(spans)
+    if not summary:
+        return ""
+    rows = [{"metric": k, "value": v} for k, v in summary.items()]
+    return comparison_table(rows, ("metric", "value"))
+
+
+def spec_decode_summary(spans: Iterable[Span]) -> Dict[str, float]:
+    """Summarize the speculative-decoding verify trace series.
+
+    The paged engine publishes one ``spec:verify`` event per multi-token
+    verification launch, tagged with ``window`` (the k+1 launch width),
+    ``slots`` (decoding slots scored), ``proposed`` / ``accepted`` (draft
+    tokens in/out of the greedy exact-match acceptance test) and ``emitted``
+    (tokens committed by the launch: one per slot plus every accepted
+    draft).  This aggregates them into the decode block of the analysis
+    workflow: the acceptance rate is whether prompt-lookup drafting pays,
+    and ``mean_tokens_per_launch`` vs 1.0 is the decode-step amplification
+    the verification kernel bought."""
+    proposed = 0.0
+    accepted = 0.0
+    emitted = 0.0
+    slots = 0.0
+    launches = 0
+    window = 0.0
+    total_s = 0.0
+    for s in spans:
+        if s.name != "spec:verify":
+            continue
+        launches += 1
+        proposed += float(s.tags.get("proposed", 0))
+        accepted += float(s.tags.get("accepted", 0))
+        emitted += float(s.tags.get("emitted", 0))
+        slots += float(s.tags.get("slots", 0))
+        window = max(window, float(s.tags.get("window", 0)))
+        total_s += s.duration
+    if not launches:
+        return {}
+    return {
+        "spec_launches": float(launches),
+        "window": window,
+        "draft_proposed": proposed,
+        "draft_accepted": accepted,
+        "acceptance_rate": accepted / proposed if proposed else 0.0,
+        "emitted_tokens": emitted,
+        "mean_tokens_per_launch": emitted / max(slots, 1.0),
+        "emitted_tokens_per_s": emitted / total_s if total_s > 0 else 0.0,
+    }
+
+
+def spec_decode_section(spans: Iterable[Span]) -> str:
+    """Render the speculative-decoding block as a report section; empty
+    string when no speculative run was traced."""
+    summary = spec_decode_summary(spans)
+    if not summary:
+        return ""
+    rows = [{"metric": k, "value": v} for k, v in summary.items()]
+    return comparison_table(rows, ("metric", "value"))
+
+
+def prefix_cache_summary(spans: Iterable[Span]) -> Dict[str, float]:
+    """Summarize the automatic prefix cache's trace series.
+
+    The paged engine publishes one ``prefix:lookup`` event per admitted
+    request (tagged ``prompt_tokens`` / ``cached_tokens`` / ``hit_pages`` /
+    ``full_hit``), a ``prefix:cow`` event per copy-on-write page split, and
+    a ``prefix:evict`` event per reclamation of cached-unreferenced pages
+    (tagged ``pages``).  This aggregates them into the serving block of the
+    analysis workflow: the hit rate and saved-token fraction say how much
+    prefill the workload's shared prefixes amortize, COW copies how often
+    shared last pages had to split, and evictions whether the page budget
+    is recycling the cache under pressure."""
+    prompt = 0.0
+    cached = 0.0
+    hit_pages = 0.0
+    lookups = 0
+    hits = 0
+    full_hits = 0
+    cow = 0
+    evicted = 0.0
+    for s in spans:
+        if s.name == "prefix:lookup":
+            lookups += 1
+            p = float(s.tags.get("prompt_tokens", 0))
+            c = float(s.tags.get("cached_tokens", 0))
+            prompt += p
+            cached += c
+            hit_pages += float(s.tags.get("hit_pages", 0))
+            if c > 0:
+                hits += 1
+            if s.tags.get("full_hit"):
+                full_hits += 1
+        elif s.name == "prefix:cow":
+            cow += 1
+        elif s.name == "prefix:evict":
+            evicted += float(s.tags.get("pages", 0))
+    if not lookups and not cow and not evicted:
+        return {}
+    return {
+        "lookups": float(lookups),
+        "hits": float(hits),
+        "full_hits": float(full_hits),
+        "hit_rate": hits / lookups if lookups else 0.0,
+        "hit_pages": hit_pages,
+        "prompt_tokens": prompt,
+        "saved_prefill_tokens": cached,
+        "saved_fraction": cached / prompt if prompt else 0.0,
+        "cow_copies": float(cow),
+        "evicted_pages": evicted,
+    }
+
+
+def prefix_cache_section(spans: Iterable[Span]) -> str:
+    """Render the prefix-cache block as a report section; empty string when
+    no prefix-cached run was traced."""
+    summary = prefix_cache_summary(spans)
+    if not summary:
+        return ""
+    rows = [{"metric": k, "value": v} for k, v in summary.items()]
+    return comparison_table(rows, ("metric", "value"))
+
+
+def slo_summary(spans: Iterable[Span]) -> Dict[str, float]:
+    """Summarize a multi-tenant SLO run from ``sched:tenant`` events.
+
+    The scheduler and the paged engine publish one ``sched:tenant`` event
+    per terminal request, tagged ``tenant`` / ``priority`` / ``status``
+    (completed | failed | rejected) / ``latency_s`` / ``slo_ms`` /
+    ``slo_ok`` (completed within its SLO) / ``tokens`` (admission cost).
+    This aggregates them into the SLO block of the analysis workflow:
+    goodput-under-SLO (the headline — completed-within-SLO over all
+    terminal requests, so shed and late work both count against it),
+    per-tenant p99 latency (``<tenant>_p99_ms``), shed/defer counters and
+    Jain's fairness index over per-tenant *served* tokens — the number
+    token buckets + weighted fair dequeue are supposed to hold near 1.0
+    when tenants offer equal load."""
+    terminal = 0
+    completed = 0
+    rejected = 0
+    failed = 0
+    slo_ok = 0
+    deferred = 0
+    latencies: Dict[str, List[float]] = {}
+    served_tokens: Dict[str, float] = {}
+    shed_by: Dict[str, float] = {}
+    for s in spans:
+        if s.name == "sched:defer":
+            deferred += 1
+            continue
+        if s.name != "sched:tenant":
+            continue
+        tenant = str(s.tags.get("tenant", "default"))
+        status = str(s.tags.get("status", "completed"))
+        terminal += 1
+        if status == "completed":
+            completed += 1
+            latencies.setdefault(tenant, []).append(
+                float(s.tags.get("latency_s", 0.0))
+            )
+            served_tokens[tenant] = served_tokens.get(tenant, 0.0) + float(
+                s.tags.get("tokens", 0.0)
+            )
+            if s.tags.get("slo_ok", True):
+                slo_ok += 1
+        elif status == "rejected":
+            rejected += 1
+            shed_by[tenant] = shed_by.get(tenant, 0.0) + 1.0
+        else:
+            failed += 1
+    if not terminal:
+        return {}
+    out: Dict[str, float] = {
+        "requests": float(terminal),
+        "completed": float(completed),
+        "rejected": float(rejected),
+        "failed": float(failed),
+        "deferred": float(deferred),
+        "goodput_slo": slo_ok / terminal,
+        "slo_attainment": slo_ok / completed if completed else 0.0,
+        "jain_index": jain_index(list(served_tokens.values())),
+        "tenants": float(len(set(latencies) | set(shed_by))),
+    }
+    for tenant in sorted(latencies):
+        ls = latencies[tenant]
+        out[f"{tenant}_p99_ms"] = percentile(ls, 99.0) * 1e3
+        out[f"{tenant}_completed"] = float(len(ls))
+        out[f"{tenant}_served_tokens"] = served_tokens.get(tenant, 0.0)
+    for tenant in sorted(shed_by):
+        out[f"{tenant}_shed"] = shed_by[tenant]
+    return out
+
+
+def slo_section(spans: Iterable[Span]) -> str:
+    """Render the multi-tenant SLO block as a report section; empty string
+    when no tenant-tagged run was traced."""
+    summary = slo_summary(spans)
+    if not summary:
+        return ""
+    rows = [{"metric": k, "value": v} for k, v in summary.items()]
+    return comparison_table(rows, ("metric", "value"))
+
+
+def itl_summary(itls_s: Sequence[float]) -> Dict[str, float]:
+    """Inter-token latency block: the serving-quality metric the paged
+    decode loop optimizes (speculative boundaries emit several tokens at
+    one instant, so accepted drafts surface as near-zero gaps)."""
+    if not itls_s:
+        return {}
+    return {
+        "samples": float(len(itls_s)),
+        "itl_mean_ms": sum(itls_s) / len(itls_s) * 1e3,
+        "itl_p50_ms": percentile(itls_s, 50.0) * 1e3,
+        "itl_p99_ms": percentile(itls_s, 99.0) * 1e3,
+    }
+
+
+def kv_divergence_summary(
+    ref_tokens: Sequence[Sequence[int]],
+    test_tokens: Sequence[Sequence[int]],
+) -> Dict[str, float]:
+    """Token-divergence block for the KV-quantization accuracy harness.
+
+    Compares per-request greedy token streams from a quantized-KV serving
+    run against the full-precision replay of the SAME workload (greedy
+    decoding is deterministic per request, so any mismatch is caused by the
+    quantization error, not scheduling).  Reports the exact-match fraction,
+    the position of the first diverging token (later is better — the
+    quantized run tracked the reference longer), and the mean matched-prefix
+    fraction across requests.
+    """
+    if len(ref_tokens) != len(test_tokens):
+        raise ValueError(
+            f"mismatched request counts: {len(ref_tokens)} reference vs "
+            f"{len(test_tokens)} test streams"
+        )
+    n = len(ref_tokens)
+    if not n:
+        return {}
+    exact = 0
+    first_div: List[int] = []
+    prefix_frac: List[float] = []
+    for r, t in zip(ref_tokens, test_tokens):
+        r = [int(x) for x in r]
+        t = [int(x) for x in t]
+        m = min(len(r), len(t))
+        i = next((j for j in range(m) if r[j] != t[j]), m)
+        if i == m and len(r) == len(t):
+            exact += 1
+        else:
+            first_div.append(i)
+        prefix_frac.append(i / max(len(r), 1))
+    out = {
+        "requests": float(n),
+        "exact_matches": float(exact),
+        "exact_match_fraction": exact / n,
+        "diverged_requests": float(n - exact),
+        "divergence_fraction": (n - exact) / n,
+        "matched_prefix_fraction": float(sum(prefix_frac) / n),
+    }
+    if first_div:
+        out["first_divergence_min"] = float(min(first_div))
+        out["first_divergence_mean"] = float(sum(first_div) / len(first_div))
+    return out
+
+
+def kv_divergence_section(
+    ref_tokens: Sequence[Sequence[int]],
+    test_tokens: Sequence[Sequence[int]],
+) -> str:
+    """Render the KV-quantization divergence block as a report section;
+    empty string when there are no requests to compare."""
+    summary = kv_divergence_summary(ref_tokens, test_tokens)
+    if not summary:
+        return ""
+    rows = [{"metric": k, "value": v} for k, v in summary.items()]
+    return comparison_table(rows, ("metric", "value"))
+
 
 
 def throughput_scalability(

@@ -4,11 +4,12 @@ Models call these ops; each dispatches on the device of its tensors.  A CPU
 tensor runs the plain version in :mod:`.ref`.  A CUDA tensor runs the
 hand-written kernel, or the call raises: there is no fallback, and unlike
 the JAX package there is no backend switch that would route the card's
-path around the kernels.
+path around the kernels.  :func:`copy_pages` is plain torch indexing on
+every device, as the JAX package writes it in plain ``jnp``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -166,3 +167,26 @@ def ssd_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor
     device, as the JAX package shares one implementation (no Pallas
     kernel); promoted to a kernel only if a profile shows it matters."""
     return ref.ssd_step(x, dt, A, B, C, state)
+
+
+def copy_pages(
+    k_pages: torch.Tensor,      # (L, num_pages, page_size, kvh, d)
+    v_pages: torch.Tensor,
+    src: Union[Sequence[int], torch.Tensor],   # (n,) physical source pages
+    dst: Union[Sequence[int], torch.Tensor],   # (n,) physical destination pages
+    k_scales: Optional[torch.Tensor] = None,   # (L, num_pages, page_size, kvh)
+    v_scales: Optional[torch.Tensor] = None,
+) -> None:
+    """Copy physical pages ``src`` onto ``dst`` in every layer of the paged
+    pools, in place (the copy-on-write step of the prefix cache: a request
+    about to append into a page that others still reference first takes a
+    private copy).  The scale rows of an int8/fp8 pool move with their
+    pages.  The pools are written where they lie, never reallocated: the
+    model writes the same tensors in place.  The JAX ``copy_pages`` returns
+    updated pools instead."""
+    dev = k_pages.device
+    src = torch.as_tensor(src, dtype=torch.long, device=dev)
+    dst = torch.as_tensor(dst, dtype=torch.long, device=dev)
+    pools = [k_pages, v_pages] + ([k_scales, v_scales] if k_scales is not None else [])
+    for pool in pools:
+        pool[:, dst] = pool[:, src]

@@ -1,12 +1,24 @@
 """Serving driver of the port: ``python -m repro_torch.launch.serve``.
 
-The flag subset of ``repro.launch.serve`` that the port supports so far,
-plus ``--device`` and ``--dtype``.  Three engines (``--engine``):
+The flags of ``repro.launch.serve`` that the port supports so far, plus
+``--device``, ``--dtype``, ``--seed``, ``--full`` and ``--prompt-len-min``.
+Three engines (``--engine``, or its alias ``--mode``):
 
 * ``paged`` (the default here, so existing callers are unchanged; the JAX
-  driver defaults to ``static``): paged-KV continuous batching with packed
-  varlen prefill; ``--spec-k``/``--spec-ngram`` turn on speculative
-  decoding, ``--kv-dtype int8|fp8`` a quantized pool.
+  driver defaults to ``static``): paged-KV continuous batching.
+  ``--prefill-mode packed`` (default) packs every prefilling slot's next
+  span into one varlen-prefill launch of ``--prefill-budget`` tokens;
+  ``chunked`` runs one ``--prefill-chunk``-token chunk per slot.
+  ``--prefix-cache on`` (the default, as in the reference) shares full
+  prompt pages across requests with copy-on-write; ``--prefix-len`` makes
+  a shared-prefix workload (``--prefix-share``, ``--prefix-groups``).
+  ``--overcommit`` above 1 admits past the worst-case page commitment and
+  preempts when the pool runs dry.  ``--tenants``, ``--priority-mix``,
+  ``--deadline-ms``, ``--slo-ms`` and ``--fairness`` drive multi-tenant
+  admission.  ``--spec-k``/``--spec-ngram`` turn on speculative decoding,
+  ``--kv-dtype int8|fp8`` a quantized pool.  The run is traced and prints
+  the reference's page-occupancy, prefill-saturation, speculative-decoding,
+  prefix-cache and multi-tenant SLO sections.
 * ``static``: Poisson arrivals at ``--rate-hz`` go through the threaded
   request scheduler, which coalesces up to ``--engine-batch`` requests
   within ``--batch-timeout-ms`` into one ``generate`` batch on the dense
@@ -23,14 +35,15 @@ paged, so ``--engine paged`` stops with the reference's reason).  Runs on
 reduced one unless ``--full`` asks for the published widths and depth;
 weights are random, from ``--seed``.  ``--full`` refuses a model whose
 weights alone exceed the card's memory: ``deepseek-67b`` (125.6 GiB in
-bf16) runs reduced only on one 80 GB card; the others fit at full width.  Prompts are random tokens with
-lengths drawn uniformly from ``[--prompt-len-min, --prompt-len]``.  Prints a
-plain summary (the analysis report sections of the JAX driver come with a
-later slice).
+bf16) runs reduced only on one 80 GB card; the others fit at full width.
+Prompts are random tokens with lengths drawn uniformly from
+``[--prompt-len-min, --prompt-len]`` (with ``--tenants``, each tenant's
+``prompt`` length; with ``--prefix-len``, ``--prompt-len`` tokens).
 """
 from __future__ import annotations
 
 import argparse
+import random
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
@@ -39,13 +52,24 @@ import numpy as np
 import torch
 
 from ..configs import get_config, list_archs
-from ..core.analysis import latency_summary, percentile
-from ..core.workload import PoissonLoad
+from ..core.analysis import (
+    latency_summary,
+    page_occupancy_section,
+    percentile,
+    prefill_saturation_section,
+    prefix_cache_section,
+    slo_section,
+    spec_decode_section,
+)
+from ..core.tracing import Tracer, TracingServer
+from ..core.workload import (
+    MultiTenantLoad, PoissonLoad, Request, SharedPrefixLoad, shared_prefix_prompts,
+)
 from ..device import DTYPES, resolve_device
 from ..kernels.kvquant import KV_DTYPES
 from ..models.lm import NOT_PAGED, DecoderLM
 from ..serve.engine import ServeRequest, ServingEngine
-from ..serve.scheduler import RequestScheduler, SchedulerConfig
+from ..serve.scheduler import PRIORITY_TIERS, RequestScheduler, SchedulerConfig, TenantSpec
 
 
 def make_requests(n: int, lo: int, hi: int, max_new_tokens: int, vocab: int,
@@ -61,6 +85,119 @@ def make_requests(n: int, lo: int, hi: int, max_new_tokens: int, vocab: int,
         )
         for i, L in enumerate(lens)
     ]
+
+
+def _parse_tenants(s: str):
+    """Parse ``--tenants`` (a copy of the reference's): semicolon-separated
+    tenants, each ``name[,key=value...]`` with keys ``prio`` (tier index or
+    name), ``weight``, ``rate`` (bucket refill tokens/s), ``burst`` (bucket
+    depth), ``hz`` (arrival rate), ``slo`` (ms), ``prompt``/``gen`` (token
+    shape).  Example::
+
+        --tenants "prem,prio=2,weight=2,hz=20;best,prio=0,rate=400,burst=120"
+    """
+    out = []
+    for chunk in s.split(";"):
+        chunk = chunk.strip()
+        if not chunk:
+            continue
+        parts = [p.strip() for p in chunk.split(",")]
+        t = {"name": parts[0]}
+        for kv in parts[1:]:
+            k, _, v = kv.partition("=")
+            k = k.strip()
+            v = v.strip()
+            field, conv = _TENANT_KEYS.get(k, (None, None))
+            if field is None:
+                raise ValueError(f"unknown tenant key {k!r} in {chunk!r}")
+            try:
+                t[field] = conv(v)
+            except ValueError:
+                raise ValueError(f"bad tenant value {k}={v!r} in {chunk!r}") from None
+        out.append(t)
+    return out
+
+
+def _parse_priority(v: str) -> int:
+    return PRIORITY_TIERS.index(v) if v in PRIORITY_TIERS else int(v)
+
+
+_TENANT_KEYS = {
+    "prio": ("priority", _parse_priority),
+    "priority": ("priority", _parse_priority),
+    "weight": ("weight", float),
+    "rate": ("rate_tokens_per_s", float),
+    "burst": ("burst_tokens", float),
+    "hz": ("rate_hz", float),
+    "slo": ("slo_ms", float),
+    "prompt": ("prompt_len", int),
+    "gen": ("gen_tokens", int),
+}
+
+
+def _parse_priority_mix(s: str):
+    """Parse ``--priority-mix``: ``tier=frac`` pairs, e.g.
+    ``best_effort=0.25,standard=0.5,premium=0.25``."""
+    out = {}
+    for kv in s.split(","):
+        k, _, v = kv.partition("=")
+        out[k.strip()] = float(v)
+    return out
+
+
+def _tagged_requests(args, load, prompts) -> List[ServeRequest]:
+    """Engine requests carrying each workload request's tenant tags (a copy
+    of the reference's)."""
+    reqs = []
+    for i, (req, p) in enumerate(zip(load, prompts)):
+        tags = req.tags
+        reqs.append(ServeRequest(
+            request_id=i, prompt=p, max_new_tokens=args.max_new_tokens,
+            tenant=str(tags.get("tenant", "default")),
+            priority=int(tags.get("priority", 1)),
+            slo_ms=float(tags.get("slo_ms", 0.0) or args.slo_ms),
+        ))
+    return reqs
+
+
+def workload_requests(args, vocab: int) -> List[ServeRequest]:
+    """The run's requests: with ``--tenants`` superposed per-tenant Poisson
+    streams (each tenant's prompt length, tier and SLO in its tags); with
+    ``--prefix-len`` the shared-prefix mix, whose same-group prompts share
+    their first ``--prefix-len`` tokens; otherwise :func:`make_requests`.
+    ``--priority-mix`` then stamps tiers onto a single-tenant load by a
+    seeded draw."""
+    rng = np.random.default_rng(args.seed)
+    if args.tenants:
+        tenant_dicts = _parse_tenants(args.tenants)
+        for t in tenant_dicts:
+            t.setdefault("rate_hz", args.rate_hz / len(tenant_dicts))
+            t.setdefault("slo_ms", args.slo_ms)
+            t.setdefault("prompt_len", args.prompt_len)
+            t.setdefault("gen_tokens", args.max_new_tokens)
+        load = list(MultiTenantLoad(args.requests, tenant_dicts, seed=args.seed).requests())
+        prompts = [rng.integers(0, vocab, (int(r.tags.get("prompt_len") or args.prompt_len),)
+                                ).astype(np.int32) for r in load]
+    elif args.prefix_len > 0:
+        load = list(SharedPrefixLoad(
+            args.requests, rate_hz=args.rate_hz, prefix_len=args.prefix_len,
+            suffix_len=args.prompt_len - args.prefix_len, share_ratio=args.prefix_share,
+            num_groups=args.prefix_groups, seed=args.seed,
+        ).requests())
+        prompts = shared_prefix_prompts(load, vocab, seed=args.seed)
+    else:
+        lo = args.prompt_len_min or args.prompt_len
+        prompts = [r.prompt for r in make_requests(args.requests, lo, args.prompt_len,
+                                                   args.max_new_tokens, vocab, args.seed)]
+        load = [Request(request_id=i, arrival_s=0.0) for i in range(len(prompts))]
+    if args.priority_mix and not args.tenants:
+        mix = _parse_priority_mix(args.priority_mix)
+        tiers = [PRIORITY_TIERS.index(k) if k in PRIORITY_TIERS else int(k) for k in mix]
+        weights = [float(v) for v in mix.values()]
+        mrng = random.Random(args.seed)
+        for r in load:
+            r.tags["priority"] = mrng.choices(tiers, weights)[0]
+    return _tagged_requests(args, load, prompts)
 
 
 @dataclass
@@ -152,9 +289,10 @@ def static_metrics(run: StaticRun) -> Dict[str, float]:
 
 def engine_metrics(stats) -> Dict[str, float]:
     """End-to-end metrics of a ``serve_continuous`` (``ContinuousStats``) or
-    ``serve_paged`` (``PagedStats``) run.  Each request's first token comes
-    from its prefill, the rest from decode steps."""
-    res = stats.results
+    ``serve_paged`` (``PagedStats``) run, over its completed requests.  Each
+    request's first token comes from its prefill (a full prefix hit's from
+    its first decode step), the rest from decode steps."""
+    res = [r for r in stats.results if r.status == "completed"]
     return _metrics([r.latency_s for r in res], [r.ttft_s for r in res], len(res),
                     stats.total_tokens, stats.wall_s, stats.prefill_tokens, stats.prefill_s,
                     stats.steps, stats.total_tokens - len(res), stats.decode_s)
@@ -169,6 +307,9 @@ def _static(engine, reqs, args) -> Dict[str, float]:
 
 def _print_requests(stats) -> None:
     for r in stats.results:
+        if r.status != "completed":
+            print(f"[serve] req {r.request_id}: {r.status} ({r.reason})")
+            continue
         print(f"[serve] req {r.request_id}: slot {r.slot} (admitted step "
               f"{r.admit_step}), ttft {r.ttft_s * 1e3:.1f} ms, "
               f"{r.tokens_per_s:,.1f} tok/s")
@@ -180,20 +321,59 @@ def _continuous(engine, reqs, args) -> Dict[str, float]:
     return {**engine_metrics(stats), "mean_slot_occupancy": stats.mean_slot_occupancy}
 
 
+# the report sections of a traced paged run, as the reference driver prints them
+PAGED_SECTIONS = (
+    ("page occupancy", page_occupancy_section),
+    ("prefill saturation", prefill_saturation_section),
+    ("speculative decoding", spec_decode_section),
+    ("prefix cache", prefix_cache_section),
+    ("multi-tenant SLO", slo_section),
+)
+
+
 def _paged(engine, reqs, args) -> Dict[str, float]:
+    tenant_dicts = _parse_tenants(args.tenants) if args.tenants else []
+    server = TracingServer()
     stats = engine.serve_paged(
         reqs, num_slots=args.engine_batch, page_size=args.page_size,
         num_pages=args.num_pages or None,
+        prefill_chunk=args.prefill_chunk or None,
+        overcommit=args.overcommit,
+        prefill_mode=args.prefill_mode,
         prefill_budget=args.prefill_budget or None,
         spec_k=args.spec_k, spec_ngram=args.spec_ngram,
+        prefix_cache=args.prefix_cache == "on",
+        deadline_ms=args.deadline_ms,
+        tenants=[TenantSpec.from_dict(t) for t in tenant_dicts] or None,
+        fairness=args.fairness == "on",
+        tracer=Tracer("serve-paged", server),
     )
     _print_requests(stats)
+    spans = server.timeline("serve-paged")
+    for title, section in PAGED_SECTIONS:
+        text = section(spans)
+        if text:
+            print(f"[serve] {title}:")
+            for line in text.splitlines():
+                print(f"[serve]   {line}")
     return {
         **engine_metrics(stats),
+        "completed": stats.completed,
+        "rejected": stats.rejected,
+        "deferred": stats.deferred,
+        "goodput": stats.goodput,
+        "preemptions": stats.preemptions,
         "prefill_launches": stats.prefill_launches,
         "prefill_tokens": stats.prefill_tokens,
+        "prompt_tokens_admitted": stats.prompt_tokens_admitted,
+        "saved_prefill_tokens": stats.saved_prefill_tokens,
+        "prefill_tokens_dropped": stats.prefill_tokens_dropped,
+        "cow_copies": stats.cow_copies,
+        "cache_evictions": stats.cache_evictions,
         "peak_pages_in_use": stats.peak_pages_in_use,
         "kv_bytes_per_token": stats.kv_bytes_per_token,
+        "itl_p50_ms": stats.itl_p50_ms,
+        "itl_p99_ms": stats.itl_p99_ms,
         **stats.spec_stats,
     }
 
@@ -208,7 +388,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="published widths and depth (default: the reduced config); "
                          "refused where the weights alone exceed the card's memory: "
                          "deepseek-67b runs reduced only on one 80 GB card")
-    ap.add_argument("--engine", default="paged", choices=list(ENGINES),
+    ap.add_argument("--engine", "--mode", dest="engine", default="paged", choices=list(ENGINES),
                     help="paged: paged-KV continuous batching; static: the request "
                          "scheduler batching generate() on a dense cache; continuous: "
                          "slot-based continuous batching on a dense cache")
@@ -236,8 +416,42 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "decode-bound bucket floor (static, continuous)")
     ap.add_argument("--num-pages", type=int, default=0,
                     help="global KV page pool size (0 = slots * max pages + 1)")
+    ap.add_argument("--prefill-mode", default="packed", choices=["packed", "chunked"],
+                    help="packed: one token-packed varlen launch per boundary; chunked: "
+                         "one batch-1 chunk per prefilling slot")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked-prefill tokens per slot and boundary (0 = 4 pages)")
     ap.add_argument("--prefill-budget", type=int, default=0,
-                    help="packed-prefill tokens per boundary (0 = 16 pages)")
+                    help="packed-prefill tokens per boundary (0 = 4 prefill chunks)")
+    ap.add_argument("--overcommit", type=float, default=1.0,
+                    help="paged admission overcommit factor (>1 admits past the worst-case "
+                         "page commitment; preemption is the valve)")
+    ap.add_argument("--prefix-cache", default="on", choices=["on", "off"],
+                    help="automatic prefix caching: share committed KV pages across requests "
+                         "with common prompt prefixes (copy-on-write on append)")
+    ap.add_argument("--prefix-len", type=int, default=0,
+                    help="shared-prefix workload: tokens of common prompt prefix "
+                         "(0 = independent random prompts)")
+    ap.add_argument("--prefix-share", type=float, default=0.75,
+                    help="fraction of requests reusing a shared prefix")
+    ap.add_argument("--prefix-groups", type=int, default=1,
+                    help="distinct shared prefixes in the workload")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="run TTL from submit: late completions fall out of goodput, work "
+                         "still queued past it is rejected (0 = none)")
+    ap.add_argument("--tenants", default="",
+                    help="multi-tenant mix: semicolon-separated 'name[,prio=T][,weight=W]"
+                         "[,rate=TOK/S][,burst=TOK][,hz=QPS][,slo=MS][,prompt=N][,gen=N]' "
+                         "entries (requires --engine paged)")
+    ap.add_argument("--priority-mix", default="",
+                    help="tier fractions for a single-tenant load, e.g. "
+                         "'best_effort=0.25,standard=0.5,premium=0.25' (ignored with "
+                         "--tenants)")
+    ap.add_argument("--slo-ms", type=float, default=0.0,
+                    help="per-request latency SLO for goodput accounting (0 = none)")
+    ap.add_argument("--fairness", default="on", choices=["on", "off"],
+                    help="tenant-fair admission (token buckets, priority tiers, weighted "
+                         "fair dequeue); off = FIFO")
     ap.add_argument("--spec-k", type=int, default=0,
                     help="speculative draft depth: prompt lookup proposes up to k "
                          "tokens per slot, one verify step scores all k+1 (0 = off)")
@@ -254,6 +468,23 @@ def main(argv: Optional[List[str]] = None) -> int:
         ap.error("--spec-k and --kv-dtype need --engine paged")
     if args.rate_hz <= 0:
         ap.error("--rate-hz must be positive")
+    if args.prefix_len > 0 and args.prefix_len >= args.prompt_len:
+        ap.error(f"--prefix-len {args.prefix_len} must be smaller than --prompt-len "
+                 f"{args.prompt_len} (the shared prefix is a strict prefix; every prompt "
+                 f"keeps a unique tail)")
+    if args.tenants and args.engine != "paged":
+        ap.error("--tenants requires --engine paged (tenant-aware admission lives in the "
+                 "paged engine)")
+    if args.tenants:
+        try:
+            _parse_tenants(args.tenants)
+        except ValueError as e:
+            ap.error(str(e))
+    if args.priority_mix:
+        try:
+            _parse_priority_mix(args.priority_mix)
+        except ValueError as e:
+            ap.error(f"bad --priority-mix {args.priority_mix!r}: {e}")
 
     device = resolve_device(args.device)
     if device.type == "cuda":
@@ -270,11 +501,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     engine = ServingEngine(model, params, max_batch=args.engine_batch,
                            max_seq=args.max_seq, page_size=args.page_size,
                            device=device, kv_dtype=args.kv_dtype)
-    reqs = make_requests(args.requests, lo, args.prompt_len, args.max_new_tokens,
-                         cfg.vocab_size, args.seed)
+    reqs = workload_requests(args, cfg.vocab_size)
+    paged = args.engine == "paged"
     print(f"[serve] {cfg.name} on {device} ({model.dtype}), engine {args.engine}, "
           f"{args.engine_batch} slots, page {args.page_size}, max_seq {args.max_seq}, "
-          f"kv_dtype {engine._kv_dtype_name()}, spec_k {args.spec_k}")
+          f"kv_dtype {engine._kv_dtype_name()}, spec_k {args.spec_k}"
+          + (f", prefill {args.prefill_mode}, prefix_cache {args.prefix_cache}, "
+             f"overcommit {args.overcommit}" if paged else ""))
     summary = ENGINES[args.engine](engine, reqs, args)
     for k, v in summary.items():
         print(f"[serve]   {k:20s} {v:.2f}" if isinstance(v, float) else f"[serve]   {k:20s} {v}")

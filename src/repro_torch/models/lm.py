@@ -9,8 +9,9 @@ and one decode step (:meth:`DecoderLM.decode`), as the static and
 continuous engines drive them; the paged KV pool (full precision, or
 int8/fp8 codes with float32 scale pools), one paged decode step
 (:meth:`DecoderLM.decode_paged`), one speculative verify step
-(:meth:`DecoderLM.decode_spec`) and one packed varlen-prefill launch
-(:meth:`DecoderLM.prefill_packed`).  For the attention-free SSM family
+(:meth:`DecoderLM.decode_spec`), one packed varlen-prefill launch
+(:meth:`DecoderLM.prefill_packed`) and one batch-1 prefill chunk
+(:meth:`DecoderLM.prefill_paged_chunk`).  For the attention-free SSM family
 (``family="ssm"``, Mamba-2) the same ``prefill``/``decode``/``forward`` over
 a cache of per-layer SSD states ``(L, b, h, p, n)`` (float32) and
 convolution histories ``(L, b, K-1, conv_dim)``; its state is not paged.
@@ -36,6 +37,7 @@ from .modules import (
     attn_defs,
     attn_full,
     attn_prefill_packed,
+    attn_prefill_paged,
     mamba_defs,
     mamba_forward,
     mamba_step,
@@ -50,6 +52,8 @@ from .params import P, init_params
 # any sequence, so it masks no key; the kernels' ``q_pos - window + 1`` stays
 # far inside int32 for any position below 2**30
 GLOBAL_WINDOW = 1 << 30
+# vocabulary columns per float32 slice of the LM head (bf16 on the CPU)
+_HEAD_SLICE = 1 << 15
 # the reference's reason for refusing a paged cache (``repro.models.lm``)
 NOT_PAGED = ("paged KV cache supports dense/moe (non-interleaved) decoder caches only; "
              "ssm/hybrid state is not paged")
@@ -162,14 +166,21 @@ class DecoderLM:
         cfg = self.cfg
         x = self._norm(x, params["final_norm"])
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        if x.dtype == torch.float32 or not x.is_cuda:
-            logits = (x @ head).float()
-        else:
+        if x.dtype == torch.float32:
+            logits = x @ head
+        elif x.is_cuda:
             # bf16 operands, float32 output from one cuBLAS call, as the
             # reference's preferred_element_type=float32: nothing is rounded
             # to bf16 before the softcap and the argmax
             logits = torch.mm(x.reshape(-1, x.shape[-1]), head, out_dtype=torch.float32
                               ).view(*x.shape[:-1], head.shape[1])
+        else:
+            # the CPU has no mm with a float32 output for bf16 operands: the
+            # same product in float32, a slice of the vocabulary at a time so
+            # that the head's float32 copy stays small
+            xf = x.float()
+            logits = torch.cat([xf @ head[:, i:i + _HEAD_SLICE].float()
+                                for i in range(0, head.shape[1], _HEAD_SLICE)], dim=-1)
         if cfg.logit_softcap > 0:
             logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
         return logits
@@ -467,3 +478,24 @@ class DecoderLM:
             x = self._attn_residual(blk, x, a)
         last = batch["last_idx"].long()
         return self._logits(params, x[0, last][:, None, :])[:, 0]
+
+    def prefill_paged_chunk(self, params, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
+                            page_row: torch.Tensor, last_index: int, pos0: int) -> torch.Tensor:
+        """One chunked-prefill step: the (1, c) prompt chunk ``tokens``
+        starting at page-aligned position ``pos0`` attends the request's
+        paged context (``page_row``: (max_pages,) int32 physical pages) and
+        itself, each layer in one flash-attention launch, and writes its
+        K/V into the request's pages in place.  The chunk may be right-
+        padded to a page multiple; ``last_index`` is the offset of its last
+        real token.  Returns float32 logits (1, V) at ``last_index`` (only
+        the final chunk's matter: their argmax is the first new token)."""
+        if self.ssm:
+            raise NotImplementedError(NOT_PAGED)
+        x = self._embed_tokens(params, tokens)                       # (1, c, D)
+        for li, blk in enumerate(params["blocks"]):
+            kp, vp, ks, vs = self._layer_pools(cache, li)
+            h = self._norm(x, blk["ln1"])
+            a = attn_prefill_paged(blk["attn"], h, kp, vp, page_row, pos0, self.cfg,
+                                   window=self.windows[li], k_scales=ks, v_scales=vs)
+            x = self._attn_residual(blk, x, a)
+        return self._logits(params, x[:, last_index:last_index + 1])[:, 0]

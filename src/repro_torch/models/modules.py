@@ -2,7 +2,8 @@
 
 ``*_defs(cfg)`` describe parameters as :class:`~repro_torch.models.params.P`
 trees; the apply functions run a whole sequence (prefill, ``forward``), one
-token per row against a dense cache, one token per slot (paged decode) or a
+token per row against a dense cache, one token per slot (paged decode), one
+prompt chunk against its request's pages (chunked prefill) or a
 token-packed buffer of prompt chunks (packed prefill).  Attention and
 normalisation go through :mod:`repro_torch.kernels.ops`, which sends CUDA
 tensors to the hand-written kernels.  The projections, MLP and LM head are
@@ -278,6 +279,56 @@ def attn_decode_spec(
         k_scales=k_scales, v_scales=v_scales,
     )
     return _heads_out(out, p["wo"])
+
+
+def attn_prefill_paged(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,                      # (1, c, D) one prompt chunk
+    k_pages: torch.Tensor,                # (num_pages, page_size, kv, dh)
+    v_pages: torch.Tensor,
+    page_row: torch.Tensor,               # (max_pages,) int32 this request's pages
+    pos0: int,                            # absolute position of x[0], page-aligned
+    cfg: ArchConfig,
+    *,
+    window=None,
+    k_scales: Optional[torch.Tensor] = None,  # (num_pages, page_size, kv) f32
+    v_scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One chunked-prefill step: the chunk attends the request's paged
+    context plus its own causal prefix in one flash-attention launch at
+    ``q_offset = pos0``, then its K/V are written into the request's pages
+    in place.  ``pos0`` must be a multiple of the page size, so the context
+    is exactly the first ``pos0 // page_size`` pages of ``page_row``; an
+    int8/fp8 context is dequantized through its scale rows before the
+    launch.  The chunk may be right-padded to a page multiple: causal
+    attention hides pad rows from real ones, and pad K/V lands in the
+    request's own pages past its length, where decode overwrites it.
+    Returns y (1, c, D)."""
+    c = x.shape[1]
+    page_size = k_pages.shape[1]
+    if pos0 % page_size:
+        raise ValueError(f"chunk start {pos0} not page-aligned ({page_size})")
+    tok_pos = pos0 + torch.arange(c, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, tok_pos)
+    n_ctx = pos0 // page_size
+    if n_ctx:
+        ctx = page_row[:n_ctx].long()
+        kctx = k_pages[ctx].reshape(1, pos0, *k_pages.shape[2:])
+        vctx = v_pages[ctx].reshape(1, pos0, *v_pages.shape[2:])
+        if k_scales is not None:
+            kctx = kvquant.dequantize(kctx, k_scales[ctx].reshape(1, pos0, -1))
+            vctx = kvquant.dequantize(vctx, v_scales[ctx].reshape(1, pos0, -1))
+        k_all = torch.cat([kctx.to(k.dtype), k], dim=1)
+        v_all = torch.cat([vctx.to(v.dtype), v], dim=1)
+    else:
+        k_all, v_all = k, v
+    out = ops.attention(q, k_all, v_all, causal=True, window=window,
+                        softcap=cfg.attn_softcap, q_offset=pos0)
+    y = _heads_out(out, p["wo"])
+    tok_l = tok_pos.long()
+    dst = (page_row.long()[tok_l // page_size], tok_l % page_size)
+    _write_kv(k_pages, v_pages, k_scales, v_scales, dst, k[0], v[0])
+    return y
 
 
 def attn_prefill_packed(

@@ -18,11 +18,15 @@ tokens), and decodes at one shared position with no bound.
 ``ServingEngine.serve_paged`` is paged-KV continuous batching: a global pool
 of ``page_size``-token pages plus per-slot page tables; admission is keyed
 on free pages and on the pool's worst-case commitment (every active
-request's ``prompt + max_new_tokens``), so page growth never fails and
-nothing is preempted.  At each boundary every prefilling slot's next span is
-packed into ONE token-packed varlen-prefill launch of ``prefill_budget``
-tokens (oldest request first, capped by the :class:`PrefillBudget` ledger),
-then one fused decode step runs over the whole slot pool.
+request's ``prompt + max_new_tokens``) times ``overcommit``; above 1 a dry
+pool preempts the lowest-priority youngest request.  At each boundary every
+prefilling slot's next span is packed into ONE token-packed varlen-prefill
+launch of ``prefill_budget`` tokens (oldest request first, capped by the
+:class:`PrefillBudget` ledger), or with ``prefill_mode="chunked"`` each
+prefilling slot runs one batch-1 chunk; then one fused decode step runs
+over the whole slot pool.  The prefix cache shares full prompt pages
+across requests, with copy-on-write before any append into a shared page;
+tenants, priorities and a deadline steer admission.
 
 The decode state lives on the device: the page table, positions, next
 tokens and the active mask are patched only for slots that changed
@@ -39,10 +43,9 @@ all run on the device.  A rejected suffix rolls back by rewinding the
 length and handing any page it opened back to the pool.  ``kv_dtype``
 ``"int8"``/``"fp8"`` stores the pool as codes with float32 per-row scales.
 
-What waits for later slices: encoder inputs (``extra_inputs``) and
-sampling in ``generate``; chunked prefill and preemption (``overcommit >
-1``), the prefix cache, tensor parallelism, tenants and deadlines,
-checkpoints and the fault hook in ``serve_paged``.
+What waits for later slices: encoder inputs (``extra_inputs``) in
+``generate``; tensor parallelism, KV checkpoints and the fault hook in
+``serve_paged``.
 """
 from __future__ import annotations
 
@@ -56,10 +59,12 @@ import torch
 
 from ..core.analysis import percentile
 from ..device import resolve_device
-from ..kernels import kvquant
+from ..kernels import kvquant, ops
 from ..models.lm import DecoderLM
-from .page_table import PagePool, PageTable, pages_needed
-from .scheduler import PagedSlotPool, PrefillBudget, SlotPool, SpecLedger
+from .page_table import PagePool, PageTable, PrefixCache, pages_needed
+from .scheduler import (
+    PagedSlotPool, PrefillBudget, SlotPool, SpecLedger, TenantLedger, TenantSpec,
+)
 
 
 def bucket_pow2(n: int, floor: int = 1, cap: Optional[int] = None) -> int:
@@ -115,6 +120,11 @@ class ServeRequest:
     request_id: int
     prompt: np.ndarray
     max_new_tokens: int
+    # multi-tenant serving: tenant, priority tier and latency SLO (the
+    # defaults leave single-tenant callers as they were)
+    tenant: str = "default"
+    priority: int = 1
+    slo_ms: float = 0.0
 
 
 @dataclass
@@ -131,9 +141,13 @@ class RequestResult:
     tokens_per_s: float
     itl_p50_s: float = 0.0      # inter-token latency (gaps between emissions)
     itl_p99_s: float = 0.0
-    status: str = "completed"
+    status: str = "completed"   # or "rejected" (deadline, SLO shed)
     draft_proposed: int = 0     # speculative drafts proposed for this request
     draft_accepted: int = 0
+    reason: str = ""            # why a request was rejected
+    tenant: str = "default"
+    priority: int = 1
+    within_deadline: bool = True  # a late completion falls out of goodput
 
 
 @dataclass
@@ -178,10 +192,13 @@ class PagedStats:
     # prompt-token ledger; over any completed run
     #   prompt_tokens_admitted ==
     #       prefill_tokens + saved_prefill_tokens + prefill_tokens_dropped
-    # (no prefix cache and no preemption yet: the last two stay 0)
-    prompt_tokens_admitted: int = 0
-    saved_prefill_tokens: int = 0
-    prefill_tokens_dropped: int = 0
+    prompt_tokens_admitted: int = 0   # per admission (re-admissions count again)
+    saved_prefill_tokens: int = 0     # prompt tokens served from cached pages
+    prefill_tokens_dropped: int = 0   # admitted, then preempted before prefill
+    prefix_cache: bool = False
+    cow_copies: int = 0         # shared pages split by copy-on-write
+    cache_evictions: int = 0    # cached-unreferenced pages reclaimed
+    prefix_stats: Dict[str, float] = field(default_factory=dict)  # PrefixCache.stats()
     decode_s: float = 0.0       # wall time spent inside decode launches
     spec_k: int = 0             # draft depth (0 = speculation off)
     spec_stats: Dict[str, float] = field(default_factory=dict)  # SpecLedger.stats()
@@ -189,6 +206,12 @@ class PagedStats:
     itl_p99_ms: float = 0.0
     kv_dtype: str = "float32"   # pool storage (int8/fp8: codes + f32 scales)
     kv_bytes_per_token: float = 0.0  # pool bytes per token, all layers
+    # SLO / multi-tenant admission
+    completed: int = 0          # terminal completed
+    rejected: int = 0           # terminal rejected (deadline, SLO shed)
+    deferred: int = 0           # tenant-boundary deferrals (a bucket ran dry)
+    goodput: float = 1.0        # completed within the deadline / submitted
+    deadline_ms: float = 0.0    # the run's TTL (0 = none)
 
 
 def _upload(arrays: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -285,14 +308,16 @@ class ServingEngine:
         return out, lens
 
     @torch.no_grad()
-    def generate(self, prompts: List[np.ndarray], max_new_tokens: int) -> GenerationResult:
+    def generate(self, prompts: List[np.ndarray], max_new_tokens: int,
+                 greedy: bool = True) -> GenerationResult:
         """Static batched greedy generation: one prefill of the padded batch
         into a fresh dense cache, then ``max_new_tokens`` decode steps in
         lockstep (the last one's token is not kept, as in the JAX engine).
         Rows of one length, and the left-padded rows of the SSM family,
         decode at one shared position; a ragged attention batch writes each
         row at its own.  The tokens stay on the device until the end: the
-        loop never waits for the card."""
+        loop never waits for the card.  ``greedy`` is accepted and ignored,
+        as the JAX engine ignores it: decoding is always greedy."""
         dev = self.device
         tokens, lens = self._pad_prompts(prompts, max_new_tokens)
         b = tokens.shape[0]
@@ -521,75 +546,143 @@ class ServingEngine:
         num_slots: Optional[int] = None,
         page_size: Optional[int] = None,
         num_pages: Optional[int] = None,
+        prefill_chunk: Optional[int] = None,
+        overcommit: float = 1.0,
+        prefill_mode: str = "packed",
         prefill_budget: Optional[int] = None,
-        clock: Callable[[], float] = time.perf_counter,
-        tracer=None,
         spec_k: int = 0,
         spec_ngram: int = 3,
+        prefix_cache: bool = False,
+        clock: Callable[[], float] = time.perf_counter,
+        tracer=None,
+        deadline_ms: float = 0.0,
+        tenants: Optional[List[TenantSpec]] = None,
+        fairness: bool = True,
     ) -> PagedStats:
-        """Paged-KV continuous batching with packed varlen prefill.
+        """Paged-KV continuous batching.
 
         A request enters when a slot and its prompt's pages are free AND the
-        pool's committed worst-case pages stay within capacity, so growth
-        can never fail.  Each boundary retires finished requests, admits,
-        runs one packed prefill launch of ``prefill_budget`` tokens (default
-        16 pages) over every prefilling slot's next span, grows tables that
-        cross a page, and runs one fused decode step over the pool.  Greedy
-        tokens equal the JAX engine's on the same weights.
+        pool's committed worst-case pages (every active request's ``prompt +
+        max_new_tokens``) stay within ``capacity * overcommit``: at the
+        default 1.0 growth never fails and nothing is preempted.  Above 1 the
+        pool may run dry at a decode step; the lowest-priority youngest
+        request is then preempted (its pages freed, the request put back at
+        the front of the queue to be prefilled again).
+
+        Each boundary retires finished requests, admits, prefills, grows
+        tables that cross a page and runs one fused decode step over the
+        pool.  ``prefill_mode="packed"`` packs every prefilling slot's next
+        span into ONE varlen-prefill launch of ``prefill_budget`` tokens
+        (default 4 chunks), oldest request first; ``"chunked"`` runs one
+        batch-1 chunk of ``prefill_chunk`` tokens (default 4 pages, snapped
+        to a page multiple) per prefilling slot through
+        :meth:`DecoderLM.prefill_paged_chunk`, one flash-attention launch
+        per layer.  Greedy tokens equal the JAX engine's on the same
+        weights in both modes.
 
         ``spec_k > 0`` drafts up to ``spec_k`` tokens per slot by matching
         the last ``spec_ngram`` tokens against the request's prompt and
         output; a boundary with a draft anywhere runs one verify step of
         window ``spec_k + 1`` (slots without a draft verify just their next
-        token), one with none the plain decode step.  Tokens equal the
-        non-speculative run's; ``spec_stats`` holds the draft ledger."""
+        token), one with none the plain decode step.  A draft never
+        preempts live work: when the pool cannot grow a page for it, the
+        draft is cut to the pages the slot holds.
+
+        ``prefix_cache=True`` maps the longest cached page-aligned prefix of
+        each admitted prompt read-only into its table
+        (:class:`~repro_torch.serve.page_table.PrefixCache`), so only the
+        rest is prefilled; cached tokens cost the prefill budget nothing,
+        and the commitment counts each shared page once.  A full hit skips
+        prefill and replays the last prompt token through the decode step,
+        whose append first copies the shared last page into a private one
+        (``ops.copy_pages``): cached pages are never written.  Pages of
+        finished requests stay cached until admission, growth or a copy
+        needs them.
+
+        ``deadline_ms > 0`` is a run TTL: a request still queued past it is
+        ``rejected``, one that finishes late stays ``completed`` but falls
+        out of ``goodput``, and once the decode rate is measured, admission
+        sheds queued work that can no longer meet it.  ``tenants``
+        (:class:`~repro_torch.serve.scheduler.TenantSpec`) and tagged
+        requests make admission pick by priority tier, then token bucket,
+        then weighted fair share; ``fairness=False`` keeps FIFO.  The
+        reference's ``fault_hook`` and KV checkpoints are not ported yet."""
+        if prefill_mode not in ("packed", "chunked"):
+            raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
         if spec_k < 0:
             raise ValueError("spec_k must be >= 0")
         if spec_ngram < 1:
             raise ValueError("spec_ngram must be >= 1")
         if not requests:
             return PagedStats([], 0, 0.0, 0, 0.0, 0.0, 0, self.page_size, 0,
-                              0.0, 0, 0, 0, kv_dtype=self._kv_dtype_name())
+                              0.0, 0, 0, 0, prefill_mode=prefill_mode,
+                              kv_dtype=self._kv_dtype_name())
+        if overcommit <= 0:
+            raise ValueError("overcommit must be > 0")
         dev = self.device
         page_size = page_size or self.page_size
         num_slots = num_slots or self.max_batch
+        # chunk starts must stay page-aligned
+        prefill_chunk = max(page_size, ((prefill_chunk or 4 * page_size) // page_size) * page_size)
+        packed = prefill_mode == "packed"
         # packed-buffer size: the per-boundary prefill token budget, snapped
         # to a page multiple (chunk spans inside the buffer are page-aligned)
-        t_pack = max(page_size, ((prefill_budget or 16 * page_size) // page_size) * page_size)
-        budget = PrefillBudget(t_pack)
+        t_pack = max(page_size, ((prefill_budget or 4 * prefill_chunk) // page_size) * page_size)
+        budget = PrefillBudget(t_pack) if packed else None
         max_pages_per_seq = pages_needed(self.max_seq, page_size)
         if num_pages is None:
             num_pages = num_slots * max_pages_per_seq + 1
         pool = PagePool(num_pages, page_size, reserved=1)
+        # growth still needs real pages: no request may commit above capacity
+        commit_budget = min(pool.capacity, pool.capacity * overcommit)
         for r in requests:
             if len(r.prompt) + r.max_new_tokens > self.max_seq:
                 raise ValueError(
                     f"request {r.request_id}: prompt + generation exceeds max_seq"
                 )
-            if pool.pages_needed(len(r.prompt) + r.max_new_tokens) > pool.capacity:
+            if pool.pages_needed(len(r.prompt) + r.max_new_tokens) > commit_budget:
                 raise ValueError(
-                    f"request {r.request_id}: needs more pages than the pool admits"
+                    f"request {r.request_id}: needs more pages than the pool "
+                    f"(or overcommit budget) admits"
                 )
         slots = PagedSlotPool(num_slots, pool, tracer=tracer, clock=clock)
         table = PageTable(num_slots, max_pages_per_seq, scratch_page=0)
+        pcache = PrefixCache(pool) if prefix_cache else None
         cache = self.model.init_paged_cache(num_pages, page_size, self.kv_dtype)
+        queue = deque(requests)
+        # SLO / multi-tenant admission
+        tenant_ledger = TenantLedger(tenants or ())
+        fair = fairness and (bool(tenants) or any(
+            r.tenant != "default" or r.priority != 1 for r in requests))
+        req_cost = lambda r: float(len(r.prompt) + r.max_new_tokens)
+        rejected_n = deferred_n = 0
+        decode_tokens_emitted = 0
         spec = spec_k > 0
         ledger = SpecLedger() if spec else None
-        queue = deque(requests)
         nxt = np.zeros((num_slots,), np.int32)
         lengths = np.zeros((num_slots,), np.int32)   # live tokens per slot
         slot_tokens: Dict[int, List[int]] = {}
         slot_times: Dict[int, List[float]] = {}      # token-emission clocks
-        slot_commit: Dict[int, int] = {}             # worst-case pages per slot
         prefilling: Dict[int, int] = {}              # slot -> next chunk start
         decoding: Set[int] = set()
         admit_order: Dict[int, int] = {}             # slot -> admission sequence
         admit_step: Dict[int, int] = {}
         ttft: Dict[int, float] = {}
         admit_seq = 0
+        # per slot: worst-case PRIVATE pages, prompt tokens served from the
+        # cache and prefilled this admission; full-hit slots whose first
+        # token comes from their first decode step
+        slot_commit: Dict[int, int] = {}
+        slot_cached: Dict[int, int] = {}
+        slot_prefilled: Dict[int, int] = {}
+        replay_first: Set[int] = set()
+        # pages slots mapped from the cache: the commitment counts each once
+        pinned_refs: Dict[int, int] = {}             # page -> mapping slots
+        slot_shared: Dict[int, List[int]] = {}       # slot -> mapped pages
         finished: Dict[int, RequestResult] = {}
         t_start = clock()
         submit_s = {r.request_id: t_start for r in requests}
+        deadline = t_start + deadline_ms / 1e3 if deadline_ms > 0 else None
         step = 0
         occupancy_sum = 0
         peak_occupancy = 0
@@ -601,6 +694,9 @@ class ServingEngine:
         prefill_tokens = 0
         prefill_padded = 0
         prompt_admitted = 0
+        saved_tokens = 0
+        dropped_tokens = 0
+        cow_copies = 0
         decode_s = 0.0
         itl_all: List[float] = []
         # device-resident decode state, patched only for slots that changed
@@ -613,10 +709,11 @@ class ServingEngine:
 
         def sync_device(active: List[int]) -> None:
             """Patch the device mirrors for slots whose table row, position,
-            next token or active bit changed since the last launch: one
-            upload of the dirty rows, then in-place row writes (JAX donates
-            the mirrors to a jitted scatter instead).  Inactive rows point
-            at the scratch page."""
+            next token or active bit changed since the last launch (admission,
+            growth, copy-on-write, rollback, release, preemption): one upload
+            of the dirty rows, then in-place row writes (JAX donates the
+            mirrors to a jitted scatter instead).  Inactive rows point at the
+            scratch page."""
             nonlocal cur_mask
             new_mask = np.zeros((num_slots,), bool)
             new_mask[active] = True
@@ -640,14 +737,152 @@ class ServingEngine:
             cur_mask = new_mask
             dirty.clear()
 
-        def release_slot(slot: int) -> None:
-            slots.release_paged(slot, table.clear(slot))
+        def unpin(slot: int, page: int) -> None:
+            """Drop ``slot``'s record of mapping ``page`` from the cache."""
+            held = slot_shared.get(slot, [])
+            if page in held:
+                held.remove(page)
+                pinned_refs[page] -= 1
+                if not pinned_refs[page]:
+                    del pinned_refs[page]
+
+        def release_slot(slot: int, preempted: bool = False) -> ServeRequest:
+            nonlocal dropped_tokens
+            req = slots.release_paged(slot, table.clear(slot), preempted=preempted)
+            if preempted:
+                # prompt tokens this admission promised but never prefilled
+                dropped_tokens += max(len(req.prompt) - slot_cached.get(slot, 0)
+                                      - slot_prefilled.get(slot, 0), 0)
             lengths[slot] = 0
-            for d in (slot_tokens, slot_times, prefilling, admit_order,
-                      slot_commit, admit_step, ttft):
+            for d in (slot_tokens, slot_times, prefilling, admit_order, slot_commit,
+                      slot_cached, slot_prefilled, admit_step, ttft):
                 d.pop(slot, None)
             decoding.discard(slot)
+            replay_first.discard(slot)
+            for p in list(slot_shared.get(slot, [])):
+                unpin(slot, p)
+            slot_shared.pop(slot, None)
             dirty.add(slot)
+            return req
+
+        def preempt_one() -> Optional[int]:
+            """Preempt the lowest-priority youngest request: free its pages
+            and put it back at the front of the queue.  The victim may be
+            the slot that asked to grow."""
+            if not admit_order:
+                return None
+            victim = min(admit_order,
+                         key=lambda s: (slots.active[s].priority, -admit_order[s]))
+            queue.appendleft(release_slot(victim, preempted=True))
+            return victim
+
+        def ensure_free(n: int) -> bool:
+            """``n`` free pages, evicting cached-unreferenced pages (LRU)
+            before the caller queues or preempts: the only path that evicts."""
+            if pool.num_free >= n:
+                return True
+            if pcache is not None:
+                evicted = pcache.evict(n - pool.num_free)
+                if evicted and tracer is not None:
+                    now = clock()
+                    tracer.event("prefix:evict", now, now, pages=evicted)
+            return pool.num_free >= n
+
+        def cow_if_shared(s: int) -> bool:
+            """Before an append at ``lengths[s]``: if that page is still
+            referenced by others (the cache, other requests), copy it into a
+            private page (``ops.copy_pages``, every layer, scales too) and
+            remap the slot's table.  False when no page is free for the copy
+            (the caller preempts)."""
+            nonlocal cow_copies
+            li = int(lengths[s]) // page_size
+            held = table.pages_of(s)
+            if li >= len(held):
+                return True          # the append opens a fresh page (growth)
+            p = held[li]
+            if pool.refcount(p) <= 1:
+                return True          # ours alone already
+            if not ensure_free(1):
+                return False
+            fresh = pool.alloc(1)
+            t0c = clock()
+            ops.copy_pages(cache["k_pages"], cache["v_pages"], [p], fresh,
+                           cache.get("k_scales"), cache.get("v_scales"))
+            table.replace(s, li, fresh[0])
+            pool.free([p])           # drop our reference to the shared page
+            unpin(s, p)
+            cow_copies += 1
+            dirty.add(s)
+            if tracer is not None:
+                tracer.event("prefix:cow", t0c, clock(), slot=s, page=fresh[0])
+            return True
+
+        def emit_tenant(req: ServeRequest, status: str, now: float, latency: float) -> None:
+            if tracer is None:
+                return
+            slo = req.slo_ms or deadline_ms
+            tracer.event(
+                "sched:tenant", now, now, tenant=req.tenant, priority=req.priority,
+                status=status, latency_s=latency, slo_ms=slo,
+                slo_ok=status == "completed" and (slo <= 0 or latency * 1e3 <= slo),
+                tokens=req_cost(req),
+            )
+
+        def reject(req: ServeRequest, reason: str) -> None:
+            """A terminal ``rejected`` result: never silent."""
+            nonlocal rejected_n
+            now_r = clock()
+            latency = now_r - submit_s[req.request_id]
+            finished[req.request_id] = RequestResult(
+                request_id=req.request_id, tokens=np.zeros((0,), np.int32), slot=-1,
+                admit_step=-1, finish_step=step, ttft_s=0.0, latency_s=latency,
+                tokens_per_s=0.0, status="rejected", reason=reason, tenant=req.tenant,
+                priority=req.priority, within_deadline=False,
+            )
+            rejected_n += 1
+            emit_tenant(req, "rejected", now_r, latency)
+
+        def unmeetable(req: ServeRequest, queued_prompt_ahead: int, now: float) -> bool:
+            """The queue's prompt tokens ahead flow through the per-boundary
+            prefill budget, then the request decodes at the measured per-slot
+            rate: shed it when even that finish lands past the deadline."""
+            if deadline is None or step == 0 or decode_s <= 0:
+                return False
+            decode_tps = decode_tokens_emitted / decode_s
+            if decode_tps <= 0:
+                return False
+            boundary_s = (prefill_s + decode_s) / step
+            prefill_wait = ((queued_prompt_ahead + len(req.prompt)) / t_pack * boundary_s
+                            if packed else 0.0)
+            per_slot_tps = decode_tps / max(1, slots.num_active)
+            return now + prefill_wait + req.max_new_tokens / per_slot_tps > deadline
+
+        def pick_admission(now: float) -> int:
+            """Index of the next admission: priority tier first, then weighted
+            fair share across tenants (a dry bucket sinks its tenant), then
+            FIFO order."""
+            if not fair or len(queue) == 1:
+                return 0
+            best, best_key = 0, None
+            for i, r in enumerate(queue):
+                dry = 1 if tenant_ledger.dry(r.tenant, req_cost(r), now) else 0
+                key = (dry, -r.priority, tenant_ledger.vtime.get(r.tenant, 0.0), i)
+                if best_key is None or key < best_key:
+                    best, best_key = i, key
+            return best
+
+        def start_decoding(slot: int, req: ServeRequest, tok0: int) -> None:
+            """The prompt is in: its first token came from the prefill."""
+            del prefilling[slot]
+            if pcache is not None:
+                pcache.insert(req.prompt, table.pages_of(slot))
+            nxt[slot] = tok0
+            slot_tokens[slot] = [tok0]
+            decoding.add(slot)
+            dirty.add(slot)
+            tnow = clock()
+            slot_times[slot] = [tnow]
+            ttft[slot] = tnow - submit_s[req.request_id]
 
         while queue or slots.num_active:
             progressed = False
@@ -676,35 +911,105 @@ class ServingEngine:
                         itl_p99_s=percentile(itls, 99.0) if itls else 0.0,
                         draft_proposed=prop,
                         draft_accepted=acc,
+                        tenant=req.tenant,
+                        priority=req.priority,
+                        # a late completion stays completed, out of goodput
+                        within_deadline=deadline is None or now <= deadline,
                     )
+                    emit_tenant(req, "completed", now, latency)
                     release_slot(slot)
                     progressed = True
-            # 2) admission keyed on free pages and worst-case commitment
+            # 2) admission keyed on free pages and the worst-case commitment;
+            #    a cached prefix is mapped instead of allocated, and each
+            #    shared page counts once (plus one copy page for a full hit)
+            if deadline is not None and queue and clock() > deadline:
+                while queue:                 # expired while queued: rejected
+                    reject(queue.popleft(), "deadline")
+                progressed = True
             while queue:
-                req = queue[0]
-                npages = pool.pages_needed(len(req.prompt))
+                now_adm = clock()
+                i0 = pick_admission(now_adm)
+                req = queue[i0]
+                if unmeetable(req, sum(len(r.prompt) for r in queue) - len(req.prompt),
+                              now_adm):
+                    del queue[i0]
+                    reject(req, "slo-unmeetable")
+                    progressed = True
+                    continue
+                hit_pages, cached = pcache.match(req.prompt) if pcache is not None else ([], 0)
+                full_hit = cached >= len(req.prompt)
+                npages = pool.pages_needed(len(req.prompt)) - len(hit_pages)
                 worst = pool.pages_needed(len(req.prompt) + req.max_new_tokens)
+                commit = worst - len(hit_pages) + (1 if full_hit else 0)
+                pinned = len(pinned_refs) + sum(1 for p in hit_pages if p not in pinned_refs)
                 if not slots.num_free:
                     break
-                if sum(slot_commit.values()) + worst > pool.capacity:
+                if sum(slot_commit.values()) + pinned + commit > pool.capacity * overcommit:
                     break
-                if pool.num_free < npages:
+                # pin the hit pages BEFORE eviction: they are exactly the
+                # cached-unreferenced pages ensure_free may reclaim
+                if hit_pages:
+                    pool.incref(hit_pages)
+                if not ensure_free(npages):
+                    if hit_pages:
+                        pool.free(hit_pages)
                     break
-                queue.popleft()
+                del queue[i0]
+                if fair:
+                    tenant_ledger.on_admit(req.tenant, req_cost(req), now_adm)
+                if pcache is not None:
+                    pcache.record(len(req.prompt), hit_pages)
                 slot, pages = slots.admit_paged(req, npages, step=step)
-                table.assign(slot, pages)
+                table.assign(slot, hit_pages + pages)
+                for p in hit_pages:
+                    pinned_refs[p] = pinned_refs.get(p, 0) + 1
+                slot_shared[slot] = list(hit_pages)
                 slot_tokens[slot] = []
-                slot_commit[slot] = worst
+                slot_commit[slot] = commit
+                slot_prefilled[slot] = 0
                 prompt_admitted += len(req.prompt)
                 admit_order[slot] = admit_seq
                 admit_seq += 1
                 admit_step[slot] = step
-                lengths[slot] = 0
-                prefilling[slot] = 0
+                slot_cached[slot] = cached
+                saved_tokens += cached
+                if budget is not None and cached:
+                    budget.credit(cached)
+                if full_hit:
+                    # nothing to prefill: the last prompt token goes through
+                    # the decode step (its append copies the shared last page)
+                    lengths[slot] = len(req.prompt) - 1
+                    nxt[slot] = int(req.prompt[-1])
+                    slot_times[slot] = []
+                    decoding.add(slot)
+                    replay_first.add(slot)
+                    dirty.add(slot)
+                else:
+                    lengths[slot] = cached
+                    prefilling[slot] = cached
+                if tracer is not None and pcache is not None:
+                    now = clock()
+                    tracer.event("prefix:lookup", now, now, prompt_tokens=len(req.prompt),
+                                 cached_tokens=cached, hit_pages=len(hit_pages),
+                                 full_hit=int(full_hit))
                 progressed = True
-            # 3) packed prefill: every prefilling slot's next span in ONE
-            #    token-packed launch (oldest first, capped by the budget)
-            if prefilling:
+            if fair and queue:
+                # one deferral per tenant per boundary whose queued work was
+                # passed over because its bucket ran dry
+                now_d = clock()
+                seen_dry: Set[str] = set()
+                for r in queue:
+                    if r.tenant not in seen_dry and tenant_ledger.dry(r.tenant, req_cost(r),
+                                                                       now_d):
+                        seen_dry.add(r.tenant)
+                        tenant_ledger.note_defer(r.tenant)
+                        deferred_n += 1
+                        if tracer is not None:
+                            tracer.event("sched:defer", now_d, now_d, tenant=r.tenant)
+            # 3) prefill.  packed: every prefilling slot's next span in ONE
+            #    token-packed launch (oldest first, capped by the budget);
+            #    chunked: one batch-1 chunk per prefilling slot
+            if prefilling and packed:
                 t0p = clock()
                 budget.begin_step()
                 spans: List[Tuple[int, int, int, int]] = []
@@ -744,7 +1049,7 @@ class ServingEngine:
                         pos = start + np.arange(span, dtype=np.int32)
                         tok_pos[off : off + span] = pos
                         row = table.table[slot]
-                        # chunk-pad K/V lands inside the prompt's allocated
+                        # chunk-pad K/V lands inside the prompt's own private
                         # pages, length-masked until decode overwrites it
                         dst_page[off : off + span] = row[pos // page_size]
                         dst_off[off : off + span] = pos % page_size
@@ -774,17 +1079,10 @@ class ServingEngine:
                         req = slots.active[slot]
                         new_start = start + take
                         lengths[slot] = new_start
+                        slot_prefilled[slot] += take
                         chunks_done += 1
                         if new_start >= len(req.prompt):
-                            del prefilling[slot]
-                            tok0 = int(first_tok[ci])
-                            nxt[slot] = tok0
-                            slot_tokens[slot] = [tok0]
-                            decoding.add(slot)
-                            dirty.add(slot)
-                            tnow = clock()
-                            slot_times[slot] = [tnow]
-                            ttft[slot] = tnow - submit_s[req.request_id]
+                            start_decoding(slot, req, int(first_tok[ci]))
                         else:
                             prefilling[slot] = new_start
                     real = sum(s[2] for s in spans)
@@ -801,13 +1099,39 @@ class ServingEngine:
                             budget=budget.tokens_per_step,
                         )
                     progressed = True
+            elif prefilling:
+                t0p = clock()
+                for slot in list(prefilling):
+                    req = slots.active[slot]
+                    start = prefilling[slot]
+                    c = min(prefill_chunk, len(req.prompt) - start)
+                    # a page-multiple chunk: its pad K/V lands inside the
+                    # prompt's own pages, length-masked until overwritten
+                    c_pad = min(prefill_chunk, pages_needed(c, page_size) * page_size)
+                    chunk = np.zeros((1, c_pad), np.int32)
+                    chunk[0, :c] = req.prompt[start : start + c]
+                    up = _upload({"chunk": chunk, "row": table.table[slot]}, dev)
+                    logits = self.model.prefill_paged_chunk(
+                        self.params, up["chunk"], cache, up["row"], c - 1, start
+                    )
+                    chunks_done += 1
+                    prefill_launches += 1
+                    prefill_tokens += c
+                    prefill_padded += c_pad - c
+                    start += c
+                    lengths[slot] = start
+                    slot_prefilled[slot] += c
+                    progressed = True
+                    if start >= len(req.prompt):
+                        start_decoding(slot, req, int(logits[0].argmax()))
+                    else:
+                        prefilling[slot] = start
+                _sync(dev)
+                prefill_s += clock() - t0p
             # 4) one decode step over the whole pool.  With ``spec_k > 0``
             #    the drafter proposes up to ``spec_k`` tokens per slot and
             #    ONE verify step scores every slot's window; a boundary with
-            #    no draft anywhere runs the plain decode step.  Rows whose
-            #    next token or window opens a page grow their table first
-            #    (never fails: admission committed worst-case pages, and a
-            #    draft never reaches past prompt + max_new_tokens)
+            #    no draft anywhere runs the plain decode step
             active_dec = [
                 s for s in decoding
                 if len(slot_tokens[s]) < slots.active[s].max_new_tokens
@@ -823,21 +1147,41 @@ class ServingEngine:
                     if cap > 0:
                         ctx = np.concatenate([req.prompt, np.asarray(slot_tokens[s], np.int32)])
                         drafts[s] = ngram_propose(ctx, spec_ngram, cap)
+                    else:
+                        drafts[s] = []
+            # copy-on-write, then growth, for every decoding row: the next
+            # token (and any draft) appends at ``lengths[s]``.  Both reclaim
+            # cached-unreferenced pages before preempting; a draft that
+            # cannot get a page is cut to the pages the slot holds, so only
+            # the real next token's page may preempt
             for s in sorted(active_dec, key=lambda s: admit_order[s]):
-                while table.num_pages_of(s) * page_size <= int(lengths[s]) + len(drafts.get(s, ())):
-                    grown = slots.grow(1)
+                while s in decoding and not cow_if_shared(s):
+                    if preempt_one() is None:
+                        raise RuntimeError("page pool exhausted with nothing to preempt")
+                while (s in decoding    # may have been preempted (even by itself)
+                       and table.num_pages_of(s) * page_size
+                       <= int(lengths[s]) + len(drafts.get(s, ()))):
+                    grown = slots.grow(1) if ensure_free(1) else None
                     if grown is None:
-                        raise RuntimeError("page pool exhausted despite admission commitment")
+                        d = drafts.get(s)
+                        if d:
+                            fit = table.num_pages_of(s) * page_size - int(lengths[s]) - 1
+                            del d[max(fit, 0):]
+                            continue
+                        if preempt_one() is None:
+                            raise RuntimeError("page pool exhausted with nothing to preempt")
+                        continue
                     table.append(s, grown[0])
                     dirty.add(s)
+            active_dec = [s for s in active_dec if s in decoding]
             if active_dec:
                 t0d = clock()
                 use_spec = spec and any(drafts.get(s) for s in active_dec)
+                W = spec_k + 1 if use_spec else 1
                 sync_device(active_dec)
                 live = max(int(lengths[s]) + 1 + len(drafts.get(s, ())) for s in active_dec)
                 bound = bucket_pow2(pages_needed(live, page_size), cap=max_pages_per_seq)
                 if use_spec:
-                    W = spec_k + 1
                     win = np.zeros((num_slots, W), np.int32)
                     wlens_h = np.zeros((num_slots,), np.int32)
                     for s in active_dec:
@@ -858,15 +1202,25 @@ class ServingEngine:
                 decode_s += now - t0d
                 step += 1
                 occupancy_sum += slots.num_active
+                prop_total = acc_total = 0
                 for s in active_dec:
                     a = int(na[s])
                     emitted = g[s, : a + 1]
+                    req = slots.active[s]
                     slot_tokens[s].extend(int(t) for t in emitted)
                     nxt[s] = int(emitted[-1])
                     lengths[s] += a + 1
+                    decode_tokens_emitted += a + 1
                     slot_times[s].extend([now] * (a + 1))
+                    if s in replay_first:
+                        # a full hit: its first token came from this step
+                        replay_first.discard(s)
+                        ttft[s] = now - submit_s[req.request_id]
                     if spec:
-                        ledger.record(slots.active[s].request_id, len(drafts.get(s, ())), a)
+                        prop = len(drafts.get(s, ()))
+                        ledger.record(req.request_id, prop, a)
+                        prop_total += prop
+                        acc_total += a
                         # rollback: the length is already the committed
                         # prefix; a rejected suffix that opened a page hands
                         # it back to the pool
@@ -877,7 +1231,15 @@ class ServingEngine:
                             dirty.add(s)
                 if spec:
                     ledger.record_launch(use_spec)
+                    if use_spec and tracer is not None:
+                        tracer.event(
+                            "spec:verify", t0d, now, window=W, slots=len(active_dec),
+                            proposed=prop_total, accepted=acc_total,
+                            emitted=len(active_dec) + acc_total,
+                        )
                 progressed = True
+            # peak concurrency is per boundary: a prefill-only boundary
+            # still holds admitted requests
             peak_occupancy = max(peak_occupancy, slots.num_active)
             pages_sum += pool.num_in_use
             samples += 1
@@ -888,6 +1250,7 @@ class ServingEngine:
         wall = clock() - t_start
         results = [finished[r.request_id] for r in requests]
         total_tokens = sum(len(r.tokens) for r in results)
+        completed = [r for r in results if r.status == "completed"]
         return PagedStats(
             results=results,
             steps=step,
@@ -902,13 +1265,20 @@ class ServingEngine:
             peak_pages_in_use=pool.peak_in_use,
             preemptions=slots.preemptions,
             prefill_chunks=chunks_done,
+            prefill_mode=prefill_mode,
             prefill_launches=prefill_launches,
             prefill_s=prefill_s,
             prefill_tokens=prefill_tokens,
             prefill_padded_tokens=prefill_padded,
-            prefill_budget=t_pack,
-            prefill_budget_stats=budget.stats(),
+            prefill_budget=t_pack if packed else 0,
+            prefill_budget_stats=budget.stats() if budget else {},
             prompt_tokens_admitted=prompt_admitted,
+            saved_prefill_tokens=saved_tokens,
+            prefill_tokens_dropped=dropped_tokens,
+            prefix_cache=prefix_cache,
+            cow_copies=cow_copies,
+            cache_evictions=pcache.evicted_pages if pcache else 0,
+            prefix_stats=pcache.stats() if pcache else {},
             decode_s=decode_s,
             spec_k=spec_k,
             spec_stats=ledger.stats() if spec else {},
@@ -919,4 +1289,10 @@ class ServingEngine:
                 sum(v.numel() * v.element_size() for v in cache.values())
                 / (num_pages * page_size)
             ),
+            completed=len(completed),
+            rejected=rejected_n,
+            deferred=deferred_n,
+            goodput=(sum(1 for r in completed if r.within_deadline) / len(results)
+                     if results else 1.0),
+            deadline_ms=deadline_ms,
         )

@@ -1,24 +1,29 @@
 """Paged KV-cache bookkeeping: global page pool + per-request page tables.
 
-A copy of ``pages_needed``, ``PagePool`` and ``PageTable`` from
-``repro.serve.page_table`` (pure Python; the port keeps its own copy so that
-it never imports ``repro``).  The serving engine's paged mode keeps a global
+A copy of ``pages_needed``, ``PagePool``, ``PageTable`` and ``PrefixCache``
+from ``repro.serve.page_table`` (pure Python; the port keeps its own copy so
+that it never imports ``repro``).  The serving engine's paged mode keeps a global
 pool of ``page_size``-token pages instead of a dense per-slot ``max_seq``
 cache: page ownership, allocation and the (num_slots, max_pages) int32
 indirection table the paged kernels dereference live here; the engine owns
 the page tensors.  Page 0 (more generally, the first ``reserved`` pages) is
 never allocated: idle batch rows point their table entries at it, so their
 decode writes land in a scratch page instead of a live request's memory.
-Pages are refcounted so that a later prefix cache can map one physical page
-into many tables.
+Pages are refcounted so that the prefix cache can map one physical page
+into many tables: :class:`PrefixCache` hash-chains full ``page_size``-token
+prompt blocks to the physical page that holds their K/V and holds one
+reference of its own per cached page.  A page whose count drops to that one
+reference stays cached, unreferenced, until :meth:`PrefixCache.evict`
+reclaims it; any write into a page someone else still references is
+copy-on-write in the engine.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["PagePool", "PageTable", "pages_needed"]
+__all__ = ["PagePool", "PageTable", "PrefixCache", "pages_needed"]
 
 
 def pages_needed(tokens: int, page_size: int) -> int:
@@ -196,3 +201,163 @@ class PageTable:
         (idle/prefilling rows must not let the batched decode write into
         their live pages)."""
         return np.where(mask[:, None], self.table, np.int32(self.scratch_page))
+
+
+class _CacheEntry:
+    """One cached full prompt page: the physical page holding the K/V of a
+    ``page_size``-token block reached through a specific prefix chain."""
+
+    __slots__ = ("page", "parent", "children", "last_use")
+
+    def __init__(self, page: int, parent: Optional[tuple], last_use: int) -> None:
+        self.page = page
+        self.parent = parent        # key of the previous block in the chain
+        self.children = 0           # cached blocks extending this prefix
+        self.last_use = last_use
+
+
+class PrefixCache:
+    """Automatic prefix cache: hash chain of full prompt pages -> physical
+    page ids, sharing committed K/V across requests.
+
+    Keys chain ``(parent_key, token_block_bytes)``, so two prompts share
+    page ``i`` iff their first ``(i + 1) * page_size`` tokens are equal.
+    The cache holds ONE pool reference per cached page: a page shared by
+    the cache and ``r`` requests has refcount ``r + 1``, and at refcount 1
+    it is cached but unreferenced until :meth:`evict` reclaims it.
+    Eviction goes leaf first in LRU order and never frees a referenced
+    page (requests map a cached run from block 0, so a referenced child
+    implies a referenced parent).  Only full prompt pages are cached."""
+
+    def __init__(self, pool: PagePool) -> None:
+        self.pool = pool
+        self._entries: Dict[tuple, _CacheEntry] = {}
+        self._tick = 0
+        # counters (surface through stats() -> PagedStats.prefix_stats)
+        self.lookups = 0
+        self.hits = 0
+        self.full_hits = 0
+        self.hit_pages = 0
+        self.hit_tokens = 0
+        self.inserts = 0
+        self.evicted_pages = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @property
+    def evictable(self) -> int:
+        """Cached pages reclaimable on demand (refcount 1: no request maps
+        them); leaf-first eviction reaches every one of them."""
+        return sum(1 for e in self._entries.values() if self.pool.refcount(e.page) == 1)
+
+    def _blocks(self, prompt: np.ndarray):
+        ps = self.pool.page_size
+        toks = np.asarray(prompt, np.int32)
+        for i in range(len(toks) // ps):
+            yield toks[i * ps : (i + 1) * ps].tobytes()
+
+    def match(self, prompt: np.ndarray) -> Tuple[List[int], int]:
+        """Longest cached page-aligned prefix of ``prompt``: its physical
+        pages (block 0 first) and the tokens they cover.  Bumps recency but
+        counts nothing: an admission probe (a queued request is probed every
+        boundary); :meth:`record` counts the request once it enters."""
+        self._tick += 1
+        pages: List[int] = []
+        parent: Optional[tuple] = None
+        for blk in self._blocks(prompt):
+            key = (parent, blk)
+            e = self._entries.get(key)
+            if e is None:
+                break
+            e.last_use = self._tick
+            pages.append(e.page)
+            parent = key
+        return pages, len(pages) * self.pool.page_size
+
+    def record(self, prompt_tokens: int, pages: List[int]) -> None:
+        """Count one admitted request's lookup outcome."""
+        self.lookups += 1
+        if pages:
+            cached = len(pages) * self.pool.page_size
+            self.hits += 1
+            self.hit_pages += len(pages)
+            self.hit_tokens += cached
+            if cached >= prompt_tokens:
+                self.full_hits += 1
+
+    def lookup(self, prompt: np.ndarray) -> Tuple[List[int], int]:
+        """:meth:`match` and :meth:`record` in one call."""
+        pages, cached = self.match(prompt)
+        self.record(len(np.asarray(prompt)), pages)
+        return pages, cached
+
+    def insert(self, prompt: np.ndarray, slot_pages: List[int]) -> int:
+        """Register a just-prefilled request's full prompt pages.  A block
+        already cached (under any page) is left alone: the first writer
+        wins and the newcomer keeps its private copy.  Each newly cached
+        page gains the cache's own reference.  Returns the pages added."""
+        self._tick += 1
+        parent: Optional[tuple] = None
+        added = 0
+        for i, blk in enumerate(self._blocks(prompt)):
+            key = (parent, blk)
+            e = self._entries.get(key)
+            if e is None:
+                page = slot_pages[i]
+                self.pool.incref([page])
+                e = _CacheEntry(page, parent, self._tick)
+                self._entries[key] = e
+                if parent is not None:
+                    self._entries[parent].children += 1
+                added += 1
+            else:
+                e.last_use = self._tick
+            parent = key
+        self.inserts += added
+        return added
+
+    def evict(self, need: int) -> int:
+        """Reclaim up to ``need`` cached-but-unreferenced pages (back to the
+        pool's free list), least recently used leaves first.  Returns the
+        pages freed."""
+        freed = 0
+        while freed < need:
+            # one LRU-sorted pass over the unreferenced tier; evicting a leaf
+            # exposes its parent, which may sort earlier: repeat until dry
+            candidates = sorted(
+                ((key, e) for key, e in self._entries.items()
+                 if self.pool.refcount(e.page) == 1),
+                key=lambda kv: kv[1].last_use,
+            )
+            progressed = False
+            for key, e in candidates:
+                if freed >= need:
+                    break
+                if e.children:
+                    continue
+                del self._entries[key]
+                if e.parent is not None:
+                    self._entries[e.parent].children -= 1
+                self.pool.free([e.page])
+                freed += 1
+                progressed = True
+            if not progressed:
+                break
+        self.evicted_pages += freed
+        return freed
+
+    def stats(self) -> Dict[str, float]:
+        """Scalar summary of the cache over one run."""
+        return {
+            "lookups": float(self.lookups),
+            "hits": float(self.hits),
+            "full_hits": float(self.full_hits),
+            "hit_rate": self.hits / self.lookups if self.lookups else 0.0,
+            "hit_pages": float(self.hit_pages),
+            "hit_tokens": float(self.hit_tokens),
+            "inserts": float(self.inserts),
+            "evicted_pages": float(self.evicted_pages),
+            "cached_pages": float(len(self._entries)),
+            "unreferenced_pages": float(self.evictable),
+        }

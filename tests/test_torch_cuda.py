@@ -1071,3 +1071,55 @@ def test_rmsnorm_zoo_widths(cuda, D):
     x = _randn((64 * 5 if D == 128 else 5, D), torch.bfloat16, cuda, 530) * 3.0
     w = _randn((D,), torch.bfloat16, cuda, 531) * 0.1
     _close(rn_mod.rmsnorm(x, w), ref.rmsnorm(x, w), torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill's flash shapes and the prefix cache's page copy
+# ---------------------------------------------------------------------------
+CHUNKED_FLASH = [
+    # h, kvh, pos0, c, opts: a c-token chunk at q_offset pos0 over pos0 + c
+    # keys; 16 and 48 put the causal diagonal inside a 32-key tile
+    (32, 2, 0, 64, {}),                                # glm4-9b: a prompt's first chunk
+    (32, 2, 16, 64, {}),
+    (32, 2, 48, 64, {}),
+    (32, 2, 64, 16, {}),                               # last chunks, padded to a page
+    (32, 2, 256, 32, {}),
+    (32, 2, 960, 48, {}),
+    (32, 2, 1984, 64, {}),                             # the last chunk of max_seq 2048
+    (32, 16, 4160, 64, {"window": 4096, "softcap": 50.0}),  # gemma2-27b, past the window
+    (32, 16, 4160, 64, {"window": GLOBAL_WINDOW, "softcap": 50.0}),
+    (48, 1, 1008, 64, {}),                             # granite-20b: 3072 rows per kv head
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", CHUNKED_FLASH)
+def test_flash_attention_chunked_prefill_shapes(cuda, dtype, case):
+    h, kvh, pos0, c, opts = case
+    q = _randn((1, c, h, 128), dtype, cuda, 540)
+    k, v = (_randn((1, pos0 + c, kvh, 128), dtype, cuda, 541 + i) for i in range(2))
+    out = fa_mod.flash_attention(q, k, v, q_offset=pos0, **opts)
+    _close(out, ref.attention(q.cpu(), k.cpu(), v.cpu(), q_offset=pos0, **opts), dtype)
+
+
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+def test_copy_pages_on_the_card(cuda, mode):
+    """Pages and their scale rows copied in place in every layer, the pools
+    not reallocated; the CPU version gives the same bytes."""
+    from repro_torch.kernels import ops
+
+    shape = (3, 12, 16, 2, 128)
+    kv = [_randn(shape, torch.bfloat16, cuda, 550 + i) for i in range(2)]
+    # (k, v) or (k codes, v codes, k scales, v scales)
+    pools = kv if mode is None else [
+        t for pair in zip(*[kvquant.quantize(x, kvquant.pool_dtype(mode)) for x in kv])
+        for t in pair]
+    host = [t.cpu() for t in pools]
+    ptrs = [t.data_ptr() for t in pools]
+    src, dst = [3, 7, 1], [9, 2, 11]
+    ops.copy_pages(pools[0], pools[1], src, dst, *pools[2:])
+    ops.copy_pages(host[0], host[1], src, dst, *host[2:])
+    assert [t.data_ptr() for t in pools] == ptrs
+    raw = lambda t: t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+    for t, h in zip(pools, host):
+        assert torch.equal(raw(t.cpu()), raw(h))
