@@ -27,15 +27,20 @@ Three engines (``--engine``, or its alias ``--mode``):
   (``serve_continuous``) over the same prompts, offline; prints each
   request's TTFT and tokens/s and a summary.
 
-``--arch`` picks the model: the dense ``deepseek-67b``, ``granite-20b``,
-``glm4-9b``, ``gemma2-27b`` and ``chameleon-34b`` (every engine) or
-``mamba2-130m`` (SSM: ``static`` and ``continuous``; its state is not
-paged, so ``--engine paged`` stops with the reference's reason).  Runs on
+``--arch`` picks the model: the MoE ``qwen3-moe-30b-a3b`` and the dense
+``deepseek-67b``, ``granite-20b``, ``glm4-9b``, ``gemma2-27b`` and
+``chameleon-34b`` (every engine); ``llama4-maverick-400b-a17b`` (MoE
+layers interleaved with dense ones) and ``mamba2-130m`` (SSM) on
+``static`` and ``continuous`` only: neither has a paged layout, so
+``--engine paged`` stops with the reference's reason.  A MoE model's
+header and report name its experts, top k and capacity factor.  Runs on
 ``cuda`` unless ``--device cpu`` is given.  The model config is the
 reduced one unless ``--full`` asks for the published widths and depth;
 weights are random, from ``--seed``.  ``--full`` refuses a model whose
 weights alone exceed the card's memory: ``deepseek-67b`` (125.6 GiB in
-bf16) runs reduced only on one 80 GB card; the others fit at full width.
+bf16) and ``llama4-maverick-400b-a17b`` (740.8 GiB) run reduced only on
+one 80 GB card; the others fit at full width (``qwen3-moe-30b-a3b``:
+56.9 GiB).
 Prompts are random tokens with lengths drawn uniformly from
 ``[--prompt-len-min, --prompt-len]`` (with ``--tenants``, each tenant's
 ``prompt`` length; with ``--prefix-len``, ``--prompt-len`` tokens).
@@ -387,7 +392,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--full", action="store_true",
                     help="published widths and depth (default: the reduced config); "
                          "refused where the weights alone exceed the card's memory: "
-                         "deepseek-67b runs reduced only on one 80 GB card")
+                         "deepseek-67b and llama4-maverick-400b-a17b run reduced only on "
+                         "one 80 GB card")
     ap.add_argument("--engine", "--mode", dest="engine", default="paged", choices=list(ENGINES),
                     help="paged: paged-KV continuous batching; static: the request "
                          "scheduler batching generate() on a dense cache; continuous: "
@@ -492,7 +498,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.arch, reduced=not args.full)
     model = DecoderLM(cfg, device=device, dtype=args.dtype)
-    if args.engine == "paged" and model.ssm:
+    if args.engine == "paged" and (model.ssm or model.interleaved):
         ap.error(f"--engine paged with {cfg.name}: {NOT_PAGED}")
     try:
         params = model.init(seed=args.seed)
@@ -508,10 +514,25 @@ def main(argv: Optional[List[str]] = None) -> int:
           f"kv_dtype {engine._kv_dtype_name()}, spec_k {args.spec_k}"
           + (f", prefill {args.prefill_mode}, prefix_cache {args.prefix_cache}, "
              f"overcommit {args.overcommit}" if paged else ""))
+    if cfg.family == "moe":
+        print(f"[serve] {moe_summary(cfg)}")
     summary = ENGINES[args.engine](engine, reqs, args)
+    if cfg.family == "moe":
+        summary["moe"] = moe_summary(cfg)
     for k, v in summary.items():
         print(f"[serve]   {k:20s} {v:.2f}" if isinstance(v, float) else f"[serve]   {k:20s} {v}")
     return 0
+
+
+def moe_summary(cfg) -> str:
+    """A MoE config in one line: experts, top k, capacity factor, expert
+    width, and the dense layers it interleaves."""
+    line = (f"moe: {cfg.num_experts} experts of d_ff {cfg.d_ff}, top "
+            f"{cfg.experts_per_token}, capacity factor {cfg.capacity_factor}")
+    if cfg.moe_every == 2:
+        line += (f", every other of {cfg.num_layers} layers (dense layers of d_ff "
+                 f"{cfg.dense_d_ff} between)")
+    return line
 
 
 if __name__ == "__main__":

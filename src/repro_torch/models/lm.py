@@ -3,15 +3,20 @@
 What is ported: parameters; the full-sequence :meth:`DecoderLM.forward`;
 for the dense family (``family="dense"``, with the options the zoo's dense
 configs set: QK-norm, post-norms, scaled embeddings, attention and logit
-softcaps, alternating sliding/global windows) the dense KV cache ``(L, b,
-max_seq, kvh, d)`` with one right-padded prefill (:meth:`DecoderLM.prefill`)
+softcaps, alternating sliding/global windows) and the MoE family
+(``family="moe"``: every block's MLP a mixture of experts, or with
+``moe_every=2`` dense and MoE blocks interleaved in pairs) the dense KV
+cache ``(L, b, max_seq, kvh, d)`` (interleaved: ``(L/2, 2, b, max_seq,
+kvh, d)``, a dense and a MoE layer per pair) with one right-padded
+prefill (:meth:`DecoderLM.prefill`)
 and one decode step (:meth:`DecoderLM.decode`), as the static and
 continuous engines drive them; the paged KV pool (full precision, or
 int8/fp8 codes with float32 scale pools), one paged decode step
 (:meth:`DecoderLM.decode_paged`), one speculative verify step
 (:meth:`DecoderLM.decode_spec`), one packed varlen-prefill launch
 (:meth:`DecoderLM.prefill_packed`) and one batch-1 prefill chunk
-(:meth:`DecoderLM.prefill_paged_chunk`).  For the attention-free SSM family
+(:meth:`DecoderLM.prefill_paged_chunk`); the interleaved layout has no
+paged form, as in the reference.  For the attention-free SSM family
 (``family="ssm"``, Mamba-2) the same ``prefill``/``decode``/``forward`` over
 a cache of per-layer SSD states ``(L, b, h, p, n)`` (float32) and
 convolution histories ``(L, b, K-1, conv_dim)``; its state is not paged.
@@ -43,6 +48,8 @@ from .modules import (
     mamba_step,
     mlp_apply,
     mlp_defs,
+    moe_apply,
+    moe_defs,
     norm_defs,
 )
 from .params import P, init_params
@@ -57,6 +64,8 @@ _HEAD_SLICE = 1 << 15
 # the reference's reason for refusing a paged cache (``repro.models.lm``)
 NOT_PAGED = ("paged KV cache supports dense/moe (non-interleaved) decoder caches only; "
              "ssm/hybrid state is not paged")
+# the end of the reference's refusal of each paged path for the interleaved layout
+_NOT_PAGED_INTERLEAVED = "supports dense/moe (non-interleaved) only"
 # the reference's reason for refusing a right-padded prefill
 _NOT_RAGGED = ("ragged (right-padded) prefill requires a pure-attention cache; "
                "ssm/hybrid state would absorb the pad tokens")
@@ -79,8 +88,10 @@ def _device_memory(device: torch.device) -> Optional[int]:
 
 
 class DecoderLM:
-    """Dense GQA decoder (``family="dense"``) or attention-free Mamba-2
-    stack (``family="ssm"``); the MoE, hybrid and enc-dec families raise.
+    """Dense GQA decoder (``family="dense"``), mixture-of-experts decoder
+    (``family="moe"``, interleaved with dense layers where ``moe_every``
+    is 2) or attention-free Mamba-2 stack (``family="ssm"``); the hybrid
+    and enc-dec families raise.
 
     ``device`` defaults to ``cuda`` (and raises where there is none);
     ``dtype`` is the weight and activation dtype: bf16 on the card, float32
@@ -90,10 +101,12 @@ class DecoderLM:
     def __init__(self, cfg: ArchConfig, device: Union[str, torch.device, None] = None,
                  dtype: Union[str, torch.dtype, None] = None) -> None:
         cfg.validate()
-        if cfg.family not in ("dense", "ssm"):
+        if cfg.family not in ("dense", "moe", "ssm"):
             raise NotImplementedError(f"{cfg.name}: not ported yet: family {cfg.family}")
         self.cfg = cfg
         self.ssm = cfg.family == "ssm"
+        # llama4-style pairs of a dense and a MoE block (no paged layout)
+        self.interleaved = cfg.family == "moe" and cfg.moe_every == 2
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype, self.device)
         self.windows = self._layer_windows()
@@ -102,27 +115,33 @@ class DecoderLM:
         self._embed_scale = (torch.tensor(math.sqrt(cfg.d_model), dtype=self.dtype).item()
                              if cfg.scale_embed else None)
         # the batch axis of each cache tensor (the continuous engine's slot copy)
+        kv_axis = 2 if self.interleaved else 1
         self.CACHE_BATCH_AXIS = ({"pos": 0, "ssm": 1, "conv": 1} if self.ssm
-                                 else {"pos": 0, "k": 1, "v": 1})
+                                 else {"pos": 0, "k": kv_axis, "v": kv_axis})
 
     # -- params ---------------------------------------------------------------
     def param_defs(self) -> Dict[str, Any]:
         cfg = self.cfg
         V, D = cfg.vocab_size, cfg.d_model
-        if self.ssm:
-            block = lambda: {"ln": norm_defs(cfg), "mamba": mamba_defs(cfg)}
+        L = cfg.num_layers
+
+        def block(kind):
+            if kind == "mamba":
+                return {"ln": norm_defs(cfg), "mamba": mamba_defs(cfg)}
+            mlp = (moe_defs(cfg) if kind == "moe"
+                   else mlp_defs(cfg, cfg.dense_d_ff if self.interleaved else 0))
+            blk = {"ln1": norm_defs(cfg), "attn": attn_defs(cfg), "ln2": norm_defs(cfg),
+                   "mlp": mlp}
+            if cfg.post_norms:
+                blk.update(post_attn_norm=norm_defs(cfg), post_mlp_norm=norm_defs(cfg))
+            return blk
+
+        if self.interleaved:
+            blocks = [{"a": block("dense"), "b": block("moe")} for _ in range(L // 2)]
         else:
-            def block():
-                blk = {"ln1": norm_defs(cfg), "attn": attn_defs(cfg), "ln2": norm_defs(cfg),
-                       "mlp": mlp_defs(cfg)}
-                if cfg.post_norms:
-                    blk.update(post_attn_norm=norm_defs(cfg), post_mlp_norm=norm_defs(cfg))
-                return blk
-        defs = {
-            "embed": P((V, D)),
-            "blocks": [block() for _ in range(cfg.num_layers)],
-            "final_norm": norm_defs(cfg),
-        }
+            kind = {"ssm": "mamba", "moe": "moe"}.get(cfg.family, "dense")
+            blocks = [block(kind) for _ in range(L)]
+        defs = {"embed": P((V, D)), "blocks": blocks, "final_norm": norm_defs(cfg)}
         if not cfg.tie_embeddings:
             defs["lm_head"] = P((D, V))
         return defs
@@ -151,6 +170,24 @@ class DecoderLM:
             return [None] * cfg.num_layers
         return [GLOBAL_WINDOW if l % cfg.global_every == cfg.global_every - 1
                 else cfg.sliding_window for l in range(cfg.num_layers)]
+
+    def _layers(self, params):
+        """(layer, block, cache index) of each layer in order:
+        ``params["blocks"][l]`` over ``k[l]``/``v[l]`` of the dense cache;
+        in the interleaved layout each pair's dense block ``a`` then its MoE
+        block ``b``, over ``k[l // 2, 0]`` and ``k[l // 2, 1]``."""
+        if self.interleaved:
+            for i, pair in enumerate(params["blocks"]):
+                yield 2 * i, pair["a"], (i, 0)
+                yield 2 * i + 1, pair["b"], (i, 1)
+        else:
+            yield from ((li, blk, li) for li, blk in enumerate(params["blocks"]))
+
+    def _refuse_paged(self, what: str) -> None:
+        """The reference's refusal of a paged path for the interleaved
+        layout (``what``: "paged decode", "packed paged prefill", ...)."""
+        if self.interleaved:
+            raise NotImplementedError(f"{what} {_NOT_PAGED_INTERLEAVED}")
 
     def _norm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return ops.rmsnorm(x, w, self.cfg.norm_eps)
@@ -185,19 +222,26 @@ class DecoderLM:
             logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
         return logits
 
-    def _attn_residual(self, blk, x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-        """The rest of a dense block once attention has run on ``ln1(x)``:
-        the attention output ``a`` (post-normed where the config has
-        post-norms) added to the residual ``x``, then ln2 + MLP (post-normed
-        likewise), residual-added."""
+    def _attn_residual(self, blk, x: torch.Tensor, a: torch.Tensor, with_aux: bool = False):
+        """The rest of an attention block once attention has run on
+        ``ln1(x)``: the attention output ``a`` (post-normed where the config
+        has post-norms) added to the residual ``x``, then ln2 + MLP, or the
+        mixture of experts where the block has a router (post-normed
+        likewise), residual-added.  With ``with_aux`` returns (x, the
+        block's MoE auxiliary loss, None for a dense block)."""
         post = self.cfg.post_norms
         if post:
             a = self._norm(a, blk["post_attn_norm"])
         x = x + a
-        m = mlp_apply(blk["mlp"], self._norm(x, blk["ln2"]))
+        h = self._norm(x, blk["ln2"])
+        aux = None
+        if "router" in blk["mlp"]:
+            m, aux = moe_apply(blk["mlp"], h, self.cfg, need_aux=with_aux)
+        else:
+            m = mlp_apply(blk["mlp"], h)
         if post:
             m = self._norm(m, blk["post_mlp_norm"])
-        return x + m
+        return (x + m, aux) if with_aux else x + m
 
     def _mamba_block_full(self, blk, x: torch.Tensor, return_state: bool = False):
         """ln + Mamba-2 over the sequence, residual-added; with
@@ -217,10 +261,12 @@ class DecoderLM:
                                     self.cfg)
         return x1 + y, state, conv
 
-    def _attn_block_full(self, blk, x: torch.Tensor, window: Optional[int]) -> torch.Tensor:
-        """ln1 + attention over the sequence and ln2 + MLP, residual-added."""
+    def _attn_block_full(self, blk, x: torch.Tensor, window: Optional[int],
+                         with_aux: bool = False):
+        """ln1 + attention over the sequence and ln2 + MLP (or MoE),
+        residual-added; with ``with_aux`` also the MoE auxiliary loss."""
         a = attn_full(blk["attn"], self._norm(x, blk["ln1"]), self.cfg, window=window)
-        return self._attn_residual(blk, x, a)
+        return self._attn_residual(blk, x, a, with_aux)
 
     def _block_full(self, li: int, blk, x: torch.Tensor) -> torch.Tensor:
         return (self._mamba_block_full(blk, x) if self.ssm
@@ -229,12 +275,21 @@ class DecoderLM:
     # -- full sequence ------------------------------------------------------------
     def forward(self, params, batch: Dict[str, torch.Tensor]):
         """Logits of every position of ``batch["tokens"]`` (b, s): float32
-        (b, s, V), and the auxiliary loss (0 for a dense model), as the JAX
-        model returns them.  ``remat`` (a training option) is not ported."""
+        (b, s, V), and the auxiliary loss, as the JAX model returns them:
+        the MoE blocks' Switch losses summed over layers in float32 (0 for
+        a dense or SSM model).  ``remat`` (a training option) is not
+        ported."""
         x = self._embed_tokens(params, batch["tokens"])
-        for li, blk in enumerate(params["blocks"]):
-            x = self._block_full(li, blk, x)
-        return self._logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if self.ssm:
+            for blk in params["blocks"]:
+                x = self._mamba_block_full(blk, x)
+        else:
+            for li, blk, _ in self._layers(params):
+                x, a = self._attn_block_full(blk, x, self.windows[li], with_aux=True)
+                if a is not None:
+                    aux = aux + a
+        return self._logits(params, x), aux
 
     def forward_instrumented(self, params, batch: Dict[str, torch.Tensor],
                              hook: Callable[[str, Callable[[], torch.Tensor]], torch.Tensor]
@@ -242,15 +297,17 @@ class DecoderLM:
         """:meth:`forward`'s logits, computed layer by layer with
         ``hook(name, thunk)`` around each piece (the FRAMEWORK trace level;
         the counterpart of ``repro.models.lm._forward_instrumented_decoder``).
-        The pieces are ``embed``, ``layer_{l:03d}_attn`` (dense; a windowed
-        config's layers add ``_w{window}`` as the reference names them:
-        ``_w1073741824`` on a global layer) or ``layer_{l:03d}_mamba``
-        (ssm), and ``logits``.  Each piece runs the ops ``forward`` runs, in
-        its order."""
+        The pieces are ``embed``, ``layer_{l:03d}_attn`` (dense and MoE; a
+        windowed config's layers add ``_w{window}`` as the reference names
+        them: ``_w1073741824`` on a global layer), ``layer_{l:03d}_dense``
+        and ``layer_{l:03d}_moe`` (the interleaved layout's pairs) or
+        ``layer_{l:03d}_mamba`` (ssm), and ``logits``.  Each piece runs the
+        ops ``forward`` runs, in its order."""
         x = hook("embed", lambda: self._embed_tokens(params, batch["tokens"]))
-        kind = "mamba" if self.ssm else "attn"
-        for l, blk in enumerate(params["blocks"]):
+        for l, blk, _ in self._layers(params):
             w = self.windows[l]
+            kind = ("mamba" if self.ssm else ("dense", "moe")[l % 2] if self.interleaved
+                    else "attn")
             name = f"layer_{l:03d}_{kind}" + ("" if w is None else f"_w{w}")
             x = hook(name, lambda l=l, blk=blk, x=x: self._block_full(l, blk, x))
         return hook("logits", lambda: self._logits(params, x))
@@ -258,9 +315,11 @@ class DecoderLM:
     # -- dense cache ------------------------------------------------------------------
     def cache_defs(self, batch: int, max_seq: int) -> Dict[str, tuple]:
         """Shapes of the dense cache: ``pos`` (b,) int32, the next position
-        of each row, and K/V stacks (L, b, max_seq, kvh, d); for the SSM
-        family the SSD states (L, b, h, p, n) and conv histories (L, b,
-        K-1, conv_dim), whose size does not depend on ``max_seq``."""
+        of each row, and K/V stacks (L, b, max_seq, kvh, d) (the interleaved
+        layout: (L/2, 2, b, max_seq, kvh, d), a pair's dense layer then its
+        MoE layer); for the SSM family the SSD states (L, b, h, p, n) and
+        conv histories (L, b, K-1, conv_dim), whose size does not depend on
+        ``max_seq``."""
         cfg = self.cfg
         L = cfg.num_layers
         if self.ssm:
@@ -269,8 +328,9 @@ class DecoderLM:
                     "ssm": (L, batch, cfg.ssm_heads, cfg.ssm_head_dim, n),
                     "conv": (L, batch, cfg.conv_kernel - 1, cfg.ssm_inner + 2 * n)}
         kv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
-        return {"pos": (batch,), "k": (L, batch, max_seq, kv, dh),
-                "v": (L, batch, max_seq, kv, dh)}
+        lead = (L // 2, 2) if self.interleaved else (L,)
+        return {"pos": (batch,), "k": lead + (batch, max_seq, kv, dh),
+                "v": lead + (batch, max_seq, kv, dh)}
 
     def init_cache(self, batch: int, max_seq: int) -> Dict[str, torch.Tensor]:
         """A zeroed cache: K/V and conv histories in the model's dtype (bf16
@@ -320,11 +380,11 @@ class DecoderLM:
                 cache["conv"][li].copy_(conv)
             return self._prefill_logits(params, batch, x, cache)
         s = x.shape[1]
-        for li, blk in enumerate(params["blocks"]):
+        for li, blk, at in self._layers(params):
             a, (k, v) = attn_full(blk["attn"], self._norm(x, blk["ln1"]), self.cfg,
                                   window=self.windows[li], return_kv=True)
-            cache["k"][li, :, :s] = k
-            cache["v"][li, :, :s] = v
+            cache["k"][at][:, :s] = k
+            cache["v"][at][:, :s] = v
             x = self._attn_residual(blk, x, a)
         return self._prefill_logits(params, batch, x, cache)
 
@@ -349,9 +409,9 @@ class DecoderLM:
                 cache["conv"][li].copy_(conv)
             pos.add_(1)
             return self._logits(params, x1)
-        for li, blk in enumerate(params["blocks"]):
-            a = attn_decode(blk["attn"], self._norm(x, blk["ln1"]), cache["k"][li],
-                            cache["v"][li], pos, self.cfg, window=self.windows[li],
+        for li, blk, at in self._layers(params):
+            a = attn_decode(blk["attn"], self._norm(x, blk["ln1"]), cache["k"][at],
+                            cache["v"][at], pos, self.cfg, window=self.windows[li],
                             uniform_pos=uniform_pos, kv_bound=kv_bound)
             x = self._attn_residual(blk, x, a)
         pos.add_(1)
@@ -363,8 +423,9 @@ class DecoderLM:
         """Shapes of the paged KV layout: one global pool of ``page_size``-
         token pages per layer, indexed through per-request page tables.  An
         int8/fp8 ``kv_dtype`` adds the float32 scale pools, one scale per
-        page row per kv head.  The SSM family has no paged layout."""
-        if self.ssm:
+        page row per kv head.  The SSM family and the interleaved MoE
+        layout have no paged layout."""
+        if self.ssm or self.interleaved:
             raise NotImplementedError(NOT_PAGED)
         cfg = self.cfg
         L, kv, dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -407,6 +468,7 @@ class DecoderLM:
         attention covers ``lengths + 1`` tokens; ``pages_bound`` bounds the
         live pages per request.  The pools in ``cache`` are written in
         place.  Returns float32 logits (b, V)."""
+        self._refuse_paged("paged decode")
         pos = lengths.to(torch.int32)
         x = self._embed_tokens(params, tokens)[:, None, :]          # (b, 1, D)
         for li, blk in enumerate(params["blocks"]):
@@ -436,6 +498,7 @@ class DecoderLM:
         row ``w`` is the next-token distribution after ``tokens[:, :w + 1]``,
         so greedy acceptance compares ``argmax(logits[:, w - 1])`` with
         ``tokens[:, w]``."""
+        self._refuse_paged("speculative paged decode")
         pos = lengths.to(torch.int32)
         wlens = window_lens.to(torch.int32)
         x = self._embed_tokens(params, tokens)                       # (b, W, D)
@@ -462,6 +525,7 @@ class DecoderLM:
         ``last_idx`` (C,), the packed row of each chunk's last real token.
         Returns float32 logits (C, V) at ``last_idx``; only rows of chunks
         that complete their prompt are meaningful."""
+        self._refuse_paged("packed paged prefill")
         meta = {
             k: batch[k]
             for k in ("tok_pos", "dst_page", "dst_off", "cu_seqlens",
@@ -491,6 +555,7 @@ class DecoderLM:
         the final chunk's matter: their argmax is the first new token)."""
         if self.ssm:
             raise NotImplementedError(NOT_PAGED)
+        self._refuse_paged("chunked paged prefill")
         x = self._embed_tokens(params, tokens)                       # (1, c, D)
         for li, blk in enumerate(params["blocks"]):
             kp, vp, ks, vs = self._layer_pools(cache, li)

@@ -17,6 +17,10 @@ and writes their scales at the same indices, and the kernels dequantize.  The Ma
 :func:`mamba_step`) runs its sequence scan through ``ops.ssd`` and its
 gated norm through ``ops.rmsnorm``; its depthwise causal convolution and
 its one-token decode recurrence stay plain torch, as in the JAX package.
+The mixture of experts (:func:`moe_apply`: capacity-based top-k routing,
+dispatch by index writes, the three expert products as batched matrix
+products over all experts) is plain torch too: the JAX package computes
+it with ``jnp`` outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -52,8 +56,10 @@ def norm_defs(cfg: ArchConfig) -> P:
     return P((cfg.d_model,), "zeros")
 
 
-def mlp_defs(cfg: ArchConfig) -> Dict[str, P]:
-    D, Fd = cfg.d_model, cfg.d_ff
+def mlp_defs(cfg: ArchConfig, d_ff: int = 0) -> Dict[str, P]:
+    """The gated MLP, ``d_ff`` wide (default ``cfg.d_ff``; an interleaved
+    MoE config's dense layers take ``cfg.dense_d_ff``)."""
+    D, Fd = cfg.d_model, d_ff or cfg.d_ff
     std_out = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
     return {
         "w_up": P((D, Fd)),
@@ -372,6 +378,107 @@ def attn_prefill_packed(
     dst = (meta["dst_page"].long(), meta["dst_off"].long())
     _write_kv(k_pages, v_pages, k_scales, v_scales, dst, k[0], v[0])
     return y
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts
+# ---------------------------------------------------------------------------
+def moe_defs(cfg: ArchConfig) -> Dict[str, P]:
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    std_out = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
+    return {
+        "router": P((D, E)),
+        "w_gate": P((E, D, Fd)),
+        "w_up": P((E, D, Fd)),
+        "w_down": P((E, Fd, D), std=std_out),
+    }
+
+
+def moe_capacity(cfg: ArchConfig, s: int) -> int:
+    """Slots per expert in a group (a batch row) of ``s`` tokens:
+    ``cf * s * k / E``, at least 1 and at most ``s * k``.  ``s`` is the
+    row's padded length, so the engines' bucketing moves it: a packed
+    prefill buffer of ``t_pack`` tokens is one group, a decode step a
+    group of 1 per slot (``C`` 1 at qwen3-moe's ``cf`` 1.25, top 8 of
+    128)."""
+    C = max(int(cfg.capacity_factor * s * cfg.experts_per_token / cfg.num_experts), 1)
+    return min(C, s * cfg.experts_per_token)
+
+
+def _positions_in_expert(eid: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """Each slot's rank within its expert's queue, row by row: eid (b, n)
+    -> (b, n).  The rank follows slot order (a stable sort), so a row's
+    trailing pad tokens queue behind its real ones."""
+    b, n = eid.shape
+    sorted_eid, order = torch.sort(eid, dim=-1, stable=True)
+    ranks = torch.empty_like(eid).scatter_(
+        -1, order, torch.arange(n, device=eid.device).expand(b, n))
+    experts = torch.arange(num_experts, device=eid.device, dtype=eid.dtype).expand(b, -1)
+    seg_starts = torch.searchsorted(sorted_eid, experts.contiguous())
+    return ranks - seg_starts.gather(-1, eid)
+
+
+def moe_route(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig):
+    """The router's decision for x (b, s, D): probabilities (b, s, E)
+    (logits in the model dtype, softmax in float32), and each token's top
+    k experts (b, s, k) with their weights renormalised (sum clamped at
+    1e-9).  Ties go to the lower expert index (a stable descending sort),
+    as ``jax.lax.top_k`` breaks them; ``torch.topk`` promises no order."""
+    probs = torch.softmax((x @ p["router"]).float(), dim=-1)
+    weights, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    K = cfg.experts_per_token
+    weights, idx = weights[..., :K], idx[..., :K]
+    return probs, weights / weights.sum(-1, keepdim=True).clamp_min(1e-9), idx
+
+
+def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
+              need_aux: bool = True):
+    """Capacity-based top-k routing with index dispatch (the JAX module's
+    default path; its ``moe_decode_gather`` decode path runs only under
+    tensor-parallel sharding rules and is not ported).
+
+    Each batch row is a group of ``s`` tokens with :func:`moe_capacity`
+    slots per expert, routed by :func:`moe_route`.  A slot's rank within its expert
+    follows slot order (:func:`_positions_in_expert`); slots ranked at or
+    past the capacity are dropped on dispatch and contribute zero on
+    combine.  The expert buffer is laid out expert-major, ``(E, b * C,
+    D)``, so the three expert products are one ``bmm`` each over every
+    expert.  The dispatch is a gather: each buffer row names the token its
+    slot holds, or a zero row (an empty slot); the combine gathers each
+    kept slot's output (a dropped one reads a zero row past the buffer)
+    and weighs the k of a token by one matrix product with their weights
+    cast to the activation dtype, accumulated in float32, as the
+    reference's einsum accumulates.  Returns (out (b, s, D), aux): aux is
+    the Switch load-balancing loss ``E * sum_e f_e * P_e`` in float32, or
+    None without ``need_aux`` (the serving paths discard it)."""
+    b, s, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    C = moe_capacity(cfg, s)
+    probs, weights, idx = moe_route(p, x, cfg)
+    aux = None
+    if need_aux:
+        counts = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
+            0, idx.reshape(-1), torch.ones(idx.numel(), dtype=torch.float32, device=x.device))
+        aux = E * (probs.mean(dim=(0, 1)) * (counts / (b * s * K))).sum()
+
+    eid = idx.reshape(b, s * K)                                          # (b, n) slots
+    pos = _positions_in_expert(eid, E)
+    rows = torch.arange(b, device=x.device)[:, None]
+    n_rows = E * b * C                                  # buffer rows; row n_rows is zero
+    # each kept slot's expert-major buffer row; a dropped slot the zero row
+    dst = torch.where(pos < C, (eid * b + rows) * C + pos, n_rows).reshape(-1)
+    tokens = torch.arange(b * s, device=x.device).repeat_interleave(K)
+    src = torch.full((n_rows + 1,), b * s, dtype=torch.long, device=x.device)
+    src.index_copy_(0, dst, tokens)                     # dropped slots all land on row n_rows
+    x_rows = torch.cat([x.reshape(b * s, D), x.new_zeros((1, D))])
+    h = x_rows[src[:n_rows]].view(E, b * C, D)
+    out = x.new_empty((n_rows + 1, D))
+    out[n_rows].zero_()
+    torch.bmm(F.silu(torch.bmm(h, p["w_gate"])) * torch.bmm(h, p["w_up"]), p["w_down"],
+              out=out[:n_rows].view(E, b * C, D))
+    gathered = out[dst].view(b * s, K, D)
+    combined = torch.matmul(weights.to(x.dtype).view(b * s, 1, K), gathered)
+    return combined.view(b, s, D), aux
 
 
 # ---------------------------------------------------------------------------

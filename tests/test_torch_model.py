@@ -44,8 +44,9 @@ def models():
 
 
 def test_config_copy_matches():
-    assert list_archs() == ["deepseek-67b", "granite-20b", "glm4-9b", "gemma2-27b",
-                            "chameleon-34b", "mamba2-130m"]
+    assert list_archs() == ["qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b", "deepseek-67b",
+                            "granite-20b", "glm4-9b", "gemma2-27b", "chameleon-34b",
+                            "mamba2-130m"]
     for arch in list_archs():
         for reduced in (False, True):
             port, ref = get_config(arch, reduced=reduced), jax_get_config(arch, reduced=reduced)
@@ -223,12 +224,14 @@ def test_prefill_packed_then_decode_paged_matches_jax(models):
 
 
 def test_unported_configs_raise():
-    """The families still unported raise; every dense option of the zoo is
-    accepted."""
-    for arch in ("qwen3-moe-30b-a3b", "zamba2-2.7b", "whisper-large-v3"):
+    """The families still unported raise; every dense option of the zoo and
+    the MoE family are accepted."""
+    for arch in ("zamba2-2.7b", "whisper-large-v3"):
         cfg = jax_get_config(arch, reduced=True)
         with pytest.raises(NotImplementedError, match=f"family {cfg.family}"):
             DecoderLM(cfg, device="cpu")
+    for arch in ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b"):
+        assert DecoderLM(get_config(arch, reduced=True), device="cpu").cfg.family == "moe"
     cfg = get_config("glm4-9b", reduced=True).replace(
         qk_norm=True, post_norms=True, scale_embed=True, logit_softcap=30.0, attn_softcap=50.0,
         sliding_window=8, global_every=2)

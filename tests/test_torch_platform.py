@@ -46,7 +46,8 @@ from repro_torch.models import DecoderLM, from_jax
 
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 # the port's architectures, in the reference's order
-ARCHS = ("deepseek-67b", "granite-20b", "glm4-9b", "gemma2-27b", "chameleon-34b", "mamba2-130m")
+ARCHS = ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b", "deepseek-67b", "granite-20b",
+         "glm4-9b", "gemma2-27b", "chameleon-34b", "mamba2-130m")
 
 
 @pytest.fixture(scope="module")
@@ -224,11 +225,13 @@ def test_framework_spans_are_named_as_the_reference_names_them(arch):
         layers = _span_names(got_spans, TraceLevel.FRAMEWORK)
         assert layers == _span_names(want_spans, TraceLevel.FRAMEWORK)
         cfg = get_config(arch, reduced=True)
-        kind = "mamba" if cfg.family == "ssm" else "attn"
+        # llama4's interleaved pairs: a dense layer, then a MoE layer
+        kind = (lambda l: "mamba") if cfg.family == "ssm" else \
+            (lambda l: ("dense", "moe")[l % 2]) if cfg.moe_every == 2 else (lambda l: "attn")
         # gemma2's alternating windows: the reference's values in the names
         suffix = (lambda l: f"_w{1 << 30 if l % 2 else 8}") if arch == "gemma2-27b" else \
             (lambda l: "")
-        assert layers == 2 * (["embed"] + [f"layer_{l:03d}_{kind}{suffix(l)}"
+        assert layers == 2 * (["embed"] + [f"layer_{l:03d}_{kind(l)}{suffix(l)}"
                                            for l in range(cfg.num_layers)] + ["logits"])
         assert sorted(set(_span_names(got_spans, TraceLevel.MODEL))) == \
             sorted(set(_span_names(want_spans, TraceLevel.MODEL)))
@@ -303,6 +306,8 @@ def test_jax_and_torch_evaluations_land_in_one_evaldb(tmp_path, kind):
                                                   ("gemma2-27b", "pallas", 20),
                                                   ("chameleon-34b", "pallas", 12),
                                                   ("granite-20b", "pallas", 12),
+                                                  ("qwen3-moe-30b-a3b", "pallas", 12),
+                                                  ("llama4-maverick-400b-a17b", "pallas", 12),
                                                   ("mamba2-130m", "ref", 12),
                                                   ("mamba2-130m", "pallas", 16)])
 def test_torch_predictor_matches_the_jax_predictor(arch, backend, seq_len):
