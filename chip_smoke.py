@@ -16,8 +16,9 @@ Phases, each printing its own lines and wall time, each ending in
    (``csrc/varlen_prefill_tc.cuh``) and of the chunk launches of the bf16
    ``ssd`` (``csrc/ssd_tc.cu``; ``cuobjdump``): fail unless each has some
    (HGMMA in varlen's d-128 instances), the flash and varlen kernels at
-   head dim 128 spill nothing and no split-KV or ``ssd_tc`` instance
-   spills;
+   head dim 128 and the flash kernel at head dim 80 (zamba2's, over
+   ``Padded<80>`` tiles) spill nothing and no split-KV or ``ssd_tc``
+   instance spills;
 2. kernels: each hand-written kernel against its plain PyTorch version at
    the shapes the serve phase gives it (glm4-9b widths: h 32, kvh 2, d 128,
    page 16, D 4096, bf16; spec_verify with 8 slots and windows of 5), the
@@ -58,9 +59,11 @@ Phases, each printing its own lines and wall time, each ending in
    its time at a batch-1 admission.  Then ``flash_attention``, rmsnorm
    and ``ssd`` at the shapes phase 6 gives them, bf16, batches 1 to 8 of
    128 tokens: the causal attention and norms of glm4-9b (D 4096) and of
-   gemma2-27b (D 4608, softcap 50, each of its two windows),
-   mamba2-130m's scan (two whole chunks, y and the final state, x/B/C
-   views of one projection) and norms (768 and the gated 1536).  Then the
+   gemma2-27b (D 4608, softcap 50, each of its two windows), of
+   qwen3-moe-30b-a3b and of zamba2-2.7b's shared block (d 80),
+   mamba2-130m's and zamba2-2.7b's scans (two whole chunks, y and the final
+   state, x/B/C views of one projection) and norms (d_model and the gated
+   d_inner).  Then the
    rest of the dense family's shapes (``zoo_kernels_phase``, d 128):
    gemma2-27b (32 query heads on 16 kv heads, softcap 50, window 4096 on
    its local layers, GLOBAL_WINDOW on its global ones):
@@ -87,7 +90,19 @@ Phases, each printing its own lines and wall time, each ending in
    d 128, D 2048: 128 rows a 16-token page in ``varlen_prefill``) through
    the same checks and timings as glm4-9b's on a bf16 and an int8 pool
    (``kernels_phase``, ``dense_kernels_phase``), its QK-norm rows, and its
-   chunked-prefill chunks;
+   chunked-prefill chunks.  Then zamba2-2.7b's shapes
+   (``hybrid_kernels_phase``), at the left-padded lengths its engines
+   give: bf16 ``flash_attention`` at head dim 80 on a static pass q (8,
+   881, 32, 80), a continuous admission (1, 996) and the ring run's
+   prefill (2, 6000) (the plain version without key 0 must fail the
+   limit), and a 64-token q at ``q_offset`` 932; ``decode_attention`` at
+   (8, S, 32, 80) off the ring (S 2048, a static and a continuous step's
+   lengths) and on a full 4096-slot ring (with ``lengths - 1`` the plain
+   version must fail); ``ssd`` at (8, 881, 80, 64), n 64, and the (1, 996)
+   admission (the final state one timestep short must fail); rmsnorm at
+   2560 and the gated 5120
+   over a pass's and a step's rows; each timed beside its plain version,
+   its bound and SDPA or ``F.rms_norm``;
 3. check: reduced glm4-9b in float32 served on the card and on the CPU
    from the same weights must emit the same greedy tokens, with and
    without speculative decoding (which must also equal each other); the
@@ -111,7 +126,11 @@ Phases, each printing its own lines and wall time, each ending in
    MoE layers interleaved) through ``generate`` and ``serve_continuous``:
    tokens equal across devices (capacity routing makes a verify window, a
    chunk or a packed launch a routing group of its own, so paths that
-   group tokens differently are compared and printed, not held);
+   group tokens differently are compared and printed, not held).  The
+   hybrid family (``hybrid_check_phase``): reduced zamba2-2.7b through
+   ``generate`` and ``serve_continuous`` on a plain cache, and with a ring
+   of 8 slots at ``max_seq`` 100000 that every prompt overflows and every
+   step wraps: the card's tokens equal the CPU's;
 4. serve: full-width, full-depth glm4-9b (40 layers, random bf16 weights
    from a seeded CUDA generator) through ``ServingEngine.serve_paged``;
    every request must complete and every kernel must have been launched
@@ -184,6 +203,19 @@ Phases, each printing its own lines and wall time, each ending in
    expert matmuls, the other matmuls and the MoE dispatch ops (by aten
    op), with the idle share.  llama4-maverick-400b-a17b (740.8 GiB of bf16
    weights) runs reduced only (phase 3);
+5d. the hybrid family at published width and depth: zamba2-2.7b (54
+   Mamba-2 layers, a shared attention + MLP block after every 6th, 32
+   heads of 80; random bf16 weights, loaded once the earlier models are
+   freed), each run counted alone with exactly 9 ``flash_attention``, 54
+   ``ssd`` and 127 rmsnorm launches a prefill pass and 9
+   ``decode_attention`` and 127 rmsnorm a decode step: the static path and
+   ``serve_continuous`` on the mix (metrics, peak memory, token
+   agreement), the profile of a static prefill pass and a decode step;
+   ``generate`` on the long set (6000 and 4500 tokens) at ``max_seq``
+   131072, whose 4096-slot ring both prompts overflow and every step wraps
+   (finite logits at every step, ``pos`` 6032, decode tok/s); one
+   4000-token prompt at ``max_seq`` 8192 and 131072 (a ring that never
+   wraps) must give equal tokens;
 6. platform: the evaluation platform of ``repro_torch.core`` (server,
    agent, scenario, scheduler, the torch predictor).  Reduced glm4-9b and
    mamba2-130m through the predictor on the CPU and on the card (its
@@ -192,18 +224,19 @@ Phases, each printing its own lines and wall time, each ending in
    ``LocalPlatform(backends=("torch",), reduced_models=False)`` evaluates
    full-width glm4-9b (online, batched 1/2/4/8, server at 20 Hz with a
    250 ms SLO, offline, online at FRAMEWORK and at SYSTEM) and mamba2-130m
-   (online, offline), gemma2-27b and qwen3-moe-30b-a3b (online, online at
-   FRAMEWORK), 128
+   (online, offline), gemma2-27b, qwen3-moe-30b-a3b and zamba2-2.7b
+   (online, online at FRAMEWORK), 128
    tokens, each evaluation opening its own model (random bf16 weights,
    seed 0): each kernel must launch exactly its per-pass count (glm4-9b:
    40 ``flash_attention`` and 81 rmsnorm; mamba2-130m: 24 ``ssd`` and 49
-   rmsnorm; gemma2-27b: 46 and 185; qwen3-moe-30b-a3b: 48 and 193) times
-   the evaluation's
+   rmsnorm; gemma2-27b: 46 and 185; qwen3-moe-30b-a3b: 48 and 193;
+   zamba2-2.7b: 9, 54 ``ssd`` and 127) times the evaluation's
    ``inference`` spans and no other kernel; the SYSTEM evaluation's
    ``system:cuda`` launches must add up to the counters and its device
    busy time (torch.profiler) must be above 0; the FRAMEWORK layer spans
    must carry the reference's names (``_w4096``/``_w1073741824`` on
-   gemma2's layers); the evaldb must
+   gemma2's layers, ``layer_{g:03d}_shared_attn`` after zamba2's groups);
+   the evaldb must
    hold one record per evaluation; the report is printed;
 7. one JSON line of kernel records, then the final line
    ``{"ok": true, "device": {...}}``.
@@ -446,8 +479,8 @@ def build_report(info, nvcc):
     instructions of the bf16 flash_attention kernels, of the split-KV decode
     routine, of the varlen prefill routine and of the bf16 ssd's chunk
     launches; fail unless each of those has some (HGMMA for varlen at d
-    128), the flash and varlen kernels at d 128 spill nothing and no
-    split-KV or ssd_tc instance spills."""
+    128), the flash kernels at d 128 and d 80 and the varlen kernels at d
+    128 spill nothing and no split-KV or ssd_tc instance spills."""
     from repro_torch.kernels import decode_split as ds
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd as sdm
@@ -495,13 +528,23 @@ def build_report(info, nvcc):
     spilled = [names[m] for m in wg if ptxas.get(m, (0, 1, 1))[1:] != (0, 0)]
     if spilled:
         raise SystemExit(f"varlen_prefill at d 128: spills (or no ptxas report) in {spilled}")
-    _, bk, rows, stages = fa.BF16_TILES[128]
+    _, bk, rows, stages, _ = fa.BF16_TILES[128]
     targs = (bk, stages, rows // 64)            # wgmma kernel <BK, ST, warpgroups>
     at128 = [r for m, r in ptxas.items()
              if f"flash_attention_kernel_bf16_wgmma<{', '.join(map(str, targs))}>" in names[m]
              or "flash_attention_kernel_bf16_wgmmaI" + "".join(f"Li{a}E" for a in targs) in m]
     if len(at128) != 1 or at128[0][1] or at128[0][2]:
         raise SystemExit(f"flash_attention bf16 at d 128: ptxas report {at128}, expected no spill")
+    # zamba2's head dim: the mma.sync kernel over Padded<80> tiles, on the
+    # tensor cores and spilling nothing
+    at80 = [(m, ptxas.get(m)) for m in flash if "flash_attention_kernel_bf16ILi80E" in m]
+    for mangled, report in at80:
+        print(f"   flash_attention bf16 at d 80 ({names[mangled]}): HMMA {flash[mangled][0]}; "
+              f"registers, spill stores, loads {report}")
+    if (len(at80) != 1 or flash[at80[0][0]][0] == 0 or at80[0][1] is None
+            or at80[0][1][1:] != (0, 0)):
+        raise SystemExit(f"flash_attention bf16 at d 80: {at80}, expected one instance with "
+                         f"HMMA and no spill")
     # the bf16 ssd (csrc/ssd_tc.cu): its two chunk launches on the tensor
     # cores at every chunk instance, the state pass beside them, none spilling
     tc = {m: ptxas[m] for m in ptxas if "ssd_kernel_" in m}
@@ -1254,11 +1297,14 @@ def check_phase(torch, dev, arch="glm4-9b", prompt_min=5, cf=None):
               f"{_fmt_agreement(tok(('cpu', mode, 0)), tok(('cuda', mode, 0)))}")
 
 
-def dense_check_phase(torch, dev, arch="glm4-9b", prompt_min=5, cf=None):
+def dense_check_phase(torch, dev, arch="glm4-9b", prompt_min=5, cf=None, ring=None):
     """Reduced ``arch`` in float32 (at capacity factor ``cf`` if given) on
     the dense engines: the card's greedy tokens from ``generate`` and
     ``serve_continuous`` equal the CPU's (prompts of ``prompt_min``-60
-    tokens), and ``forward`` logits agree."""
+    tokens), and ``forward`` logits agree.  With ``ring`` (the hybrid
+    family) the config's ``long_context_window`` is ``ring`` and the
+    engines' ``max_seq`` REDUCED_RING_MAX_SEQ, so the shared attention runs
+    on a ring of ``ring`` slots that every prompt overflows."""
     import numpy as np
 
     from repro_torch.launch.serve import make_requests
@@ -1266,6 +1312,10 @@ def dense_check_phase(torch, dev, arch="glm4-9b", prompt_min=5, cf=None):
     from repro_torch.serve.engine import ServingEngine
 
     cfg = _reduced(arch, cf)
+    max_seq = 96
+    if ring is not None:
+        cfg = cfg.replace(name=f"{cfg.name} (ring of {ring})", long_context_window=ring)
+        max_seq = REDUCED_RING_MAX_SEQ
     cpu_model = DecoderLM(cfg, device="cpu", dtype=torch.float32)
     cpu_params = cpu_model.init(seed=SEED)
     gpu_model = DecoderLM(cfg, device=dev, dtype=torch.float32)
@@ -1275,7 +1325,7 @@ def dense_check_phase(torch, dev, arch="glm4-9b", prompt_min=5, cf=None):
     tokens = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab_size, (2, 48)))
     out = {}
     for name, model, params in (("cpu", cpu_model, cpu_params), ("cuda", gpu_model, gpu_params)):
-        engine = ServingEngine(model, params, max_batch=3, max_seq=96, page_size=PAGE,
+        engine = ServingEngine(model, params, max_batch=3, max_seq=max_seq, page_size=PAGE,
                                device=model.device)
         static = np.concatenate([engine.generate(prompts[i:i + 3], 8).tokens for i in (0, 3)])
         cont = engine.serve_continuous(make_requests(6, prompt_min, 60, 8, cfg.vocab_size, SEED))
@@ -1339,10 +1389,18 @@ def _median_spread(label, runs):
 def _norms_per_pass(cfg):
     """rmsnorm launches of one pass (prefill launch or pass, decode step):
     per layer ln1 and ln2 (a mamba block: ln and its gated norm), the two
-    post-norms and QK-norm's q and k where the config has them, then the
-    final norm (glm4-9b 81, mamba2-130m 49, gemma2-27b 185, granite-20b 105,
-    chameleon-34b 193)."""
-    return (2 + 2 * cfg.post_norms + 2 * cfg.qk_norm) * cfg.num_layers + 1
+    post-norms and QK-norm's q and k where the config has them, a hybrid
+    model's shared block's ln1 and ln2 after each group, then the final
+    norm (glm4-9b 81, mamba2-130m 49, gemma2-27b 185, granite-20b 105,
+    chameleon-34b 193, zamba2-2.7b 127)."""
+    shared = 2 * _groups(cfg)
+    return (2 + 2 * cfg.post_norms + 2 * cfg.qk_norm) * cfg.num_layers + shared + 1
+
+
+def _groups(cfg):
+    """The hybrid family's groups (one shared attention block each); 0 for
+    the other families."""
+    return cfg.num_layers // cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
 
 
 def _expected_launches(stats, cfg):
@@ -1513,11 +1571,16 @@ def _dense_expected(model, passes, steps):
     and per step;
     per layer one flash_attention per pass and one decode_attention per step
     (dense family), or one ssd per pass and none per step (SSM family, whose
-    decode step is plain torch).  Every other kernel: none."""
+    decode step is plain torch); the hybrid family the SSM family's, plus
+    per group (its shared attention) one flash_attention per pass and one
+    decode_attention per step.  Every other kernel: none."""
     L = model.cfg.num_layers
     expect = {"rmsnorm": _norms_per_pass(model.cfg) * (passes + steps)}
-    if model.ssm:
+    if model.stateful:
         expect["ssd"] = L * passes
+        G = _groups(model.cfg)
+        if G:
+            expect.update(flash_attention=G * passes, decode_attention=G * steps)
     else:
         expect.update(flash_attention=L * passes, decode_attention=L * steps)
     return expect
@@ -1530,7 +1593,9 @@ def dense_serve_phase(torch, dev, counters, model, params, repeats=REPEATS):
     requests, each run counted alone (``_dense_expected``): for glm4-9b 40
     flash_attention and 81 rmsnorm launches per prefill pass, 40
     decode_attention and 81 rmsnorm per decode step; for mamba2-130m 24 ssd
-    and 49 rmsnorm per pass, 49 rmsnorm per step; no other kernel."""
+    and 49 rmsnorm per pass, 49 rmsnorm per step; for zamba2-2.7b 9
+    flash_attention, 54 ssd and 127 rmsnorm per pass, 9 decode_attention and
+    127 rmsnorm per step; no other kernel."""
     from repro_torch.core.workload import PoissonLoad
     from repro_torch.launch.serve import engine_metrics, make_requests, serve_static, static_metrics
     from repro_torch.serve.engine import ServingEngine
@@ -1549,11 +1614,12 @@ def dense_serve_phase(torch, dev, counters, model, params, repeats=REPEATS):
     engine.serve_continuous(warm, num_slots=SLOTS)
     metrics = {"static": [], "continuous": []}
     launches, tokens = {}, {}
-    # the SSM family left-pads to the exact longest prompt of each batch or
-    # admission set; the dense family right-pads to the pow2 bucket
-    pad = ("left-padded to the batch's longest" if model.ssm
+    # the SSM and hybrid families left-pad to the exact longest prompt of
+    # each batch or admission set; the dense family right-pads to the pow2
+    # bucket
+    pad = ("left-padded to the batch's longest" if model.stateful
            else "right-padded to the batch bucket")
-    cont_len = max(len(p) for p in prompts) if model.ssm else PREFILL_LEN
+    cont_len = max(len(p) for p in prompts) if model.stateful else PREFILL_LEN
     resident = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     for i in range(1, repeats + 1):
@@ -1768,7 +1834,7 @@ def dense_profile_phase(torch, engine, prompts):
     step = {k: (c16[k] - prefill[k]) / 16 for k in c16}
     step_wall = (w16 - pre_wall) / 16
     model = engine.model
-    L = model.cfg.num_layers
+    L, G = model.cfg.num_layers, _groups(model.cfg)
     lens = [len(p) for p in prompts[:SLOTS]]
     print(f"   {model.cfg.name}: dense prefill pass ({SLOTS} prompts of {min(lens)}-{max(lens)} tokens, padded to "
           f"{engine._pad_prompts(prompts[:SLOTS])[0].shape[1]}): wall {pre_wall:.3f} ms, device "
@@ -1777,13 +1843,14 @@ def dense_profile_phase(torch, engine, prompts):
     print(f"   {model.cfg.name}: dense decode step ({SLOTS} rows): wall {step_wall:.3f} ms, device busy "
           f"{sum(step.values()):.3f} ms (idle {1 - sum(step.values()) / step_wall:.3f}); "
           f"device ms: {fmt(step)}")
-    per_launch = ([("ssd", prefill["ssd"] / L)] if model.ssm else
-                  [("flash_attention", prefill["flash_attention"] / L),
-                   ("decode_attention", step["decode_attention"] / L)])
+    attn = 0 if model.ssm else G or L           # attention launches a pass and a step
+    per_launch = [("ssd", prefill["ssd"] / L)] if model.stateful else []
+    per_launch += [("flash_attention", prefill["flash_attention"] / attn),
+                   ("decode_attention", step["decode_attention"] / attn)] if attn else []
     per_launch += [("rmsnorm per pass", prefill["rmsnorm"] / _norms_per_pass(model.cfg)),
                    ("rmsnorm per step", step["rmsnorm"] / _norms_per_pass(model.cfg))]
     print("   device ms per kernel launch: " + ", ".join(f"{k} {v:.4f}" for k, v in per_launch))
-    if model.ssm:
+    if model.stateful:
         # the tensor-core ssd is three CUDA launches a call (one ``launches`` count)
         print(f"   {model.cfg.name}: ssd kernels in the prefill pass ({L} calls): " + ", ".join(
             f"{k} {ms:.3f} ms over {cnt} launches" for k, (ms, cnt) in sorted(ssd_kernels.items())))
@@ -2339,6 +2406,303 @@ def moe_serve_phase(torch, dev, counters):
 
 
 # ---------------------------------------------------------------------------
+# the hybrid family: zamba2-2.7b at published width, with its ring cache
+# ---------------------------------------------------------------------------
+HYBRID_ARCH = "zamba2-2.7b"
+# a max_seq past the ring threshold: zamba2's shared attention on a ring of
+# its 4096-slot long_context_window; the long set's prompts both overflow it
+RING_MAX_SEQ = 131072
+# the ring as a no-op: one prompt that stays inside the ring while decoding,
+# under a plain cache of NOOP_MAX_SEQ and under the ring
+NOOP_LEN, NOOP_MAX_SEQ = 4000, 8192
+# reduced zamba2 with a ring of 8 slots past the threshold (the JAX suite's
+# wrap check, tests/test_arch_smoke.py)
+REDUCED_RING, REDUCED_RING_MAX_SEQ = 8, 100_000
+
+
+def hybrid_kernels_phase(torch, dev):
+    """The kernels at the shapes zamba2-2.7b's serve runs give them, bf16,
+    each against its plain version within the limit and timed beside its
+    bound and (where one PyTorch call computes it) SDPA or ``F.rms_norm``:
+    flash_attention at head dim 80 (the mma.sync kernel over Padded<80>
+    tiles; 32 heads, MHA, causal) on a static pass q (8, s_pass, 32, 80)
+    (s_pass the longest of the first SLOTS serve prompts, the pass's
+    left-padded length), a continuous admission (1, s_adm) (s_adm the
+    longest prompt of the mix, every admission's left-padded length) and
+    the ring run's prefill (2, 6000) (the plain version with key 0 dropped
+    must fail the limit), and a 64-token q at ``q_offset`` s_adm - 64;
+    decode_attention at (8, S, 32, 80) off the ring (S = MAX_SEQ; the static
+    step's uniform length s_pass + NEW_TOKENS and the continuous step's
+    staggered lengths from s_adm, no bound) and on it (S 4096, every row's
+    ring full; the plain version with ``lengths - 1`` must fail); ssd at
+    (8, s_pass, 80, 64), n 64, chunk 64 (y and the final state, which one
+    timestep short must fail) and at the admission (1, s_adm); rmsnorm at
+    d_model 2560 and the gated 5120 over a static pass's rows and a decode
+    step's 8.  Returns each kernel's worst error."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd as sd
+
+    cfg = get_config(HYBRID_ARCH)
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    sh, p, n, chunk = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=bf)
+    uniform = lambda shape, lo, hi: torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
+    cpm = _sleep_cycles_per_ms(torch)
+    clones = lambda *ts: (lambda i: tuple(t.clone() for t in ts))
+    heads = lambda t: t.transpose(1, 2).contiguous()              # (b, s, h, d) -> (b, h, s, d)
+    worst = {}
+
+    def check(name, label, out, want):
+        worst[name] = max(worst.get(name, 0.0), _check(torch, f"{name} {label}", out, want))
+
+    def case(name, shape, kernel, plain, library, sets, lib_sets, nbytes, flops, plain_calls=3):
+        record = dict(**_timed(torch, cpm, kernel, plain, library, sets, lib_sets,
+                               plain_calls=plain_calls),
+                      bound=_bound_ms(nbytes, flops), shape=shape)
+        _print_records({name: record})
+        return record
+
+    # the shapes zamba2's engines give: a static pass of the first SLOTS
+    # prompts left-padded to the longest, a continuous admission left-padded
+    # to the longest prompt of the mix, the ring run's 2 left-padded prompts
+    serve_lens = [int(x) for x in _serve_lengths(SEED)[:SLOTS]]
+    s_pass, s_adm = max(serve_lens), int(max(_serve_lengths(SEED)))
+    pl = fa.plan(bf, d, h // kvh)
+    print(f"   flash_attention plan at d {d}: {pl.kernel}, {pl.rows} rows a block, {pl.block_k} "
+          f"keys a tile, {pl.stages} stages, {pl.layout} rows of {fa.row_stride(pl.layout, d)} "
+          f"elements, {pl.smem_bytes} B of shared memory")
+    # -- flash_attention: causal, MHA, at a static pass, an admission and the
+    #    ring run's prefill (rows and keys that end inside a tile)
+    sdpa = lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, is_causal=True)
+    for b, s, where in ((SLOTS, s_pass, "static pass"), (1, s_adm, "continuous admission"),
+                        (len(LONG_LENS), max(LONG_LENS), "ring run prefill")):
+        q, k, v = randn(b, s, h, d), randn(b, s, kvh, d), randn(b, s, kvh, d)
+        label = f"{HYBRID_ARCH} q ({b}, {s}, {h}, {d}), kvh {kvh}, causal"
+        want = ref.attention(q, k, v)
+        check("flash_attention", label, fa.flash_attention(q, k, v), want)
+        if b == SLOTS:
+            _rejects(torch, f"flash_attention d {d} plain without key 0",
+                     ref.attention(q, k[:, 1:], v[:, 1:], q_offset=-1), want)
+        del want
+        nbytes = 2 * (2 * b * s * h * d + 2 * b * s * kvh * d)
+        case(f"flash_attention {label}", where,
+             fa.flash_attention, ref.attention, sdpa,
+             _rotation(nbytes, clones(q, k, v)),
+             _rotation(nbytes, lambda i: (heads(q), heads(k), heads(v))),
+             nbytes, 4.0 * h * d * b * s * (s + 1) / 2)
+        del q, k, v
+    # the kernel's q_offset at d 80 (a chunk's; zamba2's engines prefill
+    # whole prompts)
+    q, k, v = randn(1, 64, h, d), randn(1, s_adm, kvh, d), randn(1, s_adm, kvh, d)
+    check("flash_attention", f"q (1, 64, {h}, {d}) at q_offset {s_adm - 64} over "
+          f"{s_adm} keys", fa.flash_attention(q, k, v, q_offset=s_adm - 64),
+          ref.attention(q, k, v, q_offset=s_adm - 64))
+    del q, k, v
+
+    # -- decode_attention: a decode step of SLOTS rows off the ring (the
+    #    static engine's uniform position after NEW_TOKENS steps; the
+    #    continuous engine's slots, each admitted at s_adm, at staggered
+    #    positions) and on a full ring
+    S_ring = cfg.long_context_window             # the ring's slots at RING_MAX_SEQ
+    for S, lens_host, where in (
+            (MAX_SEQ, [s_pass + NEW_TOKENS] * SLOTS, "off the ring, static step"),
+            (MAX_SEQ, [s_adm + 1 + i * NEW_TOKENS // SLOTS for i in range(SLOTS)],
+             "off the ring, continuous step"),
+            (S_ring, [S_ring] * SLOTS, "on a full ring")):
+        lengths = torch.tensor(lens_host, dtype=torch.int32, device=dev)
+        q, kc, vc = randn(SLOTS, 1, h, d), randn(SLOTS, S, kvh, d), randn(SLOTS, S, kvh, d)
+        label = f"{HYBRID_ARCH} q ({SLOTS}, 1, {h}, {d}), cache ({SLOTS}, {S}, {kvh}, {d}) {where}"
+        want = ref.decode_attention(q, kc, vc, lengths)
+        check("decode_attention", label, da.decode_attention(q, kc, vc, lengths), want)
+        _rejects(torch, f"decode_attention d {d} {where}: plain with lengths - 1",
+                 ref.decode_attention(q, kc, vc, lengths - 1), want)
+        del want
+        live = sum(lens_host)
+        nbytes = 2 * 2 * SLOTS * h * d + 2 * 2 * live * kvh * d + 4 * SLOTS
+        mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+        case(f"decode_attention {label}", f"lengths {lens_host}, no kv_bound",
+             lambda q_, k_, v_: da.decode_attention(q_, k_, v_, lengths),
+             lambda q_, k_, v_: ref.decode_attention(q_, k_, v_, lengths),
+             lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask),
+             _rotation(nbytes, clones(q, kc, vc)),
+             _rotation(2 * 2 * SLOTS * S * h * d, lambda i: (heads(q), heads(kc), heads(vc))),
+             nbytes, 4.0 * h * d * live)
+        del q, kc, vc, mask
+
+    # -- ssd: the static pass (left-padded to the longest of the first SLOTS
+    #    prompts) and a batch-1 admission
+    def ssd_inputs(b, s):
+        x, B, C = randn(b, s, sh, p), randn(b, s, n), randn(b, s, n)
+        return x, uniform((b, s, sh), 1e-3, 1e-1), -uniform((sh,), 1.0, 16.0), B, C
+
+    splan = sd.plan(bf, p, n, chunk)
+    print(f"   ssd plan (bf16, p {p}, n {n}, chunk {chunk}, {sh} heads): {splan.kernel}; blocks "
+          f"per launch {sd.blocks(splan, SLOTS, s_pass, sh, p, n, chunk)} at the static pass")
+    for b, s in ((SLOTS, s_pass), (1, s_adm)):
+        args = ssd_inputs(b, s)
+        label = f"{HYBRID_ARCH} x ({b}, {s}, {sh}, {p}), n {n}, chunk {chunk}"
+        y, sf = sd.ssd(*args, chunk=chunk, return_state=True)
+        y_want, sf_want = ref.ssd(*args, return_state=True)
+        check("ssd", f"{label}: y", y, y_want)
+        check("ssd", f"{label}: final state", sf, sf_want)
+        if b == SLOTS:
+            x, dt, A, B, C = args
+            short = ref.ssd(x[:, :-1], dt[:, :-1], A, B[:, :-1], C[:, :-1], return_state=True)[1]
+            _rejects(torch, "ssd zamba2 plain final state one timestep short", short, sf_want)
+            nbytes = _ssd_bytes(b, s, sh, p, n)
+            case(f"ssd {label}", "static pass, final state out; no library call computes SSD",
+                 lambda *a: sd.ssd(*a, chunk=chunk, return_state=True),
+                 lambda *a: ref.ssd(*a, return_state=True), None,
+                 _rotation(nbytes, lambda i: tuple(t.clone() for t in args)), [],
+                 nbytes, _ssd_flops(b, s, sh, p, n, chunk), plain_calls=2)
+        del args, y, sf, y_want, sf_want
+
+    # -- rmsnorm at d_model and the gated d_inner, a static pass's rows and
+    #    a decode step's
+    for D in (cfg.d_model, cfg.ssm_inner):
+        w = randn(D) * 0.1
+        for rows in (SLOTS * s_pass, SLOTS):
+            x = randn(rows, D)
+            label = f"{HYBRID_ARCH} ({rows}, {D})"
+            check("rmsnorm", label, rn.rmsnorm(x, w), ref.rmsnorm(x, w))
+            nbytes = 2 * (2 * rows * D + D)
+            case(f"rmsnorm {label}", f"{rows} rows",
+                 rn.rmsnorm, ref.rmsnorm, lambda x_: F.rms_norm(x_, (D,), w, 1e-6),
+                 _rotation(nbytes, lambda i: (x.clone(), w)), _rotation(nbytes, clones(x)),
+                 nbytes, 4.0 * rows * D)
+            del x
+    return worst
+
+
+def hybrid_check_phase(torch, dev):
+    """Reduced zamba2-2.7b in float32, card against CPU through ``generate``
+    and ``serve_continuous`` (tokens equal, ``forward`` logits within
+    1e-4 + 1e-4 |cpu|): on a plain cache, and with a ring of REDUCED_RING
+    slots at ``max_seq`` REDUCED_RING_MAX_SEQ, which every prompt (5-60
+    tokens) overflows and every decode wraps."""
+    dense_check_phase(torch, dev, HYBRID_ARCH)
+    dense_check_phase(torch, dev, HYBRID_ARCH, ring=REDUCED_RING)
+
+
+def hybrid_serve_phase(torch, dev, counters):
+    """Full-width, full-depth zamba2-2.7b (54 Mamba-2 layers, a shared
+    attention + MLP block after every 6th: 9 groups of 32 heads of 80;
+    random bf16 weights, loaded once the earlier models are freed), each
+    run counted alone with exact launch counts (``_dense_expected``): the
+    static path and ``serve_continuous`` on the serve mix (metrics, peak
+    memory, the two engines' token agreement), the profile of one static
+    prefill pass and one decode step; ``generate`` on the long set (6000 and
+    4500 tokens) at ``max_seq`` RING_MAX_SEQ, whose 4096-slot ring both
+    prompts overflow (the prefill's roll) and every decode step wraps:
+    finite logits at every step and ``pos`` the left-padded prompt length
+    + NEW_TOKENS; one NOOP_LEN-token prompt under a plain cache of
+    NOOP_MAX_SEQ and under the ring, which it never fills: equal tokens (a
+    ring is a no-op while ``pos < S``)."""
+    import numpy as np
+
+    from repro_torch.serve.engine import ServingEngine
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, params = full_model(torch, dev, HYBRID_ARCH)
+    cfg, vocab = model.cfg, model.cfg.vocab_size
+    G = _groups(cfg)
+    S_ring = model.cache_len(RING_MAX_SEQ)
+    kv_bytes = 2 * G * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+    print(f"   {HYBRID_ARCH}: {cfg.num_layers} Mamba-2 layers ({cfg.ssm_heads} heads of "
+          f"{cfg.ssm_head_dim}, state {cfg.ssm_state}), a shared block after every "
+          f"{cfg.hybrid_attn_every}: {G} groups of {cfg.num_heads} heads of "
+          f"{cfg.resolved_head_dim}; per pass {G} flash_attention, {cfg.num_layers} ssd and "
+          f"{_norms_per_pass(cfg)} rmsnorm, per step {G} decode_attention and "
+          f"{_norms_per_pass(cfg)} rmsnorm; K/V {kv_bytes} B a token; at max_seq "
+          f"{RING_MAX_SEQ} a ring of {S_ring} slots")
+    if S_ring == RING_MAX_SEQ or S_ring >= min(LONG_LENS):
+        raise SystemExit(f"{HYBRID_ARCH}: max_seq {RING_MAX_SEQ} gives no ring the long set "
+                         f"overflows ({S_ring} slots)")
+    _, engine, prompts, tokens = dense_serve_phase(torch, dev, counters, model, params,
+                                                   repeats=1)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"   {HYBRID_ARCH} where the time goes (torch.profiler, generate; device ms):")
+    dense_profile_phase(torch, engine, prompts)
+    del engine
+
+    # the ring at full width: both prompts overflow it, every step wraps
+    real_decode = model.decode
+    seen = {"finite": torch.ones((), dtype=torch.bool, device=dev), "cache": None}
+
+    def probe(params_, tokens_, cache, **kw):
+        out = real_decode(params_, tokens_, cache, **kw)
+        seen["finite"] &= torch.isfinite(out).all()
+        seen["cache"] = cache
+        return out
+
+    long_reqs = _long_requests(vocab)
+    ring_engine = ServingEngine(model, params, max_batch=len(long_reqs), max_seq=RING_MAX_SEQ,
+                                page_size=PAGE, device=dev)
+    model.decode = probe
+    try:
+        _zero(counters)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        gen = ring_engine.generate([r.prompt for r in long_reqs], NEW_TOKENS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del model.decode
+    cnt = _check_counts(f"{HYBRID_ARCH} ring generate", counters,
+                        _dense_expected(model, 1, NEW_TOKENS),
+                        _completed(list(gen.tokens), vocab), len(long_reqs))
+    cache = seen.pop("cache")
+    pos = cache["pos"].tolist()
+    want_pos = max(LONG_LENS) + NEW_TOKENS
+    finite = bool(seen["finite"])
+    print(f"   {HYBRID_ARCH} generate, the long set {list(LONG_LENS)} at max_seq {RING_MAX_SEQ} "
+          f"(K/V cache {tuple(cache['k'].shape)}: a ring of {S_ring}, overflowed by the prompts "
+          f"and wrapped by every step): prefill {gen.prefill_s * 1e3:.1f} ms "
+          f"({len(long_reqs) * max(LONG_LENS) / gen.prefill_s:.1f} tok/s of the left-padded "
+          f"batch), decode {gen.decode_s * 1e3:.1f} ms ({gen.tokens_per_s:.1f} tok/s), wall "
+          f"{wall:.3f} s; every step's logits finite: {finite}; pos {pos} (expected "
+          f"{want_pos}); peak device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; "
+          f"launches {cnt}")
+    if not finite or pos != [want_pos] * len(long_reqs) or cache["k"].shape[2] != S_ring:
+        raise SystemExit(f"{HYBRID_ARCH}: the ring run gave non-finite logits or pos {pos}")
+    peak = max(peak, torch.cuda.max_memory_allocated(dev))
+    del ring_engine, cache, seen
+
+    # the ring as a no-op: a prompt that never fills it
+    prompt = np.random.default_rng(SEED + 8).integers(0, vocab, (NOOP_LEN,)).astype(np.int32)
+    noop = {}
+    for max_seq in (NOOP_MAX_SEQ, RING_MAX_SEQ):
+        eng = ServingEngine(model, params, max_batch=1, max_seq=max_seq, page_size=PAGE,
+                            device=dev)
+        _zero(counters)
+        gen = eng.generate([prompt], NEW_TOKENS)
+        _check_counts(f"{HYBRID_ARCH} generate at max_seq {max_seq}", counters,
+                      _dense_expected(model, 1, NEW_TOKENS), _completed(list(gen.tokens), vocab), 1)
+        noop[max_seq] = gen.tokens
+        print(f"   {HYBRID_ARCH} generate, one {NOOP_LEN}-token prompt at max_seq {max_seq} "
+              f"(cache of {model.cache_len(max_seq)} slots, ring "
+              f"{model.cache_len(max_seq) != max_seq}): decode {gen.tokens_per_s:.1f} tok/s")
+        del eng
+    same = bool(np.array_equal(noop[NOOP_MAX_SEQ], noop[RING_MAX_SEQ]))
+    print(f"   {HYBRID_ARCH}: the ring that never wraps gives the plain cache's tokens: {same}")
+    if not same:
+        raise SystemExit(f"{HYBRID_ARCH}: a ring that never wraps changed the tokens")
+    print(f"   {HYBRID_ARCH}: peak device memory over its runs {peak / 1e9:.2f} GB")
+    del model, params
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # the rest of serve_paged: chunked prefill, the prefix cache, preemption
 # ---------------------------------------------------------------------------
 CHUNK = 4 * PAGE                # chunked prefill's chunk: the engine's default of 4 pages
@@ -2681,7 +3045,8 @@ PER_PASS = {"glm4-9b": {"flash_attention": 40, "rmsnorm": 81},
             "gemma2-27b": {"flash_attention": 46, "rmsnorm": 185},
             "granite-20b": {"flash_attention": 52, "rmsnorm": 105},
             "chameleon-34b": {"flash_attention": 48, "rmsnorm": 193},
-            "qwen3-moe-30b-a3b": {"flash_attention": 48, "rmsnorm": 193}}
+            "qwen3-moe-30b-a3b": {"flash_attention": 48, "rmsnorm": 193},
+            "zamba2-2.7b": {"flash_attention": 9, "ssd": 54, "rmsnorm": 127}}
 PLATFORM_TOL = 1e-4             # reduced f32 logits, card vs CPU: 1e-4 + 1e-4 |cpu|
 # every batch the evaluations can form: batched's 1/2/4/8, the server's up
 # to 4 and offline's up to 8 coalesced requests
@@ -2692,13 +3057,14 @@ def platform_kernels_phase(torch, dev):
     """flash_attention, rmsnorm and ssd against their plain versions at the
     shapes the platform phase gives them, bf16, every batch of
     PLATFORM_BATCHES at PLATFORM_SEQ tokens: each attention arch the
-    platform phase evaluates (glm4-9b, gemma2-27b, qwen3-moe-30b-a3b) with
-    its heads, its attention softcap and each window its layers pass, and
-    its norms at d_model and (QK-norm) over its query and kv heads' rows;
-    mamba2-130m's scan (two whole chunks, final state out) with x, B and C
-    views of one convolved projection as the block makes them, and its
-    norms at d_model and over the gated d_inner.  One line a kernel;
-    returns each kernel's worst error."""
+    platform phase evaluates (glm4-9b, gemma2-27b, qwen3-moe-30b-a3b, and
+    zamba2-2.7b's shared block at head dim 80) with its heads, its
+    attention softcap and each window its layers pass, and its norms at
+    d_model and (QK-norm) over its query and kv heads' rows; the scan of
+    mamba2-130m and of zamba2-2.7b (two whole chunks, final state out) with
+    x, B and C views of one convolved projection as the block makes them,
+    and their norms at d_model and over the gated d_inner.  One line a
+    kernel; returns each kernel's worst error."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -2710,14 +3076,13 @@ def platform_kernels_phase(torch, dev):
     gen.manual_seed(SEED + 4)
     randn = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
     uniform = lambda shape, lo, hi: torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
-    dense = [get_config(a) for a in dict.fromkeys(arch for _, arch, *_ in _evaluations())
-             if get_config(a).family in ("dense", "moe")]
-    ssm = get_config("mamba2-130m")
-    sh, p, n, din = ssm.ssm_heads, ssm.ssm_head_dim, ssm.ssm_state, ssm.ssm_inner
+    archs = [get_config(a) for a in dict.fromkeys(arch for _, arch, *_ in _evaluations())]
+    dense = [c for c in archs if c.family in ("dense", "moe", "hybrid")]
+    scans = [c for c in archs if c.family in ("ssm", "hybrid")]
     s = PLATFORM_SEQ
-    norm_w = {D: randn(D) * 0.1 for D in [c.d_model for c in dense] + [ssm.d_model, din]}
+    norm_w = {D: randn(D) * 0.1 for D in [c.d_model for c in archs] + [c.ssm_inner for c in scans]}
     qk_w = {c.resolved_head_dim: randn(c.resolved_head_dim) * 0.1 for c in dense if c.qk_norm}
-    A = -uniform((sh,), 1.0, 16.0)
+    A = {c.name: -uniform((c.ssm_heads,), 1.0, 16.0) for c in scans}
     # (arch, heads, attention options) of every distinct layer: the model's
     # own per-layer windows and its softcap, as the model passes them
     layers = [(c.name, (c.num_heads, c.num_kv_heads, c.resolved_head_dim),
@@ -2740,14 +3105,17 @@ def platform_kernels_phase(torch, dev):
                     x = randn(b, s, heads, dh)
                     yield ("rmsnorm", f"{c.name} QK-norm ({b}, {s}, {heads}, {dh})",
                            rn.rmsnorm(x, qk_w[dh]), ref.rmsnorm(x, qk_w[dh]))
-            xBC = randn(b, s, din + 2 * n)
-            x, B, C = xBC[..., :din].reshape(b, s, sh, p), xBC[..., din:din + n], xBC[..., din + n:]
-            dt = uniform((b, s, sh), 1e-3, 1e-1)
-            y, sf = sd.ssd(x, dt, A, B, C, chunk=ssm.ssm_chunk, return_state=True)
-            y_want, sf_want = ref.ssd(x, dt, A, B, C, return_state=True)
-            shape = f"({b}, {s}, {sh}, {p}), n {n}, chunk {ssm.ssm_chunk}"
-            yield "ssd", f"{shape}: y", y, y_want
-            yield "ssd", f"{shape}: final state", sf, sf_want
+            for c in scans:
+                sh, p, n, din = c.ssm_heads, c.ssm_head_dim, c.ssm_state, c.ssm_inner
+                xBC = randn(b, s, din + 2 * n)
+                x, B, C = (xBC[..., :din].reshape(b, s, sh, p), xBC[..., din:din + n],
+                           xBC[..., din + n:])
+                dt = uniform((b, s, sh), 1e-3, 1e-1)
+                y, sf = sd.ssd(x, dt, A[c.name], B, C, chunk=c.ssm_chunk, return_state=True)
+                y_want, sf_want = ref.ssd(x, dt, A[c.name], B, C, return_state=True)
+                shape = f"{c.name} ({b}, {s}, {sh}, {p}), n {n}, chunk {c.ssm_chunk}"
+                yield "ssd", f"{shape}: y", y, y_want
+                yield "ssd", f"{shape}: final state", sf, sf_want
 
     worst, count = {}, {}
     for name, label, out, want in cases():
@@ -2790,6 +3158,8 @@ def _evaluations():
         ("online", "qwen3-moe-30b-a3b", "MODEL", online, None),
         ("online FRAMEWORK", "qwen3-moe-30b-a3b", "FRAMEWORK", dict(online, num_requests=2),
          None),
+        ("online", "zamba2-2.7b", "MODEL", online, None),
+        ("online FRAMEWORK", "zamba2-2.7b", "FRAMEWORK", dict(online, num_requests=2), None),
     ]
 
 
@@ -2871,13 +3241,16 @@ def _fmt_evaluation(kind, m, spans):
 def _check_layer_names(arch, spans, passes):
     """The FRAMEWORK spans of every pass name the layers as the reference
     names them: ``embed``, ``layer_{l:03d}_attn`` plus ``_w{window}`` on a
-    windowed config (``_w4096`` local, ``_w1073741824`` global), ``logits``."""
+    windowed config (``_w4096`` local, ``_w1073741824`` global), or
+    ``layer_{l:03d}_mamba`` and, after each hybrid group ``g``,
+    ``layer_{g:03d}_shared_attn``, then ``logits``."""
     from repro_torch.configs import get_config
     from repro_torch.models.lm import GLOBAL_WINDOW
 
     cfg = get_config(arch)
-    kind = "mamba" if cfg.family == "ssm" else "attn"
+    kind = "mamba" if cfg.family in ("ssm", "hybrid") else "attn"
     windowed = cfg.global_every > 0 and cfg.sliding_window > 0
+    E = cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
 
     def suffix(l):
         if not windowed:
@@ -2885,8 +3258,12 @@ def _check_layer_names(arch, spans, passes):
         glob = l % cfg.global_every == cfg.global_every - 1
         return f"_w{GLOBAL_WINDOW if glob else cfg.sliding_window}"
 
-    want = ["embed"] + [f"layer_{l:03d}_{kind}{suffix(l)}" for l in range(cfg.num_layers)] + \
-        ["logits"]
+    want = ["embed"]
+    for l in range(cfg.num_layers):
+        want.append(f"layer_{l:03d}_{kind}{suffix(l)}")
+        if E and l % E == E - 1:
+            want.append(f"layer_{l // E:03d}_shared_attn")
+    want.append("logits")
     names = [s["name"] for s in spans if s["name"] in set(want)]
     if names != want * passes:
         raise SystemExit(f"platform {arch} FRAMEWORK: layer spans {names[:4]}... are not the "
@@ -3014,10 +3391,14 @@ def main() -> int:
           "qwen3-moe-30b-a3b)")
     records["flash_attention"]["err"] = max(records["flash_attention"]["err"],
                                             chunked_kernels_phase(torch, dev))
+    print(f"   -- {HYBRID_ARCH}'s shapes (flash_attention at head dim 80, decode_attention off "
+          f"and on the ring, ssd at 80 heads, rmsnorm at 2560 and 5120)")
+    for name, err in hybrid_kernels_phase(torch, dev).items():
+        records[name]["err"] = max(records[name]["err"], err)
     _done(torch, "2. kernels", t0)
 
-    t0 = _phase("3. check: reduced glm4-9b, mamba2-130m, the rest of the dense family and the "
-                "MoE family, card vs CPU reference")
+    t0 = _phase("3. check: reduced glm4-9b, mamba2-130m, the rest of the dense family, the "
+                "MoE family and the hybrid family, card vs CPU reference")
     check_phase(torch, dev)
     paged_paths_check(torch, dev)
     dense_check_phase(torch, dev)
@@ -3028,6 +3409,9 @@ def main() -> int:
     print(f"   -- the MoE family ({MOE_ARCH}, {MOE_INTERLEAVED}) at capacity factor "
           f"{MOE_CHECK_CF}")
     moe_check_phase(torch, dev)
+    print(f"   -- the hybrid family ({HYBRID_ARCH}) on a plain cache and on a ring of "
+          f"{REDUCED_RING}")
+    hybrid_check_phase(torch, dev)
     _done(torch, "3. check", t0)
 
     t0 = _phase("4. serve: glm4-9b and mamba2-130m, full width and depth, random bf16 weights")
@@ -3066,6 +3450,11 @@ def main() -> int:
     t0 = _phase(f"5c. serve: {MOE_ARCH}, full width and depth, random bf16 weights")
     moe_serve_phase(torch, dev, counters)
     _done(torch, "5c. serve the MoE family", t0)
+
+    t0 = _phase(f"5d. serve: {HYBRID_ARCH}, full width and depth, random bf16 weights, with its "
+                f"ring cache")
+    hybrid_serve_phase(torch, dev, counters)
+    _done(torch, "5d. serve the hybrid family", t0)
 
     t0 = _phase("6. platform: client -> server -> agent -> scenario -> torch predictor")
     platform_check(torch, dev)

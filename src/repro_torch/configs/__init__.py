@@ -2,14 +2,16 @@
 
 Each ``<id>.py`` exports ``CONFIG`` (the published configuration) and
 ``REDUCED`` (a same-family small config for CPU tests).  Ported so far,
-in the reference's order: the MoE decoders ``qwen3-moe-30b-a3b`` (128
+in the reference's order: the hybrid ``zamba2-2.7b`` (Mamba-2 layers with
+one shared attention block after every sixth, its attention on a ring
+cache past 64k tokens), the MoE decoders ``qwen3-moe-30b-a3b`` (128
 experts, top 8, QK-norm) and ``llama4-maverick-400b-a17b`` (dense and MoE
 layers interleaved, top 1), the dense decoders ``deepseek-67b``,
 ``granite-20b`` (MQA), ``glm4-9b``, ``gemma2-27b`` (sliding/global
 windows, softcaps, post-norms, scaled embeddings) and ``chameleon-34b``
-(QK-norm), and the attention-free SSM ``mamba2-130m``; the hybrid and
-enc-dec architectures of ``repro.configs`` follow with the model families
-that need them.
+(QK-norm), and the attention-free SSM ``mamba2-130m``; the enc-dec
+architecture of ``repro.configs`` (``whisper-large-v3``) follows with the
+model family that needs it.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from ..models.config import ArchConfig
 
 # canonical ids (dashes) -> module names
 _ALIASES = {
+    "zamba2-2.7b": "zamba2_2p7b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "deepseek-67b": "deepseek_67b",

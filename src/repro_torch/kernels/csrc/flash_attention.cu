@@ -41,9 +41,12 @@
 //   - flash_attention_kernel_bf16_wgmma, d 128 (the models' head dim): two
 //     warpgroups of 64 rows; S = Q K^T by wgmma from shared memory, O += P V
 //     by wgmma with P from registers, operands in 128-byte-swizzled blocks.
-//   - flash_attention_kernel_bf16, d 16, 64 and 256: four warps of 16 rows
-//     on mma.sync m16n8k16; Q fragments held in registers (re-read per tile
-//     at d 256, where registers run out), K and V fragments by ldmatrix.
+//   - flash_attention_kernel_bf16, d 16, 64, 80 and 256: four warps of 16
+//     rows on mma.sync m16n8k16; Q fragments held in registers (re-read per
+//     tile at d 256, where registers run out), K and V fragments by
+//     ldmatrix; tiles in mma.cuh's Swizzle<D> where a row's D/8 16-byte
+//     chunks are a power of two, else (d 80: zamba2's shared attention) in
+//     Padded<D>, rows of D + 8.
 //
 // float32, flash_attention_kernel: the fp32 CUDA-core tile of common.cuh
 // (the tensor cores have no full-precision float32 product, and the float32
@@ -52,6 +55,7 @@
 // rows, row r being position q0 + r / rep of head g * rep + r % rep, over
 // the same key range as above in steps of bk keys.  Query rows past sq (the
 // ragged last tile) load row sq - 1 and are never stored.
+
 #include "flash_tile.cuh"
 
 namespace {
@@ -87,28 +91,36 @@ __device__ __forceinline__ Rows block_rows(int b, int sq, int sk, int h, int kvh
 }
 
 // Keys [key0, key0 + N) of k and v (row `key` at base + key * stride) into
-// tiles laid out by at(row, chunk); keys from `hi` on are zero-filled.  Each
-// thread copies one chunk column of every THREADS / (D/8)-th key.
+// tiles laid out by at(row, chunk); keys from `hi` on are zero-filled.
+// Where THREADS is a multiple of the D/8 chunks of a row, each thread copies
+// one chunk column of every THREADS / (D/8)-th key; otherwise (d 80: 10
+// chunks) the threads walk the tile's chunks in turn.
 template <int D, int N, int THREADS, class At>
 __device__ __forceinline__ void copy_kv(bf16* dk, bf16* dv, At at, const bf16* __restrict__ k,
                                         const bf16* __restrict__ v, int64_t base,
                                         int64_t stride, int key0, int hi) {
   constexpr int kChunks = D / 8;
-  static_assert(THREADS % kChunks == 0, "whole rows per copy pass");
-  const int c = threadIdx.x % kChunks;
-#pragma unroll
-  for (int j = threadIdx.x / kChunks; j < N; j += THREADS / kChunks) {
+  auto copy = [&](int j, int c) {
     const int key = key0 + j;
     const bool ok = key < hi;
     const int64_t src = base + (ok ? key : 0) * stride + c * 8;
     rt::mma::cp_async_16(dk + at(j, c), k + src, ok);
     rt::mma::cp_async_16(dv + at(j, c), v + src, ok);
+  };
+  if constexpr (THREADS % kChunks == 0) {
+    const int c = threadIdx.x % kChunks;
+#pragma unroll
+    for (int j = threadIdx.x / kChunks; j < N; j += THREADS / kChunks) copy(j, c);
+  } else {
+#pragma unroll
+    for (int i = threadIdx.x; i < N * kChunks; i += THREADS) copy(i / kChunks, i % kChunks);
   }
 }
 
-// Q tile of `rows` rows, then K and V tiles per ring stage
-__host__ __device__ constexpr size_t bf16_smem_bytes(int d, int bk, int rows, int stages) {
-  return sizeof(bf16) * ((size_t)rows * d + (size_t)stages * 2 * bk * d);
+// Q tile of `rows` rows, then K and V tiles per ring stage, each row
+// `stride` elements (D, or D + 8 in a Padded tile)
+__host__ __device__ constexpr size_t bf16_smem_bytes(int stride, int bk, int rows, int stages) {
+  return sizeof(bf16) * ((size_t)rows * stride + (size_t)stages * 2 * bk * stride);
 }
 
 // The mask of a block's rows: key < hi, (causal) q_pos >= key and (window)
@@ -196,12 +208,12 @@ flash_attention_kernel_bf16_wgmma(const bf16* __restrict__ q, const bf16* __rest
 
 // ---------------------------------------------------------------------------
 // bf16, other head dims: mma.sync, four warps of 16 rows, tiles of rows of D
-// in mma.cuh's Swizzle<D> layout
+// laid out by Lay (mma.cuh Swizzle<D> or Padded<D>, named per instance below)
 // ---------------------------------------------------------------------------
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = 32 * kMmaWarps;
 
-template <int D, int BK, int ST>
+template <int D, int BK, int ST, class Lay>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_attention_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, bf16* __restrict__ out, int b, int sq,
@@ -209,26 +221,25 @@ flash_attention_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__
                             float scale, float softcap) {
   using namespace rt::mma;
   using namespace rt::tile;
-  using Sw = Swizzle<D>;
-  constexpr int kRows = 16 * kMmaWarps;
+  constexpr int kRows = 16 * kMmaWarps, kRow = Lay::kStride;
   constexpr bool kQInRegs = D <= 128;  // 32 registers at d 128; 64 at d 256
   static_assert(BK % 16 == 0 && D % 16 == 0, "whole m16n8k16 steps");
   static_assert(ST >= 2, "a ring of at least two K/V tiles");
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // kRows x D, later O
-  bf16* sK = sQ + kRows * D;                     // ST x BK x D
-  bf16* sV = sK + ST * BK * D;
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // kRows x kRow, later O
+  bf16* sK = sQ + kRows * kRow;                  // ST x BK x kRow
+  bf16* sV = sK + ST * BK * kRow;
 
   const Rows r = block_rows<kRows>(b, sq, sk, h, kvh, causal, window, q_offset);
-  auto at = [](int row, int c) { return Sw::at(row, c); };
+  auto at = [](int row, int c) { return Lay::at(row, c); };
   copy_q<D>(sQ, at, q, r, kRows, kMmaThreads);
   cp_async_commit();
   const int kb_lo = r.lo / BK, kb_hi = r.hi > r.lo ? (r.hi + BK - 1) / BK : kb_lo;
   const int64_t stride = (int64_t)kvh * D, kv_base = (int64_t)r.bi * sk * stride + (int64_t)r.g * D;
   auto load = [&](int kb, int stage) {
-    copy_kv<D, BK, kMmaThreads>(sK + stage * BK * D, sV + stage * BK * D, at, k, v, kv_base,
-                                stride, kb * BK, r.hi);
+    copy_kv<D, BK, kMmaThreads>(sK + stage * BK * kRow, sV + stage * BK * kRow, at, k, v,
+                                kv_base, stride, kb * BK, r.hi);
   };
   // the ring: tile kb_lo + t in stage t % ST, ST - 1 tiles in flight
 #pragma unroll
@@ -251,7 +262,7 @@ flash_attention_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__
   __syncthreads();
   if constexpr (kQInRegs) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) q_frag<Sw>(qf[kk], sQ, wrow, kk);
+    for (int kk = 0; kk < D / 16; ++kk) q_frag<Lay>(qf[kk], sQ, wrow, kk);
   }
   float o[D / 8][4] = {};
   float m[2] = {rt::kNegInf, rt::kNegInf}, l[2] = {0.f, 0.f};
@@ -265,12 +276,12 @@ flash_attention_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__
     if (kb + ST - 1 < kb_hi) load(kb + ST - 1, (t + ST - 1) % ST);
     cp_async_commit();
     float s[BK / 8][4];
-    mma_scores<D, BK, Sw, kQInRegs>(s, qf, sQ, sK + (t % ST) * BK * D, wrow);
+    mma_scores<D, BK, Lay, kQInRegs>(s, qf, sQ, sK + (t % ST) * BK * kRow, wrow);
     float alpha[2];
     softmax_step<BK>(s, m, l, alpha, tile_full<BK>(r, kb * BK, causal, window), kb * BK, live,
                      scale, softcap);
     rescale(o, alpha);
-    mma_pv<D, BK, Sw>(o, s, sV + (t % ST) * BK * D);
+    mma_pv<D, BK, Lay>(o, s, sV + (t % ST) * BK * kRow);
   }
   cp_async_wait<0>();
   // each warp reads only its own rows of sQ, so it may overwrite them with O
@@ -347,7 +358,8 @@ int launch_bf16(Kernel kernel, int rows, int threads, size_t smem, const void* q
 // q, out: (b, sq, h, d); k, v: (b, sk, kvh, d); all contiguous bf16.
 // block_k keys per K/V tile, tile_rows query rows per block, stages K/V
 // tiles in the ring: the (d, block_k, tile_rows, stages) tuples below are
-// the ones built (kernels/flash_attention.py BF16_TILES), d 128 on wgmma.
+// the ones built (kernels/flash_attention.py BF16_TILES), d 128 on wgmma,
+// the others on mma.sync in the tile layout LAY<d> each names.
 // causal 0/1; window <= 0 means none.
 extern "C" int rt_flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                        int b, int sq, int sk, int h, int kvh, int d, int block_k,
@@ -360,14 +372,17 @@ extern "C" int rt_flash_attention_bf16(const void* q, const void* k, const void*
   if (d == 128 && block_k == BK && tile_rows == 64 * WG && stages == ST)                      \
     return launch_bf16(flash_attention_kernel_bf16_wgmma<BK, ST, WG>, 64 * WG, 128 * WG,      \
                        bf16_smem_bytes(128, BK, 64 * WG, ST) + 1024, RT_FLASH_ARGS);
-#define RT_FLASH_MMA(D, BK, ST)                                                               \
+#define RT_FLASH_MMA(D, BK, ST, LAY)                                                          \
   if (d == D && block_k == BK && tile_rows == 16 * kMmaWarps && stages == ST)                 \
-    return launch_bf16(flash_attention_kernel_bf16<D, BK, ST>, 16 * kMmaWarps, kMmaThreads,   \
-                       bf16_smem_bytes(D, BK, 16 * kMmaWarps, ST), RT_FLASH_ARGS);
+    return launch_bf16(flash_attention_kernel_bf16<D, BK, ST, rt::mma::LAY<D>>,               \
+                       16 * kMmaWarps, kMmaThreads,                                           \
+                       bf16_smem_bytes(rt::mma::LAY<D>::kStride, BK, 16 * kMmaWarps, ST),     \
+                       RT_FLASH_ARGS);
   RT_FLASH_WGMMA(32, 3, 2)
-  RT_FLASH_MMA(16, 64, 3)
-  RT_FLASH_MMA(64, 32, 3)
-  RT_FLASH_MMA(256, 32, 2)
+  RT_FLASH_MMA(16, 64, 3, Swizzle)
+  RT_FLASH_MMA(64, 32, 3, Swizzle)
+  RT_FLASH_MMA(80, 32, 3, Padded)
+  RT_FLASH_MMA(256, 32, 2, Swizzle)
 #undef RT_FLASH_MMA
 #undef RT_FLASH_WGMMA
 #undef RT_FLASH_ARGS

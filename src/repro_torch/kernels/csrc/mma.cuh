@@ -98,13 +98,17 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& big, ui
 // stored as 16-byte chunks whose position in the row is XOR-swizzled so
 // that the 8 rows one ldmatrix matrix reads at the same logical chunk fall
 // in 8 different 16-byte bank groups: with C = D/8 chunks a row, chunk c of
-// row r sits at c ^ ((r / (8/G)) % G), G = min(C, 8).
+// row r sits at c ^ ((r / (8/G)) % G), G = min(C, 8).  The XOR keeps a
+// chunk inside its row only where C is a power of two (Padded below serves
+// the other head dims).
 template <int D>
 struct Swizzle {
   static_assert(D % 8 == 0 && D >= 16, "rows of at least two 16-byte chunks");
   static constexpr int kChunks = D / 8;
   static constexpr int kGroup = kChunks < 8 ? kChunks : 8;
   static constexpr int kRowsPerStep = 8 / kGroup;
+  static constexpr int kStride = D;  // elements a row takes
+  static_assert((kChunks & (kChunks - 1)) == 0, "the XOR stays inside a row of 2^k chunks");
 
   // element offset of the first element of (row, chunk)
   __device__ static __forceinline__ int at(int row, int chunk) {

@@ -9,7 +9,8 @@ tensor launches a kernel or raises.  ``launches`` counts kernel launches.
 The kernel is chosen by dtype and head dim (:func:`plan`), a dispatch and
 not a fallback.  bfloat16 runs on the tensor cores with float32
 accumulation: ``wgmma`` at head dim 128 (the models'), ``mma.sync`` at 16,
-64 and 256; any other head dim raises ``ValueError``
+64, 80 (zamba2's shared attention; its tiles padded to rows of 88, see
+:data:`BF16_TILES`) and 256; any other head dim raises ``ValueError``
 (:data:`BF16_HEAD_DIMS`).  float32 runs the fp32 CUDA-core tile of
 ``csrc/common.cuh``, since the tensor cores have no full-precision float32
 product and the float32 checks hold the card's tokens equal to the CPU's.
@@ -32,13 +33,17 @@ launches = 0
 TILE_ROWS = 64
 BLOCK_K = 32
 # bf16 tensor-core kernels, per head dim they are built for: the kernel,
-# keys per K/V tile, query rows per block and K/V tiles in the ring (the
-# tuples instantiated in csrc/flash_attention.cu)
+# keys per K/V tile, query rows per block, K/V tiles in the ring and the
+# shared-memory tile layout (the tuples instantiated in
+# csrc/flash_attention.cu).  "swizzle": rows of d, 16-byte chunks XOR-placed
+# (wgmma's 128-byte blocks; mma.cuh Swizzle<d>, whose XOR needs d/8 a power
+# of two); "padded": mma.cuh Padded<d>, rows of d + 8 (d 80's ten chunks)
 BF16_TILES = {
-    16: ("mma", 64, 64, 3),
-    64: ("mma", 32, 64, 3),
-    128: ("wgmma", 32, 128, 3),
-    256: ("mma", 32, 64, 2),
+    16: ("mma", 64, 64, 3, "swizzle"),
+    64: ("mma", 32, 64, 3, "swizzle"),
+    80: ("mma", 32, 64, 3, "padded"),
+    128: ("wgmma", 32, 128, 3, "swizzle"),
+    256: ("mma", 32, 64, 2, "swizzle"),
 }
 BF16_HEAD_DIMS = tuple(sorted(BF16_TILES))
 
@@ -50,7 +55,8 @@ class Plan:
     rows per block, ``block_k`` keys per K/V step, ``positions`` query
     positions per block of the f32 tile (0 for bf16, whose tiles cut the
     rows of a kv head at multiples of ``rows``), ``stages`` K/V tiles in the
-    bf16 ring (1 for f32), and the block's ``smem_bytes``."""
+    bf16 ring (1 for f32), the block's ``smem_bytes`` and the bf16 tile
+    ``layout`` (:data:`BF16_TILES`; ``"rows"`` for f32)."""
 
     kernel: str
     rows: int
@@ -58,13 +64,24 @@ class Plan:
     positions: int
     stages: int
     smem_bytes: int
+    layout: str
 
 
-def bf16_smem_bytes(kernel: str, d: int, block_k: int, rows: int, stages: int) -> int:
+def row_stride(layout: str, d: int) -> int:
+    """Elements a tile row of ``layout`` takes in shared memory (mma.cuh
+    ``kStride``): ``d + 8`` padded, else ``d``."""
+    return d + 8 if layout == "padded" else d
+
+
+def bf16_smem_bytes(kernel: str, layout: str, d: int, block_k: int, rows: int,
+                    stages: int) -> int:
     """Shared memory of a bf16 kernel (csrc/flash_attention.cu
-    ``bf16_smem_bytes``): the Q tile, then K and V tiles per ring stage;
-    wgmma's swizzle blocks take 1 KB more to align on 1024 bytes."""
-    return 2 * (rows * d + stages * 2 * block_k * d) + (1024 if kernel == "wgmma" else 0)
+    ``bf16_smem_bytes``): the Q tile, then K and V tiles per ring stage, rows
+    of :func:`row_stride`; wgmma's swizzle blocks take 1 KB more to align on
+    1024 bytes."""
+    stride = row_stride(layout, d)
+    return 2 * (rows * stride + stages * 2 * block_k * stride) + (1024 if kernel == "wgmma"
+                                                                 else 0)
 
 
 def plan(dtype: torch.dtype, d: int, rep: int) -> Plan:
@@ -77,8 +94,9 @@ def plan(dtype: torch.dtype, d: int, rep: int) -> Plan:
         _build.require(d in BF16_TILES,
                        f"flash_attention: bf16 head dim {d} not supported (the kernel is "
                        f"built for head dims {BF16_HEAD_DIMS})")
-        kernel, bk, rows, stages = BF16_TILES[d]
-        p = Plan(kernel, rows, bk, 0, stages, bf16_smem_bytes(kernel, d, bk, rows, stages))
+        kernel, bk, rows, stages, layout = BF16_TILES[d]
+        p = Plan(kernel, rows, bk, 0, stages,
+                 bf16_smem_bytes(kernel, layout, d, bk, rows, stages), layout)
         if p.smem_bytes > _build.SMEM_LIMIT:
             raise _build.SharedMemoryError(
                 f"flash_attention: the bf16 tile at head dim {d} needs {p.smem_bytes} bytes "
@@ -90,7 +108,7 @@ def plan(dtype: torch.dtype, d: int, rep: int) -> Plan:
     bq = max(1, TILE_ROWS // rep)
     rows = bq * rep
     _build.check_tile("flash_attention", rows, BLOCK_K, d)
-    return Plan("f32", rows, BLOCK_K, bq, 1, 4 * _build.tile_floats(rows, BLOCK_K, d))
+    return Plan("f32", rows, BLOCK_K, bq, 1, 4 * _build.tile_floats(rows, BLOCK_K, d), "rows")
 
 
 def flash_attention(

@@ -498,7 +498,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.arch, reduced=not args.full)
     model = DecoderLM(cfg, device=device, dtype=args.dtype)
-    if args.engine == "paged" and (model.ssm or model.interleaved):
+    if args.engine == "paged" and (model.stateful or model.interleaved):
         ap.error(f"--engine paged with {cfg.name}: {NOT_PAGED}")
     try:
         params = model.init(seed=args.seed)

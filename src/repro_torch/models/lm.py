@@ -20,6 +20,13 @@ paged form, as in the reference.  For the attention-free SSM family
 (``family="ssm"``, Mamba-2) the same ``prefill``/``decode``/``forward`` over
 a cache of per-layer SSD states ``(L, b, h, p, n)`` (float32) and
 convolution histories ``(L, b, K-1, conv_dim)``; its state is not paged.
+For the hybrid family (``family="hybrid"``, zamba2: groups of
+``hybrid_attn_every`` Mamba-2 layers, each group followed by one attention
++ MLP block whose weights all groups share) the same three over the SSD
+states and conv histories ``(G, E, b, ...)`` and the shared block's K/V
+per group ``(G, b, S, kvh, d)``; ``S`` is ``max_seq``, or past
+:data:`RING_THRESHOLD` a ring of ``long_context_window`` slots.  Its
+state is not paged either.
 Layers run as a Python loop over a list of per-layer parameter dicts (JAX
 scans stacked leaves); caches and pools stay stacked on a leading layer
 axis and each layer writes its slice in place, where JAX returns updated
@@ -59,6 +66,10 @@ from .params import P, init_params
 # any sequence, so it masks no key; the kernels' ``q_pos - window + 1`` stays
 # far inside int32 for any position below 2**30
 GLOBAL_WINDOW = 1 << 30
+# a hybrid model's cache longer than this holds its shared attention's K/V
+# in a ring of ``cfg.long_context_window`` slots
+# (``repro.models.lm._RING_THRESHOLD``)
+RING_THRESHOLD = 65_536
 # vocabulary columns per float32 slice of the LM head (bf16 on the CPU)
 _HEAD_SLICE = 1 << 15
 # the reference's reason for refusing a paged cache (``repro.models.lm``)
@@ -90,8 +101,9 @@ def _device_memory(device: torch.device) -> Optional[int]:
 class DecoderLM:
     """Dense GQA decoder (``family="dense"``), mixture-of-experts decoder
     (``family="moe"``, interleaved with dense layers where ``moe_every``
-    is 2) or attention-free Mamba-2 stack (``family="ssm"``); the hybrid
-    and enc-dec families raise.
+    is 2), attention-free Mamba-2 stack (``family="ssm"``) or Mamba-2
+    stack with a shared attention block (``family="hybrid"``); the
+    enc-dec family raises.
 
     ``device`` defaults to ``cuda`` (and raises where there is none);
     ``dtype`` is the weight and activation dtype: bf16 on the card, float32
@@ -101,10 +113,15 @@ class DecoderLM:
     def __init__(self, cfg: ArchConfig, device: Union[str, torch.device, None] = None,
                  dtype: Union[str, torch.dtype, None] = None) -> None:
         cfg.validate()
-        if cfg.family not in ("dense", "moe", "ssm"):
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(f"{cfg.name}: not ported yet: family {cfg.family}")
         self.cfg = cfg
+        # the cache has no sequence axis (attention-free)
         self.ssm = cfg.family == "ssm"
+        self.hybrid = cfg.family == "hybrid"
+        # the state scans every token, pads too: prompts keep exact lengths
+        # (left-padded), and the state has no paged form
+        self.stateful = self.ssm or self.hybrid
         # llama4-style pairs of a dense and a MoE block (no paged layout)
         self.interleaved = cfg.family == "moe" and cfg.moe_every == 2
         self.device = resolve_device(device)
@@ -116,8 +133,12 @@ class DecoderLM:
                              if cfg.scale_embed else None)
         # the batch axis of each cache tensor (the continuous engine's slot copy)
         kv_axis = 2 if self.interleaved else 1
-        self.CACHE_BATCH_AXIS = ({"pos": 0, "ssm": 1, "conv": 1} if self.ssm
-                                 else {"pos": 0, "k": kv_axis, "v": kv_axis})
+        if self.ssm:
+            self.CACHE_BATCH_AXIS = {"pos": 0, "ssm": 1, "conv": 1}
+        elif self.hybrid:
+            self.CACHE_BATCH_AXIS = {"pos": 0, "ssm": 2, "conv": 2, "k": 1, "v": 1}
+        else:
+            self.CACHE_BATCH_AXIS = {"pos": 0, "k": kv_axis, "v": kv_axis}
 
     # -- params ---------------------------------------------------------------
     def param_defs(self) -> Dict[str, Any]:
@@ -139,9 +160,12 @@ class DecoderLM:
         if self.interleaved:
             blocks = [{"a": block("dense"), "b": block("moe")} for _ in range(L // 2)]
         else:
-            kind = {"ssm": "mamba", "moe": "moe"}.get(cfg.family, "dense")
+            kind = {"ssm": "mamba", "hybrid": "mamba", "moe": "moe"}.get(cfg.family, "dense")
             blocks = [block(kind) for _ in range(L)]
         defs = {"embed": P((V, D)), "blocks": blocks, "final_norm": norm_defs(cfg)}
+        if self.hybrid:
+            defs["shared"] = {"ln1": norm_defs(cfg), "attn": attn_defs(cfg),
+                              "ln2": norm_defs(cfg), "mlp": mlp_defs(cfg)}
         if not cfg.tie_embeddings:
             defs["lm_head"] = P((D, V))
         return defs
@@ -184,8 +208,11 @@ class DecoderLM:
             yield from ((li, blk, li) for li, blk in enumerate(params["blocks"]))
 
     def _refuse_paged(self, what: str) -> None:
-        """The reference's refusal of a paged path for the interleaved
-        layout (``what``: "paged decode", "packed paged prefill", ...)."""
+        """The reference's refusal of a paged path for the SSM and hybrid
+        families and the interleaved layout (``what``: "paged decode",
+        "packed paged prefill", ...)."""
+        if self.stateful:
+            raise NotImplementedError(NOT_PAGED)
         if self.interleaved:
             raise NotImplementedError(f"{what} {_NOT_PAGED_INTERLEAVED}")
 
@@ -269,8 +296,35 @@ class DecoderLM:
         return self._attn_residual(blk, x, a, with_aux)
 
     def _block_full(self, li: int, blk, x: torch.Tensor) -> torch.Tensor:
-        return (self._mamba_block_full(blk, x) if self.ssm
+        return (self._mamba_block_full(blk, x) if self.stateful
                 else self._attn_block_full(blk, x, self.windows[li]))
+
+    def _shared_block_full(self, shared, x: torch.Tensor, return_kv: bool = False):
+        """The hybrid family's shared block over the sequence: ln1 +
+        attention (no window), residual-added, then ln2 + MLP,
+        residual-added; with ``return_kv`` also the attention's K/V (b, s,
+        kvh, d)."""
+        out = attn_full(shared["attn"], self._norm(x, shared["ln1"]), self.cfg,
+                        return_kv=return_kv)
+        a, kv = out if return_kv else (out, None)
+        x = x + a
+        x = x + mlp_apply(shared["mlp"], self._norm(x, shared["ln2"]))
+        return (x, kv) if return_kv else x
+
+    def _shared_after(self, li: int) -> bool:
+        """Whether the hybrid family's shared block follows layer ``li``:
+        after every ``hybrid_attn_every``-th Mamba-2 layer, the end of a
+        group."""
+        E = self.cfg.hybrid_attn_every
+        return self.hybrid and li % E == E - 1
+
+    def cache_len(self, max_seq: int) -> int:
+        """Slots of the attention cache: a hybrid model past
+        :data:`RING_THRESHOLD` holds a ring of ``long_context_window``;
+        otherwise ``max_seq``."""
+        if self.hybrid and max_seq > RING_THRESHOLD:
+            return self.cfg.long_context_window
+        return max_seq
 
     # -- full sequence ------------------------------------------------------------
     def forward(self, params, batch: Dict[str, torch.Tensor]):
@@ -281,9 +335,11 @@ class DecoderLM:
         ported."""
         x = self._embed_tokens(params, batch["tokens"])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        if self.ssm:
-            for blk in params["blocks"]:
+        if self.stateful:
+            for li, blk in enumerate(params["blocks"]):
                 x = self._mamba_block_full(blk, x)
+                if self._shared_after(li):
+                    x = self._shared_block_full(params["shared"], x)
         else:
             for li, blk, _ in self._layers(params):
                 x, a = self._attn_block_full(blk, x, self.windows[li], with_aux=True)
@@ -301,15 +357,21 @@ class DecoderLM:
         windowed config's layers add ``_w{window}`` as the reference names
         them: ``_w1073741824`` on a global layer), ``layer_{l:03d}_dense``
         and ``layer_{l:03d}_moe`` (the interleaved layout's pairs) or
-        ``layer_{l:03d}_mamba`` (ssm), and ``logits``.  Each piece runs the
-        ops ``forward`` runs, in its order."""
+        ``layer_{l:03d}_mamba`` (ssm and hybrid; the hybrid family's shared
+        block after group ``g`` is ``layer_{g:03d}_shared_attn``), and
+        ``logits``.  Each piece runs the ops ``forward`` runs, in its
+        order."""
         x = hook("embed", lambda: self._embed_tokens(params, batch["tokens"]))
         for l, blk, _ in self._layers(params):
             w = self.windows[l]
-            kind = ("mamba" if self.ssm else ("dense", "moe")[l % 2] if self.interleaved
+            kind = ("mamba" if self.stateful else ("dense", "moe")[l % 2] if self.interleaved
                     else "attn")
             name = f"layer_{l:03d}_{kind}" + ("" if w is None else f"_w{w}")
             x = hook(name, lambda l=l, blk=blk, x=x: self._block_full(l, blk, x))
+            if self._shared_after(l):
+                g = l // self.cfg.hybrid_attn_every
+                x = hook(f"layer_{g:03d}_shared_attn",
+                         lambda x=x: self._shared_block_full(params["shared"], x))
         return hook("logits", lambda: self._logits(params, x))
 
     # -- dense cache ------------------------------------------------------------------
@@ -319,15 +381,24 @@ class DecoderLM:
         layout: (L/2, 2, b, max_seq, kvh, d), a pair's dense layer then its
         MoE layer); for the SSM family the SSD states (L, b, h, p, n) and
         conv histories (L, b, K-1, conv_dim), whose size does not depend on
-        ``max_seq``."""
+        ``max_seq``; for the hybrid family those states as (G, E, b, ...),
+        group by layer of the group, and the shared block's K/V per group
+        (G, b, S, kvh, d), ``S`` from :meth:`cache_len`."""
         cfg = self.cfg
         L = cfg.num_layers
-        if self.ssm:
-            n = cfg.ssm_state
-            return {"pos": (batch,),
-                    "ssm": (L, batch, cfg.ssm_heads, cfg.ssm_head_dim, n),
-                    "conv": (L, batch, cfg.conv_kernel - 1, cfg.ssm_inner + 2 * n)}
         kv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+        if self.stateful:
+            n = cfg.ssm_state
+            lead = (L,)
+            defs = {"pos": (batch,)}
+            if self.hybrid:
+                E = cfg.hybrid_attn_every
+                lead = (L // E, E)
+                S = self.cache_len(max_seq)
+                defs.update(k=(L // E, batch, S, kv, dh), v=(L // E, batch, S, kv, dh))
+            defs.update(ssm=lead + (batch, cfg.ssm_heads, cfg.ssm_head_dim, n),
+                        conv=lead + (batch, cfg.conv_kernel - 1, cfg.ssm_inner + 2 * n))
+            return defs
         lead = (L // 2, 2) if self.interleaved else (L,)
         return {"pos": (batch,), "k": lead + (batch, max_seq, kv, dh),
                 "v": lead + (batch, max_seq, kv, dh)}
@@ -369,17 +440,27 @@ class DecoderLM:
         zero state with one ``ssd`` launch per layer and writes each layer's
         final state and conv history; its rows are left-padded to one
         length and take no ``lengths``, as the pads flow through the state.
-        Returns float32 last-token logits (b, V)."""
+        The hybrid family does the same for its Mamba-2 layers, and its
+        shared block writes each group's K/V: at ``[0, s)``, or, where the
+        prompt is longer than a ring of ``S`` slots, its last ``S`` tokens
+        each at slot ``pos % S``, as decode expects them.  Returns float32
+        last-token logits (b, V)."""
         x = self._embed_tokens(params, batch["tokens"])
-        if self.ssm:
+        s = x.shape[1]
+        if self.stateful:
             if batch.get("lengths") is not None:
                 raise NotImplementedError(_NOT_RAGGED)
             for li, blk in enumerate(params["blocks"]):
                 x, state, conv = self._mamba_block_full(blk, x, return_state=True)
-                cache["ssm"][li].copy_(state)
-                cache["conv"][li].copy_(conv)
+                at = self._state_index(li)
+                cache["ssm"][at].copy_(state)
+                cache["conv"][at].copy_(conv)
+                if self._shared_after(li):
+                    x, (k, v) = self._shared_block_full(params["shared"], x, return_kv=True)
+                    g = li // self.cfg.hybrid_attn_every
+                    self._write_prompt_kv(cache["k"][g], k)
+                    self._write_prompt_kv(cache["v"][g], v)
             return self._prefill_logits(params, batch, x, cache)
-        s = x.shape[1]
         for li, blk, at in self._layers(params):
             a, (k, v) = attn_full(blk["attn"], self._norm(x, blk["ln1"]), self.cfg,
                                   window=self.windows[li], return_kv=True)
@@ -387,6 +468,23 @@ class DecoderLM:
             cache["v"][at][:, :s] = v
             x = self._attn_residual(blk, x, a)
         return self._prefill_logits(params, batch, x, cache)
+
+    def _state_index(self, li: int):
+        """Layer ``li``'s index into the SSD state and conv history stacks:
+        ``li`` (ssm), ``(group, layer of the group)`` (hybrid)."""
+        return divmod(li, self.cfg.hybrid_attn_every) if self.hybrid else li
+
+    @staticmethod
+    def _write_prompt_kv(dst: torch.Tensor, kv: torch.Tensor) -> None:
+        """A prompt's K or V (b, s, kvh, d) into a group's cache (b, S, kvh,
+        d), in place: at ``[0, s)``, or, where ``s > S`` (a ring shorter
+        than the prompt), the last ``S`` tokens rolled so that position
+        ``t`` lands at slot ``t % S``."""
+        S, s = dst.shape[1], kv.shape[1]
+        if s <= S:
+            dst[:, :s] = kv
+        else:
+            dst.copy_(torch.roll(kv[:, -S:], (s - S) % S, dims=1))
 
     def decode(self, params, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
                uniform_pos: bool = True, kv_bound: Optional[int] = None) -> torch.Tensor:
@@ -397,16 +495,23 @@ class DecoderLM:
         ``kv_bound`` is a host-known bound on the live lengths, so attention
         reads only that prefix of the cache.  The SSM family advances every
         layer's state and conv history in place (``uniform_pos`` and
-        ``kv_bound`` do not apply).  Returns float32 logits (b, V)."""
+        ``kv_bound`` do not apply).  The hybrid family does so too, and its
+        shared block attends each group's cache as a ring (slot ``pos %
+        S``: the same as a plain cache while ``pos < S``), at ``uniform_pos``
+        and with no bound.  Returns float32 logits (b, V)."""
         pos = cache["pos"]
         x = self._embed_tokens(params, tokens)[:, None, :]          # (b, 1, D)
-        if self.ssm:
+        if self.stateful:
             x1 = x[:, 0]
             for li, blk in enumerate(params["blocks"]):
-                x1, state, conv = self._mamba_block_step(blk, x1, cache["ssm"][li],
-                                                         cache["conv"][li])
-                cache["ssm"][li].copy_(state)
-                cache["conv"][li].copy_(conv)
+                at = self._state_index(li)
+                x1, state, conv = self._mamba_block_step(blk, x1, cache["ssm"][at],
+                                                         cache["conv"][at])
+                cache["ssm"][at].copy_(state)
+                cache["conv"][at].copy_(conv)
+                if self._shared_after(li):
+                    x1 = self._shared_block_step(params["shared"], x1, cache, pos,
+                                                 li // self.cfg.hybrid_attn_every, uniform_pos)
             pos.add_(1)
             return self._logits(params, x1)
         for li, blk, at in self._layers(params):
@@ -417,15 +522,27 @@ class DecoderLM:
         pos.add_(1)
         return self._logits(params, x)[:, 0]
 
+    def _shared_block_step(self, shared, x1: torch.Tensor, cache: Dict[str, torch.Tensor],
+                           pos: torch.Tensor, g: int, uniform_pos: bool) -> torch.Tensor:
+        """The hybrid family's shared block for one token a row (x1 (b, D))
+        over group ``g``'s ring: ln1 + attention, residual-added, then ln2
+        + MLP, residual-added."""
+        x = x1[:, None]
+        a = attn_decode(shared["attn"], self._norm(x, shared["ln1"]), cache["k"][g],
+                        cache["v"][g], pos, self.cfg, ring=True, uniform_pos=uniform_pos)
+        x = x + a
+        x = x + mlp_apply(shared["mlp"], self._norm(x, shared["ln2"]))
+        return x[:, 0]
+
     # -- paged KV pool --------------------------------------------------------------
     def paged_cache_defs(self, num_pages: int, page_size: int,
                          kv_dtype: Optional[str] = None) -> Dict[str, tuple]:
         """Shapes of the paged KV layout: one global pool of ``page_size``-
         token pages per layer, indexed through per-request page tables.  An
         int8/fp8 ``kv_dtype`` adds the float32 scale pools, one scale per
-        page row per kv head.  The SSM family and the interleaved MoE
-        layout have no paged layout."""
-        if self.ssm or self.interleaved:
+        page row per kv head.  The SSM and hybrid families and the
+        interleaved MoE layout have no paged layout."""
+        if self.stateful or self.interleaved:
             raise NotImplementedError(NOT_PAGED)
         cfg = self.cfg
         L, kv, dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -553,8 +670,6 @@ class DecoderLM:
         padded to a page multiple; ``last_index`` is the offset of its last
         real token.  Returns float32 logits (1, V) at ``last_index`` (only
         the final chunk's matter: their argmax is the first new token)."""
-        if self.ssm:
-            raise NotImplementedError(NOT_PAGED)
         self._refuse_paged("chunked paged prefill")
         x = self._embed_tokens(params, tokens)                       # (1, c, D)
         for li, blk in enumerate(params["blocks"]):

@@ -154,30 +154,39 @@ def attn_decode(
 ) -> torch.Tensor:
     """Single-token attention against a dense KV cache.
 
-    The new token's K/V are written at ``pos`` in place (the JAX module
-    returns updated caches): with ``uniform_pos`` every row shares ``pos[0]``
-    (one slice write, the start clamped into the cache as
+    The new token's K/V are written at its slot in place (the JAX module
+    returns updated caches): with ``uniform_pos`` every row shares
+    ``pos[0]`` (one slice write, the start clamped into the cache as
     ``dynamic_update_slice`` clamps it); otherwise each row writes its own
-    position, and a row whose position lies past the cache (an idle slot
-    of the continuous engine keeps counting) writes nothing.  Then
-    attention covers ``pos + 1`` keys per row, at most ``kv_bound``.
-    ``ring`` (the hybrid family's windowed ring cache) is not ported yet.
-    Returns y (b, 1, D)."""
-    if ring:
-        raise NotImplementedError("ring-buffer caches come with the hybrid family")
+    slot, and a row whose position lies past the cache (an idle slot of the
+    continuous engine keeps counting) writes nothing.  Then attention
+    covers ``pos + 1`` keys per row, at most ``kv_bound``.  With ``ring``
+    (the hybrid family's cache of ``long_context_window`` slots past 64k
+    tokens) the slot is ``pos % S``, so every row writes, idle slots too;
+    attention covers ``min(pos + 1, S)`` keys, with no window and no
+    ``kv_bound``: a wrapped ring's live keys fill the whole buffer, and the
+    ring is the window.  Returns y (b, 1, D)."""
     b, S = k_cache.shape[:2]
     q, k, v = _project_qkv(p, x1, cfg, pos[:, None])
+    slot = pos.long() % S if ring else pos.long().clamp(max=S - 1)
     if uniform_pos:
-        at = pos[:1].long().clamp(max=S - 1)
+        at = slot[:1]
         k_cache.index_copy_(1, at, k)
         v_cache.index_copy_(1, at, v)
+    elif ring:
+        rows = torch.arange(b, device=pos.device)
+        k_cache.index_put_((rows, slot), k[:, 0])
+        v_cache.index_put_((rows, slot), v[:, 0])
     else:
         rows = torch.arange(b, device=pos.device)
-        at = pos.long().clamp(max=S - 1)
         inside = (pos < S)[:, None, None]
-        k_cache.index_put_((rows, at), torch.where(inside, k[:, 0], k_cache[rows, at]))
-        v_cache.index_put_((rows, at), torch.where(inside, v[:, 0], v_cache[rows, at]))
-    out = ops.decode_attention(q, k_cache, v_cache, pos + 1, softcap=cfg.attn_softcap,
+        k_cache.index_put_((rows, slot), torch.where(inside, k[:, 0], k_cache[rows, slot]))
+        v_cache.index_put_((rows, slot), torch.where(inside, v[:, 0], v_cache[rows, slot]))
+    if ring:
+        lengths, window, kv_bound = torch.clamp(pos + 1, max=S), None, None
+    else:
+        lengths = pos + 1
+    out = ops.decode_attention(q, k_cache, v_cache, lengths, softcap=cfg.attn_softcap,
                                window=window, kv_bound=kv_bound)
     return _heads_out(out, p["wo"])
 

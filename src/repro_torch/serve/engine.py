@@ -9,11 +9,14 @@ same dense cache: each admission prefills its prompt at batch 1 and copies
 that cache into a free slot; every decode step advances all slots, each at
 its own position.  Both decode with a power-of-two bound on the live
 lengths, so attention reads only that prefix of the cache.  The SSM family
-(Mamba-2) runs the same two engines on its cache of per-layer states, with
-the reference's exact-length shapes: every batch or admission is LEFT-padded
-to the longest prompt of its set, with no bucket and no lengths (the pads
-flow through the state, so the shapes must be the reference's for its
-tokens), and decodes at one shared position with no bound.
+(Mamba-2) and the hybrid family (zamba2) run the same two engines on their
+caches of per-layer states (and, hybrid, the shared attention's K/V, a
+ring past 64k tokens), with the reference's exact-length shapes: every
+batch or admission is LEFT-padded to the longest prompt of its set, with
+no bucket and no lengths (the pads flow through the state, so the shapes
+must be the reference's for its tokens), and decodes with no bound on the
+live lengths (a ring's live keys wrap the whole buffer); ``generate``
+decodes them at one shared position.
 
 ``ServingEngine.serve_paged`` is paged-KV continuous batching: a global pool
 of ``page_size``-token pages plus per-slot page tables; admission is keyed
@@ -264,9 +267,10 @@ class ServingEngine:
         # tokens per KV page
         self.page_size = page_size
         # right-padded ragged prefill (and kv-bounded decode) is exact only
-        # for pure-attention caches; ssm state scans absorb pads, so the SSM
-        # family keeps exact-length, left-padded shapes
-        self._ragged_ok = not model.ssm
+        # for pure-attention caches; ssm/hybrid state scans absorb pads and
+        # the hybrid ring cache wraps, so those keep exact-length,
+        # left-padded shapes
+        self._ragged_ok = not model.stateful
 
     def _kv_dtype_name(self) -> str:
         return self.kv_dtype or str(self.model.dtype).replace("torch.", "")
@@ -275,7 +279,8 @@ class ServingEngine:
     def _kv_bucket(self, live_len: int) -> Optional[int]:
         """The decode bound on live lengths: a power-of-two multiple of the
         page size (or ``max_seq``), at most ``max_seq``; None (no bound) for
-        the SSM family, whose cache has no sequence axis."""
+        the SSM family, whose cache has no sequence axis, and the hybrid
+        family, whose ring's live keys wrap the whole buffer."""
         if not self._ragged_ok:
             return None
         return bucket_pow2(live_len, floor=min(self.page_size, self.max_seq), cap=self.max_seq)
@@ -285,8 +290,8 @@ class ServingEngine:
         """Pad a prompt batch to one prefill length.  Attention families
         right-pad to a power-of-two bucket floored at the page size: causal
         attention never reads the trailing pads and the model takes the
-        logits at ``lengths - 1``.  The SSM family left-pads to the exact
-        longest prompt, so every row's last token sits at the end.
+        logits at ``lengths - 1``.  The SSM and hybrid families left-pad to
+        the exact longest prompt, so every row's last token sits at the end.
         Returns (tokens (b, padded) int32, lengths (b,) int32)."""
         b = len(prompts)
         if b > self.max_batch:
@@ -313,8 +318,8 @@ class ServingEngine:
         """Static batched greedy generation: one prefill of the padded batch
         into a fresh dense cache, then ``max_new_tokens`` decode steps in
         lockstep (the last one's token is not kept, as in the JAX engine).
-        Rows of one length, and the left-padded rows of the SSM family,
-        decode at one shared position; a ragged attention batch writes each
+        Rows of one length, and the left-padded rows of the SSM and hybrid
+        families, decode at one shared position; a ragged attention batch writes each
         row at its own.  The tokens stay on the device until the end: the
         loop never waits for the card.  ``greedy`` is accepted and ignored,
         as the JAX engine ignores it: decoding is always greedy."""
@@ -366,8 +371,8 @@ class ServingEngine:
         """Slot-based continuous batching on the dense cache.
 
         Every prompt is right-padded to one bucketed prefill length (the SSM
-        family: left-padded to the longest prompt, and every slot then
-        starts at that length).  At each decode-step boundary finished
+        and hybrid families: left-padded to the longest prompt, and every
+        slot then starts at that length).  At each decode-step boundary finished
         requests retire, then every free slot admits the next queued
         request: a batch-1 prefill whose cache is copied into the slot.
         One decode step then advances every slot (idle slots too; their
@@ -393,8 +398,9 @@ class ServingEngine:
         pool = SlotPool(num_slots)
         cache = self.model.init_cache(num_slots, self.max_seq)
         # one reusable batch-1 cache for admission prefills: a prefill writes
-        # only positions [0, prefill_len), so the rest stays zero (an SSM
-        # prefill rewrites all of its state)
+        # only positions [0, prefill_len), so the rest stays zero (an SSM or
+        # hybrid prefill rewrites all of its state; a hybrid ring shorter
+        # than the prompt, all of its K/V)
         cache1 = self.model.init_cache(1, self.max_seq)
         queue = deque(requests)
         nxt = np.zeros((num_slots,), np.int32)

@@ -643,6 +643,34 @@ def test_flash_attention_bf16_rows_independent_of_padding_and_batch(cuda, opts):
     assert torch.equal(a, b) and torch.equal(a, c)
 
 
+FLASH_D80 = [
+    # b, sq, sk, h, kvh, opts: zamba2's shared attention (32 heads of 80, MHA)
+    # on the mma.sync kernel over Padded<80> tiles (rows of 88)
+    (2, 100, 100, 32, 32, {}),                       # a static pass, a ragged last tile
+    (1, 130, 130, 32, 32, {"causal": False}),
+    (1, 50, 177, 32, 32, {"q_offset": 127}),         # an admission's q_offset over more keys
+    (1, 70, 70, 8, 2, {"window": 9, "softcap": 6.0}),  # GQA, window and softcap
+]
+
+
+@pytest.mark.parametrize("case", FLASH_D80)
+def test_flash_attention_bf16_head_dim_80(cuda, case):
+    """The d-80 instance against its plain version; rows without a live
+    key exactly zero."""
+    b, sq, sk, h, kvh, opts = case
+    q = _randn((b, sq, h, 80), torch.bfloat16, cuda, 79)
+    k, v = (_randn((b, sk, kvh, 80), torch.bfloat16, cuda, s) for s in (80, 81))
+    assert fa_mod.plan(torch.bfloat16, 80, h // kvh).kernel == "mma"
+    n = fa_mod.launches
+    out = fa_mod.flash_attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert fa_mod.launches == n + 1
+    want = ref.attention(q.cpu(), k.cpu(), v.cpu(), **opts)
+    _close(out, want, torch.bfloat16)
+    dead = (want == 0).flatten(2).all(-1)
+    assert torch.all(out.cpu()[dead] == 0)
+
+
 def test_flash_attention_bf16_raises_at_an_unsupported_head_dim(cuda):
     q = _randn((1, 8, 4, 96), torch.bfloat16, cuda, 97)
     k = _randn((1, 8, 2, 96), torch.bfloat16, cuda, 98)

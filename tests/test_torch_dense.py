@@ -214,12 +214,28 @@ def test_attn_decode_matches_jax(models, uniform, pos, kv_bound):
 
 
 def test_attn_decode_ring_is_not_ported(models):
-    _, _, tmodel, tparams = models
+    """The ring, which this module once refused, is ported with the hybrid
+    family: on reduced glm4-9b's attention too, a wrapped ring writes each
+    row at ``pos % S`` and attends ``min(pos + 1, S)`` keys, as the
+    reference does (``test_torch_hybrid.py`` holds the hybrid model)."""
+    jmodel, jparams, tmodel, tparams = models
     cfg = tmodel.cfg
-    kc = torch.zeros(1, 8, cfg.num_kv_heads, cfg.resolved_head_dim)
-    with pytest.raises(NotImplementedError, match="ring"):
-        tmod.attn_decode(tparams["blocks"][0]["attn"], torch.zeros(1, 1, cfg.d_model), kc,
-                         kc.clone(), torch.zeros(1, dtype=torch.int32), cfg, ring=True)
+    rng = np.random.default_rng(12)
+    S = 8
+    kc, vc = (rng.normal(size=(2, S, cfg.num_kv_heads, cfg.resolved_head_dim)).astype(np.float32)
+              for _ in range(2))
+    x1 = rng.normal(size=(2, 1, cfg.d_model)).astype(np.float32)
+    pos = np.asarray([5, 19], np.int32)
+    p_j = jax.tree.map(lambda t: t[0], jparams["blocks"]["attn"])
+    y_j, kc_j, _ = jmod.attn_decode(p_j, jnp.asarray(x1), jnp.asarray(kc), jnp.asarray(vc),
+                                    jnp.asarray(pos), cfg, backend="pallas", ring=True,
+                                    uniform_pos=False)
+    kc_t = torch.from_numpy(kc.copy())
+    y_t = tmod.attn_decode(tparams["blocks"][0]["attn"], torch.from_numpy(x1), kc_t,
+                           torch.from_numpy(vc.copy()), torch.from_numpy(pos), cfg, ring=True,
+                           uniform_pos=False)
+    np.testing.assert_allclose(kc_t.numpy(), np.asarray(kc_j), **CACHE_TOL)
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), **LOGIT_TOL)
 
 
 def _prefill_both(models, prompts, S, ragged):

@@ -21,33 +21,44 @@ from repro_torch.kernels import flash_attention as fa_mod
 SRC = (_build.CSRC / "flash_attention.cu").read_text()
 
 
-@pytest.mark.parametrize("d", [16, 64, 128, 256])
+@pytest.mark.parametrize("d", [16, 64, 80, 128, 256])
 @pytest.mark.parametrize("rep", [1, 3, 16, 32, 128])
 def test_bf16_takes_a_tensor_core_kernel_at_its_head_dims(d, rep):
     p = fa_mod.plan(torch.bfloat16, d, rep)
     assert p.kernel == ("wgmma" if d == 128 else "mma") and p.positions == 0
-    assert (p.kernel, p.block_k, p.rows, p.stages) == fa_mod.BF16_TILES[d]
+    assert (p.kernel, p.block_k, p.rows, p.stages, p.layout) == fa_mod.BF16_TILES[d]
     assert p.block_k % 16 == 0 and p.rows % 64 == 0 and p.stages >= 2
     # Q tile plus a K and a V tile per ring stage, all bf16 (+1 KB to align
-    # wgmma's swizzle blocks); independent of rep
+    # wgmma's swizzle blocks); rows padded to d + 8 where d/8 chunks are not
+    # a power of two (Padded<80>); independent of rep
     pad = 1024 if p.kernel == "wgmma" else 0
-    assert p.smem_bytes == 2 * (p.rows * d + p.stages * 2 * p.block_k * d) + pad
+    chunks = d // 8
+    assert p.layout == ("swizzle" if chunks & (chunks - 1) == 0 else "padded")
+    stride = d + 8 if d == 80 else d
+    assert fa_mod.row_stride(p.layout, d) == stride
+    assert p.smem_bytes == 2 * (p.rows * stride + p.stages * 2 * p.block_k * stride) + pad
     assert p.smem_bytes <= _build.SMEM_LIMIT
 
 
 def test_bf16_tiles_per_head_dim():
-    assert fa_mod.BF16_HEAD_DIMS == (16, 64, 128, 256)
-    assert fa_mod.BF16_TILES == {16: ("mma", 64, 64, 3), 64: ("mma", 32, 64, 3),
-                                 128: ("wgmma", 32, 128, 3), 256: ("mma", 32, 64, 2)}
+    assert fa_mod.BF16_HEAD_DIMS == (16, 64, 80, 128, 256)
+    assert fa_mod.BF16_TILES == {16: ("mma", 64, 64, 3, "swizzle"),
+                                 64: ("mma", 32, 64, 3, "swizzle"),
+                                 80: ("mma", 32, 64, 3, "padded"),
+                                 128: ("wgmma", 32, 128, 3, "swizzle"),
+                                 256: ("mma", 32, 64, 2, "swizzle")}
+    # d 80 (zamba2): Padded<80> rows of 88 elements, 45056 bytes
+    assert fa_mod.plan(torch.bfloat16, 80, 1).smem_bytes == 2 * (64 + 3 * 2 * 32) * 88 == 45056
     # d 128: two warpgroups of 64 rows, 32-key tiles; two blocks fit an SM
     assert fa_mod.plan(torch.bfloat16, 128, 16).smem_bytes == 82944 <= _build.SMEM_LIMIT // 2
     # d 256: a two-stage ring, 16-row fragments of 128 accumulator registers a lane
     assert fa_mod.plan(torch.bfloat16, 256, 16).smem_bytes == 98304
 
 
-@pytest.mark.parametrize("d", [8, 32, 80, 96, 512])
+@pytest.mark.parametrize("d", [8, 32, 48, 96, 512])
 def test_bf16_raises_at_a_head_dim_it_is_not_built_for(d):
-    with pytest.raises(ValueError, match=r"head dim %d not supported.*\(16, 64, 128, 256\)" % d):
+    with pytest.raises(ValueError,
+                       match=r"head dim %d not supported.*\(16, 64, 80, 128, 256\)" % d):
         fa_mod.plan(torch.bfloat16, d, 16)
 
 
@@ -78,15 +89,17 @@ def test_plan_matches_the_kernel_source():
     """Every tile the wrapper plans is instantiated in the source, d 128 on
     wgmma (64 rows a warpgroup), the others on mma.sync (four warps of 16
     rows), and the kernel names keep the profile's class key."""
-    built = {("wgmma", int(bk), 64 * int(wg), int(st))
+    built = {128: ("wgmma", int(bk), 64 * int(wg), int(st), "swizzle")
              for bk, st, wg in re.findall(r"RT_FLASH_WGMMA\((\d+), (\d+), (\d+)\)\n", SRC)}
-    built |= {("mma", int(bk), 64, int(st)) for d, bk, st in
-              re.findall(r"RT_FLASH_MMA\((\d+), (\d+), (\d+)\)\n", SRC)}
-    mma_dims = {int(d) for d in re.findall(r"RT_FLASH_MMA\((\d+), \d+, \d+\)\n", SRC)}
-    assert {t for d, t in fa_mod.BF16_TILES.items()} == built
-    assert mma_dims == {d for d, t in fa_mod.BF16_TILES.items() if t[0] == "mma"}
+    built.update({int(d): ("mma", int(bk), 64, int(st), lay.lower()) for d, bk, st, lay in
+                  re.findall(r"RT_FLASH_MMA\((\d+), (\d+), (\d+), (Swizzle|Padded)\)\n", SRC)})
+    assert fa_mod.BF16_TILES == built
     assert "if (d == 128 && block_k == BK" in SRC
     assert re.search(r"constexpr int kMmaWarps = 4;", SRC)
+    # the mma.sync kernel takes the tile layout each instance names, whose
+    # stride the smem reckoning counts
+    assert "flash_attention_kernel_bf16<D, BK, ST, rt::mma::LAY<D>>" in SRC
+    assert "bf16_smem_bytes(rt::mma::LAY<D>::kStride" in SRC
     for name in ("flash_attention_kernel_bf16_wgmma", "flash_attention_kernel_bf16",
                  "flash_attention_kernel("):
         assert name in SRC   # "flash_attention_kernel", the profile's class key, is in each
@@ -110,6 +123,8 @@ CASES = [
     (1, 12, 28, 4, 1, 128, {"q_offset": 16}),
     (1, 16, 16, 2, 2, 256, {"window": 5}),
     (2, 10, 10, 6, 2, 16, {"softcap": 4.0}),
+    (1, 24, 24, 4, 4, 80, {}),                    # zamba2's head dim
+    (1, 10, 30, 4, 4, 80, {"q_offset": 20}),
 ]
 
 

@@ -44,16 +44,20 @@ def models():
 
 
 def test_config_copy_matches():
-    assert list_archs() == ["qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b", "deepseek-67b",
-                            "granite-20b", "glm4-9b", "gemma2-27b", "chameleon-34b",
-                            "mamba2-130m"]
+    assert list_archs() == ["zamba2-2.7b", "qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b",
+                            "deepseek-67b", "granite-20b", "glm4-9b", "gemma2-27b",
+                            "chameleon-34b", "mamba2-130m"]
     for arch in list_archs():
         for reduced in (False, True):
             port, ref = get_config(arch, reduced=reduced), jax_get_config(arch, reduced=reduced)
             assert dataclasses.asdict(port) == dataclasses.asdict(ref)
             assert port.param_count() == ref.param_count()
     with pytest.raises(ValueError, match="not ported"):
-        get_config("zamba2-2.7b")
+        get_config("whisper-large-v3")
+    # the hybrid family's config is the reference's, and the model builds
+    zamba = get_config("zamba2-2.7b")
+    assert dataclasses.asdict(zamba) == dataclasses.asdict(jax_get_config("zamba2-2.7b"))
+    assert DecoderLM(get_config("zamba2-2.7b", reduced=True), device="cpu").hybrid
 
 
 def test_from_jax_splits_stacked_blocks(models):
@@ -224,12 +228,13 @@ def test_prefill_packed_then_decode_paged_matches_jax(models):
 
 
 def test_unported_configs_raise():
-    """The families still unported raise; every dense option of the zoo and
-    the MoE family are accepted."""
-    for arch in ("zamba2-2.7b", "whisper-large-v3"):
-        cfg = jax_get_config(arch, reduced=True)
-        with pytest.raises(NotImplementedError, match=f"family {cfg.family}"):
-            DecoderLM(cfg, device="cpu")
+    """The family still unported (enc-dec) raises; every dense option of
+    the zoo, the MoE family and the hybrid family are accepted."""
+    cfg = jax_get_config("whisper-large-v3", reduced=True)
+    with pytest.raises(NotImplementedError, match=f"family {cfg.family}"):
+        DecoderLM(cfg, device="cpu")
+    zamba = DecoderLM(jax_get_config("zamba2-2.7b", reduced=True), device="cpu")
+    assert zamba.cfg.family == "hybrid" and zamba.stateful and "shared" in zamba.param_defs()
     for arch in ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b"):
         assert DecoderLM(get_config(arch, reduced=True), device="cpu").cfg.family == "moe"
     cfg = get_config("glm4-9b", reduced=True).replace(

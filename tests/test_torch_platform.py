@@ -46,8 +46,8 @@ from repro_torch.models import DecoderLM, from_jax
 
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 # the port's architectures, in the reference's order
-ARCHS = ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b", "deepseek-67b", "granite-20b",
-         "glm4-9b", "gemma2-27b", "chameleon-34b", "mamba2-130m")
+ARCHS = ("zamba2-2.7b", "qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b", "deepseek-67b",
+         "granite-20b", "glm4-9b", "gemma2-27b", "chameleon-34b", "mamba2-130m")
 
 
 @pytest.fixture(scope="module")
@@ -226,13 +226,18 @@ def test_framework_spans_are_named_as_the_reference_names_them(arch):
         assert layers == _span_names(want_spans, TraceLevel.FRAMEWORK)
         cfg = get_config(arch, reduced=True)
         # llama4's interleaved pairs: a dense layer, then a MoE layer
-        kind = (lambda l: "mamba") if cfg.family == "ssm" else \
+        kind = (lambda l: "mamba") if cfg.family in ("ssm", "hybrid") else \
             (lambda l: ("dense", "moe")[l % 2]) if cfg.moe_every == 2 else (lambda l: "attn")
         # gemma2's alternating windows: the reference's values in the names
         suffix = (lambda l: f"_w{1 << 30 if l % 2 else 8}") if arch == "gemma2-27b" else \
             (lambda l: "")
-        assert layers == 2 * (["embed"] + [f"layer_{l:03d}_{kind(l)}{suffix(l)}"
-                                           for l in range(cfg.num_layers)] + ["logits"])
+        # zamba2's shared block after each group of hybrid_attn_every layers
+        E = cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
+        shared = lambda l: ([f"layer_{l // E:03d}_shared_attn"] if E and l % E == E - 1
+                            else [])
+        assert layers == 2 * (["embed"] + [n for l in range(cfg.num_layers)
+                                           for n in [f"layer_{l:03d}_{kind(l)}{suffix(l)}"]
+                                           + shared(l)] + ["logits"])
         assert sorted(set(_span_names(got_spans, TraceLevel.MODEL))) == \
             sorted(set(_span_names(want_spans, TraceLevel.MODEL)))
     finally:
@@ -262,7 +267,11 @@ def test_forward_instrumented_equals_forward(arch):
         want = model.forward(params, {"tokens": tokens})[0]
         got = model.forward_instrumented(params, {"tokens": tokens}, hook)
     assert torch.equal(got, want) and got.dtype == torch.float32
-    assert seen[0] == "embed" and seen[-1] == "logits" and len(seen) == model.cfg.num_layers + 2
+    # a hybrid model adds its shared block after each group
+    cfg = model.cfg
+    groups = cfg.num_layers // cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
+    assert seen[0] == "embed" and seen[-1] == "logits" and \
+        len(seen) == cfg.num_layers + groups + 2
 
 
 # ---------------------------------------------------------------------------
@@ -309,10 +318,13 @@ def test_jax_and_torch_evaluations_land_in_one_evaldb(tmp_path, kind):
                                                   ("qwen3-moe-30b-a3b", "pallas", 12),
                                                   ("llama4-maverick-400b-a17b", "pallas", 12),
                                                   ("mamba2-130m", "ref", 12),
-                                                  ("mamba2-130m", "pallas", 16)])
+                                                  ("mamba2-130m", "pallas", 16),
+                                                  ("zamba2-2.7b", "ref", 12),
+                                                  ("zamba2-2.7b", "pallas", 16)])
 def test_torch_predictor_matches_the_jax_predictor(arch, backend, seq_len):
     """The JAX predictor (``pallas``: its Pallas kernels in interpret mode;
-    mamba2's Pallas ``ssd`` needs whole chunks, so 16 = 2 chunks of 8) and
+    mamba2's and zamba2's Pallas ``ssd`` needs whole chunks, so 16 = 2
+    chunks of 8) and
     the torch one on the same tokens, the torch handle's weights swapped
     for the JAX handle's."""
     ref_manifest = next(m for m in ref_manifests(reduced=True) if m.name == arch)
