@@ -102,7 +102,17 @@ Phases, each printing its own lines and wall time, each ending in
    admission (the final state one timestep short must fail); rmsnorm at
    2560 and the gated 5120
    over a pass's and a step's rows; each timed beside its plain version,
-   its bound and SDPA or ``F.rms_norm``;
+   its bound and SDPA or ``F.rms_norm``.  Then whisper-large-v3's shapes
+   (``whisper_kernels_phase``: 20 heads of 64 on 20 kv heads, no RoPE):
+   bf16 ``flash_attention`` (mma.sync d 64) on the encoder's non-causal
+   pass q (8, 1500) over its 1500 frames, the cross prefill's non-causal
+   q (8, 1024) over 1500 keys (the plain version without the last key
+   must fail the limit) and the decoder's causal pass (8, 1024);
+   ``decode_attention`` at rep 1 over the cross cache of 1504 slots with
+   1500 live keys (pad slots filled with 1e4, never read; the plain
+   version at 1499 keys must fail) and over the 2048-slot self cache at a
+   static step's lengths; rmsnorm at 1280 over 12000 rows and 8; each
+   timed beside its plain version, its bound and SDPA or ``F.rms_norm``;
 3. check: reduced glm4-9b in float32 served on the card and on the CPU
    from the same weights must emit the same greedy tokens, with and
    without speculative decoding (which must also equal each other); the
@@ -130,7 +140,11 @@ Phases, each printing its own lines and wall time, each ending in
    hybrid family (``hybrid_check_phase``): reduced zamba2-2.7b through
    ``generate`` and ``serve_continuous`` on a plain cache, and with a ring
    of 8 slots at ``max_seq`` 100000 that every prompt overflows and every
-   step wraps: the card's tokens equal the CPU's;
+   step wraps: the card's tokens equal the CPU's.  The enc-dec family
+   (``encdec_check_phase``): reduced whisper-large-v3 at ``encoder_seq``
+   16 and 20 (a cross cache padded to 32 slots) over random frames:
+   ``generate`` tokens equal the CPU's on a ragged and a uniform batch,
+   ``forward`` logits within 1e-4 + 1e-4 |cpu|;
 4. serve: full-width, full-depth glm4-9b (40 layers, random bf16 weights
    from a seeded CUDA generator) through ``ServingEngine.serve_paged``;
    every request must complete and every kernel must have been launched
@@ -216,26 +230,43 @@ Phases, each printing its own lines and wall time, each ending in
    (finite logits at every step, ``pos`` 6032, decode tok/s); one
    4000-token prompt at ``max_seq`` 8192 and 131072 (a ring that never
    wraps) must give equal tokens;
+5e. the enc-dec family at published width and depth: whisper-large-v3
+   (32 encoder and 32 decoder layers, 20 heads of 64, 1500 frames in a
+   cross cache of 1504 slots; random bf16 weights, loaded once the
+   earlier models are freed), each run counted alone with exactly 96
+   ``flash_attention`` and 162 rmsnorm launches a prefill pass, 64
+   ``decode_attention`` and 97 rmsnorm a decode step and no other kernel:
+   the static path on the serve mix (zero frames, as the driver feeds
+   them), two runs (metrics, peak memory); one transcription-shaped
+   ``generate`` (8 four-token prompts, 224 new tokens, random frames,
+   ``max_seq`` 448); torch.profiler's split of a prefill pass (the
+   encoder's flash launches against the decoder's) and of a decode step
+   (self against cross ``decode_attention``), with the idle share; the
+   refusals of ``serve_continuous`` and ``serve_paged``
+   (``NotImplementedError``, no launch);
 6. platform: the evaluation platform of ``repro_torch.core`` (server,
-   agent, scenario, scheduler, the torch predictor).  Reduced glm4-9b and
-   mamba2-130m through the predictor on the CPU and on the card (its
+   agent, scenario, scheduler, the torch predictor).  Every reduced
+   architecture through the predictor on the CPU and on the card (its
    handle holding the float32 model with the CPU's weights): logits within 1e-4 + 1e-4 |cpu|, the same
    last-position argmax, FRAMEWORK logits bit-equal to MODEL.  Then
    ``LocalPlatform(backends=("torch",), reduced_models=False)`` evaluates
    full-width glm4-9b (online, batched 1/2/4/8, server at 20 Hz with a
    250 ms SLO, offline, online at FRAMEWORK and at SYSTEM) and mamba2-130m
-   (online, offline), gemma2-27b, qwen3-moe-30b-a3b and zamba2-2.7b
-   (online, online at FRAMEWORK), 128
+   (online, offline), gemma2-27b, qwen3-moe-30b-a3b, zamba2-2.7b and
+   whisper-large-v3 (online, online at FRAMEWORK; whisper over zero
+   frames), 128
    tokens, each evaluation opening its own model (random bf16 weights,
    seed 0): each kernel must launch exactly its per-pass count (glm4-9b:
    40 ``flash_attention`` and 81 rmsnorm; mamba2-130m: 24 ``ssd`` and 49
    rmsnorm; gemma2-27b: 46 and 185; qwen3-moe-30b-a3b: 48 and 193;
-   zamba2-2.7b: 9, 54 ``ssd`` and 127) times the evaluation's
+   zamba2-2.7b: 9, 54 ``ssd`` and 127; whisper-large-v3: 96 and 162)
+   times the evaluation's
    ``inference`` spans and no other kernel; the SYSTEM evaluation's
    ``system:cuda`` launches must add up to the counters and its device
    busy time (torch.profiler) must be above 0; the FRAMEWORK layer spans
    must carry the reference's names (``_w4096``/``_w1073741824`` on
-   gemma2's layers, ``layer_{g:03d}_shared_attn`` after zamba2's groups);
+   gemma2's layers, ``layer_{g:03d}_shared_attn`` after zamba2's groups,
+   whisper's ``enc_layer_{l:03d}`` and ``dec_layer_{l:03d}``);
    the evaldb must
    hold one record per evaluation; the report is printed;
 7. one JSON line of kernel records, then the final line
@@ -1392,9 +1423,20 @@ def _norms_per_pass(cfg):
     post-norms and QK-norm's q and k where the config has them, a hybrid
     model's shared block's ln1 and ln2 after each group, then the final
     norm (glm4-9b 81, mamba2-130m 49, gemma2-27b 185, granite-20b 105,
-    chameleon-34b 193, zamba2-2.7b 127)."""
+    chameleon-34b 193, zamba2-2.7b 127); an enc-dec model's decoder: ln1,
+    ln2 and ln3 a layer, then the final norm (whisper-large-v3 97; its
+    prefill pass adds the encoder's, ``_encoder_norms``)."""
+    if cfg.family == "encdec":
+        return 3 * cfg.num_layers + 1
     shared = 2 * _groups(cfg)
     return (2 + 2 * cfg.post_norms + 2 * cfg.qk_norm) * cfg.num_layers + shared + 1
+
+
+def _encoder_norms(cfg):
+    """rmsnorm launches of an enc-dec model's encoder (every prefill pass):
+    ln1 and ln2 a layer, then enc_norm (whisper-large-v3 65); 0 for the
+    decoder-only families."""
+    return 2 * cfg.encoder_layers + 1 if cfg.family == "encdec" else 0
 
 
 def _groups(cfg):
@@ -1473,15 +1515,17 @@ def full_model(torch, dev, arch="glm4-9b"):
     """``arch`` at published width and depth, random bf16 weights from a
     seeded CUDA generator."""
     from repro_torch.configs import get_config
-    from repro_torch.models import DecoderLM, count_params
+    from repro_torch.models import build_model, count_params
 
     cfg = get_config(arch)
-    model = DecoderLM(cfg, device=dev, dtype=torch.bfloat16)
+    model = build_model(cfg, device=dev, dtype=torch.bfloat16)
     t0 = time.perf_counter()
     params = model.init(seed=SEED)
     torch.cuda.synchronize()
     n_params = count_params(model.param_defs())
-    print(f"   {cfg.name}: {cfg.num_layers} layers, {n_params / 1e9:.3f} B params, "
+    layers = (f"{cfg.encoder_layers} + {cfg.num_layers}" if cfg.family == "encdec"
+              else cfg.num_layers)
+    print(f"   {cfg.name}: {layers} layers, {n_params / 1e9:.3f} B params, "
           f"bf16 weights {n_params * 2 / 1e9:.2f} GB, init {time.perf_counter() - t0:.1f} s")
     return model, params
 
@@ -1573,10 +1617,19 @@ def _dense_expected(model, passes, steps):
     (dense family), or one ssd per pass and none per step (SSM family, whose
     decode step is plain torch); the hybrid family the SSM family's, plus
     per group (its shared attention) one flash_attention per pass and one
-    decode_attention per step.  Every other kernel: none."""
-    L = model.cfg.num_layers
-    expect = {"rmsnorm": _norms_per_pass(model.cfg) * (passes + steps)}
-    if model.stateful:
+    decode_attention per step; the enc-dec family per pass its encoder's
+    layers' and each decoder layer's self and cross flash_attention and
+    ``_encoder_norms`` more rmsnorm, per step two decode_attention a
+    decoder layer (whisper-large-v3: 96 flash_attention and 162 rmsnorm a
+    pass, 64 decode_attention and 97 rmsnorm a step).  Every other kernel:
+    none."""
+    cfg = model.cfg
+    L = cfg.num_layers
+    expect = {"rmsnorm": _norms_per_pass(cfg) * (passes + steps) + _encoder_norms(cfg) * passes}
+    if cfg.family == "encdec":
+        expect.update(flash_attention=(cfg.encoder_layers + 2 * L) * passes,
+                      decode_attention=2 * L * steps)
+    elif model.stateful:
         expect["ssd"] = L * passes
         G = _groups(model.cfg)
         if G:
@@ -1586,9 +1639,10 @@ def _dense_expected(model, passes, steps):
     return expect
 
 
-def dense_serve_phase(torch, dev, counters, model, params, repeats=REPEATS):
+def dense_serve_phase(torch, dev, counters, model, params, repeats=REPEATS, continuous=True):
     """``model`` through the dense engines: the static path (Poisson
-    arrivals, the threaded scheduler batching ``generate``) and
+    arrivals, the threaded scheduler batching ``generate``) and (unless
+    ``continuous`` is False: the enc-dec family, which it refuses)
     ``serve_continuous``, ``repeats`` runs each on the serve phase's
     requests, each run counted alone (``_dense_expected``): for glm4-9b 40
     flash_attention and 81 rmsnorm launches per prefill pass, 40
@@ -1611,8 +1665,9 @@ def dense_serve_phase(torch, dev, counters, model, params, repeats=REPEATS):
     warm = make_requests(2, 16, 32, 4, vocab, SEED + 1)
     serve_static(engine, [r.prompt for r in warm], [0.0, 0.0], 4, BATCH_TIMEOUT_MS,
                  log=lambda _: None)
-    engine.serve_continuous(warm, num_slots=SLOTS)
-    metrics = {"static": [], "continuous": []}
+    if continuous:
+        engine.serve_continuous(warm, num_slots=SLOTS)
+    metrics = {"static": [], "continuous": []} if continuous else {"static": []}
     launches, tokens = {}, {}
     # the SSM and hybrid families left-pad to the exact longest prompt of
     # each batch or admission set; the dense family right-pads to the pow2
@@ -1640,6 +1695,8 @@ def dense_serve_phase(torch, dev, counters, model, params, repeats=REPEATS):
         if i == 1:
             launches.update(counts)
             tokens["static"] = run.tokens
+        if not continuous:
+            continue
         _zero(counters)
         st = engine.serve_continuous(reqs, num_slots=SLOTS)
         counts = _check_counts(f"{cfg.name} continuous run {i}", counters,
@@ -1657,9 +1714,9 @@ def dense_serve_phase(torch, dev, counters, model, params, repeats=REPEATS):
         _median_spread(f"{path}, ", runs)
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"   peak device memory {peak / 1e9:.2f} GB, {(peak - resident) / 1e9:.2f} GB above "
-          f"the {resident / 1e9:.2f} GB resident before the runs; "
-          f"continuous vs static tokens (bf16, other batch shapes): "
-          f"{_fmt_agreement(tokens['static'], tokens['continuous'])}")
+          f"the {resident / 1e9:.2f} GB resident before the runs"
+          + (f"; continuous vs static tokens (bf16, other batch shapes): "
+             f"{_fmt_agreement(tokens['static'], tokens['continuous'])}" if continuous else ""))
     return launches, engine, prompts, tokens
 
 
@@ -2703,6 +2760,354 @@ def hybrid_serve_phase(torch, dev, counters):
 
 
 # ---------------------------------------------------------------------------
+# the enc-dec family: whisper-large-v3 at published width, with its cross cache
+# ---------------------------------------------------------------------------
+ENCDEC_ARCH = "whisper-large-v3"
+# a transcription-shaped batch: SLOTS prompts of a 4-token start-of-transcript
+# prefix, 224 new tokens (half of whisper's 448-token decoder context), over
+# random frames; max_seq the decoder's context
+TRANSCRIBE_PROMPT, TRANSCRIBE_NEW, TRANSCRIBE_MAX_SEQ = 4, 224, 448
+# reduced whisper's encoder widths checked card vs CPU: 16 frames, and 20,
+# whose cross cache is padded to 32 slots
+REDUCED_ENCODER_SEQS = (16, 20)
+
+
+def whisper_kernels_phase(torch, dev):
+    """The kernels at the shapes whisper-large-v3's static serve gives them,
+    bf16 (20 heads of 64 on 20 kv heads, no RoPE), each against its plain
+    version within the limit and timed beside its bound and SDPA or
+    ``F.rms_norm``: flash_attention (mma.sync d 64) on the encoder's
+    non-causal pass q (8, 1500) over its 1500 frames and on the cross
+    prefill's non-causal q (8, PREFILL_LEN) over 1500 keys (the plain
+    version without the last key must fail the limit), and on the
+    decoder's causal pass (8, PREFILL_LEN); decode_attention (the split
+    routine at rep 1) over the cross cache of 1504 slots with 1500 live
+    keys (the pad slots filled with 1e4, never read; the plain version
+    at 1499 keys must fail) and over the 2048-slot self cache at a static
+    step's lengths (the first SLOTS serve prompts + NEW_TOKENS, the
+    engine's pow2 bound; ``lengths - 1`` must fail); rmsnorm at d_model
+    1280 over an encoder pass's 12000 rows and a step's 8.  Returns each
+    kernel's worst error."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import decode_split
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import bucket_pow2
+
+    cfg = get_config(ENCDEC_ARCH)
+    h, kvh, d, Se = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.encoder_seq
+    Sx = build_model(cfg.replace(num_layers=1, encoder_layers=1), device="cpu").cross_len
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=bf)
+    cpm = _sleep_cycles_per_ms(torch)
+    clones = lambda *ts: (lambda i: tuple(t.clone() for t in ts))
+    heads = lambda t: t.transpose(1, 2).contiguous()              # (b, s, h, d) -> (b, h, s, d)
+    worst = {}
+
+    def check(name, label, out, want):
+        worst[name] = max(worst.get(name, 0.0), _check(torch, f"{name} {label}", out, want))
+
+    def case(name, shape, kernel, plain, library, sets, lib_sets, nbytes, flops):
+        record = dict(**_timed(torch, cpm, kernel, plain, library, sets, lib_sets,
+                               plain_calls=3),
+                      bound=_bound_ms(nbytes, flops), shape=shape)
+        _print_records({name: record})
+        return record
+
+    pl = fa.plan(bf, d, h // kvh)
+    print(f"   flash_attention plan at d {d}: {pl.kernel}, {pl.rows} rows a block, {pl.block_k} "
+          f"keys a tile, {pl.stages} stages, {pl.layout} rows of {fa.row_stride(pl.layout, d)} "
+          f"elements, {pl.smem_bytes} B of shared memory")
+    # -- flash_attention: the encoder (non-causal, 1500 frames), the cross
+    #    prefill (non-causal, sq != sk) and the decoder's causal pass
+    for sq, sk, causal, where in ((Se, Se, False, "encoder pass"),
+                                  (PREFILL_LEN, Se, False, "cross-attention prefill"),
+                                  (PREFILL_LEN, PREFILL_LEN, True, "decoder self-attention")):
+        q, k, v = randn(SLOTS, sq, h, d), randn(SLOTS, sk, kvh, d), randn(SLOTS, sk, kvh, d)
+        label = (f"{ENCDEC_ARCH} q ({SLOTS}, {sq}, {h}, {d}) over {sk} keys, "
+                 f"{'causal' if causal else 'non-causal'}")
+        want = ref.attention(q, k, v, causal=causal)
+        check("flash_attention", label, fa.flash_attention(q, k, v, causal=causal), want)
+        if not causal:
+            _rejects(torch, f"flash_attention d {d} {where}: plain without the last key",
+                     ref.attention(q, k[:, :-1], v[:, :-1], causal=False), want)
+        del want
+        nbytes = 2 * (2 * SLOTS * sq * h * d + 2 * SLOTS * sk * kvh * d)
+        pairs = sq * (sq + 1) / 2 if causal else sq * sk
+        case(f"flash_attention {label}", where,
+             lambda q_, k_, v_: fa.flash_attention(q_, k_, v_, causal=causal),
+             lambda q_, k_, v_: ref.attention(q_, k_, v_, causal=causal),
+             lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, is_causal=causal),
+             _rotation(nbytes, clones(q, k, v)),
+             _rotation(nbytes, lambda i: (heads(q), heads(k), heads(v))),
+             nbytes, 4.0 * h * d * SLOTS * pairs)
+        del q, k, v
+
+    # -- decode_attention at rep 1: the cross cache (1500 live keys of 1504
+    #    slots, the pad slots never read) and the self cache at a static step
+    dp = decode_split.plan(bf, d, h // kvh, 1, da.BLOCK_K)
+    print(f"   decode_attention plan at d {d}, rep {h // kvh}: {dp.kernel}, {dp.split_keys} keys "
+          f"a split, {dp.rows} rows a block ({h // kvh} live), {dp.smem_bytes} B of shared "
+          f"memory; the cross cache {Sx} slots for {Se} frames")
+    serve_lens = [int(x) + NEW_TOKENS for x in _serve_lengths(SEED)[:SLOTS]]
+    self_bound = bucket_pow2(max(serve_lens), floor=PAGE, cap=MAX_SEQ)
+    for S, lens_host, bound, where in (
+            (Sx, [Se] * SLOTS, Se, "cross cache"),
+            (MAX_SEQ, serve_lens, self_bound, "self cache, static step")):
+        lengths = torch.tensor(lens_host, dtype=torch.int32, device=dev)
+        q, kc, vc = randn(SLOTS, 1, h, d), randn(SLOTS, S, kvh, d), randn(SLOTS, S, kvh, d)
+        if S > bound:
+            kc[:, bound:] = 1e4
+            vc[:, bound:] = 1e4
+        label = (f"{ENCDEC_ARCH} q ({SLOTS}, 1, {h}, {d}), cache ({SLOTS}, {S}, {kvh}, {d}) "
+                 f"{where}")
+        kernel = lambda q_, k_, v_: da.decode_attention(q_, k_, v_, lengths, kv_bound=bound)
+        plain = lambda q_, k_, v_: ref.decode_attention(q_, k_, v_, lengths, kv_bound=bound)
+        want = plain(q, kc, vc)
+        check("decode_attention", label, kernel(q, kc, vc), want)
+        _rejects(torch, f"decode_attention d {d} rep 1 {where}: plain with lengths - 1",
+                 ref.decode_attention(q, kc, vc, lengths - 1, kv_bound=bound), want)
+        del want
+        live = sum(lens_host)
+        nbytes = 2 * 2 * SLOTS * h * d + 2 * 2 * live * kvh * d + 4 * SLOTS
+        mask = (torch.arange(bound, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+        case(f"decode_attention {label}", f"lengths {sorted(set(lens_host))}, kv_bound {bound}",
+             kernel, plain,
+             lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask),
+             _rotation(nbytes, clones(q, kc, vc)),
+             _rotation(2 * 2 * SLOTS * bound * h * d,
+                       lambda i: (heads(q), heads(kc[:, :bound]), heads(vc[:, :bound]))),
+             nbytes, 4.0 * h * d * live)
+        del q, kc, vc, mask
+
+    # -- rmsnorm at d_model: an encoder pass's rows and a decode step's
+    D = cfg.d_model
+    w = randn(D) * 0.1
+    for rows in (SLOTS * Se, SLOTS):
+        x = randn(rows, D)
+        label = f"{ENCDEC_ARCH} ({rows}, {D})"
+        check("rmsnorm", label, rn.rmsnorm(x, w), ref.rmsnorm(x, w))
+        nbytes = 2 * (2 * rows * D + D)
+        case(f"rmsnorm {label}", f"{rows} rows",
+             rn.rmsnorm, ref.rmsnorm, lambda x_: F.rms_norm(x_, (D,), w, 1e-6),
+             _rotation(nbytes, lambda i: (x.clone(), w)), _rotation(nbytes, clones(x)),
+             nbytes, 4.0 * rows * D)
+        del x
+    return worst
+
+
+def encdec_check_phase(torch, dev):
+    """Reduced whisper-large-v3 in float32 at encoder_seq 16 and 20 (whose
+    cross cache the model pads to 32 slots), card against CPU from the same
+    weights and frames: ``generate`` greedy tokens equal (a ragged batch
+    and a uniform one), ``forward`` logits within 1e-4 + 1e-4 |cpu|."""
+    import numpy as np
+
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import ServingEngine
+
+    for Se in REDUCED_ENCODER_SEQS:
+        cfg = _reduced(ENCDEC_ARCH).replace(encoder_seq=Se)
+        cpu_model = build_model(cfg, device="cpu", dtype=torch.float32)
+        cpu_params = cpu_model.init(seed=SEED)
+        gpu_model = build_model(cfg, device=dev, dtype=torch.float32)
+        gpu_params = _to_device(cpu_params, dev)
+        prompts = [r.prompt for r in make_requests(6, 5, 60, 8, cfg.vocab_size, SEED)]
+        uniform = [p[:5] for p in prompts[:3]]
+        rng = np.random.default_rng(SEED + Se)
+        frames = rng.normal(size=(3, Se, cfg.d_model)).astype(np.float32)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 48)))
+        out = {}
+        for name, model, params in (("cpu", cpu_model, cpu_params),
+                                    ("cuda", gpu_model, gpu_params)):
+            engine = ServingEngine(model, params, max_batch=3, max_seq=96, page_size=PAGE,
+                                   device=model.device)
+            ragged = np.concatenate([
+                engine.generate(prompts[i:i + 3], 8, extra_inputs={"frames": frames}).tokens
+                for i in (0, 3)])
+            same = engine.generate(uniform, 8, extra_inputs={"frames": frames}).tokens
+            logits, _ = model.forward(params, {"tokens": tokens.to(model.device),
+                                               "frames": torch.from_numpy(frames[:2])})
+            out[name] = (ragged, same, logits.cpu())
+        tokens_ok = bool((out["cpu"][0] == out["cuda"][0]).all()
+                         and (out["cpu"][1] == out["cuda"][1]).all())
+        diff = float((out["cpu"][2] - out["cuda"][2]).abs().max())
+        logits_ok = bool(torch.allclose(out["cuda"][2], out["cpu"][2], rtol=1e-4, atol=1e-4))
+        print(f"   {cfg.name} f32, encoder_seq {Se} (cross cache {gpu_model.cross_len} slots), "
+              f"6 ragged + 3 uniform prompts over random frames: generate cuda tokens == cpu "
+              f"tokens: {tokens_ok}; forward logits {tuple(out['cpu'][2].shape)} max |cuda - "
+              f"cpu| {diff:.3e} (within 1e-4 + 1e-4 |cpu|: {logits_ok})")
+        if not (tokens_ok and logits_ok):
+            raise SystemExit(f"{cfg.name} encoder_seq {Se}: the card differs from the CPU")
+
+
+# decode steps of the run that splits self from cross decode_attention (few,
+# so that the profiler keeps every record)
+SPLIT_STEPS = 4
+
+
+def _device_kernels(torch, fn, split_class):
+    """Run ``fn()`` under torch.profiler (device activity only); its device
+    kernels in stream order as (class, ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e.start_ns(), e.duration_ns() / 1e6, e.name())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == DeviceType.CUDA)
+    return [(_kernel_class(name, split_class), ms) for _, ms, name in events]
+
+
+def _encdec_profile(torch, engine, prompts, frames):
+    """Where the time goes on the enc-dec path: ``generate`` on ``prompts``
+    over ``frames`` under torch.profiler with 0 and with 16 new tokens (one
+    prefill pass, then 16 decode steps; a step is the difference over 16),
+    device ms by kernel class and the idle share (host and profiler
+    overhead count as idle).  The encoder's share of the pass: ``encode``
+    alone under the profiler.  Self against cross ``decode_attention``: a
+    run of SPLIT_STEPS steps, whose decode launches come in stream order
+    four a layer (the self call's split and combine kernels, then the
+    cross call's); where the profiler lost a record the split is reported
+    as not measured."""
+    model = engine.model
+    cfg = model.cfg
+    L, Le = cfg.num_layers, cfg.encoder_layers
+    run = lambda n: engine.generate(prompts, n, extra_inputs={"frames": frames})
+    runs = {new: _profiled(torch, lambda n=new: run(n), "decode_attention") for new in (0, 16)}
+    (_, pre_wall, prefill, _), (_, w16, c16, _) = runs[0], runs[16]
+    if sum(c16.values()) <= 0:
+        print("   profiler saw no device time: breakdown not measured")
+        return
+    fmt = lambda dct: ", ".join(f"{k} {v:.3f}" for k, v in dct.items())
+    step = {k: (c16[k] - prefill[k]) / 16 for k in c16}
+    step_wall = (w16 - pre_wall) / 16
+    busy_pre, busy_step = sum(prefill.values()), sum(step.values())
+    print(f"   {cfg.name}: prefill pass ({len(prompts)} prompts, padded to "
+          f"{engine._pad_prompts(prompts)[0].shape[1]}, over {cfg.encoder_seq} frames): wall "
+          f"{pre_wall:.3f} ms, device busy {busy_pre:.3f} ms (idle {1 - busy_pre / pre_wall:.3f});"
+          f" device ms: {fmt(prefill)}")
+    print(f"   {cfg.name}: decode step ({len(prompts)} rows): wall {step_wall:.3f} ms, device busy "
+          f"{busy_step:.3f} ms (idle {1 - busy_step / step_wall:.3f}); device ms: {fmt(step)}")
+    _, enc_wall, enc, _ = _profiled(torch, lambda: model.encode(engine.params, frames),
+                                    "decode_attention")
+    enc_flash, enc_busy = enc["flash_attention"], sum(enc.values())
+    dec_flash = prefill["flash_attention"] - enc_flash
+    print(f"   {cfg.name}: the encoder alone: wall {enc_wall:.3f} ms, device busy {enc_busy:.3f} ms "
+          f"(matmul {enc['matmul']:.3f}, other {enc['other']:.3f}), of which flash_attention "
+          f"{enc_flash:.3f} ms ({Le} launches, {enc_flash / Le:.4f} each); the decoder's "
+          f"flash_attention in the pass {dec_flash:.3f} ms ({2 * L} launches, self and cross, "
+          f"{dec_flash / (2 * L):.4f} each)")
+    n = SPLIT_STEPS
+    dec = [ms for cls, ms in _device_kernels(torch, lambda: run(n), "decode_attention")
+           if cls == "decode_attention"]
+    if len(dec) != 4 * L * n:
+        print(f"   {cfg.name}: {len(dec)} decode_attention kernels in {n} steps, not "
+              f"{4 * L * n}: the self/cross split is not measured")
+        return
+    self_ = sum(ms for i, ms in enumerate(dec) if i % 4 < 2) / n
+    cross = sum(ms for i, ms in enumerate(dec) if i % 4 >= 2) / n
+    print(f"   {cfg.name}: decode_attention a step ({n} steps): self {self_:.3f} ms ({L} calls, "
+          f"{self_ / L:.4f} each), cross {cross:.3f} ms ({L} calls over {cfg.encoder_seq} keys, "
+          f"{cross / L:.4f} each)")
+
+
+def encdec_serve_phase(torch, dev, counters):
+    """Full-width, full-depth whisper-large-v3 (32 encoder and 32 decoder
+    layers, 20 heads of 64, 1500 frames; random bf16 weights, loaded once
+    the earlier models are freed), each run counted alone with exact launch
+    counts (``_dense_expected``: 96 flash_attention and 162 rmsnorm a
+    prefill pass, 64 decode_attention and 97 rmsnorm a decode step, no
+    other kernel): the static path on the serve mix (zero frames, as the
+    driver feeds them), two runs; one transcription-shaped ``generate``
+    batch (SLOTS prompts of TRANSCRIBE_PROMPT tokens, TRANSCRIBE_NEW new
+    tokens, random frames, ``max_seq`` TRANSCRIBE_MAX_SEQ); the profile of a
+    prefill pass and a decode step; peak memory; and the refusals of
+    ``serve_continuous`` and ``serve_paged`` (``NotImplementedError``, no
+    launch)."""
+    import numpy as np
+
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve.engine import ServingEngine
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, params = full_model(torch, dev, ENCDEC_ARCH)
+    cfg, vocab = model.cfg, model.cfg.vocab_size
+    print(f"   {ENCDEC_ARCH}: {cfg.encoder_layers} encoder + {cfg.num_layers} decoder layers, "
+          f"{cfg.num_heads} heads of {cfg.resolved_head_dim} on {cfg.num_kv_heads} kv heads, "
+          f"{cfg.encoder_seq} frames in a cross cache of {model.cross_len} slots; a prefill "
+          f"pass {_dense_expected(model, 1, 0)}, a decode step {_dense_expected(model, 0, 1)}")
+    _, engine, prompts, _ = dense_serve_phase(torch, dev, counters, model, params,
+                                              continuous=False)
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    # a transcription-shaped batch: short prompts, long decode, real frames
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 10)
+    frames = torch.randn((SLOTS, cfg.encoder_seq, cfg.d_model), generator=gen, device=dev,
+                         dtype=model.dtype)
+    rng = np.random.default_rng(SEED + 10)
+    short = [rng.integers(0, vocab, (TRANSCRIBE_PROMPT,)).astype(np.int32)
+             for _ in range(SLOTS)]
+    transcribe = ServingEngine(model, params, max_batch=SLOTS, max_seq=TRANSCRIBE_MAX_SEQ,
+                               page_size=PAGE, device=dev)
+    transcribe.generate(short[:2], 4, extra_inputs={"frames": frames[:2]})   # warm-up
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = transcribe.generate(short, TRANSCRIBE_NEW, extra_inputs={"frames": frames})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    done = sum(1 for t in res.tokens if len(t) == TRANSCRIBE_NEW and all(0 <= x < vocab for x in t))
+    cnt = _check_counts(f"{ENCDEC_ARCH} transcription generate", counters,
+                        _dense_expected(model, 1, TRANSCRIBE_NEW), done, SLOTS)
+    peak = max(peak, torch.cuda.max_memory_allocated(dev))
+    print(f"   {ENCDEC_ARCH} generate, transcription-shaped: {SLOTS} prompts of "
+          f"{TRANSCRIBE_PROMPT} tokens over random frames, {TRANSCRIBE_NEW} new tokens, max_seq "
+          f"{TRANSCRIBE_MAX_SEQ}: prefill (encoder + prompt) {res.prefill_s * 1e3:.1f} ms, decode "
+          f"{res.decode_s * 1e3:.1f} ms ({res.tokens_per_s:.1f} tok/s, "
+          f"{res.decode_s / TRANSCRIBE_NEW * 1e3:.3f} ms a step), wall {wall:.3f} s, distinct "
+          f"tokens {len(np.unique(res.tokens))}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; launches {cnt}")
+
+    print(f"   {ENCDEC_ARCH} where the time goes (torch.profiler, generate; device ms):")
+    _encdec_profile(torch, engine, prompts[:SLOTS],
+                    torch.zeros((SLOTS, cfg.encoder_seq, cfg.d_model), device=dev,
+                                dtype=model.dtype))
+
+    # the engines the family does not take
+    reqs = make_requests(2, 8, 16, 4, vocab, SEED)
+    for name, run in (("serve_continuous", lambda: engine.serve_continuous(reqs)),
+                      ("serve_paged", lambda: engine.serve_paged(reqs))):
+        _zero(counters)
+        try:
+            run()
+        except NotImplementedError as e:
+            refused = "encoder-decoder" in str(e)
+            print(f"   {ENCDEC_ARCH} {name}: refused ({e})")
+        else:
+            refused = False
+        launched = {k: m.launches for k, m in counters.items() if m.launches}
+        if not refused or launched:
+            raise SystemExit(f"{ENCDEC_ARCH} {name}: not refused as the reference refuses it "
+                             f"(launches {launched})")
+    print(f"   {ENCDEC_ARCH}: peak device memory over its runs {peak / 1e9:.2f} GB")
+    del model, params, engine, transcribe, frames
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # the rest of serve_paged: chunked prefill, the prefix cache, preemption
 # ---------------------------------------------------------------------------
 CHUNK = 4 * PAGE                # chunked prefill's chunk: the engine's default of 4 pages
@@ -3046,7 +3451,9 @@ PER_PASS = {"glm4-9b": {"flash_attention": 40, "rmsnorm": 81},
             "granite-20b": {"flash_attention": 52, "rmsnorm": 105},
             "chameleon-34b": {"flash_attention": 48, "rmsnorm": 193},
             "qwen3-moe-30b-a3b": {"flash_attention": 48, "rmsnorm": 193},
-            "zamba2-2.7b": {"flash_attention": 9, "ssd": 54, "rmsnorm": 127}}
+            "zamba2-2.7b": {"flash_attention": 9, "ssd": 54, "rmsnorm": 127},
+            # 32 encoder + 32 decoder self + 32 cross; encoder 65 + decoder 97
+            "whisper-large-v3": {"flash_attention": 96, "rmsnorm": 162}}
 PLATFORM_TOL = 1e-4             # reduced f32 logits, card vs CPU: 1e-4 + 1e-4 |cpu|
 # every batch the evaluations can form: batched's 1/2/4/8, the server's up
 # to 4 and offline's up to 8 coalesced requests
@@ -3060,7 +3467,9 @@ def platform_kernels_phase(torch, dev):
     platform phase evaluates (glm4-9b, gemma2-27b, qwen3-moe-30b-a3b, and
     zamba2-2.7b's shared block at head dim 80) with its heads, its
     attention softcap and each window its layers pass, and its norms at
-    d_model and (QK-norm) over its query and kv heads' rows; the scan of
+    d_model and (QK-norm) over its query and kv heads' rows;
+    whisper-large-v3's encoder over its 1500 frames, its decoder's causal
+    self-attention and its cross-attention over the frames; the scan of
     mamba2-130m and of zamba2-2.7b (two whole chunks, final state out) with
     x, B and C views of one convolved projection as the block makes them,
     and their norms at d_model and over the gated d_inner.  One line a
@@ -3079,6 +3488,7 @@ def platform_kernels_phase(torch, dev):
     archs = [get_config(a) for a in dict.fromkeys(arch for _, arch, *_ in _evaluations())]
     dense = [c for c in archs if c.family in ("dense", "moe", "hybrid")]
     scans = [c for c in archs if c.family in ("ssm", "hybrid")]
+    encdec = [c for c in archs if c.family == "encdec"]
     s = PLATFORM_SEQ
     norm_w = {D: randn(D) * 0.1 for D in [c.d_model for c in archs] + [c.ssm_inner for c in scans]}
     qk_w = {c.resolved_head_dim: randn(c.resolved_head_dim) * 0.1 for c in dense if c.qk_norm}
@@ -3096,6 +3506,13 @@ def platform_kernels_phase(torch, dev):
                 yield ("flash_attention", f"{arch} causal q ({b}, {s}, {h}, {d}), kvh {kvh}, "
                        f"{opts}", fa.flash_attention(q, k, v, **opts),
                        ref.attention(q, k, v, **opts))
+            for c in encdec:        # the encoder over its frames, the decoder, its cross
+                h, kvh, d, Se = c.num_heads, c.num_kv_heads, c.resolved_head_dim, c.encoder_seq
+                for sq, sk, causal in ((Se, Se, False), (s, s, True), (s, Se, False)):
+                    q, k, v = randn(b, sq, h, d), randn(b, sk, kvh, d), randn(b, sk, kvh, d)
+                    yield ("flash_attention", f"{c.name} q ({b}, {sq}, {h}, {d}) over {sk} "
+                           f"keys, causal {causal}", fa.flash_attention(q, k, v, causal=causal),
+                           ref.attention(q, k, v, causal=causal))
             for D, w in norm_w.items():
                 x = randn(b, s, D)
                 yield "rmsnorm", f"({b}, {s}, {D})", rn.rmsnorm(x, w), ref.rmsnorm(x, w)
@@ -3160,11 +3577,15 @@ def _evaluations():
          None),
         ("online", "zamba2-2.7b", "MODEL", online, None),
         ("online FRAMEWORK", "zamba2-2.7b", "FRAMEWORK", dict(online, num_requests=2), None),
+        ("online", "whisper-large-v3", "MODEL", online, None),
+        ("online FRAMEWORK", "whisper-large-v3", "FRAMEWORK", dict(online, num_requests=2),
+         None),
     ]
 
 
 def platform_check(torch, dev):
-    """Reduced glm4-9b and mamba2-130m through the torch predictor on the
+    """Every reduced architecture (whisper-large-v3 over zero frames, as the
+    predictor feeds it) through the torch predictor on the
     CPU and on the card, the card's handle holding the float32 model with
     the CPU's weights: logits within PLATFORM_TOL, the same last-position
     argmax, and the FRAMEWORK path's logits bit-equal to the MODEL path's
@@ -3174,14 +3595,14 @@ def platform_check(torch, dev):
     from repro_torch.core import NullTracer, OpenRequest, Tracer, TraceLevel, TracingServer
     from repro_torch.core import make_predictor
     from repro_torch.core.platform import builtin_manifests
-    from repro_torch.models.lm import DecoderLM
+    from repro_torch.models.lm import build_model
 
     pred = make_predictor("torch")
     tokens = np.random.default_rng(SEED).integers(0, 256, (4, 96)).astype(np.int32)
     for manifest in builtin_manifests(reduced=True):
         card, cpu = (pred.open(OpenRequest(manifest=manifest, device=d), NullTracer())
                      for d in ("cuda", "cpu"))
-        card.state["model"] = DecoderLM(card.state["cfg"], device=dev, dtype=torch.float32)
+        card.state["model"] = build_model(card.state["cfg"], device=dev, dtype=torch.float32)
         card.state["params"] = _to_device(cpu.state["params"], dev)
         got = pred.predict(card, tokens, NullTracer())
         want = pred.predict(cpu, tokens, NullTracer())
@@ -3243,7 +3664,9 @@ def _check_layer_names(arch, spans, passes):
     names them: ``embed``, ``layer_{l:03d}_attn`` plus ``_w{window}`` on a
     windowed config (``_w4096`` local, ``_w1073741824`` global), or
     ``layer_{l:03d}_mamba`` and, after each hybrid group ``g``,
-    ``layer_{g:03d}_shared_attn``, then ``logits``."""
+    ``layer_{g:03d}_shared_attn``, then ``logits``; an enc-dec model's
+    ``enc_embed``, ``enc_layer_{l:03d}``, ``enc_norm``, ``dec_embed``,
+    ``dec_layer_{l:03d}``, ``logits``."""
     from repro_torch.configs import get_config
     from repro_torch.models.lm import GLOBAL_WINDOW
 
@@ -3258,12 +3681,17 @@ def _check_layer_names(arch, spans, passes):
         glob = l % cfg.global_every == cfg.global_every - 1
         return f"_w{GLOBAL_WINDOW if glob else cfg.sliding_window}"
 
-    want = ["embed"]
-    for l in range(cfg.num_layers):
-        want.append(f"layer_{l:03d}_{kind}{suffix(l)}")
-        if E and l % E == E - 1:
-            want.append(f"layer_{l // E:03d}_shared_attn")
-    want.append("logits")
+    if cfg.family == "encdec":
+        want = (["enc_embed"] + [f"enc_layer_{l:03d}" for l in range(cfg.encoder_layers)]
+                + ["enc_norm", "dec_embed"]
+                + [f"dec_layer_{l:03d}" for l in range(cfg.num_layers)] + ["logits"])
+    else:
+        want = ["embed"]
+        for l in range(cfg.num_layers):
+            want.append(f"layer_{l:03d}_{kind}{suffix(l)}")
+            if E and l % E == E - 1:
+                want.append(f"layer_{l // E:03d}_shared_attn")
+        want.append("logits")
     names = [s["name"] for s in spans if s["name"] in set(want)]
     if names != want * passes:
         raise SystemExit(f"platform {arch} FRAMEWORK: layer spans {names[:4]}... are not the "
@@ -3395,10 +3823,14 @@ def main() -> int:
           f"and on the ring, ssd at 80 heads, rmsnorm at 2560 and 5120)")
     for name, err in hybrid_kernels_phase(torch, dev).items():
         records[name]["err"] = max(records[name]["err"], err)
+    print(f"   -- {ENCDEC_ARCH}'s shapes (flash_attention at head dim 64 over the 1500 frames, "
+          f"decode_attention at rep 1 over the padded cross cache, rmsnorm at 1280)")
+    for name, err in whisper_kernels_phase(torch, dev).items():
+        records[name]["err"] = max(records[name]["err"], err)
     _done(torch, "2. kernels", t0)
 
     t0 = _phase("3. check: reduced glm4-9b, mamba2-130m, the rest of the dense family, the "
-                "MoE family and the hybrid family, card vs CPU reference")
+                "MoE family, the hybrid family and the enc-dec family, card vs CPU reference")
     check_phase(torch, dev)
     paged_paths_check(torch, dev)
     dense_check_phase(torch, dev)
@@ -3412,6 +3844,9 @@ def main() -> int:
     print(f"   -- the hybrid family ({HYBRID_ARCH}) on a plain cache and on a ring of "
           f"{REDUCED_RING}")
     hybrid_check_phase(torch, dev)
+    print(f"   -- the enc-dec family ({ENCDEC_ARCH}) at encoder_seq "
+          f"{' and '.join(map(str, REDUCED_ENCODER_SEQS))}")
+    encdec_check_phase(torch, dev)
     _done(torch, "3. check", t0)
 
     t0 = _phase("4. serve: glm4-9b and mamba2-130m, full width and depth, random bf16 weights")
@@ -3455,6 +3890,11 @@ def main() -> int:
                 f"ring cache")
     hybrid_serve_phase(torch, dev, counters)
     _done(torch, "5d. serve the hybrid family", t0)
+
+    t0 = _phase(f"5e. serve: {ENCDEC_ARCH}, full width and depth, random bf16 weights, with its "
+                f"cross cache")
+    encdec_serve_phase(torch, dev, counters)
+    _done(torch, "5e. serve the enc-dec family", t0)
 
     t0 = _phase("6. platform: client -> server -> agent -> scenario -> torch predictor")
     platform_check(torch, dev)

@@ -9,9 +9,10 @@ experts, top 8, QK-norm) and ``llama4-maverick-400b-a17b`` (dense and MoE
 layers interleaved, top 1), the dense decoders ``deepseek-67b``,
 ``granite-20b`` (MQA), ``glm4-9b``, ``gemma2-27b`` (sliding/global
 windows, softcaps, post-norms, scaled embeddings) and ``chameleon-34b``
-(QK-norm), and the attention-free SSM ``mamba2-130m``; the enc-dec
-architecture of ``repro.configs`` (``whisper-large-v3``) follows with the
-model family that needs it.
+(QK-norm), the attention-free SSM ``mamba2-130m``, and the
+encoder-decoder ``whisper-large-v3`` (32 encoder and 32 decoder layers over
+1500 precomputed audio frames; its audio front end is a stub, as in the
+reference).  The paper's ResNet-50 is not ported yet.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ _ALIASES = {
     "gemma2-27b": "gemma2_27b",
     "chameleon-34b": "chameleon_34b",
     "mamba2-130m": "mamba2_130m",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 

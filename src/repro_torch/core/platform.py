@@ -24,8 +24,10 @@ from .tracing import TracingServer
 
 
 def builtin_manifests(reduced: bool = True) -> List[ModelManifest]:
-    """Model manifests for the port's architectures, as the reference
-    writes them (ResNet-50 waits for its port)."""
+    """Model manifests for the port's architectures, every one of
+    ``list_archs()`` (whisper-large-v3's enc-dec among them), as the
+    reference writes them; the reference's ResNet-50 manifest is left out
+    until ResNet-50 is ported."""
     from ..configs import get_config, list_archs
 
     manifests = []

@@ -32,7 +32,11 @@ Three engines (``--engine``, or its alias ``--mode``):
 ``chameleon-34b`` (every engine); ``llama4-maverick-400b-a17b`` (MoE
 layers interleaved with dense ones) and ``mamba2-130m`` (SSM) on
 ``static`` and ``continuous`` only: neither has a paged layout, so
-``--engine paged`` stops with the reference's reason.  A MoE model's
+``--engine paged`` stops with the reference's reason.  The enc-dec
+``whisper-large-v3`` runs ``static`` only, each batch over zero encoder
+frames ``(batch, 1500, 1280)`` as the reference driver feeds it;
+``--engine continuous`` and ``paged`` raise the engine's
+``NotImplementedError``, as the reference's continuous engine does.  A MoE model's
 header and report name its experts, top k and capacity factor.  Runs on
 ``cuda`` unless ``--device cpu`` is given.  The model config is the
 reduced one unless ``--full`` asks for the published widths and depth;
@@ -72,8 +76,8 @@ from ..core.workload import (
 )
 from ..device import DTYPES, resolve_device
 from ..kernels.kvquant import KV_DTYPES
-from ..models.lm import NOT_PAGED, DecoderLM
-from ..serve.engine import ServeRequest, ServingEngine
+from ..models.lm import NOT_PAGED, NOT_PAGED_ENCDEC, build_model
+from ..serve.engine import NOT_CONTINUOUS_ENCDEC, ServeRequest, ServingEngine
 from ..serve.scheduler import PRIORITY_TIERS, RequestScheduler, SchedulerConfig, TenantSpec
 
 
@@ -226,12 +230,18 @@ def serve_static(engine: ServingEngine, prompts: Sequence[np.ndarray], arrivals_
                  max_new_tokens: int, batch_timeout_ms: float, log=print) -> StaticRun:
     """Submit ``prompts`` at their arrival offsets (seconds from the start)
     to a threaded :class:`RequestScheduler` whose micro-batches of up to
-    ``engine.max_batch`` requests run ``engine.generate``."""
+    ``engine.max_batch`` requests run ``engine.generate``; an enc-dec
+    model's batches take zero encoder frames, as the reference driver
+    gives them."""
     batches: List[tuple] = []
+    cfg = engine.model.cfg
+    frames = (np.zeros((engine.max_batch, cfg.encoder_seq, cfg.d_model), np.float32)
+              if cfg.family == "encdec" else None)
 
     def execute(batch):
         ps = [r.payload for r in batch]
-        res = engine.generate(ps, max_new_tokens)
+        extra = None if frames is None else {"frames": frames[:len(ps)]}
+        res = engine.generate(ps, max_new_tokens, extra_inputs=extra)
         batches.append((len(ps), sum(len(p) for p in ps), res.prefill_s, res.decode_s))
         log(f"[serve] batch of {len(ps)}: prefill {res.prefill_s * 1e3:.1f} ms, "
             f"decode {res.decode_s * 1e3:.1f} ms ({res.tokens_per_s:,.1f} tok/s)")
@@ -497,7 +507,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         # fp32 matmuls stay full fp32 (no TF32) wherever the port runs fp32
         torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.arch, reduced=not args.full)
-    model = DecoderLM(cfg, device=device, dtype=args.dtype)
+    if cfg.family == "encdec" and args.engine != "static":
+        raise NotImplementedError(NOT_PAGED_ENCDEC if args.engine == "paged"
+                                  else NOT_CONTINUOUS_ENCDEC)
+    model = build_model(cfg, device=device, dtype=args.dtype)
     if args.engine == "paged" and (model.stateful or model.interleaved):
         ap.error(f"--engine paged with {cfg.name}: {NOT_PAGED}")
     try:

@@ -1,4 +1,5 @@
-"""Decoder-only LMs: the serving paths of ``repro.models.lm``.
+"""The port's LMs, decoder-only and encoder-decoder: the serving paths of
+``repro.models.lm``.
 
 What is ported: parameters; the full-sequence :meth:`DecoderLM.forward`;
 for the dense family (``family="dense"``, with the options the zoo's dense
@@ -26,7 +27,11 @@ For the hybrid family (``family="hybrid"``, zamba2: groups of
 states and conv histories ``(G, E, b, ...)`` and the shared block's K/V
 per group ``(G, b, S, kvh, d)``; ``S`` is ``max_seq``, or past
 :data:`RING_THRESHOLD` a ring of ``long_context_window`` slots.  Its
-state is not paged either.
+state is not paged either.  The encoder-decoder family (``family="encdec"``,
+whisper-large-v3; :class:`EncDecLM`, which :func:`build_model` gives it)
+runs ``forward`` and the dense-cache ``prefill``/``decode`` over the
+decoder's self-attention K/V and a cross cache of the encoder's K/V per
+layer, on the static engine only; it has no paged form.
 Layers run as a Python loop over a list of per-layer parameter dicts (JAX
 scans stacked leaves); caches and pools stay stacked on a leading layer
 axis and each layer writes its slice in place, where JAX returns updated
@@ -40,6 +45,7 @@ from typing import Any, Callable, Dict, List, Optional, Union
 import torch
 
 from ..device import resolve_device, resolve_dtype
+from ..kernels import decode_attention as _decode_attention
 from ..kernels import kvquant, ops
 from .config import ArchConfig
 from .modules import (
@@ -50,6 +56,7 @@ from .modules import (
     attn_full,
     attn_prefill_packed,
     attn_prefill_paged,
+    cross_attn_decode,
     mamba_defs,
     mamba_forward,
     mamba_step,
@@ -58,6 +65,7 @@ from .modules import (
     moe_apply,
     moe_defs,
     norm_defs,
+    sinusoidal,
 )
 from .params import P, init_params
 
@@ -77,6 +85,11 @@ NOT_PAGED = ("paged KV cache supports dense/moe (non-interleaved) decoder caches
              "ssm/hybrid state is not paged")
 # the end of the reference's refusal of each paged path for the interleaved layout
 _NOT_PAGED_INTERLEAVED = "supports dense/moe (non-interleaved) only"
+# why the enc-dec family has no paged form (the reference's EncDecLM has no
+# paged methods, and its engine serves the family through generate alone)
+NOT_PAGED_ENCDEC = ("paged serving does not support encoder-decoder models (family encdec): "
+                    "admission prefill would need per-request encoder frames, and the model "
+                    "has no paged KV cache")
 # the reference's reason for refusing a right-padded prefill
 _NOT_RAGGED = ("ragged (right-padded) prefill requires a pure-attention cache; "
                "ssm/hybrid state would absorb the pad tokens")
@@ -98,12 +111,10 @@ def _device_memory(device: torch.device) -> Optional[int]:
         else None
 
 
-class DecoderLM:
-    """Dense GQA decoder (``family="dense"``), mixture-of-experts decoder
-    (``family="moe"``, interleaved with dense layers where ``moe_every``
-    is 2), attention-free Mamba-2 stack (``family="ssm"``) or Mamba-2
-    stack with a shared attention block (``family="hybrid"``); the
-    enc-dec family raises.
+class _BaseLM:
+    """What every model of the port shares (``repro.models.lm.BaseModel``):
+    the config, device and dtype, seeded ``init``, the norm, the token
+    embedding, the float32 LM head and the prefill's last-token logits.
 
     ``device`` defaults to ``cuda`` (and raises where there is none);
     ``dtype`` is the weight and activation dtype: bf16 on the card, float32
@@ -112,10 +123,97 @@ class DecoderLM:
 
     def __init__(self, cfg: ArchConfig, device: Union[str, torch.device, None] = None,
                  dtype: Union[str, torch.dtype, None] = None) -> None:
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = resolve_dtype(dtype, self.device)
+        # sqrt(d_model) rounded to the model dtype, as the reference scales a
+        # cast embedding by a weakly typed scalar
+        self._embed_scale = (torch.tensor(math.sqrt(cfg.d_model), dtype=self.dtype).item()
+                             if cfg.scale_embed else None)
+
+    def param_defs(self) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def init(self, seed: int = 0):
+        """Random weights on the model's device and dtype from a seeded
+        ``torch.Generator`` on that device.  Raises ``MemoryError`` before
+        allocating anything where the weights alone exceed the card's
+        memory (``weights_fit``)."""
+        capacity = _device_memory(self.device)
+        why = weights_fit(self.cfg, self.dtype, capacity) if capacity is not None else None
+        if why:
+            raise MemoryError(why)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return init_params(self.param_defs(), gen, self.device, self.dtype)
+
+    def _norm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return ops.rmsnorm(x, w, self.cfg.norm_eps)
+
+    def _embed_tokens(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        x = params["embed"][tokens.long()]
+        return x if self._embed_scale is None else x * self._embed_scale
+
+    def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
+        """Final norm, then the head product accumulated and returned in
+        float32 (a tied head reads ``embed`` transposed, no copy), then the
+        logit softcap where the config sets one."""
+        cfg = self.cfg
+        x = self._norm(x, params["final_norm"])
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        if x.dtype == torch.float32:
+            logits = x @ head
+        elif x.is_cuda:
+            # bf16 operands, float32 output from one cuBLAS call, as the
+            # reference's preferred_element_type=float32: nothing is rounded
+            # to bf16 before the softcap and the argmax
+            logits = torch.mm(x.reshape(-1, x.shape[-1]), head, out_dtype=torch.float32
+                              ).view(*x.shape[:-1], head.shape[1])
+        else:
+            # the CPU has no mm with a float32 output for bf16 operands: the
+            # same product in float32, a slice of the vocabulary at a time so
+            # that the head's float32 copy stays small
+            xf = x.float()
+            logits = torch.cat([xf @ head[:, i:i + _HEAD_SLICE].float()
+                                for i in range(0, head.shape[1], _HEAD_SLICE)], dim=-1)
+        if cfg.logit_softcap > 0:
+            logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+        return logits
+
+    def _prefill_logits(self, params, batch, x: torch.Tensor,
+                        cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Last-token logits, and each row's next position into
+        ``cache["pos"]``.  With ``batch["lengths"]`` the prompts are
+        right-padded to a common length: causal attention never reads the
+        trailing pads, so the logits at ``lengths - 1`` are those of the
+        unpadded prompts."""
+        b, s = x.shape[:2]
+        lengths = batch.get("lengths")
+        if lengths is None:
+            cache["pos"].fill_(s)
+            x_last = x[:, -1:].contiguous()
+        else:
+            lengths = lengths.to(device=x.device, dtype=torch.int32)
+            cache["pos"].copy_(lengths)
+            x_last = x[torch.arange(b, device=x.device), lengths.long() - 1][:, None]
+        return self._logits(params, x_last)[:, 0]
+
+
+class DecoderLM(_BaseLM):
+    """Dense GQA decoder (``family="dense"``), mixture-of-experts decoder
+    (``family="moe"``, interleaved with dense layers where ``moe_every``
+    is 2), attention-free Mamba-2 stack (``family="ssm"``) or Mamba-2
+    stack with a shared attention block (``family="hybrid"``); the
+    enc-dec family raises (:func:`build_model` gives it
+    :class:`EncDecLM`)."""
+
+    def __init__(self, cfg: ArchConfig, device: Union[str, torch.device, None] = None,
+                 dtype: Union[str, torch.dtype, None] = None) -> None:
         cfg.validate()
         if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(f"{cfg.name}: not ported yet: family {cfg.family}")
-        self.cfg = cfg
+            raise NotImplementedError(f"{cfg.name}: DecoderLM does not take family "
+                                      f"{cfg.family}: build it with build_model")
+        super().__init__(cfg, device, dtype)
         # the cache has no sequence axis (attention-free)
         self.ssm = cfg.family == "ssm"
         self.hybrid = cfg.family == "hybrid"
@@ -124,13 +222,7 @@ class DecoderLM:
         self.stateful = self.ssm or self.hybrid
         # llama4-style pairs of a dense and a MoE block (no paged layout)
         self.interleaved = cfg.family == "moe" and cfg.moe_every == 2
-        self.device = resolve_device(device)
-        self.dtype = resolve_dtype(dtype, self.device)
         self.windows = self._layer_windows()
-        # sqrt(d_model) rounded to the model dtype, as the reference scales a
-        # cast embedding by a weakly typed scalar
-        self._embed_scale = (torch.tensor(math.sqrt(cfg.d_model), dtype=self.dtype).item()
-                             if cfg.scale_embed else None)
         # the batch axis of each cache tensor (the continuous engine's slot copy)
         kv_axis = 2 if self.interleaved else 1
         if self.ssm:
@@ -170,19 +262,6 @@ class DecoderLM:
             defs["lm_head"] = P((D, V))
         return defs
 
-    def init(self, seed: int = 0):
-        """Random weights on the model's device and dtype from a seeded
-        ``torch.Generator`` on that device.  Raises ``MemoryError`` before
-        allocating anything where the weights alone exceed the card's
-        memory (``weights_fit``)."""
-        capacity = _device_memory(self.device)
-        why = weights_fit(self.cfg, self.dtype, capacity) if capacity is not None else None
-        if why:
-            raise MemoryError(why)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        return init_params(self.param_defs(), gen, self.device, self.dtype)
-
     # -- helpers ----------------------------------------------------------------
     def _layer_windows(self) -> List[Optional[int]]:
         """Each layer's attention window (``repro.models.lm._layer_windows``):
@@ -215,39 +294,6 @@ class DecoderLM:
             raise NotImplementedError(NOT_PAGED)
         if self.interleaved:
             raise NotImplementedError(f"{what} {_NOT_PAGED_INTERLEAVED}")
-
-    def _norm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        return ops.rmsnorm(x, w, self.cfg.norm_eps)
-
-    def _embed_tokens(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        x = params["embed"][tokens.long()]
-        return x if self._embed_scale is None else x * self._embed_scale
-
-    def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
-        """Final norm, then the head product accumulated and returned in
-        float32 (a tied head reads ``embed`` transposed, no copy), then the
-        logit softcap where the config sets one."""
-        cfg = self.cfg
-        x = self._norm(x, params["final_norm"])
-        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        if x.dtype == torch.float32:
-            logits = x @ head
-        elif x.is_cuda:
-            # bf16 operands, float32 output from one cuBLAS call, as the
-            # reference's preferred_element_type=float32: nothing is rounded
-            # to bf16 before the softcap and the argmax
-            logits = torch.mm(x.reshape(-1, x.shape[-1]), head, out_dtype=torch.float32
-                              ).view(*x.shape[:-1], head.shape[1])
-        else:
-            # the CPU has no mm with a float32 output for bf16 operands: the
-            # same product in float32, a slice of the vocabulary at a time so
-            # that the head's float32 copy stays small
-            xf = x.float()
-            logits = torch.cat([xf @ head[:, i:i + _HEAD_SLICE].float()
-                                for i in range(0, head.shape[1], _HEAD_SLICE)], dim=-1)
-        if cfg.logit_softcap > 0:
-            logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-        return logits
 
     def _attn_residual(self, blk, x: torch.Tensor, a: torch.Tensor, with_aux: bool = False):
         """The rest of an attention block once attention has run on
@@ -412,24 +458,6 @@ class DecoderLM:
             k: torch.zeros(shape, device=self.device, dtype=dtypes.get(k, self.dtype))
             for k, shape in self.cache_defs(batch, max_seq).items()
         }
-
-    def _prefill_logits(self, params, batch, x: torch.Tensor,
-                        cache: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Last-token logits, and each row's next position into
-        ``cache["pos"]``.  With ``batch["lengths"]`` the prompts are
-        right-padded to a common length: causal attention never reads the
-        trailing pads, so the logits at ``lengths - 1`` are those of the
-        unpadded prompts."""
-        b, s = x.shape[:2]
-        lengths = batch.get("lengths")
-        if lengths is None:
-            cache["pos"].fill_(s)
-            x_last = x[:, -1:].contiguous()
-        else:
-            lengths = lengths.to(device=x.device, dtype=torch.int32)
-            cache["pos"].copy_(lengths)
-            x_last = x[torch.arange(b, device=x.device), lengths.long() - 1][:, None]
-        return self._logits(params, x_last)[:, 0]
 
     def prefill(self, params, batch: Dict[str, torch.Tensor],
                 cache: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -679,3 +707,210 @@ class DecoderLM:
                                    window=self.windows[li], k_scales=ks, v_scales=vs)
             x = self._attn_residual(blk, x, a)
         return self._logits(params, x[:, last_index:last_index + 1])[:, 0]
+
+
+class EncDecLM(_BaseLM):
+    """Encoder–decoder (``family="encdec"``, whisper-style; the audio front
+    end is a stub: the model takes precomputed frame embeddings ``(b, Se,
+    D)``), the port's ``repro.models.lm.EncDecLM``.  The encoder adds
+    :func:`~repro_torch.models.modules.sinusoidal` positions to the frames
+    and runs ``encoder_layers`` non-causal attention + GELU MLP blocks, then
+    ``enc_norm``; the decoder adds sinusoidal positions to its token
+    embeddings and runs ``num_layers`` blocks of causal self-attention,
+    cross-attention over the encoder output and the GELU MLP (pre-norms
+    ``ln1``/``ln2``/``ln3``), then the final norm and the LM head.  No RoPE
+    anywhere.  The frames are cast to the model's dtype on entry: the
+    reference adds float32 frames to a bf16 model's positions and so runs
+    its encoder in float32, where the port keeps a bf16 model's encoder in
+    bf16 (in float32 the two agree exactly).
+
+    It serves from a dense cache through ``generate`` (the static engine)
+    alone: ``serve_continuous`` and ``serve_paged`` refuse it, as the
+    reference does, and its paged methods raise."""
+
+    # the decoder's self-attention keys are its right-padded prompt tokens:
+    # right-padded prefill and kv-bounded decode are exact
+    stateful = False
+
+    def __init__(self, cfg: ArchConfig, device: Union[str, torch.device, None] = None,
+                 dtype: Union[str, torch.dtype, None] = None) -> None:
+        cfg.validate()
+        if cfg.family != "encdec":
+            raise ValueError(f"{cfg.name}: EncDecLM takes family encdec, not {cfg.family}")
+        super().__init__(cfg, device, dtype)
+        # the cross cache's slots: encoder_seq rounded up to the whole 16-key
+        # pages that the bf16 decode-attention kernel views a dense cache as
+        m = _decode_attention.BLOCK_K
+        self.cross_len = -(-cfg.encoder_seq // m) * m
+
+    # -- params ---------------------------------------------------------------
+    def param_defs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        V, D = cfg.vocab_size, cfg.d_model
+        enc = [{"ln1": norm_defs(cfg), "attn": attn_defs(cfg), "ln2": norm_defs(cfg),
+                "mlp": mlp_defs(cfg, gated=False)} for _ in range(cfg.encoder_layers)]
+        dec = [{"ln1": norm_defs(cfg), "self_attn": attn_defs(cfg), "ln2": norm_defs(cfg),
+                "cross_attn": attn_defs(cfg, cross=True), "ln3": norm_defs(cfg),
+                "mlp": mlp_defs(cfg, gated=False)} for _ in range(cfg.num_layers)]
+        return {"embed": P((V, D)), "enc_blocks": enc, "enc_norm": norm_defs(cfg),
+                "dec_blocks": dec, "final_norm": norm_defs(cfg), "lm_head": P((D, V))}
+
+    def cache_len(self, max_seq: int) -> int:
+        """Slots of the self-attention cache: ``max_seq``."""
+        return max_seq
+
+    def _refuse_paged(self, *_args, **_kw):
+        raise NotImplementedError(f"{self.cfg.name}: {NOT_PAGED_ENCDEC}")
+
+    paged_cache_defs = init_paged_cache = _refuse_paged
+    decode_paged = decode_spec = prefill_packed = prefill_paged_chunk = _refuse_paged
+
+    # -- encoder ----------------------------------------------------------------
+    def _positions(self, positions: torch.Tensor) -> torch.Tensor:
+        return sinusoidal(positions, self.cfg.d_model).to(self.dtype)
+
+    def _enc_embed(self, frames: torch.Tensor) -> torch.Tensor:
+        """The frames (b, Se, D) in the model's dtype on its device, plus the
+        sinusoidal positions ``[0, Se)``."""
+        x = frames.to(device=self.device, dtype=self.dtype)
+        return x + self._positions(torch.arange(x.shape[1], device=self.device))
+
+    def _enc_layer(self, blk, x: torch.Tensor) -> torch.Tensor:
+        x = x + attn_full(blk["attn"], self._norm(x, blk["ln1"]), self.cfg, causal=False,
+                          use_rope=False)
+        return x + mlp_apply(blk["mlp"], self._norm(x, blk["ln2"]))
+
+    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder output (b, Se, D) of frame embeddings ``frames`` (b,
+        Se, D): one non-causal flash-attention launch and two rmsnorms per
+        layer, then ``enc_norm``."""
+        x = self._enc_embed(frames)
+        for blk in params["enc_blocks"]:
+            x = self._enc_layer(blk, x)
+        return self._norm(x, params["enc_norm"])
+
+    # -- decoder ------------------------------------------------------------------
+    def _embed_dec(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        x = self._embed_tokens(params, tokens)
+        return x + self._positions(torch.arange(x.shape[1], device=x.device))
+
+    def _dec_layer(self, blk, x: torch.Tensor, enc: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = x + attn_full(blk["self_attn"], self._norm(x, blk["ln1"]), cfg, use_rope=False)
+        x = x + attn_full(blk["cross_attn"], self._norm(x, blk["ln2"]), cfg, use_rope=False,
+                          kv_from=enc)
+        return x + mlp_apply(blk["mlp"], self._norm(x, blk["ln3"]))
+
+    def forward(self, params, batch: Dict[str, torch.Tensor]):
+        """Logits of every position of ``batch["tokens"]`` (b, s) over the
+        encoding of ``batch["frames"]`` (b, Se, D): float32 (b, s, V), and
+        the auxiliary loss (0), as the JAX model returns them."""
+        enc = self.encode(params, batch["frames"])
+        x = self._embed_dec(params, batch["tokens"])
+        for blk in params["dec_blocks"]:
+            x = self._dec_layer(blk, x, enc)
+        return self._logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def forward_instrumented(self, params, batch: Dict[str, torch.Tensor],
+                             hook: Callable[[str, Callable[[], torch.Tensor]], torch.Tensor]
+                             ) -> torch.Tensor:
+        """:meth:`forward`'s logits piece by piece with ``hook(name, thunk)``
+        around each (``repro.models.lm._forward_instrumented_encdec``):
+        ``enc_embed``, ``enc_layer_{l:03d}``, ``enc_norm``, ``dec_embed``,
+        ``dec_layer_{l:03d}``, ``logits``."""
+        x = hook("enc_embed", lambda: self._enc_embed(batch["frames"]))
+        for l, blk in enumerate(params["enc_blocks"]):
+            x = hook(f"enc_layer_{l:03d}", lambda blk=blk, x=x: self._enc_layer(blk, x))
+        enc = hook("enc_norm", lambda x=x: self._norm(x, params["enc_norm"]))
+        x = hook("dec_embed", lambda: self._embed_dec(params, batch["tokens"]))
+        for l, blk in enumerate(params["dec_blocks"]):
+            x = hook(f"dec_layer_{l:03d}", lambda blk=blk, x=x: self._dec_layer(blk, x, enc))
+        return hook("logits", lambda: self._logits(params, x))
+
+    # -- dense caches ---------------------------------------------------------------
+    def cache_defs(self, batch: int, max_seq: int) -> Dict[str, tuple]:
+        """Shapes of the cache: ``pos`` (b,) int32, the decoder's
+        self-attention K/V (L, b, max_seq, kvh, d) and the encoder's K/V of
+        every layer's cross-attention ``k_cross``/``v_cross`` (L, b,
+        ``cross_len``, kvh, d).  ``cross_len`` is ``encoder_seq`` rounded up
+        to a multiple of 16 (whisper: 1504 slots for 1500 frames), where
+        the reference's cross cache holds ``encoder_seq`` slots: the bf16
+        decode-attention kernel views a dense cache as 16-key pages.  The
+        pad slots stay zero and are never read."""
+        cfg = self.cfg
+        L, kv, dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+        return {"pos": (batch,),
+                "k": (L, batch, max_seq, kv, dh), "v": (L, batch, max_seq, kv, dh),
+                "k_cross": (L, batch, self.cross_len, kv, dh),
+                "v_cross": (L, batch, self.cross_len, kv, dh)}
+
+    def init_cache(self, batch: int, max_seq: int) -> Dict[str, torch.Tensor]:
+        """A zeroed cache: K/V in the model's dtype, ``pos`` int32."""
+        return {
+            k: torch.zeros(shape, device=self.device,
+                           dtype=torch.int32 if k == "pos" else self.dtype)
+            for k, shape in self.cache_defs(batch, max_seq).items()
+        }
+
+    def prefill(self, params, batch: Dict[str, torch.Tensor],
+                cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Encode ``batch["frames"]`` (b, encoder_seq, D), then prefill
+        ``batch["tokens"]`` (b, s), optionally right-padded with
+        ``batch["lengths"]`` (b,): every decoder layer attends the prompt
+        causally with one flash-attention launch and writes its K/V into
+        positions ``[0, s)`` of the self cache, then attends the encoder
+        output with one non-causal launch and writes that K/V into the
+        first ``encoder_seq`` slots of the cross cache, in place.  Returns
+        float32 last-token logits (b, V)."""
+        cfg = self.cfg
+        enc = self.encode(params, batch["frames"])
+        Se = enc.shape[1]
+        if Se != cfg.encoder_seq:
+            raise ValueError(f"{cfg.name}: {Se} frames, the cross cache holds {cfg.encoder_seq}")
+        x = self._embed_dec(params, batch["tokens"])
+        s = x.shape[1]
+        for l, blk in enumerate(params["dec_blocks"]):
+            a, (k, v) = attn_full(blk["self_attn"], self._norm(x, blk["ln1"]), cfg,
+                                  use_rope=False, return_kv=True)
+            cache["k"][l][:, :s] = k
+            cache["v"][l][:, :s] = v
+            x = x + a
+            c, (kx, vx) = attn_full(blk["cross_attn"], self._norm(x, blk["ln2"]), cfg,
+                                    use_rope=False, kv_from=enc, return_kv=True)
+            cache["k_cross"][l][:, :Se] = kx
+            cache["v_cross"][l][:, :Se] = vx
+            x = x + c
+            x = x + mlp_apply(blk["mlp"], self._norm(x, blk["ln3"]))
+        return self._prefill_logits(params, batch, x, cache)
+
+    def decode(self, params, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
+               uniform_pos: bool = True, kv_bound: Optional[int] = None) -> torch.Tensor:
+        """One token step: ``tokens`` (b,) int32 at positions ``cache["pos"]``
+        plus their sinusoidal positions; per layer the self-attention writes
+        its K/V there in place and attends ``pos + 1`` keys (at most
+        ``kv_bound``; ``uniform_pos`` as in :meth:`DecoderLM.decode`), then
+        the cross-attention attends the ``encoder_seq`` cached encoder
+        keys; ``pos`` advances by one.  Two decode-attention launches and
+        three rmsnorms a layer.  Returns float32 logits (b, V)."""
+        cfg = self.cfg
+        pos = cache["pos"]
+        x = self._embed_tokens(params, tokens)[:, None, :]          # (b, 1, D)
+        x = x + self._positions(pos[:, None])
+        for l, blk in enumerate(params["dec_blocks"]):
+            x = x + attn_decode(blk["self_attn"], self._norm(x, blk["ln1"]), cache["k"][l],
+                                cache["v"][l], pos, cfg, use_rope=False,
+                                uniform_pos=uniform_pos, kv_bound=kv_bound)
+            x = x + cross_attn_decode(blk["cross_attn"], self._norm(x, blk["ln2"]),
+                                      cache["k_cross"][l], cache["v_cross"][l], cfg)
+            x = x + mlp_apply(blk["mlp"], self._norm(x, blk["ln3"]))
+        pos.add_(1)
+        return self._logits(params, x)[:, 0]
+
+
+def build_model(cfg: ArchConfig, device: Union[str, torch.device, None] = None,
+                dtype: Union[str, torch.dtype, None] = None) -> Union[DecoderLM, EncDecLM]:
+    """The model of ``cfg``'s family (``repro.models.lm.build_model``):
+    :class:`EncDecLM` for ``encdec``, else :class:`DecoderLM`."""
+    if cfg.family == "encdec":
+        return EncDecLM(cfg, device, dtype)
+    return DecoderLM(cfg, device, dtype)

@@ -4,7 +4,11 @@
 trees; the apply functions run a whole sequence (prefill, ``forward``), one
 token per row against a dense cache, one token per slot (paged decode), one
 prompt chunk against its request's pages (chunked prefill) or a
-token-packed buffer of prompt chunks (packed prefill).  Attention and
+token-packed buffer of prompt chunks (packed prefill); for the enc-dec
+family also without RoPE (:func:`sinusoidal` positions are added to the
+activations instead), cross-attention over an encoder output
+(``attn_full(kv_from=...)``) or over its cached K/V
+(:func:`cross_attn_decode`), and the non-gated GELU MLP.  Attention and
 normalisation go through :mod:`repro_torch.kernels.ops`, which sends CUDA
 tensors to the hand-written kernels.  The projections, MLP and LM head are
 plain matrix products, as the JAX package leaves them to XLA.  Public
@@ -52,28 +56,51 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
+def sinusoidal(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embedding in float32: positions
+    ``(...)`` -> ``(..., d_model)``, ``[sin, cos]`` of the positions times
+    ``exp(-ln(10000) i / max(half - 1, 1))``, ``i < half = d_model // 2``.
+    Callers cast it to the activation dtype."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10_000.0)
+                      * torch.arange(half, device=positions.device, dtype=torch.float32)
+                      / max(half - 1, 1))
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def norm_defs(cfg: ArchConfig) -> P:
     return P((cfg.d_model,), "zeros")
 
 
-def mlp_defs(cfg: ArchConfig, d_ff: int = 0) -> Dict[str, P]:
-    """The gated MLP, ``d_ff`` wide (default ``cfg.d_ff``; an interleaved
-    MoE config's dense layers take ``cfg.dense_d_ff``)."""
+def mlp_defs(cfg: ArchConfig, d_ff: int = 0, gated: bool = True) -> Dict[str, P]:
+    """The MLP, ``d_ff`` wide (default ``cfg.d_ff``; an interleaved MoE
+    config's dense layers take ``cfg.dense_d_ff``): gated, or with
+    ``gated=False`` (the enc-dec family's) ``w_up`` and ``w_down`` only."""
     D, Fd = cfg.d_model, d_ff or cfg.d_ff
     std_out = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
-    return {
+    defs = {
         "w_up": P((D, Fd)),
         "w_down": P((Fd, D), std=std_out),
-        "w_gate": P((D, Fd)),
     }
+    if gated:
+        defs["w_gate"] = P((D, Fd))
+    return defs
 
 
 def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """Gated SiLU MLP: ``(silu(x W_gate) * x W_up) W_down``."""
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    """Gated SiLU MLP ``(silu(x W_gate) * x W_up) W_down``, or without
+    ``w_gate`` ``gelu(x W_up) W_down`` with the tanh approximation of GELU
+    (``jax.nn.gelu``'s default, where ``F.gelu``'s is the exact erf)."""
+    up = x @ p["w_up"]
+    if "w_gate" in p:
+        return (F.silu(x @ p["w_gate"]) * up) @ p["w_down"]
+    return F.gelu(up, approximate="tanh") @ p["w_down"]
 
 
-def attn_defs(cfg: ArchConfig) -> Dict[str, P]:
+def attn_defs(cfg: ArchConfig, cross: bool = False) -> Dict[str, P]:
+    """q/k/v/o projections, plus the QK-norm weights where the config has
+    QK-norm, except on a cross-attention block (``cross``)."""
     D, H, KV, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     std_out = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
     defs = {
@@ -82,7 +109,7 @@ def attn_defs(cfg: ArchConfig) -> Dict[str, P]:
         "wv": P((D, KV, dh)),
         "wo": P((H, dh, D), std=std_out),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         defs["q_norm"] = P((dh,), "zeros")
         defs["k_norm"] = P((dh,), "zeros")
     return defs
@@ -101,18 +128,25 @@ def _heads_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _project_qkv(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
-                 positions: torch.Tensor):
-    """Project q, k, v from x; with QK-norm (``q_norm`` in ``p``) normalise
-    q and k over the head dim, then apply RoPE to q and k.  The projections
-    are contiguous, so ``ops.rmsnorm`` takes them as they are: rows of
-    ``head_dim``, one per (token, head)."""
-    q, k = _heads_in(x, p["wq"]), _heads_in(x, p["wk"])
+                 positions: Optional[torch.Tensor],
+                 kv_from: Optional[torch.Tensor] = None):
+    """Project q from x and k, v from ``kv_from`` (cross-attention) or x;
+    with QK-norm (``q_norm`` in ``p``) normalise q and k over the head dim,
+    then, unless ``positions`` is None, apply RoPE to q at ``positions`` and
+    to k at its own (the source's ``arange`` under ``kv_from``).  The
+    projections are contiguous, so ``ops.rmsnorm`` takes them as they are:
+    rows of ``head_dim``, one per (token, head)."""
+    src = x if kv_from is None else kv_from
+    q, k = _heads_in(x, p["wq"]), _heads_in(src, p["wk"])
     if "q_norm" in p:
         q = ops.rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = ops.rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    v = _heads_in(x, p["wv"])
+    if positions is not None:
+        q = rope(q, positions, cfg.rope_theta)
+        kv_positions = (positions if kv_from is None
+                        else torch.arange(src.shape[1], device=src.device))
+        k = rope(k, kv_positions, cfg.rope_theta)
+    v = _heads_in(src, p["wv"])
     return q, k, v
 
 
@@ -123,18 +157,22 @@ def attn_full(
     *,
     causal: bool = True,
     window=None,
+    use_rope: bool = True,
+    kv_from: Optional[torch.Tensor] = None,
     q_offset: int = 0,
     return_kv: bool = False,
 ):
     """Full-sequence attention (prefill, ``forward``): positions ``q_offset
-    + i``, RoPE on q and k, then one flash-attention launch.  Returns y
-    ``(b, s, D)``, and ``(k, v)`` ``(b, s, kvh, d)`` with ``return_kv`` (the
-    prefill writes them into the dense cache)."""
+    + i``, RoPE on q and k unless ``use_rope`` is False, then one
+    flash-attention launch.  With ``kv_from`` (b, sk, D) (cross-attention)
+    k and v are projected from it and the mask is not causal.  Returns y
+    ``(b, s, D)``, and ``(k, v)`` ``(b, sk, kvh, d)`` with ``return_kv``
+    (the prefill writes them into its cache)."""
     s = x.shape[1]
-    positions = q_offset + torch.arange(s, device=x.device)
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    out = ops.attention(q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap,
-                        q_offset=q_offset)
+    positions = q_offset + torch.arange(s, device=x.device) if use_rope else None
+    q, k, v = _project_qkv(p, x, cfg, positions, kv_from)
+    out = ops.attention(q, k, v, causal=causal and kv_from is None, window=window,
+                        softcap=cfg.attn_softcap, q_offset=q_offset)
     y = _heads_out(out, p["wo"])
     return (y, (k, v)) if return_kv else y
 
@@ -148,11 +186,13 @@ def attn_decode(
     cfg: ArchConfig,
     *,
     window=None,
+    use_rope: bool = True,
     ring: bool = False,
     uniform_pos: bool = True,
     kv_bound: Optional[int] = None,
 ) -> torch.Tensor:
-    """Single-token attention against a dense KV cache.
+    """Single-token attention against a dense KV cache (RoPE at ``pos``
+    unless ``use_rope`` is False).
 
     The new token's K/V are written at its slot in place (the JAX module
     returns updated caches): with ``uniform_pos`` every row shares
@@ -167,7 +207,7 @@ def attn_decode(
     ``kv_bound``: a wrapped ring's live keys fill the whole buffer, and the
     ring is the window.  Returns y (b, 1, D)."""
     b, S = k_cache.shape[:2]
-    q, k, v = _project_qkv(p, x1, cfg, pos[:, None])
+    q, k, v = _project_qkv(p, x1, cfg, pos[:, None] if use_rope else None)
     slot = pos.long() % S if ring else pos.long().clamp(max=S - 1)
     if uniform_pos:
         at = slot[:1]
@@ -188,6 +228,26 @@ def attn_decode(
         lengths = pos + 1
     out = ops.decode_attention(q, k_cache, v_cache, lengths, softcap=cfg.attn_softcap,
                                window=window, kv_bound=kv_bound)
+    return _heads_out(out, p["wo"])
+
+
+def cross_attn_decode(
+    p: Dict[str, torch.Tensor],
+    x1: torch.Tensor,                     # (b, 1, D) one new token per row
+    k_cross: torch.Tensor,                # (b, S, kv, dh) the encoder's K, from the prefill
+    v_cross: torch.Tensor,
+    cfg: ArchConfig,
+) -> torch.Tensor:
+    """One token's cross-attention over the encoder's cached K/V: one
+    decode-attention launch with every row's length ``cfg.encoder_seq``
+    (no RoPE, no write).  The cache may hold more slots than that (the
+    enc-dec model rounds them up to a multiple of 16, so the bf16 kernel
+    views them as whole pages): the slots past ``encoder_seq`` are never
+    read.  Returns y (b, 1, D)."""
+    Se = cfg.encoder_seq
+    q = _heads_in(x1, p["wq"])
+    lengths = torch.full((x1.shape[0],), Se, dtype=torch.int32, device=x1.device)
+    out = ops.decode_attention(q, k_cross, v_cross, lengths, kv_bound=Se)
     return _heads_out(out, p["wo"])
 
 

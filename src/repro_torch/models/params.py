@@ -4,7 +4,7 @@ A model describes its parameters once as a tree (dicts and per-layer lists)
 of :class:`P` leaves.  :func:`init_params` materialises the tree on the
 target device, directly in the target dtype, from an explicit
 ``torch.Generator``; :func:`from_jax` converts the pytree of
-``repro``'s ``model.init`` (stacked ``blocks/*`` leaves) into the port's
+``repro``'s ``model.init`` (stacked ``*blocks`` subtrees) into the port's
 layout (one dict per layer), so both packages can run identical weights.
 """
 from __future__ import annotations
@@ -88,12 +88,13 @@ FP32_LEAVES = frozenset({"A_log", "D", "dt_bias"})
 
 
 def from_jax(params: Dict[str, Any], device="cpu", dtype=torch.float32):
-    """Convert a ``repro`` ``DecoderLM`` parameter pytree (leaves anything
-    ``numpy.asarray`` takes) into the port's layout: the stacked
-    ``blocks/*`` leaves of shape ``(L, ...)`` become a list of ``L``
-    per-layer dicts; every other leaf keeps its name and shape.  Leaves go
-    to ``dtype``, except the SSD scalars (:data:`FP32_LEAVES`), which stay
-    float32."""
+    """Convert a ``repro`` model's parameter pytree (leaves anything
+    ``numpy.asarray`` takes) into the port's layout: every stacked subtree
+    whose name ends in ``blocks`` (``blocks``; the enc-dec family's
+    ``enc_blocks`` and ``dec_blocks``), leaves of shape ``(L, ...)``,
+    becomes a list of ``L`` per-layer dicts; every other leaf keeps its name
+    and shape.  Leaves go to ``dtype``, except the SSD scalars
+    (:data:`FP32_LEAVES`), which stay float32."""
 
     def conv(x, name: str) -> torch.Tensor:
         arr = np.array(np.asarray(x), dtype=np.float32)
@@ -105,16 +106,16 @@ def from_jax(params: Dict[str, Any], device="cpu", dtype=torch.float32):
             return {k: walk(v, k) for k, v in node.items()}
         return conv(node, name)
 
-    out = {k: walk(v, k) for k, v in params.items() if k != "blocks"}
-    blocks = walk(params["blocks"])
-    num_layers = _leading_dim(blocks)
-
     def layer(node, i):
         if isinstance(node, dict):
             return {k: layer(v, i) for k, v in node.items()}
         return node[i].contiguous()
 
-    out["blocks"] = [layer(blocks, i) for i in range(num_layers)]
+    out = {}
+    for k, v in params.items():
+        out[k] = walk(v, k)
+        if k.endswith("blocks"):
+            out[k] = [layer(out[k], i) for i in range(_leading_dim(out[k]))]
     return out
 
 

@@ -2,19 +2,23 @@
 predictor (the counterpart of ``repro.models.predictor.JaxModelPredictor``).
 
 Implements the 3-function predictor interface (:mod:`repro_torch.core.
-predictor`) over the port's architectures.  ``open`` builds a
-:class:`DecoderLM` at the manifest's width on the agent's device (bf16 on
-the card, float32 on the CPU) with random weights from the manifest's seed;
-``predict`` turns int32 tokens into ``forward``'s
+predictor`) over the port's architectures.  ``open`` builds the
+manifest's model through ``build_model`` (a :class:`DecoderLM`, or the
+enc-dec family's :class:`EncDecLM`) at the manifest's width on the agent's
+device (bf16 on the card, float32 on the CPU) with random weights from the
+manifest's seed; ``predict`` turns int32 tokens into ``forward``'s
 float32 logits, returned as numpy like the reference's ``np.asarray(out)``,
 so the timed predict of a scenario includes the logits' copy to the host.
+An enc-dec model's forward takes zero encoder frames ``(b, encoder_seq,
+d_model)``, as the reference's predictor gives it (the audio front end is
+a stub).  ResNet-50 is not ported yet: ``open`` refuses it.
 
 Trace levels:
 
 * MODEL     — ``model_load``/``weight_init``/``inference`` spans; on the card
               the ``inference`` span closes after ``torch.cuda.synchronize``,
               so it times the device work
-* FRAMEWORK — per-layer spans through ``DecoderLM.forward_instrumented``,
+* FRAMEWORK — per-layer spans through the model's ``forward_instrumented``,
               each layer synchronized with the device (the reference's
               ``jax.block_until_ready`` per layer): more visibility, more
               overhead
@@ -32,7 +36,7 @@ Trace levels:
 from __future__ import annotations
 
 import contextlib
-from typing import Any
+from typing import Any, Union
 
 import numpy as np
 import torch
@@ -42,7 +46,7 @@ from ..core.predictor import OpenRequest, Predictor, PredictorHandle, _handles
 from ..core.tracing import Tracer, TraceLevel
 from ..device import resolve_device
 from ..kernels import kernel_counters
-from .lm import DecoderLM
+from .lm import DecoderLM, EncDecLM, build_model
 
 
 class TorchModelPredictor(Predictor):
@@ -56,9 +60,9 @@ class TorchModelPredictor(Predictor):
         with tracer.span("model_load", TraceLevel.MODEL, arch=arch, backend=self.name):
             if arch.startswith("resnet"):
                 raise NotImplementedError(
-                    f"{arch}: not ported (ROADMAP Queue 1 item 6)")
+                    f"{arch}: not ported (ROADMAP Queue 1 item 4)")
             cfg = get_config(arch, reduced=req.manifest.reduced)
-            model = DecoderLM(cfg, device=resolve_device(req.device))
+            model = build_model(cfg, device=resolve_device(req.device))
             seed = int(manifest.model_assets.get("seed", 0))
             with tracer.span("weight_init", TraceLevel.MODEL):
                 params = model.init(seed)
@@ -80,6 +84,11 @@ class TorchModelPredictor(Predictor):
         if tokens.ndim == 1:
             tokens = tokens[None]
         model_batch = {"tokens": tokens.to(model.device)}
+        cfg = state["cfg"]
+        if cfg.family == "encdec":
+            model_batch["frames"] = torch.zeros(
+                (tokens.shape[0], cfg.encoder_seq, cfg.d_model), dtype=model.dtype,
+                device=model.device)
         system = tracer.enabled(TraceLevel.SYSTEM) and model.device.type == "cuda"
         with contextlib.ExitStack() as stack:
             if system:
@@ -110,7 +119,7 @@ class TorchModelPredictor(Predictor):
             )
         return out.cpu().numpy()
 
-    def _predict_instrumented(self, model: DecoderLM, params, model_batch,
+    def _predict_instrumented(self, model: Union[DecoderLM, EncDecLM], params, model_batch,
                               tracer: Tracer) -> torch.Tensor:
         def hook(name: str, thunk):
             with tracer.span(name, TraceLevel.FRAMEWORK):

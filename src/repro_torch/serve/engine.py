@@ -46,16 +46,20 @@ all run on the device.  A rejected suffix rolls back by rewinding the
 length and handing any page it opened back to the pool.  ``kv_dtype``
 ``"int8"``/``"fp8"`` stores the pool as codes with float32 per-row scales.
 
-What waits for later slices: encoder inputs (``extra_inputs``) in
-``generate``; tensor parallelism, KV checkpoints and the fault hook in
-``serve_paged``.
+The encoder-decoder family (whisper) runs ``generate`` alone, with its
+encoder frames passed as ``extra_inputs``; ``serve_continuous`` and
+``serve_paged`` refuse it, as the reference does (an admission prefill
+would need each request's frames).
+
+What waits for later slices: tensor parallelism, KV checkpoints and the
+fault hook in ``serve_paged``.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Set, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Set, Tuple, Union
 
 import numpy as np
 import torch
@@ -63,11 +67,16 @@ import torch
 from ..core.analysis import percentile
 from ..device import resolve_device
 from ..kernels import kvquant, ops
-from ..models.lm import DecoderLM
+from ..models.lm import NOT_PAGED_ENCDEC, DecoderLM, EncDecLM
 from .page_table import PagePool, PageTable, PrefixCache, pages_needed
 from .scheduler import (
     PagedSlotPool, PrefillBudget, SlotPool, SpecLedger, TenantLedger, TenantSpec,
 )
+
+
+# the reference's refusal of continuous batching for an encoder-decoder model
+NOT_CONTINUOUS_ENCDEC = ("continuous batching does not support encoder-decoder models: "
+                         "admission prefill would need per-request encoder frames")
 
 
 def bucket_pow2(n: int, floor: int = 1, cap: Optional[int] = None) -> int:
@@ -239,7 +248,7 @@ def _sync(device: torch.device) -> None:
 class ServingEngine:
     def __init__(
         self,
-        model: DecoderLM,
+        model: Union[DecoderLM, EncDecLM],
         params,
         max_batch: int,
         max_seq: int,
@@ -314,13 +323,17 @@ class ServingEngine:
 
     @torch.no_grad()
     def generate(self, prompts: List[np.ndarray], max_new_tokens: int,
+                 extra_inputs: Optional[Dict[str, Any]] = None,
                  greedy: bool = True) -> GenerationResult:
         """Static batched greedy generation: one prefill of the padded batch
         into a fresh dense cache, then ``max_new_tokens`` decode steps in
         lockstep (the last one's token is not kept, as in the JAX engine).
         Rows of one length, and the left-padded rows of the SSM and hybrid
         families, decode at one shared position; a ragged attention batch writes each
-        row at its own.  The tokens stay on the device until the end: the
+        row at its own.  ``extra_inputs`` adds arrays (numpy or tensors) to
+        the prefill's batch, each moved to the engine's device: the
+        enc-dec family's ``frames`` (b, encoder_seq, D), in the model's
+        dtype.  The tokens stay on the device until the end: the
         loop never waits for the card.  ``greedy`` is accepted and ignored,
         as the JAX engine ignores it: decoding is always greedy."""
         dev = self.device
@@ -331,6 +344,9 @@ class ServingEngine:
         batch = {"tokens": torch.from_numpy(tokens).to(dev)}
         if self._ragged_ok:
             batch["lengths"] = torch.from_numpy(lens).to(dev)
+        for name, value in (extra_inputs or {}).items():
+            t = torch.as_tensor(value)
+            batch[name] = t.to(dev, dtype=self.model.dtype) if name == "frames" else t.to(dev)
         _sync(dev)
         t0 = time.perf_counter()
         logits = self.model.prefill(self.params, batch, cache)
@@ -382,6 +398,8 @@ class ServingEngine:
         Greedy tokens equal the JAX engine's on the same weights."""
         if not requests:
             return ContinuousStats([], 0, 0.0, 0, 0.0, 0.0)
+        if self.model.cfg.family == "encdec":
+            raise NotImplementedError(NOT_CONTINUOUS_ENCDEC)
         dev = self.device
         num_slots = num_slots or self.max_batch
         max_prompt = max(len(r.prompt) for r in requests)
@@ -612,7 +630,10 @@ class ServingEngine:
         (:class:`~repro_torch.serve.scheduler.TenantSpec`) and tagged
         requests make admission pick by priority tier, then token bucket,
         then weighted fair share; ``fairness=False`` keeps FIFO.  The
-        reference's ``fault_hook`` and KV checkpoints are not ported yet."""
+        reference's ``fault_hook`` and KV checkpoints are not ported yet.
+        An encoder-decoder model raises ``NotImplementedError``."""
+        if self.model.cfg.family == "encdec":
+            raise NotImplementedError(NOT_PAGED_ENCDEC)
         if prefill_mode not in ("packed", "chunked"):
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
         if spec_k < 0:

@@ -671,6 +671,39 @@ def test_flash_attention_bf16_head_dim_80(cuda, case):
     assert torch.all(out.cpu()[dead] == 0)
 
 
+FLASH_WHISPER = [
+    # b, sq, sk, opts: whisper-large-v3's 20 heads of 64 (MHA) on the
+    # mma.sync d-64 kernel, no RoPE
+    (1, 1500, 1500, {"causal": False}),     # the encoder: 1500 frames, a ragged last tile
+    (2, 300, 1500, {"causal": False}),      # a prompt's cross-attention over the frames
+    (2, 24, 1500, {"causal": False}),       # a short prompt: one query tile, sq != sk
+    (2, 100, 100, {}),                      # the decoder's causal self-attention
+]
+
+
+@pytest.mark.parametrize("case", FLASH_WHISPER)
+def test_flash_attention_bf16_whisper_shapes(cuda, case):
+    """Non-causal attention with sq != sk at d 64 against its plain version;
+    without the last key (its values made large, so that each row's output
+    leans on it) the plain version misses it."""
+    b, sq, sk, opts = case
+    q = _randn((b, sq, 20, 64), torch.bfloat16, cuda, 64)
+    k, v = (_randn((b, sk, 20, 64), torch.bfloat16, cuda, s) for s in (65, 66))
+    v[:, -1] = 50.0
+    assert fa_mod.plan(torch.bfloat16, 64, 1).kernel == "mma"
+    n = fa_mod.launches
+    out = fa_mod.flash_attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert fa_mod.launches == n + 1
+    qc, kc, vc = q.cpu(), k.cpu(), v.cpu()
+    want = ref.attention(qc, kc, vc, **opts)
+    _close(out, want, torch.bfloat16)
+    if not opts.get("causal", True):
+        short = ref.attention(qc, kc[:, :-1], vc[:, :-1], **opts)
+        assert not bool(((out.float().cpu() - short.float()).abs()
+                         <= 2e-2 * (1 + short.float().abs())).all())
+
+
 def test_flash_attention_bf16_raises_at_an_unsupported_head_dim(cuda):
     q = _randn((1, 8, 4, 96), torch.bfloat16, cuda, 97)
     k = _randn((1, 8, 2, 96), torch.bfloat16, cuda, 98)
@@ -706,6 +739,41 @@ def test_decode_attention_kernel(cuda, dtype, shape, opts):
     want = da_mod.decode_attention(*(t.cpu() for t in (q, kc, vc, lengths)), **opts)
     _close(out, want, dtype)
     assert torch.all(out[-1] == 0)
+
+
+WHISPER_DECODE = [
+    # b, S, lengths, kv_bound: whisper-large-v3's 20 heads of 64 on 20 kv
+    # heads (rep 1) on the bf16 split routine
+    (8, 1504, [1500] * 8, 1500),            # the cross cache: 1500 frames in 1504 slots
+    (3, 32, [20] * 3, 20),                  # reduced whisper at encoder_seq 20
+    (8, 2048, [1030 + 9 * i for i in range(8)], 2048),   # the self cache at serve lengths
+]
+
+
+@pytest.mark.parametrize("case", WHISPER_DECODE)
+def test_decode_attention_bf16_d64_rep1(cuda, case):
+    """The one-token split routine over a dense cache whose slot count is a
+    multiple of 16 and whose keys stop before its end: slots past the bound
+    hold large values and are never read; the plain version one key short
+    (each row's last live key given large values, so that its output
+    leans on it) misses the kernel."""
+    b, S, lens, bound = case
+    q = _randn((b, 1, 20, 64), torch.bfloat16, cuda, 90)
+    kc, vc = (_randn((b, S, 20, 64), torch.bfloat16, cuda, s) for s in (91, 92))
+    kc[:, bound:] = 1e4
+    vc[:, bound:] = 1e4
+    for i, n in enumerate(lens):
+        vc[i, n - 1] = 50.0
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    assert da_mod.decode_split.plan(torch.bfloat16, 64, 1, 1, da_mod.BLOCK_K).kernel == "mma"
+    n = da_mod.launches
+    out = da_mod.decode_attention(q, kc, vc, lengths, kv_bound=bound)
+    torch.cuda.synchronize()
+    assert da_mod.launches == n + 1
+    args = (q.cpu(), kc[:, :bound].cpu(), vc[:, :bound].cpu())
+    _close(out, ref.decode_attention(*args, lengths.cpu()), torch.bfloat16)
+    short = ref.decode_attention(*args, lengths.cpu() - 1).float()
+    assert not bool(((out.float().cpu() - short).abs() <= 2e-2 * (1 + short.abs())).all())
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -919,13 +987,13 @@ def _predictor_pair(arch, dev):
     weights."""
     from repro_torch.core import NullTracer, OpenRequest, make_predictor
     from repro_torch.core.platform import builtin_manifests
-    from repro_torch.models.lm import DecoderLM
+    from repro_torch.models.lm import build_model
 
     manifest = next(m for m in builtin_manifests(reduced=True) if m.name == arch)
     pred = make_predictor("torch")
     card, cpu = (pred.open(OpenRequest(manifest=manifest, device=str(d)), NullTracer())
                  for d in (dev, "cpu"))
-    card.state["model"] = DecoderLM(card.state["cfg"], device=dev, dtype=torch.float32)
+    card.state["model"] = build_model(card.state["cfg"], device=dev, dtype=torch.float32)
     card.state["params"] = _to(cpu.state["params"], dev)
     return pred, (card, cpu)
 
@@ -939,7 +1007,7 @@ def _to(tree, dev):
 
 
 @pytest.mark.parametrize("arch", ["glm4-9b", "gemma2-27b", "chameleon-34b", "granite-20b",
-                                  "deepseek-67b", "mamba2-130m"])
+                                  "deepseek-67b", "mamba2-130m", "whisper-large-v3"])
 def test_predictor_card_vs_cpu(cuda, arch):
     """Reduced float32 logits on the card within 1e-4 + 1e-4 |cpu| of the
     CPU's (the CUDA-core float32 kernels against the plain versions), the
@@ -959,7 +1027,10 @@ def test_predictor_card_vs_cpu(cuda, arch):
 @pytest.mark.parametrize("arch,per_pass", [("glm4-9b", {"flash_attention": 3, "rmsnorm": 7}),
                                            ("gemma2-27b", {"flash_attention": 4, "rmsnorm": 17}),
                                            ("chameleon-34b", {"flash_attention": 3, "rmsnorm": 13}),
-                                           ("mamba2-130m", {"ssd": 3, "rmsnorm": 7})])
+                                           ("mamba2-130m", {"ssd": 3, "rmsnorm": 7}),
+                                           # 2 encoder + 2 decoder self + 2 cross; 5 + 7 norms
+                                           ("whisper-large-v3",
+                                            {"flash_attention": 6, "rmsnorm": 12})])
 def test_system_level_counts_the_kernels(cuda, arch, per_pass):
     """A SYSTEM evaluation on the card emits one ``system:cuda`` event per
     predict, whose launches add up to the counters' change, one pass's worth

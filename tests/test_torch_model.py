@@ -15,10 +15,12 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.configs import list_archs as jax_list_archs
 from repro.models import build_model
 from repro.models import modules as jmod
 from repro_torch.configs import get_config, list_archs
-from repro_torch.models import DecoderLM, from_jax
+from repro_torch.models import DecoderLM, EncDecLM, from_jax
+from repro_torch.models import build_model as torch_build_model
 from repro_torch.models import modules as tmod
 
 PS = 4
@@ -46,14 +48,17 @@ def models():
 def test_config_copy_matches():
     assert list_archs() == ["zamba2-2.7b", "qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b",
                             "deepseek-67b", "granite-20b", "glm4-9b", "gemma2-27b",
-                            "chameleon-34b", "mamba2-130m"]
+                            "chameleon-34b", "mamba2-130m", "whisper-large-v3"]
     for arch in list_archs():
         for reduced in (False, True):
             port, ref = get_config(arch, reduced=reduced), jax_get_config(arch, reduced=reduced)
             assert dataclasses.asdict(port) == dataclasses.asdict(ref)
             assert port.param_count() == ref.param_count()
+    # every architecture of the reference is ported (ResNet-50 is no
+    # ArchConfig: the predictor refuses it)
+    assert list_archs() == jax_list_archs()
     with pytest.raises(ValueError, match="not ported"):
-        get_config("whisper-large-v3")
+        get_config("resnet50")
     # the hybrid family's config is the reference's, and the model builds
     zamba = get_config("zamba2-2.7b")
     assert dataclasses.asdict(zamba) == dataclasses.asdict(jax_get_config("zamba2-2.7b"))
@@ -228,11 +233,13 @@ def test_prefill_packed_then_decode_paged_matches_jax(models):
 
 
 def test_unported_configs_raise():
-    """The family still unported (enc-dec) raises; every dense option of
-    the zoo, the MoE family and the hybrid family are accepted."""
+    """DecoderLM refuses the enc-dec family, which ``build_model`` gives its
+    own ``EncDecLM``; every dense option of the zoo, the MoE family and the
+    hybrid family are accepted."""
     cfg = jax_get_config("whisper-large-v3", reduced=True)
     with pytest.raises(NotImplementedError, match=f"family {cfg.family}"):
         DecoderLM(cfg, device="cpu")
+    assert isinstance(torch_build_model(cfg, device="cpu"), EncDecLM)
     zamba = DecoderLM(jax_get_config("zamba2-2.7b", reduced=True), device="cpu")
     assert zamba.cfg.family == "hybrid" and zamba.stateful and "shared" in zamba.param_defs()
     for arch in ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b"):

@@ -42,12 +42,13 @@ from repro_torch.core import (
 )
 from repro_torch.core import client
 from repro_torch.core.platform import LocalPlatform, builtin_manifests
-from repro_torch.models import DecoderLM, from_jax
+from repro_torch.models import build_model, from_jax
 
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 # the port's architectures, in the reference's order
 ARCHS = ("zamba2-2.7b", "qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b", "deepseek-67b",
-         "granite-20b", "glm4-9b", "gemma2-27b", "chameleon-34b", "mamba2-130m")
+         "granite-20b", "glm4-9b", "gemma2-27b", "chameleon-34b", "mamba2-130m",
+         "whisper-large-v3")
 
 
 @pytest.fixture(scope="module")
@@ -191,7 +192,7 @@ def test_resnet_is_not_ported():
     from repro_torch.core.manifest import ModelManifest
 
     port_manifest = ModelManifest.from_dict(manifest.to_dict())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         make_predictor("torch").open(OpenRequest(manifest=port_manifest, device="cpu"),
                                      NullTracer())
 
@@ -235,9 +236,15 @@ def test_framework_spans_are_named_as_the_reference_names_them(arch):
         E = cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
         shared = lambda l: ([f"layer_{l // E:03d}_shared_attn"] if E and l % E == E - 1
                             else [])
-        assert layers == 2 * (["embed"] + [n for l in range(cfg.num_layers)
-                                           for n in [f"layer_{l:03d}_{kind(l)}{suffix(l)}"]
-                                           + shared(l)] + ["logits"])
+        if cfg.family == "encdec":      # whisper: the encoder's layers, then the decoder's
+            want = (["enc_embed"] + [f"enc_layer_{l:03d}" for l in range(cfg.encoder_layers)]
+                    + ["enc_norm", "dec_embed"]
+                    + [f"dec_layer_{l:03d}" for l in range(cfg.num_layers)] + ["logits"])
+        else:
+            want = (["embed"] + [n for l in range(cfg.num_layers)
+                                 for n in [f"layer_{l:03d}_{kind(l)}{suffix(l)}"] + shared(l)]
+                    + ["logits"])
+        assert layers == 2 * want
         assert sorted(set(_span_names(got_spans, TraceLevel.MODEL))) == \
             sorted(set(_span_names(want_spans, TraceLevel.MODEL)))
     finally:
@@ -254,9 +261,14 @@ def test_system_level_on_the_cpu_has_no_cuda_event(platform):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_instrumented_equals_forward(arch):
-    model = DecoderLM(get_config(arch, reduced=True), device="cpu")
+    model = build_model(get_config(arch, reduced=True), device="cpu")
     params = model.init(seed=1)
-    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (2, 11)).astype(np.int32))
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, 256, (2, 11)).astype(np.int32))}
+    cfg = model.cfg
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(
+            rng.normal(size=(2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
     seen = []
 
     def hook(name, thunk):
@@ -264,14 +276,18 @@ def test_forward_instrumented_equals_forward(arch):
         return thunk()
 
     with torch.inference_mode():
-        want = model.forward(params, {"tokens": tokens})[0]
-        got = model.forward_instrumented(params, {"tokens": tokens}, hook)
+        want = model.forward(params, batch)[0]
+        got = model.forward_instrumented(params, batch, hook)
     assert torch.equal(got, want) and got.dtype == torch.float32
-    # a hybrid model adds its shared block after each group
-    cfg = model.cfg
+    # a hybrid model adds its shared block after each group; an enc-dec
+    # model runs its encoder's layers and norm and the decoder's embedding
     groups = cfg.num_layers // cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
-    assert seen[0] == "embed" and seen[-1] == "logits" and \
-        len(seen) == cfg.num_layers + groups + 2
+    if cfg.family == "encdec":
+        assert seen[0] == "enc_embed" and seen[-1] == "logits" and \
+            len(seen) == cfg.encoder_layers + cfg.num_layers + 4
+    else:
+        assert seen[0] == "embed" and seen[-1] == "logits" and \
+            len(seen) == cfg.num_layers + groups + 2
 
 
 # ---------------------------------------------------------------------------
