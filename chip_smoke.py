@@ -144,7 +144,13 @@ Phases, each printing its own lines and wall time, each ending in
    (``encdec_check_phase``): reduced whisper-large-v3 at ``encoder_seq``
    16 and 20 (a cross cache padded to 32 slots) over random frames:
    ``generate`` tokens equal the CPU's on a ragged and a uniform batch,
-   ``forward`` logits within 1e-4 + 1e-4 |cpu|;
+   ``forward`` logits within 1e-4 + 1e-4 |cpu|.  The paper's ResNet-50
+   (``resnet_check_phase``; cuDNN's convolutions, no hand-written kernel,
+   TF32 off), reduced and full at batch 2 from the same float32 weights
+   (the folded norms' scales and biases random): f32 logits on the card
+   within 1e-4 of the CPU's largest, bf16 on the card within 5e-2 of f32
+   on the card, and the model with PyTorch's symmetric ``padding=`` must
+   fail the f32 limit (JAX's "SAME" pads the odd row at the end);
 4. serve: full-width, full-depth glm4-9b (40 layers, random bf16 weights
    from a seeded CUDA generator) through ``ServingEngine.serve_paged``;
    every request must complete and every kernel must have been launched
@@ -246,9 +252,10 @@ Phases, each printing its own lines and wall time, each ending in
    (``NotImplementedError``, no launch);
 6. platform: the evaluation platform of ``repro_torch.core`` (server,
    agent, scenario, scheduler, the torch predictor).  Every reduced
-   architecture through the predictor on the CPU and on the card (its
-   handle holding the float32 model with the CPU's weights): logits within 1e-4 + 1e-4 |cpu|, the same
-   last-position argmax, FRAMEWORK logits bit-equal to MODEL.  Then
+   model (ResNet-50 on images) through the predictor on the CPU and on the
+   card (its handle holding the float32 model with the CPU's weights):
+   logits within 1e-4 + 1e-4 |cpu|, the same (last-position) argmax,
+   FRAMEWORK logits bit-equal to MODEL.  Then
    ``LocalPlatform(backends=("torch",), reduced_models=False)`` evaluates
    full-width glm4-9b (online, batched 1/2/4/8, server at 20 Hz with a
    250 ms SLO, offline, online at FRAMEWORK and at SYSTEM) and mamba2-130m
@@ -268,7 +275,15 @@ Phases, each printing its own lines and wall time, each ending in
    gemma2's layers, ``layer_{g:03d}_shared_attn`` after zamba2's groups,
    whisper's ``enc_layer_{l:03d}`` and ``dec_layer_{l:03d}``);
    the evaldb must
-   hold one record per evaluation; the report is printed;
+   hold one record per evaluation; the report is printed.  Full ResNet-50
+   (bf16, 224-pixel images through the manifest's decode/resize/normalize
+   pipeline): online, batched at 1/8/32, and online and batched at
+   SYSTEM, with no hand-written kernel launched (``PER_PASS`` empty); at
+   each batch the median device ms of a predict (``system:cuda``), the
+   platform's images/s and the forward's share of 989 TFLOP/s at 2 x its
+   MACs (4.09 G an image).  Then the serve driver on reduced glm4-9b with
+   ``--evaldb``: its one record must carry backend ``torch`` and the
+   engine knobs;
 7. one JSON line of kernel records, then the final line
    ``{"ok": true, "device": {...}}``.
 
@@ -3441,6 +3456,97 @@ def first_token_check(torch, dev, model, params, reqs, chunked, pairs):
                          "than twice the bf16 error: not rounding")
 
 
+# the paper's ResNet-50: plain torch (cuDNN's convolutions), no hand-written
+# kernel
+RESNET = "resnet50"
+# f32 logits, card vs CPU: |card - cpu| <= RESNET_F32_TOL * max |cpu| (the
+# CPU tests hold the port to JAX's logits within the same share)
+RESNET_F32_TOL = 1e-4
+# bf16 vs f32 on the card: ~53 layers each rounding its activations to bf16
+# (2**-9), random weights: a few 2**-9 after accumulation, within 5e-2 of the
+# largest logit
+RESNET_BF16_TOL = 5e-2
+RESNET_CHECK_BATCH = 2
+RESNET_BATCHES = [1, 8, 32]
+
+
+def _resnet_weights(torch, cfg, seed):
+    """Seeded float32 ResNet weights on the CPU with every folded norm's
+    scale and bias drawn at random (ones and zeros would hide a norm
+    applied over the wrong axis)."""
+    from repro_torch.models import ResNet
+
+    params = ResNet(cfg, device="cpu", dtype=torch.float32).init(seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+
+    def perturb(node):
+        if "scale" in node and "bias" in node:
+            c = node["scale"].shape
+            node["scale"] = 1.0 + 0.2 * torch.randn(c, generator=gen)
+            node["bias"] = 0.1 * torch.randn(c, generator=gen)
+        for v in node.values():
+            if isinstance(v, dict):
+                perturb(v)
+
+    perturb(params)
+    return params
+
+
+def resnet_check_phase(torch, dev):
+    """ResNet-50, reduced and full, from the same float32 weights and
+    images (batch RESNET_CHECK_BATCH): (1) reduced f32 on the card against
+    the CPU and (2) full f32 likewise, within RESNET_F32_TOL of the largest
+    CPU logit (cuDNN's TF32 is off); (3) bf16 on the card against f32 on
+    the card within RESNET_BF16_TOL; (4) the same model with PyTorch's
+    symmetric ``padding=`` on the card must fail the f32 limit: JAX's
+    "SAME" pads the odd row at the end, and the check sees the
+    difference."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import ResNet, ResNetConfig
+
+    class SymmetricPad(ResNet):
+        @staticmethod
+        def _conv(x, w, stride=1):
+            return F.conv2d(x, w, stride=stride, padding=w.shape[-1] // 2)
+
+        @staticmethod
+        def _max_pool(x):
+            return F.max_pool2d(x, 3, 2, padding=1)
+
+    def rel(got, want):
+        got, want = got.float().cpu(), want.float().cpu()
+        return float((got - want).abs().max() / want.abs().max()), \
+            bool(torch.isfinite(got).all())
+
+    for cfg in (ResNetConfig().reduced(), ResNetConfig()):
+        params = _resnet_weights(torch, cfg, SEED)
+        gen = torch.Generator().manual_seed(SEED + 2)
+        images = torch.randn((RESNET_CHECK_BATCH, cfg.img_size, cfg.img_size, 3), generator=gen)
+        card = _to_device(params, dev)
+        with torch.inference_mode():
+            cpu = ResNet(cfg, device="cpu", dtype=torch.float32).forward(params, images)
+            f32 = ResNet(cfg, device=dev, dtype=torch.float32).forward(card, images)
+            bf16 = ResNet(cfg, device=dev, dtype=torch.bfloat16).forward(
+                _tree_map(card, lambda t: t.to(torch.bfloat16)), images)
+            sym = SymmetricPad(cfg, device=dev, dtype=torch.float32).forward(card, images)
+        (e_f32, fin_f32), (e_bf16, fin_bf16), (e_sym, _) = \
+            rel(f32, cpu), rel(bf16, f32), rel(sym, cpu)
+        print(f"   {cfg.name} ({'/'.join(map(str, cfg.stage_sizes))} blocks, width "
+              f"{cfg.width}, {cfg.img_size} px), logits {tuple(cpu.shape)}, max |cpu| "
+              f"{float(cpu.abs().max()):.4g}: f32 max |cuda - cpu| / max |cpu| {e_f32:.3e} "
+              f"(<= {RESNET_F32_TOL}, finite: {fin_f32}); bf16 vs f32 on the card {e_bf16:.3e} "
+              f"(<= {RESNET_BF16_TOL}, finite: {fin_bf16}); symmetric padding= {e_sym:.3e}, "
+              f"rejected by the f32 limit: {e_sym > RESNET_F32_TOL}")
+        if not (fin_f32 and e_f32 <= RESNET_F32_TOL):
+            raise SystemExit(f"{cfg.name}: f32 logits on the card differ from the CPU's")
+        if not (fin_bf16 and e_bf16 <= RESNET_BF16_TOL):
+            raise SystemExit(f"{cfg.name}: bf16 logits differ from f32 past the limit")
+        if e_sym <= RESNET_F32_TOL:
+            raise SystemExit(f"{cfg.name}: the f32 limit does not tell symmetric padding "
+                             f"from JAX's SAME")
+
+
 # platform phase: the evaluation platform (client -> server -> agent ->
 # scenario -> scheduler -> torch predictor) at published width
 PLATFORM_SEQ = 128
@@ -3453,7 +3559,9 @@ PER_PASS = {"glm4-9b": {"flash_attention": 40, "rmsnorm": 81},
             "qwen3-moe-30b-a3b": {"flash_attention": 48, "rmsnorm": 193},
             "zamba2-2.7b": {"flash_attention": 9, "ssd": 54, "rmsnorm": 127},
             # 32 encoder + 32 decoder self + 32 cross; encoder 65 + decoder 97
-            "whisper-large-v3": {"flash_attention": 96, "rmsnorm": 162}}
+            "whisper-large-v3": {"flash_attention": 96, "rmsnorm": 162},
+            # cuDNN's convolutions: any hand-written kernel launched fails
+            RESNET: {}}
 PLATFORM_TOL = 1e-4             # reduced f32 logits, card vs CPU: 1e-4 + 1e-4 |cpu|
 # every batch the evaluations can form: batched's 1/2/4/8, the server's up
 # to 4 and offline's up to 8 coalesced requests
@@ -3485,7 +3593,8 @@ def platform_kernels_phase(torch, dev):
     gen.manual_seed(SEED + 4)
     randn = lambda *shape: torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
     uniform = lambda shape, lo, hi: torch.rand(shape, generator=gen, device=dev) * (hi - lo) + lo
-    archs = [get_config(a) for a in dict.fromkeys(arch for _, arch, *_ in _evaluations())]
+    archs = [get_config(a) for a in dict.fromkeys(arch for _, arch, *_ in _evaluations())
+             if a != RESNET]
     dense = [c for c in archs if c.family in ("dense", "moe", "hybrid")]
     scans = [c for c in archs if c.family in ("ssm", "hybrid")]
     encdec = [c for c in archs if c.family == "encdec"]
@@ -3558,6 +3667,7 @@ def _evaluations():
     online = dict(kind="online", num_requests=4, warmup=1)
     offline = (dict(kind="offline", num_requests=16, warmup=1),
                dict(max_batch=8, batch_timeout_ms=0.0))
+    resnet_batched = dict(kind="batched", num_requests=4, batch_sizes=RESNET_BATCHES, warmup=1)
     return [
         ("online", "glm4-9b", "MODEL", online, None),
         ("batched", "glm4-9b", "MODEL",
@@ -3580,41 +3690,56 @@ def _evaluations():
         ("online", "whisper-large-v3", "MODEL", online, None),
         ("online FRAMEWORK", "whisper-large-v3", "FRAMEWORK", dict(online, num_requests=2),
          None),
+        ("online", RESNET, "MODEL", online, None),
+        ("batched", RESNET, "MODEL", resnet_batched, None),
+        ("online SYSTEM", RESNET, "SYSTEM", dict(online, num_requests=2), None),
+        # the device ms of each batch's predicts (the profiler would slow the
+        # batched run whose images/s are read)
+        ("batched SYSTEM", RESNET, "SYSTEM", resnet_batched, None),
     ]
 
 
 def platform_check(torch, dev):
-    """Every reduced architecture (whisper-large-v3 over zero frames, as the
-    predictor feeds it) through the torch predictor on the
-    CPU and on the card, the card's handle holding the float32 model with
-    the CPU's weights: logits within PLATFORM_TOL, the same last-position
-    argmax, and the FRAMEWORK path's logits bit-equal to the MODEL path's
-    on the card."""
+    """Every reduced model of the built-in manifests (whisper-large-v3 over
+    zero frames, as the predictor feeds it; ResNet-50 on 32-pixel images)
+    through the torch predictor on the CPU and on the card, the card's
+    handle holding the float32 model with the CPU's weights: logits within
+    PLATFORM_TOL, the same (last-position) argmax, and the FRAMEWORK
+    path's logits bit-equal to the MODEL path's on the card."""
     import numpy as np
 
     from repro_torch.core import NullTracer, OpenRequest, Tracer, TraceLevel, TracingServer
     from repro_torch.core import make_predictor
     from repro_torch.core.platform import builtin_manifests
+    from repro_torch.models import ResNet
     from repro_torch.models.lm import build_model
 
     pred = make_predictor("torch")
-    tokens = np.random.default_rng(SEED).integers(0, 256, (4, 96)).astype(np.int32)
+    rng = np.random.default_rng(SEED)
+    tokens = rng.integers(0, 256, (4, 96)).astype(np.int32)
     for manifest in builtin_manifests(reduced=True):
         card, cpu = (pred.open(OpenRequest(manifest=manifest, device=d), NullTracer())
                      for d in ("cuda", "cpu"))
-        card.state["model"] = build_model(card.state["cfg"], device=dev, dtype=torch.float32)
+        cfg = card.state["cfg"]
+        if card.state["kind"] == "resnet":
+            card.state["model"] = ResNet(cfg, device=dev, dtype=torch.float32)
+            batch = rng.normal(size=(4, cfg.img_size, cfg.img_size, 3)).astype(np.float32)
+            last = lambda x: x
+        else:
+            card.state["model"] = build_model(cfg, device=dev, dtype=torch.float32)
+            batch, last = tokens, lambda x: x[:, -1]
         card.state["params"] = _to_device(cpu.state["params"], dev)
-        got = pred.predict(card, tokens, NullTracer())
-        want = pred.predict(cpu, tokens, NullTracer())
+        got = pred.predict(card, batch, NullTracer())
+        want = pred.predict(cpu, batch, NullTracer())
         err = float(np.abs(got - want).max())
         ok = bool(np.isfinite(got).all()) and bool(
             (np.abs(got - want) <= PLATFORM_TOL + PLATFORM_TOL * np.abs(want)).all())
-        same_argmax = bool((got[:, -1].argmax(-1) == want[:, -1].argmax(-1)).all())
-        framework = pred.predict(card, tokens, Tracer("t", TracingServer(), TraceLevel.FRAMEWORK))
+        same_argmax = bool((last(got).argmax(-1) == last(want).argmax(-1)).all())
+        framework = pred.predict(card, batch, Tracer("t", TracingServer(), TraceLevel.FRAMEWORK))
         bits = bool(np.array_equal(framework, got))
         print(f"   reduced {manifest.name} f32, logits {tuple(got.shape)}: max |card - cpu| "
-              f"{err:.3e} (<= {PLATFORM_TOL} + {PLATFORM_TOL}|cpu|: {ok}), last-position argmax "
-              f"equal: {same_argmax}, FRAMEWORK == MODEL bits: {bits}")
+              f"{err:.3e} (<= {PLATFORM_TOL} + {PLATFORM_TOL}|cpu|: {ok}), (last-position) "
+              f"argmax equal: {same_argmax}, FRAMEWORK == MODEL bits: {bits}")
         if not (ok and same_argmax and bits):
             raise SystemExit(f"platform check: reduced {manifest.name} disagrees")
         pred.close(card)
@@ -3711,6 +3836,9 @@ def platform_phase(torch, counters):
     from repro_torch.core.platform import LocalPlatform
 
     platform = LocalPlatform(backends=("torch",), reduced_models=False)
+    # ResNet-50's device ms of each predict by batch (batched SYSTEM) and its
+    # images/s by batch (batched MODEL)
+    resnet_ms, resnet_ips = {}, {}
     try:
         evaluations = _evaluations()
         for label, arch, level, scen, sched in evaluations:
@@ -3754,14 +3882,84 @@ def platform_phase(torch, counters):
                       f"{', '.join(f'{x:.3f}' for x in ms)}; "
                       f"max_memory_allocated {max(e['max_memory_allocated'] for e in events) / 1e9:.2f} GB; "
                       f"launches agree with the counters")
+                if arch == RESNET and scen["kind"] == "batched":
+                    # the events (begin 0) in predict order beside the
+                    # inference spans in predict order
+                    batches = [s["tags"]["batch"] for s in spans if s["name"] == "inference"]
+                    for b, x in zip(batches, ms):
+                        resnet_ms.setdefault(b, []).append(x)
+            elif arch == RESNET and scen["kind"] == "batched":
+                resnet_ips = {int(b): v["throughput_ips"]
+                              for b, v in res["metrics"]["per_batch"].items()}
         records = platform.evaldb.query()
         if len(records) != len(evaluations):
             raise SystemExit(f"evaldb holds {len(records)} records for {len(evaluations)} "
                              f"evaluations")
         print(f"   evaldb: {len(records)} records, one per evaluation")
+        _print_resnet(resnet_ms, resnet_ips)
         print(platform.report(model="glm4-9b"))
     finally:
         platform.shutdown()
+
+
+def _print_resnet(device_ms, ips):
+    """Full ResNet-50 (bf16) at each batch of RESNET_BATCHES: the median
+    device ms of a predict (``system:cuda``), the platform's images/s, and
+    the share of the bf16 peak that the forward reaches at 2 x its MACs."""
+    import statistics
+
+    from repro_torch.models import ResNet, ResNetConfig
+
+    model = ResNet(ResNetConfig(), device="cpu")
+    if sorted(device_ms) != RESNET_BATCHES or sorted(ips) != RESNET_BATCHES:
+        raise SystemExit(f"platform {RESNET}: batches {sorted(device_ms)} (SYSTEM) and "
+                         f"{sorted(ips)} (MODEL), expected {RESNET_BATCHES}")
+    for b in RESNET_BATCHES:
+        ms = statistics.median(device_ms[b])
+        flops = 2 * model.macs(b)
+        tflops = flops / ms / 1e9
+        print(f"   {RESNET} bf16 at batch {b}: device ms per predict {ms:.4f} (median of "
+              f"{len(device_ms[b])} system:cuda events), {b / ms * 1e3:.1f} images/s of "
+              f"device time; platform {ips[b]:.1f} images/s (batched, MODEL); forward "
+              f"{tflops:.2f} TFLOP/s at 2 x {model.macs(1) / 1e9:.3f} GMAC an image: "
+              f"{tflops * 1e12 / BF16_FLOPS_PER_S:.4f} of {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s")
+
+
+def serve_record_check():
+    """The port's serve driver on reduced glm4-9b on the card with
+    ``--evaldb``: one record, backend ``torch``, its engine knobs beside the
+    summary.  The driver's report is kept out of this script's output but
+    for its knobs header."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.core.evaldb import EvalDB
+    from repro_torch.launch import serve
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = str(Path(tmp) / "serve.sqlite")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = serve.main(["--requests", "4", "--prompt-len", "32", "--max-new-tokens", "4",
+                             "--evaldb", path])
+        db = EvalDB(path)
+        try:
+            records = db.query()
+        finally:
+            db.close()
+    if rc != 0 or len(records) != 1:
+        raise SystemExit(f"serve driver --evaldb: exit {rc}, {len(records)} records")
+    (rec,) = records
+    knobs = rec.metrics.get("engine_knobs")
+    print("   " + next(l for l in out.getvalue().splitlines() if l.startswith("[serve] engine=")))
+    print(f"   serve driver --evaldb: record {rec.model} backend {rec.backend} scenario "
+          f"{rec.scenario} agent {rec.agent_id}, engine_knobs {knobs}, "
+          f"{len(rec.metrics) - 1} summary metrics")
+    if rec.backend != "torch" or not knobs or knobs.get("engine") != "paged":
+        raise SystemExit("serve driver --evaldb: the record lacks its engine knobs or backend")
 
 
 def main() -> int:
@@ -3830,7 +4028,8 @@ def main() -> int:
     _done(torch, "2. kernels", t0)
 
     t0 = _phase("3. check: reduced glm4-9b, mamba2-130m, the rest of the dense family, the "
-                "MoE family, the hybrid family and the enc-dec family, card vs CPU reference")
+                "MoE family, the hybrid family, the enc-dec family and ResNet-50, card vs CPU "
+                "reference")
     check_phase(torch, dev)
     paged_paths_check(torch, dev)
     dense_check_phase(torch, dev)
@@ -3847,6 +4046,9 @@ def main() -> int:
     print(f"   -- the enc-dec family ({ENCDEC_ARCH}) at encoder_seq "
           f"{' and '.join(map(str, REDUCED_ENCODER_SEQS))}")
     encdec_check_phase(torch, dev)
+    print(f"   -- {RESNET}, reduced and full, f32 card vs CPU, bf16 vs f32, and the padding "
+          f"trap")
+    resnet_check_phase(torch, dev)
     _done(torch, "3. check", t0)
 
     t0 = _phase("4. serve: glm4-9b and mamba2-130m, full width and depth, random bf16 weights")
@@ -3899,6 +4101,8 @@ def main() -> int:
     t0 = _phase("6. platform: client -> server -> agent -> scenario -> torch predictor")
     platform_check(torch, dev)
     platform_phase(torch, counters)
+    print("   -- the serve driver's evaluation record")
+    serve_record_check()
     _done(torch, "6. platform", t0)
 
     sources = {

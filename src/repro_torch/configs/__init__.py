@@ -1,8 +1,8 @@
-"""Architecture configs the port supports so far (copies of ``repro.configs``).
+"""Architecture configs of the port (copies of ``repro.configs``).
 
 Each ``<id>.py`` exports ``CONFIG`` (the published configuration) and
-``REDUCED`` (a same-family small config for CPU tests).  Ported so far,
-in the reference's order: the hybrid ``zamba2-2.7b`` (Mamba-2 layers with
+``REDUCED`` (a same-family small config for CPU tests), in the
+reference's order: the hybrid ``zamba2-2.7b`` (Mamba-2 layers with
 one shared attention block after every sixth, its attention on a ring
 cache past 64k tokens), the MoE decoders ``qwen3-moe-30b-a3b`` (128
 experts, top 8, QK-norm) and ``llama4-maverick-400b-a17b`` (dense and MoE
@@ -12,7 +12,9 @@ windows, softcaps, post-norms, scaled embeddings) and ``chameleon-34b``
 (QK-norm), the attention-free SSM ``mamba2-130m``, and the
 encoder-decoder ``whisper-large-v3`` (32 encoder and 32 decoder layers over
 1500 precomputed audio frames; its audio front end is a stub, as in the
-reference).  The paper's ResNet-50 is not ported yet.
+reference).  That is every ``ArchConfig`` of the reference.  The paper's
+ResNet-50 is no ``ArchConfig`` in either package: its config is
+``repro_torch.models.resnet.ResNetConfig``.
 """
 from __future__ import annotations
 
@@ -39,9 +41,7 @@ _ALIASES = {
 def get_config(arch: str, reduced: bool = False) -> ArchConfig:
     mod_name = _ALIASES.get(arch, arch.replace("-", "_").replace(".", "p"))
     if mod_name not in _ALIASES.values():
-        raise ValueError(
-            f"architecture {arch!r} is not ported yet; available: {list_archs()}"
-        )
+        raise ValueError(f"unknown architecture {arch!r}; available: {list_archs()}")
     mod = import_module(f".{mod_name}", __package__)
     return mod.REDUCED if reduced else mod.CONFIG
 

@@ -5,11 +5,12 @@ deployment: one server, N agents (one per backend/"stack"), shared
 middleware (registry, tracing server, evaluation DB).  The built-in model
 manifests are registered at agent initialization, mirroring workflow step 0.
 
-The port's copy of ``repro.core.platform``: its manifests cover the port's
-architectures (``repro_torch.configs.list_archs``) with the reference's
-names, versions, IO specs and attributes; its agents run the ``torch``
-backend on one device, ``cuda`` unless the caller asks for the CPU.  The
-port keeps its own copy so that it never imports ``repro``.
+The port's copy of ``repro.core.platform``: its manifests are the
+reference's, entry for entry (the architectures of
+``repro_torch.configs.list_archs``, then ResNet-50 with its image
+pipeline); its agents run the ``torch`` backend on one device, ``cuda``
+unless the caller asks for the CPU.  The port keeps its own copy so that
+it never imports ``repro``.
 """
 from __future__ import annotations
 
@@ -17,17 +18,15 @@ from typing import Dict, Iterable, List, Optional
 
 from .agent import Agent, EvaluationRequest
 from .evaldb import EvalDB
-from .manifest import IOSpec, ModelManifest
+from .manifest import IOSpec, ModelManifest, ProcessingStep
 from .registry import Registry
 from .server import Server
 from .tracing import TracingServer
 
 
 def builtin_manifests(reduced: bool = True) -> List[ModelManifest]:
-    """Model manifests for the port's architectures, every one of
-    ``list_archs()`` (whisper-large-v3's enc-dec among them), as the
-    reference writes them; the reference's ResNet-50 manifest is left out
-    until ResNet-50 is ported."""
+    """Model manifests for the architecture zoo (+ the paper's ResNet-50),
+    as the reference writes them."""
     from ..configs import get_config, list_archs
 
     manifests = []
@@ -51,6 +50,40 @@ def builtin_manifests(reduced: bool = True) -> List[ModelManifest]:
                 },
             )
         )
+    manifests.append(
+        ModelManifest(
+            name="resnet50",
+            version="1.5.0",
+            description="ResNet-50 v1.5 (MLPerf reference; the paper's workload)",
+            arch="resnet50",
+            reduced=reduced,
+            inputs=[
+                IOSpec(
+                    type="image",
+                    element_type="float32",
+                    steps=[
+                        ProcessingStep("decode", {"element_type": "float32"}),
+                        ProcessingStep(
+                            "resize", {"dimensions": [3, 32 if reduced else 224, 32 if reduced else 224]}
+                        ),
+                        ProcessingStep(
+                            "normalize",
+                            {"mean": [123.68, 116.78, 103.94], "rescale": 255.0},
+                        ),
+                    ],
+                )
+            ],
+            outputs=[
+                IOSpec(
+                    type="probability",
+                    element_type="float32",
+                    steps=[ProcessingStep("argsort", {"k": 5})],
+                )
+            ],
+            model_assets={"seed": 0},
+            attributes={"family": "vision"},
+        )
+    )
     return manifests
 
 

@@ -45,6 +45,11 @@ weights alone exceed the card's memory: ``deepseek-67b`` (125.6 GiB in
 bf16) and ``llama4-maverick-400b-a17b`` (740.8 GiB) run reduced only on
 one 80 GB card; the others fit at full width (``qwen3-moe-30b-a3b``:
 56.9 GiB).
+Every run prints the reference's knobs header (``[serve] engine=paged
+kv_dtype=... page_size=... spec_k=... prefix_cache=... tp=1``); with
+``--evaldb PATH`` its summary and those knobs land in that evaluation
+database as one record (backend ``torch``, scenario ``serve-<engine>``),
+which either package's ``EvalDB`` reads.
 Prompts are random tokens with lengths drawn uniformly from
 ``[--prompt-len-min, --prompt-len]`` (with ``--tenants``, each tenant's
 ``prompt`` length; with ``--prefix-len``, ``--prompt-len`` tokens).
@@ -70,6 +75,8 @@ from ..core.analysis import (
     slo_section,
     spec_decode_section,
 )
+from ..core.evaldb import EvalDB, EvaluationRecord
+from ..core.manifest import EngineKnobs
 from ..core.tracing import Tracer, TracingServer
 from ..core.workload import (
     MultiTenantLoad, PoissonLoad, Request, SharedPrefixLoad, shared_prefix_prompts,
@@ -476,6 +483,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--kv-dtype", default=None, choices=sorted(KV_DTYPES),
                     help="store the KV pool as int8/fp8 codes with float32 per-row "
                          "scales (default: the pool in --dtype)")
+    ap.add_argument("--evaldb", default="",
+                    help="insert the run's summary and engine knobs as one evaluation "
+                         "record into this sqlite file (default: none)")
     args = ap.parse_args(argv)
     lo = args.prompt_len_min or args.prompt_len
     if not 1 <= lo <= args.prompt_len:
@@ -520,6 +530,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     engine = ServingEngine(model, params, max_batch=args.engine_batch,
                            max_seq=args.max_seq, page_size=args.page_size,
                            device=device, kv_dtype=args.kv_dtype)
+    # the engine knobs this run serves under, as the reference's header and
+    # evaldb record give them (tensor parallelism and fleet recovery are not
+    # ported: tp 1, replay, no checkpoints)
+    knobs = EngineKnobs(
+        engine=args.engine,
+        kv_dtype=engine._kv_dtype_name(),
+        page_size=args.page_size if args.engine == "paged" else 0,
+        spec_k=args.spec_k if args.engine == "paged" else 0,
+        prefix_cache=args.engine == "paged" and args.prefix_cache == "on",
+    )
+    print(f"[serve] {knobs.describe()}")
     reqs = workload_requests(args, cfg.vocab_size)
     paged = args.engine == "paged"
     print(f"[serve] {cfg.name} on {device} ({model.dtype}), engine {args.engine}, "
@@ -534,6 +555,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         summary["moe"] = moe_summary(cfg)
     for k, v in summary.items():
         print(f"[serve]   {k:20s} {v:.2f}" if isinstance(v, float) else f"[serve]   {k:20s} {v}")
+    if args.evaldb:
+        db = EvalDB(args.evaldb)
+        try:
+            db.insert(EvaluationRecord(
+                model=cfg.name, model_version="1.0.0", backend="torch",
+                backend_version="1.0.0", system="local", scenario=f"serve-{args.engine}",
+                batch_size=args.engine_batch, trace_level="NONE", agent_id="serve-driver",
+                metrics={**summary, "engine_knobs": knobs.to_dict()},
+            ))
+        finally:
+            db.close()
     return 0
 
 

@@ -5,7 +5,8 @@ of :class:`P` leaves.  :func:`init_params` materialises the tree on the
 target device, directly in the target dtype, from an explicit
 ``torch.Generator``; :func:`from_jax` converts the pytree of
 ``repro``'s ``model.init`` (stacked ``*blocks`` subtrees) into the port's
-layout (one dict per layer), so both packages can run identical weights.
+layout (one dict per layer), so both packages can run identical weights;
+:func:`resnet_from_jax` does the same for ResNet-50's tree.
 """
 from __future__ import annotations
 
@@ -117,6 +118,27 @@ def from_jax(params: Dict[str, Any], device="cpu", dtype=torch.float32):
         if k.endswith("blocks"):
             out[k] = [layer(out[k], i) for i in range(_leading_dim(out[k]))]
     return out
+
+
+def resnet_from_jax(params: Dict[str, Any], device="cpu", dtype=torch.float32):
+    """Convert ``repro.models.resnet.ResNet``'s parameter tree into the
+    port's: every convolution weight (the 4-d leaves) from JAX's HWIO to
+    OIHW; the stage dicts ``stages[str(i)][str(b)]``, the folded norms'
+    ``scale``/``bias`` and the ``(8 * 4 * width, classes)`` head keep their
+    names and shapes."""
+
+    def conv(x) -> torch.Tensor:
+        arr = np.array(np.asarray(x), dtype=np.float32)
+        if arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device=device, dtype=dtype)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return conv(node)
+
+    return walk(params)
 
 
 def _leading_dim(node) -> int:

@@ -1063,6 +1063,38 @@ def test_system_level_counts_the_kernels(cuda, arch, per_pass):
     assert summed == delta
 
 
+def test_resnet_predictor_card_vs_cpu(cuda):
+    """The reduced ResNet-50 in float32 (cuDNN, TF32 off) on the card within
+    1e-4 of the CPU's largest logit; a SYSTEM evaluation on the card (bf16)
+    launches no hand-written kernel and records device time."""
+    from repro_torch.core import (EvaluationRequest, NullTracer, OpenRequest, ScenarioSpec,
+                                  make_predictor)
+    from repro_torch.core.platform import LocalPlatform, builtin_manifests
+    from repro_torch.models import ResNet
+
+    torch.backends.cudnn.allow_tf32 = False
+    manifest = next(m for m in builtin_manifests(reduced=True) if m.name == "resnet50")
+    pred = make_predictor("torch")
+    card, cpu = (pred.open(OpenRequest(manifest=manifest, device=str(d)), NullTracer())
+                 for d in (cuda, "cpu"))
+    card.state["model"] = ResNet(card.state["cfg"], device=cuda, dtype=torch.float32)
+    card.state["params"] = _to(cpu.state["params"], cuda)
+    images = np.random.default_rng(6).normal(size=(3, 32, 32, 3)).astype(np.float32)
+    got, want = pred.predict(card, images, NullTracer()), pred.predict(cpu, images, NullTracer())
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    p = LocalPlatform(backends=("torch",), device="cuda")
+    try:
+        res = p.evaluate(EvaluationRequest(
+            model="resnet50", scenario=ScenarioSpec(kind="online", num_requests=2,
+                                                    rate_hz=1000.0, warmup=1),
+            trace_level="SYSTEM"))[0]
+        spans = p.evaldb.spans(res["eval_id"])
+    finally:
+        p.shutdown()
+    events = [s["tags"] for s in spans if s["name"] == "system:cuda"]
+    assert len(events) == 3 and all(e["launches"] == {} and e["device_ms"] > 0 for e in events)
+
+
 # ---------------------------------------------------------------------------
 # the rest of the dense family's head layouts: granite-20b's 48 query heads
 # on 1 kv head, chameleon-34b's 64 on 8, gemma2-27b's 32 on 16 with its

@@ -25,6 +25,16 @@ def _modules():
     return mods
 
 
+def test_the_import_check_covers_every_entry_point():
+    """The module list walks the package: the models, the drivers and the
+    out-of-process agent are all imported by the check below."""
+    mods = _modules()
+    for m in ("repro_torch.models.resnet", "repro_torch.models.predictor",
+              "repro_torch.launch.serve", "repro_torch.launch.agent_main",
+              "repro_torch.core.client", "repro_torch.core.platform"):
+        assert m in mods, m
+
+
 def test_port_imports_no_jax_and_no_repro():
     code = (
         "import importlib, sys\n"

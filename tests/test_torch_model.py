@@ -55,9 +55,9 @@ def test_config_copy_matches():
             assert dataclasses.asdict(port) == dataclasses.asdict(ref)
             assert port.param_count() == ref.param_count()
     # every architecture of the reference is ported (ResNet-50 is no
-    # ArchConfig: the predictor refuses it)
+    # ArchConfig in either package: its config is models.resnet's)
     assert list_archs() == jax_list_archs()
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="unknown architecture"):
         get_config("resnet50")
     # the hybrid family's config is the reference's, and the model builds
     zamba = get_config("zamba2-2.7b")

@@ -49,6 +49,8 @@ LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 ARCHS = ("zamba2-2.7b", "qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b", "deepseek-67b",
          "granite-20b", "glm4-9b", "gemma2-27b", "chameleon-34b", "mamba2-130m",
          "whisper-large-v3")
+# the built-in manifests: the architectures, then the paper's ResNet-50
+MODELS = ARCHS + ("resnet50",)
 
 
 @pytest.fixture(scope="module")
@@ -69,17 +71,18 @@ def _online(model, level="NONE", n=1, seq_len=8, backend="torch", cls=Evaluation
 # tests/test_system.py on the port
 # ---------------------------------------------------------------------------
 def test_initialization_workflow_registers_models_and_agents(platform):
-    assert sorted(m.name for m in platform.registry.manifests()) == sorted(ARCHS)
+    assert sorted(m.name for m in platform.registry.manifests()) == sorted(MODELS)
     (agent,) = platform.registry.agents()
     assert agent.backend == "torch" and agent.system["platform"] == "cpu"
-    assert sorted(agent.models) == sorted(f"{arch}:1.0.0" for arch in ARCHS)
+    assert sorted(agent.models) == sorted([f"{arch}:1.0.0" for arch in ARCHS]
+                                          + ["resnet50:1.5.0"])
 
 
 @pytest.mark.parametrize("reduced", [True, False])
 def test_builtin_manifests_equal_the_reference_entries(reduced):
     ref = {m.name: m.to_dict() for m in ref_manifests(reduced=reduced)}
     port = builtin_manifests(reduced=reduced)
-    assert [m.name for m in port] == list(ARCHS)
+    assert [m.name for m in port] == list(ref) == list(MODELS)
     for m in port:
         assert m.to_dict() == ref[m.name]
 
@@ -187,14 +190,24 @@ def test_platform_runs_on_the_card_unless_asked():
 
 
 def test_resnet_is_not_ported():
+    """The reference's ResNet-50 manifest opens on the torch predictor (the
+    test's name predates the port of ResNet-50): the reduced model, float32
+    on the CPU, its image logits from the manifest's seed."""
     manifest = ref_manifests(reduced=True)[-1]
     assert manifest.name == "resnet50"
     from repro_torch.core.manifest import ModelManifest
 
     port_manifest = ModelManifest.from_dict(manifest.to_dict())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        make_predictor("torch").open(OpenRequest(manifest=port_manifest, device="cpu"),
-                                     NullTracer())
+    pred = make_predictor("torch")
+    handle = pred.open(OpenRequest(manifest=port_manifest, device="cpu"), NullTracer())
+    assert handle.state["kind"] == "resnet" and handle.model_key == "resnet50:1.5.0"
+    cfg = handle.state["cfg"]
+    assert (cfg.stage_sizes, cfg.width, cfg.num_classes, cfg.img_size) == ((1, 1, 1, 1), 16,
+                                                                            64, 32)
+    images = np.random.default_rng(0).normal(size=(2, 32, 32, 3)).astype(np.float32)
+    logits = pred.predict(handle, images, NullTracer())
+    assert logits.shape == (2, 64) and logits.dtype == np.float32 and np.isfinite(logits).all()
+    pred.close(handle)
 
 
 def test_predictor_refuses_weights_past_the_card(monkeypatch):
