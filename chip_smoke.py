@@ -150,7 +150,16 @@ Phases, each printing its own lines and wall time, each ending in
    (the folded norms' scales and biases random): f32 logits on the card
    within 1e-4 of the CPU's largest, bf16 on the card within 5e-2 of f32
    on the card, and the model with PyTorch's symmetric ``padding=`` must
-   fail the f32 limit (JAX's "SAME" pads the odd row at the end);
+   fail the f32 limit (JAX's "SAME" pads the odd row at the end).  The
+   fault-tolerant fleet (``fleet_check``): reduced glm4-9b in float32,
+   three workers behind the ``FleetRouter``, the reference's recovery
+   matrix (crash, stall, drain with a fourth worker joining, a corrupted
+   checkpoint before a crash; ``recovery="migrate"``) at ``spec_k`` 0 and 2
+   with the prefix cache on, on a float32 and an int8 pool: every request
+   completes, the card's tokens equal the CPU's and its own fault-free
+   run's, each request's (status, worker, attempts) and the fleet's
+   counters equal the CPU's, and the corrupt runs count a checksum failure
+   and restore nothing they rejected;
 4. serve: full-width, full-depth glm4-9b (40 layers, random bf16 weights
    from a seeded CUDA generator) through ``ServingEngine.serve_paged``;
    every request must complete and every kernel must have been launched
@@ -190,6 +199,26 @@ Phases, each printing its own lines and wall time, each ending in
    same two dense engines on the same requests, two runs each: exactly
    24 ``ssd`` and 49 rmsnorm launches per prefill pass, 0 ``ssd`` and 49
    rmsnorm per decode step, and no attention kernel;
+4b. the fault-tolerant fleet at full width (``fleet_serve_phase``): phase
+   4's glm4-9b model and weights shared by two workers (each its own page
+   pool) behind the ``FleetRouter`` on the serve mix, KV checkpoints every
+   4 decode steps: fault-free; ``crash@1:8`` with migration and with
+   replay; worker 1 drained at step 8; ``corrupt@1:9,crash@1:10`` at a
+   checkpoint every 8 steps (no refresh heals the bitten snapshot);
+   ``stall@1:8:1.0`` past a 0.5 s lease on the host's clock; the crash with
+   migration on an int8 pool.  Each run counted alone: every request
+   terminal exactly once (all complete), deaths, drains and checksum
+   failures as planned, migrations in every migrate run after a fault and
+   none in the replay run, fewer recomputed prompt tokens with migration
+   than with replay, every harvested snapshot verifies (but the bitten
+   one), one snapshot imported into a fresh pool exports the same bytes,
+   ``varlen_prefill``, ``paged_attention`` and rmsnorm launch in every run
+   (exactly 40 and 81 a pass in the fault-free run, over the workers'
+   runs), the prompt-token ledger balances on every worker run that
+   returned, and snapshot bytes a token are the pool's (40960 bf16, 21120
+   int8); each run prints its token agreement with the fault-free run
+   (bf16 batches differ across workers), fleet tok/s, recovery_max_s,
+   bytes moved and the median ``ckpt:save`` and ``migrate:restore`` ms;
 5. where the time goes: device time by kernel class per prefill launch and
    per decode step, per launch of each kernel, and the device's idle
    share, from torch.profiler, for the paged engine and for a dense
@@ -3456,6 +3485,326 @@ def first_token_check(torch, dev, model, params, reqs, chunked, pairs):
                          "than twice the bf16 error: not rounding")
 
 
+# ---------------------------------------------------------------------------
+# the fault-tolerant fleet: faults and live KV migration
+# ---------------------------------------------------------------------------
+# the reference's recovery matrix (tests/test_recovery.py), recovery migrate;
+# the corrupt cell leaves a cadence gap between the bite and the crash (a
+# refresh in between would heal the snapshot)
+FLEET_MATRIX = {
+    "crash": ("crash@1:2", 1, None),
+    "stall": ("stall@1:1:0.02", 1, None),
+    "drain": ("", 0, (1, 2)),
+    "corrupt": ("corrupt@1:4,crash@1:5", 3, None),
+}
+# the counters a fleet run must share across devices
+FLEET_COUNTERS = ("deaths", "requeued", "migrated", "migrated_tokens",
+                  "recomputed_prefill_tokens", "checkpoints_saved", "checksum_failures",
+                  "drains", "bytes_moved")
+FLEET_WORKERS = 2                # phase 4b
+FLEET_CKPT = 4                   # decode steps between checkpoints (phase 4b)
+# phase 4b: (label, fault plan, FleetConfig overrides, drain (worker, step),
+# kv_dtype, planned (deaths, drains, checksum_failures)).  The stall outlasts
+# worker 1's lease on the host's real clock, so its next heartbeat renewal
+# fails.  Its workers run in parallel: in sequential rounds a worker's lease
+# lapses while the workers before it serve.  No hedging, so that the stalled
+# worker's crash (and its snapshots) reach the router before its requests
+# are dispatched again; the lease is twice the longest boundary measured
+# with checkpoints (printed per run)
+FLEET_RUNS = (
+    ("fault-free", "", {}, None, None, (0, 0, 0)),
+    ("crash@1:8, migrate", "crash@1:8", {}, None, None, (1, 0, 0)),
+    ("crash@1:8, replay", "crash@1:8", {"recovery": "replay"}, None, None, (1, 0, 0)),
+    ("drain worker 1 at step 8", "", {}, (1, 8), None, (0, 1, 0)),
+    ("corrupt@1:9 then crash@1:10, checkpoint every 8", "corrupt@1:9,crash@1:10",
+     {"checkpoint_every": 8}, None, None, (1, 0, 1)),
+    ("stall@1:8:2.0 past a 1.0 s lease, parallel workers", "stall@1:8:2.0",
+     {"lease_ttl_s": 1.0, "parallel": True, "hedge": False}, None, None, (1, 0, 0)),
+    ("crash@1:8, migrate, int8 pool", "crash@1:8", {}, None, "int8", (1, 0, 0)),
+)
+
+
+class _Recorded:
+    """A fleet worker whose ``serve_paged`` runs that return are kept (the
+    router folds only their migration counters): the launch counts and the
+    prompt-token ledger are checked on them."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.runs = []
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def serve_paged(self, reqs, **kw):
+        stats = self.engine.serve_paged(reqs, **kw)
+        self.runs.append(stats)
+        return stats
+
+
+class _Harvest(dict):
+    """The router's migration store, keeping every snapshot harvested from a
+    dead or drained worker (the store itself gives them up on restore)."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __setitem__(self, rid, snap):
+        self.seen.append(snap)
+        super().__setitem__(rid, snap)
+
+
+def _timed_hooks(router):
+    """Wrap each worker's boundary hook to keep its longest gap between two
+    boundaries of one ``serve_paged`` run (host clock), by worker."""
+    gaps = {}
+    for w in router.workers:
+        inner, last = w.hook, {}
+
+        def hook(ctx, inner=inner, i=w.index, last=last):
+            now = time.perf_counter()
+            if last.get("pool") is ctx.pool:
+                gaps[i] = max(gaps.get(i, 0.0), now - last["t"])
+            last.update(t=now, pool=ctx.pool)
+            inner(ctx)
+
+        hook.release = inner.release
+        w.hook = hook
+    return gaps
+
+
+def _fleet_run(engines, reqs, engine_kwargs, plan="", drain=None, join=None, **cfg):
+    """One fleet run, traced: (stats, spans, the harvested snapshots, the
+    longest boundary by worker)."""
+    from repro_torch.core.tracing import Tracer, TracingServer
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.serve.fleet import FleetConfig, FleetRouter
+
+    server = TracingServer()
+    router = FleetRouter(engines, FleetConfig(**cfg), engine_kwargs=engine_kwargs,
+                         fault_plan=FaultPlan.parse(plan), tracer=Tracer("fleet", server))
+    router._migrations = _Harvest()
+    gaps = _timed_hooks(router)
+    if drain:
+        router.drain(*drain)
+    if join is not None:
+        router.join(join, at_round=1)
+    stats = router.serve(reqs)
+    ids = sorted(r.request_id for r in stats.results)
+    if ids != sorted(r.request_id for r in reqs) or len(set(ids)) != len(ids):
+        raise SystemExit("fleet: a request is not terminal exactly once")
+    return stats, server.timeline("fleet"), router._migrations.seen, gaps
+
+
+def _events(spans, name):
+    return [s for s in spans if s.name == name]
+
+
+def _rejected_never_restored(label, stats, spans):
+    """A corrupt run: some checksum failed, and no request whose snapshot
+    failed was restored from it."""
+    failed = {s.tags["request"] for s in _events(spans, "migrate:checksum_fail")}
+    restored = {s.tags["request"] for s in _events(spans, "migrate:restore")}
+    if not stats.checksum_failures or not failed or failed & restored:
+        raise SystemExit(f"{label}: no checksum failure, or a rejected snapshot was restored")
+
+
+def fleet_check(torch, dev):
+    """Reduced glm4-9b in float32, one set of weights on both devices: the
+    reference's recovery matrix {crash, stall, drain (a fourth worker
+    joining), corrupt} with ``recovery="migrate"``, three workers, ``spec_k``
+    0 and 2, the prefix cache on, on a float32 and an int8 pool, on the
+    card and on the CPU.  Every request completes; the card's tokens equal
+    the CPU's and the card's own fault-free run; each request's (status,
+    worker, attempts) and the fleet's counters equal the CPU's; the corrupt
+    runs count a checksum failure and restore nothing they rejected."""
+    import numpy as np
+
+    from repro_torch.models import DecoderLM
+    from repro_torch.serve.engine import ServeRequest, ServingEngine
+
+    cfg = _reduced("glm4-9b")
+    cpu_model = DecoderLM(cfg, device="cpu", dtype=torch.float32)
+    cpu_params = cpu_model.init(seed=SEED)
+    gpu_model = DecoderLM(cfg, device=dev, dtype=torch.float32)
+    gpu_params = _to_device(cpu_params, dev)
+    rng = np.random.default_rng(SEED)
+    shared = rng.integers(0, cfg.vocab_size, (PAGE,))
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, (8,))]).astype(np.int32)
+               for _ in range(6)]
+    reqs = lambda: [ServeRequest(request_id=i, prompt=p, max_new_tokens=8)
+                    for i, p in enumerate(prompts)]
+    runs = {}
+    for kv in (None, "int8"):
+        for name, model, params in (("cpu", cpu_model, cpu_params),
+                                    ("cuda", gpu_model, gpu_params)):
+            engines = [ServingEngine(model, params, max_batch=4, max_seq=64, page_size=PAGE,
+                                     device=model.device, kv_dtype=kv) for _ in range(4)]
+            for spec_k in (0, 2):
+                kw = dict(num_slots=4, page_size=PAGE, spec_k=spec_k, prefix_cache=True)
+                runs[name, kv, spec_k, "fault-free"] = _fleet_run(engines[:3], reqs(), kw)
+                for kind, (plan, every, drain) in FLEET_MATRIX.items():
+                    runs[name, kv, spec_k, kind] = _fleet_run(
+                        engines[:3], reqs(), kw, plan, drain, engines[3] if drain else None,
+                        recovery="migrate", checkpoint_every=every)
+    bad = []
+    for (name, kv, spec_k, kind), (stats, spans, _, _) in runs.items():
+        if name == "cpu":
+            continue
+        label = f"{kv or 'f32'} pool, spec_k {spec_k}, {kind}"
+        cpu = runs["cpu", kv, spec_k, kind][0]
+        own = runs["cuda", kv, spec_k, "fault-free"][0]
+        outcome = lambda st: [(r.status, r.worker, r.attempts) for r in st.results]
+        tokens = lambda st: [r.tokens for r in st.results]
+        if not (stats.completed == len(prompts) and outcome(stats) == outcome(cpu)
+                and _agreement(tokens(cpu), tokens(stats))[2] is None
+                and _agreement(tokens(own), tokens(stats))[2] is None
+                and all(getattr(stats, f) == getattr(cpu, f) for f in FLEET_COUNTERS)):
+            bad.append(label)
+        if kind == "corrupt":
+            _rejected_never_restored(f"reduced fleet, {label}", stats, spans)
+        if kind in ("crash", "drain") and not stats.migrated:
+            bad.append(f"{label}: nothing migrated")
+    for kv in (None, "int8"):
+        line = ", ".join(
+            f"{kind} " + "/".join(str(getattr(runs["cuda", kv, 0, kind][0], f))
+                                  for f in ("deaths", "drains", "migrated", "checksum_failures"))
+            for kind in FLEET_MATRIX)
+        print(f"   reduced glm4-9b f32, fleet of 3, {kv or 'float32'} pool, spec_k 0 and 2, "
+              f"prefix cache on: (deaths/drains/migrated/checksum_failures, spec_k 0) {line}")
+    print(f"   fleet card == CPU (tokens, outcomes, counters) and == the card's fault-free run "
+          f"in {len(runs) // 2 - len(bad)} of {len(runs) // 2} runs")
+    if bad:
+        raise SystemExit(f"fleet: the card differs from the CPU or its fault-free run: {bad}")
+
+
+def _median_ms(spans, name):
+    d = sorted(s.duration * 1e3 for s in _events(spans, name))
+    return d[len(d) // 2] if d else float("nan")
+
+
+def _roundtrip_check(torch, dev, model, snap, kv):
+    """One snapshot imported into a fresh pool and exported again: the same
+    bytes, scales included."""
+    from repro_torch.kernels import ops
+
+    n = snap.num_pages
+    cache = model.init_paged_cache(2 * n + 3, PAGE, kv)
+    dst = list(range(2 * n + 2, n + 2, -1))         # fresh pages, reversed
+    scales = (snap.k_scales, snap.v_scales) if snap.k_scales is not None else (None, None)
+    ops.import_pages(cache["k_pages"], cache["v_pages"], dst, snap.k, snap.v,
+                     cache.get("k_scales"), cache.get("v_scales"), *scales)
+    again = ops.export_pages(cache["k_pages"], cache["v_pages"], dst, cache.get("k_scales"),
+                             cache.get("v_scales"))
+    raw = lambda t: t.cpu().contiguous().view(torch.uint8)
+    src = [snap.k, snap.v] + [s for s in scales if s is not None]
+    if len(again) != len(src) or not all(torch.equal(raw(a), raw(b))
+                                         for a, b in zip(again, src)):
+        raise SystemExit("fleet: a snapshot imported into a fresh pool exports other bytes")
+
+
+def fleet_serve_phase(torch, dev, counters, model, params, reqs):
+    """Full glm4-9b, bf16: FLEET_WORKERS workers sharing the model behind
+    the ``FleetRouter`` on the serve mix, checkpoints every FLEET_CKPT
+    decode steps, each run of FLEET_RUNS counted alone (launch counts zeroed
+    before it, read after).  Every request terminal exactly once; deaths,
+    drains and checksum failures as planned; migrations in the migrate runs
+    and none in the replay run, which recomputes more prompt tokens; every
+    harvested snapshot verifies (but the one the corrupt run bit); one
+    snapshot round-trips through a fresh pool byte for byte; varlen_prefill,
+    paged_attention and rmsnorm launch in every run, exactly 40 and 81 a
+    pass in the fault-free run (summed over the workers' runs); the
+    prompt-token ledger balances on every worker run that returned.
+    Printed: each run's token agreement with the fault-free run (bf16
+    batches differ across workers), fleet tok/s, recovery_max_s, snapshot
+    bytes a token, bytes moved and the median ``ckpt:save`` and
+    ``migrate:restore`` spans."""
+    from repro_torch.kernels import kvquant
+    from repro_torch.serve.engine import ServeRequest, ServingEngine
+
+    cfg = model.cfg
+    need = ("rmsnorm", "paged_attention", "varlen_prefill")
+    kw = dict(num_slots=SLOTS, page_size=PAGE, prefill_budget=BUDGET)
+    fresh = lambda: [ServeRequest(request_id=r.request_id, prompt=r.prompt,
+                                  max_new_tokens=r.max_new_tokens) for r in reqs]
+    results = {}
+    for label, plan, over, drain, kv, planned in FLEET_RUNS:
+        # the workers share the model and its weights; each has its own pool
+        engines = [_Recorded(ServingEngine(model, params, max_batch=SLOTS, max_seq=MAX_SEQ,
+                                           page_size=PAGE, device=dev, kv_dtype=kv))
+                   for _ in range(FLEET_WORKERS)]
+        cfg_kw = {"recovery": "migrate", "checkpoint_every": FLEET_CKPT, **over}
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero(counters)
+        stats, spans, harvested, gaps = _fleet_run(engines, fresh(), kw, plan, drain, **cfg_kw)
+        torch.cuda.synchronize()
+        counts = {name: mod.launches for name, mod in counters.items()}
+        results[label] = stats
+        got = (stats.deaths, stats.drains, stats.checksum_failures)
+        if got != planned:
+            raise SystemExit(f"fleet {label}: (deaths, drains, checksum_failures) {got}, "
+                             f"planned {planned}")
+        if stats.completed != len(reqs):
+            raise SystemExit(f"fleet {label}: {stats.completed} of {len(reqs)} completed")
+        migrate = cfg_kw["recovery"] == "migrate"
+        if (stats.migrated > 0) != (migrate and label != "fault-free"):
+            raise SystemExit(f"fleet {label}: {stats.migrated} requests migrated")
+        if [name for name in need if not counts[name]]:
+            raise SystemExit(f"fleet {label}: a kernel of the path never launched: {counts}")
+        worker_runs = [st for e in engines for st in e.runs]
+        for st in worker_runs:
+            _check_ledger(f"fleet {label}", st)
+        if label == "fault-free":
+            expect = {}
+            for st in worker_runs:
+                for name, n in _expected_launches(st, cfg).items():
+                    expect[name] = expect.get(name, 0) + n
+            _check_counts(f"fleet {label}", counters, expect, stats.completed, len(reqs))
+        broken = [s for s in harvested if not s.verify()]
+        if len(broken) != planned[2]:
+            raise SystemExit(f"fleet {label}: {len(broken)} harvested snapshots fail verify, "
+                             f"planned {planned[2]}")
+        if planned[2]:
+            _rejected_never_restored(f"fleet {label}", stats, spans)
+        reasons = sorted(s.tags["reason"] for s in _events(spans, "fleet:death"))
+        if "lease_ttl_s" in over and reasons != ["lease-expired"]:
+            raise SystemExit(f"fleet {label}: deaths {reasons}, not one lease expiry")
+        snap_line = ""
+        if harvested:
+            snap = next(s for s in harvested if s.verify())
+            per_token = snap.nbytes / (snap.num_pages * PAGE)
+            want = kvquant.kv_bytes_per_token(cfg.num_layers, cfg.num_kv_heads,
+                                              cfg.resolved_head_dim, kv or "bfloat16")
+            if per_token != want:
+                raise SystemExit(f"fleet {label}: {per_token} snapshot bytes a token, "
+                                 f"expected {want}")
+            _roundtrip_check(torch, dev, model, snap, kv)
+            snap_line = (f"; snapshots harvested {len(harvested)}, {per_token:.0f} B a token, "
+                         f"round trip through a fresh pool bit-equal")
+        base = results["fault-free"]
+        recovery = max(stats.recovery_s) if stats.recovery_s else 0.0
+        print(f"   {label}: fleet {stats.throughput_tps:.1f} tok/s, wall {stats.wall_s:.3f} s, "
+              f"rounds {stats.rounds}, deaths {stats.deaths}, drains {stats.drains}, requeued "
+              f"{stats.requeued}, migrated {stats.migrated} ({stats.migrated_tokens} tokens), "
+              f"recomputed prefill tokens {stats.recomputed_prefill_tokens}, bytes moved "
+              f"{stats.bytes_moved}, checkpoints {stats.checkpoints_saved} "
+              f"({stats.checkpoint_bytes} B), checksum failures {stats.checksum_failures}, "
+              f"recovery_max_s {recovery:.4f}; ckpt:save median "
+              f"{_median_ms(spans, 'ckpt:save'):.3f} ms ({len(_events(spans, 'ckpt:save'))}), "
+              f"migrate:restore median {_median_ms(spans, 'migrate:restore'):.3f} ms "
+              f"({len(_events(spans, 'migrate:restore'))}); longest boundary by worker (s) "
+              f"{ {i: round(g, 4) for i, g in sorted(gaps.items())} }; deaths {reasons}; peak "
+              f"device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB{snap_line}")
+        print(f"      launches {counts}; vs fault-free: " + _fmt_agreement(
+            [r.tokens for r in base.results], [r.tokens for r in stats.results]))
+    migrate, replay = results["crash@1:8, migrate"], results["crash@1:8, replay"]
+    print(f"   recomputed prefill tokens after the crash: migrate "
+          f"{migrate.recomputed_prefill_tokens}, replay {replay.recomputed_prefill_tokens}")
+    if not migrate.recomputed_prefill_tokens < replay.recomputed_prefill_tokens:
+        raise SystemExit("fleet: migration recomputed no fewer prompt tokens than replay")
+
+
 # the paper's ResNet-50: plain torch (cuDNN's convolutions), no hand-written
 # kernel
 RESNET = "resnet50"
@@ -4049,6 +4398,8 @@ def main() -> int:
     print(f"   -- {RESNET}, reduced and full, f32 card vs CPU, bf16 vs f32, and the padding "
           f"trap")
     resnet_check_phase(torch, dev)
+    print("   -- the fault-tolerant fleet (reduced glm4-9b): the recovery matrix, card vs CPU")
+    fleet_check(torch, dev)
     _done(torch, "3. check", t0)
 
     t0 = _phase("4. serve: glm4-9b and mamba2-130m, full width and depth, random bf16 weights")
@@ -4069,6 +4420,11 @@ def main() -> int:
                                                                  ssm_params)
     launches["ssd"] = ssm_launches["ssd"]
     _done(torch, "4. serve", t0)
+
+    t0 = _phase(f"4b. fleet: glm4-9b, {FLEET_WORKERS} workers behind the FleetRouter, faults and "
+                f"live KV migration")
+    fleet_serve_phase(torch, dev, counters, model, params, reqs)
+    _done(torch, "4b. fleet", t0)
 
     t0 = _phase("5. where the time goes (torch.profiler, device time by kernel class)")
     profile_phase(torch, engine, reqs)

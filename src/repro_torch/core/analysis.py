@@ -10,9 +10,11 @@ The port's copy of what the platform and the serving driver call from
 ``repro.core.analysis``: the paper metrics, the scheduler summary, Jain's
 index, the trace and report helpers, and the summaries of the paged
 engine's events (page occupancy, prefill saturation, speculation, prefix
-cache, SLO serving), inter-token latency and KV divergence.  The TP, fleet
-and recovery summaries wait for the slices that emit those events.  Every module of ``repro_torch``
-keeps its own copy of what it needs so that it never imports ``repro``.
+cache, SLO serving), of the fleet's (``fleet:*``/``fault:*``) and of live
+KV migration (``ckpt:*``/``migrate:*``), inter-token latency and KV
+divergence.  The TP summary waits for the slice that emits its events.
+Every module of ``repro_torch`` keeps its own copy of what it needs so that
+it never imports ``repro``.
 """
 from __future__ import annotations
 
@@ -323,6 +325,188 @@ def prefix_cache_section(spans: Iterable[Span]) -> str:
     """Render the prefix-cache block as a report section; empty string when
     no prefix-cached run was traced."""
     summary = prefix_cache_summary(spans)
+    if not summary:
+        return ""
+    rows = [{"metric": k, "value": v} for k, v in summary.items()]
+    return comparison_table(rows, ("metric", "value"))
+
+
+def fleet_summary(spans: Iterable[Span]) -> Dict[str, float]:
+    """Summarize a fault-tolerant fleet run from ``fleet:*``/``fault:*`` events.
+
+    The fleet router publishes one ``fleet:commit`` per terminal completion
+    (tagged ``duplicate`` / ``within_deadline`` / ``latency_s``), a
+    ``fleet:death`` per worker crash or lease expiry (tagged ``requeued``),
+    a ``fleet:recovered`` per drained death whose span duration IS the
+    recovery time (death observed -> every orphaned request terminal), plus
+    ``fleet:requeue`` / ``fleet:failed`` / ``fleet:shed`` / ``fleet:hedge``
+    / ``fleet:degrade`` transitions, and the fault injector publishes one
+    ``fault:*`` event per fired fault.  This aggregates them into the
+    robustness block of the analysis workflow: goodput (completed within
+    deadline over all admitted-and-terminal requests) says how much service
+    the fleet retained through the faults, and recovery time how quickly
+    orphaned work was replayed onto survivors."""
+    commits = 0
+    dups = 0
+    within = 0
+    failed = 0
+    shed = 0
+    requeued = 0
+    deaths = 0
+    hedged = 0
+    degrades = 0
+    max_level = 0
+    rounds = 0
+    peak_pressure = 0.0
+    recovery: List[float] = []
+    latencies: List[float] = []
+    faults: Dict[str, int] = {}
+    for s in spans:
+        if s.name == "fleet:commit":
+            if s.tags.get("duplicate"):
+                dups += 1
+            else:
+                commits += 1
+                within += int(bool(s.tags.get("within_deadline", 1)))
+                latencies.append(float(s.tags.get("latency_s", 0.0)))
+        elif s.name == "fleet:failed":
+            failed += 1
+        elif s.name == "fleet:shed":
+            shed += 1
+        elif s.name == "fleet:requeue":
+            requeued += 1
+        elif s.name == "fleet:death":
+            deaths += 1
+        elif s.name == "fleet:hedge":
+            hedged += 1
+        elif s.name == "fleet:recovered":
+            recovery.append(s.duration)
+        elif s.name == "fleet:degrade":
+            degrades += 1
+            max_level = max(max_level, int(s.tags.get("to", 0)))
+        elif s.name == "fleet:round":
+            rounds += 1
+            peak_pressure = max(
+                peak_pressure, float(s.tags.get("pressure", 0.0))
+            )
+        elif s.name.startswith("fault:") and s.name != "fault:pressure_release":
+            kind = s.name.split(":", 1)[1]
+            faults[kind] = faults.get(kind, 0) + 1
+    terminal = commits + failed
+    if not terminal and not deaths and not shed and not faults:
+        return {}
+    out = {
+        "rounds": float(rounds),
+        "completed": float(commits),
+        "failed": float(failed),
+        "shed": float(shed),
+        "goodput": within / terminal if terminal else 0.0,
+        "requeued": float(requeued),
+        "deaths": float(deaths),
+        "hedged": float(hedged),
+        "duplicate_commits": float(dups),
+        "degrade_transitions": float(degrades),
+        "max_degrade_level": float(max_level),
+        "peak_pressure": peak_pressure,
+    }
+    if latencies:
+        out["latency_p90_ms"] = percentile(latencies, 90.0) * 1e3
+    if recovery:
+        out["recoveries"] = float(len(recovery))
+        out["recovery_mean_s"] = sum(recovery) / len(recovery)
+        out["recovery_max_s"] = max(recovery)
+    for kind in sorted(faults):
+        out[f"faults_{kind}"] = float(faults[kind])
+    return out
+
+
+def fleet_section(spans: Iterable[Span]) -> str:
+    """Render the fleet-robustness block as a report section; empty string
+    when no fleet run was traced."""
+    summary = fleet_summary(spans)
+    if not summary:
+        return ""
+    rows = [{"metric": k, "value": v} for k, v in summary.items()]
+    return comparison_table(rows, ("metric", "value"))
+
+
+def recovery_summary(spans: Iterable[Span]) -> Dict[str, float]:
+    """Summarize KV-migration recovery from ``ckpt:*``/``migrate:*`` events.
+
+    The engine publishes one ``ckpt:save`` per slot snapshot (tagged
+    ``bytes``/``pages``/``tokens``), one ``migrate:restore`` per orphan
+    rebuilt from a snapshot on a survivor (the O(bytes) failover path) and
+    one ``migrate:checksum_fail`` per snapshot whose per-page checksums
+    failed verification (downgraded to replay — corrupted state is never
+    served).  The router tags each ``fleet:death``/``fleet:drain`` with how
+    many orphans are migrating vs how many prompt tokens the replay path
+    must recompute.  Together: migrated vs recomputed tokens, bytes moved,
+    and recovery time — the ledger deciding whether failover cost scales
+    with bytes moved or tokens recomputed."""
+    ckpts = 0
+    ckpt_bytes = 0
+    migrated = 0
+    migrated_tokens = 0
+    bytes_moved = 0
+    checksum_failures = 0
+    recomputed_tokens = 0
+    drains = 0
+    joins = 0
+    recovery: List[float] = []
+    restore_s: List[float] = []
+    saw = False
+    for s in spans:
+        if s.name == "ckpt:save":
+            saw = True
+            ckpts += 1
+            ckpt_bytes += int(s.tags.get("bytes", 0))
+        elif s.name == "migrate:restore":
+            saw = True
+            migrated += 1
+            migrated_tokens += int(s.tags.get("length", 0))
+            bytes_moved += int(s.tags.get("bytes", 0))
+            restore_s.append(s.duration)
+        elif s.name == "migrate:checksum_fail":
+            saw = True
+            checksum_failures += 1
+        elif s.name in ("fleet:death", "fleet:drain"):
+            saw = saw or s.name == "fleet:drain"
+            recomputed_tokens += int(s.tags.get("recompute_tokens", 0))
+            if s.name == "fleet:drain":
+                drains += 1
+        elif s.name == "fleet:join":
+            saw = True
+            joins += 1
+        elif s.name == "fleet:recovered":
+            recovery.append(s.duration)
+    if not saw:
+        return {}
+    out = {
+        "checkpoints_saved": float(ckpts),
+        "checkpoint_bytes": float(ckpt_bytes),
+        "migrated": float(migrated),
+        "migrated_tokens": float(migrated_tokens),
+        "recomputed_prefill_tokens": float(recomputed_tokens),
+        "bytes_moved": float(bytes_moved),
+        "checksum_failures": float(checksum_failures),
+        "drains": float(drains),
+        "joins": float(joins),
+    }
+    total = migrated_tokens + recomputed_tokens
+    if total:
+        out["migrated_token_fraction"] = migrated_tokens / total
+    if restore_s:
+        out["restore_mean_s"] = sum(restore_s) / len(restore_s)
+    if recovery:
+        out["recovery_mean_s"] = sum(recovery) / len(recovery)
+        out["recovery_max_s"] = max(recovery)
+    return out
+
+
+def recovery_section(spans: Iterable[Span]) -> str:
+    """Render the KV-migration recovery block as a report section; empty
+    string when no checkpoint/migration activity was traced."""
+    summary = recovery_summary(spans)
     if not summary:
         return ""
     rows = [{"metric": k, "value": v} for k, v in summary.items()]

@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -92,6 +93,9 @@ class BuildInfo:
 
 _lib: Optional[ctypes.CDLL] = None
 _info: Optional[BuildInfo] = None
+# held over the first load or build: a fleet's workers run in threads, and
+# none may compile or load the library a second time
+_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -155,10 +159,18 @@ def _compile(out_dir: Path) -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    global _lib, _info
+    """The loaded kernel library, built on first use (once a process: the
+    first caller loads or builds it under a lock, the others wait)."""
     if _lib is not None:
         return _lib
+    with _LOCK:
+        return _lib if _lib is not None else _load()
+
+
+def _load() -> ctypes.CDLL:
+    """Build the library if this checkout has none of these sources, load
+    it and bind its entry points (the caller holds ``_LOCK``)."""
+    global _lib, _info
     if PACKAGE.parent.name != "src" or not (CHECKOUT / "pyproject.toml").is_file():
         raise RuntimeError(
             f"the kernels build into the checkout that holds their sources, and "

@@ -4,12 +4,13 @@ Models call these ops; each dispatches on the device of its tensors.  A CPU
 tensor runs the plain version in :mod:`.ref`.  A CUDA tensor runs the
 hand-written kernel, or the call raises: there is no fallback, and unlike
 the JAX package there is no backend switch that would route the card's
-path around the kernels.  :func:`copy_pages` is plain torch indexing on
-every device, as the JAX package writes it in plain ``jnp``.
+path around the kernels.  :func:`copy_pages`, :func:`export_pages` and
+:func:`import_pages` are plain torch indexing on every device, as the JAX
+package writes them in plain ``jnp``.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -190,3 +191,47 @@ def copy_pages(
     pools = [k_pages, v_pages] + ([k_scales, v_scales] if k_scales is not None else [])
     for pool in pools:
         pool[:, dst] = pool[:, src]
+
+
+def export_pages(
+    k_pages: torch.Tensor,      # (L, num_pages, page_size, kvh, d)
+    v_pages: torch.Tensor,
+    idx: Union[Sequence[int], torch.Tensor],   # (n,) physical pages to export
+    k_scales: Optional[torch.Tensor] = None,   # (L, num_pages, page_size, kvh)
+    v_scales: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """Gather pages ``idx`` of every layer out of the pools into contiguous
+    tensors ``(L, n, page_size, kvh, d)`` on the pools' device (live KV
+    migration's export): ``(k, v)``, or ``(k, v, k_scales, v_scales)`` for
+    an int8/fp8 pool, whose scale rows travel with their pages, so the
+    snapshot is the exact stored bytes.  The pools are only read.  The JAX
+    ``export_pages`` is handed an index padded to a power of two (one jit
+    variant per bucket) and its caller slices the padding off; here the
+    index holds exactly the pages, so the shapes come out the same."""
+    idx = torch.as_tensor(idx, dtype=torch.long, device=k_pages.device)
+    pools = [k_pages, v_pages] + ([k_scales, v_scales] if k_scales is not None else [])
+    return tuple(pool[:, idx] for pool in pools)
+
+
+def import_pages(
+    k_pages: torch.Tensor,      # (L, num_pages, page_size, kvh, d)
+    v_pages: torch.Tensor,
+    dst: Union[Sequence[int], torch.Tensor],   # (n,) freshly allocated pages
+    k_snap: torch.Tensor,       # (L, n, page_size, kvh, d) exported pages
+    v_snap: torch.Tensor,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+    k_scale_snap: Optional[torch.Tensor] = None,  # (L, n, page_size, kvh)
+    v_scale_snap: Optional[torch.Tensor] = None,
+) -> None:
+    """Scatter an :func:`export_pages` snapshot (on any device) into pages
+    ``dst`` of every layer of the destination pools, in place, as
+    :func:`copy_pages` writes (the JAX ``import_pages`` returns updated
+    pools instead).  A quantized pool takes the scale rows too."""
+    dev = k_pages.device
+    dst = torch.as_tensor(dst, dtype=torch.long, device=dev)
+    pairs = [(k_pages, k_snap), (v_pages, v_snap)]
+    if k_scales is not None:
+        pairs += [(k_scales, k_scale_snap), (v_scales, v_scale_snap)]
+    for pool, snap in pairs:
+        pool[:, dst] = snap.to(dev)

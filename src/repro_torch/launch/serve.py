@@ -19,6 +19,15 @@ Three engines (``--engine``, or its alias ``--mode``):
   ``--kv-dtype int8|fp8`` a quantized pool.  The run is traced and prints
   the reference's page-occupancy, prefill-saturation, speculative-decoding,
   prefix-cache and multi-tenant SLO sections.
+  ``--fleet N`` serves the same requests over N paged workers (one model,
+  one page pool each) behind the fault-tolerant ``FleetRouter``:
+  ``--fault-plan`` scripts crashes, stalls, pool pressure and corrupted
+  checkpoints, ``--drain-at`` planned removals, ``--recovery migrate``
+  restores an orphan from its worker's latest KV checkpoint (taken every
+  ``--checkpoint-every`` decode steps) where ``replay`` prefills it again,
+  and ``--retries``/``--lease-ttl-s`` bound requeues and heartbeats; the
+  run prints each request's outcome and the fleet and KV-migration
+  sections.
 * ``static``: Poisson arrivals at ``--rate-hz`` go through the threaded
   request scheduler, which coalesces up to ``--engine-batch`` requests
   within ``--batch-timeout-ms`` into one ``generate`` batch on the dense
@@ -48,8 +57,9 @@ one 80 GB card; the others fit at full width (``qwen3-moe-30b-a3b``:
 Every run prints the reference's knobs header (``[serve] engine=paged
 kv_dtype=... page_size=... spec_k=... prefix_cache=... tp=1``); with
 ``--evaldb PATH`` its summary and those knobs land in that evaluation
-database as one record (backend ``torch``, scenario ``serve-<engine>``),
-which either package's ``EvalDB`` reads.
+database as one record (backend ``torch``, scenario ``serve-<engine>``, or
+``serve-fleet<N>`` with a fleet, whose knobs then carry ``--recovery`` and
+``--checkpoint-every``), which either package's ``EvalDB`` reads.
 Prompts are random tokens with lengths drawn uniformly from
 ``[--prompt-len-min, --prompt-len]`` (with ``--tenants``, each tenant's
 ``prompt`` length; with ``--prefix-len``, ``--prompt-len`` tokens).
@@ -67,11 +77,13 @@ import torch
 
 from ..configs import get_config, list_archs
 from ..core.analysis import (
+    fleet_section,
     latency_summary,
     page_occupancy_section,
     percentile,
     prefill_saturation_section,
     prefix_cache_section,
+    recovery_section,
     slo_section,
     spec_decode_section,
 )
@@ -85,6 +97,8 @@ from ..device import DTYPES, resolve_device
 from ..kernels.kvquant import KV_DTYPES
 from ..models.lm import NOT_PAGED, NOT_PAGED_ENCDEC, build_model
 from ..serve.engine import NOT_CONTINUOUS_ENCDEC, ServeRequest, ServingEngine
+from ..serve.faults import FaultPlan
+from ..serve.fleet import FleetConfig, FleetRouter
 from ..serve.scheduler import PRIORITY_TIERS, RequestScheduler, SchedulerConfig, TenantSpec
 
 
@@ -400,6 +414,97 @@ def _paged(engine, reqs, args) -> Dict[str, float]:
     }
 
 
+def _fleet(engines, reqs, args) -> Dict[str, float]:
+    """The fault-tolerant fleet: ``engines`` (paged workers) behind the
+    ``FleetRouter``, with the reference driver's lines and summary."""
+    tenant_dicts = _parse_tenants(args.tenants) if args.tenants else []
+    server = TracingServer()
+    tracer = Tracer("serve-fleet", server)
+    plan = FaultPlan.parse(args.fault_plan) if args.fault_plan else FaultPlan()
+    if plan:
+        print(f"[serve] fault plan: {plan.describe()}")
+    router = FleetRouter(
+        engines,
+        FleetConfig(
+            deadline_s=args.deadline_ms / 1e3,
+            max_retries=args.retries,
+            lease_ttl_s=args.lease_ttl_s,
+            fairness=args.fairness == "on",
+            recovery=args.recovery,
+            checkpoint_every=args.checkpoint_every,
+        ),
+        tenants=[TenantSpec.from_dict(t) for t in tenant_dicts],
+        engine_kwargs=dict(
+            num_slots=args.engine_batch,
+            page_size=args.page_size,
+            num_pages=args.num_pages or None,
+            prefill_chunk=args.prefill_chunk or None,
+            overcommit=args.overcommit,
+            prefill_mode=args.prefill_mode,
+            prefill_budget=args.prefill_budget or None,
+            spec_k=args.spec_k,
+            spec_ngram=args.spec_ngram,
+            prefix_cache=args.prefix_cache == "on",
+        ),
+        fault_plan=plan,
+        tracer=tracer,
+    )
+    for worker, step in _parse_drains(args.drain_at):
+        router.drain(worker, step)
+    stats = router.serve(reqs)
+    for r in stats.results:
+        tail = f"{len(r.tokens)} tokens" if r.status == "completed" else f"reason={r.reason}"
+        print(f"[serve] req {r.request_id}: {r.status} on worker {r.worker} "
+              f"after {r.attempts} attempt(s), {tail}")
+    spans = server.timeline("serve-fleet")
+    for title, section in (("fleet robustness", fleet_section),
+                           ("KV-migration recovery", recovery_section)):
+        text = section(spans)
+        if text:
+            print(f"[serve] {title}:")
+            for line in text.splitlines():
+                print(f"[serve]   {line}")
+    latencies = [r.latency_s for r in stats.results if r.status == "completed"]
+    summary = latency_summary(latencies) if latencies else {}
+    summary.update({
+        "tokens_per_s": stats.throughput_tps,
+        "fleet_workers": float(stats.num_workers),
+        "rounds": float(stats.rounds),
+        "completed": float(stats.completed),
+        "failed": float(stats.failed),
+        "rejected": float(stats.rejected),
+        "deaths": float(stats.deaths),
+        "requeued": float(stats.requeued),
+        "hedged": float(stats.hedged),
+        "duplicate_commits": float(stats.duplicate_commits),
+        "goodput": stats.goodput,
+        "max_degrade_level": float(stats.max_degrade_level),
+        "migrated": float(stats.migrated),
+        "migrated_tokens": float(stats.migrated_tokens),
+        "recomputed_prefill_tokens": float(stats.recomputed_prefill_tokens),
+        "bytes_moved": float(stats.bytes_moved),
+        "checkpoints_saved": float(stats.checkpoints_saved),
+        "checksum_failures": float(stats.checksum_failures),
+        "drains": float(stats.drains),
+        "joins": float(stats.joins),
+    })
+    if stats.recovery_s:
+        summary["recovery_max_s"] = max(stats.recovery_s)
+    return summary
+
+
+def _parse_drains(text: str) -> List[tuple]:
+    """Parse ``--drain-at``: comma-separated ``worker:step`` items."""
+    out = []
+    for item in filter(None, (t.strip() for t in text.split(","))):
+        try:
+            worker, step = item.split(":")
+            out.append((int(worker), int(step)))
+        except ValueError:
+            raise ValueError(f"bad --drain-at item {item!r} (expected worker:step)") from None
+    return out
+
+
 ENGINES = {"paged": _paged, "static": _static, "continuous": _continuous}
 
 
@@ -483,6 +588,33 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--kv-dtype", default=None, choices=sorted(KV_DTYPES),
                     help="store the KV pool as int8/fp8 codes with float32 per-row "
                          "scales (default: the pool in --dtype)")
+    ap.add_argument("--fleet", type=int, default=0,
+                    help="fault-tolerant fleet: run N paged workers behind the FleetRouter "
+                         "(load balancing, requeue-on-death, graceful degradation; "
+                         "0 = single engine)")
+    ap.add_argument("--retries", type=int, default=2,
+                    help="fleet requeues per request after a worker death before the "
+                         "request is failed")
+    ap.add_argument("--lease-ttl-s", type=float, default=30.0,
+                    help="fleet worker heartbeat lease TTL; a worker that misses renewal "
+                         "past the TTL is treated as dead")
+    ap.add_argument("--fault-plan", default="",
+                    help="scripted fault injection, e.g. 'crash@1:2,stall@0:3:0.5,"
+                         "pressure@2:1:8x4' (kind@worker:step[:arg]; corrupt@W:S flips bytes "
+                         "in worker W's latest KV checkpoint at step S; empty = no faults)")
+    ap.add_argument("--recovery", default="migrate", choices=["replay", "migrate"],
+                    help="fleet orphan recovery: migrate restores the latest KV checkpoint "
+                         "on a survivor (O(bytes) failover, bit-identical continuation); "
+                         "replay re-prefills from the prompt (also the fallback when no "
+                         "checkpoint exists or checksums fail)")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="decode steps between KV page checkpoints on each fleet worker "
+                         "(0 = none: only planned drains migrate; requires --recovery "
+                         "migrate to matter)")
+    ap.add_argument("--drain-at", default="",
+                    help="planned elasticity: comma-separated worker:step items, e.g. '1:4' "
+                         "drains worker 1 at boundary step 4; every live slot migrates with "
+                         "zero recompute before the worker is removed")
     ap.add_argument("--evaldb", default="",
                     help="insert the run's summary and engine knobs as one evaluation "
                          "record into this sqlite file (default: none)")
@@ -498,6 +630,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         ap.error(f"--prefix-len {args.prefix_len} must be smaller than --prompt-len "
                  f"{args.prompt_len} (the shared prefix is a strict prefix; every prompt "
                  f"keeps a unique tail)")
+    if args.fleet > 0 and args.engine != "paged":
+        ap.error("--fleet requires --engine paged (the fleet routes over paged workers)")
+    try:
+        _parse_drains(args.drain_at)
+        FaultPlan.parse(args.fault_plan)
+    except ValueError as e:
+        ap.error(str(e))
     if args.tenants and args.engine != "paged":
         ap.error("--tenants requires --engine paged (tenant-aware admission lives in the "
                  "paged engine)")
@@ -527,18 +666,24 @@ def main(argv: Optional[List[str]] = None) -> int:
         params = model.init(seed=args.seed)
     except MemoryError as e:
         ap.error(f"{e} (drop --full)")
-    engine = ServingEngine(model, params, max_batch=args.engine_batch,
-                           max_seq=args.max_seq, page_size=args.page_size,
-                           device=device, kv_dtype=args.kv_dtype)
+    def make_engine():
+        return ServingEngine(model, params, max_batch=args.engine_batch,
+                             max_seq=args.max_seq, page_size=args.page_size,
+                             device=device, kv_dtype=args.kv_dtype)
+
+    engine = make_engine()
     # the engine knobs this run serves under, as the reference's header and
-    # evaldb record give them (tensor parallelism and fleet recovery are not
-    # ported: tp 1, replay, no checkpoints)
+    # evaldb record give them (tensor parallelism is not ported: tp 1); the
+    # recovery knobs are the fleet's, so a single engine keeps replay and no
+    # checkpoints
     knobs = EngineKnobs(
         engine=args.engine,
         kv_dtype=engine._kv_dtype_name(),
         page_size=args.page_size if args.engine == "paged" else 0,
         spec_k=args.spec_k if args.engine == "paged" else 0,
         prefix_cache=args.engine == "paged" and args.prefix_cache == "on",
+        recovery=args.recovery if args.fleet else "replay",
+        checkpoint_every=args.checkpoint_every if args.fleet else 0,
     )
     print(f"[serve] {knobs.describe()}")
     reqs = workload_requests(args, cfg.vocab_size)
@@ -547,10 +692,17 @@ def main(argv: Optional[List[str]] = None) -> int:
           f"{args.engine_batch} slots, page {args.page_size}, max_seq {args.max_seq}, "
           f"kv_dtype {engine._kv_dtype_name()}, spec_k {args.spec_k}"
           + (f", prefill {args.prefill_mode}, prefix_cache {args.prefix_cache}, "
-             f"overcommit {args.overcommit}" if paged else ""))
+             f"overcommit {args.overcommit}" if paged else "")
+          + (f", fleet of {args.fleet}" if args.fleet else ""))
     if cfg.family == "moe":
         print(f"[serve] {moe_summary(cfg)}")
-    summary = ENGINES[args.engine](engine, reqs, args)
+    if args.fleet > 0:
+        # the workers share the model and its weights (read-only while
+        # serving); each engine holds its own page pool and slots
+        engines = [engine] + [make_engine() for _ in range(args.fleet - 1)]
+        summary = _fleet(engines, reqs, args)
+    else:
+        summary = ENGINES[args.engine](engine, reqs, args)
     if cfg.family == "moe":
         summary["moe"] = moe_summary(cfg)
     for k, v in summary.items():
@@ -560,7 +712,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         try:
             db.insert(EvaluationRecord(
                 model=cfg.name, model_version="1.0.0", backend="torch",
-                backend_version="1.0.0", system="local", scenario=f"serve-{args.engine}",
+                backend_version="1.0.0", system="local",
+                scenario=f"serve-fleet{args.fleet}" if args.fleet else f"serve-{args.engine}",
                 batch_size=args.engine_batch, trace_level="NONE", agent_id="serve-driver",
                 metrics={**summary, "engine_knobs": knobs.to_dict()},
             ))

@@ -51,8 +51,14 @@ encoder frames passed as ``extra_inputs``; ``serve_continuous`` and
 ``serve_paged`` refuse it, as the reference does (an admission prefill
 would need each request's frames).
 
-What waits for later slices: tensor parallelism, KV checkpoints and the
-fault hook in ``serve_paged``.
+``serve_paged`` takes the fleet's boundary hook and live KV migration:
+``fault_hook`` runs once a boundary (faults, leases, drains), and a
+:class:`~repro_torch.serve.faults.WorkerCrash` leaves it carrying the
+finished results and the pending requests; ``checkpoint_every`` snapshots
+each decoding slot's pages (``ops.export_pages`` to host tensors, with
+per-page checksums) and ``restores`` admits a request from a snapshot
+(``ops.import_pages``) instead of prefilling it.  What waits for a later
+slice: tensor parallelism.
 """
 from __future__ import annotations
 
@@ -68,7 +74,10 @@ from ..core.analysis import percentile
 from ..device import resolve_device
 from ..kernels import kvquant, ops
 from ..models.lm import NOT_PAGED_ENCDEC, DecoderLM, EncDecLM
-from .page_table import PagePool, PageTable, PrefixCache, pages_needed
+from .faults import FaultContext, WorkerCrash, WorkerDrain
+from .page_table import (
+    PagePool, PageSnapshot, PageTable, PrefixCache, page_checksums, pages_needed,
+)
 from .scheduler import (
     PagedSlotPool, PrefillBudget, SlotPool, SpecLedger, TenantLedger, TenantSpec,
 )
@@ -224,6 +233,13 @@ class PagedStats:
     deferred: int = 0           # tenant-boundary deferrals (a bucket ran dry)
     goodput: float = 1.0        # completed within the deadline / submitted
     deadline_ms: float = 0.0    # the run's TTL (0 = none)
+    # live KV migration (checkpoint / restore)
+    checkpoints_saved: int = 0  # slot snapshots taken this run
+    checkpoint_bytes: int = 0   # bytes gathered into snapshots
+    restored_requests: int = 0  # requests resumed from a snapshot
+    restored_tokens: int = 0    # KV positions restored without recompute
+    restore_bytes: int = 0      # bytes scattered back into the pool
+    checksum_failures: int = 0  # snapshots rejected by verify, replayed
 
 
 def _upload(arrays: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -579,9 +595,13 @@ class ServingEngine:
         prefix_cache: bool = False,
         clock: Callable[[], float] = time.perf_counter,
         tracer=None,
+        fault_hook: Optional[Callable] = None,
         deadline_ms: float = 0.0,
         tenants: Optional[List[TenantSpec]] = None,
         fairness: bool = True,
+        checkpoint_every: int = 0,
+        checkpoints: Optional[Dict[int, PageSnapshot]] = None,
+        restores: Optional[Dict[int, PageSnapshot]] = None,
     ) -> PagedStats:
         """Paged-KV continuous batching.
 
@@ -629,8 +649,29 @@ class ServingEngine:
         sheds queued work that can no longer meet it.  ``tenants``
         (:class:`~repro_torch.serve.scheduler.TenantSpec`) and tagged
         requests make admission pick by priority tier, then token bucket,
-        then weighted fair share; ``fairness=False`` keeps FIFO.  The
-        reference's ``fault_hook`` and KV checkpoints are not ported yet.
+        then weighted fair share; ``fairness=False`` keeps FIFO.
+
+        ``fault_hook`` (None: nothing runs) is called once a boundary with a
+        :class:`~repro_torch.serve.faults.FaultContext` (step, pool, clock,
+        tracer, checkpoints); the fleet's faults, leases and drains ride
+        it.  A :class:`~repro_torch.serve.faults.WorkerCrash` it raises
+        leaves ``serve_paged`` carrying ``results`` (the finished requests)
+        and ``pending`` (every request not finished, replayable from its
+        prompt); pressure pages the hook seized go back first.
+
+        ``checkpoint_every=K > 0`` (with a ``checkpoints`` dict) snapshots
+        every decoding slot each K decode steps into ``checkpoints`` by
+        request id (:class:`~repro_torch.serve.page_table.PageSnapshot`:
+        the exact stored bytes of its pages, scales too, with per-page
+        checksums, its length and emitted tokens), at the top of the
+        boundary before the hook, so a crash at step S leaves snapshots as
+        of S.  A :class:`~repro_torch.serve.faults.WorkerDrain` first takes
+        fresh snapshots of every decoding slot.  ``restores`` maps request
+        ids to snapshots: such a request skips prefill; its checksums are
+        verified, its pages scattered into fresh pages, its slot rebuilt,
+        and it decodes on as an undisturbed run would.  A failed verify
+        counts a ``checksum_failure``, drops the snapshot, and the request
+        is prefilled from its prompt: corrupted state is never served.
         An encoder-decoder model raises ``NotImplementedError``."""
         if self.model.cfg.family == "encdec":
             raise NotImplementedError(NOT_PAGED_ENCDEC)
@@ -640,6 +681,10 @@ class ServingEngine:
             raise ValueError("spec_k must be >= 0")
         if spec_ngram < 1:
             raise ValueError("spec_ngram must be >= 1")
+        if checkpoint_every < 0:
+            raise ValueError("checkpoint_every must be >= 0")
+        if checkpoint_every > 0 and checkpoints is None:
+            raise ValueError("checkpoint_every > 0 needs a checkpoints dict")
         if not requests:
             return PagedStats([], 0, 0.0, 0, 0.0, 0.0, 0, self.page_size, 0,
                               0.0, 0, 0, 0, prefill_mode=prefill_mode,
@@ -703,6 +748,9 @@ class ServingEngine:
         slot_cached: Dict[int, int] = {}
         slot_prefilled: Dict[int, int] = {}
         replay_first: Set[int] = set()
+        # slots rebuilt from a migrated snapshot: this worker never admitted
+        # their prompt, so a preemption charges no dropped prefill for them
+        restored_slots: Set[int] = set()
         # pages slots mapped from the cache: the commitment counts each once
         pinned_refs: Dict[int, int] = {}             # page -> mapping slots
         slot_shared: Dict[int, List[int]] = {}       # slot -> mapped pages
@@ -724,6 +772,10 @@ class ServingEngine:
         saved_tokens = 0
         dropped_tokens = 0
         cow_copies = 0
+        ckpt_saved = ckpt_bytes = 0
+        restored_n = restored_tok = restore_bytes = 0
+        checksum_failures = 0
+        last_ckpt_step = -1
         decode_s = 0.0
         itl_all: List[float] = []
         # device-resident decode state, patched only for slots that changed
@@ -776,7 +828,7 @@ class ServingEngine:
         def release_slot(slot: int, preempted: bool = False) -> ServeRequest:
             nonlocal dropped_tokens
             req = slots.release_paged(slot, table.clear(slot), preempted=preempted)
-            if preempted:
+            if preempted and slot not in restored_slots:
                 # prompt tokens this admission promised but never prefilled
                 dropped_tokens += max(len(req.prompt) - slot_cached.get(slot, 0)
                                       - slot_prefilled.get(slot, 0), 0)
@@ -786,6 +838,7 @@ class ServingEngine:
                 d.pop(slot, None)
             decoding.discard(slot)
             replay_first.discard(slot)
+            restored_slots.discard(slot)
             for p in list(slot_shared.get(slot, [])):
                 unpin(slot, p)
             slot_shared.pop(slot, None)
@@ -843,6 +896,48 @@ class ServingEngine:
             if tracer is not None:
                 tracer.event("prefix:cow", t0c, clock(), slot=s, page=fresh[0])
             return True
+
+        def snapshot_slot(s: int) -> Optional[PageSnapshot]:
+            """Slot ``s``'s live pages as a :class:`PageSnapshot`: one gather
+            of exactly the pages that hold its first ``lengths[s]`` tokens
+            (``ops.export_pages``; the scale pools too when quantized),
+            copied to host tensors, with its emitted tokens, length and
+            per-page checksums.  None for a slot still prefilling: replay
+            from its prompt is already the cheapest recovery there."""
+            nonlocal ckpt_saved, ckpt_bytes
+            if s not in decoding or not slot_tokens.get(s):
+                return None
+            req = slots.active[s]
+            length = int(lengths[s])
+            held = table.pages_of(s)[: pool.pages_needed(max(length, 1))]
+            if not held:
+                return None
+            t0s = clock()
+            # page-major host copies under (L, n, ...) views, so that the
+            # checksums read each page in place; .cpu() waits for the gather
+            k, v, *scales = (t.transpose(0, 1).contiguous().cpu().transpose(0, 1)
+                             for t in ops.export_pages(
+                                 cache["k_pages"], cache["v_pages"], held,
+                                 cache.get("k_scales"), cache.get("v_scales")))
+            ks, vs = scales if scales else (None, None)
+            snap = PageSnapshot(
+                request_id=req.request_id, prompt_len=len(req.prompt), length=length,
+                tokens=np.asarray(slot_tokens[s], np.int32), k=k, v=v,
+                k_scales=ks, v_scales=vs, checksums=page_checksums(k, v, ks, vs),
+                step=step, kv_dtype=self._kv_dtype_name(),
+            )
+            ckpt_saved += 1
+            ckpt_bytes += snap.nbytes
+            if tracer is not None:
+                tracer.event("ckpt:save", t0s, clock(), request=req.request_id, step=step,
+                             pages=len(held), bytes=snap.nbytes, tokens=len(slot_tokens[s]))
+            return snap
+
+        def checkpoint_all() -> None:
+            for s in sorted(decoding):
+                snap = snapshot_slot(s)
+                if snap is not None:
+                    checkpoints[snap.request_id] = snap
 
         def emit_tenant(req: ServeRequest, status: str, now: float, latency: float) -> None:
             if tracer is None:
@@ -913,6 +1008,30 @@ class ServingEngine:
 
         while queue or slots.num_active:
             progressed = False
+            # 0a) periodic checkpoint, BEFORE the hook: a crash at boundary S
+            #     leaves snapshots as of S.  Keyed on the decode-step counter,
+            #     once per value (prefill-only boundaries leave it as it is)
+            if (checkpoint_every > 0 and checkpoints is not None and step > 0
+                    and step % checkpoint_every == 0 and step != last_ckpt_step):
+                last_ckpt_step = step
+                checkpoint_all()
+            # 0b) the boundary hook: a WorkerCrash is raised only here, so the
+            #     finished results and the pending requests are attached here
+            if fault_hook is not None:
+                try:
+                    fault_hook(FaultContext(step=step, pool=pool, clock=clock, tracer=tracer,
+                                            checkpoints=checkpoints))
+                except WorkerCrash as crash:
+                    if isinstance(crash, WorkerDrain) and checkpoints is not None:
+                        # a planned drain: fresh snapshots of every decoding
+                        # slot, so that all of them migrate with no recompute
+                        checkpoint_all()
+                    crash.results = [finished[r.request_id] for r in requests
+                                     if r.request_id in finished]
+                    crash.pending = [r for r in requests if r.request_id not in finished]
+                    if hasattr(fault_hook, "release"):
+                        fault_hook.release()   # seized pressure pages go back
+                    raise
             # 1) retire finished sequences, returning their pages
             for slot in list(decoding):
                 req = slots.active[slot]
@@ -961,6 +1080,65 @@ class ServingEngine:
                               now_adm):
                     del queue[i0]
                     reject(req, "slo-unmeetable")
+                    progressed = True
+                    continue
+                # a request with a migrated snapshot skips prefill: verify its
+                # checksums, scatter its pages into fresh ones, rebuild the
+                # slot and decode on.  A failed verify drops the snapshot and
+                # the request is prefilled from its prompt
+                snap = restores.get(req.request_id) if restores else None
+                if snap is not None and not snap.verify():
+                    checksum_failures += 1
+                    del restores[req.request_id]
+                    if tracer is not None:
+                        now_cf = clock()
+                        tracer.event("migrate:checksum_fail", now_cf, now_cf,
+                                     request=req.request_id, step=step, pages=snap.num_pages)
+                    snap = None
+                if snap is not None:
+                    worst = pool.pages_needed(len(req.prompt) + req.max_new_tokens)
+                    npages = snap.num_pages
+                    if not slots.num_free:
+                        break
+                    if sum(slot_commit.values()) + len(pinned_refs) + worst > (
+                            pool.capacity * overcommit):
+                        break
+                    if not ensure_free(npages):
+                        break
+                    del queue[i0]
+                    del restores[req.request_id]
+                    if fair:
+                        tenant_ledger.on_admit(req.tenant, req_cost(req), now_adm)
+                    t0m = clock()
+                    slot, pages = slots.admit_paged(req, npages, step=step)
+                    table.assign(slot, pages)
+                    ops.import_pages(cache["k_pages"], cache["v_pages"], pages, snap.k, snap.v,
+                                     cache.get("k_scales"), cache.get("v_scales"),
+                                     snap.k_scales, snap.v_scales)
+                    lengths[slot] = snap.length
+                    toks = [int(t) for t in snap.tokens]
+                    slot_tokens[slot] = toks
+                    slot_times[slot] = []
+                    nxt[slot] = toks[-1]
+                    slot_commit[slot] = worst
+                    slot_cached[slot] = 0
+                    slot_prefilled[slot] = 0
+                    admit_order[slot] = admit_seq
+                    admit_seq += 1
+                    admit_step[slot] = step
+                    # the first token came from the source worker: TTFT here
+                    # is the restore's latency
+                    ttft[slot] = clock() - submit_s[req.request_id]
+                    decoding.add(slot)
+                    restored_slots.add(slot)
+                    dirty.add(slot)       # the mirrors take its length and table
+                    restored_n += 1
+                    restored_tok += snap.length
+                    restore_bytes += snap.nbytes
+                    if tracer is not None:
+                        tracer.event("migrate:restore", t0m, clock(), request=req.request_id,
+                                     pages=len(pages), bytes=snap.nbytes, tokens=len(toks),
+                                     length=snap.length)
                     progressed = True
                     continue
                 hit_pages, cached = pcache.match(req.prompt) if pcache is not None else ([], 0)
@@ -1273,6 +1451,8 @@ class ServingEngine:
             slots.record_occupancy(step)
             if not progressed and not prefilling and not decoding:
                 raise RuntimeError("paged serve loop stalled (admission deadlock)")
+        if fault_hook is not None and hasattr(fault_hook, "release"):
+            fault_hook.release()   # pressure seizures held past the last step
         _sync(dev)
         wall = clock() - t_start
         results = [finished[r.request_id] for r in requests]
@@ -1322,4 +1502,10 @@ class ServingEngine:
             goodput=(sum(1 for r in completed if r.within_deadline) / len(results)
                      if results else 1.0),
             deadline_ms=deadline_ms,
+            checkpoints_saved=ckpt_saved,
+            checkpoint_bytes=ckpt_bytes,
+            restored_requests=restored_n,
+            restored_tokens=restored_tok,
+            restore_bytes=restore_bytes,
+            checksum_failures=checksum_failures,
         )

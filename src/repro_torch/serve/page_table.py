@@ -1,8 +1,9 @@
 """Paged KV-cache bookkeeping: global page pool + per-request page tables.
 
-A copy of ``pages_needed``, ``PagePool``, ``PageTable`` and ``PrefixCache``
-from ``repro.serve.page_table`` (pure Python; the port keeps its own copy so
-that it never imports ``repro``).  The serving engine's paged mode keeps a global
+A copy of ``pages_needed``, ``PagePool``, ``PageTable``, ``PrefixCache``,
+``page_checksums`` and ``PageSnapshot`` from ``repro.serve.page_table``
+(pure Python but for the snapshot's host tensors; the port keeps its own
+copy so that it never imports ``repro``).  The serving engine's paged mode keeps a global
 pool of ``page_size``-token pages instead of a dense per-slot ``max_seq``
 cache: page ownership, allocation and the (num_slots, max_pages) int32
 indirection table the paged kernels dereference live here; the engine owns
@@ -16,14 +17,24 @@ reference of its own per cached page.  A page whose count drops to that one
 reference stays cached, unreferenced, until :meth:`PrefixCache.evict`
 reclaims it; any write into a page someone else still references is
 copy-on-write in the engine.
+
+A :class:`PageSnapshot` is a request's in-flight KV state as a transferable
+artifact (live KV migration): the exact stored bytes of its pages as host
+tensors, the tokens it emitted, and one CRC32 a page that a restore checks
+before it serves a byte of it.
 """
 from __future__ import annotations
 
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["PagePool", "PageTable", "PrefixCache", "pages_needed"]
+__all__ = ["PagePool", "PageSnapshot", "PageTable", "PrefixCache", "page_checksums",
+           "pages_needed"]
 
 
 def pages_needed(tokens: int, page_size: int) -> int:
@@ -31,6 +42,91 @@ def pages_needed(tokens: int, page_size: int) -> int:
     if page_size < 1:
         raise ValueError("page_size must be >= 1")
     return max((tokens + page_size - 1) // page_size, 0)
+
+
+def _page_rows(t: torch.Tensor) -> np.ndarray:
+    """A snapshot tensor ``(L, n, ...)`` as one host ``uint8`` row a page,
+    the page's bytes in the order the reference hashes them (layer by
+    layer).  bf16 and fp8 have no numpy dtype, so they are hashed as they
+    lie in memory, never through ``.numpy()``.  A tensor stored page-major
+    (as the engine stores its snapshots) is read in place."""
+    rows = t.detach().transpose(0, 1).contiguous().view(torch.uint8).cpu().numpy()
+    return rows.reshape(rows.shape[0], -1)
+
+
+def page_checksums(k: torch.Tensor, v: torch.Tensor, k_scales: Optional[torch.Tensor] = None,
+                   v_scales: Optional[torch.Tensor] = None) -> List[int]:
+    """CRC32 per page over the exact stored bytes: K then V (then the scale
+    rows of a quantized pool), all layers of one page chained into one word,
+    over snapshot tensors shaped ``(L, n, page_size, ...)`` (page axis 1).
+    A quantized pool checksums its int8/fp8 codes and float32 scales, never
+    a dequantized view.  Equal bytes give the reference's checksums.  Pages
+    are hashed in threads (``zlib`` releases the GIL on large buffers)."""
+    rows = [_page_rows(t) for t in (k, v, k_scales, v_scales) if t is not None]
+
+    def crc(j: int) -> int:
+        c = 0
+        for r in rows:
+            c = zlib.crc32(r[j], c)
+        return c & 0xFFFFFFFF
+
+    n = int(k.shape[1])
+    if n < 2:
+        return [crc(j) for j in range(n)]
+    with ThreadPoolExecutor(max_workers=min(n, 8)) as ex:
+        return list(ex.map(crc, range(n)))
+
+
+@dataclass
+class PageSnapshot:
+    """A request's in-flight KV state: its pages' stored bytes
+    (``ops.export_pages``, copied to host tensors in the pool's dtype:
+    float32, bf16, or int8/fp8 codes with float32 scales), the length and
+    tokens a restore resumes from, and a per-page checksum ledger.
+
+    ``length`` counts the KV positions the pages hold (the engine's
+    ``lengths[slot]`` at the checkpoint: the prompt and every emitted token
+    but the latest, ``tokens[-1]``, whose K/V the next step appends).  A
+    restore scatters the pages into fresh pages of the destination pool,
+    rebuilds the slot from ``tokens``/``length`` and decodes on, as an
+    undisturbed run would, because the pages are the exact stored bytes."""
+
+    request_id: int
+    prompt_len: int
+    length: int                 # KV positions held by the pages
+    tokens: np.ndarray          # emitted tokens so far (np.int32)
+    k: torch.Tensor             # (L, n, page_size, kvh, d) page bytes, on the host
+    v: torch.Tensor
+    k_scales: Optional[torch.Tensor] = None   # (L, n, page_size, kvh) float32
+    v_scales: Optional[torch.Tensor] = None
+    checksums: List[int] = field(default_factory=list)
+    step: int = 0               # engine decode step of the checkpoint
+    kv_dtype: str = "float32"
+
+    @property
+    def num_pages(self) -> int:
+        return int(self.k.shape[1])
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes a migration of this snapshot moves (pages and scales)."""
+        tensors = [self.k, self.v] + ([self.k_scales, self.v_scales]
+                                      if self.k_scales is not None else [])
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    def verify(self) -> bool:
+        """Recompute the per-page checksums against the ledger: a mismatch
+        means the bytes changed between checkpoint and restore, and the
+        request must replay from its prompt."""
+        return page_checksums(self.k, self.v, self.k_scales, self.v_scales) == self.checksums
+
+    def corrupt(self, page: int = 0) -> None:
+        """Flip every byte of one page of K, leaving the checksum ledger as
+        it is (the ``corrupt@W:S`` fault).  The flip goes into a copy, so a
+        tensor that another holder (or a pool) shares is never written."""
+        k = self.k.clone()
+        k.view(torch.uint8)[:, page] ^= 0xFF
+        self.k = k
 
 
 class PagePool:

@@ -295,14 +295,14 @@ def test_spec_drafts_never_preempt(engines):
 
 
 def test_serve_paged_keywords_cover_the_reference():
-    """Every keyword of the reference's serve_paged but the fault hook and
-    KV checkpoints (not ported yet)."""
+    """Every keyword of the reference's serve_paged, the fault hook and the
+    KV checkpoints included, in the reference's order."""
     import inspect
 
-    ref = set(inspect.signature(jeng.ServingEngine.serve_paged).parameters)
-    port = set(inspect.signature(teng.ServingEngine.serve_paged).parameters)
-    assert ref - port == {"fault_hook", "checkpoint_every", "checkpoints", "restores"}
-    assert port <= ref
+    ref = list(inspect.signature(jeng.ServingEngine.serve_paged).parameters)
+    port = list(inspect.signature(teng.ServingEngine.serve_paged).parameters)
+    assert set(ref) - set(port) == set()
+    assert port == ref
 
 
 def test_serve_paged_validates_new_keywords(engines):

@@ -1254,3 +1254,54 @@ def test_copy_pages_on_the_card(cuda, mode):
     raw = lambda t: t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
     for t, h in zip(pools, host):
         assert torch.equal(raw(t.cpu()), raw(h))
+
+
+# ---------------------------------------------------------------------------
+# the fleet: a crash migrated on the card, as on the CPU
+# ---------------------------------------------------------------------------
+def test_fleet_crash_migrate_card_vs_cpu(cuda):
+    """Reduced glm4-9b in float32, three workers a fleet, one crash with
+    migration: the card's completed tokens, outcomes and migration counters
+    equal the CPU's, and every snapshot is host bytes that verify."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM
+    from repro_torch.serve.engine import ServeRequest, ServingEngine
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.serve.fleet import FleetConfig, FleetRouter
+
+    cfg = get_config("glm4-9b", reduced=True)
+    cpu_model = DecoderLM(cfg, device="cpu", dtype=torch.float32)
+    cpu_params = cpu_model.init(seed=0)
+    gpu_model = DecoderLM(cfg, device=cuda, dtype=torch.float32)
+    gpu_params = _params_to(cpu_params, cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
+               for n in rng.integers(5, 30, 8)]
+    runs = {}
+    for name, model, params in (("cpu", cpu_model, cpu_params), ("cuda", gpu_model, gpu_params)):
+        engines = [ServingEngine(model, params, max_batch=4, max_seq=64, page_size=8,
+                                 device=model.device) for _ in range(3)]
+        router = FleetRouter(engines, FleetConfig(recovery="migrate", checkpoint_every=2),
+                             engine_kwargs=dict(num_slots=4, page_size=8, prefix_cache=True),
+                             fault_plan=FaultPlan.parse("crash@1:4"))
+        runs[name] = router.serve([ServeRequest(request_id=i, prompt=p, max_new_tokens=8)
+                                   for i, p in enumerate(prompts)])
+        snaps = [s for w in router.workers for s in w.checkpoints.values()]
+        assert snaps and all(s.k.device.type == "cpu" and s.verify() for s in snaps)
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    assert gpu.completed == cpu.completed == len(prompts)
+    assert gpu.deaths == 1 and gpu.migrated > 0
+    for field in ("migrated", "migrated_tokens", "bytes_moved", "requeued",
+                  "recomputed_prefill_tokens", "checkpoints_saved"):
+        assert getattr(gpu, field) == getattr(cpu, field), field
+    for a, b in zip(gpu.results, cpu.results):
+        assert (a.status, a.worker, a.attempts) == (b.status, b.worker, b.attempts)
+        assert np.array_equal(a.tokens, b.tokens), a.request_id
+
+
+def _params_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _params_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_params_to(v, dev) for v in tree]
+    return tree.to(dev)

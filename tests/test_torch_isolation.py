@@ -26,12 +26,13 @@ def _modules():
 
 
 def test_the_import_check_covers_every_entry_point():
-    """The module list walks the package: the models, the drivers and the
-    out-of-process agent are all imported by the check below."""
+    """The module list walks the package: the models, the drivers, the
+    out-of-process agent and the fleet are all imported by the check below."""
     mods = _modules()
     for m in ("repro_torch.models.resnet", "repro_torch.models.predictor",
               "repro_torch.launch.serve", "repro_torch.launch.agent_main",
-              "repro_torch.core.client", "repro_torch.core.platform"):
+              "repro_torch.core.client", "repro_torch.core.platform",
+              "repro_torch.serve.faults", "repro_torch.serve.fleet"):
         assert m in mods, m
 
 
