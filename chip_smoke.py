@@ -112,7 +112,18 @@ Phases, each printing its own lines and wall time, each ending in
    1500 live keys (pad slots filled with 1e4, never read; the plain
    version at 1499 keys must fail) and over the 2048-slot self cache at a
    static step's lengths; rmsnorm at 1280 over 12000 rows and 8; each
-   timed beside its plain version, its bound and SDPA or ``F.rms_norm``;
+   timed beside its plain version, its bound and SDPA or ``F.rms_norm``.
+   Then the training path (``train_kernels_phase``): the forward's
+   log-sum-exp against ``ref.attention_lse`` (and the forward's bits the
+   same with and without it); ``flash_attention_bwd`` (dq, dk, dv) at
+   glm4-9b's training shape, q (4, 1024, 32, 128) on 2 kv heads, causal,
+   bf16, and on small bf16 and float32 cases with a window, a softcap of
+   2, a ``q_offset``, no causal mask, rows with no live key (the empty
+   log-sum-exp, dq exactly 0), whisper's d 64 at rep 1 and zamba2's d 80;
+   the plain version without key 0, and without the softcap's factor,
+   must fail the limit; ``rmsnorm_bwd`` at 4096 and 8 rows of 4096 (dw the
+   same bits twice); each timed beside its plain version, its bound and
+   SDPA's or ``F.rms_norm``'s backward alone;
 3. check: reduced glm4-9b in float32 served on the card and on the CPU
    from the same weights must emit the same greedy tokens, with and
    without speculative decoding (which must also equal each other); the
@@ -159,7 +170,14 @@ Phases, each printing its own lines and wall time, each ending in
    completes, the card's tokens equal the CPU's and its own fault-free
    run's, each request's (status, worker, attempts) and the fleet's
    counters equal the CPU's, and the corrupt runs count a checksum failure
-   and restore nothing they rejected;
+   and restore nothing they rejected.  Training (``train_check_phase``):
+   reduced glm4-9b, qwen3-moe-30b-a3b and whisper-large-v3 in float32 take
+   3 train steps (remat, 2 microbatches) on the card and on the CPU from
+   the same masters and batches, each step's loss, ce, aux and grad_norm
+   within 1e-4 relative; on the card 2 steps, a checkpoint through
+   ``CheckpointManager``, a restore into fresh trees and 2 more steps give
+   the losses of 4 straight steps within 1e-5; mamba2-130m refuses to
+   train on the card (no ``ssd`` backward) with no kernel launched;
 4. serve: full-width, full-depth glm4-9b (40 layers, random bf16 weights
    from a seeded CUDA generator) through ``ServingEngine.serve_paged``;
    every request must complete and every kernel must have been launched
@@ -219,6 +237,16 @@ Phases, each printing its own lines and wall time, each ending in
    int8); each run prints its token agreement with the fault-free run
    (bf16 batches differ across workers), fleet tok/s, recovery_max_s,
    bytes moved and the median ``ckpt:save`` and ``migrate:restore`` ms;
+4c. train (after phase 5 frees phase 4's models; ``train_phase``):
+   glm4-9b at full width cut to 4 layers, random float32 masters from a
+   seeded CUDA generator, bf16 compute, float32 AdamW moments, remat, 2
+   microbatches, 5 steps on one repeated batch of 4 x 1024 tokens: the
+   loss finite and lower at the last step than at the first; every step
+   launches exactly 16 ``flash_attention``, 8 ``flash_attention_bwd``, 34
+   rmsnorm and 18 ``rmsnorm_bwd`` (no serving kernel); step ms, tok/s,
+   peak memory, and one profiled step's device ms by class (flash forward
+   and backward, rmsnorm forward and backward, matmuls, the optimizer,
+   other) with the idle share;
 5. where the time goes: device time by kernel class per prefill launch and
    per decode step, per launch of each kernel, and the device's idle
    share, from torch.profiler, for the paged engine and for a dense
@@ -320,6 +348,7 @@ Exits non-zero, printing no result, without CUDA or outside a checkout.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -366,6 +395,15 @@ def _phase(name):
 def _done(torch, name, t0):
     torch.cuda.synchronize()
     print(f"== {name} done in {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def _release(torch):
+    """Free what the last phase or model left: collect reference cycles
+    first (an engine or a traced frame in one would hold its model's
+    gigabytes until the collector happened to run), then return the cached
+    blocks to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _sleep_cycles_per_ms(torch):
@@ -635,6 +673,16 @@ def build_report(info, nvcc):
     spilled = [names[m] for m, r in tc.items() if r[1:] != (0, 0)]
     if spilled:
         raise SystemExit(f"ssd_tc: spills in {spilled}")
+    # the training backward kernels (CUDA cores): three flash launches and
+    # two rmsnorm launches, each in bf16 and float32
+    bwd = {m: r for m, r in ptxas.items() if "flash_bwd_" in m or "rmsnorm_bwd" in m}
+    for mangled in sorted(bwd, key=lambda m: names[m]):
+        regs, st, ld = bwd[mangled]
+        print(f"   backward {names[mangled]}: {regs} registers, spill stores {st} B, loads {ld} B")
+    n_flash = sum("flash_bwd_" in m for m in bwd)
+    if n_flash != 6 or len(bwd) - n_flash != 4:
+        raise SystemExit(f"backward kernels: {n_flash} flash_bwd and {len(bwd) - n_flash} "
+                         f"rmsnorm_bwd instances in the ptxas report, expected 6 and 4")
 
 
 def kernels_phase(torch, dev, arch="glm4-9b", modes=KV_MODES):
@@ -2303,7 +2351,7 @@ def zoo_serve_phase(torch, dev, counters):
 
     paged_need = ("rmsnorm", "paged_attention", "varlen_prefill")
     for arch in ZOO_FULL:
-        torch.cuda.empty_cache()
+        _release(torch)
         torch.cuda.reset_peak_memory_stats(dev)
         model, params = full_model(torch, dev, arch)
         cfg, vocab = model.cfg, model.cfg.vocab_size
@@ -2432,7 +2480,7 @@ def moe_serve_phase(torch, dev, counters):
     from repro_torch.models.modules import moe_capacity
     from repro_torch.serve.engine import ServeRequest, ServingEngine
 
-    torch.cuda.empty_cache()
+    _release(torch)
     torch.cuda.reset_peak_memory_stats(dev)
     model, params = full_model(torch, dev, MOE_ARCH)
     cfg, vocab = model.cfg, model.cfg.vocab_size
@@ -2503,7 +2551,7 @@ def moe_serve_phase(torch, dev, counters):
           f"{_fmt_agreement(paged, dense['continuous'])}")
     print(f"   {MOE_ARCH}: peak device memory over its runs {peak / 1e9:.2f} GB")
     del model, params
-    torch.cuda.empty_cache()
+    _release(torch)
 
 
 # ---------------------------------------------------------------------------
@@ -2712,7 +2760,7 @@ def hybrid_serve_phase(torch, dev, counters):
 
     from repro_torch.serve.engine import ServingEngine
 
-    torch.cuda.empty_cache()
+    _release(torch)
     torch.cuda.reset_peak_memory_stats(dev)
     model, params = full_model(torch, dev, HYBRID_ARCH)
     cfg, vocab = model.cfg, model.cfg.vocab_size
@@ -2800,7 +2848,7 @@ def hybrid_serve_phase(torch, dev, counters):
         raise SystemExit(f"{HYBRID_ARCH}: a ring that never wraps changed the tokens")
     print(f"   {HYBRID_ARCH}: peak device memory over its runs {peak / 1e9:.2f} GB")
     del model, params
-    torch.cuda.empty_cache()
+    _release(torch)
 
 
 # ---------------------------------------------------------------------------
@@ -3084,7 +3132,7 @@ def encdec_serve_phase(torch, dev, counters):
     from repro_torch.launch.serve import make_requests
     from repro_torch.serve.engine import ServingEngine
 
-    torch.cuda.empty_cache()
+    _release(torch)
     torch.cuda.reset_peak_memory_stats(dev)
     model, params = full_model(torch, dev, ENCDEC_ARCH)
     cfg, vocab = model.cfg, model.cfg.vocab_size
@@ -3148,7 +3196,7 @@ def encdec_serve_phase(torch, dev, counters):
                              f"(launches {launched})")
     print(f"   {ENCDEC_ARCH}: peak device memory over its runs {peak / 1e9:.2f} GB")
     del model, params, engine, transcribe, frames
-    torch.cuda.empty_cache()
+    _release(torch)
 
 
 # ---------------------------------------------------------------------------
@@ -3479,7 +3527,7 @@ def first_token_check(torch, dev, model, params, reqs, chunked, pairs):
         print(f"      {label}: {len(mine)} requests differ; (request, first differing token, "
               f"f32 margin of the two tokens) {mine}; 2E = {2 * E:.4f}")
     del ref_params
-    torch.cuda.empty_cache()
+    _release(torch)
     if any(m > 2 * E for _, _, _, m in flips):
         raise SystemExit("a bf16 run flips a token where float32 separates the two by more "
                          "than twice the bf16 error: not rounding")
@@ -4311,6 +4359,484 @@ def serve_record_check():
         raise SystemExit("serve driver --evaldb: the record lacks its engine knobs or backend")
 
 
+# ---------------------------------------------------------------------------
+# Training: the backward kernels, the train step card vs CPU, and glm4-9b at
+# full width (phase 4c)
+# ---------------------------------------------------------------------------
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024          # phase 4c's batch: 4 rows of 1024 tokens
+TRAIN_LAYERS = 4                          # glm4-9b cut to 4 of its 40 layers (memory)
+TRAIN_MICRO = 2                           # microbatches a step
+TRAIN_STEPS = 5                           # steps on one repeated batch
+# AdamW's first steps move every weight by about the learning rate: 1e-3
+# memorised the batch in one step and then overshot (12.73, 1.47, 0.80,
+# 8.14, 3.78 in a first run), so the full-width run takes a gentler one
+TRAIN_LR = 5e-5
+TRAIN_ARCHS = ("glm4-9b", "qwen3-moe-30b-a3b", "whisper-large-v3")
+TRAIN_REL = 1e-4                          # reduced f32 metrics, card vs CPU, relative
+RESUME_REL = 1e-5                         # 2 + restore + 2 steps vs 4, relative
+TRAIN_METRICS = ("loss", "ce", "aux", "grad_norm")
+# the flash backward's small cases: (label, q (b, sq, h, d), sk, kvh, options)
+BWD_CASES = (
+    ("window 64, q_offset 256", (2, 128, 32, 128), 384, 2, {"window": 64, "q_offset": 256}),
+    # a cap of 2 bends scores of unit spread by ~20%: the reject without its
+    # factor must fail, where a cap far above the scores would change nothing
+    ("softcap 2", (2, 128, 32, 128), 384, 2, {"softcap": 2.0, "q_offset": 256}),
+    ("not causal", (2, 128, 32, 128), 384, 2, {"causal": False}),
+    ("rows with no live key", (2, 128, 32, 128), 64, 2, {"window": 16, "q_offset": 40}),
+    ("whisper d 64 rep 1, not causal", (2, 96, 20, 64), 150, 20, {"causal": False}),
+    ("zamba2 d 80", (2, 96, 32, 80), 96, 32, {}),
+)
+
+
+def _bwd_inputs(torch, gen, dtype, shape, sk, kvh, opts):
+    """q, k, v, do of a backward case, and the forward kernel's o and lse."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, sq, h, d = shape
+    randn = lambda *s: torch.randn(s, generator=gen, device=gen.device, dtype=torch.float32)
+    q = randn(b, sq, h, d).to(dtype)
+    k, v = randn(b, sk, kvh, d).to(dtype), randn(b, sk, kvh, d).to(dtype)
+    do = randn(b, sq, h, d).to(dtype)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **opts)
+    return q, k, v, o, lse, do
+
+
+def _without_cap_factor(torch, q, k, v, do, opts):
+    """The plain backward with the softcap's factor 1 - (sc/cap)^2 left out:
+    autograd of the plain forward whose cap passes the gradient straight
+    through (a reject)."""
+    from repro_torch.kernels import ref
+
+    real = ref._soft_cap
+    ref._soft_cap = lambda x, cap: x + (real(x, cap) - x).detach() if cap > 0 else x
+    try:
+        leaves = [t.float().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            out = ref.attention(*leaves, **opts)
+            return torch.autograd.grad(out, leaves, do.float())
+    finally:
+        ref._soft_cap = real
+
+
+def train_kernels_phase(torch, dev):
+    """The training path's kernels against their plain versions: the
+    forward's log-sum-exp against ``ref.attention_lse`` (and the forward's
+    bits with and without it), ``flash_attention_bwd`` at the training shape
+    (glm4-9b, q (TRAIN_BATCH, TRAIN_SEQ, 32, 128) on 2 kv heads, causal,
+    bf16) and on small bf16 and float32 cases, with two rejects (the plain
+    version without the softcap factor; without key 0), and ``rmsnorm_bwd``
+    at 4096 rows of 4096 and at 8 rows; times and bounds."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm_bwd as rb
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    cpm = _sleep_cycles_per_ms(torch)
+    cfg = get_config("glm4-9b")
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    rep = h // kvh
+    bf = torch.bfloat16
+    records = {}
+    check3 = lambda label, got, want: max(
+        _check(torch, f"flash_attention_bwd {label} {n}", g, w)
+        for n, g, w in zip(("dq", "dk", "dv"), got, want))
+
+    # -- the forward's log-sum-exp, at the training shape
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    q, k, v, o, lse, do = _bwd_inputs(torch, gen, bf, (b, s, h, d), s, kvh, {})
+    o_plain, lse_plain = ref.attention_lse(q, k, v)
+    err_lse = _check(torch, "flash_attention lse (glm4-9b, training shape)", lse, lse_plain)
+    same = torch.equal(o, fa.flash_attention(q, k, v))
+    print(f"   flash_attention: the output with lse has the same bits as without: {same}")
+    if not same:
+        raise SystemExit("flash_attention: writing the log-sum-exp moved the output")
+    del o_plain, lse_plain
+
+    # -- flash_attention_bwd at the training shape
+    want = ref.flash_attention_bwd(q, k, v, o, lse, do)
+    err = check3(f"glm4-9b q ({b}, {s}, {h}, {d}) causal", fb.flash_attention_bwd(
+        q, k, v, o, lse, do), want)
+    o1, lse1 = ref.attention_lse(q, k[:, 1:], v[:, 1:], q_offset=-1)
+    _rejects(torch, "flash_attention_bwd plain without key 0 (dq)", ref.flash_attention_bwd(
+        q, k[:, 1:], v[:, 1:], o1, lse1, do, q_offset=-1)[0], want[0])
+    del want, o1, lse1
+    nbytes = 2 * (4 * b * s * h * d + 4 * b * s * kvh * d)
+    flops = 10.0 * b * h * s * s * d / 2
+    sets = _rotation(nbytes, lambda i: tuple(t.clone() for t in (q, k, v, o, lse, do)))
+
+    def lib_set(i):
+        qe = q.transpose(1, 2).contiguous().requires_grad_()
+        ke = k.transpose(1, 2).repeat_interleave(rep, dim=1).requires_grad_()
+        ve = v.transpose(1, 2).repeat_interleave(rep, dim=1).requires_grad_()
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
+        return out, qe, ke, ve, do.transpose(1, 2).contiguous()
+
+    lib_sets = _rotation(2 * 8 * b * s * h * d, lib_set)
+    records["flash_attention_bwd"] = dict(
+        err=err,
+        **_timed(torch, cpm, fb.flash_attention_bwd, ref.flash_attention_bwd,
+                 lambda out, *a: torch.autograd.grad(out, a[:3], a[3], retain_graph=True),
+                 sets, lib_sets, plain_calls=3),
+        bound=_bound_ms(nbytes, flops),
+        shape=f"glm4-9b q ({b}, {s}, {h}, {d}), k/v ({b}, {s}, {kvh}, {d}) bf16, causal; "
+              f"library: SDPA's backward alone, K/V expanded to {h} heads",
+    )
+    del sets, lib_sets, q, k, v, o, lse, do
+    # the microbatch shape phase 4c launches
+    mb_b = TRAIN_BATCH // TRAIN_MICRO
+    mb = _bwd_inputs(torch, gen, bf, (mb_b, s, h, d), s, kvh, {})
+    mb_ms, mb_q = _time_ms(torch, fb.flash_attention_bwd, [mb], cpm)
+    mb_bound = _bound_ms(nbytes * mb_b / b, flops * mb_b / b)
+    print(f"   flash_attention_bwd at phase 4c's microbatch q ({mb_b}, {s}, {h}, {d}): kernel_ms "
+          f"{mb_ms:.4f} bound_ms {mb_bound[0]:.4f} ({mb_bound[1]}); host gaps: {not mb_q}")
+    del mb
+
+    # -- small cases, bf16 and float32
+    for dtype in (bf, torch.float32):
+        for label, shape, sk, kv, opts in BWD_CASES:
+            q, k, v, o, lse, do = _bwd_inputs(torch, gen, dtype, shape, sk, kv, opts)
+            name = f"{label} {str(dtype).split('.')[-1]}"
+            _, lse_plain = ref.attention_lse(q, k, v, **opts)
+            err_lse = max(err_lse, _check(torch, f"flash_attention lse {name}", lse, lse_plain))
+            want = ref.flash_attention_bwd(q, k, v, o, lse, do, **opts)
+            got = fb.flash_attention_bwd(q, k, v, o, lse, do, **opts)
+            if "no live key" in label:
+                # held on the live rows and the keys some row sees (zeros
+                # elsewhere would thin the limit's rms); the rest exactly 0
+                live = ref._live(shape[1], sk, opts.get("causal", True), opts.get("window"),
+                                 opts.get("q_offset", 0), dev)
+                rows, keys = live.any(1), live.any(0)
+                zero = bool((got[0][:, ~rows] == 0).all() and (got[1][:, ~keys] == 0).all()
+                            and (got[2][:, ~keys] == 0).all())
+                dead = lse == ref.LSE_EMPTY
+                empty = bool(torch.equal(dead.any(1), ~rows[None].expand_as(dead.any(1))))
+                print(f"   flash_attention_bwd {name}: {int((~rows).sum())} rows with no live key "
+                      f"store the empty lse ({empty}); their dq and the dk, dv of the "
+                      f"{int((~keys).sum())} keys no row sees exactly zero: {zero}")
+                if not (zero and empty):
+                    raise SystemExit("flash_attention_bwd: rows with no live key mishandled")
+                if dtype == bf:
+                    # rows that see a few keys of a narrow window: a bf16
+                    # rounding of dS that falls the other way in the two
+                    # (float32 sums in another order) moves such a row by
+                    # ~2**-8 |dS k|, the limit's floor; the float32 case
+                    # holds the same code with nothing rounded
+                    continue
+                got = (got[0][:, rows], got[1][:, keys], got[2][:, keys])
+                want = (want[0][:, rows], want[1][:, keys], want[2][:, keys])
+            err = max(err, check3(name, got, want))
+            if "softcap" in opts:
+                _rejects(torch, f"flash_attention_bwd plain without the softcap factor {name} "
+                                f"(dq)", _without_cap_factor(torch, q, k, v, do, opts)[0],
+                         want[0])
+    records["flash_attention_bwd"]["err"] = err
+    records["flash_attention_bwd"]["err_lse"] = err_lse
+
+    # -- rmsnorm_bwd: 4096 rows of 4096 (a layer's norm at phase 4c's batch) and 8
+    D = cfg.d_model
+    randn = lambda *sh: torch.randn(sh, generator=gen, device=dev, dtype=torch.float32).to(bf)
+    err = 0.0
+    for rows in (8, TRAIN_BATCH * TRAIN_SEQ):
+        x, w, dy = randn(rows, D), randn(D) * 0.1, randn(rows, D)
+        want = ref.rmsnorm_bwd(x, w, 1e-5, dy)
+        got = rb.rmsnorm_bwd(x, w, 1e-5, dy)
+        for n, g, t in zip(("dx", "dw"), got, want):
+            err = max(err, _check(torch, f"rmsnorm_bwd {rows} rows of {D} {n}", g, t))
+        again = rb.rmsnorm_bwd(x, w, 1e-5, dy)[1]
+        if not torch.equal(again, got[1]):
+            raise SystemExit("rmsnorm_bwd: dw differs between two runs")
+    nbytes = 2 * (3 * rows * D + 2 * D)
+    sets = _rotation(nbytes, lambda i: (x.clone(), w.clone(), 1e-5, dy.clone()))
+
+    def rms_lib(i):
+        xs = x.clone().requires_grad_()
+        ws = (1 + w.float()).to(bf).requires_grad_()
+        with torch.enable_grad():
+            out = F.rms_norm(xs, (D,), ws, eps=1e-5)
+        return out, xs, ws, dy.clone()
+
+    have_lib = hasattr(F, "rms_norm")
+    lib_sets = _rotation(nbytes, rms_lib) if have_lib else []
+    records["rmsnorm_bwd"] = dict(
+        err=err,
+        **_timed(torch, cpm, rb.rmsnorm_bwd, ref.rmsnorm_bwd,
+                 (lambda out, xs, ws, g: torch.autograd.grad(out, (xs, ws), g, retain_graph=True))
+                 if have_lib else None, sets, lib_sets),
+        bound=_bound_ms(nbytes, 10.0 * rows * D),
+        shape=f"x ({rows}, {D}) bf16; dw the same bits on two runs; library: "
+              f"F.rms_norm's backward alone, weight 1 + w",
+    )
+    small = [(randn(8, D), randn(D) * 0.1, 1e-5, randn(8, D))]
+    ms8, q8 = _time_ms(torch, rb.rmsnorm_bwd, small, cpm)
+    print(f"   rmsnorm_bwd at 8 rows of {D}: kernel_ms {ms8:.4f} bound_ms "
+          f"{_bound_ms(2 * (3 * 8 * D + 2 * D), 10.0 * 8 * D)[0]:.4f}; host gaps: {not q8}")
+    _print_records(records)
+    return records
+
+
+def _train_models(torch, dev, cfg, seed=SEED):
+    """A float32 model on the CPU and on the card, and the CPU's masters."""
+    from repro_torch.models import build_model
+
+    cpu_model = build_model(cfg, device="cpu", dtype=torch.float32)
+    gpu_model = build_model(cfg, device=dev, dtype=torch.float32)
+    return cpu_model, gpu_model, cpu_model.init(seed=seed)
+
+
+def _train_batch(torch, cfg, b, s, seed, device):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(
+        np.int32)).to(device)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros((b, cfg.encoder_seq, cfg.d_model), device=device)
+    return batch
+
+
+def _run_steps(torch, model, params, opt_cfg, n, seed, microbatches=1, state=None):
+    """``n`` float32 train steps; (params, state, per-step metrics as floats)."""
+    from repro_torch.train import init_opt_state, make_train_step
+
+    dev = model.device
+    state = state if state is not None else init_opt_state(model.param_defs(), opt_cfg, dev)
+    step = make_train_step(model, opt_cfg, microbatches=microbatches, remat=True)
+    out = []
+    for i in range(n):
+        params, state, m = step(params, state, _train_batch(torch, model.cfg, 4, 16,
+                                                            seed + i, dev))
+        out.append({k: float(m[k]) for k in TRAIN_METRICS})
+    return params, state, out
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _copy_to(torch, tree, dev):
+    """A copy of ``tree`` on ``dev`` (the optimizer updates in place)."""
+    return _tree_map(tree, lambda t: t.to(dev, copy=True))
+
+
+def train_check_phase(torch, dev, counters):
+    """Reduced glm4-9b, qwen3-moe-30b-a3b and whisper-large-v3 in float32:
+    3 train steps (remat, 2 microbatches) on the card and on the CPU from
+    the same masters and batches, each step's loss, ce, aux and grad_norm
+    within TRAIN_REL relative; on reduced glm4-9b, 2 steps, a checkpoint, a
+    restore into fresh trees and 2 more steps give the losses of 4 steps
+    within RESUME_REL; an ssm model on the card refuses to train, with no
+    kernel launched."""
+    import tempfile
+
+    from repro_torch.models import build_model
+    from repro_torch.train import CheckpointManager, OptimizerConfig, init_opt_state, \
+        make_train_step
+
+    opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    for arch in TRAIN_ARCHS:
+        cfg = _reduced(arch)
+        cpu_model, gpu_model, masters = _train_models(torch, dev, cfg)
+        runs = {}
+        for name, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+            runs[name] = _run_steps(torch, model, _copy_to(torch, masters, model.device),
+                                    opt_cfg, 3, SEED, microbatches=2)[2]
+        worst = max(_rel(c[k], p[k]) for c, p in zip(runs["cuda"], runs["cpu"])
+                    for k in TRAIN_METRICS if p[k] != 0 or c[k] != 0)
+        ok = worst <= TRAIN_REL
+        print(f"   {cfg.name} f32, 3 steps of 4 x 16 tokens, 2 microbatches, remat: cuda "
+              f"{[round(m['loss'], 5) for m in runs['cuda']]} vs cpu "
+              f"{[round(m['loss'], 5) for m in runs['cpu']]}; worst relative gap over loss, "
+              f"ce, aux, grad_norm {worst:.2e} (within {TRAIN_REL}: {ok}); aux "
+              f"{runs['cuda'][0]['aux']:.5f}")
+        if not ok:
+            raise SystemExit(f"{cfg.name}: the card's train step differs from the CPU's")
+
+    # checkpoint and restore on the card
+    cfg = _reduced("glm4-9b")
+    _, gpu_model, masters = _train_models(torch, dev, cfg)
+    straight = _run_steps(torch, gpu_model, _copy_to(torch, masters, dev), opt_cfg, 4, SEED)[2]
+    params, state, first = _run_steps(torch, gpu_model, _copy_to(torch, masters, dev), opt_cfg,
+                                      2, SEED)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        mgr = CheckpointManager(tmp, keep=1)
+        mgr.save(2, params, state, extra={"data_cursor": 8})
+        fresh_p = gpu_model.init(seed=SEED + 1)
+        fresh_s = init_opt_state(gpu_model.param_defs(), opt_cfg, dev)
+        params, state, meta = mgr.restore(params_template=fresh_p, opt_template=fresh_s)
+    _, state, rest = _run_steps(torch, gpu_model, params, opt_cfg, 2, SEED + 2, state=state)
+    resumed = first + rest
+    worst = max(_rel(a["loss"], b["loss"]) for a, b in zip(resumed, straight))
+    ok = worst <= RESUME_REL and meta["step"] == 2 and int(state["step"]) == 4
+    print(f"   {cfg.name} f32 on the card: 2 steps, checkpoint, restore into fresh trees, 2 "
+          f"steps: losses {[round(m['loss'], 6) for m in resumed]} vs 4 straight "
+          f"{[round(m['loss'], 6) for m in straight]}, worst relative gap {worst:.2e} (within "
+          f"{RESUME_REL}: {ok})")
+    if not ok:
+        raise SystemExit("checkpoint/restore: the resumed run differs from the straight one")
+
+    # an ssm model refuses to train on the card before any kernel runs
+    _zero(counters)
+    model = build_model(_reduced("mamba2-130m"), device=dev, dtype=torch.float32)
+    try:
+        make_train_step(model, opt_cfg)
+        refused = False
+    except NotImplementedError as e:
+        refused, why = True, str(e)
+    launched = sum(c.launches for c in counters.values())
+    print(f"   mamba2-130m on the card: make_train_step raises NotImplementedError: {refused} "
+          f"({why if refused else ''}); kernel launches: {launched}")
+    if not refused or launched:
+        raise SystemExit("mamba2-130m: training on the card did not refuse cleanly")
+
+
+_TRAIN_CLASSES = (
+    ("flash_fwd", ("flash_attention_kernel",)),
+    ("flash_bwd", ("flash_bwd_",)),
+    ("rmsnorm_bwd", ("rmsnorm_bwd",)),
+    ("rmsnorm_fwd", ("rmsnorm_kernel",)),
+    ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
+)
+
+
+def _train_class(name):
+    for cls, keys in _TRAIN_CLASSES:
+        if any(k in name for k in keys):
+            return cls
+    return "other"
+
+
+def _train_expected(L, mb):
+    """Launches of one phase-4c step: flash forward twice a layer (remat
+    recomputes it), its backward once; rmsnorm ln1 and ln2 twice a layer
+    plus the final norm once, their backward once each; per microbatch."""
+    return {"flash_attention": 2 * L * mb, "flash_attention_bwd": L * mb,
+            "rmsnorm": (2 * L + 1) * mb + 2 * L * mb, "rmsnorm_bwd": (2 * L + 1) * mb}
+
+
+def train_phase(torch, dev, counters):
+    """glm4-9b at full width cut to TRAIN_LAYERS layers: random float32
+    masters from a seeded CUDA generator, bf16 compute, AdamW moments in
+    float32, remat, TRAIN_MICRO microbatches, TRAIN_STEPS steps on one
+    repeated batch of TRAIN_BATCH x TRAIN_SEQ tokens.  The loss must be
+    finite and fall; each step's launches must be exactly
+    ``_train_expected``, no serving kernel among them.  Prints step ms,
+    tok/s, peak memory and one profiled step's device ms by class (the
+    optimizer: every kernel launched under ``adamw_update``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import OptimizerConfig, init_opt_state, make_train_step
+    from repro_torch.train import step as step_mod
+
+    cfg = get_config("glm4-9b").replace(num_layers=TRAIN_LAYERS)
+    model = build_model(cfg, device=dev, dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    masters = model.init(seed=SEED, dtype=torch.float32)
+    opt_cfg = OptimizerConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+    state = init_opt_state(model.param_defs(), opt_cfg, dev)
+    step = make_train_step(model, opt_cfg, microbatches=TRAIN_MICRO, remat=True,
+                           cast_params_once=True)
+    batch = _train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, SEED, dev)
+    print(f"   {cfg.name} at full width, {TRAIN_LAYERS} of 40 layers: {cfg.param_count():,} "
+          f"params; batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_MICRO} microbatches, remat, bf16 "
+          f"compute, float32 masters and moments")
+    expect = _train_expected(TRAIN_LAYERS, TRAIN_MICRO)
+    totals = {name: 0 for name in counters}
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        _zero(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masters, state, m = step(masters, state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        got = {name: c.launches for name, c in counters.items()}
+        for name in totals:
+            totals[name] += got[name]
+        bad = {n: (got[n], expect.get(n, 0)) for n in got if got[n] != expect.get(n, 0)}
+        if bad:
+            raise SystemExit(f"train step {i + 1}: launches (got, expected) {bad}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    finite = all(math.isfinite(x) for x in losses)
+    print(f"   losses {[round(x, 4) for x in losses]}; finite: {finite}; last below first: "
+          f"{losses[-1] < losses[0]}")
+    print(f"   launches per step (all {TRAIN_STEPS} exact): {expect}, no serving kernel")
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    print(f"   step ms {[round(t, 1) for t in times]} (the first builds cuBLAS plans); median "
+          f"of the rest {steady:.1f} ms, {TRAIN_BATCH * TRAIN_SEQ / steady * 1e3:,.0f} tok/s; "
+          f"peak memory {peak:.2f} GiB")
+    if not (finite and losses[-1] < losses[0]):
+        raise SystemExit("train: the loss is not finite or did not fall")
+
+    real = step_mod.adamw_update
+
+    def ranged(*a, **kw):
+        with record_function("adamw_update"):
+            return real(*a, **kw)
+
+    step_mod.adamw_update = ranged
+    try:
+        step = make_train_step(model, opt_cfg, microbatches=TRAIN_MICRO, remat=True,
+                               cast_params_once=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            masters, state, m = step(masters, state, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        step_mod.adamw_update = real
+    by_class = {cls: 0.0 for cls, _ in _TRAIN_CLASSES}
+    by_class.update(optimizer=0.0, other=0.0)
+    bwd_kernels = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.key == "adamw_update":
+            continue
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        by_class[_train_class(e.key)] += float(us) / 1e3
+        m = re.search(r"(flash_bwd_\w+|rmsnorm_bwd\w*)", e.key)
+        if m:
+            bwd_kernels[m.group(1)] = bwd_kernels.get(m.group(1), 0.0) + float(us) / 1e3
+    # the optimizer: every kernel launched under the adamw_update range
+    for e in prof.events():
+        chain, p = [], e
+        while p is not None:
+            chain.append(p.name)
+            p = p.cpu_parent
+        if e.kernels and "adamw_update" in chain:
+            for kern in e.kernels:
+                by_class[_train_class(kern.name)] -= kern.duration / 1e3
+                by_class["optimizer"] += kern.duration / 1e3
+    busy = sum(by_class.values())
+    if busy <= 0:
+        print("   profiler saw no device time: breakdown not measured")
+    else:
+        print(f"   one profiled step: wall {wall:.1f} ms, device busy {busy:.1f} ms (idle "
+              f"{1 - busy / wall:.3f}); device ms by class: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in by_class.items()))
+        print("   the backward kernels' device ms in that step, by launch: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(bwd_kernels.items())))
+    del masters, state, model, step, m
+    # what the phase leaves behind before any garbage collection: a
+    # reference cycle over the trees would hold gigabytes until it ran
+    left = torch.cuda.memory_allocated() / 2**30
+    print(f"   device memory still allocated after the phase: {left:.3f} GiB")
+    if left > 1.0:
+        raise SystemExit("train: the phase's trees outlive it (a reference cycle?)")
+    _release(torch)
+    return {"flash_attention_bwd": totals["flash_attention_bwd"],
+            "rmsnorm_bwd": totals["rmsnorm_bwd"]}
+
+
 def main() -> int:
     import torch
 
@@ -4374,6 +4900,9 @@ def main() -> int:
           f"decode_attention at rep 1 over the padded cross cache, rmsnorm at 1280)")
     for name, err in whisper_kernels_phase(torch, dev).items():
         records[name]["err"] = max(records[name]["err"], err)
+    print("   -- the training path: the forward's log-sum-exp, flash_attention_bwd and "
+          "rmsnorm_bwd")
+    records.update(train_kernels_phase(torch, dev))
     _done(torch, "2. kernels", t0)
 
     t0 = _phase("3. check: reduced glm4-9b, mamba2-130m, the rest of the dense family, the "
@@ -4400,6 +4929,9 @@ def main() -> int:
     resnet_check_phase(torch, dev)
     print("   -- the fault-tolerant fleet (reduced glm4-9b): the recovery matrix, card vs CPU")
     fleet_check(torch, dev)
+    print(f"   -- training ({', '.join(TRAIN_ARCHS)}), card vs CPU; checkpoint and restore; the "
+          f"ssm refusal")
+    train_check_phase(torch, dev, kernel_counters())
     _done(torch, "3. check", t0)
 
     t0 = _phase("4. serve: glm4-9b and mamba2-130m, full width and depth, random bf16 weights")
@@ -4432,12 +4964,17 @@ def main() -> int:
     dense_profile_phase(torch, ssm_engine, ssm_prompts)
     _done(torch, "5. profile", t0)
     del model, params, engine, dense_engine, ssm_model, ssm_params, ssm_engine
-    torch.cuda.empty_cache()
+    _release(torch)
+
+    t0 = _phase(f"4c. train: glm4-9b at full width, {TRAIN_LAYERS} layers, random weights, bf16 "
+                f"compute, float32 masters and AdamW moments")
+    launches.update(train_phase(torch, dev, counters))
+    _done(torch, "4c. train", t0)
 
     t0 = _phase("5b. serve: gemma2-27b, granite-20b and chameleon-34b, full width and depth, "
                 "random bf16 weights")
     zoo_serve_phase(torch, dev, counters)
-    torch.cuda.empty_cache()
+    _release(torch)
     _done(torch, "5b. serve the rest of the dense family", t0)
 
     t0 = _phase(f"5c. serve: {MOE_ARCH}, full width and depth, random bf16 weights")
@@ -4480,6 +5017,12 @@ def main() -> int:
         # bf16 (the record here) runs the tensor-core route; float32 and other
         # widths or chunks keep csrc/ssd.cu
         "ssd": ("src/repro_torch/kernels/csrc/ssd_tc.cu", "src/repro/kernels/ssd_scan.py:95"),
+        # the training backward: the flash path's custom VJP, and autodiff of
+        # the TPU rmsnorm kernel's plain version
+        "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                                "src/repro/kernels/ops.py:126"),
+        "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+                        "src/repro/kernels/rmsnorm.py:26"),
     }
     kernels = []
     for name, r in records.items():

@@ -1,6 +1,6 @@
-"""Serving kernels: plain PyTorch versions (:mod:`.ref`), hand-written CUDA
-kernels for sm_90a (``csrc/``, built by :mod:`._build`) and their wrappers,
-dispatched by device in :mod:`.ops`."""
+"""The port's kernels, serving and training: plain PyTorch versions
+(:mod:`.ref`), hand-written CUDA kernels for sm_90a (``csrc/``, built by
+:mod:`._build`) and their wrappers, dispatched by device in :mod:`.ops`."""
 from __future__ import annotations
 
 import functools

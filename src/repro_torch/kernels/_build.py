@@ -33,7 +33,7 @@ CHECKOUT = PACKAGE.parents[1]              # <root>
 SOURCES = ("rmsnorm.cu", "paged_attention.cu", "varlen_prefill.cu", "spec_verify.cu",
            "flash_attention.cu", "decode_attention.cu", "ssd.cu", "decode_split_bf16.cu",
            "decode_split_quant.cu", "varlen_prefill_bf16.cu", "varlen_prefill_quant.cu",
-           "ssd_tc.cu")
+           "ssd_tc.cu", "flash_attention_bwd.cu", "rmsnorm_bwd.cu")
 HEADERS = ("common.cuh", "mma.cuh", "flash_tile.cuh", "decode_split.cuh", "varlen_prefill_tc.cuh")
 BUILD_ROOT = CHECKOUT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
@@ -64,10 +64,15 @@ SIGNATURES = {
        for kind in ("bf16", "quant")},
     "rt_spec_verify_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _F, _F, _I, _I, _P),
-    "rt_flash_attention_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    # q, k, v, out and lse (null: none), then the shape and options
+    "rt_flash_attention_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _F, _F, _P),
-    "rt_flash_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    "rt_flash_attention_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _F, _F, _P),
+    # q, k, v, o, dout, lse, the D scratch, dq, dk, dv; the shape, tile and options
+    "rt_flash_attention_bwd": (_P,) * 10 + (_I,) * 11 + (_F, _F, _I, _P),
+    # x, w, dy, dx, dw, the dw partials; rows, D, eps, blocks, dtype
+    "rt_rmsnorm_bwd": (_P,) * 6 + (_LL, _LL, _F, _I, _I, _P),
     "rt_decode_attention_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                 _F, _P),
     # the split-KV decode routine, over a bf16 pool and over int8/fp8 codes

@@ -4,7 +4,12 @@
 // q (b, sq, h, d) attends k, v (b, sk, kvh, d); query head h reads kv head
 // h / (h/kvh).  Query row i sits at absolute position q_offset + i; key j
 // is live for it when j < sk, (causal) q_pos >= j and (window > 0)
-// q_pos - j < window.  A row with no live key comes out exactly zero.
+// q_pos - j < window.  A row with no live key comes out exactly zero.  Given
+// a non-null `lse` (b, h, sq) float32, each kernel also stores each row's
+// log-sum-exp of its live scores in natural-log units, the statistic the
+// backward (flash_attention_bwd.cu) recomputes P from; a row with no live
+// key stores kLseEmpty, which makes that P exactly 0.  The serving path
+// passes null.
 //
 // Bound on this card: operations.  A block of R query rows does 4 * R * d
 // flops per key row it reads; at the prefill shapes of the dense engines
@@ -62,6 +67,10 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 using rt::tile::Rows;
+
+constexpr float kLn2 = 0.6931471805599453f;
+// the log-sum-exp of a row with no live key (ref.LSE_EMPTY): exp(s - it) is 0
+constexpr float kLseEmpty = 2.3819763e38f;  // ref.LSE_EMPTY, 0.7 * FLT_MAX in float32
 
 // ---------------------------------------------------------------------------
 // Pieces of both bf16 kernels (the rest is flash_tile.cuh)
@@ -126,6 +135,23 @@ __host__ __device__ constexpr size_t bf16_smem_bytes(int stride, int bk, int row
 // The mask of a block's rows: key < hi, (causal) q_pos >= key and (window)
 // q_pos - key < window; `full` when every row of the block sees every key of
 // the tile [k0, k0 + BK).
+// This warp's 16 rows' log-sum-exp into lse (b, h, sq): m and the quad's
+// summed l are in log2 units, converted once here.
+__device__ __forceinline__ void store_lse(float* __restrict__ lse, const float (&m)[2],
+                                          const float (&l)[2], int wrow, const Rows& r) {
+  const int lane = threadIdx.x & 31, group = lane >> 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const int row = r.row0 + wrow + group + 8 * i;
+    if ((lane & 3) == 0 && row < r.total)
+      lse[((int64_t)r.bi * r.h + r.g * r.rep + row % r.rep) * r.sq + row / r.rep] =
+          li > 0.f ? (m[i] + log2f(li)) * kLn2 : kLseEmpty;
+  }
+}
+
 template <int BK>
 __device__ __forceinline__ bool tile_full(const Rows& r, int k0, int causal, int window) {
   return k0 + BK <= r.hi && (!causal || k0 + BK - 1 <= r.pos_first) &&
@@ -139,7 +165,8 @@ __device__ __forceinline__ bool tile_full(const Rows& r, int k0, int causal, int
 template <int BK, int ST, int WG>
 __global__ void __launch_bounds__(128 * WG)
 flash_attention_kernel_bf16_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                  const bf16* __restrict__ v, bf16* __restrict__ out, int b,
+                                  const bf16* __restrict__ v, bf16* __restrict__ out,
+                                  float* __restrict__ lse, int b,
                                   int sq, int sk, int h, int kvh, int causal, int window,
                                   int q_offset, float scale, float softcap) {
   using namespace rt::mma;
@@ -204,6 +231,7 @@ flash_attention_kernel_bf16_wgmma(const bf16* __restrict__ q, const bf16* __rest
   cp_async_wait<0>();
   __syncthreads();  // every wgmma of the block is done with sQ
   store_rows<D>(sQ, at_q, o, l, wrow, r, out);
+  if (lse != nullptr) store_lse(lse, m, l, wrow, r);
 }
 
 // ---------------------------------------------------------------------------
@@ -216,7 +244,8 @@ constexpr int kMmaThreads = 32 * kMmaWarps;
 template <int D, int BK, int ST, class Lay>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_attention_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, bf16* __restrict__ out, int b, int sq,
+                            const bf16* __restrict__ v, bf16* __restrict__ out,
+                            float* __restrict__ lse, int b, int sq,
                             int sk, int h, int kvh, int causal, int window, int q_offset,
                             float scale, float softcap) {
   using namespace rt::mma;
@@ -286,6 +315,7 @@ flash_attention_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__
   cp_async_wait<0>();
   // each warp reads only its own rows of sQ, so it may overwrite them with O
   store_rows<D>(sQ, at, o, l, wrow, r, out);
+  if (lse != nullptr) store_lse(lse, m, l, wrow, r);
 }
 
 // ---------------------------------------------------------------------------
@@ -293,7 +323,8 @@ flash_attention_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(rt::kThreads)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ out, int sq, int sk, int h,
+                       const float* __restrict__ v, float* __restrict__ out,
+                       float* __restrict__ lse, int sq, int sk, int h,
                        int kvh, int d, int bq, int bk, int causal, int window, int q_offset,
                        float scale, float softcap) {
   extern __shared__ float smem[];
@@ -332,6 +363,11 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = i / d, c = i % d;
     if (q_idx(r) < sq) out[q_row(r) + c] = t.acc[i] / fmaxf(t.l[r], rt::kMinL);
   }
+  if (lse != nullptr)
+    for (int r = threadIdx.x; r < R; r += blockDim.x)
+      if (q_idx(r) < sq)
+        lse[((int64_t)b * h + g * rep + r % rep) * sq + q_idx(r)] =
+            t.l[r] > 0.f ? t.m[r] + logf(t.l[r]) : kLseEmpty;
 }
 
 bool shape_ok(int b, int sq, int sk, int h, int kvh, int d) {
@@ -341,33 +377,34 @@ bool shape_ok(int b, int sq, int sk, int h, int kvh, int d) {
 // One bf16 launch: `rows` query rows per block, `threads` threads, `smem` bytes.
 template <class Kernel>
 int launch_bf16(Kernel kernel, int rows, int threads, size_t smem, const void* q, const void* k,
-                const void* v, void* out, int b, int sq, int sk, int h, int kvh, int causal,
+                const void* v, void* out, float* lse, int b, int sq, int sk, int h, int kvh, int causal,
                 int window, int q_offset, float scale, float softcap, cudaStream_t st) {
   const int64_t blocks = ((int64_t)sq * (h / kvh) + rows - 1) / rows * b * kvh;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   cudaError_t e = rt::allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<(unsigned)blocks, threads, smem, st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                                                  (bf16*)out, b, sq, sk, h, kvh, causal, window,
+                                                  (bf16*)out, lse, b, sq, sk, h, kvh, causal, window,
                                                   q_offset, scale, softcap);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, out: (b, sq, h, d); k, v: (b, sk, kvh, d); all contiguous bf16.
+// q, out: (b, sq, h, d); k, v: (b, sk, kvh, d); all contiguous bf16; lse
+// (b, h, sq) float32, or null for none.
 // block_k keys per K/V tile, tile_rows query rows per block, stages K/V
 // tiles in the ring: the (d, block_k, tile_rows, stages) tuples below are
 // the ones built (kernels/flash_attention.py BF16_TILES), d 128 on wgmma,
 // the others on mma.sync in the tile layout LAY<d> each names.
 // causal 0/1; window <= 0 means none.
 extern "C" int rt_flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
-                                       int b, int sq, int sk, int h, int kvh, int d, int block_k,
+                                       void* lse, int b, int sq, int sk, int h, int kvh, int d, int block_k,
                                        int tile_rows, int stages, int causal, int window,
                                        int q_offset, float scale, float softcap, void* stream) {
   if (!shape_ok(b, sq, sk, h, kvh, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-#define RT_FLASH_ARGS q, k, v, out, b, sq, sk, h, kvh, causal, window, q_offset, scale, softcap, st
+#define RT_FLASH_ARGS q, k, v, out, (float*)lse, b, sq, sk, h, kvh, causal, window, q_offset, scale, softcap, st
 #define RT_FLASH_WGMMA(BK, ST, WG)                                                            \
   if (d == 128 && block_k == BK && tile_rows == 64 * WG && stages == ST)                      \
     return launch_bf16(flash_attention_kernel_bf16_wgmma<BK, ST, WG>, 64 * WG, 128 * WG,      \
@@ -393,7 +430,7 @@ extern "C" int rt_flash_attention_bf16(const void* q, const void* k, const void*
 // The same shapes in float32.  bq query positions per block (bq * h/kvh
 // tile rows), bk keys per step.
 extern "C" int rt_flash_attention_f32(const void* q, const void* k, const void* v, void* out,
-                                      int b, int sq, int sk, int h, int kvh, int d, int bq, int bk,
+                                      void* lse, int b, int sq, int sk, int h, int kvh, int d, int bq, int bk,
                                       int causal, int window, int q_offset, float scale,
                                       float softcap, void* stream) {
   if (!shape_ok(b, sq, sk, h, kvh, d) || bq <= 0 || bk <= 0 || kvh > 65535 ||
@@ -405,7 +442,8 @@ extern "C" int rt_flash_attention_f32(const void* q, const void* k, const void* 
   cudaError_t e = rt::allow_smem(flash_attention_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   flash_attention_kernel<<<dim3(n_blocks, kvh), rt::kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, sq, sk, h, kvh, d, bq, bk,
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, (float*)lse, sq, sk, h, kvh,
+      d, bq, bk,
       causal, window, q_offset, scale, softcap);
   return (int)cudaGetLastError();
 }

@@ -2,9 +2,13 @@
 ``csrc/flash_attention.cu``.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py:flash_attention``
-(the forward pass; the training backward is not ported yet).  A CPU tensor
-runs the plain version (:func:`repro_torch.kernels.ref.attention`); a CUDA
-tensor launches a kernel or raises.  ``launches`` counts kernel launches.
+(the forward pass; with ``return_lse`` it also gives each row's
+log-sum-exp, which the backward :mod:`.flash_attention_bwd` recomputes P
+from).  A CPU tensor runs the plain version
+(:func:`repro_torch.kernels.ref.attention`, :func:`~.ref.attention_lse`); a
+CUDA tensor launches a kernel or raises.  ``launches`` counts kernel
+launches.  :class:`FlashAttentionFn` is the differentiable op: this forward
+with the log-sum-exp, then :func:`.flash_attention_bwd.flash_attention_bwd`.
 
 The kernel is chosen by dtype and head dim (:func:`plan`), a dispatch and
 not a fallback.  bfloat16 runs on the tensor cores with float32
@@ -25,6 +29,7 @@ from typing import Optional
 import torch
 
 from . import _build, ref
+from .flash_attention_bwd import flash_attention_bwd
 
 launches = 0
 
@@ -121,15 +126,20 @@ def flash_attention(
     softcap: float = 0.0,
     q_offset: int = 0,
     scale: Optional[float] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Attention of query row ``i`` (position ``q_offset + i``) over the
     keys ``j < sk`` with (causal) ``q_pos >= j`` and (window, a runtime int,
     0 or None for none) ``q_pos - j < window``; rows with no live key come
-    back exactly zero."""
+    back exactly zero.  With ``return_lse``, ``(out, lse)``: ``lse`` (b, h,
+    sq) float32 is each row's log-sum-exp of its live scores
+    (:func:`~.ref.attention_lse`), and ``out`` has the same bits as
+    without."""
     global launches
     if q.device.type == "cpu":
-        return ref.attention(q, k, v, causal=causal, window=window, softcap=softcap,
-                             q_offset=q_offset, scale=scale)
+        fn = ref.attention_lse if return_lse else ref.attention
+        return fn(q, k, v, causal=causal, window=window, softcap=softcap, q_offset=q_offset,
+                  scale=scale)
     req = _build.require
     req(q.device.type == "cuda", f"flash_attention: unsupported device {q.device}")
     req(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,
@@ -149,8 +159,10 @@ def flash_attention(
     scale = d ** -0.5 if scale is None else float(scale)
     w = 0 if window is None else int(window)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse
+           else None)
     lib = _build.library()
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _build.ptr(lse))
     if p.kernel != "f32":
         # 16-byte copies: every row starts on a 16-byte boundary
         req(all(x % 16 == 0 for x in ptrs[:3]),
@@ -166,4 +178,27 @@ def flash_attention(
         )
     launches += 1
     _build.check_launch(err, "flash_attention")
-    return out
+    return (out, lse) if return_lse else out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable :func:`flash_attention`: the forward keeps q, k, v,
+    the output and its log-sum-exp; the backward is
+    :func:`~.flash_attention_bwd.flash_attention_bwd` (the kernels on a CUDA
+    tensor, :func:`~.ref.flash_attention_bwd` on the CPU), as the JAX
+    package's ``_flash_vjp`` keeps (q, k, v, out, m, l)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset, scale):
+        opts = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset,
+                    scale=scale)
+        out, lse = flash_attention(q, k, v, return_lse=True, **opts)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = opts
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None

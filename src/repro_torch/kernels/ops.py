@@ -7,6 +7,17 @@ the JAX package there is no backend switch that would route the card's
 path around the kernels.  :func:`copy_pages`, :func:`export_pages` and
 :func:`import_pages` are plain torch indexing on every device, as the JAX
 package writes them in plain ``jnp``.
+
+Gradients: with grad mode on and an input that requires grad,
+:func:`attention` and :func:`rmsnorm` run their ``autograd.Function``
+(the forward kernel, then the backward kernel; the plain versions on the
+CPU), and otherwise make exactly the serving call.  The serving-only ops
+(:func:`decode_attention`, :func:`paged_attention`, :func:`varlen_prefill`,
+:func:`spec_verify`) have no backward and raise ``NotImplementedError``
+when asked for a gradient, on any device; :func:`ssd` raises so on a CUDA
+tensor (its backward kernel is not written yet) and stays differentiable on
+the CPU, where it is plain torch.  No op hands back a tensor cut off from
+its inputs' graph.
 """
 from __future__ import annotations
 
@@ -16,14 +27,32 @@ import torch
 
 from . import ref
 from .decode_attention import decode_attention as _decode_attention
+from .flash_attention import FlashAttentionFn
 from .flash_attention import flash_attention as _flash_attention
 from .paged_attention import paged_attention as _paged_attention
+from .rmsnorm import RMSNormFn
 from .rmsnorm import rmsnorm as _rmsnorm
 from .spec_verify import spec_verify as _spec_verify
 from .ssd import ssd as _ssd
 from .varlen_prefill import varlen_prefill as _varlen_prefill
 
 NEG_INF = ref.NEG_INF
+# the ROADMAP item that ports the ssd backward
+SSD_BACKWARD = "ROADMAP Queue 1, the ssd backward"
+
+
+def wants_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether autograd records this call: grad mode on and an input that
+    requires grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def _no_backward(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Refuse a gradient through a serving-only kernel op."""
+    if wants_grad(*tensors):
+        raise NotImplementedError(
+            f"{name} has no backward: it is a serving kernel (decode and prefill over "
+            f"caches); training attends through ops.attention")
 
 
 def attention(
@@ -38,7 +67,10 @@ def attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Full-sequence GQA attention (prefill, ``forward``): q ``(b, sq, h,
-    d)`` at positions ``q_offset + i`` over k/v ``(b, sk, kvh, d)``."""
+    d)`` at positions ``q_offset + i`` over k/v ``(b, sk, kvh, d)``;
+    differentiable (:class:`~.flash_attention.FlashAttentionFn`)."""
+    if wants_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal, window, softcap, q_offset, scale)
     return _flash_attention(q, k, v, causal=causal, window=window, softcap=softcap,
                             q_offset=q_offset, scale=scale)
 
@@ -57,6 +89,7 @@ def decode_attention(
     """Single-token decode attention over a dense ``(b, S, kvh, d)`` cache.
     ``kv_bound`` is a host-known bound on ``lengths`` (the engines bucket it
     to a power of two): keys past it are never read."""
+    _no_backward("decode_attention", q, k_cache, v_cache)
     return _decode_attention(q, k_cache, v_cache, lengths, softcap=softcap,
                              window=window, scale=scale, kv_bound=kv_bound)
 
@@ -84,6 +117,7 @@ def varlen_prefill(
     plus the causal prefix of its own tokens.  ``pages_bound`` bounds
     context pages per chunk (host-known, bucketed); ``k_scales``/
     ``v_scales`` come with an int8/fp8 pool."""
+    _no_backward("varlen_prefill", q, k, v, k_pages, v_pages)
     return _varlen_prefill(
         q, k, v, k_pages, v_pages, cu_seqlens, chunk_lens, chunk_pos0,
         page_tables, softcap=softcap, window=window, scale=scale,
@@ -107,6 +141,7 @@ def paged_attention(
 ) -> torch.Tensor:
     """Decode attention over a paged KV cache (global page pool + per-request
     page table).  ``pages_bound`` bounds the live pages per request."""
+    _no_backward("paged_attention", q, k_pages, v_pages)
     return _paged_attention(
         q, k_pages, v_pages, page_table, lengths, softcap=softcap,
         window=window, scale=scale, pages_bound=pages_bound,
@@ -133,6 +168,7 @@ def spec_verify(
     ``(b, W)`` launch scores each slot's ``[next_token, draft_1..]`` window
     against its committed pages plus the window's own causal prefix.
     ``pages_bound`` bounds committed-plus-in-flight pages per slot."""
+    _no_backward("spec_verify", q, k_pages, v_pages)
     return _spec_verify(
         q, k_pages, v_pages, page_table, lengths, window_lens, softcap=softcap,
         window=window, scale=scale, pages_bound=pages_bound,
@@ -141,6 +177,10 @@ def spec_verify(
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last axis times ``(1 + weight)``; differentiable
+    (:class:`~.rmsnorm.RMSNormFn`)."""
+    if wants_grad(x, weight):
+        return RMSNormFn.apply(x, weight, eps)
     return _rmsnorm(x, weight, eps)
 
 
@@ -157,7 +197,13 @@ def ssd(
 ):
     """Mamba-2 SSD scan of a whole sequence (prefill, ``forward``): x ``(b,
     s, h, p)``, dt ``(b, s, h)`` float32, A ``(h,)`` float32, B/C ``(b, s,
-    n)``; y and, with ``return_state``, the final state in x's dtype."""
+    n)``; y and, with ``return_state``, the final state in x's dtype.
+    Differentiable on the CPU (the plain version); on a CUDA tensor a
+    gradient request raises until the backward kernel lands."""
+    if x.is_cuda and wants_grad(x, dt, A, B, C, initial_state):
+        raise NotImplementedError(
+            f"ssd has no backward kernel yet ({SSD_BACKWARD}): the ssm and hybrid families "
+            f"train on the CPU only")
     return _ssd(x, dt, A, B, C, chunk=chunk, initial_state=initial_state,
                 return_state=return_state)
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the serving kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 Each function computes what its hand-written CUDA kernel computes, with the
 signature and semantics of its TPU counterpart in ``repro.kernels``: masked
@@ -13,6 +13,8 @@ dequantized (``code * scale``) and everything is computed in float32.
 The Mamba-2 scan :func:`ssd` is the sequential recurrence, one
 :func:`ssd_step` per timestep, in float32; :func:`ssd_chunk_phases` is the
 same scan in the three phases of the tensor-core kernel, for tests.
+:func:`attention_lse`, :func:`flash_attention_bwd` and :func:`rmsnorm_bwd`
+are the plain versions of the training path's kernels.
 """
 from __future__ import annotations
 
@@ -21,6 +23,9 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+# the log-sum-exp of a row with no live key: exp(s - LSE_EMPTY) is an exact 0
+# for any finite score, so the backward's P of such a row is 0
+LSE_EMPTY = -NEG_INF
 
 
 def _soft_cap(x: torch.Tensor, cap: float) -> torch.Tensor:
@@ -43,11 +48,13 @@ def _gather(pages: torch.Tensor, scales: Optional[torch.Tensor],
     return out.reshape(*rows.shape[:-1], -1, *pages.shape[2:])
 
 
-def _attend(q, k, v, valid, scale: float, softcap: float) -> torch.Tensor:
+def _attend(q, k, v, valid, scale: float, softcap: float, with_lse: bool = False):
     """Grouped-query attention with an explicit mask and a safe softmax.
 
     q ``(B, n, h, d)``, k/v ``(B, m, kvh, d)``, valid ``(B, n, m)`` bool.
     Returns float32 ``(B, n, h, d)``; a row with no valid key is exactly 0.
+    With ``with_lse`` also each row's log-sum-exp ``(B, h, n)`` float32
+    (:data:`LSE_EMPTY` on a row with no valid key).
     """
     B, n, h, d = q.shape
     kvh = k.shape[2]
@@ -58,9 +65,13 @@ def _attend(q, k, v, valid, scale: float, softcap: float) -> torch.Tensor:
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
-    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-37)
-    out = torch.einsum("bgrnm,bmgd->bngrd", p, v.float())
-    return out.reshape(B, n, h, d)
+    l = p.sum(dim=-1, keepdim=True)
+    p = p / l.clamp_min(1e-37)
+    out = torch.einsum("bgrnm,bmgd->bngrd", p, v.float()).reshape(B, n, h, d)
+    if not with_lse:
+        return out
+    lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, LSE_EMPTY))
+    return out, lse.reshape(B, h, n)
 
 
 def attention(
@@ -80,17 +91,95 @@ def attention(
     exactly zero (the TPU kernel leaves a value there that depends on its
     block size; the reference ``repro.kernels.ref.attention`` the mean of
     V)."""
-    sq, d = q.shape[1], q.shape[-1]
+    d = q.shape[-1]
     scale = d ** -0.5 if scale is None else scale
-    q_pos = q_offset + torch.arange(sq, device=q.device)[:, None]
-    k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
-    valid = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    valid = _live(q.shape[1], k.shape[1], causal, window, q_offset, q.device)
+    out = _attend(q, k, v, valid[None].expand(q.shape[0], -1, -1), scale, softcap)
+    return out.to(q.dtype)
+
+
+def _live(sq: int, sk: int, causal: bool, window, q_offset: int,
+          device: torch.device) -> torch.Tensor:
+    """(sq, sk) bool: query row ``i`` (position ``q_offset + i``) sees key
+    ``j`` ((causal) ``q_pos >= j``, (window) ``q_pos - j < window``)."""
+    q_pos = q_offset + torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(sk, device=device)[None, :]
+    valid = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
         valid &= q_pos >= k_pos
     if _windowed(window):
         valid &= (q_pos - k_pos) < int(window)
-    out = _attend(q, k, v, valid[None].expand(q.shape[0], -1, -1), scale, softcap)
-    return out.to(q.dtype)
+    return valid
+
+
+def attention_lse(
+    q: torch.Tensor,            # (b, sq, h, d)
+    k: torch.Tensor,            # (b, sk, kvh, d)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window=None,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`attention` and each row's log-sum-exp of its (scaled, capped)
+    live scores, float32 ``(b, h, sq)`` in natural-log units:
+    ``log(sum_j exp(s_j))``, or :data:`LSE_EMPTY` on a row with no live
+    key.  What the forward kernel saves for the backward."""
+    d = q.shape[-1]
+    scale = d ** -0.5 if scale is None else scale
+    valid = _live(q.shape[1], k.shape[1], causal, window, q_offset, q.device)
+    out, lse = _attend(q, k, v, valid[None].expand(q.shape[0], -1, -1), scale, softcap,
+                       with_lse=True)
+    return out.to(q.dtype), lse
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,            # (b, sq, h, d)
+    k: torch.Tensor,            # (b, sk, kvh, d)
+    v: torch.Tensor,
+    o: torch.Tensor,            # (b, sq, h, d) the forward's output
+    lse: torch.Tensor,          # (b, h, sq) float32, from attention_lse
+    do: torch.Tensor,           # (b, sq, h, d) the output's cotangent
+    *,
+    causal: bool = True,
+    window=None,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`attention`, in the inputs' dtype: the JAX
+    package's ``_flash_bwd_core`` (``repro/kernels/ops.py``) step by step,
+    with P recomputed from the saved log-sum-exp, ``D = rowsum(dO * O)``,
+    ``dS = P (dP - D)`` times the softcap's ``1 - (sc/cap)^2``, masked,
+    times the scale, P and dS rounded to the input dtype before their
+    products (float32 accumulation), and dk, dv summed over the ``rep``
+    query heads of each kv head.  A row with no live key gets dq 0 and
+    gives dk, dv nothing."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    rep = h // kvh
+    dt = q.dtype
+    scale = d ** -0.5 if scale is None else scale
+    mask = _live(sq, sk, causal, window, q_offset, q.device)[None, None, None]
+    qg = q.float().reshape(b, sq, kvh, rep, d)
+    dog = do.float().reshape(b, sq, kvh, rep, d)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * scale
+    sc = _soft_cap(s, softcap)
+    p = torch.where(mask, torch.exp(sc - lse.reshape(b, kvh, rep, sq)[..., None]),
+                    torch.zeros_like(sc))
+    D = (do.float() * o.float()).sum(-1).reshape(b, sq, kvh, rep).permute(0, 2, 3, 1)
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", p.to(dt).float(), dog)
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", dog, v.float())
+    ds = p * (dp - D[..., None])
+    if softcap > 0:
+        ds = ds * (1.0 - torch.square(sc / softcap))
+    ds = torch.where(mask, ds, torch.zeros_like(ds)) * scale
+    dsl = ds.to(dt).float()
+    dq = torch.einsum("bgrqk,bkgd->bqgrd", dsl, k.float()).reshape(b, sq, h, d)
+    dk = torch.einsum("bgrqk,bqgrd->bkgd", dsl, qg)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
 def decode_attention(
@@ -257,6 +346,22 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.T
     var = (xf * xf).mean(dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
     return (normed * (1.0 + weight.float())).to(x.dtype)
+
+
+def rmsnorm_bwd(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                dy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dw) of :func:`rmsnorm` for the output cotangent ``dy``, in
+    float32 statistics: with ``r = rsqrt(mean(x^2) + eps)`` and ``g = dy (1
+    + w)``, ``dx = r g - x r^3 mean(g x)`` and ``dw = sum over rows of dy x
+    r``; dx in x's dtype, dw in w's."""
+    D = x.shape[-1]
+    xf = x.float().reshape(-1, D)
+    dyf = dy.float().reshape(-1, D)
+    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    g = dyf * (1.0 + weight.float())
+    dx = r * g - xf * (r * r * r) * (g * xf).mean(dim=-1, keepdim=True)
+    dw = (dyf * xf * r).sum(dim=0)
+    return dx.reshape(x.shape).to(x.dtype), dw.to(weight.dtype)
 
 
 def ssd_step(

@@ -3,12 +3,15 @@
 Replaces the TPU kernel ``repro/kernels/rmsnorm.py:rmsnorm``.  A CPU tensor
 runs the plain version (:func:`repro_torch.kernels.ref.rmsnorm`); a CUDA
 tensor launches the kernel or raises.  ``launches`` counts kernel launches.
+:class:`RMSNormFn` is the differentiable op: this forward, then
+:func:`.rmsnorm_bwd.rmsnorm_bwd`.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build, ref
+from .rmsnorm_bwd import rmsnorm_bwd
 
 launches = 0
 
@@ -39,3 +42,22 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.T
     launches += 1
     _build.check_launch(err, "rmsnorm")
     return out
+
+
+class RMSNormFn(torch.autograd.Function):
+    """Differentiable :func:`rmsnorm`: the forward keeps x and the weight,
+    the backward is :func:`~.rmsnorm_bwd.rmsnorm_bwd` (the kernels on a CUDA
+    tensor, :func:`~.ref.rmsnorm_bwd` on the CPU), which recomputes the
+    row statistics."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return rmsnorm(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(x, weight, ctx.eps, dy.contiguous())
+        return dx, dw, None

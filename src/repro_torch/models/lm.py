@@ -43,6 +43,7 @@ import math
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device, resolve_dtype
 from ..kernels import decode_attention as _decode_attention
@@ -105,6 +106,33 @@ def weights_fit(cfg: ArchConfig, dtype: torch.dtype, capacity: int) -> Optional[
             f"than the device's {capacity / 2**30:.1f} GiB: it runs reduced only on one card")
 
 
+def _run(fn: Callable, remat: bool, *args):
+    """``fn(*args)``, or with ``remat`` under activation checkpointing: only
+    the inputs are saved and the body runs again in the backward, as
+    ``jax.checkpoint`` does on the reference's scan body."""
+    if not remat:
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+class _HeadProduct(torch.autograd.Function):
+    """The bf16 LM head on the card with a derivative: the forward is the
+    serving path's one cuBLAS product with a float32 output; the backward
+    rounds the float32 cotangent to bf16, the operands' dtype, and runs two
+    bf16 products (dx and dhead)."""
+
+    @staticmethod
+    def forward(ctx, x2, head):
+        ctx.save_for_backward(x2, head)
+        return torch.mm(x2, head, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, head = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        return g @ head.T, x2.T @ g
+
+
 def _device_memory(device: torch.device) -> Optional[int]:
     """Bytes of memory on a CUDA device; None elsewhere (no limit checked)."""
     return torch.cuda.get_device_properties(device).total_memory if device.type == "cuda" \
@@ -134,18 +162,20 @@ class _BaseLM:
     def param_defs(self) -> Dict[str, Any]:
         raise NotImplementedError
 
-    def init(self, seed: int = 0):
-        """Random weights on the model's device and dtype from a seeded
-        ``torch.Generator`` on that device.  Raises ``MemoryError`` before
-        allocating anything where the weights alone exceed the card's
-        memory (``weights_fit``)."""
+    def init(self, seed: int = 0, dtype: Optional[torch.dtype] = None):
+        """Random weights on the model's device from a seeded
+        ``torch.Generator`` on that device, in the model's dtype or
+        ``dtype`` (the trainer's float32 masters).  Raises ``MemoryError``
+        before allocating anything where the weights alone exceed the
+        card's memory (``weights_fit``)."""
+        dtype = dtype or self.dtype
         capacity = _device_memory(self.device)
-        why = weights_fit(self.cfg, self.dtype, capacity) if capacity is not None else None
+        why = weights_fit(self.cfg, dtype, capacity) if capacity is not None else None
         if why:
             raise MemoryError(why)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        return init_params(self.param_defs(), gen, self.device, self.dtype)
+        return init_params(self.param_defs(), gen, self.device, dtype)
 
     def _norm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return ops.rmsnorm(x, w, self.cfg.norm_eps)
@@ -166,9 +196,12 @@ class _BaseLM:
         elif x.is_cuda:
             # bf16 operands, float32 output from one cuBLAS call, as the
             # reference's preferred_element_type=float32: nothing is rounded
-            # to bf16 before the softcap and the argmax
-            logits = torch.mm(x.reshape(-1, x.shape[-1]), head, out_dtype=torch.float32
-                              ).view(*x.shape[:-1], head.shape[1])
+            # to bf16 before the softcap and the argmax (the product has no
+            # derivative in torch: training takes _HeadProduct)
+            x2 = x.reshape(-1, x.shape[-1])
+            logits = (_HeadProduct.apply(x2, head) if ops.wants_grad(x2, head)
+                      else torch.mm(x2, head, out_dtype=torch.float32)
+                      ).view(*x.shape[:-1], head.shape[1])
         else:
             # the CPU has no mm with a float32 output for bf16 operands: the
             # same product in float32, a slice of the vocabulary at a time so
@@ -373,22 +406,35 @@ class DecoderLM(_BaseLM):
         return max_seq
 
     # -- full sequence ------------------------------------------------------------
-    def forward(self, params, batch: Dict[str, torch.Tensor]):
+    def forward(self, params, batch: Dict[str, torch.Tensor], remat: bool = False):
         """Logits of every position of ``batch["tokens"]`` (b, s): float32
         (b, s, V), and the auxiliary loss, as the JAX model returns them:
         the MoE blocks' Switch losses summed over layers in float32 (0 for
-        a dense or SSM model).  ``remat`` (a training option) is not
-        ported."""
+        a dense or SSM model).  ``remat`` (training) checkpoints each layer
+        body (each group of Mamba-2 layers and its shared block in the
+        hybrid family, as the reference checkpoints its group body; each
+        layer of an interleaved pair on its own, where the reference
+        checkpoints the pair): the backward recomputes the body from its
+        saved input."""
         x = self._embed_tokens(params, batch["tokens"])
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        if self.stateful:
-            for li, blk in enumerate(params["blocks"]):
-                x = self._mamba_block_full(blk, x)
-                if self._shared_after(li):
-                    x = self._shared_block_full(params["shared"], x)
+        if self.ssm:
+            for blk in params["blocks"]:
+                x = _run(self._mamba_block_full, remat, blk, x)
+        elif self.hybrid:
+            E = self.cfg.hybrid_attn_every
+
+            def group(g, x):
+                for blk in params["blocks"][g * E:(g + 1) * E]:
+                    x = self._mamba_block_full(blk, x)
+                return self._shared_block_full(params["shared"], x)
+
+            for g in range(len(params["blocks"]) // E):
+                x = _run(group, remat, g, x)
         else:
             for li, blk, _ in self._layers(params):
-                x, a = self._attn_block_full(blk, x, self.windows[li], with_aux=True)
+                x, a = _run(lambda blk, x, w: self._attn_block_full(blk, x, w, with_aux=True),
+                            remat, blk, x, self.windows[li])
                 if a is not None:
                     aux = aux + a
         return self._logits(params, x), aux
@@ -780,13 +826,13 @@ class EncDecLM(_BaseLM):
                           use_rope=False)
         return x + mlp_apply(blk["mlp"], self._norm(x, blk["ln2"]))
 
-    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+    def encode(self, params, frames: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """The encoder output (b, Se, D) of frame embeddings ``frames`` (b,
         Se, D): one non-causal flash-attention launch and two rmsnorms per
-        layer, then ``enc_norm``."""
+        layer (each layer checkpointed with ``remat``), then ``enc_norm``."""
         x = self._enc_embed(frames)
         for blk in params["enc_blocks"]:
-            x = self._enc_layer(blk, x)
+            x = _run(self._enc_layer, remat, blk, x)
         return self._norm(x, params["enc_norm"])
 
     # -- decoder ------------------------------------------------------------------
@@ -801,14 +847,15 @@ class EncDecLM(_BaseLM):
                           kv_from=enc)
         return x + mlp_apply(blk["mlp"], self._norm(x, blk["ln3"]))
 
-    def forward(self, params, batch: Dict[str, torch.Tensor]):
+    def forward(self, params, batch: Dict[str, torch.Tensor], remat: bool = False):
         """Logits of every position of ``batch["tokens"]`` (b, s) over the
         encoding of ``batch["frames"]`` (b, Se, D): float32 (b, s, V), and
-        the auxiliary loss (0), as the JAX model returns them."""
-        enc = self.encode(params, batch["frames"])
+        the auxiliary loss (0), as the JAX model returns them.  ``remat``
+        checkpoints each encoder and decoder layer."""
+        enc = self.encode(params, batch["frames"], remat=remat)
         x = self._embed_dec(params, batch["tokens"])
         for blk in params["dec_blocks"]:
-            x = self._dec_layer(blk, x, enc)
+            x = _run(self._dec_layer, remat, blk, x, enc)
         return self._logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
     def forward_instrumented(self, params, batch: Dict[str, torch.Tensor],

@@ -541,10 +541,14 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
     src.index_copy_(0, dst, tokens)                     # dropped slots all land on row n_rows
     x_rows = torch.cat([x.reshape(b * s, D), x.new_zeros((1, D))])
     h = x_rows[src[:n_rows]].view(E, b * C, D)
-    out = x.new_empty((n_rows + 1, D))
-    out[n_rows].zero_()
-    torch.bmm(F.silu(torch.bmm(h, p["w_gate"])) * torch.bmm(h, p["w_up"]), p["w_down"],
-              out=out[:n_rows].view(E, b * C, D))
+    act = F.silu(torch.bmm(h, p["w_gate"])) * torch.bmm(h, p["w_up"])
+    if ops.wants_grad(h, p["w_gate"], p["w_up"], p["w_down"]):
+        # autograd takes no out= product: the same product, then the zero row
+        out = torch.cat([torch.bmm(act, p["w_down"]).view(n_rows, D), x.new_zeros((1, D))])
+    else:
+        out = x.new_empty((n_rows + 1, D))
+        out[n_rows].zero_()
+        torch.bmm(act, p["w_down"], out=out[:n_rows].view(E, b * C, D))
     gathered = out[dst].view(b * s, K, D)
     combined = torch.matmul(weights.to(x.dtype).view(b * s, 1, K), gathered)
     return combined.view(b, s, D), aux

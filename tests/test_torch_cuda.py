@@ -1305,3 +1305,152 @@ def _params_to(tree, dev):
     if isinstance(tree, list):
         return [_params_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# The training path: the forward's log-sum-exp, the backward kernels, the
+# train step card vs CPU and the refusals
+# ---------------------------------------------------------------------------
+BWD_OPTS = [{}, {"window": 7}, {"softcap": 2.0}, {"causal": False},
+            {"q_offset": 30, "window": 50}]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("opts", BWD_OPTS)
+def test_flash_attention_bwd_kernel(cuda, dtype, shape, opts):
+    from repro_torch.kernels import flash_attention_bwd as fb_mod
+
+    b, sq, sk, h, kvh, d = shape
+    q = _randn((b, sq, h, d), dtype, cuda, 90)
+    k, v = _randn((b, sk, kvh, d), dtype, cuda, 91), _randn((b, sk, kvh, d), dtype, cuda, 92)
+    do = _randn((b, sq, h, d), dtype, cuda, 93)
+    o, lse = fa_mod.flash_attention(q, k, v, return_lse=True, **opts)
+    assert torch.equal(o, fa_mod.flash_attention(q, k, v, **opts))
+    _, lse_plain = ref.attention_lse(q.cpu(), k.cpu(), v.cpu(), **opts)
+    _close(lse, lse_plain, dtype)
+    n = fb_mod.launches
+    got = fb_mod.flash_attention_bwd(q, k, v, o, lse, do, **opts)
+    torch.cuda.synchronize()
+    assert fb_mod.launches == n + 1
+    want = ref.flash_attention_bwd(*(t.cpu() for t in (q, k, v, o, lse, do)), **opts)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        _close(g, w, dtype, f32_tol=1e-4)
+
+
+@pytest.mark.parametrize("case", [
+    pytest.param((torch.bfloat16, (2, 50, 50, 6, 2, 16), {"softcap": 2.0}), id="bfloat16-d16"),
+    pytest.param((torch.bfloat16, (1, 70, 90, 32, 32, 80), {"q_offset": 20}), id="bfloat16-d80"),
+    pytest.param((torch.float32, (1, 33, 33, 4, 2, 40), {"window": 9}), id="float32-d40"),
+])
+def test_flash_attention_bwd_other_head_dims(cuda, case):
+    from repro_torch.kernels import flash_attention_bwd as fb_mod
+
+    dtype, (b, sq, sk, h, kvh, d), opts = case
+    q = _randn((b, sq, h, d), dtype, cuda, 110)
+    k, v = (_randn((b, sk, kvh, d), dtype, cuda, s) for s in (111, 112))
+    do = _randn((b, sq, h, d), dtype, cuda, 113)
+    o, lse = fa_mod.flash_attention(q, k, v, return_lse=True, **opts)
+    got = fb_mod.flash_attention_bwd(q, k, v, o, lse, do, **opts)
+    want = ref.flash_attention_bwd(*(t.cpu() for t in (q, k, v, o, lse, do)), **opts)
+    for g, w in zip(got, want):
+        _close(g, w, dtype, f32_tol=1e-4)
+
+
+def test_flash_attention_bwd_rows_without_live_keys(cuda):
+    """q_offset 40 with window 4 over 40 keys: only the first three rows
+    see a key; the others store the empty lse and get dq exactly 0."""
+    from repro_torch.kernels import flash_attention_bwd as fb_mod
+
+    q = _randn((1, 16, 32, 128), torch.bfloat16, cuda, 94)
+    k, v = (_randn((1, 40, 2, 128), torch.bfloat16, cuda, s) for s in (95, 96))
+    do = _randn((1, 16, 32, 128), torch.bfloat16, cuda, 97)
+    o, lse = fa_mod.flash_attention(q, k, v, window=4, q_offset=40, return_lse=True)
+    assert bool((lse[:, :, 3:] == ref.LSE_EMPTY).all()) and bool((lse[:, :, :3] < 1e30).all())
+    dq, dk, dv = fb_mod.flash_attention_bwd(q, k, v, o, lse, do, window=4, q_offset=40)
+    assert bool((dq[:, 3:] == 0).all()) and bool((dk[:, :36] == 0).all())
+    want = ref.flash_attention_bwd(*(t.cpu() for t in (q, k, v, o, lse, do)), window=4,
+                                   q_offset=40)
+    for g, w in zip((dq, dk, dv), want):
+        _close(g, w, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(8, 4096), (3, 5, 100), (600, 128), (2, 70000)])
+def test_rmsnorm_bwd_kernel(cuda, dtype, shape):
+    from repro_torch.kernels import rmsnorm_bwd as rb_mod
+
+    x, dy = _randn(shape, dtype, cuda, 98), _randn(shape, dtype, cuda, 99)
+    w = _randn(shape[-1:], dtype, cuda, 100) * 0.1
+    n = rb_mod.launches
+    dx, dw = rb_mod.rmsnorm_bwd(x, w, 1e-6, dy)
+    torch.cuda.synchronize()
+    assert rb_mod.launches == n + 1
+    want = ref.rmsnorm_bwd(x.cpu(), w.cpu(), 1e-6, dy.cpu())
+    _close(dx, want[0], dtype)
+    _close(dw, want[1], dtype, f32_tol=1e-4)
+    assert torch.equal(rb_mod.rmsnorm_bwd(x, w, 1e-6, dy)[1], dw)
+
+
+def test_functions_run_the_backward_kernels(cuda):
+    from repro_torch.kernels import flash_attention_bwd as fb_mod
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm_bwd as rb_mod
+
+    q = _randn((2, 64, 32, 128), torch.bfloat16, cuda, 101).requires_grad_()
+    k = _randn((2, 64, 2, 128), torch.bfloat16, cuda, 102).requires_grad_()
+    v = _randn((2, 64, 2, 128), torch.bfloat16, cuda, 103).requires_grad_()
+    w = (_randn((128,), torch.bfloat16, cuda, 104) * 0.1).requires_grad_()
+    nf, nr = fb_mod.launches, rb_mod.launches
+    out = ops.rmsnorm(ops.attention(q, k, v), w)
+    out.float().square().sum().backward()
+    assert fb_mod.launches == nf + 1 and rb_mod.launches == nr + 1
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all()) for t in (q, k, v, w))
+
+
+def test_train_step_card_vs_cpu(cuda):
+    """Reduced glm4-9b in float32, 2 steps at 2 microbatches with remat, on
+    the card and on the CPU from the same masters: loss and grad_norm
+    within 1e-4 relative."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import OptimizerConfig, init_opt_state, make_train_step
+
+    cfg = get_config("glm4-9b", reduced=True)
+    masters = build_model(cfg, "cpu").init(0)
+    toks = torch.from_numpy(np.random.default_rng(105).integers(0, cfg.vocab_size, (4, 16)))
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, dev, torch.float32)
+        opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+        # a copy each: the optimizer updates in place
+        params = _params_to(_params_to(masters, cuda), dev)
+        state = init_opt_state(model.param_defs(), opt, dev)
+        step = make_train_step(model, opt, microbatches=2, remat=True)
+        ms = []
+        for _ in range(2):
+            params, state, m = step(params, state, {"tokens": toks.to(dev)})
+            ms.append((float(m["loss"]), float(m["grad_norm"])))
+        out[str(dev)] = ms
+    for (a, b), (c, d) in zip(out["cuda"], out["cpu"]):
+        assert abs(a - c) <= 1e-4 * abs(c) and abs(b - d) <= 1e-4 * abs(d)
+
+
+def test_ssm_training_refuses_on_the_card(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.train import OptimizerConfig, make_train_step
+
+    model = build_model(get_config("mamba2-130m", reduced=True), cuda, torch.float32)
+    with pytest.raises(NotImplementedError, match="ssd"):
+        make_train_step(model, OptimizerConfig())
+    x = _randn((1, 16, 4, 16), torch.float32, cuda, 106).requires_grad_()
+    dt = torch.full((1, 16, 4), 0.1, device=cuda)
+    A = -torch.ones(4, device=cuda)
+    B, C = _randn((1, 16, 8), torch.float32, cuda, 107), _randn((1, 16, 8), torch.float32, cuda, 108)
+    with pytest.raises(NotImplementedError, match="ssd backward"):
+        ops.ssd(x, dt, A, B, C, chunk=8)
+    with torch.no_grad():
+        assert ops.ssd(x, dt, A, B, C, chunk=8).shape == x.shape

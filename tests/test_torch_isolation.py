@@ -27,12 +27,17 @@ def _modules():
 
 def test_the_import_check_covers_every_entry_point():
     """The module list walks the package: the models, the drivers, the
-    out-of-process agent and the fleet are all imported by the check below."""
+    out-of-process agent, the fleet and the training path are all imported
+    by the check below."""
     mods = _modules()
     for m in ("repro_torch.models.resnet", "repro_torch.models.predictor",
               "repro_torch.launch.serve", "repro_torch.launch.agent_main",
               "repro_torch.core.client", "repro_torch.core.platform",
-              "repro_torch.serve.faults", "repro_torch.serve.fleet"):
+              "repro_torch.serve.faults", "repro_torch.serve.fleet",
+              "repro_torch.train", "repro_torch.train.data", "repro_torch.train.optimizer",
+              "repro_torch.train.checkpoint", "repro_torch.train.step",
+              "repro_torch.launch.train", "repro_torch.kernels.flash_attention_bwd",
+              "repro_torch.kernels.rmsnorm_bwd"):
         assert m in mods, m
 
 
