@@ -123,7 +123,17 @@ Phases, each printing its own lines and wall time, each ending in
    the plain version without key 0, and without the softcap's factor,
    must fail the limit; ``rmsnorm_bwd`` at 4096 and 8 rows of 4096 (dw the
    same bits twice); each timed beside its plain version, its bound and
-   SDPA's or ``F.rms_norm``'s backward alone;
+   SDPA's or ``F.rms_norm``'s backward alone; ``ssd_bwd`` (every gradient:
+   dx, ddt, dA, dB, dC, the initial state's) against ``ref.ssd_bwd``, the
+   sequential reverse recurrence, in bf16 at mamba2-130m's training shape x
+   (8, 1024, 24, 64), n 128, and zamba2-2.7b's (4, 1024, 80, 64), n 64, and
+   in float32 on small cases (a partial trailing chunk, s below the chunk,
+   an initial state, a final-state cotangent, B and C views of one
+   projection), two calls the same bits; the plain chunked backward without
+   the carried-state W terms, and without the reverse cumsum of dcum, must
+   fail the limit; each training shape timed beside its plain version and
+   its bound (no library call computes it), and the microbatch shapes
+   phase 4c launches;
 3. check: reduced glm4-9b in float32 served on the card and on the CPU
    from the same weights must emit the same greedy tokens, with and
    without speculative decoding (which must also equal each other); the
@@ -171,13 +181,12 @@ Phases, each printing its own lines and wall time, each ending in
    run's, each request's (status, worker, attempts) and the fleet's
    counters equal the CPU's, and the corrupt runs count a checksum failure
    and restore nothing they rejected.  Training (``train_check_phase``):
-   reduced glm4-9b, qwen3-moe-30b-a3b and whisper-large-v3 in float32 take
-   3 train steps (remat, 2 microbatches) on the card and on the CPU from
-   the same masters and batches, each step's loss, ce, aux and grad_norm
-   within 1e-4 relative; on the card 2 steps, a checkpoint through
-   ``CheckpointManager``, a restore into fresh trees and 2 more steps give
-   the losses of 4 straight steps within 1e-5; mamba2-130m refuses to
-   train on the card (no ``ssd`` backward) with no kernel launched;
+   reduced glm4-9b, qwen3-moe-30b-a3b, whisper-large-v3, mamba2-130m and
+   zamba2-2.7b in float32 take 3 train steps (remat, 2 microbatches) on the
+   card and on the CPU from the same masters and batches, each step's loss,
+   ce, aux and grad_norm within 1e-4 relative; on the card 2 steps, a
+   checkpoint through ``CheckpointManager``, a restore into fresh trees and
+   2 more steps give the losses of 4 straight steps within 1e-5;
 4. serve: full-width, full-depth glm4-9b (40 layers, random bf16 weights
    from a seeded CUDA generator) through ``ServingEngine.serve_paged``;
    every request must complete and every kernel must have been launched
@@ -237,16 +246,23 @@ Phases, each printing its own lines and wall time, each ending in
    int8); each run prints its token agreement with the fault-free run
    (bf16 batches differ across workers), fleet tok/s, recovery_max_s,
    bytes moved and the median ``ckpt:save`` and ``migrate:restore`` ms;
-4c. train (after phase 5 frees phase 4's models; ``train_phase``):
-   glm4-9b at full width cut to 4 layers, random float32 masters from a
-   seeded CUDA generator, bf16 compute, float32 AdamW moments, remat, 2
-   microbatches, 5 steps on one repeated batch of 4 x 1024 tokens: the
-   loss finite and lower at the last step than at the first; every step
-   launches exactly 16 ``flash_attention``, 8 ``flash_attention_bwd``, 34
-   rmsnorm and 18 ``rmsnorm_bwd`` (no serving kernel); step ms, tok/s,
-   peak memory, and one profiled step's device ms by class (flash forward
-   and backward, rmsnorm forward and backward, matmuls, the optimizer,
-   other) with the idle share;
+4c. train (after phase 5 frees phase 4's models; ``train_phase``), three
+   models at full width, each with random float32 masters from a seeded
+   CUDA generator, bf16 compute, float32 AdamW moments, remat, 2
+   microbatches, 5 steps on one repeated batch of 1024-token rows: the
+   loss finite and lower at the last step than at the first, and every
+   step exactly its launches (``_train_expected``, no serving kernel):
+   glm4-9b cut to 4 layers, 4 rows (16 ``flash_attention``, 8
+   ``flash_attention_bwd``, 34 rmsnorm, 18 ``rmsnorm_bwd``); mamba2-130m,
+   all 24 layers, 8 rows (96 ``ssd``, 48 ``ssd_bwd``, 194 rmsnorm, 98
+   ``rmsnorm_bwd``); zamba2-2.7b cut to 12 layers (two applications of its
+   shared block at head dim 80), 4 rows (48 ``ssd``, 24 ``ssd_bwd``, 8
+   ``flash_attention``, 4 ``flash_attention_bwd``, 114 rmsnorm, 58
+   ``rmsnorm_bwd``); each with step ms, tok/s, peak memory, and one
+   profiled step's device ms by class (flash forward and backward, ``ssd``
+   forward and backward, rmsnorm forward and backward, matmuls, the
+   optimizer, other) with the idle share, and under 1 GiB left allocated
+   after it;
 5. where the time goes: device time by kernel class per prefill launch and
    per decode step, per launch of each kernel, and the device's idle
    share, from torch.profiler, for the paged engine and for a dense
@@ -263,7 +279,8 @@ Phases, each printing its own lines and wall time, each ending in
    printed); granite-20b (52 + 105) through ``serve_paged`` with and
    without ``spec_k`` 4; chameleon-34b (48 + 193) through ``serve_paged``,
    the static path and ``serve_continuous``; each model's peak memory and
-   pool bytes per token.
+   pool bytes per token; once gemma2-27b's names are dropped, before any
+   garbage collection, under 1 GiB may stay allocated.
    deepseek-67b (125.6 GiB of bf16 weights) does not fit one card: it runs
    reduced only (phase 3);
 5c. the MoE family at published width and depth: qwen3-moe-30b-a3b (48
@@ -2427,6 +2444,14 @@ def zoo_serve_phase(torch, dev, counters):
                   f"continuous {_fmt_agreement(tokens['static'], tokens['continuous'])}")
         print(f"   {arch}: peak device memory over its runs {peak / 1e9:.2f} GB")
         del model, params, engine
+        if arch == "gemma2-27b":
+            # before any garbage collection: the static path's scheduler no
+            # longer keeps its engine in a reference cycle
+            left = torch.cuda.memory_allocated(dev) / 2**30
+            print(f"   {arch} released: device memory still allocated before any collection "
+                  f"{left:.3f} GiB")
+            if left > 1.0:
+                raise SystemExit(f"{arch}: its weights outlive their names (a reference cycle?)")
 
 
 # ---------------------------------------------------------------------------
@@ -4371,7 +4396,24 @@ TRAIN_STEPS = 5                           # steps on one repeated batch
 # memorised the batch in one step and then overshot (12.73, 1.47, 0.80,
 # 8.14, 3.78 in a first run), so the full-width run takes a gentler one
 TRAIN_LR = 5e-5
-TRAIN_ARCHS = ("glm4-9b", "qwen3-moe-30b-a3b", "whisper-large-v3")
+TRAIN_ARCHS = ("glm4-9b", "qwen3-moe-30b-a3b", "whisper-large-v3", "mamba2-130m",
+               "zamba2-2.7b")
+# phase 4c's models: (arch, layers kept (None: all), batch rows of TRAIN_SEQ
+# tokens): glm4-9b cut for memory, mamba2-130m whole, zamba2-2.7b cut to 12
+# of its 54 layers (two applications of its shared block)
+TRAIN_MODELS = (("glm4-9b", TRAIN_LAYERS, TRAIN_BATCH), ("mamba2-130m", None, 8),
+                ("zamba2-2.7b", 12, 4))
+# the ssd backward at the training shapes: (arch, rows) of TRAIN_SEQ tokens,
+# and small float32 cases: (label, (b, s, h, p, n, chunk), initial state,
+# final-state cotangent, B and C views of one projection)
+SSD_BWD_SHAPES = (("mamba2-130m", 8), ("zamba2-2.7b", 4))
+SSD_BWD_CASES = (
+    ("s 37, chunk 8 (a partial trailing chunk)", (2, 37, 4, 64, 128, 8), False, False, False),
+    ("s 20 < chunk 64", (2, 20, 4, 64, 128, 64), False, False, False),
+    ("an initial state", (2, 130, 4, 64, 64, 64), True, False, False),
+    ("a final-state cotangent", (2, 130, 4, 64, 128, 64), True, True, False),
+    ("B and C views of one projection", (2, 100, 4, 64, 128, 64), False, True, True),
+)
 TRAIN_REL = 1e-4                          # reduced f32 metrics, card vs CPU, relative
 RESUME_REL = 1e-5                         # 2 + restore + 2 steps vs 4, relative
 TRAIN_METRICS = ("loss", "ce", "aux", "grad_norm")
@@ -4416,6 +4458,137 @@ def _without_cap_factor(torch, q, k, v, do, opts):
             return torch.autograd.grad(out, leaves, do.float())
     finally:
         ref._soft_cap = real
+
+
+def _ssd_bwd_flops(b, s, h, p, n, chunk):
+    """Operations of the scan's backward on these shapes, the least it
+    needs (the forward's entry states given): per chunk of L live
+    timesteps, C.B^T over its causal pairs (shared by the heads); per head
+    dy.x^T, the intra-chunk products of dx, dB and dC over the causal pairs,
+    and five L x p x n products (G_c, W B_k, W^T x_k, S_c^T dy_t, S_c C_t),
+    2 per multiply-add."""
+    total = 0
+    for t0 in range(0, s, chunk):
+        L = min(chunk, s - t0)
+        pairs = L * (L + 1) // 2
+        total += 2 * pairs * n + h * (4 * pairs * p + 4 * pairs * n + 10 * L * p * n)
+    return b * total
+
+
+def _ssd_bwd_bytes(b, s, h, p, n):
+    """Bytes of one backward call: x, dy and dx (bf16), B, C, dB and dC
+    (bf16), dt and ddt (f32), A and dA, the initial state's cotangent (f32)."""
+    return (3 * 2 * b * s * h * p + 4 * 2 * b * s * n + 2 * 4 * b * s * h + 2 * 4 * h
+            + 4 * b * h * p * n)
+
+
+def _ssd_bwd_inputs(torch, gen, dtype, b, s, h, p, n, init=False, fin=False, views=False):
+    """(x, dt, A, B, C, dy) and the optional initial state and final-state
+    cotangent of a backward case; dt and A in the ranges mamba2's inits give
+    (as the forward's checks); with ``views`` B and C are slices of one
+    projection."""
+    randn = lambda *sh: torch.randn(sh, generator=gen, device=gen.device, dtype=torch.float32)
+    uniform = lambda sh, lo, hi: torch.rand(sh, generator=gen, device=gen.device) * (hi - lo) + lo
+    x = randn(b, s, h, p).to(dtype)
+    if views:
+        proj = randn(b, s, 2 * n + 24).to(dtype)
+        B, C = proj[..., 8:8 + n], proj[..., 8 + n:8 + 2 * n]
+    else:
+        B, C = randn(b, s, n).to(dtype), randn(b, s, n).to(dtype)
+    dt, A = uniform((b, s, h), 1e-3, 1e-1), -uniform((h,), 1.0, 16.0)
+    dy = randn(b, s, h, p).to(dtype)
+    opts = dict(initial_state=randn(b, h, p, n) if init else None,
+                d_final=randn(b, h, p, n) if fin else None)
+    return (x, dt, A, B, C, dy), opts
+
+
+def _ssd_bwd_without(torch, part, args, opts, chunk):
+    """The plain chunked backward (``ref.ssd_bwd_chunks``) with a part of
+    the work left out (a reject): ``"carry"`` the carried-state W terms (every
+    W_c zero), ``"cumsum"`` the reverse cumsum of dcum (da = dcum)."""
+    from repro_torch.kernels import ref
+
+    name = {"carry": "_ssd_carry_back", "cumsum": "_reverse_cumsum"}[part]
+    real = getattr(ref, name)
+    fake = {"carry": lambda G, decays, d_final: ([torch.zeros_like(g) for g in G], d_final),
+            "cumsum": lambda t, dim: t}[part]
+    setattr(ref, name, fake)
+    try:
+        return ref.ssd_bwd_chunks(*args, chunk=chunk, **opts)
+    finally:
+        setattr(ref, name, real)
+
+
+def ssd_bwd_kernels_phase(torch, dev, cpm):
+    """``ssd_bwd`` against ``ref.ssd_bwd`` (the sequential reverse
+    recurrence): bf16 at mamba2-130m's and zamba2-2.7b's training shapes,
+    the small float32 cases of SSD_BWD_CASES, every gradient; two calls the
+    same bits; the plain chunked backward without the carried-state W terms
+    (dx) and without the reverse cumsum of dcum (ddt) must fail the limit.
+    Each training shape timed beside its plain version and its bound (no
+    single PyTorch call computes it: no library time), and the microbatch
+    shapes phase 4c launches.  Returns the record of mamba2's shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_bwd as sb
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    names = ("dx", "ddt", "dA", "dB", "dC", "d_initial")
+    bf = torch.bfloat16
+    err, record = 0.0, None
+    for arch, rows in SSD_BWD_SHAPES:
+        cfg = get_config(arch)
+        h, p, n, chunk = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+        b, s = rows, TRAIN_SEQ
+        args, opts = _ssd_bwd_inputs(torch, gen, bf, b, s, h, p, n)
+        kernel = lambda *a: sb.ssd_bwd(*a, chunk=chunk)
+        got = kernel(*args)
+        want = ref.ssd_bwd(*args)
+        shape = f"{arch} x ({b}, {s}, {h}, {p}) bf16, n {n}, chunk {chunk}"
+        for name, g, w in zip(names, got, want):
+            err = max(err, _check(torch, f"ssd_bwd {shape}: {name}", g, w))
+        same = all(torch.equal(g, a) for g, a in zip(got, kernel(*args)))
+        print(f"   ssd_bwd {arch}: two calls give the same bits: {same}; plan (shared memory "
+              f"of the two chunk launches) {sb.plan(bf, p, n, chunk)} B, workspace "
+              f"{sb.workspace_bytes(b, s, h, p, n, chunk) / 1e6:.1f} MB")
+        if not same:
+            raise SystemExit("ssd_bwd: two calls differ")
+        if arch == "mamba2-130m":
+            _rejects(torch, "ssd_bwd plain without the carried-state W terms (dx)",
+                     _ssd_bwd_without(torch, "carry", args, opts, chunk)[0], want[0])
+            _rejects(torch, "ssd_bwd plain without the reverse cumsum of dcum (ddt)",
+                     _ssd_bwd_without(torch, "cumsum", args, opts, chunk)[1], want[1])
+        del got, want
+        nbytes = _ssd_bwd_bytes(b, s, h, p, n)
+        sets = _rotation(nbytes, lambda i: tuple(t.clone() for t in args))
+        r = dict(err=err, **_timed(torch, cpm, kernel, ref.ssd_bwd, None, sets, [],
+                                   plain_calls=2),
+                 bound=_bound_ms(nbytes, _ssd_bwd_flops(b, s, h, p, n, chunk)),
+                 shape=f"{shape}; dx, ddt, dA, dB, dC and d_initial out")
+        _print_records({"ssd_bwd": r})
+        del sets
+        mb = b // TRAIN_MICRO          # the microbatch phase 4c launches
+        one = tuple(t[:mb] if t.dim() > 1 else t for t in args)
+        mb_sets = _rotation(nbytes // 2, lambda i: tuple(t.clone() for t in one))
+        mb_ms, mb_q = _time_ms(torch, kernel, mb_sets, cpm)
+        mb_bound = _bound_ms(_ssd_bwd_bytes(mb, s, h, p, n), _ssd_bwd_flops(mb, s, h, p, n, chunk))
+        print(f"   ssd_bwd {arch} at phase 4c's microbatch x ({mb}, {s}, {h}, {p}): kernel_ms "
+              f"{mb_ms:.4f} bound_ms {mb_bound[0]:.4f} ({mb_bound[1]}); host gaps: {not mb_q}")
+        del mb_sets, one, args
+        if record is None:
+            record = r
+    for label, (b, s, h, p, n, chunk), init, fin, views in SSD_BWD_CASES:
+        args, opts = _ssd_bwd_inputs(torch, gen, torch.float32, b, s, h, p, n, init, fin, views)
+        got = sb.ssd_bwd(*args, chunk=chunk, **opts)
+        want = ref.ssd_bwd(*args, **opts)
+        for name, g, w in zip(names, got, want):
+            err = max(err, _check(torch, f"ssd_bwd float32 {label} ({b}, {s}, {h}, {p}), n {n}, "
+                                         f"chunk {chunk}: {name}", g, w))
+        if not all(torch.equal(g, a) for g, a in zip(got, sb.ssd_bwd(*args, chunk=chunk, **opts))):
+            raise SystemExit(f"ssd_bwd float32 {label}: two calls differ")
+    record["err"] = err
+    return record
 
 
 def train_kernels_phase(torch, dev):
@@ -4577,6 +4750,7 @@ def train_kernels_phase(torch, dev):
     print(f"   rmsnorm_bwd at 8 rows of {D}: kernel_ms {ms8:.4f} bound_ms "
           f"{_bound_ms(2 * (3 * 8 * D + 2 * D), 10.0 * 8 * D)[0]:.4f}; host gaps: {not q8}")
     _print_records(records)
+    records["ssd_bwd"] = ssd_bwd_kernels_phase(torch, dev, cpm)
     return records
 
 
@@ -4624,19 +4798,17 @@ def _copy_to(torch, tree, dev):
     return _tree_map(tree, lambda t: t.to(dev, copy=True))
 
 
-def train_check_phase(torch, dev, counters):
-    """Reduced glm4-9b, qwen3-moe-30b-a3b and whisper-large-v3 in float32:
-    3 train steps (remat, 2 microbatches) on the card and on the CPU from
-    the same masters and batches, each step's loss, ce, aux and grad_norm
-    within TRAIN_REL relative; on reduced glm4-9b, 2 steps, a checkpoint, a
-    restore into fresh trees and 2 more steps give the losses of 4 steps
-    within RESUME_REL; an ssm model on the card refuses to train, with no
-    kernel launched."""
+def train_check_phase(torch, dev):
+    """Reduced glm4-9b, qwen3-moe-30b-a3b, whisper-large-v3, mamba2-130m and
+    zamba2-2.7b in float32: 3 train steps (remat, 2 microbatches) on the
+    card and on the CPU from the same masters and batches, each step's
+    loss, ce, aux and grad_norm within TRAIN_REL relative (the ssm and
+    hybrid scans through ``ssd_bwd`` on the card, ``ref.ssd_bwd`` on the
+    CPU); on reduced glm4-9b, 2 steps, a checkpoint, a restore into fresh
+    trees and 2 more steps give the losses of 4 steps within RESUME_REL."""
     import tempfile
 
-    from repro_torch.models import build_model
-    from repro_torch.train import CheckpointManager, OptimizerConfig, init_opt_state, \
-        make_train_step
+    from repro_torch.train import CheckpointManager, OptimizerConfig, init_opt_state
 
     opt_cfg = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
     for arch in TRAIN_ARCHS:
@@ -4681,24 +4853,12 @@ def train_check_phase(torch, dev, counters):
     if not ok:
         raise SystemExit("checkpoint/restore: the resumed run differs from the straight one")
 
-    # an ssm model refuses to train on the card before any kernel runs
-    _zero(counters)
-    model = build_model(_reduced("mamba2-130m"), device=dev, dtype=torch.float32)
-    try:
-        make_train_step(model, opt_cfg)
-        refused = False
-    except NotImplementedError as e:
-        refused, why = True, str(e)
-    launched = sum(c.launches for c in counters.values())
-    print(f"   mamba2-130m on the card: make_train_step raises NotImplementedError: {refused} "
-          f"({why if refused else ''}); kernel launches: {launched}")
-    if not refused or launched:
-        raise SystemExit("mamba2-130m: training on the card did not refuse cleanly")
-
 
 _TRAIN_CLASSES = (
     ("flash_fwd", ("flash_attention_kernel",)),
     ("flash_bwd", ("flash_bwd_",)),
+    ("ssd_bwd", ("ssd_bwd_kernel",)),
+    ("ssd_fwd", ("ssd_kernel",)),
     ("rmsnorm_bwd", ("rmsnorm_bwd",)),
     ("rmsnorm_fwd", ("rmsnorm_kernel",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
@@ -4712,23 +4872,38 @@ def _train_class(name):
     return "other"
 
 
-def _train_expected(L, mb):
-    """Launches of one phase-4c step: flash forward twice a layer (remat
-    recomputes it), its backward once; rmsnorm ln1 and ln2 twice a layer
-    plus the final norm once, their backward once each; per microbatch."""
-    return {"flash_attention": 2 * L * mb, "flash_attention_bwd": L * mb,
-            "rmsnorm": (2 * L + 1) * mb + 2 * L * mb, "rmsnorm_bwd": (2 * L + 1) * mb}
+def _train_expected(cfg, mb):
+    """Launches of one phase-4c step of ``mb`` microbatches: each attention
+    layer (a hybrid model's shared block once a group) and each Mamba-2
+    layer runs its forward kernel twice a microbatch (remat recomputes every
+    layer body in the backward) and its backward once; every rmsnorm of a
+    pass (``_norms_per_pass``) runs twice but the final norm, which no
+    checkpointed body holds, and its backward once.  glm4-9b at 4 layers:
+    16 flash, 8 flash backward, 34 rmsnorm, 18 backward; mamba2-130m: 96
+    ``ssd``, 48 ``ssd_bwd``, 194 and 98; zamba2-2.7b at 12 layers: 48 and
+    24, 8 and 4 flash, 114 and 58."""
+    fam = cfg.family
+    attn = _groups(cfg) if fam == "hybrid" else (0 if fam == "ssm" else cfg.num_layers)
+    scans = cfg.num_layers if fam in ("ssm", "hybrid") else 0
+    norms = _norms_per_pass(cfg)
+    out = {"rmsnorm": (2 * norms - 1) * mb, "rmsnorm_bwd": norms * mb}
+    if attn:
+        out.update(flash_attention=2 * attn * mb, flash_attention_bwd=attn * mb)
+    if scans:
+        out.update(ssd=2 * scans * mb, ssd_bwd=scans * mb)
+    return out
 
 
-def train_phase(torch, dev, counters):
-    """glm4-9b at full width cut to TRAIN_LAYERS layers: random float32
-    masters from a seeded CUDA generator, bf16 compute, AdamW moments in
-    float32, remat, TRAIN_MICRO microbatches, TRAIN_STEPS steps on one
-    repeated batch of TRAIN_BATCH x TRAIN_SEQ tokens.  The loss must be
+def train_phase(torch, dev, counters, arch, layers, rows):
+    """``arch`` at full width, cut to ``layers`` layers (None: all): random
+    float32 masters from a seeded CUDA generator, bf16 compute, AdamW
+    moments in float32, remat, TRAIN_MICRO microbatches, TRAIN_STEPS steps
+    on one repeated batch of ``rows`` x TRAIN_SEQ tokens.  The loss must be
     finite and fall; each step's launches must be exactly
     ``_train_expected``, no serving kernel among them.  Prints step ms,
     tok/s, peak memory and one profiled step's device ms by class (the
-    optimizer: every kernel launched under ``adamw_update``)."""
+    optimizer: every kernel launched under ``adamw_update``).  Returns each
+    kernel's launches over the steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -4737,7 +4912,8 @@ def train_phase(torch, dev, counters):
     from repro_torch.train import OptimizerConfig, init_opt_state, make_train_step
     from repro_torch.train import step as step_mod
 
-    cfg = get_config("glm4-9b").replace(num_layers=TRAIN_LAYERS)
+    full = get_config(arch)
+    cfg = full if layers is None else full.replace(num_layers=layers)
     model = build_model(cfg, device=dev, dtype=torch.bfloat16)
     torch.cuda.reset_peak_memory_stats()
     masters = model.init(seed=SEED, dtype=torch.float32)
@@ -4745,11 +4921,11 @@ def train_phase(torch, dev, counters):
     state = init_opt_state(model.param_defs(), opt_cfg, dev)
     step = make_train_step(model, opt_cfg, microbatches=TRAIN_MICRO, remat=True,
                            cast_params_once=True)
-    batch = _train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, SEED, dev)
-    print(f"   {cfg.name} at full width, {TRAIN_LAYERS} of 40 layers: {cfg.param_count():,} "
-          f"params; batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_MICRO} microbatches, remat, bf16 "
-          f"compute, float32 masters and moments")
-    expect = _train_expected(TRAIN_LAYERS, TRAIN_MICRO)
+    batch = _train_batch(torch, cfg, rows, TRAIN_SEQ, SEED, dev)
+    print(f"   {cfg.name} at full width, {cfg.num_layers} of {full.num_layers} layers: "
+          f"{cfg.param_count():,} params; batch {rows} x {TRAIN_SEQ}, {TRAIN_MICRO} "
+          f"microbatches, remat, bf16 compute, float32 masters and moments")
+    expect = _train_expected(cfg, TRAIN_MICRO)
     totals = {name: 0 for name in counters}
     losses, times = [], []
     for i in range(TRAIN_STEPS):
@@ -4773,7 +4949,7 @@ def train_phase(torch, dev, counters):
     print(f"   launches per step (all {TRAIN_STEPS} exact): {expect}, no serving kernel")
     steady = sorted(times[1:])[len(times[1:]) // 2]
     print(f"   step ms {[round(t, 1) for t in times]} (the first builds cuBLAS plans); median "
-          f"of the rest {steady:.1f} ms, {TRAIN_BATCH * TRAIN_SEQ / steady * 1e3:,.0f} tok/s; "
+          f"of the rest {steady:.1f} ms, {rows * TRAIN_SEQ / steady * 1e3:,.0f} tok/s; "
           f"peak memory {peak:.2f} GiB")
     if not (finite and losses[-1] < losses[0]):
         raise SystemExit("train: the loss is not finite or did not fall")
@@ -4803,7 +4979,7 @@ def train_phase(torch, dev, counters):
             continue
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
         by_class[_train_class(e.key)] += float(us) / 1e3
-        m = re.search(r"(flash_bwd_\w+|rmsnorm_bwd\w*)", e.key)
+        m = re.search(r"(flash_bwd_\w+|rmsnorm_bwd\w*|ssd_bwd_kernel_\w+)", e.key)
         if m:
             bwd_kernels[m.group(1)] = bwd_kernels.get(m.group(1), 0.0) + float(us) / 1e3
     # the optimizer: every kernel launched under the adamw_update range
@@ -4833,8 +5009,7 @@ def train_phase(torch, dev, counters):
     if left > 1.0:
         raise SystemExit("train: the phase's trees outlive it (a reference cycle?)")
     _release(torch)
-    return {"flash_attention_bwd": totals["flash_attention_bwd"],
-            "rmsnorm_bwd": totals["rmsnorm_bwd"]}
+    return totals
 
 
 def main() -> int:
@@ -4929,9 +5104,8 @@ def main() -> int:
     resnet_check_phase(torch, dev)
     print("   -- the fault-tolerant fleet (reduced glm4-9b): the recovery matrix, card vs CPU")
     fleet_check(torch, dev)
-    print(f"   -- training ({', '.join(TRAIN_ARCHS)}), card vs CPU; checkpoint and restore; the "
-          f"ssm refusal")
-    train_check_phase(torch, dev, kernel_counters())
+    print(f"   -- training ({', '.join(TRAIN_ARCHS)}), card vs CPU; checkpoint and restore")
+    train_check_phase(torch, dev)
     _done(torch, "3. check", t0)
 
     t0 = _phase("4. serve: glm4-9b and mamba2-130m, full width and depth, random bf16 weights")
@@ -4966,9 +5140,14 @@ def main() -> int:
     del model, params, engine, dense_engine, ssm_model, ssm_params, ssm_engine
     _release(torch)
 
-    t0 = _phase(f"4c. train: glm4-9b at full width, {TRAIN_LAYERS} layers, random weights, bf16 "
-                f"compute, float32 masters and AdamW moments")
-    launches.update(train_phase(torch, dev, counters))
+    t0 = _phase("4c. train: glm4-9b, mamba2-130m and zamba2-2.7b at full width, random weights, "
+                "bf16 compute, float32 masters and AdamW moments")
+    trained = {}
+    for arch, layers, rows in TRAIN_MODELS:
+        for name, n in train_phase(torch, dev, counters, arch, layers, rows).items():
+            trained[name] = trained.get(name, 0) + n
+    for name in ("flash_attention_bwd", "rmsnorm_bwd", "ssd_bwd"):
+        launches[name] = trained[name]
     _done(torch, "4c. train", t0)
 
     t0 = _phase("5b. serve: gemma2-27b, granite-20b and chameleon-34b, full width and depth, "
@@ -5023,6 +5202,9 @@ def main() -> int:
                                 "src/repro/kernels/ops.py:126"),
         "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
                         "src/repro/kernels/rmsnorm.py:26"),
+        # the scan's backward: autodiff of the chunked scan the JAX train
+        # driver runs (no Pallas backward)
+        "ssd_bwd": ("src/repro_torch/kernels/csrc/ssd_bwd.cu", "src/repro/kernels/ops.py:838"),
     }
     kernels = []
     for name, r in records.items():

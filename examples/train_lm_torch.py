@@ -1,10 +1,9 @@
-"""Training example on the PyTorch port: train reduced glm4-9b for a few
-dozen steps with checkpoint/restart (kill it mid-run and re-run it: it
+"""Training example on the PyTorch port: train reduced mamba2-130m for a
+few dozen steps with checkpoint/restart (kill it mid-run and re-run it: it
 continues from the last atomic checkpoint and the exact data cursor).  The
-torch twin of ``examples/train_lm.py``, with the same flags; it trains
-glm4-9b, not mamba2-130m, because the ssm family trains on the CPU only
-until the ``ssd`` kernel has a backward.  Extra flags pass through to the
-driver: ``--device cpu`` runs the plain PyTorch path (without it, the card).
+torch twin of ``examples/train_lm.py``, with the same flags.  Extra flags
+pass through to the driver: ``--device cpu`` runs the plain PyTorch path
+(without it, the card).
 
     PYTHONPATH=src python examples/train_lm_torch.py --device cpu
 """
@@ -14,7 +13,7 @@ from repro_torch.launch.train import main
 
 raise SystemExit(
     main([
-        "--arch", "glm4-9b",
+        "--arch", "mamba2-130m",
         "--reduced",
         "--steps", "60",
         "--batch", "8",

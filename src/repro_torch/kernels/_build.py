@@ -33,7 +33,7 @@ CHECKOUT = PACKAGE.parents[1]              # <root>
 SOURCES = ("rmsnorm.cu", "paged_attention.cu", "varlen_prefill.cu", "spec_verify.cu",
            "flash_attention.cu", "decode_attention.cu", "ssd.cu", "decode_split_bf16.cu",
            "decode_split_quant.cu", "varlen_prefill_bf16.cu", "varlen_prefill_quant.cu",
-           "ssd_tc.cu", "flash_attention_bwd.cu", "rmsnorm_bwd.cu")
+           "ssd_tc.cu", "flash_attention_bwd.cu", "rmsnorm_bwd.cu", "ssd_bwd.cu")
 HEADERS = ("common.cuh", "mma.cuh", "flash_tile.cuh", "decode_split.cuh", "varlen_prefill_tc.cuh")
 BUILD_ROOT = CHECKOUT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
@@ -82,6 +82,9 @@ SIGNATURES = {
                _LL, _LL, _I, _P),
     # the bf16 chunk-parallel scan on the tensor cores, with its two workspaces
     "rt_ssd_tc": (_P,) * 10 + (_I,) * 6 + (_LL,) * 6 + (_P,),
+    # x, dt, A, B, C, s0, dy, d_final; dx, ddt, dA, dB, dC, d_initial; six
+    # workspaces; the shape and chunk, the strides of x, B and C, dtype
+    "rt_ssd_bwd": (_P,) * 20 + (_I,) * 6 + (_LL,) * 6 + (_I, _P),
 }
 
 

@@ -9,15 +9,13 @@ path around the kernels.  :func:`copy_pages`, :func:`export_pages` and
 package writes them in plain ``jnp``.
 
 Gradients: with grad mode on and an input that requires grad,
-:func:`attention` and :func:`rmsnorm` run their ``autograd.Function``
-(the forward kernel, then the backward kernel; the plain versions on the
-CPU), and otherwise make exactly the serving call.  The serving-only ops
-(:func:`decode_attention`, :func:`paged_attention`, :func:`varlen_prefill`,
-:func:`spec_verify`) have no backward and raise ``NotImplementedError``
-when asked for a gradient, on any device; :func:`ssd` raises so on a CUDA
-tensor (its backward kernel is not written yet) and stays differentiable on
-the CPU, where it is plain torch.  No op hands back a tensor cut off from
-its inputs' graph.
+:func:`attention`, :func:`rmsnorm` and :func:`ssd` run their
+``autograd.Function`` (the forward kernel, then the backward kernel; the
+plain versions on the CPU), and otherwise make exactly the serving call.
+The serving-only ops (:func:`decode_attention`, :func:`paged_attention`,
+:func:`varlen_prefill`, :func:`spec_verify`) have no backward and raise
+``NotImplementedError`` when asked for a gradient, on any device.  No op
+hands back a tensor cut off from its inputs' graph.
 """
 from __future__ import annotations
 
@@ -33,12 +31,11 @@ from .paged_attention import paged_attention as _paged_attention
 from .rmsnorm import RMSNormFn
 from .rmsnorm import rmsnorm as _rmsnorm
 from .spec_verify import spec_verify as _spec_verify
+from .ssd import SSDFn
 from .ssd import ssd as _ssd
 from .varlen_prefill import varlen_prefill as _varlen_prefill
 
 NEG_INF = ref.NEG_INF
-# the ROADMAP item that ports the ssd backward
-SSD_BACKWARD = "ROADMAP Queue 1, the ssd backward"
 
 
 def wants_grad(*tensors: Optional[torch.Tensor]) -> bool:
@@ -197,13 +194,10 @@ def ssd(
 ):
     """Mamba-2 SSD scan of a whole sequence (prefill, ``forward``): x ``(b,
     s, h, p)``, dt ``(b, s, h)`` float32, A ``(h,)`` float32, B/C ``(b, s,
-    n)``; y and, with ``return_state``, the final state in x's dtype.
-    Differentiable on the CPU (the plain version); on a CUDA tensor a
-    gradient request raises until the backward kernel lands."""
-    if x.is_cuda and wants_grad(x, dt, A, B, C, initial_state):
-        raise NotImplementedError(
-            f"ssd has no backward kernel yet ({SSD_BACKWARD}): the ssm and hybrid families "
-            f"train on the CPU only")
+    n)``; y and, with ``return_state``, the final state in x's dtype;
+    differentiable (:class:`~.ssd.SSDFn`)."""
+    if wants_grad(x, dt, A, B, C, initial_state):
+        return SSDFn.apply(x, dt, A, B, C, initial_state, chunk, return_state)
     return _ssd(x, dt, A, B, C, chunk=chunk, initial_state=initial_state,
                 return_state=return_state)
 

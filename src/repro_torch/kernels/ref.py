@@ -12,7 +12,10 @@ yardstick of speed.  An int8/fp8 pool comes with float32 ``k_scales``/
 dequantized (``code * scale``) and everything is computed in float32.
 The Mamba-2 scan :func:`ssd` is the sequential recurrence, one
 :func:`ssd_step` per timestep, in float32; :func:`ssd_chunk_phases` is the
-same scan in the three phases of the tensor-core kernel, for tests.
+same scan in the three phases of the tensor-core kernel, for tests.  Its
+backward :func:`ssd_bwd` is the sequential reverse recurrence, and
+:func:`ssd_bwd_chunks` the same gradients in the chunks of the backward
+kernel, for tests.
 :func:`attention_lse`, :func:`flash_attention_bwd` and :func:`rmsnorm_bwd`
 are the plain versions of the training path's kernels.
 """
@@ -364,6 +367,12 @@ def rmsnorm_bwd(x: torch.Tensor, weight: torch.Tensor, eps: float,
     return dx.reshape(x.shape).to(x.dtype), dw.to(weight.dtype)
 
 
+def _acc(t: torch.Tensor) -> torch.dtype:
+    """The plain SSD's working dtype: float32, float64 for float64 inputs
+    (``torch.autograd.gradcheck`` of the op)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def ssd_step(
     x: torch.Tensor,        # (b, h, p)
     dt: torch.Tensor,       # (b, h) softplus'd time deltas (> 0)
@@ -375,11 +384,12 @@ def ssd_step(
     """One step of the SSD recurrence in float32 (``repro.kernels.ref.
     ssd_step``): ``S' = exp(dt A) S + dt x B^T``, ``y = S' C``.  Returns
     (y in x's dtype, the new state in the state's dtype)."""
-    xf, dtf = x.float(), dt.float()
-    dec = torch.exp(dtf * A.float()[None, :])                        # (b, h)
-    dB = torch.einsum("bh,bhp,bn->bhpn", dtf, xf, B.float())
-    new_state = dec[..., None, None] * state.float() + dB
-    y = torch.einsum("bhpn,bn->bhp", new_state, C.float())
+    f = _acc(x)
+    xf, dtf = x.to(f), dt.to(f)
+    dec = torch.exp(dtf * A.to(f)[None, :])                          # (b, h)
+    dB = torch.einsum("bh,bhp,bn->bhpn", dtf, xf, B.to(f))
+    new_state = dec[..., None, None] * state.to(f) + dB
+    y = torch.einsum("bhpn,bn->bhp", new_state, C.to(f))
     return y.to(x.dtype), new_state.to(state.dtype)
 
 
@@ -400,8 +410,8 @@ def ssd(
     final state cast to x's dtype, as all three JAX versions return it."""
     b, s, h, p = x.shape
     n = B.shape[-1]
-    state = (initial_state.float() if initial_state is not None
-             else torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device))
+    state = (initial_state.to(_acc(x)) if initial_state is not None
+             else torch.zeros((b, h, p, n), dtype=_acc(x), device=x.device))
     ys = []
     for t in range(s):
         y_t, state = ssd_step(x[:, t], dt[:, t], A, B[:, t], C[:, t], state)
@@ -458,3 +468,170 @@ def ssd_chunk_phases(
                   + torch.exp(cum)[..., None] * torch.einsum("bqn,bhpn->bqhp", Cf[:, sl], Sc))
     y = torch.cat(ys, dim=1).to(x.dtype)
     return (y, S.to(x.dtype)) if return_state else y
+
+
+# timesteps between the states the plain backward keeps: it recomputes the
+# states of one segment at a time from the one entering it, so its memory
+# holds s / SSD_BWD_SEGMENT + SSD_BWD_SEGMENT states, not s
+SSD_BWD_SEGMENT = 64
+
+
+def ssd_bwd(
+    x: torch.Tensor,        # (b, s, h, p)
+    dt: torch.Tensor,       # (b, s, h) softplus'd time deltas (> 0)
+    A: torch.Tensor,        # (h,) negative decay rates (A < 0)
+    B: torch.Tensor,        # (b, s, n)
+    C: torch.Tensor,        # (b, s, n)
+    dy: torch.Tensor,       # (b, s, h, p) the cotangent of y
+    *,
+    initial_state: Optional[torch.Tensor] = None,   # (b, h, p, n)
+    d_final: Optional[torch.Tensor] = None,         # (b, h, p, n) the final state's cotangent
+) -> Tuple[torch.Tensor, ...]:
+    """The gradients of :func:`ssd` by the sequential reverse recurrence
+    over timesteps, in float32 and independent of any chunking.  With
+    ``a_t = exp(dt_t A)`` and the forward's states ``S_t`` (``S_{-1}`` the
+    initial state), the state's cotangent runs backwards as ``H_t = dy_t
+    C_t^T + a_{t+1} H_{t+1}`` from ``H = d_final`` (zeros when None), and
+    ``dx_t = dt_t H_t B_t``, ``dB_t = sum_h dt_t H_t^T x_t``, ``dC_t = sum_h
+    S_t^T dy_t``, ``ddt_t = x_t^T H_t B_t + A a_t <H_t, S_{t-1}>``, ``dA =
+    sum_{b,t} dt_t a_t <H_t, S_{t-1}>``, ``d_initial = a_0 H_0``.  Returns
+    (dx in x's dtype, ddt and dA float32, dB and dC in B's dtype, d_initial
+    float32; float64 for float64 inputs)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    f = _acc(x)
+    xf, dtf, Bf, Cf, dyf, Af = (t.to(f) for t in (x, dt, B, C, dy, A))
+    a = torch.exp(dtf * Af)                                          # (b, s, h)
+    new = lambda *shape: torch.empty(shape, dtype=f, device=x.device)
+
+    def advance(S, t):
+        return a[:, t, :, None, None] * S + torch.einsum(
+            "bh,bhp,bn->bhpn", dtf[:, t], xf[:, t], Bf[:, t])
+
+    S = initial_state.to(f) if initial_state is not None else new(b, h, p, n).zero_()
+    entry = []                                 # the state entering each segment
+    for t in range(s):
+        if t % SSD_BWD_SEGMENT == 0:
+            entry.append(S)
+        S = advance(S, t)
+    H = d_final.to(f) if d_final is not None else new(b, h, p, n).zero_()
+    dx, ddt, dB, dC = new(b, s, h, p), new(b, s, h), new(b, s, n), new(b, s, n)
+    dA = new(h).zero_()
+    for seg in reversed(range(len(entry))):
+        t0, t1 = seg * SSD_BWD_SEGMENT, min(s, (seg + 1) * SSD_BWD_SEGMENT)
+        states = [entry[seg]]                  # S_{t0-1} .. S_{t1-1}
+        for t in range(t0, t1):
+            states.append(advance(states[-1], t))
+        for t in reversed(range(t0, t1)):
+            S_t, S_prev = states[t - t0 + 1], states[t - t0]
+            H = H + torch.einsum("bhp,bn->bhpn", dyf[:, t], Cf[:, t])
+            dC[:, t] = torch.einsum("bhpn,bhp->bn", S_t, dyf[:, t])
+            HB = torch.einsum("bhpn,bn->bhp", H, Bf[:, t])
+            dx[:, t] = dtf[:, t, :, None] * HB
+            dB[:, t] = torch.einsum("bh,bhpn,bhp->bn", dtf[:, t], H, xf[:, t])
+            hs = a[:, t] * torch.einsum("bhpn,bhpn->bh", H, S_prev)
+            ddt[:, t] = (xf[:, t] * HB).sum(-1) + Af * hs
+            dA += (dtf[:, t] * hs).sum(0)
+            H = a[:, t, :, None, None] * H
+    return dx.to(x.dtype), ddt, dA, dB.to(B.dtype), dC.to(C.dtype), H
+
+
+def _reverse_cumsum(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``out_k = sum_{j >= k} t_j`` along ``dim``."""
+    return t.flip(dim).cumsum(dim).flip(dim)
+
+
+def _ssd_carry_back(G, decays, d_final):
+    """The backward kernel's reverse state pass: from ``W = d_final``, per
+    chunk c from the last, ``W_c = W`` (the cotangent of the state leaving
+    chunk c), then ``W = G_c + exp(cum_last_c) W``.  Returns ([W_c], the
+    cotangent of the initial state)."""
+    W, out = d_final, [None] * len(G)
+    for c in reversed(range(len(G))):
+        out[c] = W
+        W = G[c] + decays[c][..., None, None] * W
+    return out, W
+
+
+def ssd_bwd_chunks(
+    x: torch.Tensor,        # (b, s, h, p)
+    dt: torch.Tensor,       # (b, s, h)
+    A: torch.Tensor,        # (h,)
+    B: torch.Tensor,        # (b, s, n)
+    C: torch.Tensor,        # (b, s, n)
+    dy: torch.Tensor,       # (b, s, h, p)
+    *,
+    chunk: int = 64,
+    initial_state: Optional[torch.Tensor] = None,
+    d_final: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """What :func:`ssd_bwd` returns, in the chunks and launches of
+    ``csrc/ssd_bwd.cu``, in float32, for tests.  Per chunk of ``chunk``
+    timesteps (the trailing one its live rows), ``cum`` the inclusive cumsum
+    of dt A and ``L = cum_last``: (1) the forward's chunk states and ``G_c =
+    sum_t exp(cum_t) dy_t C_t^T``; (2) the state pass: the entry states
+    ``S_c`` forwards, and backwards ``W_c`` (:func:`_ssd_carry_back`);
+    (3) per chunk, with ``E_tk = exp(cum_t - cum_k)`` for ``k <= t``,
+    ``P = (C_t . B_k) E``, ``R = (dy_t . x_k) E dt_k`` and ``ew_k =
+    exp(L - cum_k)``: ``dx_k = dt_k (sum_t P_tk dy_t + ew_k W B_k)``, ``dB_k
+    = sum_t R_tk C_t + dt_k ew_k W^T x_k``, ``dC_t = sum_k R_tk B_k +
+    exp(cum_t) S_c^T dy_t`` (summed over heads), the direct part of ddt
+    ``sum_t P_tk (dy_t . x_k) + ew_k x_k^T W B_k``, and ``dcum``: ``+M_tk``
+    to t and ``-M_tk`` to k for ``M = P (dy . x) dt_k``, ``exp(cum_t) <dy_t,
+    S_c C_t>`` to t, ``-ew_k dt_k x_k^T W B_k`` to k and ``exp(L) <W, S_c> +
+    sum_k ew_k dt_k x_k^T W B_k`` to the last row; then ``da =``
+    :func:`_reverse_cumsum` of ``dcum``, ``ddt += A da``, ``dA = sum dt
+    da``."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    xf, dtf, Bf, Cf, dyf, Af = (t.float() for t in (x, dt, B, C, dy, A))
+    zeros = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    spans = [slice(t0, min(s, t0 + chunk)) for t0 in range(0, s, chunk)]
+    cums, dS, G = [], [], []
+    for sl in spans:                                              # 1. chunk states
+        cum = torch.cumsum(dtf[:, sl] * Af, dim=1)                # (b, L, h)
+        w = torch.exp(cum[:, -1:] - cum) * dtf[:, sl]
+        dS.append(torch.einsum("bkh,bkhp,bkn->bhpn", w, xf[:, sl], Bf[:, sl]))
+        G.append(torch.einsum("bth,bthp,btn->bhpn", torch.exp(cum), dyf[:, sl], Cf[:, sl]))
+        cums.append(cum)
+    S = initial_state.float() if initial_state is not None else zeros
+    s_in = []
+    for cum, d in zip(cums, dS):                                  # 2. state pass
+        s_in.append(S)
+        S = torch.exp(cum[:, -1])[..., None, None] * S + d
+    Ws, d_initial = _ssd_carry_back(G, [torch.exp(cum[:, -1]) for cum in cums],
+                                    d_final.float() if d_final is not None else zeros)
+    dx, ddt, dB, dC = [], [], [], []
+    dA = torch.zeros((h,), dtype=torch.float32, device=x.device)
+    for sl, cum, Sc, W in zip(spans, cums, s_in, Ws):             # 3. chunk gradients
+        xc, dyc, Bc, Cc, dtc = xf[:, sl], dyf[:, sl], Bf[:, sl], Cf[:, sl], dtf[:, sl]
+        L = cum.shape[1]
+        causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))[None, :, :, None]
+        seg = cum[:, :, None, :] - cum[:, None, :, :]             # (b, t, k, h)
+        E = torch.where(causal, torch.exp(seg.masked_fill(~causal, 0.0)), 0.0)
+        DX = torch.einsum("bthp,bkhp->btkh", dyc, xc)
+        P = torch.einsum("btn,bkn->btk", Cc, Bc)[..., None] * E
+        R = DX * E * dtc[:, None]
+        PD = P * DX
+        last = cum[:, -1:]                                        # (b, 1, h)
+        ew, ecum = torch.exp(last - cum), torch.exp(cum)          # (b, L, h)
+        WB = torch.einsum("bhpn,bkn->bkhp", W, Bc)
+        xwb = (xc * WB).sum(-1)                                   # (b, L, h)
+        dx.append(dtc[..., None] * (torch.einsum("btkh,bthp->bkhp", P, dyc)
+                                    + ew[..., None] * WB))
+        dB.append(torch.einsum("btkh,btn->bkn", R, Cc)
+                  + torch.einsum("bkh,bhpn,bkhp->bkn", dtc * ew, W, xc))
+        dC.append(torch.einsum("btkh,bkn->btn", R, Bc)
+                  + torch.einsum("bth,bhpn,bthp->btn", ecum, Sc, dyc))
+        col = PD.sum(1)                                           # (b, k, h)
+        dysc = (dyc * torch.einsum("bhpn,btn->bthp", Sc, Cc)).sum(-1)
+        dcum = (torch.einsum("btkh,bkh->bth", PD, dtc) - dtc * col + ecum * dysc
+                - ew * dtc * xwb)
+        tail = torch.exp(last[:, 0]) * (W * Sc).sum((-2, -1)) + (ew * dtc * xwb).sum(1)
+        dcum = torch.cat([dcum[:, :-1], dcum[:, -1:] + tail[:, None]], dim=1)
+        da = _reverse_cumsum(dcum, 1)
+        ddt.append(col + ew * xwb + Af * da)
+        dA += (dtc * da).sum((0, 1))
+    cat = lambda ts: torch.cat(ts, dim=1)
+    return (cat(dx).to(x.dtype), cat(ddt), dA, cat(dB).to(B.dtype), cat(dC).to(C.dtype),
+            d_initial)

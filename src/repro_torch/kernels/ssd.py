@@ -15,6 +15,8 @@ at other widths or chunks, run ``csrc/ssd.cu``, one block per (head, row)
 sequential over the chunks.  Neither depends on ``s``, the batch or the
 alignment of the views.  A block that needs more shared memory than the
 card has raises :class:`~repro_torch.kernels._build.SharedMemoryError`.
+:class:`SSDFn` is the differentiable op: this forward, then
+:func:`~.ssd_bwd.ssd_bwd`.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build, ref
+from .ssd_bwd import ssd_bwd
 
 launches = 0
 
@@ -183,3 +186,31 @@ def ssd(
     launches += 1
     _build.check_launch(err, "ssd")
     return (y, final) if return_state else y
+
+
+class SSDFn(torch.autograd.Function):
+    """Differentiable :func:`ssd`: the forward keeps its inputs only; the
+    backward is :func:`~.ssd_bwd.ssd_bwd` (the kernels on a CUDA tensor,
+    which rebuild the forward's chunk states, :func:`~.ref.ssd_bwd` on the
+    CPU), as the JAX package takes autodiff of ``ssd_chunked_jnp``.  With
+    ``return_state`` the final state's cotangent enters the backward too."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, initial_state, chunk, return_state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B, C, initial_state)
+        ctx.chunk = chunk
+        return ssd(x, dt, A, B, C, chunk=chunk, initial_state=initial_state,
+                   return_state=return_state)
+
+    @staticmethod
+    def backward(ctx, dy, d_final=None):
+        x, dt, A, B, C, initial_state = ctx.saved_tensors
+        dy = (torch.zeros(x.shape, dtype=x.dtype, device=x.device) if dy is None
+              else dy.to(x.dtype).contiguous())
+        if d_final is not None:  # float32 (float64 on the CPU for float64 inputs)
+            d_final = d_final.to(torch.promote_types(x.dtype, torch.float32)).contiguous()
+        dx, ddt, dA, dB, dC, d_initial = ssd_bwd(
+            x, dt, A, B, C, dy, chunk=ctx.chunk, initial_state=initial_state, d_final=d_final)
+        return (dx, ddt, dA, dB, dC, d_initial if initial_state is not None else None,
+                None, None)

@@ -5,13 +5,11 @@ cpu``: synthetic token data with cursor resume, atomic checkpoints,
 checkpoint-restart, loss logging into the platform's evaluation database.
 The masters and the AdamW moments are float32; the model computes in
 ``--dtype`` (bf16 on the card, float32 on the CPU).  The default
-``--arch`` is glm4-9b, not the reference's mamba2-130m: the ssm and hybrid
-families train on the CPU only until the ``ssd`` kernel has a backward.
-At published width glm4-9b's 9.4 B parameters take ~18 bytes each to
-train (masters, gradients, moments, the bf16 copy), which no one card
-holds, so on the card train ``--reduced``, or reduce the depth in a
-config of your own; the driver refuses what does not fit before it
-allocates anything.
+``--arch`` is mamba2-130m, as in the reference.  Each parameter takes ~18
+bytes to train (masters, gradients, moments, the bf16 copy): at published
+width glm4-9b's 9.4 B parameters fit no one card, so there train it
+``--reduced``, or reduce the depth in a config of your own; the driver
+refuses what does not fit before it allocates anything.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \
         --steps 50 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt --ckpt-every 20
@@ -52,9 +50,7 @@ def train_fits(cfg, compute_dtype: torch.dtype, capacity: int) -> Optional[str]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="glm4-9b", choices=list_archs(),
-                    help="default glm4-9b: mamba2-130m (the reference's default) cannot "
-                         "train on the card until the ssd kernel has a backward")
+    ap.add_argument("--arch", default="mamba2-130m", choices=list_archs())
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
@@ -79,8 +75,6 @@ def main(argv=None) -> int:
     opt_cfg = OptimizerConfig(
         lr=args.lr, warmup_steps=max(args.steps // 20, 1), total_steps=args.steps
     )
-    # built first: it refuses a model the device cannot train before anything
-    # is allocated
     step_fn = make_train_step(model, opt_cfg, microbatches=args.microbatches, remat=True)
     if device.type == "cuda":
         why = train_fits(cfg, model.dtype, torch.cuda.get_device_properties(device).total_memory)

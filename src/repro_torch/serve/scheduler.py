@@ -401,16 +401,22 @@ class CompletionFuture:
         self._error = error
         self._done = True
         self._event.set()
+        # a done future needs no scheduler: dropping it breaks the chain
+        # future <-> request -> scheduler -> execute, which would otherwise
+        # keep whatever ``execute`` closes over (an engine and its weights)
+        # alive until the cycle collector runs
+        self._scheduler = None
 
     def result(self, timeout: Optional[float] = None) -> Any:
-        if not self._done:
-            if self._scheduler.running:
+        sched = self._scheduler  # None once done (_set clears it after _done)
+        if sched is not None and not self._done:
+            if sched.running:
                 if not self._event.wait(timeout):
                     raise TimeoutError(
                         f"request {self.request.request_id} not done in {timeout}s"
                     )
             else:
-                self._scheduler._drive_until(self)
+                sched._drive_until(self)
         if self._error is not None:
             raise self._error
         return self._value

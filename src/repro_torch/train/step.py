@@ -22,22 +22,10 @@ from typing import Callable, Dict, List, Tuple, Union
 import torch
 
 from ..device import resolve_dtype
-from ..kernels import ops
 from ..models.params import FP32_LEAVES
 from .optimizer import OptimizerConfig, adamw_update, tree_rebuild
 
 AUX_LOSS_WEIGHT = 0.01
-
-
-def check_trainable(model) -> None:
-    """Raise ``NotImplementedError`` for a model the port cannot train on
-    its device: the ssm and hybrid families on the card, whose Mamba-2 scan
-    has no backward kernel yet."""
-    fam = model.cfg.family
-    if model.device.type == "cuda" and fam in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{model.cfg.name}: the {fam} family cannot train on the card: the ssd kernel has "
-            f"no backward yet ({ops.SSD_BACKWARD}); train it on the CPU (device='cpu')")
 
 
 def make_loss_fn(model, remat: bool = False):
@@ -136,12 +124,10 @@ def make_train_step(
 ):
     """The reference's train step on the port's model.  ``grad_shardings``
     pins gradients to a tensor-parallel layout (ROADMAP item 9, not
-    ported): anything but None raises.  An ssm or hybrid model on the card
-    raises (:func:`check_trainable`) before anything is allocated."""
+    ported): anything but None raises."""
     if grad_shardings is not None:
         raise NotImplementedError("grad_shardings is tensor parallelism (ROADMAP item 9): "
                                   "not ported")
-    check_trainable(model)
     grad_fn = make_grad_fn(model, microbatches, remat, accum_dtype, cast_params_once)
 
     def train_step(params, opt_state, batch):

@@ -37,7 +37,7 @@ def test_the_import_check_covers_every_entry_point():
               "repro_torch.train", "repro_torch.train.data", "repro_torch.train.optimizer",
               "repro_torch.train.checkpoint", "repro_torch.train.step",
               "repro_torch.launch.train", "repro_torch.kernels.flash_attention_bwd",
-              "repro_torch.kernels.rmsnorm_bwd"):
+              "repro_torch.kernels.rmsnorm_bwd", "repro_torch.kernels.ssd_bwd"):
         assert m in mods, m
 
 

@@ -335,7 +335,7 @@ def test_driver_resume_gives_the_same_losses(tmp_path, capsys):
     rec = EvalDB(db).query()[0]
     assert rec.backend == "torch" and rec.scenario == "train" and rec.agent_id == "train-driver"
     assert set(rec.metrics) == {"final_loss", "first_loss"}
-    assert rec.model == "glm4-9b-reduced" and rec.batch_size == 4
+    assert rec.model == "mamba2-130m-reduced" and rec.batch_size == 4
 
 
 def test_driver_trains_encdec_on_zero_frames(capsys):
