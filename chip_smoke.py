@@ -18,7 +18,9 @@ Phases, each printing its own lines and wall time, each ending in
    (HGMMA in varlen's d-128 instances), the flash and varlen kernels at
    head dim 128 and the flash kernel at head dim 80 (zamba2's, over
    ``Padded<80>`` tiles) spill nothing and no split-KV or ``ssd_tc``
-   instance spills;
+   instance spills; the training backwards: 16 ``flash_bwd_`` instances
+   (the 8 of the tensor-core route, dK/dV and dQ at d 16/64/80/128, each
+   with HMMA and no spill) and 10 ``rmsnorm_bwd``;
 2. kernels: each hand-written kernel against its plain PyTorch version at
    the shapes the serve phase gives it (glm4-9b widths: h 32, kvh 2, d 128,
    page 16, D 4096, bf16; spec_verify with 8 slots and windows of 5), the
@@ -117,13 +119,19 @@ Phases, each printing its own lines and wall time, each ending in
    log-sum-exp against ``ref.attention_lse`` (and the forward's bits the
    same with and without it); ``flash_attention_bwd`` (dq, dk, dv) at
    glm4-9b's training shape, q (4, 1024, 32, 128) on 2 kv heads, causal,
-   bf16, and on small bf16 and float32 cases with a window, a softcap of
-   2, a ``q_offset``, no causal mask, rows with no live key (the empty
-   log-sum-exp, dq exactly 0), whisper's d 64 at rep 1 and zamba2's d 80;
-   the plain version without key 0, and without the softcap's factor,
-   must fail the limit; ``rmsnorm_bwd`` at 4096 and 8 rows of 4096 (dw the
-   same bits twice); each timed beside its plain version, its bound and
-   SDPA's or ``F.rms_norm``'s backward alone; ``ssd_bwd`` (every gradient:
+   bf16 (the tensor-core route, its GQA splits printed; dq, dk, dv the
+   same bits on two runs), at zamba2-2.7b's d 80 q (4, 1024, 32, 80) on 32
+   kv heads (likewise), and on small bf16 and float32 cases with a window,
+   a softcap of 2, a ``q_offset``, no causal mask, rows with no live key
+   (the empty log-sum-exp, dq exactly 0), whisper's d 64 at rep 1 and
+   zamba2's d 80; the plain version without key 0, and without the
+   softcap's factor, must fail the limit; the glm4-9b and zamba2 shapes
+   and their phase-4c microbatches (2, 1024) timed beside SDPA's backward;
+   ``rmsnorm_bwd`` at 4096 and 8 rows of 4096 (dx, dw the same bits
+   twice), and at phase 4c's microbatches of mamba2-130m (4096 x 768) and
+   zamba2-2.7b (2048 x 2560 and its gated 5120), each beside
+   ``F.rms_norm``'s backward; the training shapes timed beside their plain
+   version, bound and SDPA's or ``F.rms_norm``'s backward alone; ``ssd_bwd`` (every gradient:
    dx, ddt, dA, dB, dC, the initial state's) against ``ref.ssd_bwd``, the
    sequential reverse recurrence, in bf16 at mamba2-130m's training shape x
    (8, 1024, 24, 64), n 128, and zamba2-2.7b's (4, 1024, 80, 64), n 64, and
@@ -607,10 +615,12 @@ def _sass_counts(nvcc, lib_path):
 def build_report(info, nvcc):
     """Print every kernel's registers and spills, and the tensor-core
     instructions of the bf16 flash_attention kernels, of the split-KV decode
-    routine, of the varlen prefill routine and of the bf16 ssd's chunk
-    launches; fail unless each of those has some (HGMMA for varlen at d
-    128), the flash kernels at d 128 and d 80 and the varlen kernels at d
-    128 spill nothing and no split-KV or ssd_tc instance spills."""
+    routine, of the varlen prefill routine, of the bf16 ssd's chunk
+    launches and of the flash backward's tensor-core route; fail unless
+    each of those has some (HGMMA for varlen at d 128), the flash kernels
+    at d 128 and d 80 and the varlen kernels at d 128 spill nothing, no
+    split-KV, ssd_tc or tensor-core flash backward instance spills, and the
+    backward instances are the expected ones."""
     from repro_torch.kernels import decode_split as ds
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd as sdm
@@ -690,16 +700,32 @@ def build_report(info, nvcc):
     spilled = [names[m] for m, r in tc.items() if r[1:] != (0, 0)]
     if spilled:
         raise SystemExit(f"ssd_tc: spills in {spilled}")
-    # the training backward kernels (CUDA cores): three flash launches and
-    # two rmsnorm launches, each in bf16 and float32
+    # the training backward kernels: the flash backward's CUDA-core route
+    # (D, dK/dV, dQ in bf16 and float32: 6), its tensor-core route (dK/dV and
+    # dQ at each head dim of TC_TILES, each with HMMA and no spill, the
+    # statistics and the split sum: 10); rmsnorm_bwd's vector kernel (1, 2, 4
+    # vectors a thread), scalar kernel and dw sum, each in bf16 and float32
+    # (10)
+    from repro_torch.kernels import flash_attention_bwd as fbm
+
     bwd = {m: r for m, r in ptxas.items() if "flash_bwd_" in m or "rmsnorm_bwd" in m}
     for mangled in sorted(bwd, key=lambda m: names[m]):
         regs, st, ld = bwd[mangled]
         print(f"   backward {names[mangled]}: {regs} registers, spill stores {st} B, loads {ld} B")
+    tc_bwd = [m for m in bwd if "flash_bwd_dkdv_tc_kernel" in m or "flash_bwd_dq_tc_kernel" in m]
+    for mangled in sorted(tc_bwd, key=lambda m: names[m]):
+        print(f"   sass {names[mangled]}: HMMA {sass.get(mangled, (0, 0))[0]}, HGMMA "
+              f"{sass.get(mangled, (0, 0))[1]}")
     n_flash = sum("flash_bwd_" in m for m in bwd)
-    if n_flash != 6 or len(bwd) - n_flash != 4:
-        raise SystemExit(f"backward kernels: {n_flash} flash_bwd and {len(bwd) - n_flash} "
-                         f"rmsnorm_bwd instances in the ptxas report, expected 6 and 4")
+    n_tc = 2 * len(fbm.TC_TILES)
+    if n_flash != 6 + n_tc + 2 or len(bwd) - n_flash != 10 or len(tc_bwd) != n_tc:
+        raise SystemExit(f"backward kernels: {n_flash} flash_bwd ({len(tc_bwd)} on the tensor "
+                         f"cores) and {len(bwd) - n_flash} rmsnorm_bwd instances in the ptxas "
+                         f"report, expected {6 + n_tc + 2} ({n_tc}) and 10")
+    bad = [names[m] for m in tc_bwd if sum(sass.get(m, (0, 0))) == 0 or bwd[m][1:] != (0, 0)]
+    if bad:
+        raise SystemExit(f"flash_attention_bwd tensor-core route: no HMMA/HGMMA or a spill in "
+                         f"{bad}")
 
 
 def kernels_phase(torch, dev, arch="glm4-9b", modes=KV_MODES):
@@ -4443,6 +4469,43 @@ def _bwd_inputs(torch, gen, dtype, shape, sk, kvh, opts):
     return q, k, v, o, lse, do
 
 
+def _flash_bwd_work(b, sq, sk, h, kvh, d):
+    """(bytes, flops) of a causal flash backward: q, o, do, dq and k, v, dk,
+    dv once each in bf16; 10 flops a live (row, key, column), half the pairs
+    live.  The tensor-core route's split scratch is not counted: the
+    function does not need it, and operations bound these shapes."""
+    return 2 * (4 * b * sq * h * d + 4 * b * sk * kvh * d), 10.0 * b * h * sq * sk * d / 2
+
+
+def _sdpa_bwd_set(torch, q, k, v, do):
+    """SDPA's causal forward on q, k, v (K/V expanded to q's heads), kept
+    for its backward: (out, q, k, v, the cotangent)."""
+    import torch.nn.functional as F
+
+    rep = q.shape[2] // k.shape[2]
+    qe = q.transpose(1, 2).contiguous().requires_grad_()
+    ke = k.transpose(1, 2).repeat_interleave(rep, dim=1).requires_grad_()
+    ve = v.transpose(1, 2).repeat_interleave(rep, dim=1).requires_grad_()
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
+    return out, qe, ke, ve, do.transpose(1, 2).contiguous()
+
+
+def _sdpa_bwd(out, *a):
+    """SDPA's backward alone, on a set of :func:`_sdpa_bwd_set`."""
+    import torch
+
+    return torch.autograd.grad(out, a[:3], a[3], retain_graph=True)
+
+
+def _same_bits(torch, name, got, again):
+    """Fail unless two runs of a kernel gave the same bits in every output."""
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"   {name}: the same bits on two runs: {same}")
+    if not same:
+        raise SystemExit(f"{name}: two runs differ")
+
+
 def _without_cap_factor(torch, q, k, v, do, opts):
     """The plain backward with the softcap's factor 1 - (sc/cap)^2 left out:
     autograd of the plain forward whose cap passes the gradient straight
@@ -4596,9 +4659,12 @@ def train_kernels_phase(torch, dev):
     forward's log-sum-exp against ``ref.attention_lse`` (and the forward's
     bits with and without it), ``flash_attention_bwd`` at the training shape
     (glm4-9b, q (TRAIN_BATCH, TRAIN_SEQ, 32, 128) on 2 kv heads, causal,
-    bf16) and on small bf16 and float32 cases, with two rejects (the plain
-    version without the softcap factor; without key 0), and ``rmsnorm_bwd``
-    at 4096 rows of 4096 and at 8 rows; times and bounds."""
+    bf16; zamba2's d 80 on 32 kv heads; both at phase 4c's microbatch, with
+    its own split count), the same bits on two runs, and on
+    small bf16 and float32 cases, with two rejects (the plain version
+    without the softcap factor; without key 0), and ``rmsnorm_bwd`` at 4096
+    rows of 4096, at 8 rows and at phase 4c's other widths; times beside
+    SDPA's and ``F.rms_norm``'s backward, and bounds."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
@@ -4630,47 +4696,65 @@ def train_kernels_phase(torch, dev):
         raise SystemExit("flash_attention: writing the log-sum-exp moved the output")
     del o_plain, lse_plain
 
-    # -- flash_attention_bwd at the training shape
+    # -- flash_attention_bwd at the training shape: the tensor-core route,
+    # the same bits on two runs
+    splits = fb.tc_splits(b, s, kvh, rep, torch.cuda.get_device_properties(dev)
+                          .multi_processor_count)
+    print(f"   flash_attention_bwd route at d {d} bf16: {fb.route(bf, d)}, {splits} splits of "
+          f"the {rep}-head group, scratch {fb.tc_scratch_bytes(b, s, kvh, d, splits)} B")
     want = ref.flash_attention_bwd(q, k, v, o, lse, do)
-    err = check3(f"glm4-9b q ({b}, {s}, {h}, {d}) causal", fb.flash_attention_bwd(
-        q, k, v, o, lse, do), want)
+    got = fb.flash_attention_bwd(q, k, v, o, lse, do)
+    err = check3(f"glm4-9b q ({b}, {s}, {h}, {d}) causal", got, want)
+    _same_bits(torch, f"flash_attention_bwd glm4-9b q ({b}, {s}, {h}, {d})", got,
+               fb.flash_attention_bwd(q, k, v, o, lse, do))
     o1, lse1 = ref.attention_lse(q, k[:, 1:], v[:, 1:], q_offset=-1)
     _rejects(torch, "flash_attention_bwd plain without key 0 (dq)", ref.flash_attention_bwd(
         q, k[:, 1:], v[:, 1:], o1, lse1, do, q_offset=-1)[0], want[0])
-    del want, o1, lse1
-    nbytes = 2 * (4 * b * s * h * d + 4 * b * s * kvh * d)
-    flops = 10.0 * b * h * s * s * d / 2
+    del want, got, o1, lse1
+    nbytes, flops = _flash_bwd_work(b, s, s, h, kvh, d)
     sets = _rotation(nbytes, lambda i: tuple(t.clone() for t in (q, k, v, o, lse, do)))
-
-    def lib_set(i):
-        qe = q.transpose(1, 2).contiguous().requires_grad_()
-        ke = k.transpose(1, 2).repeat_interleave(rep, dim=1).requires_grad_()
-        ve = v.transpose(1, 2).repeat_interleave(rep, dim=1).requires_grad_()
-        with torch.enable_grad():
-            out = F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
-        return out, qe, ke, ve, do.transpose(1, 2).contiguous()
-
-    lib_sets = _rotation(2 * 8 * b * s * h * d, lib_set)
+    lib_sets = _rotation(2 * 8 * b * s * h * d, lambda i: _sdpa_bwd_set(torch, q, k, v, do))
     records["flash_attention_bwd"] = dict(
         err=err,
-        **_timed(torch, cpm, fb.flash_attention_bwd, ref.flash_attention_bwd,
-                 lambda out, *a: torch.autograd.grad(out, a[:3], a[3], retain_graph=True),
+        **_timed(torch, cpm, fb.flash_attention_bwd, ref.flash_attention_bwd, _sdpa_bwd,
                  sets, lib_sets, plain_calls=3),
         bound=_bound_ms(nbytes, flops),
         shape=f"glm4-9b q ({b}, {s}, {h}, {d}), k/v ({b}, {s}, {kvh}, {d}) bf16, causal; "
               f"library: SDPA's backward alone, K/V expanded to {h} heads",
     )
     del sets, lib_sets, q, k, v, o, lse, do
-    # the microbatch shape phase 4c launches
+    # the microbatch shape phase 4c launches (its own split count: 8 at
+    # glm4-9b's), and zamba2's d 80 (rep 1) at the training shape and its
+    # microbatch: each held against the plain version, the same bits on two
+    # runs, and timed beside the plain version and SDPA's backward
     mb_b = TRAIN_BATCH // TRAIN_MICRO
-    mb = _bwd_inputs(torch, gen, bf, (mb_b, s, h, d), s, kvh, {})
-    mb_ms, mb_q = _time_ms(torch, fb.flash_attention_bwd, [mb], cpm)
-    mb_bound = _bound_ms(nbytes * mb_b / b, flops * mb_b / b)
-    print(f"   flash_attention_bwd at phase 4c's microbatch q ({mb_b}, {s}, {h}, {d}): kernel_ms "
-          f"{mb_ms:.4f} bound_ms {mb_bound[0]:.4f} ({mb_bound[1]}); host gaps: {not mb_q}")
-    del mb
+    zcfg = get_config(HYBRID_ARCH)
+    zh, zd = zcfg.num_heads, zcfg.resolved_head_dim
+    for label, (bb, hh, kk, dd) in (
+            ("glm4-9b at phase 4c's microbatch", (mb_b, h, kvh, d)),
+            (f"{HYBRID_ARCH} d {zd}", (TRAIN_BATCH, zh, zcfg.num_kv_heads, zd)),
+            (f"{HYBRID_ARCH} d {zd} at phase 4c's microbatch", (mb_b, zh, zcfg.num_kv_heads, zd))):
+        case = _bwd_inputs(torch, gen, bf, (bb, s, hh, dd), s, kk, {})
+        want = ref.flash_attention_bwd(*case)
+        got = fb.flash_attention_bwd(*case)
+        err = max(err, check3(f"{label} q ({bb}, {s}, {hh}, {dd}) causal", got, want))
+        _same_bits(torch, f"flash_attention_bwd {label}", got, fb.flash_attention_bwd(*case))
+        del want, got
+        ms, ms_q = _time_ms(torch, fb.flash_attention_bwd, [case], cpm)
+        plain_ms, _ = _time_ms(torch, ref.flash_attention_bwd, [case], cpm)
+        q_, k_, v_, _, _, do_ = case
+        lib_ms, lib_q = _time_ms(torch, _sdpa_bwd, [_sdpa_bwd_set(torch, q_, k_, v_, do_)], cpm)
+        bound = _bound_ms(*_flash_bwd_work(bb, s, s, hh, kk, dd))
+        print(f"   flash_attention_bwd {label} q ({bb}, {s}, {hh}, {dd}) on {kk} kv heads "
+              f"({fb.route(bf, dd)}, {fb.tc_splits(bb, s, kk, hh // kk)} splits): kernel_ms "
+              f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (SDPA's backward "
+              f"alone; {ms / lib_ms:.2f}x) bound_ms {bound[0]:.4f} ({bound[1]}); host gaps: "
+              f"{not (ms_q and lib_q)}")
+        del case, q_, k_, v_, do_
+    records["flash_attention_bwd"]["err"] = err
 
     # -- small cases, bf16 and float32
+    err = 0.0
     for dtype in (bf, torch.float32):
         for label, shape, sk, kv, opts in BWD_CASES:
             q, k, v, o, lse, do = _bwd_inputs(torch, gen, dtype, shape, sk, kv, opts)
@@ -4708,7 +4792,7 @@ def train_kernels_phase(torch, dev):
                 _rejects(torch, f"flash_attention_bwd plain without the softcap factor {name} "
                                 f"(dq)", _without_cap_factor(torch, q, k, v, do, opts)[0],
                          want[0])
-    records["flash_attention_bwd"]["err"] = err
+    records["flash_attention_bwd"]["err"] = max(records["flash_attention_bwd"]["err"], err)
     records["flash_attention_bwd"]["err_lse"] = err_lse
 
     # -- rmsnorm_bwd: 4096 rows of 4096 (a layer's norm at phase 4c's batch) and 8
@@ -4721,34 +4805,55 @@ def train_kernels_phase(torch, dev):
         got = rb.rmsnorm_bwd(x, w, 1e-5, dy)
         for n, g, t in zip(("dx", "dw"), got, want):
             err = max(err, _check(torch, f"rmsnorm_bwd {rows} rows of {D} {n}", g, t))
-        again = rb.rmsnorm_bwd(x, w, 1e-5, dy)[1]
-        if not torch.equal(again, got[1]):
-            raise SystemExit("rmsnorm_bwd: dw differs between two runs")
+        _same_bits(torch, f"rmsnorm_bwd {rows} rows of {D} (dx, dw)", got,
+                   rb.rmsnorm_bwd(x, w, 1e-5, dy))
     nbytes = 2 * (3 * rows * D + 2 * D)
     sets = _rotation(nbytes, lambda i: (x.clone(), w.clone(), 1e-5, dy.clone()))
-
-    def rms_lib(i):
-        xs = x.clone().requires_grad_()
-        ws = (1 + w.float()).to(bf).requires_grad_()
-        with torch.enable_grad():
-            out = F.rms_norm(xs, (D,), ws, eps=1e-5)
-        return out, xs, ws, dy.clone()
-
     have_lib = hasattr(F, "rms_norm")
-    lib_sets = _rotation(nbytes, rms_lib) if have_lib else []
+
+    def rms_lib(x_, w_, dy_):
+        xs = x_.clone().requires_grad_()
+        ws = (1 + w_.float()).to(bf).requires_grad_()
+        with torch.enable_grad():
+            out = F.rms_norm(xs, (x_.shape[-1],), ws, eps=1e-5)
+        return out, xs, ws, dy_.clone()
+
+    rms_bwd = lambda out, xs, ws, g: torch.autograd.grad(out, (xs, ws), g, retain_graph=True)
+    lib_sets = _rotation(nbytes, lambda i: rms_lib(x, w, dy)) if have_lib else []
     records["rmsnorm_bwd"] = dict(
         err=err,
-        **_timed(torch, cpm, rb.rmsnorm_bwd, ref.rmsnorm_bwd,
-                 (lambda out, xs, ws, g: torch.autograd.grad(out, (xs, ws), g, retain_graph=True))
-                 if have_lib else None, sets, lib_sets),
+        **_timed(torch, cpm, rb.rmsnorm_bwd, ref.rmsnorm_bwd, rms_bwd if have_lib else None,
+                 sets, lib_sets),
         bound=_bound_ms(nbytes, 10.0 * rows * D),
-        shape=f"x ({rows}, {D}) bf16; dw the same bits on two runs; library: "
+        shape=f"x ({rows}, {D}) bf16; dx, dw the same bits on two runs; library: "
               f"F.rms_norm's backward alone, weight 1 + w",
     )
-    small = [(randn(8, D), randn(D) * 0.1, 1e-5, randn(8, D))]
-    ms8, q8 = _time_ms(torch, rb.rmsnorm_bwd, small, cpm)
-    print(f"   rmsnorm_bwd at 8 rows of {D}: kernel_ms {ms8:.4f} bound_ms "
-          f"{_bound_ms(2 * (3 * 8 * D + 2 * D), 10.0 * 8 * D)[0]:.4f}; host gaps: {not q8}")
+    del sets, lib_sets
+    # phase 4c's other widths at their microbatches (mamba2-130m 8 x 1024 and
+    # zamba2-2.7b 4 x 1024 tokens in 2), and 8 rows; each beside F.rms_norm's
+    # backward
+    mcfg = get_config("mamba2-130m")
+    zcfg = get_config(HYBRID_ARCH)
+    for label, rows, D in (("mamba2-130m", 8 * TRAIN_SEQ // TRAIN_MICRO, mcfg.d_model),
+                           (HYBRID_ARCH, TRAIN_BATCH * TRAIN_SEQ // TRAIN_MICRO, zcfg.d_model),
+                           (f"{HYBRID_ARCH} gated", TRAIN_BATCH * TRAIN_SEQ // TRAIN_MICRO,
+                            2 * zcfg.d_model),
+                           ("glm4-9b", 8, cfg.d_model)):
+        x, w, dy = randn(rows, D), randn(D) * 0.1, randn(rows, D)
+        want = ref.rmsnorm_bwd(x, w, 1e-5, dy)
+        got = rb.rmsnorm_bwd(x, w, 1e-5, dy)
+        for n, g, t in zip(("dx", "dw"), got, want):
+            _check(torch, f"rmsnorm_bwd {label} {rows} rows of {D} {n}", g, t)
+        nb = 2 * (3 * rows * D + 2 * D)
+        ms, ms_q = _time_ms(torch, rb.rmsnorm_bwd, _rotation(nb, lambda i: (
+            x.clone(), w, 1e-5, dy.clone())), cpm)
+        lib = (_time_ms(torch, rms_bwd, _rotation(nb, lambda i: rms_lib(x, w, dy)), cpm)
+               if have_lib else (None, True))
+        p = rb.plan(D, rows, 2)
+        print(f"   rmsnorm_bwd {label} x ({rows}, {D}) ({p.path}, {p.tpr} threads a row, "
+              f"{p.blocks} blocks): kernel_ms {ms:.4f} library_ms "
+              f"{'none' if lib[0] is None else f'{lib[0]:.4f}'} bound_ms "
+              f"{_bound_ms(nb, 10.0 * rows * D)[0]:.4f}; host gaps: {not (ms_q and lib[1])}")
     _print_records(records)
     records["ssd_bwd"] = ssd_bwd_kernels_phase(torch, dev, cpm)
     return records
@@ -4955,10 +5060,14 @@ def train_phase(torch, dev, counters, arch, layers, rows):
         raise SystemExit("train: the loss is not finite or did not fall")
 
     real = step_mod.adamw_update
+    span = [torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)]
 
     def ranged(*a, **kw):
         with record_function("adamw_update"):
-            return real(*a, **kw)
+            span[0].record()
+            out = real(*a, **kw)
+            span[1].record()
+            return out
 
     step_mod.adamw_update = ranged
     try:
@@ -4973,12 +5082,14 @@ def train_phase(torch, dev, counters, arch, layers, rows):
         step_mod.adamw_update = real
     by_class = {cls: 0.0 for cls, _ in _TRAIN_CLASSES}
     by_class.update(optimizer=0.0, other=0.0)
-    bwd_kernels = {}
+    bwd_kernels, other_kernels, opt_kernels = {}, {}, {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.key == "adamw_update":
             continue
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
         by_class[_train_class(e.key)] += float(us) / 1e3
+        if _train_class(e.key) == "other":
+            other_kernels[e.key] = other_kernels.get(e.key, 0.0) + float(us) / 1e3
         m = re.search(r"(flash_bwd_\w+|rmsnorm_bwd\w*|ssd_bwd_kernel_\w+)", e.key)
         if m:
             bwd_kernels[m.group(1)] = bwd_kernels.get(m.group(1), 0.0) + float(us) / 1e3
@@ -4992,6 +5103,10 @@ def train_phase(torch, dev, counters, arch, layers, rows):
             for kern in e.kernels:
                 by_class[_train_class(kern.name)] -= kern.duration / 1e3
                 by_class["optimizer"] += kern.duration / 1e3
+                if kern.name in other_kernels:
+                    other_kernels[kern.name] -= kern.duration / 1e3
+                n, ms = opt_kernels.get(kern.name, (0, 0.0))
+                opt_kernels[kern.name] = (n + 1, ms + kern.duration / 1e3)
     busy = sum(by_class.values())
     if busy <= 0:
         print("   profiler saw no device time: breakdown not measured")
@@ -5001,6 +5116,18 @@ def train_phase(torch, dev, counters, arch, layers, rows):
               + ", ".join(f"{k} {v:.2f}" for k, v in by_class.items()))
         print("   the backward kernels' device ms in that step, by launch: "
               + ", ".join(f"{k} {v:.3f}" for k, v in sorted(bwd_kernels.items())))
+        # what the optimizer and other classes hold, kernel by kernel: the
+        # optimizer is found by the profiler's link from a kernel to the
+        # range that launched it, and the range's own CUDA events bound it
+        short = lambda name: re.sub(r"\s+", " ", name)[:120]
+        print(f"   the optimizer: {sum(n for n, _ in opt_kernels.values())} kernels linked to "
+              f"the adamw_update range; the range's CUDA events span "
+              f"{span[0].elapsed_time(span[1]):.2f} device ms; its largest kernels: "
+              + "; ".join(f"{short(k)} x{n} {ms:.2f}" for k, (n, ms) in sorted(
+                  opt_kernels.items(), key=lambda kv: -kv[1][1])[:5]))
+        print("   the other class's largest kernels: "
+              + "; ".join(f"{short(k)} {ms:.2f}" for k, ms in sorted(
+                  other_kernels.items(), key=lambda kv: -kv[1])[:8]))
     del masters, state, model, step, m
     # what the phase leaves behind before any garbage collection: a
     # reference cycle over the trees would hold gigabytes until it ran

@@ -71,8 +71,13 @@ SIGNATURES = {
                                _I, _F, _F, _P),
     # q, k, v, o, dout, lse, the D scratch, dq, dk, dv; the shape, tile and options
     "rt_flash_attention_bwd": (_P,) * 10 + (_I,) * 11 + (_F, _F, _I, _P),
-    # x, w, dy, dx, dw, the dw partials; rows, D, eps, blocks, dtype
-    "rt_rmsnorm_bwd": (_P,) * 6 + (_LL, _LL, _F, _I, _I, _P),
+    # the bf16 tensor-core route: the same pointers (the statistics scratch in
+    # D's place) and the split partials; the shape, splits, options and the
+    # score error bound
+    "rt_flash_attention_bwd_tc": (_P,) * 11 + (_I,) * 10 + (_F, _F, _F, _P),
+    # x, w, dy, dx, dw, the dw partials; rows, D, eps, blocks, threads a row
+    # (0: the scalar path), dtype
+    "rt_rmsnorm_bwd": (_P,) * 6 + (_LL, _LL, _F, _I, _I, _I, _P),
     "rt_decode_attention_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                                 _F, _P),
     # the split-KV decode routine, over a bf16 pool and over int8/fp8 codes

@@ -17,7 +17,10 @@ backward :func:`ssd_bwd` is the sequential reverse recurrence, and
 :func:`ssd_bwd_chunks` the same gradients in the chunks of the backward
 kernel, for tests.
 :func:`attention_lse`, :func:`flash_attention_bwd` and :func:`rmsnorm_bwd`
-are the plain versions of the training path's kernels.
+are the plain versions of the training path's kernels;
+:func:`flash_attention_bwd_splits`, :func:`rmsnorm_bwd_partials` and
+:func:`rmsnorm_bwd_dw_sum` the same in the order of work of their kernels,
+for tests.
 """
 from __future__ import annotations
 
@@ -138,28 +141,9 @@ def attention_lse(
     return out.to(q.dtype), lse
 
 
-def flash_attention_bwd(
-    q: torch.Tensor,            # (b, sq, h, d)
-    k: torch.Tensor,            # (b, sk, kvh, d)
-    v: torch.Tensor,
-    o: torch.Tensor,            # (b, sq, h, d) the forward's output
-    lse: torch.Tensor,          # (b, h, sq) float32, from attention_lse
-    do: torch.Tensor,           # (b, sq, h, d) the output's cotangent
-    *,
-    causal: bool = True,
-    window=None,
-    softcap: float = 0.0,
-    q_offset: int = 0,
-    scale: Optional[float] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of :func:`attention`, in the inputs' dtype: the JAX
-    package's ``_flash_bwd_core`` (``repro/kernels/ops.py``) step by step,
-    with P recomputed from the saved log-sum-exp, ``D = rowsum(dO * O)``,
-    ``dS = P (dP - D)`` times the softcap's ``1 - (sc/cap)^2``, masked,
-    times the scale, P and dS rounded to the input dtype before their
-    products (float32 accumulation), and dk, dv summed over the ``rep``
-    query heads of each kv head.  A row with no live key gets dq 0 and
-    gives dk, dv nothing."""
+def _flash_bwd_f32(q, k, v, o, lse, do, causal, window, softcap, q_offset, scale):
+    """(dq, dk, dv) of :func:`flash_attention_bwd` in float32, before the
+    final rounding."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     rep = h // kvh
@@ -182,7 +166,64 @@ def flash_attention_bwd(
     dsl = ds.to(dt).float()
     dq = torch.einsum("bgrqk,bkgd->bqgrd", dsl, k.float()).reshape(b, sq, h, d)
     dk = torch.einsum("bgrqk,bqgrd->bkgd", dsl, qg)
-    return dq.to(dt), dk.to(dt), dv.to(dt)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,            # (b, sq, h, d)
+    k: torch.Tensor,            # (b, sk, kvh, d)
+    v: torch.Tensor,
+    o: torch.Tensor,            # (b, sq, h, d) the forward's output
+    lse: torch.Tensor,          # (b, h, sq) float32, from attention_lse
+    do: torch.Tensor,           # (b, sq, h, d) the output's cotangent
+    *,
+    causal: bool = True,
+    window=None,
+    softcap: float = 0.0,
+    q_offset: int = 0,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`attention`, in the inputs' dtype: the JAX
+    package's ``_flash_bwd_core`` (``repro/kernels/ops.py``) step by step,
+    with P recomputed from the saved log-sum-exp, ``D = rowsum(dO * O)``,
+    ``dS = P (dP - D)`` times the softcap's ``1 - (sc/cap)^2``, masked,
+    times the scale, P and dS rounded to the input dtype before their
+    products (float32 accumulation), and dk, dv summed over the ``rep``
+    query heads of each kv head.  A row with no live key gets dq 0 and
+    gives dk, dv nothing."""
+    grads = _flash_bwd_f32(q, k, v, o, lse, do, causal, window, softcap, q_offset, scale)
+    return tuple(g.to(q.dtype) for g in grads)
+
+
+def flash_attention_bwd_splits(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor, *, splits: int, causal: bool = True, window=None, softcap: float = 0.0,
+    q_offset: int = 0, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_bwd` in the tensor-core kernel's order of
+    work (``csrc/flash_attention_bwd.cu``): each kv head's GQA group cut
+    into ``splits`` shares of ``rep / splits`` consecutive query heads,
+    each share's float32 dK and dV (P and dS rounded to the input dtype
+    before their products) summed over the shares in share order, then
+    rounded once; dq of each query head from its own share."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    rep = h // kvh
+    if splits <= 0 or rep % splits:
+        raise ValueError(f"flash_attention_bwd_splits: {splits} splits of a group of {rep}")
+    hs = rep // splits
+    dq = torch.empty((b, sq, kvh, rep, d), dtype=torch.float32, device=q.device)
+    dk = dv = None
+    for i in range(splits):
+        share = slice(i * hs, (i + 1) * hs)
+        cut = lambda t: t.reshape(b, sq, kvh, rep, d)[:, :, :, share].reshape(b, sq, kvh * hs, d)
+        lse_i = lse.reshape(b, kvh, rep, sq)[:, :, share].reshape(b, kvh * hs, sq)
+        dq_i, dk_i, dv_i = _flash_bwd_f32(cut(q), k, v, cut(o), lse_i, cut(do), causal, window,
+                                          softcap, q_offset, scale)
+        dq[:, :, :, share] = dq_i.reshape(b, sq, kvh, hs, d)
+        dk = dk_i if dk is None else dk + dk_i
+        dv = dv_i if dv is None else dv + dv_i
+    return dq.reshape(b, sq, h, d).to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def decode_attention(
@@ -365,6 +406,48 @@ def rmsnorm_bwd(x: torch.Tensor, weight: torch.Tensor, eps: float,
     dx = r * g - xf * (r * r * r) * (g * xf).mean(dim=-1, keepdim=True)
     dw = (dyf * xf * r).sum(dim=0)
     return dx.reshape(x.shape).to(x.dtype), dw.to(weight.dtype)
+
+
+def rmsnorm_bwd_partials(x: torch.Tensor, weight: torch.Tensor, eps: float, dy: torch.Tensor,
+                         blocks: int, slots: int = 1) -> torch.Tensor:
+    """The float32 partial rows of dw that the backward kernel's dx launch
+    writes, ``(blocks, D)``: row ``r`` goes to block ``(r // slots) %
+    blocks``, slot ``r % slots``; each slot adds its rows' ``dy x r`` in row
+    order, and a block's partial is its slots' sums in slot order
+    (``csrc/rmsnorm_bwd.cu``; :func:`~.rmsnorm_bwd.plan` gives blocks and
+    slots)."""
+    D = x.shape[-1]
+    xf = x.float().reshape(-1, D)
+    dyf = dy.float().reshape(-1, D)
+    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    terms = dyf * xf * r
+    n = terms.shape[0]
+    per = blocks * slots
+    pad = torch.zeros((-(-n // per) * per - n, D), dtype=terms.dtype, device=terms.device)
+    steps = torch.cat([terms, pad]).reshape(-1, blocks, slots, D)
+    acc = torch.zeros((blocks, slots, D), dtype=terms.dtype, device=terms.device)
+    for step in steps:
+        acc = acc + step
+    out = acc[:, 0]
+    for i in range(1, slots):
+        out = out + acc[:, i]
+    return out
+
+
+def rmsnorm_bwd_dw_sum(partials: torch.Tensor, warps: int = 8) -> torch.Tensor:
+    """dw from :func:`rmsnorm_bwd_partials` in the dw launch's order: warp
+    ``i`` sums partial rows ``i, i + warps, ...`` in order, then the warps'
+    sums in warp order (float32)."""
+    lanes = []
+    for i in range(warps):
+        acc = torch.zeros(partials.shape[1:], dtype=partials.dtype, device=partials.device)
+        for row in partials[i::warps]:
+            acc = acc + row
+        lanes.append(acc)
+    out = lanes[0]
+    for lane in lanes[1:]:
+        out = out + lane
+    return out
 
 
 def _acc(t: torch.Tensor) -> torch.dtype:

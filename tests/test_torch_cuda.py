@@ -1376,8 +1376,59 @@ def test_flash_attention_bwd_rows_without_live_keys(cuda):
         _close(g, w, torch.bfloat16)
 
 
+@pytest.mark.parametrize("case", [
+    pytest.param(((4, 512, 512, 32, 2, 128), {}), id="d128-rep16-8-splits"),
+    pytest.param(((2, 300, 300, 32, 32, 80), {"softcap": 2.0}), id="d80-rep1"),
+    pytest.param(((2, 200, 260, 16, 2, 64), {"window": 70, "q_offset": 60}), id="d64-window"),
+])
+def test_flash_attention_bwd_tensor_cores_same_bits_twice(cuda, case):
+    """The bf16 tensor-core route (splits where the group is wide): right
+    against the plain version, and the same bits for dq, dk, dv on two runs
+    (no atomics)."""
+    from repro_torch.kernels import flash_attention_bwd as fb_mod
+
+    (b, sq, sk, h, kvh, d), opts = case
+    assert fb_mod.route(torch.bfloat16, d) == "tc"
+    q = _randn((b, sq, h, d), torch.bfloat16, cuda, 120)
+    k, v = (_randn((b, sk, kvh, d), torch.bfloat16, cuda, s) for s in (121, 122))
+    do = _randn((b, sq, h, d), torch.bfloat16, cuda, 123)
+    o, lse = fa_mod.flash_attention(q, k, v, return_lse=True, **opts)
+    got = fb_mod.flash_attention_bwd(q, k, v, o, lse, do, **opts)
+    again = fb_mod.flash_attention_bwd(q, k, v, o, lse, do, **opts)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    want = ref.flash_attention_bwd(*(t.cpu() for t in (q, k, v, o, lse, do)), **opts)
+    for g, w in zip(got, want):
+        _close(g, w, torch.bfloat16)
+
+
+@pytest.mark.parametrize("d, kvh", [(80, 32), (128, 2)])
+def test_flash_attention_bwd_takes_the_tensor_cores(cuda, d, kvh):
+    """At the head dims phase 4c trains the backward's kernels are the
+    tensor-core ones (their names in the profiler), and float32 at d 128
+    stays on the CUDA cores."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention_bwd as fb_mod
+
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = _randn((1, 64, 32, d), dtype, cuda, 124)
+        k, v = (_randn((1, 64, kvh, d), dtype, cuda, s) for s in (125, 126))
+        do = _randn((1, 64, 32, d), dtype, cuda, 127)
+        o, lse = fa_mod.flash_attention(q, k, v, return_lse=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fb_mod.flash_attention_bwd(q, k, v, o, lse, do)
+            torch.cuda.synchronize()
+        names[dtype] = " ".join(e.key for e in prof.key_averages())
+    assert "flash_bwd_dkdv_tc_kernel" in names[torch.bfloat16]
+    assert "flash_bwd_dq_tc_kernel" in names[torch.bfloat16]
+    assert "flash_bwd_dkdv_kernel" in names[torch.float32]
+    assert "_tc_kernel" not in names[torch.float32]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(8, 4096), (3, 5, 100), (600, 128), (2, 70000)])
+@pytest.mark.parametrize("shape", [(8, 4096), (3, 5, 100), (600, 128), (2, 70000), (4096, 768),
+                                   (300, 5120), (70, 2560)])
 def test_rmsnorm_bwd_kernel(cuda, dtype, shape):
     from repro_torch.kernels import rmsnorm_bwd as rb_mod
 
