@@ -20,7 +20,9 @@ Phases, each printing its own lines and wall time, each ending in
    ``Padded<80>`` tiles) spill nothing and no split-KV or ``ssd_tc``
    instance spills; the training backwards: 16 ``flash_bwd_`` instances
    (the 8 of the tensor-core route, dK/dV and dQ at d 16/64/80/128, each
-   with HMMA and no spill) and 10 ``rmsnorm_bwd``;
+   with HMMA and no spill), 10 ``rmsnorm_bwd``, and the 11 kernels of the
+   bf16 ``ssd`` backward on the tensor cores (``csrc/ssd_bwd_tc.cu``: its
+   two chunk launches at chunks 16/32/64 each with HMMA, none spilling);
 2. kernels: each hand-written kernel against its plain PyTorch version at
    the shapes the serve phase gives it (glm4-9b widths: h 32, kvh 2, d 128,
    page 16, D 4096, bf16; spec_verify with 8 slots and windows of 5), the
@@ -133,15 +135,17 @@ Phases, each printing its own lines and wall time, each ending in
    ``F.rms_norm``'s backward; the training shapes timed beside their plain
    version, bound and SDPA's or ``F.rms_norm``'s backward alone; ``ssd_bwd`` (every gradient:
    dx, ddt, dA, dB, dC, the initial state's) against ``ref.ssd_bwd``, the
-   sequential reverse recurrence, in bf16 at mamba2-130m's training shape x
-   (8, 1024, 24, 64), n 128, and zamba2-2.7b's (4, 1024, 80, 64), n 64, and
-   in float32 on small cases (a partial trailing chunk, s below the chunk,
-   an initial state, a final-state cotangent, B and C views of one
-   projection), two calls the same bits; the plain chunked backward without
-   the carried-state W terms, and without the reverse cumsum of dcum, must
-   fail the limit; each training shape timed beside its plain version and
-   its bound (no library call computes it), and the microbatch shapes
-   phase 4c launches;
+   sequential reverse recurrence, in bf16 on the tensor-core route at
+   mamba2-130m's training shape x (8, 1024, 24, 64), n 128, zamba2-2.7b's
+   (4, 1024, 80, 64), n 64, and phase 4c's microbatches, each with the
+   forward's kept states as the train step calls it and once without them,
+   and on small bf16 cases of that route and float32 cases (a partial
+   trailing chunk, s below the chunk, an initial state, a final-state
+   cotangent, B and C views of one projection, of odd width too), two calls
+   the same bits; the plain chunked backward without the carried-state W
+   terms, and without the reverse cumsum of dcum, must fail the limit; each
+   training shape and microbatch timed with the kept states beside its
+   plain version and its bound (no library call computes it);
 3. check: reduced glm4-9b in float32 served on the card and on the CPU
    from the same weights must emit the same greedy tokens, with and
    without speculative decoding (which must also equal each other); the
@@ -616,11 +620,12 @@ def build_report(info, nvcc):
     """Print every kernel's registers and spills, and the tensor-core
     instructions of the bf16 flash_attention kernels, of the split-KV decode
     routine, of the varlen prefill routine, of the bf16 ssd's chunk
-    launches and of the flash backward's tensor-core route; fail unless
-    each of those has some (HGMMA for varlen at d 128), the flash kernels
-    at d 128 and d 80 and the varlen kernels at d 128 spill nothing, no
-    split-KV, ssd_tc or tensor-core flash backward instance spills, and the
-    backward instances are the expected ones."""
+    launches, of its backward's chunk launches and of the flash backward's
+    tensor-core route; fail unless each of those has some (HGMMA for varlen
+    at d 128), the flash kernels at d 128 and d 80 and the varlen kernels at
+    d 128 spill nothing, no split-KV, ssd_tc, ssd_bwd_tc or tensor-core flash
+    backward instance spills, and the backward instances are the expected
+    ones."""
     from repro_torch.kernels import decode_split as ds
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd as sdm
@@ -700,6 +705,23 @@ def build_report(info, nvcc):
     spilled = [names[m] for m, r in tc.items() if r[1:] != (0, 0)]
     if spilled:
         raise SystemExit(f"ssd_tc: spills in {spilled}")
+    # the bf16 ssd backward (csrc/ssd_bwd_tc.cu): its two chunk launches on
+    # the tensor cores at every chunk instance, the state pass and the two
+    # sums beside them, none of the five spilling
+    btc = {m: ptxas[m] for m in ptxas if "ssd_bwd_kernel_tc_" in m}
+    for mangled in sorted(btc, key=lambda m: names[m]):
+        regs, st, ld = btc[mangled]
+        print(f"   ssd_bwd_tc {names[mangled]}: HMMA {sass.get(mangled, (0, 0))[0]}; {regs} "
+              f"registers, spill stores {st} B, loads {ld} B")
+    chunked = [m for m in btc if "ssd_bwd_kernel_tc_chunk_" in m]
+    if (len(btc) != 3 * len(sdm.TC_CHUNKS) + 2 or len(chunked) != 2 * len(sdm.TC_CHUNKS)
+            or any(sass.get(m, (0, 0))[0] == 0 for m in chunked)):
+        raise SystemExit(f"ssd_bwd_tc: {len(btc)} kernels ({len(chunked)} chunk launches), "
+                         f"expected {3 * len(sdm.TC_CHUNKS) + 2} ({2 * len(sdm.TC_CHUNKS)}, each "
+                         f"with HMMA)")
+    spilled = [names[m] for m, r in btc.items() if r[1:] != (0, 0)]
+    if spilled:
+        raise SystemExit(f"ssd_bwd_tc: spills in {spilled}")
     # the training backward kernels: the flash backward's CUDA-core route
     # (D, dK/dV, dQ in bf16 and float32: 6), its tensor-core route (dK/dV and
     # dQ at each head dim of TC_TILES, each with HMMA and no spill, the
@@ -4430,8 +4452,9 @@ TRAIN_ARCHS = ("glm4-9b", "qwen3-moe-30b-a3b", "whisper-large-v3", "mamba2-130m"
 TRAIN_MODELS = (("glm4-9b", TRAIN_LAYERS, TRAIN_BATCH), ("mamba2-130m", None, 8),
                 ("zamba2-2.7b", 12, 4))
 # the ssd backward at the training shapes: (arch, rows) of TRAIN_SEQ tokens,
-# and small float32 cases: (label, (b, s, h, p, n, chunk), initial state,
-# final-state cotangent, B and C views of one projection)
+# and small cases: (label, (b, s, h, p, n, chunk), initial state, final-state
+# cotangent, B and C views of one projection (odd: of odd width, rows not
+# 16-byte aligned)), float32 on the CUDA cores and bf16 on the tensor cores
 SSD_BWD_SHAPES = (("mamba2-130m", 8), ("zamba2-2.7b", 4))
 SSD_BWD_CASES = (
     ("s 37, chunk 8 (a partial trailing chunk)", (2, 37, 4, 64, 128, 8), False, False, False),
@@ -4439,6 +4462,14 @@ SSD_BWD_CASES = (
     ("an initial state", (2, 130, 4, 64, 64, 64), True, False, False),
     ("a final-state cotangent", (2, 130, 4, 64, 128, 64), True, True, False),
     ("B and C views of one projection", (2, 100, 4, 64, 128, 64), False, True, True),
+)
+SSD_BWD_TC_CASES = (
+    ("s 37, chunk 16 (a partial trailing chunk)", (2, 37, 4, 64, 128, 16), False, False, False),
+    ("s 20 < chunk 64", (2, 20, 4, 64, 128, 64), False, False, False),
+    ("an initial state, 5 heads", (2, 130, 5, 64, 64, 64), True, False, False),
+    ("a final-state cotangent", (2, 130, 4, 64, 128, 64), True, True, False),
+    ("B and C views of one projection, chunk 32", (2, 100, 4, 64, 128, 32), False, True, True),
+    ("B and C views of an odd-width projection", (2, 100, 4, 64, 128, 64), True, True, "odd"),
 )
 TRAIN_REL = 1e-4                          # reduced f32 metrics, card vs CPU, relative
 RESUME_REL = 1e-5                         # 2 + restore + 2 steps vs 4, relative
@@ -4549,13 +4580,14 @@ def _ssd_bwd_inputs(torch, gen, dtype, b, s, h, p, n, init=False, fin=False, vie
     """(x, dt, A, B, C, dy) and the optional initial state and final-state
     cotangent of a backward case; dt and A in the ranges mamba2's inits give
     (as the forward's checks); with ``views`` B and C are slices of one
-    projection."""
+    projection, of odd width where ``views`` is ``"odd"``."""
     randn = lambda *sh: torch.randn(sh, generator=gen, device=gen.device, dtype=torch.float32)
     uniform = lambda sh, lo, hi: torch.rand(sh, generator=gen, device=gen.device) * (hi - lo) + lo
     x = randn(b, s, h, p).to(dtype)
     if views:
-        proj = randn(b, s, 2 * n + 24).to(dtype)
-        B, C = proj[..., 8:8 + n], proj[..., 8 + n:8 + 2 * n]
+        odd = int(views == "odd")
+        proj = randn(b, s, 2 * n + 24 + odd).to(dtype)
+        B, C = proj[..., 8:8 + n], proj[..., 8 + n + odd:8 + 2 * n + odd]
     else:
         B, C = randn(b, s, n).to(dtype), randn(b, s, n).to(dtype)
     dt, A = uniform((b, s, h), 1e-3, 1e-1), -uniform((h,), 1.0, 16.0)
@@ -4582,74 +4614,117 @@ def _ssd_bwd_without(torch, part, args, opts, chunk):
         setattr(ref, name, real)
 
 
+def _ssd_bwd_check(torch, label, sb, args, opts, chunk, want, kept=None):
+    """Every gradient of ``sb.ssd_bwd`` (with the forward's ``kept`` (cum,
+    states) where given) against ``want``, ``ref.ssd_bwd``'s; two calls the
+    same bits.  Returns (max error, the gradients)."""
+    extra = {} if kept is None else dict(cum=kept[0], states=kept[1])
+    got = sb.ssd_bwd(*args, chunk=chunk, **opts, **extra)
+    err = 0.0
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "d_initial"), got, want):
+        err = max(err, _check(torch, f"ssd_bwd {label}: {name}", g, w))
+    if not all(torch.equal(g, a) for g, a in zip(got, sb.ssd_bwd(*args, chunk=chunk, **opts,
+                                                                    **extra))):
+        raise SystemExit(f"ssd_bwd {label}: two calls differ")
+    return err, got
+
+
+def _ssd_kept(sd, args, opts, chunk):
+    """The forward's float32 cum and entry states, as ``SSDFn`` keeps them."""
+    _, _, cum, states = sd._scan(*args[:5], chunk, opts["initial_state"], False)
+    return cum, states
+
+
 def ssd_bwd_kernels_phase(torch, dev, cpm):
     """``ssd_bwd`` against ``ref.ssd_bwd`` (the sequential reverse
-    recurrence): bf16 at mamba2-130m's and zamba2-2.7b's training shapes,
-    the small float32 cases of SSD_BWD_CASES, every gradient; two calls the
-    same bits; the plain chunked backward without the carried-state W terms
-    (dx) and without the reverse cumsum of dcum (ddt) must fail the limit.
-    Each training shape timed beside its plain version and its bound (no
-    single PyTorch call computes it: no library time), and the microbatch
-    shapes phase 4c launches.  Returns the record of mamba2's shape."""
+    recurrence): bf16 on the tensor-core route at mamba2-130m's and
+    zamba2-2.7b's training shapes and phase 4c's microbatches, each with the
+    forward's kept states (as the train step calls it) and once without
+    them, the small bf16 cases of SSD_BWD_TC_CASES both ways and the
+    float32 cases of SSD_BWD_CASES, every gradient, two calls the same bits;
+    the plain chunked backward without the carried-state W terms (dx) and
+    without the reverse cumsum of dcum (ddt) must fail the limit.  Each
+    training shape and microbatch timed with the kept states beside its
+    plain version and its bound (no single PyTorch call computes it: no
+    library time), and without them.  Returns the record of mamba2's
+    shape."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as sd
     from repro_torch.kernels import ssd_bwd as sb
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 11)
-    names = ("dx", "ddt", "dA", "dB", "dC", "d_initial")
     bf = torch.bfloat16
     err, record = 0.0, None
     for arch, rows in SSD_BWD_SHAPES:
         cfg = get_config(arch)
         h, p, n, chunk = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
-        b, s = rows, TRAIN_SEQ
-        args, opts = _ssd_bwd_inputs(torch, gen, bf, b, s, h, p, n)
-        kernel = lambda *a: sb.ssd_bwd(*a, chunk=chunk)
-        got = kernel(*args)
-        want = ref.ssd_bwd(*args)
-        shape = f"{arch} x ({b}, {s}, {h}, {p}) bf16, n {n}, chunk {chunk}"
-        for name, g, w in zip(names, got, want):
-            err = max(err, _check(torch, f"ssd_bwd {shape}: {name}", g, w))
-        same = all(torch.equal(g, a) for g, a in zip(got, kernel(*args)))
-        print(f"   ssd_bwd {arch}: two calls give the same bits: {same}; plan (shared memory "
-              f"of the two chunk launches) {sb.plan(bf, p, n, chunk)} B, workspace "
-              f"{sb.workspace_bytes(b, s, h, p, n, chunk) / 1e6:.1f} MB")
-        if not same:
-            raise SystemExit("ssd_bwd: two calls differ")
-        if arch == "mamba2-130m":
-            _rejects(torch, "ssd_bwd plain without the carried-state W terms (dx)",
-                     _ssd_bwd_without(torch, "carry", args, opts, chunk)[0], want[0])
-            _rejects(torch, "ssd_bwd plain without the reverse cumsum of dcum (ddt)",
-                     _ssd_bwd_without(torch, "cumsum", args, opts, chunk)[1], want[1])
-        del got, want
-        nbytes = _ssd_bwd_bytes(b, s, h, p, n)
-        sets = _rotation(nbytes, lambda i: tuple(t.clone() for t in args))
-        r = dict(err=err, **_timed(torch, cpm, kernel, ref.ssd_bwd, None, sets, [],
-                                   plain_calls=2),
-                 bound=_bound_ms(nbytes, _ssd_bwd_flops(b, s, h, p, n, chunk)),
-                 shape=f"{shape}; dx, ddt, dA, dB, dC and d_initial out")
-        _print_records({"ssd_bwd": r})
-        del sets
-        mb = b // TRAIN_MICRO          # the microbatch phase 4c launches
-        one = tuple(t[:mb] if t.dim() > 1 else t for t in args)
-        mb_sets = _rotation(nbytes // 2, lambda i: tuple(t.clone() for t in one))
-        mb_ms, mb_q = _time_ms(torch, kernel, mb_sets, cpm)
-        mb_bound = _bound_ms(_ssd_bwd_bytes(mb, s, h, p, n), _ssd_bwd_flops(mb, s, h, p, n, chunk))
-        print(f"   ssd_bwd {arch} at phase 4c's microbatch x ({mb}, {s}, {h}, {p}): kernel_ms "
-              f"{mb_ms:.4f} bound_ms {mb_bound[0]:.4f} ({mb_bound[1]}); host gaps: {not mb_q}")
-        del mb_sets, one, args
-        if record is None:
-            record = r
-    for label, (b, s, h, p, n, chunk), init, fin, views in SSD_BWD_CASES:
-        args, opts = _ssd_bwd_inputs(torch, gen, torch.float32, b, s, h, p, n, init, fin, views)
-        got = sb.ssd_bwd(*args, chunk=chunk, **opts)
-        want = ref.ssd_bwd(*args, **opts)
-        for name, g, w in zip(names, got, want):
-            err = max(err, _check(torch, f"ssd_bwd float32 {label} ({b}, {s}, {h}, {p}), n {n}, "
-                                         f"chunk {chunk}: {name}", g, w))
-        if not all(torch.equal(g, a) for g, a in zip(got, sb.ssd_bwd(*args, chunk=chunk, **opts))):
-            raise SystemExit(f"ssd_bwd float32 {label}: two calls differ")
+        pl = sb.plan(bf, p, n, chunk)
+        if pl.route != "mma":
+            raise SystemExit(f"ssd_bwd {arch}: plan {pl}, expected the tensor-core route")
+        for b in (rows, rows // TRAIN_MICRO):      # the shape, then phase 4c's microbatch
+            s = TRAIN_SEQ
+            args, opts = _ssd_bwd_inputs(torch, gen, bf, b, s, h, p, n)
+            kept = _ssd_kept(sd, args, opts, chunk)
+            shape = f"{arch} x ({b}, {s}, {h}, {p}) bf16, n {n}, chunk {chunk}"
+            want = ref.ssd_bwd(*args, **opts)
+            e, got = _ssd_bwd_check(torch, f"{shape}, kept states", sb, args, opts, chunk, want,
+                                    kept)
+            e2, alone = _ssd_bwd_check(torch, f"{shape}, states rebuilt", sb, args, opts, chunk,
+                                       want)
+            err = max(err, e, e2)
+            print(f"   ssd_bwd {arch} ({b}, {s}): two calls give the same bits; kept and rebuilt "
+                  f"states give the same bits: {all(map(torch.equal, got, alone))}; plan {pl}, "
+                  f"workspace {sb.workspace_bytes(pl, b, s, h, p, n, chunk, kept=True) / 1e6:.1f} "
+                  f"MB ({sb.workspace_bytes(pl, b, s, h, p, n, chunk) / 1e6:.1f} rebuilt)")
+            if arch == "mamba2-130m" and b == rows:
+                _rejects(torch, "ssd_bwd plain without the carried-state W terms (dx)",
+                         _ssd_bwd_without(torch, "carry", args, opts, chunk)[0], want[0])
+                _rejects(torch, "ssd_bwd plain without the reverse cumsum of dcum (ddt)",
+                         _ssd_bwd_without(torch, "cumsum", args, opts, chunk)[1], want[1])
+            del got, alone, want
+            nbytes = _ssd_bwd_bytes(b, s, h, p, n)
+            bound = _bound_ms(nbytes, _ssd_bwd_flops(b, s, h, p, n, chunk))
+            # cold inputs: the rotation counts the kept states, which the call reads
+            kbytes = nbytes + 4 * (kept[0].numel() + kept[1].numel())
+            sets = _rotation(kbytes, lambda i: tuple(t.clone() for t in args + kept))
+            kernel = lambda *a: sb.ssd_bwd(*a[:6], chunk=chunk, cum=a[6], states=a[7])
+            rebuilt_ms, _ = _time_ms(torch, lambda *a: sb.ssd_bwd(*a[:6], chunk=chunk), sets, cpm)
+            if b == rows:
+                r = dict(err=err, **_timed(torch, cpm, kernel, lambda *a: ref.ssd_bwd(*a[:6]),
+                                           None, sets, [], plain_calls=2),
+                         bound=bound, shape=f"{shape}; the forward's states kept; dx, ddt, dA, "
+                                            f"dB, dC and d_initial out")
+                _print_records({"ssd_bwd": r})
+                if record is None:
+                    record = r
+                print(f"   ssd_bwd {arch} ({b}, {s}) with the states rebuilt: kernel_ms "
+                      f"{rebuilt_ms:.4f}")
+            else:
+                ms, quiet = _time_ms(torch, kernel, sets, cpm)
+                plain_ms = _time_few(torch, lambda: ref.ssd_bwd(*sets[0][:6]), 2)
+                print(f"   ssd_bwd {arch} at phase 4c's microbatch x ({b}, {s}, {h}, {p}): "
+                      f"kernel_ms {ms:.4f} (states rebuilt {rebuilt_ms:.4f}) plain_ms "
+                      f"{plain_ms:.4f} (host gaps) bound_ms {bound[0]:.4f} ({bound[1]}); host "
+                      f"gaps: {not quiet}")
+            del sets, args, kept
+    for dtype, cases in ((bf, SSD_BWD_TC_CASES), (torch.float32, SSD_BWD_CASES)):
+        for label, (b, s, h, p, n, chunk), init, fin, views in cases:
+            pl = sb.plan(dtype, p, n, chunk, s)
+            if pl.route != ("mma" if dtype == bf else "f32"):
+                raise SystemExit(f"ssd_bwd {label}: plan {pl}")
+            args, opts = _ssd_bwd_inputs(torch, gen, dtype, b, s, h, p, n, init, fin, views)
+            tag = f"{str(dtype)[6:]} {label} ({b}, {s}, {h}, {p}), n {n}, chunk {chunk}"
+            want = ref.ssd_bwd(*args, **opts)
+            e, got = _ssd_bwd_check(torch, tag, sb, args, opts, chunk, want)
+            err = max(err, e)
+            if pl.route == "mma":
+                e, kept = _ssd_bwd_check(torch, f"{tag}, kept states", sb, args, opts, chunk,
+                                         want, _ssd_kept(sd, args, opts, chunk))
+                err = max(err, e)
+                print(f"   ssd_bwd {tag}: kept and rebuilt states give the same bits: "
+                      f"{all(map(torch.equal, got, kept))}")
     record["err"] = err
     return record
 
@@ -4830,8 +4905,8 @@ def train_kernels_phase(torch, dev):
     )
     del sets, lib_sets
     # phase 4c's other widths at their microbatches (mamba2-130m 8 x 1024 and
-    # zamba2-2.7b 4 x 1024 tokens in 2), and 8 rows; each beside F.rms_norm's
-    # backward
+    # zamba2-2.7b 4 x 1024 tokens in 2), and 8 rows; each beside its plain
+    # version and F.rms_norm's backward
     mcfg = get_config("mamba2-130m")
     zcfg = get_config(HYBRID_ARCH)
     for label, rows, D in (("mamba2-130m", 8 * TRAIN_SEQ // TRAIN_MICRO, mcfg.d_model),
@@ -4845,15 +4920,17 @@ def train_kernels_phase(torch, dev):
         for n, g, t in zip(("dx", "dw"), got, want):
             _check(torch, f"rmsnorm_bwd {label} {rows} rows of {D} {n}", g, t)
         nb = 2 * (3 * rows * D + 2 * D)
-        ms, ms_q = _time_ms(torch, rb.rmsnorm_bwd, _rotation(nb, lambda i: (
-            x.clone(), w, 1e-5, dy.clone())), cpm)
+        sets = _rotation(nb, lambda i: (x.clone(), w, 1e-5, dy.clone()))
+        ms, ms_q = _time_ms(torch, rb.rmsnorm_bwd, sets, cpm)
+        plain_ms, plain_q = _time_ms(torch, ref.rmsnorm_bwd, sets, cpm)
         lib = (_time_ms(torch, rms_bwd, _rotation(nb, lambda i: rms_lib(x, w, dy)), cpm)
                if have_lib else (None, True))
         p = rb.plan(D, rows, 2)
         print(f"   rmsnorm_bwd {label} x ({rows}, {D}) ({p.path}, {p.tpr} threads a row, "
-              f"{p.blocks} blocks): kernel_ms {ms:.4f} library_ms "
+              f"{p.blocks} blocks): kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
               f"{'none' if lib[0] is None else f'{lib[0]:.4f}'} bound_ms "
-              f"{_bound_ms(nb, 10.0 * rows * D)[0]:.4f}; host gaps: {not (ms_q and lib[1])}")
+              f"{_bound_ms(nb, 10.0 * rows * D)[0]:.4f}; host gaps: "
+              f"{not (ms_q and plain_q and lib[1])}")
     _print_records(records)
     records["ssd_bwd"] = ssd_bwd_kernels_phase(torch, dev, cpm)
     return records
@@ -5331,7 +5408,9 @@ def main() -> int:
                         "src/repro/kernels/rmsnorm.py:26"),
         # the scan's backward: autodiff of the chunked scan the JAX train
         # driver runs (no Pallas backward)
-        "ssd_bwd": ("src/repro_torch/kernels/csrc/ssd_bwd.cu", "src/repro/kernels/ops.py:838"),
+        # (bf16, the record here, on the tensor cores; float32 and other
+        # widths or chunks keep csrc/ssd_bwd.cu)
+        "ssd_bwd": ("src/repro_torch/kernels/csrc/ssd_bwd_tc.cu", "src/repro/kernels/ops.py:838"),
     }
     kernels = []
     for name, r in records.items():

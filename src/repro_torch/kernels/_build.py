@@ -33,8 +33,10 @@ CHECKOUT = PACKAGE.parents[1]              # <root>
 SOURCES = ("rmsnorm.cu", "paged_attention.cu", "varlen_prefill.cu", "spec_verify.cu",
            "flash_attention.cu", "decode_attention.cu", "ssd.cu", "decode_split_bf16.cu",
            "decode_split_quant.cu", "varlen_prefill_bf16.cu", "varlen_prefill_quant.cu",
-           "ssd_tc.cu", "flash_attention_bwd.cu", "rmsnorm_bwd.cu", "ssd_bwd.cu")
-HEADERS = ("common.cuh", "mma.cuh", "flash_tile.cuh", "decode_split.cuh", "varlen_prefill_tc.cuh")
+           "ssd_tc.cu", "flash_attention_bwd.cu", "rmsnorm_bwd.cu", "ssd_bwd.cu",
+           "ssd_bwd_tc.cu")
+HEADERS = ("common.cuh", "mma.cuh", "flash_tile.cuh", "decode_split.cuh", "varlen_prefill_tc.cuh",
+           "ssd_tile.cuh")
 BUILD_ROOT = CHECKOUT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -90,6 +92,10 @@ SIGNATURES = {
     # x, dt, A, B, C, s0, dy, d_final; dx, ddt, dA, dB, dC, d_initial; six
     # workspaces; the shape and chunk, the strides of x, B and C, dtype
     "rt_ssd_bwd": (_P,) * 20 + (_I,) * 6 + (_LL,) * 6 + (_I, _P),
+    # the bf16 backward on the tensor cores: the same pointers (cum and states
+    # the forward's where kept), whether they are kept, the shape and chunk,
+    # the strides of x, B and C
+    "rt_ssd_bwd_tc": (_P,) * 20 + (_I,) * 7 + (_LL,) * 6 + (_P,),
 }
 
 

@@ -1,6 +1,8 @@
 // Mamba-2 SSD backward for Hopper (sm_90a): the gradients of the chunked
 // scan (csrc/ssd_tc.cu, csrc/ssd.cu) in four launches, on CUDA cores with
-// float32 sums, for bf16 and float32.
+// float32 sums: float32, and bf16 at the widths and chunks the forward
+// runs on csrc/ssd.cu (kernels/ssd_bwd.py plan); bf16 at the tensor-core
+// widths runs csrc/ssd_bwd_tc.cu.
 //
 // Replaces no Pallas kernel: the JAX package takes this gradient by
 // autodiff of its chunked scan, repro/kernels/ops.py:ssd_chunked_jnp (the
@@ -43,8 +45,8 @@
 // C, dt and write dx, dB, dC, ddt, ~94 MB (0.028 ms at 3.35 TB/s), for
 // ~21 GFLOP (0.021 ms at 989 TFLOP/s).  This design does ~2x that work
 // (the chunk states rebuilt, C.B^T per head) on CUDA cores and moves
-// ~0.8 GB through its f32 workspaces; tensor cores (csrc/mma.cuh) and
-// keeping the forward's states are later work.
+// ~0.8 GB through its f32 workspaces; csrc/ssd_bwd_tc.cu does the bf16
+// route's products on the tensor cores and reads the forward's states.
 #include "common.cuh"
 
 namespace {

@@ -44,19 +44,19 @@
 // so that the workspace goes away, is later work.
 #include "common.cuh"
 #include "mma.cuh"
+#include "ssd_tile.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using rt::ssd::load8;
+using rt::ssd::pad_row;
+using rt::ssd::stage_rows;
+using rt::ssd::unpack8;
+using rt::ssd::vec_ok;
 constexpr int kHeadGroup = 2;    // heads per block of launches 1 and 3
 constexpr int kWarps = rt::kThreads / 32;
 constexpr int kPassVec = 4;      // state elements a thread of launch 2 carries
-
-// Shared-memory tiles are rows of bf16 padded by 8 elements: a row of D
-// (D % 16 == 0) spans an odd number of 16-byte chunks, so the 8 rows one
-// ldmatrix matrix reads fall in 8 different bank groups (mma.cuh Padded,
-// with D known at run time).
-__host__ __device__ inline int pad_row(int d) { return d + 8; }
 
 // bytes of dynamic shared memory of launches 1 and 3 (kernels/ssd.py
 // tc_smem_bytes mirrors these)
@@ -66,46 +66,6 @@ __host__ __device__ inline size_t state_smem(int Q, int p, int n) {
 __host__ __device__ inline size_t out_smem(int Q, int p, int n) {
   return 2 * (2 * (size_t)Q * pad_row(n) + (size_t)Q * pad_row(p) + 2 * (size_t)p * pad_row(n)) +
          4 * 2 * (size_t)kHeadGroup * Q;
-}
-
-// 8 consecutive bf16 at src: one 16-byte load where vec, else 8 2-byte loads
-__device__ __forceinline__ uint4 load8(const bf16* src, bool vec) {
-  if (vec) return __ldg(reinterpret_cast<const uint4*>(src));
-  const unsigned short* e = reinterpret_cast<const unsigned short*>(src);
-  uint32_t w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) w[i] = (uint32_t)__ldg(e + 2 * i) | ((uint32_t)__ldg(e + 2 * i + 1) << 16);
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
-}
-
-// Rows [t0, t0 + L) of a bf16 operand with rows of d elements (element
-// stride st between timesteps, d contiguous) into a Q x pad_row(d) tile,
-// rows L..Q-1 zero: 16-byte cp.async copies where vec (the caller commits
-// and waits), else 2-byte loads through registers.
-template <int Q>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src, int64_t st,
-                                           int L, int d, bool vec) {
-  using namespace rt::mma;
-  const int chunks = d / 8, stride = pad_row(d);
-  for (int i = threadIdx.x; i < Q * chunks; i += rt::kThreads) {
-    const int k = i / chunks, ch = i % chunks;
-    bf16* to = dst + k * stride + ch * 8;
-    if (vec)  // a row past L reads nothing (row 0 stands in as a valid address)
-      cp_async_16(to, src + (k < L ? k * st : 0) + ch * 8, k < L);
-    else
-      *reinterpret_cast<uint4*>(to) = k < L ? load8(src + k * st + ch * 8, false)
-                                            : make_uint4(0, 0, 0, 0);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -443,12 +403,6 @@ ssd_kernel_chunk_out(const bf16* __restrict__ x, const float* __restrict__ dt,
       }
     }
   }
-}
-
-// 16-byte loads of (.., width) rows need the base 16-byte aligned and both
-// element strides multiples of 8
-inline bool vec_ok(const void* p, long long sb, long long st) {
-  return ((uintptr_t)p % 16 == 0) && sb % 8 == 0 && st % 8 == 0;
 }
 
 template <int Q>

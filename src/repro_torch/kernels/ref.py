@@ -624,6 +624,13 @@ def _reverse_cumsum(t: torch.Tensor, dim: int) -> torch.Tensor:
     return t.flip(dim).cumsum(dim).flip(dim)
 
 
+def _two_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the sum of its two bf16 terms ``hi = bf16(t)`` and ``lo =
+    bf16(t - hi)``, in float32."""
+    hi = t.to(torch.bfloat16).float()
+    return hi + (t - hi).to(torch.bfloat16).float()
+
+
 def _ssd_carry_back(G, decays, d_final):
     """The backward kernel's reverse state pass: from ``W = d_final``, per
     chunk c from the last, ``W_c = W`` (the cotangent of the state leaving
@@ -647,9 +654,13 @@ def ssd_bwd_chunks(
     chunk: int = 64,
     initial_state: Optional[torch.Tensor] = None,
     d_final: Optional[torch.Tensor] = None,
+    split: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """What :func:`ssd_bwd` returns, in the chunks and launches of
-    ``csrc/ssd_bwd.cu``, in float32, for tests.  Per chunk of ``chunk``
+    ``csrc/ssd_bwd.cu`` and ``csrc/ssd_bwd_tc.cu``, in float32, for tests.
+    With ``split`` every float32 operand of a product (x o w, dy o
+    exp(cum), P, R, W_c, S_c) passes through its two bf16 terms
+    (:func:`_two_bf16`), as the tensor-core route takes it.  Per chunk of ``chunk``
     timesteps (the trailing one its live rows), ``cum`` the inclusive cumsum
     of dt A and ``L = cum_last``: (1) the forward's chunk states and ``G_c =
     sum_t exp(cum_t) dy_t C_t^T``; (2) the state pass: the entry states
@@ -668,14 +679,16 @@ def ssd_bwd_chunks(
     b, s, h, p = x.shape
     n = B.shape[-1]
     xf, dtf, Bf, Cf, dyf, Af = (t.float() for t in (x, dt, B, C, dy, A))
+    op = _two_bf16 if split else (lambda t: t)                    # a product's float32 operand
     zeros = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
     spans = [slice(t0, min(s, t0 + chunk)) for t0 in range(0, s, chunk)]
     cums, dS, G = [], [], []
     for sl in spans:                                              # 1. chunk states
         cum = torch.cumsum(dtf[:, sl] * Af, dim=1)                # (b, L, h)
         w = torch.exp(cum[:, -1:] - cum) * dtf[:, sl]
-        dS.append(torch.einsum("bkh,bkhp,bkn->bhpn", w, xf[:, sl], Bf[:, sl]))
-        G.append(torch.einsum("bth,bthp,btn->bhpn", torch.exp(cum), dyf[:, sl], Cf[:, sl]))
+        dS.append(torch.einsum("bkhp,bkn->bhpn", op(w[..., None] * xf[:, sl]), Bf[:, sl]))
+        G.append(torch.einsum("bthp,btn->bhpn", op(torch.exp(cum)[..., None] * dyf[:, sl]),
+                              Cf[:, sl]))
         cums.append(cum)
     S = initial_state.float() if initial_state is not None else zeros
     s_in = []
@@ -698,16 +711,17 @@ def ssd_bwd_chunks(
         PD = P * DX
         last = cum[:, -1:]                                        # (b, 1, h)
         ew, ecum = torch.exp(last - cum), torch.exp(cum)          # (b, L, h)
-        WB = torch.einsum("bhpn,bkn->bkhp", W, Bc)
+        Wo, So = op(W), op(Sc)
+        WB = torch.einsum("bhpn,bkn->bkhp", Wo, Bc)
         xwb = (xc * WB).sum(-1)                                   # (b, L, h)
-        dx.append(dtc[..., None] * (torch.einsum("btkh,bthp->bkhp", P, dyc)
+        dx.append(dtc[..., None] * (torch.einsum("btkh,bthp->bkhp", op(P), dyc)
                                     + ew[..., None] * WB))
-        dB.append(torch.einsum("btkh,btn->bkn", R, Cc)
-                  + torch.einsum("bkh,bhpn,bkhp->bkn", dtc * ew, W, xc))
-        dC.append(torch.einsum("btkh,bkn->btn", R, Bc)
-                  + torch.einsum("bth,bhpn,bthp->btn", ecum, Sc, dyc))
+        dB.append(torch.einsum("btkh,btn->bkn", op(R), Cc)
+                  + torch.einsum("bkh,bhpn,bkhp->bkn", dtc * ew, Wo, xc))
+        dC.append(torch.einsum("btkh,bkn->btn", op(R), Bc)
+                  + torch.einsum("bth,bhpn,bthp->btn", ecum, So, dyc))
         col = PD.sum(1)                                           # (b, k, h)
-        dysc = (dyc * torch.einsum("bhpn,btn->bthp", Sc, Cc)).sum(-1)
+        dysc = (dyc * torch.einsum("bhpn,btn->bthp", So, Cc)).sum(-1)
         dcum = (torch.einsum("btkh,bkh->bth", PD, dtc) - dtc * col + ecum * dysc
                 - ew * dtc * xwb)
         tail = torch.exp(last[:, 0]) * (W * Sc).sum((-2, -1)) + (ew * dtc * xwb).sum(1)

@@ -10,13 +10,14 @@ The kernel is chosen by dtype, p, n and chunk (:func:`plan`), a dispatch and
 not a fallback: bfloat16 with ``p % 16 == 0``, ``n % 16 == 0`` and a chunk
 in :data:`TC_CHUNKS` runs the chunk-parallel SSD on the tensor cores, three
 CUDA launches on the current stream (chunk states, state passing, output)
-through two float32 workspaces the wrapper allocates; float32, and bfloat16
-at other widths or chunks, run ``csrc/ssd.cu``, one block per (head, row)
-sequential over the chunks.  Neither depends on ``s``, the batch or the
+through two float32 workspaces the wrapper allocates (cum and the entry
+states S_in[c], which :class:`SSDFn` keeps for the backward); float32, and
+bfloat16 at other widths or chunks, run ``csrc/ssd.cu``, one block per
+(head, row) sequential over the chunks.  Neither depends on ``s``, the batch or the
 alignment of the views.  A block that needs more shared memory than the
 card has raises :class:`~repro_torch.kernels._build.SharedMemoryError`.
 :class:`SSDFn` is the differentiable op: this forward, then
-:func:`~.ssd_bwd.ssd_bwd`.
+:func:`~.ssd_bwd.ssd_bwd` on the same route.
 """
 from __future__ import annotations
 
@@ -25,8 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build, ref
-from .ssd_bwd import ssd_bwd
+from . import _build, ref, ssd_bwd
 
 launches = 0
 
@@ -130,9 +130,20 @@ def ssd(
     state ``(b, h, p, n)`` in x's dtype, as the JAX kernel returns it.
     x, B and C may be strided views (the slices of ``in_proj``'s output):
     only their innermost axes must be contiguous."""
+    y, final, _, _ = _scan(x, dt, A, B, C, chunk, initial_state, return_state)
+    return (y, final) if return_state else y
+
+
+def _scan(x, dt, A, B, C, chunk, initial_state, return_state):
+    """:func:`ssd`'s work: (y, the final state or None, cum, the entry
+    states S_in[c]), the last two the tensor-core route's float32
+    workspaces ``(b, s, h)`` and ``(b, nc, h, p, n)`` (None on the other
+    routes and on the CPU)."""
     global launches
     if x.device.type == "cpu":
-        return ref.ssd(x, dt, A, B, C, initial_state=initial_state, return_state=return_state)
+        out = ref.ssd(x, dt, A, B, C, initial_state=initial_state, return_state=return_state)
+        y, final = out if return_state else (out, None)
+        return y, final, None, None
     req = _build.require
     req(x.device.type == "cuda", f"ssd: unsupported device {x.device}")
     req(x.dim() == 4, f"ssd: x {tuple(x.shape)} != (b, s, h, p)")
@@ -168,6 +179,7 @@ def ssd(
     final = torch.empty((b, h, p, n), dtype=x.dtype, device=x.device) if return_state else None
     lib = _build.library()
     strides = (x.stride(0), x.stride(1), B.stride(0), B.stride(1), C.stride(0), C.stride(1))
+    cum = states = None
     if pl.kernel == "mma":
         cum = torch.empty((b, s, h), dtype=torch.float32, device=x.device)
         states = torch.empty((b, chunks(s, chunk), h, p, n), dtype=torch.float32,
@@ -185,32 +197,35 @@ def ssd(
         )
     launches += 1
     _build.check_launch(err, "ssd")
-    return (y, final) if return_state else y
+    return y, final, cum, states
 
 
 class SSDFn(torch.autograd.Function):
-    """Differentiable :func:`ssd`: the forward keeps its inputs only; the
-    backward is :func:`~.ssd_bwd.ssd_bwd` (the kernels on a CUDA tensor,
-    which rebuild the forward's chunk states, :func:`~.ref.ssd_bwd` on the
-    CPU), as the JAX package takes autodiff of ``ssd_chunked_jnp``.  With
-    ``return_state`` the final state's cotangent enters the backward too."""
+    """Differentiable :func:`ssd`: the forward keeps its inputs and, on the
+    tensor-core route, its float32 cum and entry states S_in[c]; the
+    backward is :func:`~.ssd_bwd.ssd_bwd` (on a CUDA tensor the kernels,
+    which read the kept states on the tensor-core route and rebuild them on
+    the CUDA cores; :func:`~.ref.ssd_bwd` on the CPU), as the JAX package
+    takes autodiff of ``ssd_chunked_jnp``.  With ``return_state`` the final
+    state's cotangent enters the backward too."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, initial_state, chunk, return_state):
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(x, dt, A, B, C, initial_state)
+        y, final, cum, states = _scan(x, dt, A, B, C, chunk, initial_state, return_state)
+        ctx.save_for_backward(x, dt, A, B, C, initial_state, cum, states)
         ctx.chunk = chunk
-        return ssd(x, dt, A, B, C, chunk=chunk, initial_state=initial_state,
-                   return_state=return_state)
+        return (y, final) if return_state else y
 
     @staticmethod
     def backward(ctx, dy, d_final=None):
-        x, dt, A, B, C, initial_state = ctx.saved_tensors
+        x, dt, A, B, C, initial_state, cum, states = ctx.saved_tensors
         dy = (torch.zeros(x.shape, dtype=x.dtype, device=x.device) if dy is None
               else dy.to(x.dtype).contiguous())
         if d_final is not None:  # float32 (float64 on the CPU for float64 inputs)
             d_final = d_final.to(torch.promote_types(x.dtype, torch.float32)).contiguous()
-        dx, ddt, dA, dB, dC, d_initial = ssd_bwd(
-            x, dt, A, B, C, dy, chunk=ctx.chunk, initial_state=initial_state, d_final=d_final)
+        dx, ddt, dA, dB, dC, d_initial = ssd_bwd.ssd_bwd(
+            x, dt, A, B, C, dy, chunk=ctx.chunk, initial_state=initial_state, d_final=d_final,
+            states=states, cum=cum)
         return (dx, ddt, dA, dB, dC, d_initial if initial_state is not None else None,
                 None, None)

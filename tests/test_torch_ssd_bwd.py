@@ -5,9 +5,10 @@ grad) on the CPU against ``jax.vjp`` of the JAX package's
 ``ssd_chunked_jnp``, from the same numpy inputs, in float32: every gradient
 within ``1e-4 * max|g|`` (summation order).  Then ``gradcheck`` of
 ``SSDFn`` in float64, the plan's shared memory and workspaces at
-mamba2-130m's and zamba2-2.7b's widths against the kernel source, and a
-gpu-marked test of the kernel against ``ref.ssd_bwd`` that skips without a
-card.  JAX is imported inside the CPU tests only: the card's machine runs
+mamba2-130m's and zamba2-2.7b's widths against the kernel source, and
+gpu-marked tests that skip without a card: both routes against
+``ref.ssd_bwd``, and ``SSDFn`` keeping the forward's states on the
+tensor-core route.  JAX is imported inside the CPU tests only: the card's machine runs
 ``-m gpu`` without it."""
 import re
 
@@ -143,14 +144,18 @@ ZAMBA2 = (64, 64, 64)       # of zamba2-2.7b
 
 
 def test_plan_at_the_training_widths():
-    """mamba2-130m: the chunk-state launch stages x, dy (64 x 65) and B, C
-    (64 x 129) floats, two blocks an SM; the chunk-gradient launch adds a
-    64 x 65 scratch, W / S_c (64 x 129) and three 64 x 65 matrices, one
-    block an SM.  zamba2-2.7b's n 64 takes less."""
-    assert sb_mod.plan(torch.bfloat16, *MAMBA2) == (100096, 200992)
-    assert sb_mod.plan(torch.float32, *MAMBA2) == (100096, 200992)
-    assert sb_mod.plan(torch.bfloat16, *ZAMBA2) == (67328, 151840)
+    """float32 (csrc/ssd_bwd.cu), mamba2-130m: the chunk-state launch stages
+    x, dy (64 x 65) and B, C (64 x 129) floats, two blocks an SM; the
+    chunk-gradient launch adds a 64 x 65 scratch, W / S_c (64 x 129) and
+    three 64 x 65 matrices, one block an SM.  zamba2-2.7b's n 64 takes less.
+    bf16 at these widths takes the tensor-core route (csrc/ssd_bwd_tc.cu):
+    bf16 tiles padded by 8, two blocks of either launch an SM."""
+    assert sb_mod.plan(torch.float32, *MAMBA2) == sb_mod.Plan("f32", 1, (100096, 200992))
+    assert sb_mod.plan(torch.float32, *ZAMBA2).smem_bytes == (67328, 151840)
     assert 2 * (100096 + 1024) <= 228 * 1024 and 200992 <= _build.SMEM_LIMIT
+    assert sb_mod.plan(torch.bfloat16, *MAMBA2) == sb_mod.Plan("mma", 2, (54272, 110368))
+    assert sb_mod.plan(torch.bfloat16, *ZAMBA2) == sb_mod.Plan("mma", 2, (37888, 77600))
+    assert 2 * (110368 + 1024) <= 228 * 1024
 
 
 def test_plan_refuses_what_the_card_cannot_run():
@@ -165,20 +170,23 @@ def test_plan_refuses_what_the_card_cannot_run():
     for c in (get_config(a), get_config(a, reduced=True)) if c.ssm_state}))
 def test_the_zoo_plans_within_the_card(p, n, chunk):
     for dtype in (torch.bfloat16, torch.float32):
-        assert max(sb_mod.plan(dtype, p, n, chunk)) <= _build.SMEM_LIMIT
+        assert max(sb_mod.plan(dtype, p, n, chunk).smem_bytes) <= _build.SMEM_LIMIT
 
 
 def test_workspace_bytes_at_the_training_shapes():
-    """cum (b, s, h), chunk states and carried cotangents (b, nc, h, p, n),
-    per-head dB and dC (b, s, h, n), dA's parts (b, nc, h), all float32:
-    ~403 MB at mamba2's (8, 1024), half that a microbatch of 4."""
+    """The CUDA-core route: cum (b, s, h), chunk states and carried
+    cotangents (b, nc, h, p, n), per-head dB and dC (b, s, h, n), dA's parts
+    (b, nc, h), all float32: ~403 MB at mamba2's (8, 1024), half that a
+    microbatch of 4 (the tensor-core route's: tests/test_torch_ssd_bwd_tc.py)."""
     b, s, h = 8, 1024, 24
     p, n, chunk = MAMBA2
     nc = 16
     want = 4 * (b * s * h + 2 * b * nc * h * p * n + 2 * b * s * h * n + b * nc * h)
-    assert sb_mod.workspace_bytes(b, s, h, p, n, chunk) == want == 403_451_904
+    f32 = sb_mod.plan(torch.float32, p, n, chunk)
+    assert sb_mod.workspace_bytes(f32, b, s, h, p, n, chunk) == want == 403_451_904
     # a sequence shorter than a chunk is one chunk of its live rows
-    assert sb_mod.workspace_bytes(2, 5, 3, 16, 16, 8) == 4 * (
+    pl = sb_mod.plan(torch.bfloat16, 16, 16, 8, 5)
+    assert pl.route == "f32" and sb_mod.workspace_bytes(pl, 2, 5, 3, 16, 16, 8) == 4 * (
         2 * 5 * 3 + 2 * 2 * 1 * 3 * 16 * 16 + 2 * 2 * 5 * 3 * 16 + 2 * 1 * 3)
 
 
@@ -219,12 +227,18 @@ def cuda():
 @pytest.mark.parametrize("dtype", [pytest.param(torch.float32, id="float32"),
                                    pytest.param(torch.bfloat16, id="bfloat16")])
 @pytest.mark.parametrize("shape", [(2, 37, 3, 16, 16, 8), (2, 5, 3, 16, 16, 8),
-                                   (2, 130, 4, 64, 128, 64), (1, 70, 3, 64, 64, 64)])
+                                   (2, 130, 4, 64, 128, 64), (1, 70, 3, 64, 64, 64),
+                                   (2, 37, 3, 16, 16, 16), (2, 45, 5, 32, 32, 32),
+                                   (1, 20, 3, 64, 128, 64)])
 def test_ssd_bwd_kernel_matches_plain(cuda, dtype, shape):
     """Each gradient within tol * (1 + |plain|) (bf16 2e-2, float32 5e-4,
     the scan's own), B and C strided views of one projection, an initial
-    state and a final-state cotangent; two calls give the same bits."""
+    state and a final-state cotangent; two calls give the same bits.  bf16
+    at p, n multiples of 16 and chunks 16/32/64 runs the tensor-core route
+    (a partial trailing chunk, an odd head count, s below the chunk)."""
     b, s, h, p, n, chunk = shape
+    route = sb_mod.plan(dtype, p, n, chunk, s).route
+    assert route == ("mma" if dtype == torch.bfloat16 and chunk >= 16 else "f32")
     v = _inputs(b, s, h, p, n, seed=b * s + h)
     T = {k: torch.from_numpy(a).to(cuda) for k, a in v.items()}
     x, dy = T["x"].to(dtype), T["dy"].to(dtype)
@@ -244,3 +258,34 @@ def test_ssd_bwd_kernel_matches_plain(cuda, dtype, shape):
         assert torch.equal(g, a), name
         w = w.float().cpu()
         assert bool(((g.float().cpu() - w).abs() <= tol * (1 + w.abs())).all()), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 130, 4, 64, 128, 64), (2, 37, 3, 16, 16, 16)])
+def test_ssdfn_keeps_the_forwards_states(cuda, shape, monkeypatch):
+    """bf16 on the tensor-core route: ``SSDFn`` hands the forward's cum and
+    entry states to the backward, and its gradients agree with the call that
+    rebuilds them within 2e-2 * (1 + |rebuilt|)."""
+    b, s, h, p, n, chunk = shape
+    v = _inputs(b, s, h, p, n, seed=s + h)
+    T = {k: torch.from_numpy(a).to(cuda) for k, a in v.items()}
+    x, B, C = T["x"].bfloat16(), T["B"].bfloat16(), T["C"].bfloat16()
+    dy = T["dy"].bfloat16()
+    seen = []
+    real = sb_mod.ssd_bwd
+
+    def spy(*args, **kw):
+        seen.append(kw["states"] is not None and kw["cum"] is not None)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(sb_mod, "ssd_bwd", spy)
+    leaves = [t.clone().requires_grad_() for t in (x, T["dt"], T["A"], B, C, T["s0"])]
+    with torch.enable_grad():
+        y, sf = ops.ssd(*leaves[:5], chunk=chunk, initial_state=leaves[5], return_state=True)
+        got = torch.autograd.grad((y, sf), leaves, (dy, T["df"].bfloat16()))
+    assert seen == [True]
+    want = real(x, T["dt"], T["A"], B, C, dy, chunk=chunk, initial_state=T["s0"],
+                d_final=T["df"].bfloat16().float())
+    for name, g, w in zip(NAMES, got, want):
+        w = w.float().cpu()
+        assert bool(((g.float().cpu() - w).abs() <= 2e-2 * (1 + w.abs())).all()), name
