@@ -39,7 +39,8 @@ Phases, each printing its own lines and wall time, each ending in
    pages), which must give the same bits on the split part's rows;
    ``rmsnorm``'s time at the decode shape (8 rows) too; kernel, plain and library
    times (see ``_time_ms``) and the bound: the larger of bytes over
-   3.35 TB/s and flops over 989 TFLOP/s.  The dense engines' kernels
+   3.35 TB/s and flops over 989 TFLOP/s, each kernel's bytes and flops from
+   ``repro_torch.roofline.work``.  The dense engines' kernels
    likewise: ``flash_attention`` on a static prefill pass (q (8, 1024, 32,
    128), causal) and small cases with a window, softcap, q_offset and no
    causal mask (the plain version without key 0 must fail the limit), its
@@ -146,7 +147,9 @@ Phases, each printing its own lines and wall time, each ending in
    terms, and without the reverse cumsum of dcum, must fail the limit; each
    training shape and microbatch timed with the kept states beside its
    plain version and its bound (no library call computes it);
-3. check: reduced glm4-9b in float32 served on the card and on the CPU
+3. check (last: ``roofline_check``, the reduced glm4-9b forward in float32
+   counted on the card and on the CPU, the same FLOPs, bytes and kernel
+   work): reduced glm4-9b in float32 served on the card and on the CPU
    from the same weights must emit the same greedy tokens, with and
    without speculative decoding (which must also equal each other); the
    card-vs-CPU token agreement on int8 and fp8 pools is printed.  On the
@@ -274,12 +277,18 @@ Phases, each printing its own lines and wall time, each ending in
    profiled step's device ms by class (flash forward and backward, ``ssd``
    forward and backward, rmsnorm forward and backward, matmuls, the
    optimizer, other) with the idle share, and under 1 GiB left allocated
-   after it;
+   after it; step 1 (outside the median) runs under the roofline counter:
+   its FLOPs and bytes beside 6 N D and the share of 989 TFLOP/s at the
+   median step, each kernel's counted calls equal to its launches;
 5. where the time goes: device time by kernel class per prefill launch and
    per decode step, per launch of each kernel, and the device's idle
    share, from torch.profiler, for the paged engine and for a dense
    prefill pass and decode step of glm4-9b and of mamba2-130m (with the
-   device time of each of ``ssd``'s three launches per pass);
+   device time of each of ``ssd``'s three launches per pass); glm4-9b's
+   same split served again under the roofline counter
+   (``serve_costs_phase``): the FLOPs and bytes of a packed prefill launch
+   and of a decode step beside their bounds and the profiled device ms (a
+   decode step bound by bytes, at least the weights but the embedding's);
 5b. the rest of the dense family at published width and depth (random
    bf16 weights, one model at a time, each set run once and counted
    alone, exactly its attention and ``_norms_per_pass`` rmsnorm launches a
@@ -299,9 +308,10 @@ Phases, each printing its own lines and wall time, each ending in
    layers, 128 experts of d_ff 768, top 8, capacity factor 1.25; random
    bf16 weights, 61.1 GB, loaded once the earlier models are freed) on the
    serve mix, each run counted alone with exactly 48 attention and 193
-   rmsnorm launches a pass and a step: ``serve_paged`` on a bf16 and an
-   int8 pool, ``spec_k`` 4 on tiled prompts beside their plain run,
-   chunked prefill, the shared-prefix set with the cache off and on, the
+   rmsnorm launches a pass and a step: ``serve_paged`` on a bf16 and (the
+   first 8 requests) an int8 pool, ``spec_k`` 4 on tiled prompts beside
+   their plain run, chunked prefill (the first 8 requests), the
+   shared-prefix set with the cache off and on, the
    static path and ``serve_continuous``; each run's metrics, peak memory and
    token agreement with its baseline (printed, not held); the capacity of
    each routing group; torch.profiler's device ms per packed prefill launch
@@ -355,8 +365,12 @@ Phases, each printing its own lines and wall time, each ending in
    zamba2-2.7b: 9, 54 ``ssd`` and 127; whisper-large-v3: 96 and 162)
    times the evaluation's
    ``inference`` spans and no other kernel; the SYSTEM evaluation's
-   ``system:cuda`` launches must add up to the counters and its device
-   busy time (torch.profiler) must be above 0; the FRAMEWORK layer spans
+   ``system:cuda`` launches must add up to the per-pass counts of its
+   predicts (its ``system:cost`` counting forwards, one a batch shape, add
+   theirs to the counters), its device busy time (torch.profiler) must be
+   above 0 with no launch's device record lost, and each predict must
+   carry one ``system:cost`` event (glm4-9b's counted FLOPs printed beside
+   2 N D and their share of 989 TFLOP/s); the FRAMEWORK layer spans
    must carry the reference's names (``_w4096``/``_w1073741824`` on
    gemma2's layers, ``layer_{g:03d}_shared_attn`` after zamba2's groups,
    whisper's ``enc_layer_{l:03d}`` and ``dec_layer_{l:03d}``);
@@ -367,9 +381,11 @@ Phases, each printing its own lines and wall time, each ending in
    SYSTEM, with no hand-written kernel launched (``PER_PASS`` empty); at
    each batch the median device ms of a predict (``system:cuda``), the
    platform's images/s and the forward's share of 989 TFLOP/s at 2 x its
-   MACs (4.09 G an image).  Then the serve driver on reduced glm4-9b with
-   ``--evaldb``: its one record must carry backend ``torch`` and the
-   engine knobs;
+   MACs (4.09 G an image), its counted FLOPs equal to 2 x its MACs.  Then
+   the serve driver on reduced glm4-9b with ``--evaldb``: its one record
+   must carry backend ``torch`` and the engine knobs;
+6b. the four serving examples' torch twins (``examples/*_torch.py``) in
+   this process on the card, each exiting 0, with its seconds;
 7. one JSON line of kernel records, then the final line
    ``{"ok": true, "device": {...}}``.
 
@@ -389,8 +405,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
-BF16_FLOPS_PER_S = 989e12       # dense bf16 tensor-core peak
 # |kernel - plain| <= TOL * |plain| + TOL_FLOOR * rms(plain): rounding the
 # output to bf16 moves it by at most 2**-7 of itself; the floor, scaled to
 # the output, covers values near zero
@@ -522,10 +536,13 @@ def _print_records(records):
               f"{r['sets']} input sets; host gaps in: {r['gaps'] or 'none'}")
 
 
-def _bound_ms(nbytes, flops):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def _bound(w):
+    """(the least ms for a kernel's work ``w``, from
+    ``repro_torch.roofline.work``: the larger of its bytes over 3.35 TB/s and
+    its FLOPs over 989 TFLOP/s, the H100 SXM data sheet's; what bounds it)."""
+    from repro_torch.roofline import work
+
+    return work.bound_ms(w)
 
 
 def _within(torch, out, want):
@@ -764,6 +781,7 @@ def kernels_phase(torch, dev, arch="glm4-9b", modes=KV_MODES):
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import spec_verify as sv
     from repro_torch.kernels import varlen_prefill as vp
+    from repro_torch.roofline import work
 
     bf = torch.bfloat16
     gen = torch.Generator(device=dev)
@@ -794,7 +812,7 @@ def kernels_phase(torch, dev, arch="glm4-9b", modes=KV_MODES):
         **timed(rn.rmsnorm, ref.rmsnorm,
                 lambda x_: F.rms_norm(x_, (D,), w1, 1e-6),
                 sets, [(x_,) for x_, _ in sets]),
-        bound=_bound_ms(nbytes, 4.0 * BUDGET * D),
+        bound=_bound(work.rmsnorm(BUDGET, D)),
         shape=f"{arch} x (1, {BUDGET}, {D}) bf16",
     )
     del sets
@@ -803,7 +821,7 @@ def kernels_phase(torch, dev, arch="glm4-9b", modes=KV_MODES):
     sets = _rotation(nbytes8, lambda i: (x[:, :SLOTS].clone(), w))
     r8 = timed(rn.rmsnorm, ref.rmsnorm, lambda x_: F.rms_norm(x_, (D,), w1, 1e-6),
                sets, [(x_,) for x_, _ in sets])
-    b8 = _bound_ms(nbytes8, 4.0 * SLOTS * D)
+    b8 = _bound(work.rmsnorm(SLOTS, D))
     print(f"   rmsnorm {arch} at the decode shape x (1, {SLOTS}, {D}): kernel_ms {r8['ms']:.4f} "
           f"plain_ms {r8['plain_ms']:.4f} library_ms {r8['library_ms']:.4f} bound_ms "
           f"{b8[0]:.6f} ({b8[1]}); host gaps in: {r8['gaps'] or 'none'}")
@@ -865,7 +883,8 @@ def kernels_phase(torch, dev, arch="glm4-9b", modes=KV_MODES):
                         q_, k_, v_, tb, lengths, k_scales=ks_, v_scales=vs_),
                     lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask),
                     sets, lib_sets),
-            bound=_bound_ms(nbytes, 4.0 * h * d * live),
+            bound=_bound(work.paged_attention(SLOTS, h, kvh, d, live, SLOTS * bound_pages,
+                                              quantized=mode is not None)),
             shape=f"{arch} q ({SLOTS}, 1, {h}, {d}) bf16, pool ({num_pages}, {PAGE}, {kvh}, "
                   f"{d}) {pool_desc(mode)}, lengths {lens_host}",
         )
@@ -915,7 +934,8 @@ def kernels_phase(torch, dev, arch="glm4-9b", modes=KV_MODES):
                         q_, k_, v_, ts, lengths, wlens, k_scales=ks_, v_scales=vs_),
                     lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=smask),
                     sets, lib_sets),
-            bound=_bound_ms(nbytes, 4.0 * h * d * pairs),
+            bound=_bound(work.spec_verify(SLOTS, W, h, kvh, d, sum(totals), pairs,
+                                          SLOTS * spec_pages, quantized=mode is not None)),
             shape=f"{arch} q ({SLOTS}, {W}, {h}, {d}) bf16, pool {pool_desc(mode)}, committed "
                   f"{lens_host}, window lens {wl_host}",
         )
@@ -1046,7 +1066,8 @@ def kernels_phase(torch, dev, arch="glm4-9b", modes=KV_MODES):
                         k_scales=ks_, v_scales=vs_),
                     lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=lmask),
                     sets, lib_sets),
-            bound=_bound_ms(nbytes, 4.0 * h * d * pairs),
+            bound=_bound(work.varlen_prefill(T, h, kvh, d, list(zip(lens_c, pos0)), tables.numel(),
+                                             quantized=mode is not None)),
             shape=f"{arch} T {T}, chunks (take, ctx pages) {chunk_specs} + "
                   f"{C - len(chunk_specs)} empty, {PAGE * rep} rows a page, bf16, pool "
                   f"{pool_desc(mode)}",
@@ -1102,6 +1123,7 @@ def dense_kernels_phase(torch, dev, arch="glm4-9b"):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
+    from repro_torch.roofline import work
     from repro_torch.serve.engine import bucket_pow2
 
     bf = torch.bfloat16
@@ -1137,15 +1159,15 @@ def dense_kernels_phase(torch, dev, arch="glm4-9b"):
         """Kernel and library input sets of a causal pass (q_ (b, s, h, d))."""
         b_, s_ = q_.shape[:2]
         nbytes = 2 * (2 * b_ * s_ * h * d + 2 * b_ * s_ * kvh * d)
-        return (nbytes, _rotation(nbytes, lambda i: (q_.clone(), k_.clone(), v_.clone())),
+        return (_rotation(nbytes, lambda i: (q_.clone(), k_.clone(), v_.clone())),
                 _rotation(2 * 4 * b_ * s_ * h * d,
                           lambda i: (q_.transpose(1, 2).contiguous(), expand(k_), expand(v_))))
 
-    nbytes, sets, lib_sets = flash_sets(q, k, v)
+    sets, lib_sets = flash_sets(q, k, v)
     records["flash_attention"] = dict(
         err=err,
         **timed(fa.flash_attention, ref.attention, sdpa, sets, lib_sets),
-        bound=_bound_ms(nbytes, 4.0 * h * d * b * s * (s + 1) / 2),
+        bound=_bound(work.flash_attention(b, s, s, h, kvh, d)),
         shape=f"{arch} q ({b}, {s}, {h}, {d}), k/v ({b}, {s}, {kvh}, {d}) bf16, causal",
     )
     del q, k, v, sets, lib_sets
@@ -1153,9 +1175,9 @@ def dense_kernels_phase(torch, dev, arch="glm4-9b"):
     q1, k1, v1 = randn(1, s, h, d), randn(1, s, kvh, d), randn(1, s, kvh, d)
     _check(torch, "flash_attention causal, batch 1", fa.flash_attention(q1, k1, v1),
            ref.attention(q1, k1, v1))
-    nbytes1, sets, lib_sets = flash_sets(q1, k1, v1)
+    sets, lib_sets = flash_sets(q1, k1, v1)
     one = timed(fa.flash_attention, ref.attention, sdpa, sets, lib_sets)
-    bound1 = _bound_ms(nbytes1, 4.0 * h * d * s * (s + 1) / 2)
+    bound1 = _bound(work.flash_attention(1, s, s, h, kvh, d))
     print(f"   flash_attention {arch} at a continuous admission q (1, {s}, {h}, {d}): kernel_ms "
           f"{one['ms']:.4f} plain_ms {one['plain_ms']:.4f} library_ms {one['library_ms']:.4f} "
           f"bound_ms {bound1[0]:.4f} ({bound1[1]}); host gaps in: {one['gaps'] or 'none'}")
@@ -1219,32 +1241,13 @@ def dense_kernels_phase(torch, dev, arch="glm4-9b"):
                 lambda q_, k_, v_: ref.decode_attention(q_, k_, v_, lengths, kv_bound=bound),
                 lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask),
                 sets, lib_sets),
-        bound=_bound_ms(nbytes, 4.0 * h * d * live),
+        bound=_bound(work.decode_attention(SLOTS, h, kvh, d, live)),
         shape=f"{arch} q ({SLOTS}, 1, {h}, {d}), cache ({SLOTS}, {MAX_SEQ}, {kvh}, {d}) "
               f"bf16, lengths {lens_host}, kv_bound {bound}",
     )
     del sets, lib_sets
     _print_records(records)
     return records
-
-
-def _ssd_flops(b, s, h, p, n, chunk):
-    """Operations of the chunked scan on these shapes: per chunk of L live
-    timesteps, C.B^T over its causal pairs (shared by the heads) and, per
-    head, the intra-chunk product over the causal pairs, the inter-chunk
-    term and the state update (2 per multiply-add)."""
-    total = 0
-    for t0 in range(0, s, chunk):
-        L = min(chunk, s - t0)
-        pairs = L * (L + 1) // 2
-        total += 2 * pairs * n + h * (2 * pairs * p + 4 * L * p * n)
-    return b * total
-
-
-def _ssd_bytes(b, s, h, p, n):
-    """Bytes of one ssd call: x and y (bf16), B and C (bf16), dt (f32), A
-    and the final state."""
-    return 2 * 2 * b * s * h * p + 2 * 2 * b * s * n + 4 * b * s * h + 4 * h + 2 * b * h * p * n
 
 
 def ssd_kernels_phase(torch, dev):
@@ -1257,6 +1260,7 @@ def ssd_kernels_phase(torch, dev):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd as sd
+    from repro_torch.roofline import work
 
     cfg = get_config("mamba2-130m")
     h, p, n, chunk = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
@@ -1301,25 +1305,26 @@ def ssd_kernels_phase(torch, dev):
             pass_inputs = (x, dt, A, B, C)
     x, dt, A, B, C = pass_inputs
     b, s = SLOTS, s_pass
-    nbytes = _ssd_bytes(b, s, h, p, n)
-    sets = _rotation(nbytes, lambda i: (x.clone(), dt.clone(), A, B.clone(), C.clone()))
+    w = work.ssd(b, s, h, p, n, chunk)
+    sets = _rotation(w.bytes, lambda i: (x.clone(), dt.clone(), A, B.clone(), C.clone()))
     records = {"ssd": dict(
         err=err,
         **_timed(torch, cpm,
                  lambda *a: sd.ssd(*a, chunk=chunk, return_state=True),
                  lambda *a: ref.ssd(*a, return_state=True), None, sets, []),
-        bound=_bound_ms(nbytes, _ssd_flops(b, s, h, p, n, chunk)),
+        bound=_bound(w),
         shape=f"x ({b}, {s}, {h}, {p}) bf16, B/C n {n}, chunk {chunk}, final state out",
     )}
     del sets
     # a continuous admission: one row of the longest serve prompt
     one = inputs(1, s1, False)[:5]
-    nbytes1 = _ssd_bytes(1, s1, h, p, n)
+    w1 = work.ssd(1, s1, h, p, n, chunk)
+    nbytes1 = w1.bytes
     ms1, _ = _time_ms(torch, lambda *a: sd.ssd(*a, chunk=chunk, return_state=True),
                       _rotation(nbytes1, lambda i: tuple(t.clone() for t in one)), cpm)
     # the plain version is a sequential loop of ~0.3 s a call: a few calls
     plain1 = _time_few(torch, lambda: ref.ssd(*one, return_state=True))
-    bound1 = _bound_ms(nbytes1, _ssd_flops(1, s1, h, p, n, chunk))
+    bound1 = _bound(w1)
     print(f"   ssd at a batch-1 admission x (1, {s1}, {h}, {p}): kernel_ms {ms1:.4f} "
           f"plain_ms {plain1:.4f} bound_ms {bound1[0]:.4f} ({bound1[1]}; {nbytes1} bytes) "
           f"(blocks per launch {sd.blocks(pl, 1, s1, h, p, n, chunk)} on the card's 132 SMs)")
@@ -2003,7 +2008,7 @@ def profile_phase(torch, engine, reqs):
     (s1, w1, c1, ops1), (s16, w16, c16, ops16) = runs[1], runs[16]
     if sum(c16.values()) <= 0:
         print("   profiler saw no device time: breakdown not measured")
-        return
+        return None
     fmt = lambda d, n: ", ".join(f"{k} {v / n:.3f}" for k, v in d.items())
     busy1 = sum(c1.values())
     print(f"   prefill only: {s1.prefill_launches} launches, {s1.prefill_tokens} tokens; per "
@@ -2030,6 +2035,58 @@ def profile_phase(torch, engine, reqs):
         print(f"   MoE dispatch by aten op, device ms per prefill launch: {top(ops1, n1)}")
         dec_ops = {k: ops16.get(k, 0.0) - ops1.get(k, 0.0) for k in ops16}
         print(f"   MoE dispatch by aten op, device ms per decode step: {top(dec_ops, steps)}")
+    return busy1 / s1.prefill_launches, busy / steps
+
+
+def serve_costs_phase(torch, engine, reqs, busy):
+    """The roofline counter over profile_phase's split: the first SLOTS
+    requests served with 1 and with 16 new tokens under ``count_costs`` (the
+    kernels launch as they serve; the decode family and varlen_prefill read
+    their lengths to the host, so nothing here is timed); a packed prefill
+    launch is the first run over its launches, a decode step the difference
+    over its steps.  Each is printed with its bound on the H100 and, at
+    ``busy`` (profile_phase's device ms a launch and a step), its rate and
+    the bound's share of that time.  A decode step must be bound by bytes
+    and move at least the model's weights but the embedding table."""
+    from repro_torch.roofline import count_costs, work
+    from repro_torch.serve.engine import ServeRequest
+
+    runs = {}
+    for new in (1, 16):
+        sub = [ServeRequest(r.request_id, r.prompt, new) for r in reqs[:SLOTS]]
+        t0 = time.perf_counter()
+        with count_costs() as costs:
+            stats = engine.serve_paged(sub, num_slots=SLOTS, page_size=PAGE,
+                                       prefill_budget=BUDGET)
+        torch.cuda.synchronize()
+        runs[new] = (stats, costs, time.perf_counter() - t0)
+    (s1, c1, t1), (s16, c16, t16) = runs[1], runs[16]
+    steps = s16.steps - s1.steps
+    if s16.prefill_launches != s1.prefill_launches or steps <= 0:
+        raise SystemExit(f"counted serve: prefill launches {s1.prefill_launches} and "
+                         f"{s16.prefill_launches}, decode steps {steps}")
+    n = s1.prefill_launches
+    launch = work.Work(c1.flops / n, c1.memory_bytes / n)
+    step = work.Work((c16.flops - c1.flops) / steps, (c16.memory_bytes - c1.memory_bytes) / steps)
+    kernels = lambda by, k: ", ".join(f"{name} x{calls / k:g} {f / k:.3e} FLOPs {b / k:.3e} B"
+                                      for name, (calls, f, b) in sorted(by.items()))
+    step_kernels = {k: tuple(x - y for x, y in zip(v, c1.by_kernel.get(k, (0, 0, 0))))
+                    for k, v in c16.by_kernel.items()}
+    step_kernels = {k: v for k, v in step_kernels.items() if v[0]}
+    print(f"   counted serves ({SLOTS} requests, 1 and 16 new tokens): {n} packed launches, "
+          f"{steps} decode steps; counting took {t1:.2f} + {t16:.2f} s wall")
+    # a step gathers 8 rows of the embedding table and reads every other weight
+    cfg = engine.model.cfg
+    weights = 2 * (cfg.param_count() - cfg.vocab_size * cfg.d_model)
+    for label, w, ms, ks in (("packed prefill launch", launch, busy[0], kernels(c1.by_kernel, n)),
+                             ("decode step", step, busy[1], kernels(step_kernels, steps))):
+        bound, by = work.bound_ms(w)
+        print(f"   {label}: counted {w.flops:.4e} FLOPs, {w.bytes:.4e} bytes; bound {bound:.4f} ms "
+              f"({by}); at phase 5's {ms:.3f} device ms {w.flops / ms / 1e9:.2f} TFLOP/s, "
+              f"{w.bytes / ms / 1e6:.1f} GB/s: the bound is {bound / ms:.4f} of it; kernels: {ks}")
+    if work.bound_ms(step)[1] != "bytes" or step.bytes < weights:
+        raise SystemExit(f"counted decode step: {step.bytes:.4e} bytes against {weights:.4e} of "
+                         f"weights, bound by {work.bound_ms(step)[1]}")
 
 
 def dense_profile_phase(torch, engine, prompts):
@@ -2083,14 +2140,6 @@ ZOO_PROMPT_MIN = 20             # reduced checks: prompts past reduced gemma2's 
 LONG_LENS, LONG_MAX_SEQ = (6000, 4500), 8192
 
 
-def _live_pairs(s, window):
-    """(query, key) pairs a causal pass of ``s`` tokens leaves live under
-    ``window`` (None: no window)."""
-    if window is None or window >= s:
-        return s * (s + 1) // 2
-    return window * (window + 1) // 2 + (s - window) * window
-
-
 def zoo_kernels_phase(torch, dev):
     """The kernels at the shapes the rest of the dense family gives them at
     published width, bf16, d 128, each against its plain version within the
@@ -2117,6 +2166,7 @@ def zoo_kernels_phase(torch, dev):
     from repro_torch.kernels import spec_verify as sv
     from repro_torch.kernels import varlen_prefill as vp
     from repro_torch.models.lm import GLOBAL_WINDOW
+    from repro_torch.roofline import work
     from repro_torch.serve.engine import bucket_pow2
 
     bf = torch.bfloat16
@@ -2130,11 +2180,12 @@ def zoo_kernels_phase(torch, dev):
     def check(name, label, out, want):
         worst[name] = max(worst.get(name, 0.0), _check(torch, f"{name} {label}", out, want))
 
-    def case(name, shape, kernel, plain, library, sets, lib_sets, nbytes, flops):
+    def case(name, shape, kernel, plain, library, sets, lib_sets, w):
         """One timed case (the plain version over 3 calls: at these shapes it
-        takes up to 0.1 s a call), printed as the other phases print theirs."""
+        takes up to 0.1 s a call) bound by its work ``w``, printed as the
+        other phases print theirs."""
         record = dict(**_timed(torch, cpm, kernel, plain, library, sets, lib_sets, plain_calls=3),
-                      bound=_bound_ms(nbytes, flops), shape=shape)
+                      bound=_bound(w), shape=shape)
         _print_records({name: record})
         return record
 
@@ -2181,19 +2232,19 @@ def zoo_kernels_phase(torch, dev):
     sets = _rotation(nbytes, clones(q, k, v))
     lib_sets = _rotation(2 * 4 * s * h * d,
                          lambda i: (q.transpose(1, 2).contiguous(), heads(k, rep), heads(v, rep)))
-    live, every = _live_pairs(s, W), _live_pairs(s, None)
+    live, every = work.live_pairs(s, s, window=W), work.live_pairs(s, s)
     windowed = case(f"flash_attention {label}, window {W}, softcap {cap}",
                     f"{live} live pairs; library: SDPA without the softcap, which it lacks",
                     lambda *a: fa.flash_attention(*a, **win), lambda *a: plain_rows(*a, **win),
                     lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_,
                                                                       attn_mask=wmask),
-                    sets, lib_sets, nbytes, 4.0 * h * d * live)
+                    sets, lib_sets, work.flash_attention(1, s, s, h, kvh, d, window=W))
     whole = case(f"flash_attention {label}, no window, softcap {cap}",
                  f"{every} live pairs; library: SDPA without the softcap",
                  lambda *a: fa.flash_attention(*a, softcap=cap),
                  lambda *a: plain_rows(*a, softcap=cap),
                  lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, is_causal=True),
-                 sets, lib_sets, nbytes, 4.0 * h * d * every)
+                 sets, lib_sets, work.flash_attention(1, s, s, h, kvh, d))
     print(f"      windowed / unwindowed kernel time {windowed['ms'] / whole['ms']:.3f} "
           f"(live pairs {live / every:.3f})")
     del q, k, v, sets, lib_sets, wmask, causal
@@ -2232,7 +2283,8 @@ def zoo_kernels_phase(torch, dev):
          lambda q_, k_, v_, kp_, vp_: ref.varlen_prefill(q_, k_, v_, kp_, vp_, *meta, table,
                                                          **win),
          lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=lmask),
-         sets, lib_sets, nbytes, 4.0 * h * d * T * W)
+         sets, lib_sets,
+         work.varlen_prefill(T, h, kvh, d, [(T, pos0)], table.numel(), window=W))
     del kp, vpl, qp, kpk, vpk, sets, lib_sets, lmask, want
 
     # -- the decode family: gemma2 over contexts of 4500-6000 tokens with its
@@ -2294,13 +2346,13 @@ def zoo_kernels_phase(torch, dev):
         case(f"decode_attention {label}", shape,
              lambda q_, k_, v_: da.decode_attention(q_, k_, v_, lengths, kv_bound=bound, **opts),
              lambda q_, k_, v_: ref.decode_attention(q_, k_, v_, lengths, kv_bound=bound, **opts),
-             sdpa, sets, lib_sets, nbytes, 4.0 * h * d * live)
+             sdpa, sets, lib_sets, work.decode_attention(SLOTS, h, kvh, d, live))
         sets = _rotation(nbytes, clones(q, kp, vpl))
         case(f"paged_attention {label}", shape,
              lambda q_, k_, v_: pa.paged_attention(q_, k_, v_, table, lengths, pages_bound=pb,
                                                    **opts),
              lambda q_, k_, v_: ref.paged_attention(q_, k_, v_, table[:, :pb], lengths, **opts),
-             sdpa, sets, lib_sets, nbytes + 4 * SLOTS * pb, 4.0 * h * d * live)
+             sdpa, sets, lib_sets, work.paged_attention(SLOTS, h, kvh, d, live, SLOTS * pb))
         del q, kc, vc, kp, vpl, sets, lib_sets, mask
 
     # -- flash_attention and varlen_prefill at each of serve_shapes' prefill
@@ -2323,7 +2375,7 @@ def zoo_kernels_phase(torch, dev):
              _rotation(nbytes, clones(q, k, v)),
              _rotation(2 * 4 * b * s * h * d, lambda i: (q.transpose(1, 2).contiguous(),
                                                          heads(k, rep), heads(v, rep))),
-             nbytes, 4.0 * h * d * b * _live_pairs(s, opts.get("window")))
+             work.flash_attention(b, s, s, h, kvh, d, window=opts.get("window")))
         del q, k, v
         half, ctx = BUDGET // 2, 32
         mp = ctx + 2 * (half // PAGE)
@@ -2339,7 +2391,6 @@ def zoo_kernels_phase(torch, dev):
         vargs = (qp, kpk, vpk, kp, vpl, *meta, tables)
         check("varlen_prefill", label, vp.varlen_prefill(*vargs, **opts),
               ref.varlen_prefill(*vargs, **opts))
-        pairs = half * ctx * PAGE + 2 * half * (half + 1) // 2
         nbytes = 2 * (2 * BUDGET * h * d + 2 * BUDGET * kvh * d) + 2 * 2 * ctx * PAGE * kvh * d
         # SDPA on the gathered K/V: chunk 0's context pages, then the packed
         # buffer, under the packed layout's mask (the first chunk's queries
@@ -2361,8 +2412,9 @@ def zoo_kernels_phase(torch, dev):
              lambda q_, k_, v_, kp_, vp_: ref.varlen_prefill(q_, k_, v_, kp_, vp_, *meta, tables,
                                                              **opts),
              lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=vmask),
-             _rotation(nbytes, clones(qp, kpk, vpk, kp, vpl)), lib_sets, nbytes,
-             4.0 * h * d * pairs)
+             _rotation(nbytes, clones(qp, kpk, vpk, kp, vpl)), lib_sets,
+             work.varlen_prefill(BUDGET, h, kvh, d, [(half, ctx * PAGE), (half, 0)],
+                                 tables.numel(), window=opts.get("window")))
         del kp, vpl, qp, kpk, vpk, lib_sets, vmask
 
     # -- rmsnorm: a packed-prefill buffer at each new d_model, and QK-norm's
@@ -2380,7 +2432,7 @@ def zoo_kernels_phase(torch, dev):
         sets = _rotation(nbytes, clones(x, w))
         case(f"rmsnorm {label}", f"{n} rows", rn.rmsnorm, ref.rmsnorm,
              lambda x_: F.rms_norm(x_, (D,), w1, 1e-6),
-             sets, [(x_,) for x_, _ in sets], nbytes, 4.0 * n * D)
+             sets, [(x_,) for x_, _ in sets], work.rmsnorm(n, D))
         del x, sets
     return worst
 
@@ -2538,9 +2590,10 @@ def moe_serve_phase(torch, dev, counters):
     d_ff 768, top 8, capacity factor 1.25; random bf16 weights from a
     seeded CUDA generator) on the serve phase's mix, each run counted alone
     with exactly 48 attention and 193 rmsnorm launches a pass and a step:
-    ``serve_paged`` on a bf16 pool (the baseline) and an int8 pool;
-    ``spec_k`` 4 on tiled prompts, beside the plain run of those prompts;
-    chunked prefill; the shared-prefix set with the cache off and on; the
+    ``serve_paged`` on a bf16 pool (the baseline) and an int8 pool (the
+    first SLOTS requests); ``spec_k`` 4 on tiled prompts, beside the plain
+    run of those prompts; chunked prefill (the first SLOTS requests); the
+    shared-prefix set with the cache off and on; the
     static path and ``serve_continuous``.  Each prints the driver's
     metrics, peak memory and its token agreement with its baseline (printed,
     not held: with capacity routing a verify window of 5 has C 1, so a
@@ -2590,7 +2643,10 @@ def moe_serve_phase(torch, dev, counters):
     if base.kv_bytes_per_token != want_bytes:
         raise SystemExit(f"{MOE_ARCH}: {base.kv_bytes_per_token} pool bytes per token, "
                          f"expected {want_bytes}")
-    run("paged, int8 pool", engines["int8"], reqs, need, ("bf16", base))
+    # the int8 pool and chunked prefill on the first SLOTS requests of the
+    # mix: the depth cut that keeps the script inside its time limit
+    run(f"paged, int8 pool, the first {SLOTS} requests", engines["int8"], reqs[:SLOTS], need,
+        ("bf16", base))
     tiled = _tiled_requests(REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS, vocab, SEED)
     plain_tiled = run("paged, tiled prompts, plain", engine, tiled, need)
     run(f"paged, tiled prompts, spec_k {SPEC_K} spec_ngram {DRAFT_NGRAM}", engine, tiled,
@@ -2598,8 +2654,8 @@ def moe_serve_phase(torch, dev, counters):
         spec_k=SPEC_K, spec_ngram=DRAFT_NGRAM)
     # chunked prefill: _counted_serve holds one flash_attention launch a
     # layer and chunk and no varlen_prefill (_expected_launches)
-    run(f"chunked prefill ({CHUNK}-token chunks)", engine, reqs,
-        ("rmsnorm", "paged_attention", "flash_attention"), ("packed", base),
+    run(f"chunked prefill ({CHUNK}-token chunks), the first {SLOTS} requests", engine,
+        reqs[:SLOTS], ("rmsnorm", "paged_attention", "flash_attention"), ("packed", base),
         prefill_mode="chunked")
     shared = [ServeRequest(request_id=i, prompt=p, max_new_tokens=NEW_TOKENS)
               for i, p in enumerate(_shared_prompts(vocab, SEED, REQUESTS, PREFIX_LEN,
@@ -2669,6 +2725,7 @@ def hybrid_kernels_phase(torch, dev):
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd as sd
+    from repro_torch.roofline import work
 
     cfg = get_config(HYBRID_ARCH)
     h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -2686,10 +2743,10 @@ def hybrid_kernels_phase(torch, dev):
     def check(name, label, out, want):
         worst[name] = max(worst.get(name, 0.0), _check(torch, f"{name} {label}", out, want))
 
-    def case(name, shape, kernel, plain, library, sets, lib_sets, nbytes, flops, plain_calls=3):
+    def case(name, shape, kernel, plain, library, sets, lib_sets, w, plain_calls=3):
         record = dict(**_timed(torch, cpm, kernel, plain, library, sets, lib_sets,
                                plain_calls=plain_calls),
-                      bound=_bound_ms(nbytes, flops), shape=shape)
+                      bound=_bound(w), shape=shape)
         _print_records({name: record})
         return record
 
@@ -2720,7 +2777,7 @@ def hybrid_kernels_phase(torch, dev):
              fa.flash_attention, ref.attention, sdpa,
              _rotation(nbytes, clones(q, k, v)),
              _rotation(nbytes, lambda i: (heads(q), heads(k), heads(v))),
-             nbytes, 4.0 * h * d * b * s * (s + 1) / 2)
+             work.flash_attention(b, s, s, h, kvh, d))
         del q, k, v
     # the kernel's q_offset at d 80 (a chunk's; zamba2's engines prefill
     # whole prompts)
@@ -2757,7 +2814,7 @@ def hybrid_kernels_phase(torch, dev):
              lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask),
              _rotation(nbytes, clones(q, kc, vc)),
              _rotation(2 * 2 * SLOTS * S * h * d, lambda i: (heads(q), heads(kc), heads(vc))),
-             nbytes, 4.0 * h * d * live)
+             work.decode_attention(SLOTS, h, kvh, d, live))
         del q, kc, vc, mask
 
     # -- ssd: the static pass (left-padded to the longest of the first SLOTS
@@ -2780,12 +2837,12 @@ def hybrid_kernels_phase(torch, dev):
             x, dt, A, B, C = args
             short = ref.ssd(x[:, :-1], dt[:, :-1], A, B[:, :-1], C[:, :-1], return_state=True)[1]
             _rejects(torch, "ssd zamba2 plain final state one timestep short", short, sf_want)
-            nbytes = _ssd_bytes(b, s, sh, p, n)
+            w = work.ssd(b, s, sh, p, n, chunk)
             case(f"ssd {label}", "static pass, final state out; no library call computes SSD",
                  lambda *a: sd.ssd(*a, chunk=chunk, return_state=True),
                  lambda *a: ref.ssd(*a, return_state=True), None,
-                 _rotation(nbytes, lambda i: tuple(t.clone() for t in args)), [],
-                 nbytes, _ssd_flops(b, s, sh, p, n, chunk), plain_calls=2)
+                 _rotation(w.bytes, lambda i: tuple(t.clone() for t in args)), [],
+                 w, plain_calls=2)
         del args, y, sf, y_want, sf_want
 
     # -- rmsnorm at d_model and the gated d_inner, a static pass's rows and
@@ -2800,7 +2857,7 @@ def hybrid_kernels_phase(torch, dev):
             case(f"rmsnorm {label}", f"{rows} rows",
                  rn.rmsnorm, ref.rmsnorm, lambda x_: F.rms_norm(x_, (D,), w, 1e-6),
                  _rotation(nbytes, lambda i: (x.clone(), w)), _rotation(nbytes, clones(x)),
-                 nbytes, 4.0 * rows * D)
+                 work.rmsnorm(rows, D))
             del x
     return worst
 
@@ -2962,6 +3019,7 @@ def whisper_kernels_phase(torch, dev):
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.models import build_model
+    from repro_torch.roofline import work
     from repro_torch.serve.engine import bucket_pow2
 
     cfg = get_config(ENCDEC_ARCH)
@@ -2979,10 +3037,10 @@ def whisper_kernels_phase(torch, dev):
     def check(name, label, out, want):
         worst[name] = max(worst.get(name, 0.0), _check(torch, f"{name} {label}", out, want))
 
-    def case(name, shape, kernel, plain, library, sets, lib_sets, nbytes, flops):
+    def case(name, shape, kernel, plain, library, sets, lib_sets, w):
         record = dict(**_timed(torch, cpm, kernel, plain, library, sets, lib_sets,
                                plain_calls=3),
-                      bound=_bound_ms(nbytes, flops), shape=shape)
+                      bound=_bound(w), shape=shape)
         _print_records({name: record})
         return record
 
@@ -3005,14 +3063,13 @@ def whisper_kernels_phase(torch, dev):
                      ref.attention(q, k[:, :-1], v[:, :-1], causal=False), want)
         del want
         nbytes = 2 * (2 * SLOTS * sq * h * d + 2 * SLOTS * sk * kvh * d)
-        pairs = sq * (sq + 1) / 2 if causal else sq * sk
         case(f"flash_attention {label}", where,
              lambda q_, k_, v_: fa.flash_attention(q_, k_, v_, causal=causal),
              lambda q_, k_, v_: ref.attention(q_, k_, v_, causal=causal),
              lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, is_causal=causal),
              _rotation(nbytes, clones(q, k, v)),
              _rotation(nbytes, lambda i: (heads(q), heads(k), heads(v))),
-             nbytes, 4.0 * h * d * SLOTS * pairs)
+             work.flash_attention(SLOTS, sq, sk, h, kvh, d, causal=causal))
         del q, k, v
 
     # -- decode_attention at rep 1: the cross cache (1500 live keys of 1504
@@ -3049,7 +3106,7 @@ def whisper_kernels_phase(torch, dev):
              _rotation(nbytes, clones(q, kc, vc)),
              _rotation(2 * 2 * SLOTS * bound * h * d,
                        lambda i: (heads(q), heads(kc[:, :bound]), heads(vc[:, :bound]))),
-             nbytes, 4.0 * h * d * live)
+             work.decode_attention(SLOTS, h, kvh, d, live))
         del q, kc, vc, mask
 
     # -- rmsnorm at d_model: an encoder pass's rows and a decode step's
@@ -3063,7 +3120,7 @@ def whisper_kernels_phase(torch, dev):
         case(f"rmsnorm {label}", f"{rows} rows",
              rn.rmsnorm, ref.rmsnorm, lambda x_: F.rms_norm(x_, (D,), w, 1e-6),
              _rotation(nbytes, lambda i: (x.clone(), w)), _rotation(nbytes, clones(x)),
-             nbytes, 4.0 * rows * D)
+             work.rmsnorm(rows, D))
         del x
     return worst
 
@@ -3310,6 +3367,7 @@ def chunked_kernels_phase(torch, dev):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.models.lm import GLOBAL_WINDOW
+    from repro_torch.roofline import work
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 7)
@@ -3360,7 +3418,8 @@ def chunked_kernels_phase(torch, dev):
         mask = live[None, None]
         library = lambda q_, k_, v_: F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask)
         record = dict(**_timed(torch, cpm, kernel, plain, library, sets, lib_sets),
-                      bound=_bound_ms(nbytes, 4.0 * h * d * pairs),
+                      bound=_bound(work.flash_attention(1, c, sk, h, kvh, d, q_offset=pos0,
+                                                        window=w)),
                       shape=f"{pairs} live pairs" + (
                           "; library: SDPA without the softcap" if "softcap" in opts else ""))
         _print_records({label: record})
@@ -4216,6 +4275,39 @@ def platform_check(torch, dev):
         pred.close(cpu)
 
 
+def roofline_check(torch, dev):
+    """The roofline counter on the reduced glm4-9b forward in float32, the
+    same tokens on the CPU and on the card: the same FLOPs, bytes and kernel
+    work (each kernel-backed op counts its work, not what runs inside it,
+    and nothing else depends on the device)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.roofline import count_costs
+
+    cfg = get_config("glm4-9b", reduced=True)
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (4, 96)).astype(np.int32))
+    got = []
+    for d in ("cpu", dev):
+        model = build_model(cfg, device=d, dtype=torch.float32)
+        params = model.init(SEED)
+        batch = {"tokens": tokens.to(d)}
+        with count_costs() as costs, torch.inference_mode():
+            model.forward(params, batch)
+        got.append(costs)
+    cpu, card = got
+    print(f"   counted reduced glm4-9b forward (4, 96) f32: CPU {cpu.flops:.6e} FLOPs "
+          f"{cpu.memory_bytes:.6e} bytes; card {card.flops:.6e} FLOPs {card.memory_bytes:.6e} "
+          f"bytes; kernels {card.by_kernel}")
+    same = (cpu.flops, cpu.memory_bytes, cpu.by_kernel) == (card.flops, card.memory_bytes,
+                                                           card.by_kernel)
+    print(f"   the same on both devices: {same}")
+    if not same or cpu.flops <= 0:
+        raise SystemExit(f"roofline: the CPU and the card count differently: {cpu} and {card}")
+
+
 def _span_ms(spans, name):
     return [(s["end"] - s["begin"]) * 1e3 for s in spans if s["name"] == name]
 
@@ -4294,21 +4386,41 @@ def _check_layer_names(arch, spans, passes):
     print(f"      FRAMEWORK layer names as the reference's: {want[1]}, {want[2]}, ... x{passes}")
 
 
+def _cost_line(arch, cost, ms, batch, model_flops, label):
+    """A SYSTEM predict's counted FLOPs and bytes (``system:cost``) beside a
+    yardstick, and the share of the bf16 peak they reach at its
+    ``system:cuda`` device ms."""
+    from repro_torch.roofline import H100_SXM
+
+    tflops = cost["flops"] / ms / 1e9
+    return (f"{arch} at batch {batch}: counted {cost['flops']:.4e} FLOPs and "
+            f"{cost['bytes_accessed']:.4e} bytes (bound {cost['step_time_bound_s'] * 1e3:.4f} ms, "
+            f"{cost['dominant']}), {label} {model_flops:.4e} (ratio "
+            f"{cost['flops'] / model_flops:.4f}); at {ms:.4f} device ms {tflops:.2f} TFLOP/s, "
+            f"{tflops * 1e12 / H100_SXM.peak_flops:.4f} of "
+            f"{H100_SXM.peak_flops / 1e12:.0f} TFLOP/s")
+
+
 def platform_phase(torch, counters):
     """The platform at published width on the card (bf16, random weights
     from seed 0): each evaluation opens its own predictor; each kernel must
     launch exactly its per-pass count times the evaluation's ``inference``
-    spans, and no other kernel; the SYSTEM evaluation's ``system:cuda``
-    launches must add up to the counters; the evaldb holds one record per
-    evaluation."""
+    spans plus its SYSTEM cost events' counting forwards (one a batch
+    shape), and no other kernel; the SYSTEM evaluation's ``system:cuda``
+    launches must add up to the per-pass counts of its predicts, each
+    predict must carry one ``system:cost`` event, and glm4-9b's counted
+    FLOPs are printed beside 2 N D and their share of the card; the evaldb
+    holds one record per evaluation."""
     from repro_torch.core import EvaluationRequest, ScenarioSpec, SchedulerConfig, Span
     from repro_torch.core.analysis import top_layers
+    from repro_torch.configs import get_config
     from repro_torch.core.platform import LocalPlatform
+    from repro_torch.roofline import model_flops_for
 
     platform = LocalPlatform(backends=("torch",), reduced_models=False)
-    # ResNet-50's device ms of each predict by batch (batched SYSTEM) and its
-    # images/s by batch (batched MODEL)
-    resnet_ms, resnet_ips = {}, {}
+    # ResNet-50's device ms and counted FLOPs of each predict by batch
+    # (batched SYSTEM) and its images/s by batch (batched MODEL)
+    resnet_ms, resnet_flops, resnet_ips = {}, {}, {}
     try:
         evaluations = _evaluations()
         for label, arch, level, scen, sched in evaluations:
@@ -4322,11 +4434,16 @@ def platform_phase(torch, counters):
             counts = {name: mod.launches for name, mod in counters.items()}
             spans = platform.evaldb.spans(res["eval_id"])
             passes = len(_span_ms(spans, "inference"))
-            expect = {k: n * passes for k, n in PER_PASS[arch].items()}
+            costs = [s["tags"] for s in spans if s["name"] == "system:cost"]
+            # a SYSTEM predict's first of its batch shape counts the costs by
+            # a forward of its own, outside the inference span
+            counting = sum(1 for c in costs if c["counted"])
+            expect = {k: n * (passes + counting) for k, n in PER_PASS[arch].items()}
             got = {k: n for k, n in counts.items() if n}
             (load,) = _span_ms(spans, "model_load")
-            print(f"   {arch} {label}: model_load {load:.1f} ms, {passes} passes, launches {got} "
-                  f"(expected {expect}), evaluation wall {wall:.2f} s")
+            print(f"   {arch} {label}: model_load {load:.1f} ms, {passes} passes"
+                  + (f" and {counting} counting forwards" if counting else "")
+                  + f", launches {got} (expected {expect}), evaluation wall {wall:.2f} s")
             if not passes or got != expect:
                 raise SystemExit(f"platform {arch} {label}: launches {got}, expected {expect}")
             print(f"      {_fmt_evaluation(scen['kind'], res['metrics'], spans)}")
@@ -4341,23 +4458,42 @@ def platform_phase(torch, counters):
                 for e in events:
                     for k, n in e["launches"].items():
                         summed[k] = summed.get(k, 0) + n
-                if len(events) != passes or summed != got:
+                in_spans = {k: n * passes for k, n in PER_PASS[arch].items() if n}
+                if len(events) != passes or summed != in_spans:
                     raise SystemExit(f"platform SYSTEM: system:cuda launches {summed} over "
-                                     f"{len(events)} events, counters {got}")
+                                     f"{len(events)} events, expected {in_spans} (counters "
+                                     f"{got})")
+                if len(costs) != passes or not all(c["flops"] > 0 for c in costs):
+                    raise SystemExit(f"platform SYSTEM: {len(costs)} system:cost events for "
+                                     f"{passes} predicts, FLOPs {[c['flops'] for c in costs]}")
                 ms = [e["device_ms"] for e in events]
                 if not all(x > 0 for x in ms):
                     raise SystemExit(f"platform SYSTEM: system:cuda device_ms {ms}: the "
                                      f"profiler recorded no device time")
+                lost = [e["lost_records"] for e in events]
+                if any(lost):
+                    raise SystemExit(f"platform SYSTEM: system:cuda lost_records {lost} (device "
+                                     f"ms {ms}): the profiler dropped device records")
                 print(f"      SYSTEM system:cuda: device busy ms per predict "
-                      f"{', '.join(f'{x:.3f}' for x in ms)}; "
+                      f"{', '.join(f'{x:.3f}' for x in ms)} over "
+                      f"{sum(e['device_records'] for e in events)} device records, none lost (the "
+                      f"prologues lost {sorted(set(e['prologue_lost'] for e in events))}); "
                       f"max_memory_allocated {max(e['max_memory_allocated'] for e in events) / 1e9:.2f} GB; "
-                      f"launches agree with the counters")
+                      f"launches agree with the counters; one system:cost a predict")
+                # the events (begin 0) in predict order beside the inference
+                # spans in predict order
+                # (an instrumented LM pass tags no batch: glm4-9b's is online, batch 1)
+                batches = [s["tags"].get("batch", 1) for s in spans if s["name"] == "inference"]
                 if arch == RESNET and scen["kind"] == "batched":
-                    # the events (begin 0) in predict order beside the
-                    # inference spans in predict order
-                    batches = [s["tags"]["batch"] for s in spans if s["name"] == "inference"]
-                    for b, x in zip(batches, ms):
+                    for b, x, c in zip(batches, ms, costs):
                         resnet_ms.setdefault(b, []).append(x)
+                        resnet_flops[b] = c["flops"]
+                elif arch != RESNET:
+                    n_active = get_config(arch).param_count(active_only=True)
+                    for b, x, c in zip(batches, ms, costs):
+                        print("      " + _cost_line(
+                            arch, c, x, b, model_flops_for(n_active, b * PLATFORM_SEQ, "infer"),
+                            "2 N D"))
             elif arch == RESNET and scen["kind"] == "batched":
                 resnet_ips = {int(b): v["throughput_ips"]
                               for b, v in res["metrics"]["per_batch"].items()}
@@ -4366,19 +4502,21 @@ def platform_phase(torch, counters):
             raise SystemExit(f"evaldb holds {len(records)} records for {len(evaluations)} "
                              f"evaluations")
         print(f"   evaldb: {len(records)} records, one per evaluation")
-        _print_resnet(resnet_ms, resnet_ips)
+        _print_resnet(resnet_ms, resnet_flops, resnet_ips)
         print(platform.report(model="glm4-9b"))
     finally:
         platform.shutdown()
 
 
-def _print_resnet(device_ms, ips):
+def _print_resnet(device_ms, flops, ips):
     """Full ResNet-50 (bf16) at each batch of RESNET_BATCHES: the median
-    device ms of a predict (``system:cuda``), the platform's images/s, and
-    the share of the bf16 peak that the forward reaches at 2 x its MACs."""
+    device ms of a predict (``system:cuda``), the platform's images/s, the
+    share of the bf16 peak that the forward reaches at 2 x its MACs, and
+    the counted FLOPs (``system:cost``), which must equal 2 x its MACs."""
     import statistics
 
     from repro_torch.models import ResNet, ResNetConfig
+    from repro_torch.roofline import H100_SXM
 
     model = ResNet(ResNetConfig(), device="cpu")
     if sorted(device_ms) != RESNET_BATCHES or sorted(ips) != RESNET_BATCHES:
@@ -4386,13 +4524,65 @@ def _print_resnet(device_ms, ips):
                          f"{sorted(ips)} (MODEL), expected {RESNET_BATCHES}")
     for b in RESNET_BATCHES:
         ms = statistics.median(device_ms[b])
-        flops = 2 * model.macs(b)
-        tflops = flops / ms / 1e9
+        tflops = 2 * model.macs(b) / ms / 1e9
         print(f"   {RESNET} bf16 at batch {b}: device ms per predict {ms:.4f} (median of "
               f"{len(device_ms[b])} system:cuda events), {b / ms * 1e3:.1f} images/s of "
               f"device time; platform {ips[b]:.1f} images/s (batched, MODEL); forward "
               f"{tflops:.2f} TFLOP/s at 2 x {model.macs(1) / 1e9:.3f} GMAC an image: "
-              f"{tflops * 1e12 / BF16_FLOPS_PER_S:.4f} of {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s")
+              f"{tflops * 1e12 / H100_SXM.peak_flops:.4f} of {H100_SXM.peak_flops / 1e12:.0f} "
+              f"TFLOP/s; counted {flops[b]:.6e} FLOPs (2 x MACs {2 * model.macs(b):.6e})")
+        if flops[b] != 2 * model.macs(b):
+            raise SystemExit(f"{RESNET} batch {b}: counted {flops[b]} FLOPs, 2 x MACs "
+                             f"{2 * model.macs(b)}")
+
+
+EXAMPLES = ("quickstart", "compare_models", "inspect_trace", "serve_scenarios")
+
+
+def examples_phase(torch):
+    """The four serving examples' torch twins (``examples/*_torch.py``) run
+    in this process on the card (``runpy``: no second CUDA context), as a
+    user runs them, with no arguments; each must exit 0 in its seconds,
+    printed with a few of its lines (inspect_trace's SYSTEM events: a
+    ``system:cost`` line with FLOPs above 0 and a ``system:cuda`` line with
+    device ms above 0 a predict)."""
+    import contextlib
+    import io
+    import runpy
+
+    argv = sys.argv
+    for name in EXAMPLES:
+        path = ROOT / "examples" / f"{name}_torch.py"
+        out, code = io.StringIO(), 0
+        sys.argv = [str(path)]
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                runpy.run_path(str(path), run_name="__main__")
+        except SystemExit as e:
+            code = e.code or 0
+        finally:
+            sys.argv = argv
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        lines = out.getvalue().splitlines()
+        print(f"   examples/{name}_torch.py on the card: exit {code} in {seconds:.2f} s, "
+              f"{len(lines)} lines")
+        keep = {"quickstart": lambda l: l.startswith(("evaluated", "  trimmed", "  p90")),
+                "compare_models": lambda l: True,
+                "inspect_trace": lambda l: l.startswith(("==", "  flops=", "  device_ms=")),
+                "serve_scenarios": lambda l: l.startswith(("[scenario:", "---"))}[name]
+        for line in [l for l in lines if keep(l)][:14]:
+            print(f"      {line}")
+        if code:
+            raise SystemExit(f"examples/{name}_torch.py exited {code}")
+        if name == "inspect_trace":
+            flops = [float(x) for x in re.findall(r"^  flops=(\S+)", out.getvalue(), re.M)]
+            ms = [float(x) for x in re.findall(r"^  device_ms=(\S+)", out.getvalue(), re.M)]
+            if not (flops and len(ms) == len(flops) and all(x > 0 for x in flops + ms)):
+                raise SystemExit(f"inspect_trace: system:cost FLOPs {flops}, system:cuda "
+                                 f"device ms {ms}")
+        _release(torch)
 
 
 def serve_record_check():
@@ -4500,14 +4690,6 @@ def _bwd_inputs(torch, gen, dtype, shape, sk, kvh, opts):
     return q, k, v, o, lse, do
 
 
-def _flash_bwd_work(b, sq, sk, h, kvh, d):
-    """(bytes, flops) of a causal flash backward: q, o, do, dq and k, v, dk,
-    dv once each in bf16; 10 flops a live (row, key, column), half the pairs
-    live.  The tensor-core route's split scratch is not counted: the
-    function does not need it, and operations bound these shapes."""
-    return 2 * (4 * b * sq * h * d + 4 * b * sk * kvh * d), 10.0 * b * h * sq * sk * d / 2
-
-
 def _sdpa_bwd_set(torch, q, k, v, do):
     """SDPA's causal forward on q, k, v (K/V expanded to q's heads), kept
     for its backward: (out, q, k, v, the cotangent)."""
@@ -4552,28 +4734,6 @@ def _without_cap_factor(torch, q, k, v, do, opts):
             return torch.autograd.grad(out, leaves, do.float())
     finally:
         ref._soft_cap = real
-
-
-def _ssd_bwd_flops(b, s, h, p, n, chunk):
-    """Operations of the scan's backward on these shapes, the least it
-    needs (the forward's entry states given): per chunk of L live
-    timesteps, C.B^T over its causal pairs (shared by the heads); per head
-    dy.x^T, the intra-chunk products of dx, dB and dC over the causal pairs,
-    and five L x p x n products (G_c, W B_k, W^T x_k, S_c^T dy_t, S_c C_t),
-    2 per multiply-add."""
-    total = 0
-    for t0 in range(0, s, chunk):
-        L = min(chunk, s - t0)
-        pairs = L * (L + 1) // 2
-        total += 2 * pairs * n + h * (4 * pairs * p + 4 * pairs * n + 10 * L * p * n)
-    return b * total
-
-
-def _ssd_bwd_bytes(b, s, h, p, n):
-    """Bytes of one backward call: x, dy and dx (bf16), B, C, dB and dC
-    (bf16), dt and ddt (f32), A and dA, the initial state's cotangent (f32)."""
-    return (3 * 2 * b * s * h * p + 4 * 2 * b * s * n + 2 * 4 * b * s * h + 2 * 4 * h
-            + 4 * b * h * p * n)
 
 
 def _ssd_bwd_inputs(torch, gen, dtype, b, s, h, p, n, init=False, fin=False, views=False):
@@ -4652,6 +4812,7 @@ def ssd_bwd_kernels_phase(torch, dev, cpm):
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd as sd
     from repro_torch.kernels import ssd_bwd as sb
+    from repro_torch.roofline import work
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 11)
@@ -4684,8 +4845,8 @@ def ssd_bwd_kernels_phase(torch, dev, cpm):
                 _rejects(torch, "ssd_bwd plain without the reverse cumsum of dcum (ddt)",
                          _ssd_bwd_without(torch, "cumsum", args, opts, chunk)[1], want[1])
             del got, alone, want
-            nbytes = _ssd_bwd_bytes(b, s, h, p, n)
-            bound = _bound_ms(nbytes, _ssd_bwd_flops(b, s, h, p, n, chunk))
+            w = work.ssd_bwd(b, s, h, p, n, chunk)
+            nbytes, bound = w.bytes, _bound(w)
             # cold inputs: the rotation counts the kept states, which the call reads
             kbytes = nbytes + 4 * (kept[0].numel() + kept[1].numel())
             sets = _rotation(kbytes, lambda i: tuple(t.clone() for t in args + kept))
@@ -4747,6 +4908,7 @@ def train_kernels_phase(torch, dev):
     from repro_torch.kernels import flash_attention_bwd as fb
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm_bwd as rb
+    from repro_torch.roofline import work
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 7)
@@ -4786,14 +4948,15 @@ def train_kernels_phase(torch, dev):
     _rejects(torch, "flash_attention_bwd plain without key 0 (dq)", ref.flash_attention_bwd(
         q, k[:, 1:], v[:, 1:], o1, lse1, do, q_offset=-1)[0], want[0])
     del want, got, o1, lse1
-    nbytes, flops = _flash_bwd_work(b, s, s, h, kvh, d)
+    w = work.flash_attention_bwd(b, s, s, h, kvh, d)
+    nbytes = w.bytes
     sets = _rotation(nbytes, lambda i: tuple(t.clone() for t in (q, k, v, o, lse, do)))
     lib_sets = _rotation(2 * 8 * b * s * h * d, lambda i: _sdpa_bwd_set(torch, q, k, v, do))
     records["flash_attention_bwd"] = dict(
         err=err,
         **_timed(torch, cpm, fb.flash_attention_bwd, ref.flash_attention_bwd, _sdpa_bwd,
                  sets, lib_sets, plain_calls=3),
-        bound=_bound_ms(nbytes, flops),
+        bound=_bound(w),
         shape=f"glm4-9b q ({b}, {s}, {h}, {d}), k/v ({b}, {s}, {kvh}, {d}) bf16, causal; "
               f"library: SDPA's backward alone, K/V expanded to {h} heads",
     )
@@ -4819,7 +4982,7 @@ def train_kernels_phase(torch, dev):
         plain_ms, _ = _time_ms(torch, ref.flash_attention_bwd, [case], cpm)
         q_, k_, v_, _, _, do_ = case
         lib_ms, lib_q = _time_ms(torch, _sdpa_bwd, [_sdpa_bwd_set(torch, q_, k_, v_, do_)], cpm)
-        bound = _bound_ms(*_flash_bwd_work(bb, s, s, hh, kk, dd))
+        bound = _bound(work.flash_attention_bwd(bb, s, s, hh, kk, dd))
         print(f"   flash_attention_bwd {label} q ({bb}, {s}, {hh}, {dd}) on {kk} kv heads "
               f"({fb.route(bf, dd)}, {fb.tc_splits(bb, s, kk, hh // kk)} splits): kernel_ms "
               f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (SDPA's backward "
@@ -4899,7 +5062,7 @@ def train_kernels_phase(torch, dev):
         err=err,
         **_timed(torch, cpm, rb.rmsnorm_bwd, ref.rmsnorm_bwd, rms_bwd if have_lib else None,
                  sets, lib_sets),
-        bound=_bound_ms(nbytes, 10.0 * rows * D),
+        bound=_bound(work.rmsnorm_bwd(rows, D)),
         shape=f"x ({rows}, {D}) bf16; dx, dw the same bits on two runs; library: "
               f"F.rms_norm's backward alone, weight 1 + w",
     )
@@ -4929,7 +5092,7 @@ def train_kernels_phase(torch, dev):
         print(f"   rmsnorm_bwd {label} x ({rows}, {D}) ({p.path}, {p.tpr} threads a row, "
               f"{p.blocks} blocks): kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
               f"{'none' if lib[0] is None else f'{lib[0]:.4f}'} bound_ms "
-              f"{_bound_ms(nb, 10.0 * rows * D)[0]:.4f}; host gaps: "
+              f"{_bound(work.rmsnorm_bwd(rows, D))[0]:.4f}; host gaps: "
               f"{not (ms_q and plain_q and lib[1])}")
     _print_records(records)
     records["ssd_bwd"] = ssd_bwd_kernels_phase(torch, dev, cpm)
@@ -5084,13 +5247,19 @@ def train_phase(torch, dev, counters, arch, layers, rows):
     finite and fall; each step's launches must be exactly
     ``_train_expected``, no serving kernel among them.  Prints step ms,
     tok/s, peak memory and one profiled step's device ms by class (the
-    optimizer: every kernel launched under ``adamw_update``).  Returns each
-    kernel's launches over the steps."""
+    optimizer: every kernel launched under ``adamw_update``).  Step 1 runs
+    under the roofline counter (it lies outside the median of steps 2 on):
+    its counted FLOPs and bytes beside 6 N D and the share of the bf16 peak
+    at the median step; each kernel's counted calls must equal its launches.
+    Returns each kernel's launches over the steps."""
+    import contextlib
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
+    from repro_torch.roofline import H100_SXM, count_costs, model_flops_for
     from repro_torch.train import OptimizerConfig, init_opt_state, make_train_step
     from repro_torch.train import step as step_mod
 
@@ -5114,9 +5283,12 @@ def train_phase(torch, dev, counters, arch, layers, rows):
         _zero(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        masters, state, m = step(masters, state, batch)
+        with count_costs() if i == 0 else contextlib.nullcontext() as counted:
+            masters, state, m = step(masters, state, batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            costs = counted
         losses.append(float(m["loss"]))
         got = {name: c.launches for name, c in counters.items()}
         for name in totals:
@@ -5135,6 +5307,18 @@ def train_phase(torch, dev, counters, arch, layers, rows):
           f"peak memory {peak:.2f} GiB")
     if not (finite and losses[-1] < losses[0]):
         raise SystemExit("train: the loss is not finite or did not fall")
+    six_nd = model_flops_for(cfg.param_count(active_only=True), rows * TRAIN_SEQ, "train")
+    tflops = costs.flops / steady / 1e9
+    print(f"   step 1 counted: {costs.flops:.4e} FLOPs, {costs.memory_bytes:.4e} bytes; 6 N D "
+          f"{six_nd:.4e} (counted / 6 N D {costs.flops / six_nd:.3f}); at the median step "
+          f"{steady:.1f} ms {tflops:.2f} TFLOP/s, {tflops * 1e12 / H100_SXM.peak_flops:.4f} of "
+          f"{H100_SXM.peak_flops / 1e12:.0f} TFLOP/s (6 N D: "
+          f"{six_nd / steady / 1e9 * 1e12 / H100_SXM.peak_flops:.4f}); kernels: "
+          + ", ".join(f"{k} x{n} {f:.3e} FLOPs {b:.3e} B"
+                      for k, (n, f, b) in sorted(costs.by_kernel.items())))
+    calls = {k: n for k, (n, _, _) in costs.by_kernel.items()}
+    if calls != {k: n for k, n in expect.items() if n}:
+        raise SystemExit(f"train: counted kernel calls {calls}, launches {expect}")
 
     real = step_mod.adamw_update
     span = [torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)]
@@ -5310,6 +5494,8 @@ def main() -> int:
     fleet_check(torch, dev)
     print(f"   -- training ({', '.join(TRAIN_ARCHS)}), card vs CPU; checkpoint and restore")
     train_check_phase(torch, dev)
+    print("   -- the roofline counter: reduced glm4-9b's forward counted on the card and the CPU")
+    roofline_check(torch, dev)
     _done(torch, "3. check", t0)
 
     t0 = _phase("4. serve: glm4-9b and mamba2-130m, full width and depth, random bf16 weights")
@@ -5337,7 +5523,10 @@ def main() -> int:
     _done(torch, "4b. fleet", t0)
 
     t0 = _phase("5. where the time goes (torch.profiler, device time by kernel class)")
-    profile_phase(torch, engine, reqs)
+    busy = profile_phase(torch, engine, reqs)
+    if busy is None:
+        raise SystemExit("profile: the profiler saw no device time in glm4-9b's serve")
+    serve_costs_phase(torch, engine, reqs, busy)
     dense_profile_phase(torch, dense_engine, prompts)
     dense_profile_phase(torch, ssm_engine, ssm_prompts)
     _done(torch, "5. profile", t0)
@@ -5380,6 +5569,10 @@ def main() -> int:
     print("   -- the serve driver's evaluation record")
     serve_record_check()
     _done(torch, "6. platform", t0)
+
+    t0 = _phase("6b. the four serving examples' torch twins on the card")
+    examples_phase(torch)
+    _done(torch, "6b. examples", t0)
 
     sources = {
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:26"),

@@ -15,11 +15,17 @@ encoder-decoder ``whisper-large-v3`` (32 encoder and 32 decoder layers over
 reference).  That is every ``ArchConfig`` of the reference.  The paper's
 ResNet-50 is no ``ArchConfig`` in either package: its config is
 ``repro_torch.models.resnet.ResNetConfig``.
+
+``SHAPES`` is the reference's assigned input-shape set and
+:func:`shape_applicable` its rule for which (arch, shape) cells run,
+copied for the roofline's counts (and a dry run's, when the port has
+one).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from importlib import import_module
-from typing import List
+from typing import Dict, List, Tuple
 
 from ..models.config import ArchConfig
 
@@ -38,6 +44,22 @@ _ALIASES = {
 }
 
 
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
 def get_config(arch: str, reduced: bool = False) -> ArchConfig:
     mod_name = _ALIASES.get(arch, arch.replace("-", "_").replace(".", "p"))
     if mod_name not in _ALIASES.values():
@@ -48,3 +70,10 @@ def get_config(arch: str, reduced: bool = False) -> ArchConfig:
 
 def list_archs() -> List[str]:
     return list(_ALIASES)
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether an (arch, shape) cell runs; else the documented skip reason."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "SKIP: full-attention arch at 500k decode (see DESIGN.md)"
+    return True, ""

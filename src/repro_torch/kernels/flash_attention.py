@@ -28,6 +28,8 @@ from typing import Optional
 
 import torch
 
+from ..roofline import work
+from ..roofline.count import kernel_scope
 from . import _build, ref
 from .flash_attention_bwd import flash_attention_bwd
 
@@ -200,5 +202,7 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), **ctx.opts)
+        with kernel_scope("flash_attention_bwd", lambda: work.attention_bwd_call(q, k, v,
+                                                                                 **ctx.opts)):
+            dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), **ctx.opts)
         return dq, dk, dv, None, None, None, None, None

@@ -16,6 +16,12 @@ The serving-only ops (:func:`decode_attention`, :func:`paged_attention`,
 :func:`varlen_prefill`, :func:`spec_verify`) have no backward and raise
 ``NotImplementedError`` when asked for a gradient, on any device.  No op
 hands back a tensor cut off from its inputs' graph.
+
+Under the roofline's counter (:func:`repro_torch.roofline.count_costs`)
+each op that stands for a TPU kernel counts its work once, from
+:mod:`repro_torch.roofline.work`, and nothing of what it runs inside; so do
+the backwards of the three autograd functions.  Without a counter
+the check is one module global.
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
+from ..roofline import work
+from ..roofline.count import counted
 from . import ref
 from .decode_attention import decode_attention as _decode_attention
 from .flash_attention import FlashAttentionFn
@@ -52,6 +60,11 @@ def _no_backward(name: str, *tensors: Optional[torch.Tensor]) -> None:
             f"caches); training attends through ops.attention")
 
 
+def _attention_work(q, k, v, **kw):
+    return work.attention_call(q, k, v, lse=wants_grad(q, k, v), **kw)
+
+
+@counted("flash_attention", _attention_work)
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -72,6 +85,7 @@ def attention(
                             q_offset=q_offset, scale=scale)
 
 
+@counted("decode_attention", work.decode_attention_call)
 def decode_attention(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -91,6 +105,7 @@ def decode_attention(
                              window=window, scale=scale, kv_bound=kv_bound)
 
 
+@counted("varlen_prefill", work.varlen_prefill_call)
 def varlen_prefill(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -122,6 +137,7 @@ def varlen_prefill(
     )
 
 
+@counted("paged_attention", work.paged_attention_call)
 def paged_attention(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -146,6 +162,7 @@ def paged_attention(
     )
 
 
+@counted("spec_verify", work.spec_verify_call)
 def spec_verify(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -173,6 +190,7 @@ def spec_verify(
     )
 
 
+@counted("rmsnorm", work.rmsnorm_call)
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMS norm over the last axis times ``(1 + weight)``; differentiable
     (:class:`~.rmsnorm.RMSNormFn`)."""
@@ -181,6 +199,7 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.T
     return _rmsnorm(x, weight, eps)
 
 
+@counted("ssd", work.ssd_call)
 def ssd(
     x: torch.Tensor,
     dt: torch.Tensor,

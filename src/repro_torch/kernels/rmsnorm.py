@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..roofline import work
+from ..roofline.count import kernel_scope
 from . import _build, ref
 from .rmsnorm_bwd import rmsnorm_bwd
 
@@ -59,5 +61,6 @@ class RMSNormFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
-        dx, dw = rmsnorm_bwd(x, weight, ctx.eps, dy.contiguous())
+        with kernel_scope("rmsnorm_bwd", lambda: work.rmsnorm_bwd_call(x, weight, ctx.eps, dy)):
+            dx, dw = rmsnorm_bwd(x, weight, ctx.eps, dy.contiguous())
         return dx, dw, None

@@ -26,6 +26,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..roofline import work
+from ..roofline.count import kernel_scope
 from . import _build, ref, ssd_bwd
 
 launches = 0
@@ -220,12 +222,15 @@ class SSDFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, d_final=None):
         x, dt, A, B, C, initial_state, cum, states = ctx.saved_tensors
-        dy = (torch.zeros(x.shape, dtype=x.dtype, device=x.device) if dy is None
-              else dy.to(x.dtype).contiguous())
-        if d_final is not None:  # float32 (float64 on the CPU for float64 inputs)
-            d_final = d_final.to(torch.promote_types(x.dtype, torch.float32)).contiguous()
-        dx, ddt, dA, dB, dC, d_initial = ssd_bwd.ssd_bwd(
-            x, dt, A, B, C, dy, chunk=ctx.chunk, initial_state=initial_state, d_final=d_final,
-            states=states, cum=cum)
+        with kernel_scope("ssd_bwd", lambda: work.ssd_bwd_call(
+                x, dt, A, B, C, dy, chunk=ctx.chunk, initial_state=initial_state,
+                d_final=d_final)):
+            dy = (torch.zeros(x.shape, dtype=x.dtype, device=x.device) if dy is None
+                  else dy.to(x.dtype).contiguous())
+            if d_final is not None:  # float32 (float64 on the CPU for float64 inputs)
+                d_final = d_final.to(torch.promote_types(x.dtype, torch.float32)).contiguous()
+            dx, ddt, dA, dB, dC, d_initial = ssd_bwd.ssd_bwd(
+                x, dt, A, B, C, dy, chunk=ctx.chunk, initial_state=initial_state,
+                d_final=d_final, states=states, cum=cum)
         return (dx, ddt, dA, dB, dC, d_initial if initial_state is not None else None,
                 None, None)

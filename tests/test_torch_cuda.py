@@ -1033,8 +1033,10 @@ def test_predictor_card_vs_cpu(cuda, arch):
                                             {"flash_attention": 6, "rmsnorm": 12})])
 def test_system_level_counts_the_kernels(cuda, arch, per_pass):
     """A SYSTEM evaluation on the card emits one ``system:cuda`` event per
-    predict, whose launches add up to the counters' change, one pass's worth
-    per ``inference`` span."""
+    predict, whose launches add up to one pass's worth per ``inference``
+    span, with no device record lost, and one ``system:cost`` event per
+    predict; the counters' change adds one pass for the forward that counts
+    the costs of the batch shape (outside the inference spans)."""
     from repro_torch.core import EvaluationRequest, ScenarioSpec
     from repro_torch.core.platform import LocalPlatform
     from repro_torch.kernels import kernel_counters
@@ -1052,15 +1054,18 @@ def test_system_level_counts_the_kernels(cuda, arch, per_pass):
         p.shutdown()
     delta = {k: m.launches - before[k] for k, m in counters.items() if m.launches != before[k]}
     passes = sum(1 for s in spans if s["name"] == "inference")
-    assert passes == 3 and delta == {k: n * passes for k, n in per_pass.items()}
+    costs = [s["tags"] for s in spans if s["name"] == "system:cost"]
+    assert len(costs) == passes and [c["counted"] for c in costs] == [True, False, False]
+    assert passes == 3 and delta == {k: n * (passes + 1) for k, n in per_pass.items()}
     events = [s["tags"] for s in spans if s["name"] == "system:cuda"]
     assert len(events) == passes
     summed = {}
     for e in events:
         assert e["device_ms"] > 0 and e["max_memory_allocated"] > 0
+        assert e["lost_records"] == 0 and e["device_records"] > 0
         for k, n in e["launches"].items():
             summed[k] = summed.get(k, 0) + n
-    assert summed == delta
+    assert summed == {k: n * passes for k, n in per_pass.items()}
 
 
 def test_resnet_predictor_card_vs_cpu(cuda):
@@ -1092,7 +1097,8 @@ def test_resnet_predictor_card_vs_cpu(cuda):
     finally:
         p.shutdown()
     events = [s["tags"] for s in spans if s["name"] == "system:cuda"]
-    assert len(events) == 3 and all(e["launches"] == {} and e["device_ms"] > 0 for e in events)
+    assert len(events) == 3 and all(e["launches"] == {} and e["device_ms"] > 0
+                                    and e["lost_records"] == 0 for e in events)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import neither
-``jax`` nor anything of ``repro``.
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the example
+twins (``examples/*_torch.py``) import neither ``jax`` nor anything of
+``repro``.
 
 The import check runs in a subprocess, because other test files in the same
 worker import JAX.  A second test scans the sources for such imports.
@@ -37,7 +38,9 @@ def test_the_import_check_covers_every_entry_point():
               "repro_torch.train", "repro_torch.train.data", "repro_torch.train.optimizer",
               "repro_torch.train.checkpoint", "repro_torch.train.step",
               "repro_torch.launch.train", "repro_torch.kernels.flash_attention_bwd",
-              "repro_torch.kernels.rmsnorm_bwd", "repro_torch.kernels.ssd_bwd"):
+              "repro_torch.kernels.rmsnorm_bwd", "repro_torch.kernels.ssd_bwd",
+              "repro_torch.roofline", "repro_torch.roofline.count",
+              "repro_torch.roofline.work", "repro_torch.roofline.model"):
         assert m in mods, m
 
 
@@ -69,7 +72,11 @@ _FORBIDDEN = re.compile(
 
 
 def test_port_sources_do_not_import_jax_or_repro():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    twins = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert {f.name for f in twins} >= {"quickstart_torch.py", "compare_models_torch.py",
+                                       "inspect_trace_torch.py", "serve_scenarios_torch.py",
+                                       "train_lm_torch.py"}
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + twins
     assert len(files) > 10
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
