@@ -230,7 +230,7 @@ Phases, each printing its own lines and wall time, each ending in
    the static prefill's error of them, and every token where a run first
    differs from its baseline must be one that float32 separates by at most
    twice the largest bf16 error measured.  Then the dense engines
-   on the same requests, two runs each: the static path (Poisson
+   on the same requests, one run each: the static path (Poisson
    arrivals at 20 Hz through the threaded ``RequestScheduler`` into
    ``generate`` batches of up to 8) and ``serve_continuous`` (8 slots);
    every request must complete, each run must launch exactly 40
@@ -238,7 +238,7 @@ Phases, each printing its own lines and wall time, each ending in
    ``decode_attention`` and 81 rmsnorm per decode step and no paged
    kernel (and the paged runs neither dense kernel).  Then full-width,
    full-depth mamba2-130m (24 layers, random bf16 weights) through the
-   same two dense engines on the same requests, two runs each: exactly
+   same two dense engines on the same requests, one run each: exactly
    24 ``ssd`` and 49 rmsnorm launches per prefill pass, 0 ``ssd`` and 49
    rmsnorm per decode step, and no attention kernel;
 4b. the fault-tolerant fleet at full width (``fleet_serve_phase``): phase
@@ -309,8 +309,8 @@ Phases, each printing its own lines and wall time, each ending in
    bf16 weights, 61.1 GB, loaded once the earlier models are freed) on the
    serve mix, each run counted alone with exactly 48 attention and 193
    rmsnorm launches a pass and a step: ``serve_paged`` on a bf16 and (the
-   first 8 requests) an int8 pool, ``spec_k`` 4 on tiled prompts beside
-   their plain run, chunked prefill (the first 8 requests), the
+   first 8 requests) an int8 pool, ``spec_k`` 4 on the first 8 tiled
+   prompts beside their plain run, chunked prefill (the first 4 requests), the
    shared-prefix set with the cache off and on, the
    static path and ``serve_continuous``; each run's metrics, peak memory and
    token agreement with its baseline (printed, not held); the capacity of
@@ -339,7 +339,7 @@ Phases, each printing its own lines and wall time, each ending in
    ``flash_attention`` and 162 rmsnorm launches a prefill pass, 64
    ``decode_attention`` and 97 rmsnorm a decode step and no other kernel:
    the static path on the serve mix (zero frames, as the driver feeds
-   them), two runs (metrics, peak memory); one transcription-shaped
+   them), one run (metrics, peak memory); one transcription-shaped
    ``generate`` (8 four-token prompts, 224 new tokens, random frames,
    ``max_seq`` 448); torch.profiler's split of a prefill pass (the
    encoder's flash launches against the decoder's) and of a decode step
@@ -386,7 +386,25 @@ Phases, each printing its own lines and wall time, each ending in
    must carry backend ``torch`` and the engine knobs;
 6b. the four serving examples' torch twins (``examples/*_torch.py``) in
    this process on the card, each exiting 0, with its seconds;
-7. one JSON line of kernel records, then the final line
+7. tensor-parallel paged serving (``tp_serve_phase``), last, with this
+   process holding no model: two ranks (spawned processes of one gloo
+   world) share the card.  glm4-9b at full width, bf16 (16 query heads on
+   1 kv head, half the columns, vocabulary and pool heads a rank) on the
+   serve mix against tp 1 served here: the first prompt's logits within
+   2E (E, phase 4's largest bf16 error against float32), each request's
+   first divergence at a tp-1 top-two margin of at most 2E (tp 1's
+   margins printed beside 2E), every rank's launches exact, each rank's
+   peak memory and pool pages, the ``tp:collective`` ledger; then
+   ``spec_k`` 4 on tiled prompts whose second wave hits the prefix cache
+   whole (verify steps sure to run); glm4-9b at full width cut to 2
+   layers in float32 (the first prompt's logits within 1e-4 of tp 1's
+   largest, first divergences only at tp-1 margins of at most twice
+   that); reduced glm4-9b in float32 (tokens equal tp 1's); qwen3-moe-30b-a3b
+   cut to 12 of its 48 layers (64 experts a rank), the first 8 requests.
+   Phase 2 holds and times ``paged_attention``, ``spec_verify`` and
+   ``varlen_prefill`` at these local heads (records ``<kernel>[tp2]``,
+   whose launches are rank 0's);
+8. one JSON line of kernel records, then the final line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -767,21 +785,16 @@ def build_report(info, nvcc):
                          f"{bad}")
 
 
-def kernels_phase(torch, dev, arch="glm4-9b", modes=KV_MODES):
+def kernels_phase(torch, dev, arch="glm4-9b", modes=KV_MODES, tp=1):
     """Each kernel vs its plain version at the serve phase's shapes for
     ``arch``'s heads and width, the attention kernels on a bf16 pool and on
     each int8/fp8 pool of ``modes``.  glm4-9b also holds the split-KV
-    routine's verify windows at W 13 and at granite-20b's 48 heads."""
-    import torch.nn.functional as F
-
+    routine's verify windows at W 13 and at granite-20b's 48 heads.  With
+    ``tp`` above 1 the attention kernels run at one rank's heads (``h /
+    tp`` on ``kvh / tp``), their records named ``<kernel>[tp<tp>]``; the
+    norms, whose widths tensor parallelism leaves whole, are not run
+    again."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import decode_split as ds
-    from repro_torch.kernels import kvquant, ref
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import rmsnorm as rn
-    from repro_torch.kernels import spec_verify as sv
-    from repro_torch.kernels import varlen_prefill as vp
-    from repro_torch.roofline import work
 
     bf = torch.bfloat16
     gen = torch.Generator(device=dev)
@@ -791,12 +804,33 @@ def kernels_phase(torch, dev, arch="glm4-9b", modes=KV_MODES):
     cpm = _sleep_cycles_per_ms(torch)
     cfg = get_config(arch)
     h, kvh, d, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.d_model
+    h, kvh = h // tp, kvh // tp
     rep = h // kvh
     max_pages = MAX_SEQ // PAGE
     num_pages = SLOTS * max_pages + 1
     records = {}
     timed = lambda *a: _timed(torch, cpm, *a)
+    name_of = _name
+    if tp > 1:
+        name_of = lambda kernel, mode: f"{_name(kernel, mode)}[tp{tp}]"
+        arch = f"{arch} tp {tp} (one rank's {h} heads on {kvh})"
+    else:
+        _rmsnorm_records(torch, dev, randn, timed, records, arch, D)
+    _attention_records(torch, dev, gen, randn, cl, cpm, timed, records, arch, modes, h, kvh, d,
+                       rep, max_pages, num_pages, tp, name_of)
+    _print_records(records)
+    return records
 
+
+def _rmsnorm_records(torch, dev, randn, timed, records, arch, D):
+    """rmsnorm at the serve phase's shapes (``kernels_phase``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.roofline import work
+
+    bf = torch.bfloat16
     # -- rmsnorm: a full packed-prefill buffer of rows (decode gives 8 rows)
     x, w = randn(1, BUDGET, D), randn(D) * 0.1
     err = 0.0
@@ -827,6 +861,21 @@ def kernels_phase(torch, dev, arch="glm4-9b", modes=KV_MODES):
           f"{b8[0]:.6f} ({b8[1]}); host gaps in: {r8['gaps'] or 'none'}")
     del sets
 
+
+def _attention_records(torch, dev, gen, randn, cl, cpm, timed, records, arch, modes, h, kvh, d,
+                       rep, max_pages, num_pages, tp, _name):
+    """paged_attention, spec_verify and varlen_prefill at the serve phase's
+    shapes with ``h`` query heads on ``kvh`` (``kernels_phase``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_split as ds
+    from repro_torch.kernels import kvquant, ref
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import spec_verify as sv
+    from repro_torch.kernels import varlen_prefill as vp
+    from repro_torch.roofline import work
+
+    bf = torch.bfloat16
     # the pools every attention kernel reads: bf16, and the same values as
     # int8/fp8 codes with float32 per-row scales
     k_pages, v_pages = randn(num_pages, PAGE, kvh, d), randn(num_pages, PAGE, kvh, d)
@@ -967,7 +1016,7 @@ def kernels_phase(torch, dev, arch="glm4-9b", modes=KV_MODES):
     wide_pool = randn(num_pages, PAGE, 1, d)
     windows = ((("glm4-9b heads, W 13 (spec_k 12)", (h, k_pages, 13)),
                 ("granite-20b heads (48 on 1 kv head), W 5", (48, wide_pool, W)))
-               if arch == "glm4-9b" else ())
+               if arch == "glm4-9b" and tp == 1 else ())
     for label, (hh, pool, W_) in windows:
         qw = randn(SLOTS, W_, hh, d)
         wl_w = torch.tensor([W_ if n else 0 for n in wl_host], dtype=torch.int32, device=dev)
@@ -1105,8 +1154,6 @@ def kernels_phase(torch, dev, arch="glm4-9b", modes=KV_MODES):
     if not same:
         raise SystemExit("varlen_prefill: a split prompt differs from the whole one")
     del rows, pool
-    _print_records(records)
-    return records
 
 
 def dense_kernels_phase(torch, dev, arch="glm4-9b"):
@@ -1401,7 +1448,7 @@ class _DropCounter:
         self.dropped, self.calls = {}, {}
         self._lm, self._real = lm, lm.moe_apply
 
-        def spy(p, x, cfg, need_aux=True):
+        def spy(p, x, cfg, need_aux=True, **kw):
             b, s, _ = x.shape
             idx = mod.moe_route(p, x, cfg)[2]
             pos = mod._positions_in_expert(idx.reshape(b, -1), cfg.num_experts)
@@ -1409,7 +1456,7 @@ class _DropCounter:
             self.dropped[key] = self.dropped.get(key, 0) + int(
                 (pos >= mod.moe_capacity(cfg, s)).sum())
             self.calls[key] = self.calls.get(key, 0) + 1
-            return self._real(p, x, cfg, need_aux)
+            return self._real(p, x, cfg, need_aux, **kw)
 
         lm.moe_apply = spy
         return self
@@ -1801,12 +1848,12 @@ def _dense_expected(model, passes, steps):
     return expect
 
 
-def dense_serve_phase(torch, dev, counters, model, params, repeats=REPEATS, continuous=True):
+def dense_serve_phase(torch, dev, counters, model, params, continuous=True):
     """``model`` through the dense engines: the static path (Poisson
     arrivals, the threaded scheduler batching ``generate``) and (unless
     ``continuous`` is False: the enc-dec family, which it refuses)
-    ``serve_continuous``, ``repeats`` runs each on the serve phase's
-    requests, each run counted alone (``_dense_expected``): for glm4-9b 40
+    ``serve_continuous``, one run each on the serve phase's requests,
+    each counted alone (``_dense_expected``): for glm4-9b 40
     flash_attention and 81 rmsnorm launches per prefill pass, 40
     decode_attention and 81 rmsnorm per decode step; for mamba2-130m 24 ssd
     and 49 rmsnorm per pass, 49 rmsnorm per step; for zamba2-2.7b 9
@@ -1839,39 +1886,35 @@ def dense_serve_phase(torch, dev, counters, model, params, repeats=REPEATS, cont
     cont_len = max(len(p) for p in prompts) if model.stateful else PREFILL_LEN
     resident = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    for i in range(1, repeats + 1):
-        _zero(counters)
-        run = serve_static(engine, prompts, arrivals, NEW_TOKENS, BATCH_TIMEOUT_MS,
-                           log=lambda _: None)
-        passes = len(run.batches)
-        steps = passes * NEW_TOKENS
-        counts = _check_counts(f"{cfg.name} static run {i}", counters,
-                               _dense_expected(model, passes, steps),
-                               _completed(run.tokens, vocab), len(reqs))
-        m = _serve_metrics(static_metrics(run))
-        metrics["static"].append(m)
-        print(f"   static run {i}: batches {[bt[0] for bt in run.batches]}, prefill passes "
-              f"{passes} ({sum(bt[1] for bt in run.batches)} prompt tokens, {pad}), decode "
-              f"steps {steps}; "
-              + ", ".join(f"{k} {v:.3f}" for k, v in m.items()) + f"; launches {counts}")
-        if i == 1:
-            launches.update(counts)
-            tokens["static"] = run.tokens
-        if not continuous:
-            continue
+    _zero(counters)
+    run = serve_static(engine, prompts, arrivals, NEW_TOKENS, BATCH_TIMEOUT_MS,
+                       log=lambda _: None)
+    passes = len(run.batches)
+    steps = passes * NEW_TOKENS
+    counts = _check_counts(f"{cfg.name} static run", counters,
+                           _dense_expected(model, passes, steps),
+                           _completed(run.tokens, vocab), len(reqs))
+    m = _serve_metrics(static_metrics(run))
+    metrics["static"].append(m)
+    print(f"   static run: batches {[bt[0] for bt in run.batches]}, prefill passes "
+          f"{passes} ({sum(bt[1] for bt in run.batches)} prompt tokens, {pad}), decode "
+          f"steps {steps}; "
+          + ", ".join(f"{k} {v:.3f}" for k, v in m.items()) + f"; launches {counts}")
+    launches.update(counts)
+    tokens["static"] = run.tokens
+    if continuous:
         _zero(counters)
         st = engine.serve_continuous(reqs, num_slots=SLOTS)
-        counts = _check_counts(f"{cfg.name} continuous run {i}", counters,
+        counts = _check_counts(f"{cfg.name} continuous run", counters,
                                _dense_expected(model, len(reqs), st.steps),
                                _completed([r.tokens for r in st.results], vocab), len(reqs))
         m = _serve_metrics(engine_metrics(st))
         metrics["continuous"].append(m)
-        print(f"   continuous run {i}: {len(reqs)} admissions (batch-1 prefills padded to "
+        print(f"   continuous run: {len(reqs)} admissions (batch-1 prefills padded to "
               f"{cont_len}), decode steps {st.steps}, mean slot occupancy "
               f"{st.mean_slot_occupancy:.2f}; " + ", ".join(f"{k} {v:.3f}" for k, v in m.items())
               + f"; launches {counts}")
-        if i == 1:
-            tokens["continuous"] = [r.tokens for r in st.results]
+        tokens["continuous"] = [r.tokens for r in st.results]
     for path, runs in metrics.items():
         _median_spread(f"{path}, ", runs)
     peak = torch.cuda.max_memory_allocated(dev)
@@ -2534,7 +2577,7 @@ def zoo_serve_phase(torch, dev, counters):
             del long_engine
         peak = torch.cuda.max_memory_allocated(dev)
         if arch in ("gemma2-27b", "chameleon-34b"):
-            _, _, _, dense = dense_serve_phase(torch, dev, counters, model, params, repeats=1)
+            _, _, _, dense = dense_serve_phase(torch, dev, counters, model, params)
             tokens.update(dense)
             peak = max(peak, torch.cuda.max_memory_allocated(dev))
         if len(tokens) == 3:
@@ -2562,6 +2605,7 @@ MOE_INTERLEAVED = "llama4-maverick-400b-a17b"
 # reduced qwen3 (8 experts, top 2) and llama4 (8, top 1) at this capacity
 # factor drop slots in every check (their configs' 2.0 rarely does)
 MOE_CHECK_CF = 0.5
+MOE_CHUNKED = 4                 # phase 5c's chunked-prefill run: the first 4 requests of the mix
 
 
 def moe_check_phase(torch, dev):
@@ -2591,8 +2635,9 @@ def moe_serve_phase(torch, dev, counters):
     seeded CUDA generator) on the serve phase's mix, each run counted alone
     with exactly 48 attention and 193 rmsnorm launches a pass and a step:
     ``serve_paged`` on a bf16 pool (the baseline) and an int8 pool (the
-    first SLOTS requests); ``spec_k`` 4 on tiled prompts, beside the plain
-    run of those prompts; chunked prefill (the first SLOTS requests); the
+    first SLOTS requests); ``spec_k`` 4 on the first SLOTS tiled prompts,
+    beside the plain run of those prompts; chunked prefill (the first
+    MOE_CHUNKED requests); the
     shared-prefix set with the cache off and on; the
     static path and ``serve_continuous``.  Each prints the driver's
     metrics, peak memory and its token agreement with its baseline (printed,
@@ -2643,19 +2688,22 @@ def moe_serve_phase(torch, dev, counters):
     if base.kv_bytes_per_token != want_bytes:
         raise SystemExit(f"{MOE_ARCH}: {base.kv_bytes_per_token} pool bytes per token, "
                          f"expected {want_bytes}")
-    # the int8 pool and chunked prefill on the first SLOTS requests of the
-    # mix: the depth cut that keeps the script inside its time limit
+    # the int8 pool on the first SLOTS requests of the mix, the tiled pair on
+    # the first SLOTS tiled prompts, chunked prefill on the first
+    # MOE_CHUNKED requests: the depth cuts that keep the script inside its
+    # time limit
     run(f"paged, int8 pool, the first {SLOTS} requests", engines["int8"], reqs[:SLOTS], need,
         ("bf16", base))
-    tiled = _tiled_requests(REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS, vocab, SEED)
-    plain_tiled = run("paged, tiled prompts, plain", engine, tiled, need)
-    run(f"paged, tiled prompts, spec_k {SPEC_K} spec_ngram {DRAFT_NGRAM}", engine, tiled,
+    tiled = _tiled_requests(REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS, vocab, SEED)[:SLOTS]
+    plain_tiled = run(f"paged, the first {SLOTS} tiled prompts, plain", engine, tiled, need)
+    run(f"paged, the first {SLOTS} tiled prompts, spec_k {SPEC_K} spec_ngram {DRAFT_NGRAM}",
+        engine, tiled,
         ("rmsnorm", "varlen_prefill", "spec_verify"), ("plain", plain_tiled),
         spec_k=SPEC_K, spec_ngram=DRAFT_NGRAM)
     # chunked prefill: _counted_serve holds one flash_attention launch a
     # layer and chunk and no varlen_prefill (_expected_launches)
-    run(f"chunked prefill ({CHUNK}-token chunks), the first {SLOTS} requests", engine,
-        reqs[:SLOTS], ("rmsnorm", "paged_attention", "flash_attention"), ("packed", base),
+    run(f"chunked prefill ({CHUNK}-token chunks), the first {MOE_CHUNKED} requests", engine,
+        reqs[:MOE_CHUNKED], ("rmsnorm", "paged_attention", "flash_attention"), ("packed", base),
         prefill_mode="chunked")
     shared = [ServeRequest(request_id=i, prompt=p, max_new_tokens=NEW_TOKENS)
               for i, p in enumerate(_shared_prompts(vocab, SEED, REQUESTS, PREFIX_LEN,
@@ -2672,7 +2720,7 @@ def moe_serve_phase(torch, dev, counters):
     print(f"   {MOE_ARCH} where the time goes (torch.profiler, the paged engine; device ms):")
     profile_phase(torch, engine, reqs)
     del engines, engine
-    _, _, _, dense = dense_serve_phase(torch, dev, counters, model, params, repeats=1)
+    _, _, _, dense = dense_serve_phase(torch, dev, counters, model, params)
     peak = max(peak, torch.cuda.max_memory_allocated(dev))
     paged = [r.tokens for r in base.results]
     print(f"   {MOE_ARCH} greedy tokens on the mix (bf16; printed, not held): paged vs static "
@@ -2907,8 +2955,7 @@ def hybrid_serve_phase(torch, dev, counters):
     if S_ring == RING_MAX_SEQ or S_ring >= min(LONG_LENS):
         raise SystemExit(f"{HYBRID_ARCH}: max_seq {RING_MAX_SEQ} gives no ring the long set "
                          f"overflows ({S_ring} slots)")
-    _, engine, prompts, tokens = dense_serve_phase(torch, dev, counters, model, params,
-                                                   repeats=1)
+    _, engine, prompts, tokens = dense_serve_phase(torch, dev, counters, model, params)
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"   {HYBRID_ARCH} where the time goes (torch.profiler, generate; device ms):")
     dense_profile_phase(torch, engine, prompts)
@@ -3251,7 +3298,7 @@ def encdec_serve_phase(torch, dev, counters):
     counts (``_dense_expected``: 96 flash_attention and 162 rmsnorm a
     prefill pass, 64 decode_attention and 97 rmsnorm a decode step, no
     other kernel): the static path on the serve mix (zero frames, as the
-    driver feeds them), two runs; one transcription-shaped ``generate``
+    driver feeds them), one run; one transcription-shaped ``generate``
     batch (SLOTS prompts of TRANSCRIBE_PROMPT tokens, TRANSCRIBE_NEW new
     tokens, random frames, ``max_seq`` TRANSCRIBE_MAX_SEQ); the profile of a
     prefill pass and a decode step; peak memory; and the refusals of
@@ -3575,7 +3622,7 @@ def paged_paths_serve_phase(torch, dev, counters, engine, reqs, base):
           f"{pre.prefill_tokens_dropped}, admitted {pre.prompt_tokens_admitted}")
     if not pre.preemptions:
         raise SystemExit("overcommit: nothing was preempted at full width")
-    first_token_check(torch, dev, engine.model, engine.params, reqs, chunked, [
+    return first_token_check(torch, dev, engine.model, engine.params, reqs, chunked, [
         ("chunked vs packed", reqs, base, chunked),
         ("cache on vs off", shared_reqs, off, on),
         ("overcommit vs undisturbed", reqs, base, pre)])
@@ -3663,6 +3710,7 @@ def first_token_check(torch, dev, model, params, reqs, chunked, pairs):
     if any(m > 2 * E for _, _, _, m in flips):
         raise SystemExit("a bf16 run flips a token where float32 separates the two by more "
                          "than twice the bf16 error: not rounding")
+    return E
 
 
 # ---------------------------------------------------------------------------
@@ -3983,6 +4031,269 @@ def fleet_serve_phase(torch, dev, counters, model, params, reqs):
           f"{migrate.recomputed_prefill_tokens}, replay {replay.recomputed_prefill_tokens}")
     if not migrate.recomputed_prefill_tokens < replay.recomputed_prefill_tokens:
         raise SystemExit("fleet: migration recomputed no fewer prompt tokens than replay")
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel paged serving: two ranks on the one card
+# ---------------------------------------------------------------------------
+TP = 2
+TP_MOE_LAYERS = 12              # qwen3-moe-30b-a3b cut to 12 of its 48 layers (two ranks' weights)
+TP_SPEC_SLOTS = 4               # the speculative TP run: 4 tiled prompts, each twice, on 4 slots
+# the float32 probe at full width: glm4-9b cut to 2 of its 40 layers (every
+# split at its published size), tp 2 vs tp 1; the first prompt's logits
+# within TP_F32_TOL of tp 1's largest (the two differ only in the order of
+# float32 sums: the partials of the row-parallel products added across ranks)
+TP_F32_LAYERS = 2
+TP_F32_TOL = 1e-4
+
+
+
+def _tp_world_jobs(torch, cfgs, reqs, tiled, red_reqs, moe_reqs):
+    """The TP world's jobs: (a) glm4-9b at full width, bf16 (the serve mix,
+    probed for its first prompt's logits and traced; then the tiled prompts
+    with ``spec_k``); (a') glm4-9b at full width cut to TP_F32_LAYERS
+    layers, float32 (the first SLOTS requests of the mix, probed); (b)
+    reduced glm4-9b in float32; (c) qwen3-moe-30b-a3b cut to TP_MOE_LAYERS
+    layers, bf16."""
+    from repro_torch.serve.tp import TPRun
+
+    eng = dict(max_batch=SLOTS, max_seq=MAX_SEQ, page_size=PAGE)
+    kw = dict(num_slots=SLOTS, page_size=PAGE, prefill_budget=BUDGET)
+    red_eng = dict(max_batch=3, max_seq=64, page_size=4)
+    red_kw = dict(num_slots=3, page_size=4, prefill_budget=8)
+    return [
+        (cfgs["full"], SEED, [
+            TPRun(reqs, engine=eng, serve=kw, probe=reqs[0].prompt, trace=True),
+            TPRun(tiled, engine=eng, serve=dict(kw, spec_k=SPEC_K, spec_ngram=DRAFT_NGRAM,
+                                                prefix_cache=True, num_slots=TP_SPEC_SLOTS))],
+         torch.bfloat16),
+        (cfgs["f32"], SEED, [TPRun(reqs[:SLOTS], engine=eng, serve=kw, probe=reqs[0].prompt)],
+         torch.float32),
+        (cfgs["reduced"], SEED, [TPRun(red_reqs, engine=red_eng, serve=red_kw)], torch.float32),
+        (cfgs["moe"], SEED, [TPRun(moe_reqs, engine=eng, serve=kw)], torch.bfloat16),
+    ]
+
+
+def _tp_spec_requests(vocab):
+    """The first TP_SPEC_SLOTS tiled prompts cut to whole pages, then the
+    same prompts again, on TP_SPEC_SLOTS slots: the second wave, admitted as
+    the first finishes, finds each prompt cached whole (and prefills
+    nothing)."""
+    from repro_torch.serve.engine import ServeRequest
+
+    first = _tiled_requests(TP_SPEC_SLOTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS, vocab, SEED)
+    prompts = [r.prompt[:len(r.prompt) // PAGE * PAGE] for r in first] * 2
+    return [ServeRequest(request_id=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+
+
+def _tp_counts(label, res, cfg, reqs):
+    """Every rank's launches exactly what the run's passes imply, every
+    request complete (all its tokens, inside the vocabulary), the ledger
+    balanced."""
+    stats = res.stats
+    _check_ledger(label, stats)
+    done = sum(1 for q, r in zip(reqs, stats.results)
+               if r.status == "completed" and len(r.tokens) == q.max_new_tokens
+               and all(0 <= t < cfg.vocab_size for t in r.tokens))
+    if done != len(reqs):
+        raise SystemExit(f"{label}: only {done} of {len(reqs)} requests completed")
+    expect = _expected_launches(stats, cfg)
+    for rank, counts in enumerate(res.launches):
+        for name, got in counts.items():
+            if got != expect.get(name, 0):
+                raise SystemExit(f"{label}: rank {rank} launched {name} {got} times, expected "
+                                 f"{expect.get(name, 0)}")
+    print(f"      launches a rank (each rank's equal to the run's passes): {res.launches[0]}")
+
+
+def tp_serve_phase(torch, dev, bf16_err):
+    """Tensor-parallel paged serving, two ranks (``repro_torch.launch.mesh``:
+    spawned processes, one gloo world) sharing the one card, against tp 1 in
+    this process, which holds no model while the ranks run:
+
+    (a) glm4-9b at full width and depth, bf16, random weights from SEED
+    (each rank draws every leaf whole and keeps its cut: 16 query heads on
+    1 kv head, half the MLP columns and half the vocabulary a rank) on the
+    serve mix: the first prompt's logits within 2E of tp 1's, E the largest
+    bf16 error phase 4 measured against float32 (two bf16 paths each within
+    E); greedy tokens as ``_agreement`` counts them, each request's first
+    divergence at a step where tp 1's top-two margin is at most 2E (tp 1's
+    margins printed beside 2E: at this width in bf16 they lie far below it,
+    so these two checks bind little, and (a') is the full-width check that
+    binds); every rank's launches exact; each rank's peak memory and pool
+    pages; the analytic ``tp:collective`` ledger.  Then ``spec_k`` SPEC_K with the
+    prefix cache on ``_tp_spec_requests``, whose second wave hits the
+    cache whole: each replays its last prompt token through the decode
+    step, where the drafter finds it earlier in the tiled prompt, so verify
+    steps (spec_verify at the local heads) are sure to run.
+    (a') glm4-9b at its published widths cut to TP_F32_LAYERS layers, in
+    float32 (every split, vocabulary and MLP columns included, at full
+    size): the first prompt's logits within TP_F32_TOL of tp 1's largest,
+    and on the first SLOTS requests every first divergence at a tp-1
+    margin of at most twice that limit.
+    (b) reduced glm4-9b in float32: tokens equal tp 1's.  (c) qwen3-moe-
+    30b-a3b cut to TP_MOE_LAYERS layers, bf16 (64 experts a rank, the
+    router whole on each), once, on the first SLOTS requests of the mix:
+    launches exact, tokens beside tp 1's.
+    Returns rank 0's launches by kernel, for the kernels line's ``[tp2]``
+    records."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import ServeRequest, ServingEngine
+    from repro_torch.serve.tp import serve_tp
+
+    cfg = get_config("glm4-9b")
+    cfgs = {"full": cfg, "f32": cfg.replace(num_layers=TP_F32_LAYERS),
+            "reduced": get_config("glm4-9b", reduced=True),
+            "moe": get_config(MOE_ARCH).replace(num_layers=TP_MOE_LAYERS)}
+    reqs = make_requests(REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS, cfg.vocab_size, SEED)
+    tiled = _tp_spec_requests(cfg.vocab_size)
+    red = cfgs["reduced"]
+    rng = np.random.default_rng(SEED)
+    red_reqs = [ServeRequest(request_id=i, prompt=rng.integers(0, red.vocab_size, (int(n),))
+                             .astype(np.int32), max_new_tokens=6)
+                for i, n in enumerate(rng.integers(5, 40, size=6))]
+    moe_reqs = make_requests(REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS,
+                             cfgs["moe"].vocab_size, SEED)[:SLOTS]
+    eng = dict(max_batch=SLOTS, max_seq=MAX_SEQ, page_size=PAGE)
+    kw = dict(num_slots=SLOTS, page_size=PAGE, prefill_budget=BUDGET)
+
+    # tp 1 in this process, one model at a time
+    def tp1(cfg_, dtype, runs):
+        model = build_model(cfg_, device=dev, dtype=dtype)
+        params = model.init(seed=SEED)
+        out = [fn(ServingEngine(model, params, device=dev, **e)) for e, fn in runs]
+        del model, params
+        _release(torch)
+        return out
+
+    logits1, base, base_spec = tp1(cfg, torch.bfloat16, [
+        (eng, lambda e: e.prompt_logits(reqs[0].prompt).float().cpu()),
+        (eng, lambda e: e.serve_paged(reqs, **kw)),
+        (eng, lambda e: e.serve_paged(tiled, spec_k=SPEC_K, spec_ngram=DRAFT_NGRAM,
+                                      prefix_cache=True, **dict(kw, num_slots=TP_SPEC_SLOTS)))])
+    f32_logits1, f32_base = tp1(cfgs["f32"], torch.float32, [
+        (eng, lambda e: e.prompt_logits(reqs[0].prompt).float().cpu()),
+        (eng, lambda e: e.serve_paged(reqs[:SLOTS], **kw))])
+    (red_base,) = tp1(red, torch.float32, [(dict(max_batch=3, max_seq=64, page_size=4),
+                                            lambda e: e.serve_paged(
+                                                red_reqs, num_slots=3, page_size=4,
+                                                prefill_budget=8))])
+    (moe_base,) = tp1(cfgs["moe"], torch.bfloat16, [(eng, lambda e: e.serve_paged(moe_reqs,
+                                                                                   **kw))])
+    t0 = time.perf_counter()
+    full, f32, reduced, moe = serve_tp(_tp_world_jobs(torch, cfgs, reqs, tiled, red_reqs, moe_reqs),
+                                  TP, device=dev, timeout_s=600.0)
+    print(f"   the world of {TP} ranks on one card (spawn, weights, every run): "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # (a) glm4-9b at full width
+    res, spec = full
+    print(f"   (a) {cfg.name} at full width, bf16, tp {res.engine_tp}: mesh {res.mesh}; "
+          f"pool pages a rank {res.pool_pages}, kv heads a rank {cfg.num_kv_heads // TP}; "
+          f"peak device memory a rank "
+          f"{[round(b / 1e9, 2) for b in res.peak_bytes]} GB")
+    diff = float((res.logits.float() - logits1).abs().max())
+    print(f"      first prompt's logits, tp {TP} vs tp 1: max |diff| {diff:.4f}, 2E "
+          f"{2 * bf16_err:.4f} (E: phase 4's largest bf16 error against float32)")
+    if not diff <= 2 * bf16_err:
+        raise SystemExit(f"tp {TP}: the first prefill's logits are further than 2E from tp 1's")
+    _tp_counts(f"tp {TP} serve_paged", res, cfg, reqs)
+    print(f"      tp:collective ledger: {res.tp_summary}")
+    print(f"      vs tp 1: {_fmt_agreement([r.tokens for r in base.results], [r.tokens for r in res.stats.results])}")
+    _tp_margins(torch, dev, cfg, torch.bfloat16, reqs, base, res.stats, 2 * bf16_err, "2E")
+    print(f"      spec_k {SPEC_K}, prefix cache on, {len(tiled) // 2} tiled prompts, each twice: "
+          f"full hits {spec.stats.prefix_stats.get('full_hits')}, spec_stats {spec.stats.spec_stats}; "
+          f"vs tp 1: {_fmt_agreement([r.tokens for r in base_spec.results], [r.tokens for r in spec.stats.results])}")
+    _tp_counts(f"tp {TP} speculative serve_paged", spec, cfg, tiled)
+    if not spec.stats.spec_stats.get("spec_launches"):
+        raise SystemExit(f"tp {TP}: the speculative run ran no verify step")
+
+    # (a') full width in float32, depth cut: logits and tokens
+    (r,) = f32
+    fc = cfgs["f32"]
+    diff = float((r.logits - f32_logits1).abs().max())
+    limit = TP_F32_TOL * float(f32_logits1.abs().max())
+    print(f"   (a') {cfg.name} cut to {TP_F32_LAYERS} of {cfg.num_layers} layers, float32, tp "
+          f"{r.engine_tp}: first prompt's logits, tp {TP} vs tp 1: max |diff| {diff:.3e}, limit "
+          f"{limit:.3e} ({TP_F32_TOL} of tp 1's largest)")
+    if r.engine_tp != TP or not diff <= limit:
+        raise SystemExit(f"tp {TP}: float32 logits at full width further than {limit:.3e} from "
+                         f"tp 1's")
+    _tp_counts(f"tp {TP} float32 serve_paged", r, fc, reqs[:SLOTS])
+    print(f"      vs tp 1: {_fmt_agreement([x.tokens for x in f32_base.results], [x.tokens for x in r.stats.results])}")
+    _tp_margins(torch, dev, fc, torch.float32, reqs[:SLOTS], f32_base, r.stats, 2 * limit,
+                "twice the limit")
+
+    # (b) reduced, float32: the same tokens
+    r = reduced[0]
+    same = all(np.array_equal(a.tokens, b.tokens)
+               for a, b in zip(red_base.results, r.stats.results))
+    print(f"   (b) {red.name}, float32, tp {r.engine_tp}: tokens equal tp 1's: {same}")
+    _tp_counts(f"tp {TP} reduced", r, red, red_reqs)
+    if not same or r.engine_tp != TP:
+        raise SystemExit(f"tp {TP}: reduced float32 tokens differ from tp 1's")
+
+    # (c) qwen3-moe, depth cut
+    m = moe[0]
+    mc = cfgs["moe"]
+    print(f"   (c) {MOE_ARCH} cut to {TP_MOE_LAYERS} of 48 layers, bf16, tp {m.engine_tp} "
+          f"({mc.num_experts // TP} experts a rank): peak device memory a rank "
+          f"{[round(b / 1e9, 2) for b in m.peak_bytes]} GB; vs tp 1: "
+          f"{_fmt_agreement([x.tokens for x in moe_base.results], [x.tokens for x in m.stats.results])}")
+    _tp_counts(f"tp {TP} {MOE_ARCH}", m, mc, moe_reqs)
+    if m.engine_tp != TP:
+        raise SystemExit(f"tp {TP}: {MOE_ARCH} did not split")
+    return {f"{k}[tp{TP}]": n for k, n in {**res.launches[0],
+                                           "spec_verify": spec.launches[0]["spec_verify"]}.items()}
+
+
+def _tp_margins(torch, dev, cfg, dtype, reqs, base, got, limit, name):
+    """tp 1's top-two margins (its last-token logits over the prompt and
+    the tokens before, the model drawn again from SEED in ``dtype``): at
+    each request's first token, their spread beside ``limit``; and at each
+    request's first token where tp 2 leaves tp 1, where a margin above
+    ``limit`` (a divergence that is no near-tie) fails the check."""
+    import numpy as np
+
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import ServingEngine
+
+    firsts = []
+    for r, a, b in zip(reqs, base.results, got.results):
+        a, b = np.asarray(a.tokens), np.asarray(b.tokens)
+        if not np.array_equal(a, b):
+            firsts.append((r, int(np.argmin(a == b)), a))
+    model = build_model(cfg, device=dev, dtype=dtype)
+    params = model.init(seed=SEED)
+    engine = ServingEngine(model, params, max_batch=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
+                           device=dev)
+
+    def margin(ctx):
+        top = engine.prompt_logits(ctx.astype(np.int32)).float().topk(2).values
+        return float(top[0] - top[1])
+
+    at_first = sorted(margin(r.prompt) for r in reqs)
+    margins = [(r.request_id, t, round(margin(np.concatenate([r.prompt, a[:t]])), 4))
+               for r, t, a in firsts]
+    del model, params, engine
+    _release(torch)
+    q = [at_first[int(f * (len(at_first) - 1))] for f in (0, 0.25, 0.5, 0.75, 1)]
+    print(f"      tp 1's top-two margins at the {len(reqs)} requests' first tokens: min "
+          f"{q[0]:.4f}, quartiles {q[1]:.4f} {q[2]:.4f} {q[3]:.4f}, max {q[4]:.4f}; "
+          f"{sum(m > limit for m in at_first)} of {len(at_first)} above {name} = {limit:.4g}")
+    if not firsts:
+        print("      every request's tokens equal tp 1's")
+        return
+    print(f"      first divergences (request, token, tp 1's top-two margin there): {margins}; "
+          f"{name} = {limit:.4g}")
+    if any(m > limit for _, _, m in margins):
+        raise SystemExit(f"tp {TP}: tokens leave tp 1's where its top two are further apart "
+                         f"than {name}: not rounding")
 
 
 # the paper's ResNet-50: plain torch (cuDNN's convolutions), no hand-written
@@ -4468,8 +4779,10 @@ def platform_phase(torch, counters):
                                      f"{passes} predicts, FLOPs {[c['flops'] for c in costs]}")
                 ms = [e["device_ms"] for e in events]
                 if not all(x > 0 for x in ms):
-                    raise SystemExit(f"platform SYSTEM: system:cuda device_ms {ms}: the "
-                                     f"profiler recorded no device time")
+                    raise SystemExit(f"platform SYSTEM: system:cuda device_ms {ms}, device "
+                                     f"records {[e['device_records'] for e in events]}, lost "
+                                     f"{[e['lost_records'] for e in events]}: the profiler "
+                                     f"recorded no device time")
                 lost = [e["lost_records"] for e in events]
                 if any(lost):
                     raise SystemExit(f"platform SYSTEM: system:cuda lost_records {lost} (device "
@@ -5466,6 +5779,9 @@ def main() -> int:
     print("   -- the training path: the forward's log-sum-exp, flash_attention_bwd and "
           "rmsnorm_bwd")
     records.update(train_kernels_phase(torch, dev))
+    print(f"   -- glm4-9b's serving kernels at one rank's heads under tensor parallelism "
+          f"(tp {TP}: 16 query heads on 1 kv head)")
+    records.update(kernels_phase(torch, dev, modes=(None,), tp=TP))
     _done(torch, "2. kernels", t0)
 
     t0 = _phase("3. check: reduced glm4-9b, mamba2-130m, the rest of the dense family, the "
@@ -5504,7 +5820,7 @@ def main() -> int:
     model, params = full_model(torch, dev)
     launches, engine, reqs, base = serve_phase(torch, dev, counters, model, params)
     print("   -- the rest of serve_paged: chunked prefill, the prefix cache, overcommit")
-    paged_paths_serve_phase(torch, dev, counters, engine, reqs, base)
+    bf16_err = paged_paths_serve_phase(torch, dev, counters, engine, reqs, base)
     print("   -- the dense engines (static generate behind the scheduler; serve_continuous)")
     dense_launches, dense_engine, prompts, _ = dense_serve_phase(torch, dev, counters, model,
                                                                  params)
@@ -5563,6 +5879,7 @@ def main() -> int:
     encdec_serve_phase(torch, dev, counters)
     _done(torch, "5e. serve the enc-dec family", t0)
 
+
     t0 = _phase("6. platform: client -> server -> agent -> scenario -> torch predictor")
     platform_check(torch, dev)
     platform_phase(torch, counters)
@@ -5573,6 +5890,15 @@ def main() -> int:
     t0 = _phase("6b. the four serving examples' torch twins on the card")
     examples_phase(torch)
     _done(torch, "6b. examples", t0)
+
+    # last: once other processes (these ranks) have used the card, every
+    # later profiler window of this one loses its first device records
+    # (tools/profile_windows.py), and phase 6 reads such windows
+    _release(torch)
+    t0 = _phase(f"7. serve: tensor parallelism, {TP} ranks on the one card (glm4-9b full "
+                f"width, reduced in float32, {MOE_ARCH} cut to {TP_MOE_LAYERS} layers)")
+    launches.update(tp_serve_phase(torch, dev, bf16_err))
+    _done(torch, "7. serve with tensor parallelism", t0)
 
     sources = {
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:26"),

@@ -11,8 +11,9 @@ The port's copy of what the platform and the serving driver call from
 index, the trace and report helpers, and the summaries of the paged
 engine's events (page occupancy, prefill saturation, speculation, prefix
 cache, SLO serving), of the fleet's (``fleet:*``/``fault:*``) and of live
-KV migration (``ckpt:*``/``migrate:*``), inter-token latency and KV
-divergence.  The TP summary waits for the slice that emits its events.
+KV migration (``ckpt:*``/``migrate:*``), of tensor-parallel serving's
+``tp:collective`` ledger (:func:`tp_summary`), inter-token latency and KV
+divergence.
 Every module of ``repro_torch`` keeps its own copy of what it needs so that
 it never imports ``repro``.
 """
@@ -263,6 +264,61 @@ def spec_decode_section(spans: Iterable[Span]) -> str:
     """Render the speculative-decoding block as a report section; empty
     string when no speculative run was traced."""
     summary = spec_decode_summary(spans)
+    if not summary:
+        return ""
+    rows = [{"metric": k, "value": v} for k, v in summary.items()]
+    return comparison_table(rows, ("metric", "value"))
+
+
+def tp_summary(spans: Iterable[Span]) -> Dict[str, float]:
+    """Summarize tensor-parallel communication from ``tp:collective`` events.
+
+    The paged engine publishes one event per sharded launch, tagged with
+    ``phase`` (prefill / decode / verify), ``kind`` (psum vs
+    reduce_scatter), ``tp``, ``count`` (collectives in the launch: two per
+    transformer layer — the attention-output -> o-proj boundary and the MLP
+    down-proj), ``payload_bytes`` (summed block-output bytes) and
+    ``moved_bytes`` (ring-algorithm wire traffic per shard).  This
+    aggregates them per boundary kind and phase so bottleneck attribution
+    can rank communication against the compute stack levels."""
+    tp = 0.0
+    launches = 0
+    count: Dict[str, float] = {}
+    payload: Dict[str, float] = {}
+    moved: Dict[str, float] = {}
+    phase_moved: Dict[str, float] = {}
+    for s in spans:
+        if s.name != "tp:collective":
+            continue
+        launches += 1
+        tp = max(tp, float(s.tags.get("tp", 0)))
+        kind = str(s.tags.get("kind", "psum"))
+        count[kind] = count.get(kind, 0.0) + float(s.tags.get("count", 0))
+        payload[kind] = payload.get(kind, 0.0) + float(
+            s.tags.get("payload_bytes", 0)
+        )
+        moved[kind] = moved.get(kind, 0.0) + float(s.tags.get("moved_bytes", 0))
+        phase = str(s.tags.get("phase", ""))
+        phase_moved[phase] = phase_moved.get(phase, 0.0) + float(
+            s.tags.get("moved_bytes", 0)
+        )
+    if not launches:
+        return {}
+    out: Dict[str, float] = {"tp": tp, "sharded_launches": float(launches)}
+    for kind in sorted(count):
+        out[f"{kind}_count"] = count[kind]
+        out[f"{kind}_payload_bytes"] = payload[kind]
+        out[f"{kind}_moved_bytes"] = moved[kind]
+    for phase in sorted(phase_moved):
+        out[f"{phase}_moved_bytes"] = phase_moved[phase]
+    out["total_moved_bytes"] = sum(moved.values())
+    return out
+
+
+def tp_section(spans: Iterable[Span]) -> str:
+    """Render the tensor-parallel communication block as a report section;
+    empty string when no sharded run was traced."""
+    summary = tp_summary(spans)
     if not summary:
         return ""
     rows = [{"metric": k, "value": v} for k, v in summary.items()]

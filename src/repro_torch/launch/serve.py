@@ -63,11 +63,26 @@ database as one record (backend ``torch``, scenario ``serve-<engine>``, or
 Prompts are random tokens with lengths drawn uniformly from
 ``[--prompt-len-min, --prompt-len]`` (with ``--tenants``, each tenant's
 ``prompt`` length; with ``--prefix-len``, ``--prompt-len`` tokens).
+
+``--tp N`` (paged engine only, as in the reference) serves on ``N`` ranks
+started by :func:`repro_torch.launch.mesh.run_ranks` (gloo; on the card
+every rank on its own device, or all of them sharing one card), each
+holding its heads, columns, experts and vocabulary share of the weights
+(``serve_rules``) and ``kv_heads / N`` heads of every page;
+``--rs-block-outputs`` reduce-scatters a packed prefill's block outputs
+over tokens.  The header prints the requested and effective tp (1 where
+the heads do not split: every rank then serves the whole model), the
+report adds the tensor-parallel collectives section, and the metrics and
+the evaldb record carry ``tp``; rank 0 prints and records.  ``--fleet``
+takes no ``--tp``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import random
+import sys
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
@@ -86,6 +101,7 @@ from ..core.analysis import (
     recovery_section,
     slo_section,
     spec_decode_section,
+    tp_section,
 )
 from ..core.evaldb import EvalDB, EvaluationRecord
 from ..core.manifest import EngineKnobs
@@ -100,6 +116,8 @@ from ..serve.engine import NOT_CONTINUOUS_ENCDEC, ServeRequest, ServingEngine
 from ..serve.faults import FaultPlan
 from ..serve.fleet import FleetConfig, FleetRouter
 from ..serve.scheduler import PRIORITY_TIERS, RequestScheduler, SchedulerConfig, TenantSpec
+from ..sharding.specs import serve_rules, tp_degree
+from .mesh import make_host_mesh, run_ranks
 
 
 def make_requests(n: int, lo: int, hi: int, max_new_tokens: int, vocab: int,
@@ -363,6 +381,7 @@ PAGED_SECTIONS = (
     ("prefill saturation", prefill_saturation_section),
     ("speculative decoding", spec_decode_section),
     ("prefix cache", prefix_cache_section),
+    ("tensor-parallel collectives", tp_section),
     ("multi-tenant SLO", slo_section),
 )
 
@@ -410,6 +429,7 @@ def _paged(engine, reqs, args) -> Dict[str, float]:
         "kv_bytes_per_token": stats.kv_bytes_per_token,
         "itl_p50_ms": stats.itl_p50_ms,
         "itl_p99_ms": stats.itl_p99_ms,
+        "tp": stats.tp,
         **stats.spec_stats,
     }
 
@@ -508,7 +528,7 @@ def _parse_drains(text: str) -> List[tuple]:
 ENGINES = {"paged": _paged, "static": _static, "continuous": _continuous}
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="glm4-9b", choices=list_archs())
     ap.add_argument("--full", action="store_true",
@@ -618,6 +638,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--evaldb", default="",
                     help="insert the run's summary and engine knobs as one evaluation "
                          "record into this sqlite file (default: none)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree over the mesh 'model' axis: that many ranks "
+                         "(gloo), each with its share of the heads, columns, experts and "
+                         "vocabulary (1 = one process; --engine paged only)")
+    ap.add_argument("--rs-block-outputs", action="store_true",
+                    help="reduce-scatter block outputs instead of all-reduce on "
+                         "seq-shardable (packed prefill) launches")
+    return ap
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = _parser()
     args = ap.parse_args(argv)
     lo = args.prompt_len_min or args.prompt_len
     if not 1 <= lo <= args.prompt_len:
@@ -632,6 +664,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                  f"keeps a unique tail)")
     if args.fleet > 0 and args.engine != "paged":
         ap.error("--fleet requires --engine paged (the fleet routes over paged workers)")
+    if args.tp < 1:
+        ap.error("--tp must be >= 1")
+    if args.tp > 1 and args.engine != "paged":
+        ap.error("--tp > 1 requires --engine paged")
+    if args.tp > 1 and args.fleet > 0:
+        ap.error("--tp > 1 with --fleet is not supported (each fleet worker is one process)")
     try:
         _parse_drains(args.drain_at)
         FaultPlan.parse(args.fault_plan)
@@ -652,6 +690,30 @@ def main(argv: Optional[List[str]] = None) -> int:
             ap.error(f"bad --priority-mix {args.priority_mix!r}: {e}")
 
     device = resolve_device(args.device)
+    if args.tp > 1:
+        # every rank runs the rest of this function on its own device; rank
+        # 0's lines come back and are printed here
+        rc, text = run_ranks(_serve_rank, args.tp,
+                             list(sys.argv[1:] if argv is None else argv), device=device)
+        print(text, end="")
+        return rc
+    return _serve(ap, args, device)
+
+
+def _serve_rank(rank: int, device: torch.device, argv: Optional[List[str]]):
+    """One rank of a ``--tp`` run: the driver on ``device`` with its lines
+    captured; returns (exit code, rank 0's lines)."""
+    ap = _parser()
+    args = ap.parse_args(argv)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = _serve(ap, args, device, rank=rank)
+    return rc, buf.getvalue()
+
+
+def _serve(ap, args, device: torch.device, rank: int = 0) -> int:
+    """The driver's run on ``device`` (at ``--tp`` above 1, as rank
+    ``rank`` of a world that ``run_ranks`` started)."""
     if device.type == "cuda":
         # fp32 matmuls stay full fp32 (no TF32) wherever the port runs fp32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -662,30 +724,38 @@ def main(argv: Optional[List[str]] = None) -> int:
     model = build_model(cfg, device=device, dtype=args.dtype)
     if args.engine == "paged" and (model.stateful or model.interleaved):
         ap.error(f"--engine paged with {cfg.name}: {NOT_PAGED}")
+    rules = None
+    if args.tp > 1:
+        rules = serve_rules(make_host_mesh(args.tp), rs_block_outputs=args.rs_block_outputs)
+    # at an effective tp above 1 each rank draws only its shards
+    sharded = tp_degree(rules, cfg.num_heads, cfg.num_kv_heads) > 1
     try:
-        params = model.init(seed=args.seed)
+        params = model.init(seed=args.seed, rules=rules if sharded else None, rank=rank)
     except MemoryError as e:
         ap.error(f"{e} (drop --full)")
     def make_engine():
         return ServingEngine(model, params, max_batch=args.engine_batch,
                              max_seq=args.max_seq, page_size=args.page_size,
-                             device=device, kv_dtype=args.kv_dtype)
+                             device=device, kv_dtype=args.kv_dtype, rules=rules)
 
     engine = make_engine()
     # the engine knobs this run serves under, as the reference's header and
-    # evaldb record give them (tensor parallelism is not ported: tp 1); the
-    # recovery knobs are the fleet's, so a single engine keeps replay and no
-    # checkpoints
+    # evaldb record give them; the recovery knobs are the fleet's, so a
+    # single engine keeps replay and no checkpoints
     knobs = EngineKnobs(
         engine=args.engine,
         kv_dtype=engine._kv_dtype_name(),
         page_size=args.page_size if args.engine == "paged" else 0,
         spec_k=args.spec_k if args.engine == "paged" else 0,
         prefix_cache=args.engine == "paged" and args.prefix_cache == "on",
+        tp=engine.tp,
         recovery=args.recovery if args.fleet else "replay",
         checkpoint_every=args.checkpoint_every if args.fleet else 0,
     )
     print(f"[serve] {knobs.describe()}")
+    if args.tp > 1:
+        print(f"[serve] tensor parallelism: requested tp={args.tp}, effective tp={engine.tp} "
+              f"({'heads split' if engine.tp > 1 else 'replication fallback'})")
     reqs = workload_requests(args, cfg.vocab_size)
     paged = args.engine == "paged"
     print(f"[serve] {cfg.name} on {device} ({model.dtype}), engine {args.engine}, "
@@ -707,7 +777,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         summary["moe"] = moe_summary(cfg)
     for k, v in summary.items():
         print(f"[serve]   {k:20s} {v:.2f}" if isinstance(v, float) else f"[serve]   {k:20s} {v}")
-    if args.evaldb:
+    if args.evaldb and rank == 0:
         db = EvalDB(args.evaldb)
         try:
             db.insert(EvaluationRecord(

@@ -35,7 +35,11 @@ layer, on the static engine only; it has no paged form.
 Layers run as a Python loop over a list of per-layer parameter dicts (JAX
 scans stacked leaves); caches and pools stay stacked on a leading layer
 axis and each layer writes its slice in place, where JAX returns updated
-arrays.
+arrays.  Under tensor parallelism (the paged paths, on a rank's shards
+from ``init(rules=...)`` or ``shard_params``) the embedding and the head
+are vocab-parallel, the pools hold the rank's kv heads
+(``init_paged_cache(tp=)``), and the blocks close their row-parallel
+products with collectives (:mod:`.modules`).
 """
 from __future__ import annotations
 
@@ -48,6 +52,8 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device, resolve_dtype
 from ..kernels import decode_attention as _decode_attention
 from ..kernels import kvquant, ops
+from ..sharding import comm
+from ..sharding.specs import ShardingRules, leaf_split, opt_enabled, shard_leaf
 from .config import ArchConfig
 from .modules import (
     attn_decode,
@@ -66,7 +72,10 @@ from .modules import (
     moe_apply,
     moe_defs,
     norm_defs,
+    shard_outside_group,
     sinusoidal,
+    token_shard,
+    vocab_embed,
 )
 from .params import P, init_params
 
@@ -162,12 +171,16 @@ class _BaseLM:
     def param_defs(self) -> Dict[str, Any]:
         raise NotImplementedError
 
-    def init(self, seed: int = 0, dtype: Optional[torch.dtype] = None):
+    def init(self, seed: int = 0, dtype: Optional[torch.dtype] = None,
+             rules: Optional[ShardingRules] = None, rank: int = 0):
         """Random weights on the model's device from a seeded
         ``torch.Generator`` on that device, in the model's dtype or
         ``dtype`` (the trainer's float32 masters).  Raises ``MemoryError``
         before allocating anything where the weights alone exceed the
-        card's memory (``weights_fit``)."""
+        card's memory (``weights_fit``).  With ``rules``, rank ``rank``'s
+        shards (:func:`~repro_torch.sharding.specs.shard_params`): each
+        leaf is drawn whole, as at tp 1, and cut at once, so every rank
+        holds its piece of the same weights and never the whole tree."""
         dtype = dtype or self.dtype
         capacity = _device_memory(self.device)
         why = weights_fit(self.cfg, dtype, capacity) if capacity is not None else None
@@ -175,19 +188,29 @@ class _BaseLM:
             raise MemoryError(why)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        return init_params(self.param_defs(), gen, self.device, dtype)
+        if rules is None:
+            return init_params(self.param_defs(), gen, self.device, dtype)
+        return init_params(self.param_defs(), gen, self.device, dtype,
+                           keep=lambda path, p, t: shard_leaf(t, leaf_split(rules, p, path),
+                                                              rules, rank))
 
     def _norm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return ops.rmsnorm(x, w, self.cfg.norm_eps)
 
     def _embed_tokens(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        x = params["embed"][tokens.long()]
+        """Token embeddings (vocab-parallel on a rank holding a share of
+        the table: :func:`~repro_torch.models.modules.vocab_embed`)."""
+        x = vocab_embed(params["embed"], tokens, self.cfg.vocab_size)
         return x if self._embed_scale is None else x * self._embed_scale
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         """Final norm, then the head product accumulated and returned in
         float32 (a tied head reads ``embed`` transposed, no copy), then the
-        logit softcap where the config sets one."""
+        logit softcap where the config sets one.  Under a model group a
+        rank holding a share of the vocabulary's columns gathers every
+        rank's logits (one all-gather, float32) before the softcap, so the
+        greedy token is taken over the whole vocabulary, the same on every
+        rank; a share outside a group raises."""
         cfg = self.cfg
         x = self._norm(x, params["final_norm"])
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -209,6 +232,10 @@ class _BaseLM:
             xf = x.float()
             logits = torch.cat([xf @ head[:, i:i + _HEAD_SLICE].float()
                                 for i in range(0, head.shape[1], _HEAD_SLICE)], dim=-1)
+        if comm.model_group()[1] > 1:
+            logits = comm.all_gather(logits, dim=-1)
+        elif head.shape[1] != cfg.vocab_size:
+            raise RuntimeError(shard_outside_group("head", head.shape[1], cfg.vocab_size))
         if cfg.logit_softcap > 0:
             logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
         return logits
@@ -287,12 +314,13 @@ class DecoderLM(_BaseLM):
         else:
             kind = {"ssm": "mamba", "hybrid": "mamba", "moe": "moe"}.get(cfg.family, "dense")
             blocks = [block(kind) for _ in range(L)]
-        defs = {"embed": P((V, D)), "blocks": blocks, "final_norm": norm_defs(cfg)}
+        defs = {"embed": P((V, D), axes=("vocab", "embed")), "blocks": blocks,
+                "final_norm": norm_defs(cfg)}
         if self.hybrid:
             defs["shared"] = {"ln1": norm_defs(cfg), "attn": attn_defs(cfg),
                               "ln2": norm_defs(cfg), "mlp": mlp_defs(cfg)}
         if not cfg.tie_embeddings:
-            defs["lm_head"] = P((D, V))
+            defs["lm_head"] = P((D, V), axes=("embed", "vocab"))
         return defs
 
     # -- helpers ----------------------------------------------------------------
@@ -328,23 +356,33 @@ class DecoderLM(_BaseLM):
         if self.interleaved:
             raise NotImplementedError(f"{what} {_NOT_PAGED_INTERLEAVED}")
 
-    def _attn_residual(self, blk, x: torch.Tensor, a: torch.Tensor, with_aux: bool = False):
+    def _attn_residual(self, blk, x: torch.Tensor, a: torch.Tensor, with_aux: bool = False,
+                       scatter: bool = False):
         """The rest of an attention block once attention has run on
         ``ln1(x)``: the attention output ``a`` (post-normed where the config
         has post-norms) added to the residual ``x``, then ln2 + MLP, or the
         mixture of experts where the block has a router (post-normed
         likewise), residual-added.  With ``with_aux`` returns (x, the
-        block's MoE auxiliary loss, None for a dense block)."""
+        block's MoE auxiliary loss, None for a dense block).  With
+        ``scatter`` (tensor parallelism's ``rs_block_outputs``) ``x`` and
+        ``a`` hold this rank's token rows: the residuals and norms run on
+        them, and ln2's output is all-gathered before the MLP, whose output
+        comes back as this rank's rows."""
         post = self.cfg.post_norms
         if post:
             a = self._norm(a, blk["post_attn_norm"])
         x = x + a
         h = self._norm(x, blk["ln2"])
+        if scatter:
+            h = comm.all_gather(h, dim=1)
         aux = None
         if "router" in blk["mlp"]:
-            m, aux = moe_apply(blk["mlp"], h, self.cfg, need_aux=with_aux)
+            # ``scatter`` only where it is set: the call keeps its form
+            # everywhere else (the tests' spies wrap ``moe_apply`` by it)
+            extra = {"scatter": True} if scatter else {}
+            m, aux = moe_apply(blk["mlp"], h, self.cfg, need_aux=with_aux, **extra)
         else:
-            m = mlp_apply(blk["mlp"], h)
+            m = mlp_apply(blk["mlp"], h, scatter)
         if post:
             m = self._norm(m, blk["post_mlp_norm"])
         return (x + m, aux) if with_aux else x + m
@@ -610,16 +648,20 @@ class DecoderLM(_BaseLM):
 
     # -- paged KV pool --------------------------------------------------------------
     def paged_cache_defs(self, num_pages: int, page_size: int,
-                         kv_dtype: Optional[str] = None) -> Dict[str, tuple]:
+                         kv_dtype: Optional[str] = None, tp: int = 1) -> Dict[str, tuple]:
         """Shapes of the paged KV layout: one global pool of ``page_size``-
         token pages per layer, indexed through per-request page tables.  An
         int8/fp8 ``kv_dtype`` adds the float32 scale pools, one scale per
-        page row per kv head.  The SSM and hybrid families and the
+        page row per kv head.  At tensor-parallel degree ``tp`` a rank's
+        pools hold its ``kv_heads / tp`` heads of every page (the scale
+        pools split on the same axis).  The SSM and hybrid families and the
         interleaved MoE layout have no paged layout."""
         if self.stateful or self.interleaved:
             raise NotImplementedError(NOT_PAGED)
         cfg = self.cfg
-        L, kv, dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+        if cfg.num_kv_heads % tp:
+            raise ValueError(f"{cfg.name}: {cfg.num_kv_heads} kv heads do not split over tp {tp}")
+        L, kv, dh = cfg.num_layers, cfg.num_kv_heads // tp, cfg.resolved_head_dim
         shapes = {"k_pages": (L, num_pages, page_size, kv, dh),
                   "v_pages": (L, num_pages, page_size, kv, dh)}
         if kvquant.is_quantized(kv_dtype):
@@ -628,15 +670,16 @@ class DecoderLM(_BaseLM):
         return shapes
 
     def init_paged_cache(self, num_pages: int, page_size: int,
-                         kv_dtype: Optional[str] = None) -> Dict[str, torch.Tensor]:
+                         kv_dtype: Optional[str] = None, tp: int = 1) -> Dict[str, torch.Tensor]:
         """Zeroed pools: in the model's dtype, or int8/fp8 codes (``kv_dtype``
-        ``"int8"``/``"fp8"``) with float32 scale pools."""
+        ``"int8"``/``"fp8"``) with float32 scale pools; a rank's kv heads at
+        tensor-parallel degree ``tp``."""
         quantized = kvquant.is_quantized(kv_dtype)
         store = kvquant.pool_dtype(kv_dtype) if quantized else self.dtype
         return {
             k: torch.zeros(shape, device=self.device,
                            dtype=torch.float32 if k.endswith("scales") else store)
-            for k, shape in self.paged_cache_defs(num_pages, page_size, kv_dtype).items()
+            for k, shape in self.paged_cache_defs(num_pages, page_size, kv_dtype, tp).items()
         }
 
     @staticmethod
@@ -715,7 +758,13 @@ class DecoderLM(_BaseLM):
         :func:`~repro_torch.models.modules.attn_prefill_packed` and
         ``last_idx`` (C,), the packed row of each chunk's last real token.
         Returns float32 logits (C, V) at ``last_idx``; only rows of chunks
-        that complete their prompt are meaningful."""
+        that complete their prompt are meaningful.  Under tensor
+        parallelism with ``rs_block_outputs``, where ``T`` divides the
+        model group, the residual stream between the blocks holds this
+        rank's ``T / tp`` token rows: each block's output reduce-scatters
+        over tokens, its norms run on the local rows, and ln1's and ln2's
+        outputs are all-gathered before the next projection; the stream is
+        gathered whole once, after the last block."""
         self._refuse_paged("packed paged prefill")
         meta = {
             k: batch[k]
@@ -723,14 +772,22 @@ class DecoderLM(_BaseLM):
                       "chunk_lens", "chunk_pos0", "page_tables")
         }
         x = self._embed_tokens(params, batch["tokens"])             # (1, T, D)
+        size = comm.model_group()[1]
+        scatter = size > 1 and opt_enabled("rs_block_outputs") and x.shape[1] % size == 0
+        if scatter:
+            x = token_shard(x)
         for li, blk in enumerate(params["blocks"]):
             kp, vp, ks, vs = self._layer_pools(cache, li)
             h = self._norm(x, blk["ln1"])
+            if scatter:
+                h = comm.all_gather(h, dim=1)
             a = attn_prefill_packed(
                 blk["attn"], h, kp, vp, meta, self.cfg, window=self.windows[li],
-                pages_bound=pages_bound, k_scales=ks, v_scales=vs,
+                pages_bound=pages_bound, k_scales=ks, v_scales=vs, scatter=scatter,
             )
-            x = self._attn_residual(blk, x, a)
+            x = self._attn_residual(blk, x, a, scatter=scatter)
+        if scatter:
+            x = comm.all_gather(x, dim=1)
         last = batch["last_idx"].long()
         return self._logits(params, x[0, last][:, None, :])[:, 0]
 
@@ -798,8 +855,9 @@ class EncDecLM(_BaseLM):
         dec = [{"ln1": norm_defs(cfg), "self_attn": attn_defs(cfg), "ln2": norm_defs(cfg),
                 "cross_attn": attn_defs(cfg, cross=True), "ln3": norm_defs(cfg),
                 "mlp": mlp_defs(cfg, gated=False)} for _ in range(cfg.num_layers)]
-        return {"embed": P((V, D)), "enc_blocks": enc, "enc_norm": norm_defs(cfg),
-                "dec_blocks": dec, "final_norm": norm_defs(cfg), "lm_head": P((D, V))}
+        return {"embed": P((V, D), axes=("vocab", "embed")), "enc_blocks": enc,
+                "enc_norm": norm_defs(cfg), "dec_blocks": dec, "final_norm": norm_defs(cfg),
+                "lm_head": P((D, V), axes=("embed", "vocab"))}
 
     def cache_len(self, max_seq: int) -> int:
         """Slots of the self-attention cache: ``max_seq``."""

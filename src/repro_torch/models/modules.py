@@ -25,6 +25,21 @@ The mixture of experts (:func:`moe_apply`: capacity-based top-k routing,
 dispatch by index writes, the three expert products as batched matrix
 products over all experts) is plain torch too: the JAX package computes
 it with ``jnp`` outside any Pallas kernel.
+
+Tensor parallelism (the paged serving paths, under the engine's rules):
+a rank holds a column-parallel share of ``wq``/``wk``/``wv`` (whole heads:
+its local query and kv heads), the MLP's ``w_gate``/``w_up`` columns and
+``w_down`` rows, and ``E / tp`` experts; attention runs on the local heads
+unchanged (heads never mix inside it).  Each row-parallel product (the
+o-projection, the MLP's down-projection, the experts' combine) is taken
+in float32 and closed by one :func:`~repro_torch.sharding.comm.all_reduce`
+(:func:`row_close`), or with ``scatter`` (the ``rs_block_outputs`` lever
+on a packed prefill) by one ``reduce_scatter`` over tokens, leaving this
+rank's token rows.  The one signal that a rank holds shards is an active
+model group (:func:`~repro_torch.sharding.comm.model_group` wider than
+one rank), which the engine sets only at an effective tp above 1, where
+it holds every such leaf split; without one the paths run as before, and
+a vocab-parallel shard outside a group raises (:func:`vocab_embed`).
 """
 from __future__ import annotations
 
@@ -35,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import kvquant, ops
+from ..sharding import comm
 from .config import ArchConfig
 from .params import P
 
@@ -70,7 +86,7 @@ def sinusoidal(positions: torch.Tensor, d_model: int) -> torch.Tensor:
 
 
 def norm_defs(cfg: ArchConfig) -> P:
-    return P((cfg.d_model,), "zeros")
+    return P((cfg.d_model,), "zeros", axes=("embed",))
 
 
 def mlp_defs(cfg: ArchConfig, d_ff: int = 0, gated: bool = True) -> Dict[str, P]:
@@ -80,22 +96,27 @@ def mlp_defs(cfg: ArchConfig, d_ff: int = 0, gated: bool = True) -> Dict[str, P]
     D, Fd = cfg.d_model, d_ff or cfg.d_ff
     std_out = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
     defs = {
-        "w_up": P((D, Fd)),
-        "w_down": P((Fd, D), std=std_out),
+        "w_up": P((D, Fd), axes=("embed", "ffn")),
+        "w_down": P((Fd, D), std=std_out, axes=("ffn", "embed")),
     }
     if gated:
-        defs["w_gate"] = P((D, Fd))
+        defs["w_gate"] = P((D, Fd), axes=("embed", "ffn"))
     return defs
 
 
-def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
+              scatter: bool = False) -> torch.Tensor:
     """Gated SiLU MLP ``(silu(x W_gate) * x W_up) W_down``, or without
     ``w_gate`` ``gelu(x W_up) W_down`` with the tanh approximation of GELU
-    (``jax.nn.gelu``'s default, where ``F.gelu``'s is the exact erf)."""
+    (``jax.nn.gelu``'s default, where ``F.gelu``'s is the exact erf).
+    Under a model group (a rank's share of the ``d_ff`` columns) the
+    partial down-projection is closed by :func:`row_close` (``scatter``:
+    this rank's token rows)."""
     up = x @ p["w_up"]
-    if "w_gate" in p:
-        return (F.silu(x @ p["w_gate"]) * up) @ p["w_down"]
-    return F.gelu(up, approximate="tanh") @ p["w_down"]
+    h = F.silu(x @ p["w_gate"]) * up if "w_gate" in p else F.gelu(up, approximate="tanh")
+    if comm.model_group()[1] > 1:
+        return row_close(_mm_f32(h, p["w_down"]), x.dtype, scatter)
+    return h @ p["w_down"]
 
 
 def attn_defs(cfg: ArchConfig, cross: bool = False) -> Dict[str, P]:
@@ -104,14 +125,14 @@ def attn_defs(cfg: ArchConfig, cross: bool = False) -> Dict[str, P]:
     D, H, KV, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     std_out = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
     defs = {
-        "wq": P((D, H, dh)),
-        "wk": P((D, KV, dh)),
-        "wv": P((D, KV, dh)),
-        "wo": P((H, dh, D), std=std_out),
+        "wq": P((D, H, dh), axes=("embed", "heads", "head_dim")),
+        "wk": P((D, KV, dh), axes=("embed", "kv", "head_dim")),
+        "wv": P((D, KV, dh), axes=("embed", "kv", "head_dim")),
+        "wo": P((H, dh, D), std=std_out, axes=("heads", "head_dim", "embed")),
     }
     if cfg.qk_norm and not cross:
-        defs["q_norm"] = P((dh,), "zeros")
-        defs["k_norm"] = P((dh,), "zeros")
+        defs["q_norm"] = P((dh,), "zeros", axes=("head_dim",))
+        defs["k_norm"] = P((dh,), "zeros", axes=("head_dim",))
     return defs
 
 
@@ -125,6 +146,72 @@ def _heads_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(b, s, h, d) @ (h, d, D) -> (b, s, D) as one matrix product."""
     h, d, D = w.shape
     return o.reshape(*o.shape[:-2], h * d) @ w.reshape(h * d, D)
+
+
+def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` over the last dim of ``a`` with a float32 result (one
+    cuBLAS call on the card for bf16 operands, as the LM head takes it):
+    a partial of a row-parallel product, summed across ranks unrounded."""
+    a2 = a.reshape(-1, a.shape[-1])
+    if a.dtype == torch.float32:
+        out = a2 @ w.float()
+    elif a.is_cuda:
+        out = torch.mm(a2, w, out_dtype=torch.float32)
+    else:
+        out = a2.float() @ w.float()
+    return out.view(*a.shape[:-1], w.shape[-1])
+
+
+def token_shard(y: torch.Tensor, dim: int = -2) -> torch.Tensor:
+    """This rank's equal share of ``y``'s token rows (dim ``dim``) in the
+    model group (``y`` itself without one)."""
+    _, size, rank = comm.model_group()
+    return y if size == 1 else y.chunk(size, dim=dim)[rank]
+
+
+def row_close(part: torch.Tensor, dtype: torch.dtype, scatter: bool = False) -> torch.Tensor:
+    """Close a row-parallel product under a model group: the float32
+    partials ``part`` (..., T, D) summed over the group by one all-reduce,
+    or with ``scatter`` by one reduce-scatter over the tokens (dim -2),
+    then cast to ``dtype``."""
+    out = comm.reduce_scatter(part, dim=part.dim() - 2) if scatter else comm.all_reduce(part)
+    return out.to(dtype)
+
+
+def _heads_out_tp(o: torch.Tensor, w: torch.Tensor, scatter: bool = False) -> torch.Tensor:
+    """The o-projection of the serving paths: the plain product; under a
+    model group (a rank's heads), the float32 partial closed by
+    :func:`row_close`."""
+    if comm.model_group()[1] == 1:
+        return _heads_out(o, w)
+    h, d, D = w.shape
+    part = _mm_f32(o.reshape(*o.shape[:-2], h * d), w.reshape(h * d, D))
+    return row_close(part, o.dtype, scatter)
+
+
+def vocab_embed(embed: torch.Tensor, tokens: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Token rows of ``embed`` (V, D); under a model group, a rank holding
+    ``V / tp`` rows of a vocab-parallel table looks up the ids in its
+    range, zeros the rest and sums the ranks' rows by one all-reduce
+    (exact: one rank's row is nonzero).  A share of the table outside a
+    group raises: a rank's shards never pass as the whole model."""
+    ids = tokens.long()
+    if comm.model_group()[1] == 1:
+        if embed.shape[0] != vocab:
+            raise RuntimeError(shard_outside_group("embedding", embed.shape[0], vocab))
+        return embed[ids]
+    n = embed.shape[0]
+    local = ids - comm.model_rank() * n
+    inside = (local >= 0) & (local < n)
+    x = embed[local.clamp(0, n - 1)] * inside[..., None].to(embed.dtype)
+    return comm.all_reduce(x)
+
+
+def shard_outside_group(what: str, rows: int, vocab: int) -> str:
+    """The error of a vocab-parallel shard met outside a model group."""
+    return (f"the {what} holds {rows} of the vocabulary's {vocab} entries outside a "
+            f"tensor-parallel model group: a rank's shards run only under their rules (the "
+            f"engine enters them around each launch)")
 
 
 def _project_qkv(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
@@ -254,6 +341,17 @@ def cross_attn_decode(
 SCRATCH_PAGE = 0   # never allocated: writes no request may read land here
 
 
+def _check_group(q: torch.Tensor, k_pages: torch.Tensor, cfg: ArchConfig) -> None:
+    """The paged kernels take their head counts from the tensors (a rank's
+    heads under tensor parallelism): hold the rank's query heads a kv head
+    to the config's, so that a pool cut on another axis than the weights
+    never reaches a kernel."""
+    if q.shape[-2] * cfg.num_kv_heads != k_pages.shape[2] * cfg.num_heads:
+        raise ValueError(f"{cfg.name}: {q.shape[-2]} query heads on {k_pages.shape[2]} kv heads "
+                         f"of the pool; the config groups {cfg.num_heads} on "
+                         f"{cfg.num_kv_heads}")
+
+
 def _write_kv(k_pages: torch.Tensor, v_pages: torch.Tensor,
               k_scales: Optional[torch.Tensor], v_scales: Optional[torch.Tensor],
               idx, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -296,6 +394,7 @@ def attn_decode_paged(
     b = x1.shape[0]
     page_size = k_pages.shape[1]
     q, k, v = _project_qkv(p, x1, cfg, pos[:, None])
+    _check_group(q, k_pages, cfg)
     pos_l = pos.long()
     rows = torch.arange(b, device=pos.device)
     page_ids = page_table[rows, pos_l // page_size].long()
@@ -306,7 +405,7 @@ def attn_decode_paged(
         softcap=cfg.attn_softcap, window=window, pages_bound=pages_bound,
         k_scales=k_scales, v_scales=v_scales,
     )
-    return _heads_out(out, p["wo"])
+    return _heads_out_tp(out, p["wo"])
 
 
 def attn_decode_spec(
@@ -342,6 +441,7 @@ def attn_decode_spec(
     w_idx = torch.arange(W, device=xw.device, dtype=torch.int32)
     tok_pos = lengths[:, None].to(torch.int32) + w_idx[None, :]     # (b, W)
     q, k, v = _project_qkv(p, xw, cfg, tok_pos)
+    _check_group(q, k_pages, cfg)
     tok_l = tok_pos.long()
     pidx = (tok_l // page_size).clamp_max(max_pages - 1)
     real = w_idx[None, :] < window_lens[:, None]
@@ -353,7 +453,7 @@ def attn_decode_spec(
         softcap=cfg.attn_softcap, window=window, pages_bound=pages_bound,
         k_scales=k_scales, v_scales=v_scales,
     )
-    return _heads_out(out, p["wo"])
+    return _heads_out_tp(out, p["wo"])
 
 
 def attn_prefill_paged(
@@ -385,6 +485,7 @@ def attn_prefill_paged(
         raise ValueError(f"chunk start {pos0} not page-aligned ({page_size})")
     tok_pos = pos0 + torch.arange(c, device=x.device)
     q, k, v = _project_qkv(p, x, cfg, tok_pos)
+    _check_group(q, k_pages, cfg)
     n_ctx = pos0 // page_size
     if n_ctx:
         ctx = page_row[:n_ctx].long()
@@ -399,7 +500,7 @@ def attn_prefill_paged(
         k_all, v_all = k, v
     out = ops.attention(q, k_all, v_all, causal=True, window=window,
                         softcap=cfg.attn_softcap, q_offset=pos0)
-    y = _heads_out(out, p["wo"])
+    y = _heads_out_tp(out, p["wo"])
     tok_l = tok_pos.long()
     dst = (page_row.long()[tok_l // page_size], tok_l % page_size)
     _write_kv(k_pages, v_pages, k_scales, v_scales, dst, k[0], v[0])
@@ -418,6 +519,7 @@ def attn_prefill_packed(
     pages_bound: Optional[int] = None,
     k_scales: Optional[torch.Tensor] = None,  # (num_pages, page_size, kv) f32
     v_scales: Optional[torch.Tensor] = None,
+    scatter: bool = False,
 ) -> torch.Tensor:
     """One packed varlen-prefill step: chunks of many requests share the
     packed buffer; each attends its request's committed pages plus the
@@ -434,8 +536,10 @@ def attn_prefill_packed(
     * ``chunk_pos0``  (C,)   absolute chunk starts (page-aligned)
     * ``page_tables`` (C, max_pages) the owning requests' pages
 
-    Returns y (1, T, D)."""
+    Returns y (1, T, D), or with ``scatter`` this rank's ``T / tp`` token
+    rows of it (see :func:`row_close`)."""
     q, k, v = _project_qkv(p, x, cfg, meta["tok_pos"][None, :])
+    _check_group(q, k_pages, cfg)
     out = ops.varlen_prefill(
         q[0], k[0], v[0], k_pages, v_pages,
         meta["cu_seqlens"], meta["chunk_lens"], meta["chunk_pos0"],
@@ -443,7 +547,7 @@ def attn_prefill_packed(
         softcap=cfg.attn_softcap, window=window, pages_bound=pages_bound,
         k_scales=k_scales, v_scales=v_scales,
     )
-    y = _heads_out(out[None], p["wo"])
+    y = _heads_out_tp(out[None], p["wo"], scatter)
     dst = (meta["dst_page"].long(), meta["dst_off"].long())
     _write_kv(k_pages, v_pages, k_scales, v_scales, dst, k[0], v[0])
     return y
@@ -456,10 +560,12 @@ def moe_defs(cfg: ArchConfig) -> Dict[str, P]:
     D, Fd, E = cfg.d_model, cfg.d_ff, cfg.num_experts
     std_out = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
     return {
-        "router": P((D, E)),
-        "w_gate": P((E, D, Fd)),
-        "w_up": P((E, D, Fd)),
-        "w_down": P((E, Fd, D), std=std_out),
+        # the router stays whole on every rank; the experts split over the
+        # model axis, each expert's own width stays local
+        "router": P((D, E), axes=("embed", None)),
+        "w_gate": P((E, D, Fd), axes=("experts", "embed", "expert_ffn")),
+        "w_up": P((E, D, Fd), axes=("experts", "embed", "expert_ffn")),
+        "w_down": P((E, Fd, D), std=std_out, axes=("experts", "expert_ffn", "embed")),
     }
 
 
@@ -501,7 +607,7 @@ def moe_route(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig):
 
 
 def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
-              need_aux: bool = True):
+              need_aux: bool = True, scatter: bool = False):
     """Capacity-based top-k routing with index dispatch (the JAX module's
     default path; its ``moe_decode_gather`` decode path runs only under
     tensor-parallel sharding rules and is not ported).
@@ -519,7 +625,14 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
     cast to the activation dtype, accumulated in float32, as the
     reference's einsum accumulates.  Returns (out (b, s, D), aux): aux is
     the Switch load-balancing loss ``E * sum_e f_e * P_e`` in float32, or
-    None without ``need_aux`` (the serving paths discard it)."""
+    None without ``need_aux`` (the serving paths discard it).
+
+    Under a model group a rank holding ``E / tp`` experts routes over all
+    of them with the whole router, as every rank does, so the dispatch is
+    the same on each; it runs its own experts' rows of the buffer,
+    combines their slots (the others' read zero rows) in float32 and
+    closes the partial with :func:`row_close`
+    (``scatter``: this rank's token rows)."""
     b, s, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     C = moe_capacity(cfg, s)
@@ -540,6 +653,8 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
     src = torch.full((n_rows + 1,), b * s, dtype=torch.long, device=x.device)
     src.index_copy_(0, dst, tokens)                     # dropped slots all land on row n_rows
     x_rows = torch.cat([x.reshape(b * s, D), x.new_zeros((1, D))])
+    if comm.model_group()[1] > 1:
+        return _moe_shard(p, x_rows, src, dst, weights, b, s, C, scatter), aux
     h = x_rows[src[:n_rows]].view(E, b * C, D)
     act = F.silu(torch.bmm(h, p["w_gate"])) * torch.bmm(h, p["w_up"])
     if ops.wants_grad(h, p["w_gate"], p["w_up"], p["w_down"]):
@@ -554,6 +669,27 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
     return combined.view(b, s, D), aux
 
 
+def _moe_shard(p: Dict[str, torch.Tensor], x_rows: torch.Tensor, src: torch.Tensor,
+               dst: torch.Tensor, weights: torch.Tensor, b: int, s: int, C: int,
+               scatter: bool) -> torch.Tensor:
+    """:func:`moe_apply` on a rank holding experts ``[r E_loc, (r + 1)
+    E_loc)``: their rows of the expert-major buffer, the three products,
+    each slot of another rank's expert read as a zero row, the weighted
+    combine in float32, closed by :func:`row_close`."""
+    D = x_rows.shape[1]
+    K = weights.shape[-1]
+    E_loc = p["w_up"].shape[0]
+    rows = E_loc * b * C
+    first = comm.model_rank() * rows
+    h = x_rows[src[first:first + rows]].view(E_loc, b * C, D)
+    act = F.silu(torch.bmm(h, p["w_gate"])) * torch.bmm(h, p["w_up"])
+    out = x_rows.new_zeros((src.shape[0], D))
+    torch.bmm(act, p["w_down"], out=out[first:first + rows].view(E_loc, b * C, D))
+    gathered = out[dst].view(b * s, K, D).float()
+    part = torch.matmul(weights.float().view(b * s, 1, K), gathered).view(b, s, D)
+    return row_close(part, x_rows.dtype, scatter)
+
+
 # ---------------------------------------------------------------------------
 # Mamba-2 (SSD) block
 # ---------------------------------------------------------------------------
@@ -564,14 +700,14 @@ def mamba_defs(cfg: ArchConfig) -> Dict[str, P]:
     std_out = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
     f32 = torch.float32
     return {
-        "in_proj": P((D, 2 * din + 2 * n + h)),
-        "conv_w": P((K, conv_dim), std=0.2),
-        "conv_b": P((conv_dim,), "zeros"),
-        "A_log": P((h,), "ssm_a", dtype=f32),
-        "D": P((h,), "ones", dtype=f32),
-        "dt_bias": P((h,), "dt_bias", dtype=f32),
-        "norm": P((din,), "zeros"),
-        "out_proj": P((din, D), std=std_out),
+        "in_proj": P((D, 2 * din + 2 * n + h), axes=("embed", "inner_all")),
+        "conv_w": P((K, conv_dim), std=0.2, axes=(None, "conv_dim")),
+        "conv_b": P((conv_dim,), "zeros", axes=("conv_dim",)),
+        "A_log": P((h,), "ssm_a", dtype=f32, axes=("ssm_heads",)),
+        "D": P((h,), "ones", dtype=f32, axes=("ssm_heads",)),
+        "dt_bias": P((h,), "dt_bias", dtype=f32, axes=("ssm_heads",)),
+        "norm": P((din,), "zeros", axes=("inner",)),
+        "out_proj": P((din, D), std=std_out, axes=("inner", "embed")),
     }
 
 

@@ -11,7 +11,7 @@ layout (one dict per layer), so both packages can run identical weights;
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,13 +21,17 @@ import torch
 class P:
     """One parameter leaf: its shape, its init (``normal``, ``zeros``,
     ``ones``, ``ssm_a`` or ``dt_bias``), the standard deviation of
-    ``normal``, and a dtype that overrides the model's for this leaf (the
-    SSD scalars stay float32 in a bf16 model)."""
+    ``normal``, a dtype that overrides the model's for this leaf (the SSD
+    scalars stay float32 in a bf16 model), and the logical axis of each
+    dim (``embed``, ``heads``, ``kv``, ``ffn``, ``vocab``, ``experts``, ...;
+    the reference's names), which :mod:`repro_torch.sharding.specs` maps
+    onto the mesh."""
 
     shape: Tuple[int, ...]
     init: str = "normal"
     std: float = 0.02
     dtype: Optional[torch.dtype] = None
+    axes: Optional[Tuple[Optional[str], ...]] = None
 
 
 def tree_map_defs(fn, defs, path: str = ""):
@@ -53,10 +57,13 @@ def count_params(defs) -> int:
 
 
 def init_params(defs, generator: torch.Generator, device: torch.device,
-                dtype: torch.dtype):
+                dtype: torch.dtype, keep: Optional[Callable[[str, P, torch.Tensor],
+                                                             torch.Tensor]] = None):
     """Materialise a def tree on ``device`` in ``dtype`` (or the leaf's own
     dtype).  The leaves draw in tree order from ``generator``, which must
-    live on ``device``.  ``ssm_a`` and ``dt_bias`` follow the JAX package's
+    live on ``device``; ``keep(path, p, leaf)``, where given, replaces each
+    leaf as soon as it is drawn (a rank's shard of it: the full tree never
+    exists at once).  ``ssm_a`` and ``dt_bias`` follow the JAX package's
     Mamba-2 inits: ``A_log = log(u)``, u uniform in [1, 16], and
     ``dt_bias = log(expm1(u))``, u uniform in [1e-3, 1e-1], so that
     ``softplus(dt_bias)`` spans [1e-3, 1e-1]."""
@@ -80,7 +87,9 @@ def init_params(defs, generator: torch.Generator, device: torch.device,
             return uniform(p, 1e-3, 1e-1).expm1_().log_().to(ldtype)
         raise ValueError(f"unknown init {p.init!r} at {path}")
 
-    return tree_map_defs(make, defs)
+    if keep is None:
+        return tree_map_defs(make, defs)
+    return tree_map_defs(lambda path, p: keep(path, p, make(path, p)), defs)
 
 
 # leaves a mamba block keeps in float32 whatever the model dtype (JAX's

@@ -209,15 +209,16 @@ def _seed(req: OpenRequest) -> int:
 
 # torch.profiler loses device records at the start of a short window, in
 # two ways.  Its conversion of the device's timestamps to the host's clock
-# can run milliseconds early, and the records of the first launches then
-# fall before the window and are dropped (a predict read 0.0 device ms, or
-# part of its time); and once the port's kernel library is loaded, every
-# window loses the records of its first launches (3 in a short process,
-# dozens in a long one).  So the work starts WINDOW_GUARD_S after the window
-# opens, behind PROLOGUE tiny kernels that take those losses; only the
-# launches made inside the work's range count, each matched to its device
-# record.
-WINDOW_GUARD_S = 0.02
+# can run milliseconds early (up to 7.6 ms in a process alone on the card,
+# 22.7 ms once after other processes had used it), and the records of the
+# first launches then fall before the window and are dropped (a predict
+# read 0.0 device ms, or part of its time); and every window loses the
+# records of its first launches, once the port's kernel library is loaded
+# or another process has used the card (1 to 10 in a short process, dozens
+# in a long one).  So the work starts WINDOW_GUARD_S after the window opens,
+# behind PROLOGUE tiny kernels that take those losses; only the launches
+# made inside the work's range count, each matched to its device record.
+WINDOW_GUARD_S = 0.1
 PROLOGUE = 256
 _WORK = "system:work"
 _LAUNCH = re.compile(r"^cu(da)?(LaunchKernel|LaunchCooperativeKernel|GraphLaunch|Memcpy|Memset)")

@@ -57,8 +57,21 @@ would need each request's frames).
 finished results and the pending requests; ``checkpoint_every`` snapshots
 each decoding slot's pages (``ops.export_pages`` to host tensors, with
 per-page checksums) and ``restores`` admits a request from a snapshot
-(``ops.import_pages``) instead of prefilling it.  What waits for a later
-slice: tensor parallelism.
+(``ops.import_pages``) instead of prefilling it.
+
+Tensor parallelism (``ServingEngine(..., rules=serve_rules(mesh))``, one
+engine on each rank of a world that :mod:`repro_torch.launch.mesh`
+starts): ``tp`` is the effective degree (:func:`~repro_torch.sharding.
+specs.tp_degree`: 1 where the head counts do not split, and then every
+rank serves the whole model).  Above 1 the engine holds this rank's
+weight shards, its ``kv_heads / tp`` heads of every page, and runs each
+launch under the rules, so the model's row-parallel products close with
+collectives (:mod:`repro_torch.sharding.comm`).  The page pool, tables,
+prefix cache and admission stay host-global and identical on every rank:
+a fixed page budget a rank carries ``tp`` times the tokens.  Rank 0
+traces, with one analytic ``tp:collective`` event a launch (the
+reference's formula); the tokens of every rank are held against rank 0's
+at the end of a run.
 """
 from __future__ import annotations
 
@@ -74,6 +87,10 @@ from ..core.analysis import percentile
 from ..device import resolve_device
 from ..kernels import kvquant, ops
 from ..models.lm import NOT_PAGED_ENCDEC, DecoderLM, EncDecLM
+from ..sharding import comm
+from ..sharding.specs import (
+    ShardingRules, leaf_split, set_activation_rules, shard_params, tp_degree,
+)
 from .faults import FaultContext, WorkerCrash, WorkerDrain
 from .page_table import (
     PagePool, PageSnapshot, PageTable, PrefixCache, page_checksums, pages_needed,
@@ -240,6 +257,7 @@ class PagedStats:
     restored_tokens: int = 0    # KV positions restored without recompute
     restore_bytes: int = 0      # bytes scattered back into the pool
     checksum_failures: int = 0  # snapshots rejected by verify, replayed
+    tp: int = 1                 # effective tensor-parallel degree
 
 
 def _upload(arrays: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -253,6 +271,25 @@ def _upload(arrays: Dict[str, np.ndarray], device: torch.device) -> Dict[str, to
         out[k] = buf[off : off + n].view(a.shape)
         off += n
     return out
+
+
+# the logical axes the model's tensor-parallel paths take for split
+_TP_AXES = {"vocab", "heads", "kv", "ffn", "experts"}
+
+
+def _meta(defs):
+    """A def tree's leaves as tensors on the meta device (shapes only)."""
+    from ..models.params import tree_map_defs
+
+    return tree_map_defs(lambda path, p: torch.empty(p.shape, device="meta"), defs)
+
+
+def _tree_shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_shapes(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_shapes(v) for v in tree]
+    return tuple(tree.shape)
 
 
 def _sync(device: torch.device) -> None:
@@ -271,6 +308,7 @@ class ServingEngine:
         page_size: int = 16,
         device: Union[str, torch.device, None] = None,
         kv_dtype: Optional[str] = None,
+        rules: Optional[ShardingRules] = None,
     ) -> None:
         self.device = resolve_device(device)
         # None: the pool in the model's dtype; "int8"/"fp8": codes with
@@ -286,6 +324,16 @@ class ServingEngine:
                 f"model lives on {model.device}, engine asked for {self.device}"
             )
         self.model = model
+        # tensor parallelism: ``tp`` is the EFFECTIVE degree, 1 where the
+        # head counts do not divide the model axis (every rank then serves
+        # the whole model, no collective); above 1 the launches run under
+        # the rules and the engine keeps this rank's shards
+        self.rules = rules
+        cfg = model.cfg
+        self.tp = tp_degree(rules, cfg.num_heads, cfg.num_kv_heads)
+        self._tp_rules = rules if self.tp > 1 else None
+        if self._tp_rules is not None:
+            params = self._rank_shards(params)
         self.params = params
         self.max_batch = max_batch
         self.max_seq = max_seq
@@ -296,6 +344,72 @@ class ServingEngine:
         # the hybrid ring cache wraps, so those keep exact-length,
         # left-padded shapes
         self._ragged_ok = not model.stateful
+
+    def _paged_only(self, what: str) -> None:
+        """Tensor parallelism serves the paged engine only, as in the
+        reference (its driver refuses ``--tp`` elsewhere): the dense-cache
+        engines of a sharded engine raise."""
+        if self._tp_rules is not None:
+            raise NotImplementedError(f"{what}: tensor parallelism (tp {self.tp}) serves the "
+                                      f"paged engine only (serve_paged)")
+
+    def _rank_shards(self, params):
+        """This rank's shards of ``params``: a full tree (``init`` or
+        ``from_jax``) is cut with ``shard_params``; a tree of this rank's
+        shards (``init(rules=...)``) is kept; any other tree raises.  So
+        does a leaf of a tensor-parallel axis (vocab, ffn, experts) that
+        the rules leave whole: under the rules the model takes every such
+        leaf for a shard (:mod:`repro_torch.models.modules`)."""
+        import torch.distributed as dist
+
+        from ..models.params import tree_map_defs
+
+        if self.model.cfg.family not in ("dense", "moe") or self.model.stateful:
+            raise NotImplementedError(f"{self.model.cfg.name}: tensor parallelism serves the "
+                                      f"paged dense and MoE families only")
+        defs = self.model.param_defs()
+        whole = []
+
+        def check(path, p):
+            if set(p.axes or ()) & _TP_AXES and leaf_split(self._tp_rules, p, path) is None:
+                whole.append(path)
+
+        tree_map_defs(check, defs)
+        if whole:
+            raise NotImplementedError(f"{self.model.cfg.name} at tp {self.tp}: {whole[0]} does "
+                                      f"not divide the model axis (the engine splits every "
+                                      f"vocab, ffn and experts leaf)")
+        group = comm.group_of(self._tp_rules)
+        if group is None:
+            raise ValueError("tensor parallelism needs a DeviceMesh over a process group "
+                             "(repro_torch.launch.mesh.make_host_mesh inside run_ranks)")
+        rank = dist.get_rank(group)
+        meta = _meta(defs)
+        if _tree_shapes(params) == _tree_shapes(meta):
+            return shard_params(params, self._tp_rules, rank, defs=defs)
+        if _tree_shapes(params) != _tree_shapes(shard_params(meta, self._tp_rules, rank,
+                                                             defs=defs)):
+            raise ValueError(f"params are neither the full tree nor rank {rank}'s shards "
+                             f"under these rules")
+        return params
+
+    @torch.no_grad()
+    def prompt_logits(self, prompt: np.ndarray) -> torch.Tensor:
+        """Float32 last-token logits (V,) of ``prompt``: one chunked-prefill
+        launch (``prefill_paged_chunk``, the prompt padded to whole pages)
+        into a fresh pool of this engine's page size and ``kv_dtype``; at
+        an effective tp above 1 under the rules, so every rank returns the
+        whole vocabulary's logits."""
+        n, ps = len(prompt), self.page_size
+        pages = pages_needed(n, ps)
+        cache = self.model.init_paged_cache(pages + 1, ps, self.kv_dtype, tp=self.tp)
+        row = torch.arange(1, pages + 1, dtype=torch.int32, device=self.device)
+        chunk = np.zeros((1, pages * ps), np.int32)
+        chunk[0, :n] = prompt
+        with set_activation_rules(self._tp_rules):
+            logits = self.model.prefill_paged_chunk(
+                self.params, torch.from_numpy(chunk).to(self.device), cache, row, n - 1, 0)
+        return logits[0]
 
     def _kv_dtype_name(self) -> str:
         return self.kv_dtype or str(self.model.dtype).replace("torch.", "")
@@ -351,7 +465,9 @@ class ServingEngine:
         enc-dec family's ``frames`` (b, encoder_seq, D), in the model's
         dtype.  The tokens stay on the device until the end: the
         loop never waits for the card.  ``greedy`` is accepted and ignored,
-        as the JAX engine ignores it: decoding is always greedy."""
+        as the JAX engine ignores it: decoding is always greedy.  An engine
+        holding tensor-parallel shards raises (:meth:`_paged_only`)."""
+        self._paged_only("generate")
         dev = self.device
         tokens, lens = self._pad_prompts(prompts, max_new_tokens)
         b = tokens.shape[0]
@@ -412,6 +528,7 @@ class ServingEngine:
         timings: it stamps the requests and the run, read where the JAX
         engine reads it; ``prefill_s``/``decode_s`` are host wall times.
         Greedy tokens equal the JAX engine's on the same weights."""
+        self._paged_only("serve_continuous")
         if not requests:
             return ContinuousStats([], 0, 0.0, 0, 0.0, 0.0)
         if self.model.cfg.family == "encdec":
@@ -672,7 +789,43 @@ class ServingEngine:
         and it decodes on as an undisturbed run would.  A failed verify
         counts a ``checksum_failure``, drops the snapshot, and the request
         is prefilled from its prompt: corrupted state is never served.
-        An encoder-decoder model raises ``NotImplementedError``."""
+        An encoder-decoder model raises ``NotImplementedError``.
+
+        At an effective ``tp`` above 1 every rank of the world calls this
+        with the same arguments: the launches run under the engine's rules
+        (one ``tp:collective`` event a launch in rank 0's ``tracer``; the
+        other ranks trace nothing), and the run ends by holding every
+        rank's tokens against rank 0's (a mismatch raises on every rank)."""
+        if self._tp_rules is None:
+            return self._serve_paged(requests, num_slots, page_size, num_pages, prefill_chunk,
+                                     overcommit, prefill_mode, prefill_budget, spec_k,
+                                     spec_ngram, prefix_cache, clock, tracer, fault_hook,
+                                     deadline_ms, tenants, fairness, checkpoint_every,
+                                     checkpoints, restores)
+        if comm.model_rank_of(self._tp_rules) != 0:
+            tracer = None
+        with set_activation_rules(self._tp_rules):
+            stats = self._serve_paged(requests, num_slots, page_size, num_pages, prefill_chunk,
+                                      overcommit, prefill_mode, prefill_budget, spec_k,
+                                      spec_ngram, prefix_cache, clock, tracer, fault_hook,
+                                      deadline_ms, tenants, fairness, checkpoint_every,
+                                      checkpoints, restores)
+        self._check_ranks_agree(stats)
+        return stats
+
+    def _check_ranks_agree(self, stats: "PagedStats") -> None:
+        """Raise on every rank unless every rank's tokens equal rank 0's."""
+        group = comm.group_of(self._tp_rules)
+        mine = [(r.request_id, r.status, r.tokens.tolist()) for r in stats.results]
+        same = comm.world_check(comm.broadcast_object(mine, group=group) == mine, group=group)
+        if not same:
+            raise RuntimeError(f"tensor-parallel serve: the ranks' tokens differ from rank 0's "
+                               f"(tp {self.tp})")
+
+    def _serve_paged(self, requests, num_slots, page_size, num_pages, prefill_chunk, overcommit,
+                     prefill_mode, prefill_budget, spec_k, spec_ngram, prefix_cache, clock,
+                     tracer, fault_hook, deadline_ms, tenants, fairness, checkpoint_every,
+                     checkpoints, restores) -> "PagedStats":
         if self.model.cfg.family == "encdec":
             raise NotImplementedError(NOT_PAGED_ENCDEC)
         if prefill_mode not in ("packed", "chunked"):
@@ -688,7 +841,7 @@ class ServingEngine:
         if not requests:
             return PagedStats([], 0, 0.0, 0, 0.0, 0.0, 0, self.page_size, 0,
                               0.0, 0, 0, 0, prefill_mode=prefill_mode,
-                              kv_dtype=self._kv_dtype_name())
+                              kv_dtype=self._kv_dtype_name(), tp=self.tp)
         if overcommit <= 0:
             raise ValueError("overcommit must be > 0")
         dev = self.device
@@ -720,7 +873,9 @@ class ServingEngine:
         slots = PagedSlotPool(num_slots, pool, tracer=tracer, clock=clock)
         table = PageTable(num_slots, max_pages_per_seq, scratch_page=0)
         pcache = PrefixCache(pool) if prefix_cache else None
-        cache = self.model.init_paged_cache(num_pages, page_size, self.kv_dtype)
+        # heads-split pools: a rank holds kv_heads / tp heads of EVERY page,
+        # so the host-global page accounting above is the same on each rank
+        cache = self.model.init_paged_cache(num_pages, page_size, self.kv_dtype, tp=self.tp)
         queue = deque(requests)
         # SLO / multi-tenant admission
         tenant_ledger = TenantLedger(tenants or ())
@@ -785,6 +940,28 @@ class ServingEngine:
         dev_mask = torch.zeros((num_slots,), dtype=torch.bool, device=dev)
         cur_mask = np.zeros((num_slots,), bool)
         dirty: Set[int] = set()
+        # the analytic TP-collective ledger (the reference's): every layer
+        # closes two row-parallel boundaries (o-projection, MLP
+        # down-projection), each summing a (tokens, d_model) float32 block
+        # output over the model axis; a ring all-reduce moves 2(tp-1)/tp of
+        # the payload a rank, a reduce-scatter (rs_block_outputs, on a
+        # prefill launch whose tokens divide tp) (tp-1)/tp
+        tp = self.tp
+        rs_opt = bool(self._tp_rules is not None and self._tp_rules.opts.get("rs_block_outputs"))
+        d_model, n_layers = self.model.cfg.d_model, self.model.cfg.num_layers
+
+        def tp_event(phase: str, t0: float, t1: float, tokens: int,
+                     seq_shardable: bool = False) -> None:
+            if tp <= 1 or tracer is None or not tokens:
+                return
+            kind = ("reduce_scatter" if rs_opt and seq_shardable and tokens % tp == 0
+                    else "psum")
+            count = 2 * n_layers
+            payload = tokens * d_model * 4
+            factor = (tp - 1) / tp * (2.0 if kind == "psum" else 1.0)
+            tracer.event("tp:collective", t0, t1, phase=phase, kind=kind, tp=tp, count=count,
+                         payload_bytes=payload * count,
+                         moved_bytes=int(payload * count * factor))
 
         def sync_device(active: List[int]) -> None:
             """Patch the device mirrors for slots whose table row, position,
@@ -1303,9 +1480,11 @@ class ServingEngine:
                             chunks=len(spans), buffer=t_pack,
                             budget=budget.tokens_per_step,
                         )
+                    tp_event("prefill", t0p, now, t_pack, seq_shardable=True)
                     progressed = True
             elif prefilling:
                 t0p = clock()
+                chunk_tok = 0
                 for slot in list(prefilling):
                     req = slots.active[slot]
                     start = prefilling[slot]
@@ -1323,6 +1502,7 @@ class ServingEngine:
                     prefill_launches += 1
                     prefill_tokens += c
                     prefill_padded += c_pad - c
+                    chunk_tok += c_pad
                     start += c
                     lengths[slot] = start
                     slot_prefilled[slot] += c
@@ -1332,7 +1512,9 @@ class ServingEngine:
                     else:
                         prefilling[slot] = start
                 _sync(dev)
-                prefill_s += clock() - t0p
+                now = clock()
+                prefill_s += now - t0p
+                tp_event("prefill", t0p, now, chunk_tok, seq_shardable=True)
             # 4) one decode step over the whole pool.  With ``spec_k > 0``
             #    the drafter proposes up to ``spec_k`` tokens per slot and
             #    ONE verify step scores every slot's window; a boundary with
@@ -1405,6 +1587,7 @@ class ServingEngine:
                     na = np.zeros((num_slots,), np.int32)
                 now = clock()
                 decode_s += now - t0d
+                tp_event("verify" if use_spec else "decode", t0d, now, num_slots * W)
                 step += 1
                 occupancy_sum += slots.num_active
                 prop_total = acc_total = 0
@@ -1492,8 +1675,9 @@ class ServingEngine:
             itl_p50_ms=percentile(itl_all, 50.0) * 1e3 if itl_all else 0.0,
             itl_p99_ms=percentile(itl_all, 99.0) * 1e3 if itl_all else 0.0,
             kv_dtype=self._kv_dtype_name(),
+            # the whole pool's bytes: a rank holds 1/tp of them
             kv_bytes_per_token=float(
-                sum(v.numel() * v.element_size() for v in cache.values())
+                sum(v.numel() * v.element_size() for v in cache.values()) * tp
                 / (num_pages * page_size)
             ),
             completed=len(completed),
@@ -1508,4 +1692,5 @@ class ServingEngine:
             restored_tokens=restored_tok,
             restore_bytes=restore_bytes,
             checksum_failures=checksum_failures,
+            tp=tp,
         )

@@ -1,0 +1,138 @@
+"""Tensor-parallel serving runs: the job each rank runs, and the call that
+starts the ranks.
+
+:func:`serve_tp` starts ``tp`` ranks (:class:`repro_torch.launch.mesh.
+Ranks`); for each job, a model and its runs, each rank builds the model,
+takes its weight shards, opens one
+:class:`~repro_torch.serve.engine.ServingEngine` under ``serve_rules``
+for each :class:`TPRun` and serves its requests with ``serve_paged``.
+Rank 0's results come back: each run's ``PagedStats`` and, for a traced
+run, the ``tp:collective`` summary of its spans.  The weights are random
+from a seed (each leaf drawn whole and cut, so every tp draws the same
+model) or a parameter tree of numpy arrays in the reference's layout,
+which ``from_jax`` carries across.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from ..core.analysis import tp_summary
+from ..core.tracing import Tracer, TracingServer
+from ..kernels import kernel_counters
+from ..launch.mesh import Ranks, make_host_mesh
+from ..models.lm import build_model
+from ..models.params import from_jax
+from ..sharding.specs import mesh_shape, serve_rules, tp_degree
+from .engine import PagedStats, ServeRequest, ServingEngine
+
+
+@dataclass
+class TPRun:
+    """One ``serve_paged`` run: its requests, the engine's keyword
+    arguments (``max_batch``, ``max_seq``, ``page_size``, ``kv_dtype``),
+    ``serve_paged``'s, the ``rs_block_outputs`` lever, and whether to
+    trace it."""
+
+    requests: List[ServeRequest]
+    engine: Dict[str, Any] = field(default_factory=dict)
+    serve: Dict[str, Any] = field(default_factory=dict)
+    rs_block_outputs: bool = False
+    trace: bool = False
+    # a prompt whose last-token logits (ServingEngine.prompt_logits) the
+    # rank takes before serving
+    probe: Optional[np.ndarray] = None
+
+
+@dataclass
+class TPResult:
+    """Rank 0's outcome of one :class:`TPRun`: its stats, the engine's
+    effective tp, the ``tp:collective`` summary of a traced run, the
+    probe's logits, and per rank (a list in rank order) the kernel launch
+    counts of the serve alone, the peak device bytes (the card only) and
+    the pool's pages; ``mesh`` is the mesh's axis sizes and type."""
+
+    stats: PagedStats
+    engine_tp: int
+    tp_summary: Dict[str, float] = field(default_factory=dict)
+    logits: Optional[torch.Tensor] = None
+    launches: List[Dict[str, int]] = field(default_factory=list)
+    peak_bytes: List[int] = field(default_factory=list)
+    pool_pages: List[int] = field(default_factory=list)
+    mesh: Dict[str, Any] = field(default_factory=dict)
+
+
+def rank_params(model, weights: Union[int, Dict[str, Any]], rules, rank: int, dtype):
+    """The weights a rank starts from: from a seed, its shards drawn leaf by
+    leaf (``init(rules=...)``; the whole model where the heads do not
+    split); from a numpy tree, the whole tree (``from_jax``), which the
+    engine cuts."""
+    if isinstance(weights, int):
+        cfg = model.cfg
+        split = tp_degree(rules, cfg.num_heads, cfg.num_kv_heads) > 1
+        return model.init(seed=weights, rules=rules if split else None, rank=rank)
+    return from_jax(weights, device=model.device, dtype=dtype)
+
+
+def serve_job(rank: int, device: torch.device, jobs: List[tuple],
+              dtype: Optional[torch.dtype], tp: int) -> List[List[TPResult]]:
+    """The job of one rank: for each ``(cfg, weights, runs)`` of ``jobs``
+    (or ``(cfg, weights, runs, dtype)``, where the job's dtype differs
+    from ``dtype``) one model and its runs in order (see the module).
+    Each run's launch counts, peak device bytes and pool pages are
+    gathered from every rank into rank 0's result."""
+    import torch.distributed as dist
+
+    base = serve_rules(make_host_mesh(tp))
+    mesh = {"shape": mesh_shape(base.mesh), "type": type(base.mesh).__name__}
+    counters = kernel_counters()
+    out = []
+    for job in jobs:
+        cfg, weights, runs = job[:3]
+        model = build_model(cfg, device=device, dtype=job[3] if len(job) > 3 else dtype)
+        params = rank_params(model, weights, base, rank, model.dtype)
+        results = []
+        for run in runs:
+            rules = serve_rules(base.mesh, rs_block_outputs=run.rs_block_outputs)
+            engine = ServingEngine(model, params, device=device, rules=rules, **run.engine)
+            logits = engine.prompt_logits(run.probe) if run.probe is not None else None
+            server = TracingServer() if run.trace else None
+            tracer = Tracer("tp-serve", server) if run.trace else None
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+                torch.cuda.reset_peak_memory_stats(device)
+            for mod in counters.values():
+                mod.launches = 0
+            stats = engine.serve_paged(run.requests, tracer=tracer, **run.serve)
+            mine = ({name: mod.launches for name, mod in counters.items()},
+                    torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0,
+                    stats.num_pages)
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, mine)
+            res = TPResult(stats=stats, engine_tp=engine.tp, mesh=mesh,
+                           logits=None if logits is None else logits.cpu(),
+                           launches=[e[0] for e in every], peak_bytes=[e[1] for e in every],
+                           pool_pages=[e[2] for e in every])
+            if server is not None and rank == 0:
+                res.tp_summary = tp_summary(server.timeline("tp-serve"))
+            results.append(res)
+            del engine
+        out.append(results)
+        del model, params
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def serve_tp(jobs: List[tuple], tp: int, device: Union[str, torch.device] = "cuda",
+             dtype: Optional[torch.dtype] = None, timeout_s: float = 900.0,
+             wait: bool = True):
+    """Serve each ``(cfg, weights, runs)`` of ``jobs`` on ``tp`` ranks (see
+    the module): rank 0's results, a list of :class:`TPResult` a job; with
+    ``wait=False`` the :class:`~repro_torch.launch.mesh.Ranks` handle,
+    whose ``result()`` gives them."""
+    ranks = Ranks(serve_job, tp, (jobs, dtype, tp), device=device, timeout_s=timeout_s)
+    return ranks.result() if wait else ranks

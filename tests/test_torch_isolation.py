@@ -28,8 +28,9 @@ def _modules():
 
 def test_the_import_check_covers_every_entry_point():
     """The module list walks the package: the models, the drivers, the
-    out-of-process agent, the fleet and the training path are all imported
-    by the check below."""
+    out-of-process agent, the fleet, the training path, the sharding rules,
+    the collectives and the rank launcher are all imported by the check
+    below."""
     mods = _modules()
     for m in ("repro_torch.models.resnet", "repro_torch.models.predictor",
               "repro_torch.launch.serve", "repro_torch.launch.agent_main",
@@ -40,7 +41,10 @@ def test_the_import_check_covers_every_entry_point():
               "repro_torch.launch.train", "repro_torch.kernels.flash_attention_bwd",
               "repro_torch.kernels.rmsnorm_bwd", "repro_torch.kernels.ssd_bwd",
               "repro_torch.roofline", "repro_torch.roofline.count",
-              "repro_torch.roofline.work", "repro_torch.roofline.model"):
+              "repro_torch.roofline.work", "repro_torch.roofline.model",
+              "repro_torch.sharding", "repro_torch.sharding.specs",
+              "repro_torch.sharding.comm", "repro_torch.launch.mesh",
+              "repro_torch.serve.tp"):
         assert m in mods, m
 
 
