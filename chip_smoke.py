@@ -207,14 +207,14 @@ Phases, each printing its own lines and wall time, each ending in
    every request must complete and every kernel must have been launched
    (counts zeroed just before the run, read just after), exactly 40
    attention and 81 rmsnorm launches per decode step and per prefill
-   launch; one more run of the same requests gives the metrics' spread.
+   launch, in one run of the mix.
    Then the same mix on int8 and fp8 pools, and speculative decoding
-   (``spec_k`` 4) on tiled prompts: ``spec_ngram`` 3 on the bf16 pool, and
-   ``spec_ngram`` 1 on each pool, each run counted alone: 40 spec_verify
+   (``spec_k`` 4) on tiled prompts with ``spec_ngram`` 1 on each pool,
+   each run counted alone: 40 spec_verify
    launches per verify step, 40 paged_attention per plain decode step, and
-   more than 0 spec_verify launches in each ``spec_ngram`` 1 run (random
-   weights at the published vocabulary almost never repeat a 3-gram within
-   32 tokens, so 3-gram lookup rarely drafts); token agreement with the
+   more than 0 spec_verify launches in each speculative run (1-gram lookup
+   drafts from any earlier occurrence of the pending token, so it finds
+   drafts on random weights); token agreement with the
    bf16 plain run of the same prompts is printed.  The rest of
    ``serve_paged`` (``paged_paths_serve_phase``), each run once and
    counted alone: the mix with chunked prefill (exactly 40
@@ -245,10 +245,12 @@ Phases, each printing its own lines and wall time, each ending in
    4's glm4-9b model and weights shared by two workers (each its own page
    pool) behind the ``FleetRouter`` on the serve mix, KV checkpoints every
    4 decode steps: fault-free; ``crash@1:8`` with migration and with
-   replay; worker 1 drained at step 8; ``corrupt@1:9,crash@1:10`` at a
+   replay; ``corrupt@1:9,crash@1:10`` at a
    checkpoint every 8 steps (no refresh heals the bitten snapshot);
-   ``stall@1:8:1.0`` past a 0.5 s lease on the host's clock; the crash with
-   migration on an int8 pool.  Each run counted alone: every request
+   ``stall@1:8:1.0`` past a 0.5 s lease on the host's clock (the drain at
+   step 8 and the migration on an int8 pool are left to phase 3's
+   ``fleet_check``, which drives both on the reduced model).  Each run
+   counted alone: every request
    terminal exactly once (all complete), deaths, drains and checksum
    failures as planned, migrations in every migrate run after a fault and
    none in the replay run, fewer recomputed prompt tokens with migration
@@ -283,8 +285,8 @@ Phases, each printing its own lines and wall time, each ending in
 5. where the time goes: device time by kernel class per prefill launch and
    per decode step, per launch of each kernel, and the device's idle
    share, from torch.profiler, for the paged engine and for a dense
-   prefill pass and decode step of glm4-9b and of mamba2-130m (with the
-   device time of each of ``ssd``'s three launches per pass); glm4-9b's
+   prefill pass and decode step of glm4-9b (the SSM family's ``ssd``
+   launches are profiled in phase 5d, on zamba2); glm4-9b's
    same split served again under the roofline counter
    (``serve_costs_phase``): the FLOPs and bytes of a packed prefill launch
    and of a decode step beside their bounds and the profiled device ms (a
@@ -295,11 +297,10 @@ Phases, each printing its own lines and wall time, each ending in
    pass): gemma2-27b (46 layers; 46 + 185 a pass) through ``serve_paged``
    on the mix, a long set of prompts of 6000 and 4500 tokens (``max_seq``
    8192: past the 4096 window, over several prefill boundaries) through
-   ``serve_paged`` and one ``generate`` batch, and the static path and
-   ``serve_continuous`` on the mix (token agreement of the three engines
-   printed); granite-20b (52 + 105) through ``serve_paged`` with and
-   without ``spec_k`` 4; chameleon-34b (48 + 193) through ``serve_paged``,
-   the static path and ``serve_continuous``; each model's peak memory and
+   ``serve_paged``; granite-20b (52 + 105) and chameleon-34b (48 + 193)
+   through ``serve_paged`` (the long set's ``generate``, granite's
+   ``spec_k`` 4 run and the dense engines are left to phase 3, which drives
+   them reduced); each model's peak memory and
    pool bytes per token; once gemma2-27b's names are dropped, before any
    garbage collection, under 1 GiB may stay allocated.
    deepseek-67b (125.6 GiB of bf16 weights) does not fit one card: it runs
@@ -308,17 +309,23 @@ Phases, each printing its own lines and wall time, each ending in
    layers, 128 experts of d_ff 768, top 8, capacity factor 1.25; random
    bf16 weights, 61.1 GB, loaded once the earlier models are freed) on the
    serve mix, each run counted alone with exactly 48 attention and 193
-   rmsnorm launches a pass and a step: ``serve_paged`` on a bf16 and (the
-   first 8 requests) an int8 pool, ``spec_k`` 4 on the first 8 tiled
-   prompts beside their plain run, chunked prefill (the first 4 requests), the
-   shared-prefix set with the cache off and on, the
-   static path and ``serve_continuous``; each run's metrics, peak memory and
+   rmsnorm launches a pass and a step, at 16 new tokens a request:
+   ``serve_paged`` on a bf16 pool, ``spec_k`` 4 on the first 8 tiled
+   prompts beside their plain run, chunked prefill (the first 4 requests)
+   (the int8 pool, the shared prefix and the dense engines are left to
+   phase 4, which drives them at full width on glm4-9b); each run's
+   metrics, peak memory and
    token agreement with its baseline (printed, not held); the capacity of
    each routing group; torch.profiler's device ms per packed prefill launch
    and per decode step split into the attention kernels, rmsnorm, the
    expert matmuls, the other matmuls and the MoE dispatch ops (by aten
-   op), with the idle share.  llama4-maverick-400b-a17b (740.8 GiB of bf16
-   weights) runs reduced only (phase 3);
+   op), with the idle share; ``moe_decode_gather`` off and on at 8 slots
+   and at 1 (``moe_gather_phase``): a decode step's device ms and
+   counted FLOPs and bytes, the on run's tokens beside the off run's (first
+   divergences at top-two margins of at most 2E), and reduced qwen3-moe in
+   float32 on the card giving the same tokens on and off.
+   llama4-maverick-400b-a17b (740.8 GiB of bf16 weights) runs reduced only
+   (phase 3);
 5d. the hybrid family at published width and depth: zamba2-2.7b (54
    Mamba-2 layers, a shared attention + MLP block after every 6th, 32
    heads of 80; random bf16 weights, loaded once the earlier models are
@@ -390,7 +397,8 @@ Phases, each printing its own lines and wall time, each ending in
    process holding no model: two ranks (spawned processes of one gloo
    world) share the card.  glm4-9b at full width, bf16 (16 query heads on
    1 kv head, half the columns, vocabulary and pool heads a rank) on the
-   serve mix against tp 1 served here: the first prompt's logits within
+   first 8 requests of the serve mix against tp 1
+   served here: the first prompt's logits within
    2E (E, phase 4's largest bf16 error against float32), each request's
    first divergence at a tp-1 top-two margin of at most 2E (tp 1's
    margins printed beside 2E), every rank's launches exact, each rank's
@@ -403,7 +411,17 @@ Phases, each printing its own lines and wall time, each ending in
    cut to 12 of its 48 layers (64 experts a rank), the first 8 requests.
    Phase 2 holds and times ``paged_attention``, ``spec_verify`` and
    ``varlen_prefill`` at these local heads (records ``<kernel>[tp2]``,
-   whose launches are rank 0's);
+   whose launches are rank 0's).  Then the dry-run check: glm4-9b
+   at full width, bf16, a prefill of 4 x 2048 tokens into a (4, 4096)
+   cache and 8 decode steps, counted at tp 1 here and on the two ranks,
+   each call against ``repro_torch.launch.dryrun``'s count of the same
+   cell on the same mesh (made in two CPU processes while the card works):
+   FLOPs, bytes and the collective ledger equal or the phase fails; the
+   bytes each call added at its peak at most the dry run's bound (the
+   reference's peak formula) + 2 MiB and within 1% + 2 MiB of its live
+   peak, printed hit or miss; reduced granite-20b in float32 with its
+   cache's sequence split over the two ranks (``kv_seq``) and with FSDP
+   over a data axis of 2, counts equal and tokens equal tp 1's;
 8. one JSON line of kernel records, then the final line
    ``{"ok": true, "device": {...}}``.
 
@@ -434,12 +452,11 @@ LAUNCHES = 24                   # calls per timing, back to back
 SLOTS, PAGE, MAX_SEQ, BUDGET = 8, 16, 2048, 2048
 REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS = 16, 64, 1024, 32
 SEED = 0
-REPEATS = 2                     # serve runs; launches are counted in the first
 KV_MODES = (None, "int8", "fp8")  # pool storage: bf16, or codes + f32 scales
 SPEC_K = 4                      # draft depth of the speculative runs
-# prompt-lookup n-gram: 3 as in bench_spec, and 1, which drafts from any
-# earlier occurrence of the pending token and so finds drafts on random weights
-SPEC_NGRAM, DRAFT_NGRAM = 3, 1
+# prompt-lookup n-gram 1: drafts from any earlier occurrence of the pending
+# token, and so finds drafts on random weights
+DRAFT_NGRAM = 1
 WINDOW_LENS = [5, 3, 1, 0, 5, 2, 4, 5]   # spec_verify check (slot 3 idle)
 # dense engines: static batches of up to SLOTS prompts right-padded to the
 # power-of-two bucket of the longest (1024 once a batch holds a prompt above
@@ -1619,13 +1636,6 @@ def _fmt_metrics(m, stats):
             f"wall {m['wall_s']:.3f} s")
 
 
-def _median_spread(label, runs):
-    med = {k: sorted(r[k] for r in runs)[len(runs) // 2] for k in runs[0]}
-    spread = {k: max(r[k] for r in runs) - min(r[k] for r in runs) for k in runs[0]}
-    print(f"   {label}median of {len(runs)} runs: " + ", ".join(
-        f"{k} {med[k]:.3f} (max-min {spread[k]:.3f})" for k in med))
-
-
 def _norms_per_pass(cfg):
     """rmsnorm launches of one pass (prefill launch or pass, decode step):
     per layer ln1 and ln2 (a mamba block: ln and its gated norm), the two
@@ -1688,9 +1698,9 @@ def _check_counts(label, counters, expect, done, total):
     return counts
 
 
-def _completed(token_lists, vocab):
-    """Requests that hold NEW_TOKENS tokens, all inside the vocabulary."""
-    return sum(1 for t in token_lists if len(t) == NEW_TOKENS and all(0 <= x < vocab for x in t))
+def _completed(token_lists, vocab, new_tokens=NEW_TOKENS):
+    """Requests that hold ``new_tokens`` tokens, all inside the vocabulary."""
+    return sum(1 for t in token_lists if len(t) == new_tokens and all(0 <= x < vocab for x in t))
 
 
 def _check_ledger(label, stats):
@@ -1711,7 +1721,7 @@ def _counted_serve(torch, engine, reqs, counters, need, **kw):
                                **kw)
     _check_ledger("serve_paged", stats)
     done = _completed([r.tokens for r in stats.results if r.status == "completed"],
-                      engine.model.cfg.vocab_size)
+                      engine.model.cfg.vocab_size, reqs[0].max_new_tokens)
     counts = _check_counts("serve_paged", counters,
                            _expected_launches(stats, engine.model.cfg), done, len(reqs))
     missing = [name for name in need if counts[name] == 0]
@@ -1768,17 +1778,10 @@ def serve_phase(torch, dev, counters, model, params):
           f"budget {BUDGET}, pool pages {stats.num_pages}, "
           f"kv bytes/token {stats.kv_bytes_per_token:.0f}, peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
-    runs = [_serve_metrics(engine_metrics(stats))]
-    print(f"   run 1: {_fmt_metrics(runs[0], stats)}; {_fmt_repeats(stats.results)}")
-    print(f"   launches in run 1: {counts}")
+    print(f"   run: {_fmt_metrics(_serve_metrics(engine_metrics(stats)), stats)}; "
+          f"{_fmt_repeats(stats.results)}")
+    print(f"   launches: {counts}")
     launches = {name: counts[name] for name in plain_need}
-    # the same requests again: the spread of the end-to-end metrics
-    for i in range(2, REPEATS + 1):
-        again = engine.serve_paged(reqs, num_slots=SLOTS, page_size=PAGE, prefill_budget=BUDGET)
-        same = all(bool((a.tokens == b.tokens).all()) for a, b in zip(again.results, stats.results))
-        runs.append(_serve_metrics(engine_metrics(again)))
-        print(f"   run {i}: {_fmt_metrics(runs[-1], again)}; tokens as run 1: {same}")
-    _median_spread("", runs)
 
     # speculative decoding on tiled prompts, and int8/fp8 pools: each run
     # counted alone, tokens held against the bf16 plain run of its prompts
@@ -1790,18 +1793,19 @@ def serve_phase(torch, dev, counters, model, params):
           f"{_fmt_repeats(base_tiled.results)}")
     bf16_bytes = kvquant.kv_bytes_per_token(cfg.num_layers, cfg.num_kv_heads,
                                             cfg.resolved_head_dim, "bfloat16")
-    plan = [(None, SPEC_K, SPEC_NGRAM)]
+    # spec_k with spec_ngram 1 on every pool
+    plan = []
     for mode in KV_MODES:
-        plan += [(mode, 0, None)] if mode else []
-        plan += [(mode, SPEC_K, DRAFT_NGRAM)]
-    for mode, k, ngram in plan:
+        plan += [(mode, 0)] if mode else []
+        plan += [(mode, SPEC_K)]
+    for mode, k in plan:
         prompts, base = (tiled, base_tiled) if k else (reqs, stats)
-        need = plain_need if not k else ("rmsnorm", "varlen_prefill") + (
-            ("spec_verify",) if ngram == DRAFT_NGRAM else ())
+        need = plain_need if not k else ("rmsnorm", "varlen_prefill", "spec_verify")
         st, cnt = _counted_serve(torch, engines[mode], prompts, counters, need,
-                                 spec_k=k, spec_ngram=ngram or 1)
+                                 spec_k=k, spec_ngram=DRAFT_NGRAM)
         label = f"{mode or 'bf16'} pool, " + (
-            f"spec_k {k} spec_ngram {ngram}, tiled prompts" if k else "plain, the run-1 prompts")
+            f"spec_k {k} spec_ngram {DRAFT_NGRAM}, tiled prompts" if k
+            else "plain, the mix's prompts")
         want_bytes = bf16_bytes if mode is None else kvquant.kv_bytes_per_token(
             cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim, mode)
         print(f"   {label}: {_fmt_metrics(engine_metrics(st), st)}")
@@ -1811,10 +1815,9 @@ def serve_phase(torch, dev, counters, model, params):
         if st.kv_bytes_per_token != want_bytes:
             raise SystemExit(f"{label}: {st.kv_bytes_per_token} pool bytes per token, "
                              f"expected {want_bytes}")
-        if ngram != SPEC_NGRAM:
-            for name in need:
-                if name != "rmsnorm":
-                    launches.setdefault(_name(name, mode), cnt[name])
+        for name in need:
+            if name != "rmsnorm":
+                launches.setdefault(_name(name, mode), cnt[name])
     return launches, engine, reqs, stats
 
 
@@ -1876,7 +1879,6 @@ def dense_serve_phase(torch, dev, counters, model, params, continuous=True):
                  log=lambda _: None)
     if continuous:
         engine.serve_continuous(warm, num_slots=SLOTS)
-    metrics = {"static": [], "continuous": []} if continuous else {"static": []}
     launches, tokens = {}, {}
     # the SSM and hybrid families left-pad to the exact longest prompt of
     # each batch or admission set; the dense family right-pads to the pow2
@@ -1895,7 +1897,6 @@ def dense_serve_phase(torch, dev, counters, model, params, continuous=True):
                            _dense_expected(model, passes, steps),
                            _completed(run.tokens, vocab), len(reqs))
     m = _serve_metrics(static_metrics(run))
-    metrics["static"].append(m)
     print(f"   static run: batches {[bt[0] for bt in run.batches]}, prefill passes "
           f"{passes} ({sum(bt[1] for bt in run.batches)} prompt tokens, {pad}), decode "
           f"steps {steps}; "
@@ -1907,16 +1908,14 @@ def dense_serve_phase(torch, dev, counters, model, params, continuous=True):
         st = engine.serve_continuous(reqs, num_slots=SLOTS)
         counts = _check_counts(f"{cfg.name} continuous run", counters,
                                _dense_expected(model, len(reqs), st.steps),
-                               _completed([r.tokens for r in st.results], vocab), len(reqs))
+                               _completed([r.tokens for r in st.results], vocab),
+                               len(reqs))
         m = _serve_metrics(engine_metrics(st))
-        metrics["continuous"].append(m)
         print(f"   continuous run: {len(reqs)} admissions (batch-1 prefills padded to "
               f"{cont_len}), decode steps {st.steps}, mean slot occupancy "
               f"{st.mean_slot_occupancy:.2f}; " + ", ".join(f"{k} {v:.3f}" for k, v in m.items())
               + f"; launches {counts}")
         tokens["continuous"] = [r.tokens for r in st.results]
-    for path, runs in metrics.items():
-        _median_spread(f"{path}, ", runs)
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"   peak device memory {peak / 1e9:.2f} GB, {(peak - resident) / 1e9:.2f} GB above "
           f"the {resident / 1e9:.2f} GB resident before the runs"
@@ -2499,11 +2498,11 @@ def zoo_serve_phase(torch, dev, counters):
     imply (``_norms_per_pass`` rmsnorm and one attention per layer a pass).
     gemma2-27b: ``serve_paged`` on the serve phase's mix; the long set (two
     prompts of 6000 and 4500 tokens, ``max_seq`` 8192, 2 slots) through
-    ``serve_paged`` and as one ``generate`` batch; the static path and
-    ``serve_continuous`` on the mix; the engines' token agreement printed.
-    granite-20b: ``serve_paged`` on the mix, and with ``spec_k`` 4 on tiled
-    prompts.  chameleon-34b: ``serve_paged``, the static path and
-    ``serve_continuous`` on the mix.  Prints each model's peak memory and pool bytes per token (which
+    ``serve_paged``.  granite-20b and chameleon-34b: ``serve_paged`` on the
+    mix.  (Cut for time: the long set as one ``generate`` batch,
+    granite's ``spec_k`` 4 run and the dense engines; phase 3 drives each
+    on the reduced model, phase 4 the dense engines at full width on
+    glm4-9b.)  Prints each model's peak memory and pool bytes per token (which
     must be ``kvquant.kv_bytes_per_token``'s)."""
     from repro_torch.kernels import kvquant
     from repro_torch.launch.serve import engine_metrics, make_requests
@@ -2535,18 +2534,9 @@ def zoo_serve_phase(torch, dev, counters):
         if stats.kv_bytes_per_token != want_bytes:
             raise SystemExit(f"{arch}: {stats.kv_bytes_per_token} pool bytes per token, "
                              f"expected {want_bytes}")
-        tokens = {"paged": [r.tokens for r in stats.results]}
         if arch == "gemma2-27b":
             print(f"   {arch} where the time goes (torch.profiler, the paged engine):")
             profile_phase(torch, engine, reqs)
-        if arch == "granite-20b":
-            tiled = _tiled_requests(REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS, vocab, SEED)
-            st, cnt = _counted_serve(torch, engine, tiled, counters,
-                                     ("rmsnorm", "varlen_prefill", "spec_verify"),
-                                     spec_k=SPEC_K, spec_ngram=DRAFT_NGRAM)
-            print(f"   {arch} serve_paged, tiled prompts, spec_k {SPEC_K} spec_ngram "
-                  f"{DRAFT_NGRAM}: {_fmt_metrics(engine_metrics(st), st)}; spec_stats "
-                  f"{st.spec_stats}; launches {cnt}")
         if arch == "gemma2-27b":
             long_engine = ServingEngine(model, params, max_batch=len(LONG_LENS),
                                         max_seq=LONG_MAX_SEQ, page_size=PAGE, device=dev)
@@ -2562,29 +2552,8 @@ def zoo_serve_phase(torch, dev, counters):
             if st.prefill_launches < 3:
                 raise SystemExit(f"{arch}: the long set took {st.prefill_launches} prefill "
                                  f"launches; it must span several boundaries")
-            _zero(counters)
-            t0 = time.perf_counter()
-            gen = long_engine.generate([r.prompt for r in long_reqs], NEW_TOKENS)
-            torch.cuda.synchronize()
-            cnt = _check_counts(f"{arch} long generate", counters,
-                                _dense_expected(model, 1, NEW_TOKENS),
-                                _completed(list(gen.tokens), vocab), len(long_reqs))
-            print(f"   {arch} generate, the long set as one batch of {len(LONG_LENS)} (max_seq "
-                  f"{LONG_MAX_SEQ}): prefill {gen.prefill_s * 1e3:.1f} ms, decode "
-                  f"{gen.decode_s * 1e3:.1f} ms ({gen.tokens_per_s:.1f} tok/s), wall "
-                  f"{time.perf_counter() - t0:.3f} s; launches {cnt}; vs serve_paged: "
-                  f"{_fmt_agreement([r.tokens for r in st.results], list(gen.tokens))}")
             del long_engine
         peak = torch.cuda.max_memory_allocated(dev)
-        if arch in ("gemma2-27b", "chameleon-34b"):
-            _, _, _, dense = dense_serve_phase(torch, dev, counters, model, params)
-            tokens.update(dense)
-            peak = max(peak, torch.cuda.max_memory_allocated(dev))
-        if len(tokens) == 3:
-            print(f"   {arch} greedy tokens on the mix (bf16; printed, not gated): paged vs "
-                  f"static {_fmt_agreement(tokens['paged'], tokens['static'])}; paged vs "
-                  f"continuous {_fmt_agreement(tokens['paged'], tokens['continuous'])}; static vs "
-                  f"continuous {_fmt_agreement(tokens['static'], tokens['continuous'])}")
         print(f"   {arch}: peak device memory over its runs {peak / 1e9:.2f} GB")
         del model, params, engine
         if arch == "gemma2-27b":
@@ -2606,6 +2575,14 @@ MOE_INTERLEAVED = "llama4-maverick-400b-a17b"
 # factor drop slots in every check (their configs' 2.0 rarely does)
 MOE_CHECK_CF = 0.5
 MOE_CHUNKED = 4                 # phase 5c's chunked-prefill run: the first 4 requests of the mix
+# phase 5c's depth: new tokens a request (the mix's 32 before the time
+# cuts; a qwen3-moe decode step takes ~0.2 s of host time at 8 slots)
+MOE_NEW_TOKENS = 16
+# phase 5c's moe_decode_gather off and on: the first SLOTS requests
+# and the first one, each served with 1 and MOE_GATHER_NEW new tokens under
+# torch.profiler and under the roofline counter; a decode step is the
+# difference over the steps
+MOE_GATHER_NEW = 4
 
 
 def moe_check_phase(torch, dev):
@@ -2629,17 +2606,101 @@ def moe_check_phase(torch, dev):
         drops.require(label)
 
 
-def moe_serve_phase(torch, dev, counters):
+def moe_gather_phase(torch, dev, engine, reqs, bf16_err):
+    """``moe_decode_gather`` off and on, at SLOTS slots and at one: a paged
+    decode step's device ms (torch.profiler) and counted FLOPs and bytes
+    (the roofline counter), each the difference of a serve with
+    MOE_GATHER_NEW new tokens and one with 1 (a prefill alone, which the
+    lever does not touch: served once for both) over the decode steps;
+    the on run's greedy
+    tokens beside the off run's, each first divergence at a top-two margin
+    (the off run's logits there) of at most 2E (E, phase 4's largest bf16
+    error against float32: a near-tie), printed.  Then reduced
+    ``MOE_ARCH`` in float32 on the card: the same tokens on and off.  The
+    lever runs under rules with a 1-wide model axis, which the tp-1 engine
+    leaves active."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.roofline import count_costs
+    from repro_torch.serve.engine import ServeRequest, ServingEngine
+    from repro_torch.sharding.specs import default_rules, set_activation_rules
+
+    on_rules = default_rules({"data": 1, "model": 1})
+    on_rules.opts["moe_decode_gather"] = True
+    print(f"   moe_decode_gather off and on ({MOE_GATHER_NEW - 1} decode steps a run; device ms "
+          f"by torch.profiler, counted per step):")
+    tokens = {}
+
+    def measured(slots, new, rules):
+        sub = [ServeRequest(r.request_id, r.prompt, new) for r in reqs[:slots]]
+        serve = lambda: engine.serve_paged(sub, num_slots=slots, page_size=PAGE,
+                                           prefill_budget=BUDGET)
+        with set_activation_rules(rules):
+            stats, _, by_class, _ = _profiled(torch, serve, "paged_attention")
+            with count_costs() as costs:
+                serve()
+            torch.cuda.synchronize()
+        return stats, sum(by_class.values()), costs
+
+    for slots in (SLOTS, 1):
+        s1, b1, c1 = measured(slots, 1, None)
+        for on in (False, True):
+            sn, bn, cn = measured(slots, MOE_GATHER_NEW, on_rules if on else None)
+            steps = sn.steps - s1.steps
+            if steps <= 0 or bn <= 0:
+                raise SystemExit(f"moe_decode_gather {'on' if on else 'off'} at {slots} slots: "
+                                 f"{steps} decode steps, device ms {bn}")
+            tokens[(slots, on)] = [np.asarray(r.tokens) for r in sn.results]
+            print(f"      {'on ' if on else 'off'} at {slots} slot{'s' if slots > 1 else ''}: "
+                  f"device ms a step {(bn - b1) / steps:.3f}; counted a step "
+                  f"{(cn.flops - c1.flops) / steps:.4e} FLOPs, "
+                  f"{(cn.memory_bytes - c1.memory_bytes) / steps:.4e} bytes")
+        off, on = tokens[(slots, False)], tokens[(slots, True)]
+        firsts = [(i, int(np.argmin(a == b))) for i, (a, b) in enumerate(zip(off, on))
+                  if not np.array_equal(a, b)]
+        margins = []
+        for i, t in firsts:
+            ctx = np.concatenate([reqs[i].prompt, off[i][:t]]).astype(np.int32)
+            top = engine.prompt_logits(ctx).float().topk(2).values
+            margins.append((i, t, round(float(top[0] - top[1]), 4)))
+        print(f"      tokens on vs off at {slots} slot{'s' if slots > 1 else ''} (bf16): "
+              f"{_fmt_agreement(off, on)}; first divergences (request, token, top-two margin): "
+              f"{margins}; 2E = {2 * bf16_err:.4f}")
+        if any(m > 2 * bf16_err for _, _, m in margins):
+            raise SystemExit("moe_decode_gather: tokens leave the default path's where its top "
+                             "two are further apart than 2E: not rounding")
+    cfg = get_config(MOE_ARCH, reduced=True)
+    model = build_model(cfg, device=dev, dtype=torch.float32)
+    small = ServingEngine(model, model.init(seed=SEED), max_batch=3, max_seq=64, page_size=4,
+                          device=dev)
+    rng = np.random.default_rng(SEED)
+    sub = [ServeRequest(i, rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32), 6)
+           for i, n in enumerate(rng.integers(5, 30, size=5))]
+    got = {}
+    for on in (False, True):
+        with set_activation_rules(on_rules if on else None):
+            got[on] = [r.tokens for r in small.serve_paged(sub, num_slots=3, page_size=4,
+                                                            prefill_budget=8).results]
+    same = all(np.array_equal(a, b) for a, b in zip(got[False], got[True]))
+    print(f"      reduced {MOE_ARCH}, float32, on the card: tokens on == off: {same}")
+    if not same:
+        raise SystemExit("moe_decode_gather: float32 tokens differ from the default path's")
+
+
+def moe_serve_phase(torch, dev, counters, bf16_err):
     """Full-width, full-depth qwen3-moe-30b-a3b (48 layers, 128 experts of
     d_ff 768, top 8, capacity factor 1.25; random bf16 weights from a
-    seeded CUDA generator) on the serve phase's mix, each run counted alone
+    seeded CUDA generator) on the serve phase's mix at MOE_NEW_TOKENS new
+    tokens a request, each run counted alone
     with exactly 48 attention and 193 rmsnorm launches a pass and a step:
-    ``serve_paged`` on a bf16 pool (the baseline) and an int8 pool (the
-    first SLOTS requests); ``spec_k`` 4 on the first SLOTS tiled prompts,
-    beside the plain run of those prompts; chunked prefill (the first
-    MOE_CHUNKED requests); the
-    shared-prefix set with the cache off and on; the
-    static path and ``serve_continuous``.  Each prints the driver's
+    ``serve_paged`` on a bf16 pool (the baseline); ``spec_k`` 4 on the
+    first SLOTS tiled prompts, beside the plain run of those prompts;
+    chunked prefill (the first MOE_CHUNKED requests).  (Cut, for
+    time, the int8 pool's run, the shared-prefix pair and the dense engines
+    (static, continuous): phase 4 drives them at full width on glm4-9b,
+    phase 3 on reduced qwen3-moe.)  Each prints the driver's
     metrics, peak memory and its token agreement with its baseline (printed,
     not held: with capacity routing a verify window of 5 has C 1, so a
     drafted token can be dropped where plain decoding keeps it, and a
@@ -2649,7 +2710,7 @@ def moe_serve_phase(torch, dev, counters):
     from repro_torch.kernels import kvquant
     from repro_torch.launch.serve import engine_metrics, make_requests, moe_summary
     from repro_torch.models.modules import moe_capacity
-    from repro_torch.serve.engine import ServeRequest, ServingEngine
+    from repro_torch.serve.engine import ServingEngine
 
     _release(torch)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2663,15 +2724,12 @@ def moe_serve_phase(torch, dev, counters):
           f"{cfg.num_kv_heads} kv heads, QK-norm {cfg.qk_norm}, rope theta {cfg.rope_theta}; "
           f"{cfg.num_layers} attention and {_norms_per_pass(cfg)} rmsnorm launches a pass; "
           f"capacity per expert and row: {caps}")
-    engines = {mode: ServingEngine(model, params, max_batch=SLOTS, max_seq=MAX_SEQ,
-                                   page_size=PAGE, device=dev, kv_dtype=mode)
-               for mode in (None, "int8")}
-    for eng in engines.values():                     # warm-up, not counted
-        for k in (0, SPEC_K):
-            eng.serve_paged(_tiled_requests(2, 16, 32, 6, vocab, SEED + 1),
-                            prefill_budget=BUDGET, spec_k=k, spec_ngram=DRAFT_NGRAM)
-    engine = engines[None]
-    reqs = make_requests(REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS, vocab, SEED)
+    engine = ServingEngine(model, params, max_batch=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
+                           device=dev)
+    for k in (0, SPEC_K):                            # warm-up, not counted
+        engine.serve_paged(_tiled_requests(2, 16, 32, 6, vocab, SEED + 1),
+                           prefill_budget=BUDGET, spec_k=k, spec_ngram=DRAFT_NGRAM)
+    reqs = make_requests(REQUESTS, PROMPT_MIN, PROMPT_MAX, MOE_NEW_TOKENS, vocab, SEED)
     need = ("rmsnorm", "paged_attention", "varlen_prefill")
 
     def run(label, eng, prompts, need, base=None, **kw):
@@ -2688,13 +2746,11 @@ def moe_serve_phase(torch, dev, counters):
     if base.kv_bytes_per_token != want_bytes:
         raise SystemExit(f"{MOE_ARCH}: {base.kv_bytes_per_token} pool bytes per token, "
                          f"expected {want_bytes}")
-    # the int8 pool on the first SLOTS requests of the mix, the tiled pair on
-    # the first SLOTS tiled prompts, chunked prefill on the first
-    # MOE_CHUNKED requests: the depth cuts that keep the script inside its
-    # time limit
-    run(f"paged, int8 pool, the first {SLOTS} requests", engines["int8"], reqs[:SLOTS], need,
-        ("bf16", base))
-    tiled = _tiled_requests(REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS, vocab, SEED)[:SLOTS]
+    # the tiled pair on the first SLOTS tiled prompts, chunked prefill on the
+    # first MOE_CHUNKED requests: the depth cuts that keep the script inside
+    # its time limit
+    tiled = _tiled_requests(REQUESTS, PROMPT_MIN, PROMPT_MAX, MOE_NEW_TOKENS, vocab,
+                            SEED)[:SLOTS]
     plain_tiled = run(f"paged, the first {SLOTS} tiled prompts, plain", engine, tiled, need)
     run(f"paged, the first {SLOTS} tiled prompts, spec_k {SPEC_K} spec_ngram {DRAFT_NGRAM}",
         engine, tiled,
@@ -2705,27 +2761,12 @@ def moe_serve_phase(torch, dev, counters):
     run(f"chunked prefill ({CHUNK}-token chunks), the first {MOE_CHUNKED} requests", engine,
         reqs[:MOE_CHUNKED], ("rmsnorm", "paged_attention", "flash_attention"), ("packed", base),
         prefill_mode="chunked")
-    shared = [ServeRequest(request_id=i, prompt=p, max_new_tokens=NEW_TOKENS)
-              for i, p in enumerate(_shared_prompts(vocab, SEED, REQUESTS, PREFIX_LEN,
-                                                    PREFIX_TAIL, first_wave=SLOTS))]
-    label = f"shared {PREFIX_LEN}-token prefix"
-    off = run(f"{label}, cache off", engine, shared, need)
-    on = run(f"{label}, cache on", engine, shared, need, ("cache off", off), prefix_cache=True)
-    print(f"      cache on: {on.prefix_stats}; saved {on.saved_prefill_tokens} prompt tokens, "
-          f"cow_copies {on.cow_copies}")
-    if not (on.saved_prefill_tokens > 0 and on.cow_copies > 0
-            and on.prefix_stats["full_hits"] > 0):
-        raise SystemExit(f"{MOE_ARCH} prefix cache: no saved tokens, full hit or copy")
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"   {MOE_ARCH} where the time goes (torch.profiler, the paged engine; device ms):")
     profile_phase(torch, engine, reqs)
-    del engines, engine
-    _, _, _, dense = dense_serve_phase(torch, dev, counters, model, params)
+    moe_gather_phase(torch, dev, engine, reqs, bf16_err)
+    del engine
     peak = max(peak, torch.cuda.max_memory_allocated(dev))
-    paged = [r.tokens for r in base.results]
-    print(f"   {MOE_ARCH} greedy tokens on the mix (bf16; printed, not held): paged vs static "
-          f"{_fmt_agreement(paged, dense['static'])}; paged vs continuous "
-          f"{_fmt_agreement(paged, dense['continuous'])}")
     print(f"   {MOE_ARCH}: peak device memory over its runs {peak / 1e9:.2f} GB")
     del model, params
     _release(torch)
@@ -3743,12 +3784,10 @@ FLEET_RUNS = (
     ("fault-free", "", {}, None, None, (0, 0, 0)),
     ("crash@1:8, migrate", "crash@1:8", {}, None, None, (1, 0, 0)),
     ("crash@1:8, replay", "crash@1:8", {"recovery": "replay"}, None, None, (1, 0, 0)),
-    ("drain worker 1 at step 8", "", {}, (1, 8), None, (0, 1, 0)),
     ("corrupt@1:9 then crash@1:10, checkpoint every 8", "corrupt@1:9,crash@1:10",
      {"checkpoint_every": 8}, None, None, (1, 0, 1)),
     ("stall@1:8:2.0 past a 1.0 s lease, parallel workers", "stall@1:8:2.0",
      {"lease_ttl_s": 1.0, "parallel": True, "hedge": False}, None, None, (1, 0, 0)),
-    ("crash@1:8, migrate, int8 pool", "crash@1:8", {}, None, "int8", (1, 0, 0)),
 )
 
 
@@ -4045,6 +4084,24 @@ TP_SPEC_SLOTS = 4               # the speculative TP run: 4 tiled prompts, each 
 # float32 sums: the partials of the row-parallel products added across ranks)
 TP_F32_LAYERS = 2
 TP_F32_TOL = 1e-4
+# phase 7's dry-run check: glm4-9b at full width, bf16, a prefill of
+# DRY_BATCH x DRY_PROMPT tokens into a (DRY_BATCH, DRY_CACHE) cache, then
+# DRY_STEPS decode steps, at tp 1 here and on the world's two ranks, each
+# call counted and held against ``repro_torch.launch.dryrun``'s count of the
+# same cell on the same mesh: FLOPs, bytes and the collective ledger equal;
+# the bytes the call added at its peak (``max_memory_allocated`` less what
+# was allocated before it), printed hit or miss against two limits: at
+# most the dry run's peak_per_device_bytes less its arguments (output +
+# temp - alias, the reference's formula, a bound) plus DRY_MEM_SLACK, and
+# within DRY_MEM_TOL of the dry run's live_peak_bytes (its timeline's own
+# peak) plus DRY_MEM_SLACK: the caching allocator hands out a cached block
+# whole where the rest would be under 1 MiB, so a large storage may take up
+# to 1 MiB more, two of them at a peak.  Then granite-20b reduced, float32,
+# with the cache's sequence split over 2 ranks (kv_seq) and with FSDP over a
+# data axis of 2: tokens equal tp 1's.
+DRY_BATCH, DRY_PROMPT, DRY_CACHE, DRY_STEPS = 4, 2048, 4096, 8
+DRY_MEM_TOL, DRY_MEM_SLACK = 0.01, 2 << 20
+DRY_REDUCED = "granite-20b"
 
 
 
@@ -4055,23 +4112,97 @@ def _tp_world_jobs(torch, cfgs, reqs, tiled, red_reqs, moe_reqs):
     layers, float32 (the first SLOTS requests of the mix, probed); (b)
     reduced glm4-9b in float32; (c) qwen3-moe-30b-a3b cut to TP_MOE_LAYERS
     layers, bf16."""
-    from repro_torch.serve.tp import TPRun
+    from repro_torch.serve.tp import ServeJob, TPRun
 
+    dry = _dry_checks()
     eng = dict(max_batch=SLOTS, max_seq=MAX_SEQ, page_size=PAGE)
     kw = dict(num_slots=SLOTS, page_size=PAGE, prefill_budget=BUDGET)
     red_eng = dict(max_batch=3, max_seq=64, page_size=4)
     red_kw = dict(num_slots=3, page_size=4, prefill_budget=8)
     return [
-        (cfgs["full"], SEED, [
+        ServeJob(cfgs["full"], SEED, [
             TPRun(reqs, engine=eng, serve=kw, probe=reqs[0].prompt, trace=True),
             TPRun(tiled, engine=eng, serve=dict(kw, spec_k=SPEC_K, spec_ngram=DRAFT_NGRAM,
                                                 prefix_cache=True, num_slots=TP_SPEC_SLOTS))],
-         torch.bfloat16),
-        (cfgs["f32"], SEED, [TPRun(reqs[:SLOTS], engine=eng, serve=kw, probe=reqs[0].prompt)],
-         torch.float32),
-        (cfgs["reduced"], SEED, [TPRun(red_reqs, engine=red_eng, serve=red_kw)], torch.float32),
-        (cfgs["moe"], SEED, [TPRun(moe_reqs, engine=eng, serve=kw)], torch.bfloat16),
+                 torch.bfloat16),
+        ServeJob(cfgs["f32"], SEED,
+                 [TPRun(reqs[:SLOTS], engine=eng, serve=kw, probe=reqs[0].prompt)],
+                 torch.float32),
+        ServeJob(cfgs["reduced"], SEED, [TPRun(red_reqs, engine=red_eng, serve=red_kw)],
+                 torch.float32),
+        ServeJob(cfgs["moe"], SEED, [TPRun(moe_reqs, engine=eng, serve=kw)], torch.bfloat16),
+        dry["full"], dry["kv_seq"], dry["fsdp"],
     ]
+
+
+def _dry_checks():
+    """Phase 7's dry-run checks (``repro_torch.launch.dryrun.CellCheck``, each
+    a job of the world's ranks): glm4-9b at full width,
+    bf16, at tp TP; reduced DRY_REDUCED in float32 at tp TP (its one kv head:
+    the cache's sequence split) and with FSDP over a data axis of TP."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import CellCheck
+
+    rng = np.random.default_rng(SEED)
+    full = get_config("glm4-9b")
+    red = get_config(DRY_REDUCED, reduced=True)
+    prompts = rng.integers(0, full.vocab_size, (DRY_BATCH, DRY_PROMPT)).astype(np.int32)
+    small = rng.integers(0, red.vocab_size, (4, 12)).astype(np.int32)
+    return {"full": CellCheck(full, prompts, DRY_CACHE, DRY_STEPS, weights=SEED, tp=TP,
+                              dtype="bfloat16"),
+            "kv_seq": CellCheck(red, small, 24, 4, weights=SEED, tp=TP),
+            "fsdp": CellCheck(red, small, 24, 4, weights=SEED, tp=1, fsdp=True)}
+
+
+def _dry_counts(check, sizes, rank):
+    """The dry run's counts of ``check``'s calls on a mesh of ``sizes``
+    seen from ``rank``, as plain values (run in a CPU process beside the
+    card's work)."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    from repro_torch.launch import dryrun
+
+    return [dryrun.costs_dict(c) for c in dryrun.check_counts(check, sizes, rank)]
+
+
+def _dry_compare(label, costs, added, counted):
+    """One run's calls against the dry run's counts: FLOPs, bytes and the
+    ledger must be equal (or the phase fails); the added peak is printed
+    beside the dry run's bound and live peak with each limit's verdict."""
+    calls = ["prefill"] + [f"step {i + 1}" for i in range(len(costs) - 1)]
+    misses = []
+    for name, real, want in zip(calls, costs, counted):
+        for key in ("flops", "bytes", "ledger", "by_kernel"):
+            if real[key] != want[key]:
+                raise SystemExit(f"dry run {label} {name}: counted {key} on the card "
+                                 f"{real[key] if key != 'ledger' else len(real[key])} != the dry "
+                                 f"run's {want[key] if key != 'ledger' else len(want[key])}")
+        if added:
+            m = want["memory"]
+            bound = m["output_bytes"] + m["temp_bytes"] - m["alias_bytes"]
+            live = want["live_peak_bytes"]
+            got = added[calls.index(name)]
+            under = got <= bound + DRY_MEM_SLACK
+            near = abs(got - live) <= DRY_MEM_TOL * live + DRY_MEM_SLACK
+            if not (under and near):
+                misses.append(name)
+            if name in ("prefill", "step 1", calls[-1]):
+                print(f"      {label} {name}: {real['flops']:.4e} FLOPs, {real['bytes']:.4e} "
+                      f"bytes, {len(real['ledger'])} collectives ("
+                      f"{sum(e['moved_bytes'] for e in real['ledger']):.4e} bytes moved) = the "
+                      f"dry run's; peak_per_device {m['peak_per_device_bytes'] / 1e9:.4f} GB "
+                      f"(arguments {m['argument_bytes'] / 1e9:.4f}); added at the peak: card "
+                      f"{got / 1e6:.4f} MB, dry run's bound {bound / 1e6:.4f} MB "
+                      f"({'hit' if under else 'MISS'}), live peak {live / 1e6:.4f} MB "
+                      f"({'hit' if near else 'MISS'})")
+    print(f"      {label}: {len(calls)} calls, FLOPs, bytes and ledger equal the dry run's"
+          + (f"; added peak under the bound + {DRY_MEM_SLACK >> 20} MiB and within "
+             f"{DRY_MEM_TOL:.0%} + {DRY_MEM_SLACK >> 20} MiB of the live peak: "
+             f"{len(calls) - len(misses)}/{len(calls)}" + (f", misses {misses}" if misses else "")
+             if added else ""))
+    return misses
 
 
 def _tp_spec_requests(vocab):
@@ -4115,7 +4246,7 @@ def tp_serve_phase(torch, dev, bf16_err):
     (a) glm4-9b at full width and depth, bf16, random weights from SEED
     (each rank draws every leaf whole and keeps its cut: 16 query heads on
     1 kv head, half the MLP columns and half the vocabulary a rank) on the
-    serve mix: the first prompt's logits within 2E of tp 1's, E the largest
+    first SLOTS requests of the serve mix: the first prompt's logits within 2E of tp 1's, E the largest
     bf16 error phase 4 measured against float32 (two bf16 paths each within
     E); greedy tokens as ``_agreement`` counts them, each request's first
     divergence at a step where tp 1's top-two margin is at most 2E (tp 1's
@@ -4130,17 +4261,28 @@ def tp_serve_phase(torch, dev, bf16_err):
     (a') glm4-9b at its published widths cut to TP_F32_LAYERS layers, in
     float32 (every split, vocabulary and MLP columns included, at full
     size): the first prompt's logits within TP_F32_TOL of tp 1's largest,
-    and on the first SLOTS requests every first divergence at a tp-1
+    and on the same requests every first divergence at a tp-1
     margin of at most twice that limit.
     (b) reduced glm4-9b in float32: tokens equal tp 1's.  (c) qwen3-moe-
     30b-a3b cut to TP_MOE_LAYERS layers, bf16 (64 experts a rank, the
     router whole on each), once, on the first SLOTS requests of the mix:
     launches exact, tokens beside tp 1's.
+    Then the dry-run check (DRY_*, :func:`_dry_checks`): glm4-9b's
+    prefill and decode steps counted at tp 1 here and on the two ranks,
+    each call against ``repro_torch.launch.dryrun``'s count of it (computed
+    in two CPU processes while the card works); reduced DRY_REDUCED with its
+    cache's sequence split and with FSDP, tokens equal tp 1's.
     Returns rank 0's launches by kernel, for the kernels line's ``[tp2]``
     records."""
+    import atexit
+    import dataclasses
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
     import numpy as np
 
     from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import build_model
     from repro_torch.serve.engine import ServeRequest, ServingEngine
@@ -4150,7 +4292,10 @@ def tp_serve_phase(torch, dev, bf16_err):
     cfgs = {"full": cfg, "f32": cfg.replace(num_layers=TP_F32_LAYERS),
             "reduced": get_config("glm4-9b", reduced=True),
             "moe": get_config(MOE_ARCH).replace(num_layers=TP_MOE_LAYERS)}
-    reqs = make_requests(REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS, cfg.vocab_size, SEED)
+    # the first SLOTS requests of the mix (gloo moves every all-reduce
+    # through the host)
+    reqs = make_requests(REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS, cfg.vocab_size,
+                         SEED)[:SLOTS]
     tiled = _tp_spec_requests(cfg.vocab_size)
     red = cfgs["reduced"]
     rng = np.random.default_rng(SEED)
@@ -4161,6 +4306,19 @@ def tp_serve_phase(torch, dev, bf16_err):
                              cfgs["moe"].vocab_size, SEED)[:SLOTS]
     eng = dict(max_batch=SLOTS, max_seq=MAX_SEQ, page_size=PAGE)
     kw = dict(num_slots=SLOTS, page_size=PAGE, prefill_budget=BUDGET)
+    dry = _dry_checks()
+    one = {"data": 1, "model": 1}
+    world_mesh = {"full": {"data": 1, "model": TP}, "kv_seq": {"data": 1, "model": TP},
+                  "fsdp": {"data": TP, "model": 1}}
+    # the dry run's counts, on the CPU beside the card's work
+    pool = ProcessPoolExecutor(max_workers=2, mp_context=mp.get_context("spawn"))
+    atexit.register(pool.shutdown, wait=True, cancel_futures=True)
+    counting = {("full", "tp1", 0): pool.submit(_dry_counts, dry["full"], one, 0)}
+    for name, sizes in world_mesh.items():
+        for rank in range(TP):
+            counting[(name, "world", rank)] = pool.submit(_dry_counts, dry[name], sizes, rank)
+    tp1_check = lambda name: (lambda e: dryrun.run_check(
+        dataclasses.replace(dry[name], tp=1, fsdp=False), e.model, e.params, one, 0, dev))
 
     # tp 1 in this process, one model at a time
     def tp1(cfg_, dtype, runs):
@@ -4171,11 +4329,14 @@ def tp_serve_phase(torch, dev, bf16_err):
         _release(torch)
         return out
 
-    logits1, base, base_spec = tp1(cfg, torch.bfloat16, [
+    logits1, base, base_spec, dry1 = tp1(cfg, torch.bfloat16, [
         (eng, lambda e: e.prompt_logits(reqs[0].prompt).float().cpu()),
         (eng, lambda e: e.serve_paged(reqs, **kw)),
         (eng, lambda e: e.serve_paged(tiled, spec_k=SPEC_K, spec_ngram=DRAFT_NGRAM,
-                                      prefix_cache=True, **dict(kw, num_slots=TP_SPEC_SLOTS)))])
+                                      prefix_cache=True, **dict(kw, num_slots=TP_SPEC_SLOTS))),
+        (eng, tp1_check("full"))])
+    (dry_red1,) = tp1(get_config(DRY_REDUCED, reduced=True), torch.float32,
+                      [(dict(max_batch=4, max_seq=24, page_size=4), tp1_check("kv_seq"))])
     f32_logits1, f32_base = tp1(cfgs["f32"], torch.float32, [
         (eng, lambda e: e.prompt_logits(reqs[0].prompt).float().cpu()),
         (eng, lambda e: e.serve_paged(reqs[:SLOTS], **kw))])
@@ -4186,8 +4347,9 @@ def tp_serve_phase(torch, dev, bf16_err):
     (moe_base,) = tp1(cfgs["moe"], torch.bfloat16, [(eng, lambda e: e.serve_paged(moe_reqs,
                                                                                    **kw))])
     t0 = time.perf_counter()
-    full, f32, reduced, moe = serve_tp(_tp_world_jobs(torch, cfgs, reqs, tiled, red_reqs, moe_reqs),
-                                  TP, device=dev, timeout_s=600.0)
+    full, f32, reduced, moe, dry_full, dry_kv, dry_fsdp = serve_tp(
+        _tp_world_jobs(torch, cfgs, reqs, tiled, red_reqs, moe_reqs), TP, device=dev,
+        timeout_s=600.0)
     print(f"   the world of {TP} ranks on one card (spawn, weights, every run): "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -4248,6 +4410,33 @@ def tp_serve_phase(torch, dev, bf16_err):
     _tp_counts(f"tp {TP} {MOE_ARCH}", m, mc, moe_reqs)
     if m.engine_tp != TP:
         raise SystemExit(f"tp {TP}: {MOE_ARCH} did not split")
+
+    # the dry-run check
+    t0 = time.perf_counter()
+    counts = {k: f.result(timeout=600) for k, f in counting.items()}
+    pool.shutdown()
+    print(f"   (d) the dry run's counts against the card ({DRY_BATCH} x {DRY_PROMPT} prompts "
+          f"into a ({DRY_BATCH}, {DRY_CACHE}) cache, then {DRY_STEPS} decode steps; "
+          f"{cfg.name} full width, bf16; the counts waited {time.perf_counter() - t0:.1f} s "
+          f"more): the added peak at most the dry run's bound + {DRY_MEM_SLACK >> 20} MiB, "
+          f"and within {DRY_MEM_TOL:.0%} + {DRY_MEM_SLACK >> 20} MiB of its live peak")
+    tok1, _, costs1, added1 = dry1
+    misses = _dry_compare("tp 1", costs1, added1, counts[("full", "tp1", 0)])
+    for rank in range(TP):
+        misses += _dry_compare(f"tp {TP} rank {rank}", dry_full.costs[rank],
+                               dry_full.peak_added[rank], counts[("full", "world", rank)])
+    print(f"      greedy tokens, tp {TP} vs tp 1 (bf16, printed): "
+          f"{_fmt_agreement(list(tok1), list(dry_full.tokens))}; added-peak misses {len(misses)}")
+    red_tok1 = dry_red1[0]
+    for name, got in (("kv_seq", dry_kv), ("fsdp", dry_fsdp)):
+        for rank in range(TP):
+            _dry_compare(f"{DRY_REDUCED} reduced {name} rank {rank}", got.costs[rank], [],
+                         counts[(name, "world", rank)])
+        same = np.array_equal(got.tokens, red_tok1)
+        print(f"      {DRY_REDUCED} reduced, float32, {name} on {world_mesh[name]}: tokens "
+              f"equal tp 1's: {same}")
+        if not same:
+            raise SystemExit(f"dry run {name}: float32 tokens differ from tp 1's")
     return {f"{k}[tp{TP}]": n for k, n in {**res.launches[0],
                                            "spec_verify": spec.launches[0]["spec_verify"]}.items()}
 
@@ -4778,10 +4967,11 @@ def platform_phase(torch, counters):
                     raise SystemExit(f"platform SYSTEM: {len(costs)} system:cost events for "
                                      f"{passes} predicts, FLOPs {[c['flops'] for c in costs]}")
                 ms = [e["device_ms"] for e in events]
-                if not all(x > 0 for x in ms):
+                if not all(x is not None and x > 0 for x in ms):
                     raise SystemExit(f"platform SYSTEM: system:cuda device_ms {ms}, device "
                                      f"records {[e['device_records'] for e in events]}, lost "
-                                     f"{[e['lost_records'] for e in events]}: the profiler "
+                                     f"{[e['lost_records'] for e in events]}, work range found "
+                                     f"{[e['work_range_found'] for e in events]}: the profiler "
                                      f"recorded no device time")
                 lost = [e["lost_records"] for e in events]
                 if any(lost):
@@ -4857,8 +5047,9 @@ def examples_phase(torch):
     in this process on the card (``runpy``: no second CUDA context), as a
     user runs them, with no arguments; each must exit 0 in its seconds,
     printed with a few of its lines (inspect_trace's SYSTEM events: a
-    ``system:cost`` line with FLOPs above 0 and a ``system:cuda`` line with
-    device ms above 0 a predict)."""
+    ``system:cost`` line with FLOPs above 0 and a ``system:cuda`` line a
+    predict with device ms above 0, no lost record and its work range
+    found)."""
     import contextlib
     import io
     import runpy
@@ -4891,10 +5082,16 @@ def examples_phase(torch):
             raise SystemExit(f"examples/{name}_torch.py exited {code}")
         if name == "inspect_trace":
             flops = [float(x) for x in re.findall(r"^  flops=(\S+)", out.getvalue(), re.M)]
-            ms = [float(x) for x in re.findall(r"^  device_ms=(\S+)", out.getvalue(), re.M)]
-            if not (flops and len(ms) == len(flops) and all(x > 0 for x in flops + ms)):
+            cuda = re.findall(r"^  device_ms=(\S+) lost_records=(\d+) work_range_found=(\w+)",
+                              out.getvalue(), re.M)
+            # a window whose work range was not found or that lost records
+            # reads None: no reading, and a failure here (ROADMAP Queue 3 item 2)
+            if not (flops and len(cuda) == len(flops)
+                    and all(m != "None" and float(m) > 0 and lost == "0" and found == "True"
+                            for m, lost, found in cuda)
+                    and all(x > 0 for x in flops)):
                 raise SystemExit(f"inspect_trace: system:cost FLOPs {flops}, system:cuda "
-                                 f"device ms {ms}")
+                                 f"(device_ms, lost_records, work_range_found) {cuda}")
         _release(torch)
 
 
@@ -5828,8 +6025,8 @@ def main() -> int:
         launches[name] = dense_launches[name]
     print("   -- mamba2-130m (SSM) through the same two engines")
     ssm_model, ssm_params = full_model(torch, dev, "mamba2-130m")
-    ssm_launches, ssm_engine, ssm_prompts, _ = dense_serve_phase(torch, dev, counters, ssm_model,
-                                                                 ssm_params)
+    ssm_launches, ssm_engine, _, _ = dense_serve_phase(torch, dev, counters, ssm_model,
+                                                       ssm_params)
     launches["ssd"] = ssm_launches["ssd"]
     _done(torch, "4. serve", t0)
 
@@ -5844,7 +6041,6 @@ def main() -> int:
         raise SystemExit("profile: the profiler saw no device time in glm4-9b's serve")
     serve_costs_phase(torch, engine, reqs, busy)
     dense_profile_phase(torch, dense_engine, prompts)
-    dense_profile_phase(torch, ssm_engine, ssm_prompts)
     _done(torch, "5. profile", t0)
     del model, params, engine, dense_engine, ssm_model, ssm_params, ssm_engine
     _release(torch)
@@ -5866,7 +6062,7 @@ def main() -> int:
     _done(torch, "5b. serve the rest of the dense family", t0)
 
     t0 = _phase(f"5c. serve: {MOE_ARCH}, full width and depth, random bf16 weights")
-    moe_serve_phase(torch, dev, counters)
+    moe_serve_phase(torch, dev, counters, bf16_err)
     _done(torch, "5c. serve the MoE family", t0)
 
     t0 = _phase(f"5d. serve: {HYBRID_ARCH}, full width and depth, random bf16 weights, with its "

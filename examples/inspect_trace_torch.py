@@ -57,7 +57,11 @@ try:
                   f" bound={s.tags.get('step_time_bound_s', 0) * 1e3:.3g} ms"
                   f" ({s.tags.get('dominant', '')})")
         elif s.name == "system:cuda":
-            print(f"  device_ms={s.tags.get('device_ms', 0):.3f} "
+            # None: the window's work range was not found or it lost records
+            ms = s.tags.get("device_ms")
+            print(f"  device_ms={'None' if ms is None else f'{ms:.3f}'} "
+                  f"lost_records={s.tags.get('lost_records', 0)} "
+                  f"work_range_found={s.tags.get('work_range_found', True)} "
                   f"launches={s.tags.get('launches', {})} "
                   f"max_memory_allocated={s.tags.get('max_memory_allocated', 0)}")
 finally:

@@ -16,6 +16,9 @@ a dense row and the same keys in pages give the same bits.  ``S`` must be
 a multiple of 16 there.  float32 runs ``csrc/decode_attention.cu``, the
 exact CUDA-core tile stepping through 16 keys at a time as
 ``paged_attention``'s float32 tile does.
+
+A meta tensor (the dry run) passes the same checks and gets the output and
+the split scratch the launcher allocates, and nothing runs.
 """
 from __future__ import annotations
 
@@ -73,7 +76,8 @@ def decode_attention(
         return ref.decode_attention(q, k_cache, v_cache, lengths, softcap=softcap,
                                     window=window, scale=scale, kv_bound=bound)
     req = _build.require
-    req(q.device.type == "cuda", f"decode_attention: unsupported device {q.device}")
+    req(q.device.type in ("cuda", "meta"),
+        f"decode_attention: unsupported device {q.device}")
     req(q.dim() == 4 and q.shape[1] == 1, f"decode_attention: q {tuple(q.shape)} != (b, 1, h, d)")
     b, _, h, d = q.shape
     req(k_cache.dim() == 4 and k_cache.shape == v_cache.shape,
@@ -103,6 +107,8 @@ def decode_attention(
     else:
         _build.check_tile("decode_attention", h // kvh, BLOCK_K, d)
         out = torch.empty_like(q)
+        if q.device.type == "meta":
+            return out
         err = _build.library().rt_decode_attention_f32(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), b, S, h, kvh, d, BLOCK_K, bound, w, scale, float(softcap),

@@ -140,13 +140,17 @@ def launch(name: str, p: Plan, q: torch.Tensor, k_pages: torch.Tensor, v_pages: 
     _, ps, kvh, _ = k_pages.shape
     R = W * (h // kvh)
     ns = n_splits(p, max_pages, ps, key_cap)
+    meta = q.device.type == "meta"
     # 16-byte copies: every row starts on a 16-byte boundary
-    _build.require(all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
+    _build.require(meta or all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
                    f"{name}: q and the pools must be 16-byte aligned")
     n = b * kvh * ns * R
     stats = torch.empty(2 * n, dtype=torch.float32, device=q.device)     # m, l
     acc = torch.empty(n * d, dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
+    if meta:
+        # the dry run: the scratch and the output, no launch
+        return out
     kind = "bf16" if store == 0 else "quant"
     width = k_pages.shape[0] // b if table is None else table.shape[1]
     err = getattr(_build.library(), f"rt_decode_split_{kind}")(

@@ -6,8 +6,10 @@ Replaces the TPU kernel ``repro/kernels/flash_attention.py:flash_attention``
 log-sum-exp, which the backward :mod:`.flash_attention_bwd` recomputes P
 from).  A CPU tensor runs the plain version
 (:func:`repro_torch.kernels.ref.attention`, :func:`~.ref.attention_lse`); a
-CUDA tensor launches a kernel or raises.  ``launches`` counts kernel
-launches.  :class:`FlashAttentionFn` is the differentiable op: this forward
+CUDA tensor launches a kernel or raises; a meta tensor (the dry run)
+passes the same checks and gets the outputs the launcher allocates, and
+nothing runs.  ``launches`` counts kernel launches.
+:class:`FlashAttentionFn` is the differentiable op: this forward
 with the log-sum-exp, then :func:`.flash_attention_bwd.flash_attention_bwd`.
 
 The kernel is chosen by dtype and head dim (:func:`plan`), a dispatch and
@@ -143,7 +145,7 @@ def flash_attention(
         return fn(q, k, v, causal=causal, window=window, softcap=softcap, q_offset=q_offset,
                   scale=scale)
     req = _build.require
-    req(q.device.type == "cuda", f"flash_attention: unsupported device {q.device}")
+    req(q.device.type in ("cuda", "meta"), f"flash_attention: unsupported device {q.device}")
     req(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,
         "flash_attention: q must be (b, sq, h, d), k and v (b, sk, kvh, d) and alike")
     b, sq, h, d = q.shape
@@ -163,6 +165,9 @@ def flash_attention(
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse
            else None)
+    if q.device.type == "meta":
+        # the dry run: the launcher's outputs, no launch
+        return (out, lse) if return_lse else out
     lib = _build.library()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _build.ptr(lse))
     if p.kernel != "f32":

@@ -2,7 +2,9 @@
 
 Replaces the TPU kernel ``repro/kernels/rmsnorm.py:rmsnorm``.  A CPU tensor
 runs the plain version (:func:`repro_torch.kernels.ref.rmsnorm`); a CUDA
-tensor launches the kernel or raises.  ``launches`` counts kernel launches.
+tensor launches the kernel or raises.  A meta tensor (the dry run) passes
+the same checks and gets the output the launcher allocates, and nothing
+runs.  ``launches`` counts kernel launches.
 :class:`RMSNormFn` is the differentiable op: this forward, then
 :func:`.rmsnorm_bwd.rmsnorm_bwd`.
 """
@@ -25,7 +27,7 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.T
     if x.device.type == "cpu":
         return ref.rmsnorm(x, weight, eps)
     req = _build.require
-    req(x.device.type == "cuda", f"rmsnorm: unsupported device {x.device}")
+    req(x.device.type in ("cuda", "meta"), f"rmsnorm: unsupported device {x.device}")
     D = x.shape[-1]
     req(weight.shape == (D,), f"rmsnorm: weight {tuple(weight.shape)} != ({D},)")
     req(weight.device == x.device, "rmsnorm: weight on another device")
@@ -34,7 +36,7 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.T
     code = _build.dtype_code(x, "rmsnorm")
     out = torch.empty_like(x)
     rows = x.numel() // D if D else 0
-    if rows == 0:
+    if rows == 0 or x.device.type == "meta":
         return out
     lib = _build.library()
     err = lib.rt_rmsnorm(

@@ -7,12 +7,17 @@ a process that is no rank of a world, the plain mapping ``{"data": 1,
 "model": 1}``.  :func:`run_ranks` (and :class:`Ranks`, its handle that
 does not wait) runs ``fn(rank, device, *args)`` in ``tp`` spawned
 processes joined by a gloo world over ``tcp://localhost`` and returns rank
-0's result.  Each rank's device is its own: the CPU, or
+0's result; :func:`run_jobs` is such an ``fn`` that runs a list of jobs,
+each a callable ``(rank, device) -> result``.  Each rank's device is its own: the CPU, or
 ``cuda:(rank % device_count)``; ranks that share one card run their
 collectives through gloo on its tensors (NCCL takes one rank a device).
 On the card the kernel library is built once, in the calling process,
-before any rank starts.  The production mesh of the reference
-(``make_production_mesh``) is not ported yet.
+before any rank starts.  :func:`make_production_mesh` gives the
+reference's production meshes, 16 x 16 = 256 devices ``(data, model)``
+and, across two pods, 2 x 16 x 16 = 512 ``(pod, data, model)``, as the
+axis sizes alone: the sharding rules read nothing else, and the dry run
+(:mod:`repro_torch.launch.dryrun`) counts one device's program on them
+with no process group.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import socket
 import time
 import traceback
 from datetime import timedelta
-from typing import Any, Callable, Dict, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 
@@ -55,6 +60,14 @@ def make_host_mesh(tp: Optional[int] = None):
 
     device_type = _RANK[2].type if _RANK is not None else "cpu"
     return init_device_mesh(device_type, (n // tp, tp), mesh_dim_names=("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Dict[str, int]:
+    """The reference's production mesh as ``{axis: size}``: ``{"data": 16,
+    "model": 16}``, or with ``multi_pod`` ``{"pod": 2, "data": 16, "model":
+    16}``.  Batch-like dims shard over ("pod", "data"), tensor-parallel dims
+    over "model"."""
+    return {"pod": 2, "data": 16, "model": 16} if multi_pod else {"data": 16, "model": 16}
 
 
 def mesh_name(mesh) -> str:
@@ -178,6 +191,19 @@ class Ranks:
                 p.kill()
                 p.join()
         self._out.close()
+
+
+def run_jobs(rank: int, device: torch.device, jobs: List[Callable]) -> List[Any]:
+    """A rank function for :class:`Ranks`: each of ``jobs`` (a callable
+    ``(rank, device) -> result``, such as ``repro_torch.serve.tp.ServeJob``
+    or ``repro_torch.launch.dryrun.CellCheck``) in order, the device's
+    cache emptied after each; their results."""
+    out = []
+    for job in jobs:
+        out.append(job(rank, device))
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 def run_ranks(fn: Callable, tp: int, *args, device: Union[str, torch.device] = "cpu",

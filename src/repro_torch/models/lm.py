@@ -39,10 +39,19 @@ arrays.  Under tensor parallelism (the paged paths, on a rank's shards
 from ``init(rules=...)`` or ``shard_params``) the embedding and the head
 are vocab-parallel, the pools hold the rank's kv heads
 (``init_paged_cache(tp=)``), and the blocks close their row-parallel
-products with collectives (:mod:`.modules`).
+products with collectives (:mod:`.modules`).  The dense family's and the
+MoE family's ``prefill`` and ``decode`` run on one rank's shards of any
+mesh under the dry run's rules (:func:`repro_torch.launch.dryrun.rules_for`):
+the dense cache carries the reference's logical axes (:meth:`DecoderLM.
+cache_defs`; ``init_cache(rules=)`` gives a rank's shard), its sequence
+dim split over "model" where the kv heads do not divide it (``kv_seq``,
+:mod:`.modules`), and with ``fsdp`` every leaf split over the batch axes
+is all-gathered over them just before its layer (the embedding, the final
+norm and the head before theirs) and freed after it (ZeRO-3).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Dict, List, Optional, Union
 
@@ -53,7 +62,15 @@ from ..device import resolve_device, resolve_dtype
 from ..kernels import decode_attention as _decode_attention
 from ..kernels import kvquant, ops
 from ..sharding import comm
-from ..sharding.specs import ShardingRules, leaf_split, opt_enabled, shard_leaf
+from ..sharding.specs import (
+    ShardingRules,
+    activation_rules,
+    batch_axes,
+    leaf_splits,
+    local_shape,
+    opt_enabled,
+    shard_leaf,
+)
 from .config import ArchConfig
 from .modules import (
     attn_decode,
@@ -64,6 +81,7 @@ from .modules import (
     attn_prefill_packed,
     attn_prefill_paged,
     cross_attn_decode,
+    head_layout,
     mamba_defs,
     mamba_forward,
     mamba_step,
@@ -191,8 +209,32 @@ class _BaseLM:
         if rules is None:
             return init_params(self.param_defs(), gen, self.device, dtype)
         return init_params(self.param_defs(), gen, self.device, dtype,
-                           keep=lambda path, p, t: shard_leaf(t, leaf_split(rules, p, path),
+                           keep=lambda path, p, t: shard_leaf(t, leaf_splits(rules, p, path),
                                                               rules, rank))
+
+    @functools.cached_property
+    def _defs(self):
+        return self.param_defs()
+
+    def _fsdp(self, tree, defs):
+        """``tree`` with each leaf that the active rules split over the
+        batch axes (``fsdp``) all-gathered over them along that dim: the
+        whole weight for the layer about to run, freed when it ends."""
+        rules = activation_rules()
+        if rules is None or not rules.fsdp:
+            return tree
+        data = set(batch_axes(rules.mesh))
+
+        def walk(node, d, path):
+            if isinstance(node, dict):
+                # the defs' order: every rank and the dry run gather alike
+                return {k: walk(node[k], v, f"{path}/{k}") for k, v in d.items()}
+            for dim, axes in leaf_splits(rules, d, path):
+                if set((axes,) if isinstance(axes, str) else axes) <= data:
+                    node = comm.all_gather_data(node, dim, axes)
+            return node
+
+        return walk(tree, defs, "")
 
     def _norm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return ops.rmsnorm(x, w, self.cfg.norm_eps)
@@ -200,7 +242,8 @@ class _BaseLM:
     def _embed_tokens(self, params, tokens: torch.Tensor) -> torch.Tensor:
         """Token embeddings (vocab-parallel on a rank holding a share of
         the table: :func:`~repro_torch.models.modules.vocab_embed`)."""
-        x = vocab_embed(params["embed"], tokens, self.cfg.vocab_size)
+        embed = self._fsdp(params["embed"], self._defs["embed"])
+        x = vocab_embed(embed, tokens, self.cfg.vocab_size)
         return x if self._embed_scale is None else x * self._embed_scale
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
@@ -212,15 +255,17 @@ class _BaseLM:
         greedy token is taken over the whole vocabulary, the same on every
         rank; a share outside a group raises."""
         cfg = self.cfg
-        x = self._norm(x, params["final_norm"])
-        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        x = self._norm(x, self._fsdp(params["final_norm"], self._defs["final_norm"]))
+        head = (self._fsdp(params["embed"], self._defs["embed"]).T if cfg.tie_embeddings
+                else self._fsdp(params["lm_head"], self._defs["lm_head"]))
         if x.dtype == torch.float32:
             logits = x @ head
-        elif x.is_cuda:
+        elif x.device.type in ("cuda", "meta"):
             # bf16 operands, float32 output from one cuBLAS call, as the
             # reference's preferred_element_type=float32: nothing is rounded
             # to bf16 before the softcap and the argmax (the product has no
-            # derivative in torch: training takes _HeadProduct)
+            # derivative in torch: training takes _HeadProduct); the dry run's
+            # meta tensors take the card's path
             x2 = x.reshape(-1, x.shape[-1])
             logits = (_HeadProduct.apply(x2, head) if ops.wants_grad(x2, head)
                       else torch.mm(x2, head, out_dtype=torch.float32)
@@ -346,6 +391,12 @@ class DecoderLM(_BaseLM):
                 yield 2 * i + 1, pair["b"], (i, 1)
         else:
             yield from ((li, blk, li) for li, blk in enumerate(params["blocks"]))
+
+    def _block_defs(self, li: int):
+        """Layer ``li``'s def subtree (the interleaved layout's pairs:
+        ``a`` then ``b``)."""
+        blocks = self._defs["blocks"]
+        return blocks[li // 2]["ab"[li % 2]] if self.interleaved else blocks[li]
 
     def _refuse_paged(self, what: str) -> None:
         """The reference's refusal of a paged path for the SSM and hybrid
@@ -505,42 +556,57 @@ class DecoderLM(_BaseLM):
         return hook("logits", lambda: self._logits(params, x))
 
     # -- dense cache ------------------------------------------------------------------
-    def cache_defs(self, batch: int, max_seq: int) -> Dict[str, tuple]:
-        """Shapes of the dense cache: ``pos`` (b,) int32, the next position
-        of each row, and K/V stacks (L, b, max_seq, kvh, d) (the interleaved
-        layout: (L/2, 2, b, max_seq, kvh, d), a pair's dense layer then its
-        MoE layer); for the SSM family the SSD states (L, b, h, p, n) and
-        conv histories (L, b, K-1, conv_dim), whose size does not depend on
-        ``max_seq``; for the hybrid family those states as (G, E, b, ...),
-        group by layer of the group, and the shared block's K/V per group
-        (G, b, S, kvh, d), ``S`` from :meth:`cache_len`."""
+    def cache_defs(self, batch: int, max_seq: int) -> Dict[str, P]:
+        """The dense cache as :class:`~.params.P` leaves with the
+        reference's logical axes (``repro.models.lm.cache_defs``): ``pos``
+        (b,) int32 on ``("batch",)``, the next position of each row, and
+        K/V stacks (L, b, max_seq, kvh, d) on ``("layer", "batch",
+        "kv_seq", "act_kv", "head_dim")`` (the interleaved layout: (L/2, 2,
+        b, max_seq, kvh, d) on ``("layer", None, ...)``, a pair's dense
+        layer then its MoE layer); for the SSM family the float32 SSD
+        states (L, b, h, p, n) and the conv histories (L, b, K-1,
+        conv_dim), whose size does not depend on ``max_seq``; for the
+        hybrid family those states as (G, E, b, ...), group by layer of the
+        group, and the shared block's K/V per group (G, b, S, kvh, d) on
+        ``("group", ...)``, ``S`` from :meth:`cache_len`.  A leaf with no
+        dtype takes the model's."""
         cfg = self.cfg
         L = cfg.num_layers
         kv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+        defs = {"pos": P((batch,), "zeros", dtype=torch.int32, axes=("batch",))}
+        kv_axes = ("batch", "kv_seq", "act_kv", "head_dim")
         if self.stateful:
             n = cfg.ssm_state
             lead = (L,)
-            defs = {"pos": (batch,)}
             if self.hybrid:
                 E = cfg.hybrid_attn_every
                 lead = (L // E, E)
-                S = self.cache_len(max_seq)
-                defs.update(k=(L // E, batch, S, kv, dh), v=(L // E, batch, S, kv, dh))
-            defs.update(ssm=lead + (batch, cfg.ssm_heads, cfg.ssm_head_dim, n),
-                        conv=lead + (batch, cfg.conv_kernel - 1, cfg.ssm_inner + 2 * n))
+                shape = (L // E, batch, self.cache_len(max_seq), kv, dh)
+                defs.update(k=P(shape, "zeros", axes=("group",) + kv_axes),
+                            v=P(shape, "zeros", axes=("group",) + kv_axes))
+            la = ("layer",) * len(lead)
+            defs.update(
+                ssm=P(lead + (batch, cfg.ssm_heads, cfg.ssm_head_dim, n), "zeros",
+                      dtype=torch.float32, axes=la + ("batch", "ssm_heads", None, None)),
+                conv=P(lead + (batch, cfg.conv_kernel - 1, cfg.ssm_inner + 2 * n), "zeros",
+                       axes=la + ("batch", None, "conv_dim")))
             return defs
-        lead = (L // 2, 2) if self.interleaved else (L,)
-        return {"pos": (batch,), "k": lead + (batch, max_seq, kv, dh),
-                "v": lead + (batch, max_seq, kv, dh)}
+        lead, la = ((L // 2, 2), ("layer", None)) if self.interleaved else ((L,), ("layer",))
+        shape = lead + (batch, max_seq, kv, dh)
+        defs.update(k=P(shape, "zeros", axes=la + kv_axes), v=P(shape, "zeros", axes=la + kv_axes))
+        return defs
 
-    def init_cache(self, batch: int, max_seq: int) -> Dict[str, torch.Tensor]:
+    def init_cache(self, batch: int, max_seq: int,
+                   rules: Optional[ShardingRules] = None) -> Dict[str, torch.Tensor]:
         """A zeroed cache: K/V and conv histories in the model's dtype (bf16
         on the card, float32 on the CPU), SSD states float32, ``pos``
-        int32."""
-        dtypes = {"pos": torch.int32, "ssm": torch.float32}
+        int32; with ``rules``, one rank's shard of each leaf
+        (:func:`~repro_torch.sharding.specs.local_shape`; every rank's is
+        zero alike)."""
         return {
-            k: torch.zeros(shape, device=self.device, dtype=dtypes.get(k, self.dtype))
-            for k, shape in self.cache_defs(batch, max_seq).items()
+            k: torch.zeros(p.shape if rules is None else local_shape(rules, p, k),
+                           device=self.device, dtype=p.dtype or self.dtype)
+            for k, p in self.cache_defs(batch, max_seq).items()
         }
 
     def prefill(self, params, batch: Dict[str, torch.Tensor],
@@ -555,8 +621,11 @@ class DecoderLM(_BaseLM):
         The hybrid family does the same for its Mamba-2 layers, and its
         shared block writes each group's K/V: at ``[0, s)``, or, where the
         prompt is longer than a ring of ``S`` slots, its last ``S`` tokens
-        each at slot ``pos % S``, as decode expects them.  Returns float32
-        last-token logits (b, V)."""
+        each at slot ``pos % S``, as decode expects them.  On a rank's shards
+        (see the module) each layer's weights are gathered first where FSDP
+        split them, and with ``kv_seq`` the rank writes the prompt's
+        positions of its slice of the cache.  Returns float32 last-token
+        logits (b, V)."""
         x = self._embed_tokens(params, batch["tokens"])
         s = x.shape[1]
         if self.stateful:
@@ -573,13 +642,31 @@ class DecoderLM(_BaseLM):
                     self._write_prompt_kv(cache["k"][g], k)
                     self._write_prompt_kv(cache["v"][g], v)
             return self._prefill_logits(params, batch, x, cache)
+        layout = head_layout(self.cfg)
         for li, blk, at in self._layers(params):
+            blk = self._fsdp(blk, self._block_defs(li))
             a, (k, v) = attn_full(blk["attn"], self._norm(x, blk["ln1"]), self.cfg,
                                   window=self.windows[li], return_kv=True)
-            cache["k"][at][:, :s] = k
-            cache["v"][at][:, :s] = v
+            self._write_prefill_kv(cache["k"][at], k, layout)
+            self._write_prefill_kv(cache["v"][at], v, layout)
             x = self._attn_residual(blk, x, a)
+            del blk
         return self._prefill_logits(params, batch, x, cache)
+
+    @staticmethod
+    def _write_prefill_kv(dst: torch.Tensor, kv: torch.Tensor, layout) -> None:
+        """A prompt's K or V (b, s, kvh, d) into a layer's cache (b, S, kvh,
+        d) at ``[0, s)``; with ``kv_seq`` (a rank's slice of the sequence,
+        positions ``[rank S, (rank + 1) S)``) the prompt's positions that
+        fall in it."""
+        if layout is None or not layout.kv_seq:
+            dst[:, :kv.shape[1]] = kv
+            return
+        S = dst.shape[1]
+        lo = layout.rank * S
+        n = min(max(kv.shape[1] - lo, 0), S)
+        if n:
+            dst[:, :n] = kv[:, lo:lo + n]
 
     def _state_index(self, li: int):
         """Layer ``li``'s index into the SSD state and conv history stacks:
@@ -610,7 +697,9 @@ class DecoderLM(_BaseLM):
         ``kv_bound`` do not apply).  The hybrid family does so too, and its
         shared block attends each group's cache as a ring (slot ``pos %
         S``: the same as a plain cache while ``pos < S``), at ``uniform_pos``
-        and with no bound.  Returns float32 logits (b, V)."""
+        and with no bound.  On a rank's shards (see the module) each layer's
+        weights are gathered first where FSDP split them.  Returns float32
+        logits (b, V)."""
         pos = cache["pos"]
         x = self._embed_tokens(params, tokens)[:, None, :]          # (b, 1, D)
         if self.stateful:
@@ -627,10 +716,12 @@ class DecoderLM(_BaseLM):
             pos.add_(1)
             return self._logits(params, x1)
         for li, blk, at in self._layers(params):
+            blk = self._fsdp(blk, self._block_defs(li))
             a = attn_decode(blk["attn"], self._norm(x, blk["ln1"]), cache["k"][at],
                             cache["v"][at], pos, self.cfg, window=self.windows[li],
                             uniform_pos=uniform_pos, kv_bound=kv_bound)
             x = self._attn_residual(blk, x, a)
+            del blk
         pos.add_(1)
         return self._logits(params, x)[:, 0]
 

@@ -23,8 +23,9 @@ gated norm through ``ops.rmsnorm``; its depthwise causal convolution and
 its one-token decode recurrence stay plain torch, as in the JAX package.
 The mixture of experts (:func:`moe_apply`: capacity-based top-k routing,
 dispatch by index writes, the three expert products as batched matrix
-products over all experts) is plain torch too: the JAX package computes
-it with ``jnp`` outside any Pallas kernel.
+products over all experts; at one token a row with the
+``moe_decode_gather`` lever, only the selected experts) is plain torch
+too: the JAX package computes it with ``jnp`` outside any Pallas kernel.
 
 Tensor parallelism (the paged serving paths, under the engine's rules):
 a rank holds a column-parallel share of ``wq``/``wk``/``wv`` (whole heads:
@@ -40,17 +41,30 @@ model group (:func:`~repro_torch.sharding.comm.model_group` wider than
 one rank), which the engine sets only at an effective tp above 1, where
 it holds every such leaf split; without one the paths run as before, and
 a vocab-parallel shard outside a group raises (:func:`vocab_embed`).
+
+The dense-cache paths (:func:`attn_full` in a prefill, :func:`attn_decode`)
+run on any rank's shards under the dry run's rules
+(:func:`repro_torch.launch.dryrun.rules_for`), which the active rules
+describe (:func:`head_layout`): query heads split over "model" where
+they divide (else every rank attends all of them, llama4-maverick's 40 on
+16, and no close follows), kv heads where they divide; where kv heads do
+not, every rank computes them whole and the cache's sequence dim is split
+over "model" (``kv_seq``): the prefill writes the rank's slice of the
+prompt's positions, a decode step writes the new token's K/V on the rank
+that owns its position, and each layer all-gathers the K/V of the kv heads
+its query heads read once over "model" before attending them.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels import kvquant, ops
 from ..sharding import comm
+from ..sharding.specs import activation_rules, opt_enabled
 from .config import ArchConfig
 from .params import P
 
@@ -155,7 +169,7 @@ def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     a2 = a.reshape(-1, a.shape[-1])
     if a.dtype == torch.float32:
         out = a2 @ w.float()
-    elif a.is_cuda:
+    elif a.device.type in ("cuda", "meta"):        # meta: the dry run takes the card's path
         out = torch.mm(a2, w, out_dtype=torch.float32)
     else:
         out = a2.float() @ w.float()
@@ -178,11 +192,13 @@ def row_close(part: torch.Tensor, dtype: torch.dtype, scatter: bool = False) -> 
     return out.to(dtype)
 
 
-def _heads_out_tp(o: torch.Tensor, w: torch.Tensor, scatter: bool = False) -> torch.Tensor:
+def _heads_out_tp(o: torch.Tensor, w: torch.Tensor, scatter: bool = False,
+                  split: Optional[bool] = None) -> torch.Tensor:
     """The o-projection of the serving paths: the plain product; under a
-    model group (a rank's heads), the float32 partial closed by
+    model group (a rank's heads; ``split`` says so where the heads may
+    stay whole under one), the float32 partial closed by
     :func:`row_close`."""
-    if comm.model_group()[1] == 1:
+    if not (comm.model_group()[1] > 1 if split is None else split):
         return _heads_out(o, w)
     h, d, D = w.shape
     part = _mm_f32(o.reshape(*o.shape[:-2], h * d), w.reshape(h * d, D))
@@ -237,6 +253,47 @@ def _project_qkv(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
     return q, k, v
 
 
+class HeadLayout(NamedTuple):
+    """How the active rules lay one rank's attention out (see the module):
+    whether the query heads split over "model", whether the cache's
+    sequence dim does (``kv_seq``), the kv heads ``[kv_lo, kv_hi)`` (of
+    those the rank holds) that its query heads read, and the rank's index
+    in the model group."""
+
+    q_split: bool
+    kv_seq: bool
+    kv_lo: int
+    kv_hi: int
+    rank: int
+
+
+def head_layout(cfg: ArchConfig) -> Optional[HeadLayout]:
+    """The rank's :class:`HeadLayout` under an active model group, else None."""
+    _, size, rank = comm.model_group()
+    if size == 1:
+        return None
+    rules = activation_rules()
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    q_split = rules.mesh_axes_for("act_heads", H) == "model"
+    kv_split = rules.mesh_axes_for("act_kv", KV) == "model"
+    kv_seq = rules.rules.get("kv_seq") == "model"
+    lo, hi = 0, KV // size if kv_split else KV
+    if q_split and not kv_split:
+        h, rep = H // size, H // KV
+        if h % rep and rep % h:
+            raise ValueError(f"{cfg.name}: a rank's {h} query heads straddle groups of {rep} "
+                             f"unevenly over {size} ranks")
+        lo, hi = rank * h // rep, (rank * h + h - 1) // rep + 1
+    return HeadLayout(q_split, kv_seq, lo, hi, rank)
+
+
+def _kv_heads(t: torch.Tensor, layout: Optional[HeadLayout]) -> torch.Tensor:
+    """The kv heads (dim 2) a rank's query heads read, contiguous."""
+    if layout is None or (layout.kv_lo, layout.kv_hi) == (0, t.shape[2]):
+        return t
+    return t[:, :, layout.kv_lo:layout.kv_hi].contiguous()
+
+
 def attn_full(
     p: Dict[str, torch.Tensor],
     x: torch.Tensor,                      # (b, s, D)
@@ -254,13 +311,18 @@ def attn_full(
     flash-attention launch.  With ``kv_from`` (b, sk, D) (cross-attention)
     k and v are projected from it and the mask is not causal.  Returns y
     ``(b, s, D)``, and ``(k, v)`` ``(b, sk, kvh, d)`` with ``return_kv``
-    (the prefill writes them into its cache)."""
+    (the prefill writes them into its cache).  Under a model group, a
+    rank's heads (:func:`head_layout`): the float32 partial of its query
+    heads closed by :func:`row_close` where they split."""
     s = x.shape[1]
     positions = q_offset + torch.arange(s, device=x.device) if use_rope else None
     q, k, v = _project_qkv(p, x, cfg, positions, kv_from)
-    out = ops.attention(q, k, v, causal=causal and kv_from is None, window=window,
+    layout = head_layout(cfg)
+    out = ops.attention(q, _kv_heads(k, layout), _kv_heads(v, layout),
+                        causal=causal and kv_from is None, window=window,
                         softcap=cfg.attn_softcap, q_offset=q_offset)
-    y = _heads_out(out, p["wo"])
+    y = (_heads_out(out, p["wo"]) if layout is None
+         else _heads_out_tp(out, p["wo"], split=layout.q_split))
     return (y, (k, v)) if return_kv else y
 
 
@@ -292,9 +354,23 @@ def attn_decode(
     tokens) the slot is ``pos % S``, so every row writes, idle slots too;
     attention covers ``min(pos + 1, S)`` keys, with no window and no
     ``kv_bound``: a wrapped ring's live keys fill the whole buffer, and the
-    ring is the window.  Returns y (b, 1, D)."""
+    ring is the window.  Under a model group, a rank's heads and cache
+    (:func:`head_layout`): with ``kv_seq`` the cache holds positions
+    ``[rank S, (rank + 1) S)`` and only their owner writes them (the
+    others write back what they hold), and the kv heads its query heads
+    read are all-gathered over "model" before attention; the query heads'
+    float32 partial is closed by :func:`row_close` where they split.
+    Returns y (b, 1, D)."""
     b, S = k_cache.shape[:2]
     q, k, v = _project_qkv(p, x1, cfg, pos[:, None] if use_rope else None)
+    layout = head_layout(cfg)
+    if layout is not None:
+        if ring:
+            raise NotImplementedError(f"{cfg.name}: a ring cache under a model group")
+        if layout.kv_seq:
+            return _attn_decode_kv_seq(p, q, k, v, k_cache, v_cache, pos, cfg, layout,
+                                       window=window, uniform_pos=uniform_pos,
+                                       kv_bound=kv_bound)
     slot = pos.long() % S if ring else pos.long().clamp(max=S - 1)
     if uniform_pos:
         at = slot[:1]
@@ -313,9 +389,41 @@ def attn_decode(
         lengths, window, kv_bound = torch.clamp(pos + 1, max=S), None, None
     else:
         lengths = pos + 1
-    out = ops.decode_attention(q, k_cache, v_cache, lengths, softcap=cfg.attn_softcap,
+    out = ops.decode_attention(q, _kv_heads(k_cache, layout), _kv_heads(v_cache, layout),
+                               lengths, softcap=cfg.attn_softcap, window=window,
+                               kv_bound=kv_bound)
+    if layout is None:
+        return _heads_out(out, p["wo"])
+    return _heads_out_tp(out, p["wo"], split=layout.q_split)
+
+
+def _attn_decode_kv_seq(p, q, k, v, k_cache, v_cache, pos, cfg: ArchConfig,
+                        layout: HeadLayout, *, window, uniform_pos: bool,
+                        kv_bound: Optional[int]) -> torch.Tensor:
+    """:func:`attn_decode` on a rank whose cache holds the sequence slice
+    ``[rank S, (rank + 1) S)``: the new token's K/V written where this
+    rank owns its position (elsewhere the slot it would take is written
+    back as it was), then the K/V of the kv heads the rank's query heads
+    read all-gathered over "model" along the sequence, one decode-attention
+    launch over the whole sequence, and the o-projection."""
+    b, S = k_cache.shape[:2]
+    local = pos.long() - layout.rank * S
+    owned = (local >= 0) & (local < S)
+    slot = local.clamp(0, S - 1)
+    if uniform_pos:
+        at, mine = slot[:1], owned[0]
+        for cache, new in ((k_cache, k), (v_cache, v)):
+            cache.index_copy_(1, at, torch.where(mine, new, cache.index_select(1, at)))
+    else:
+        rows = torch.arange(b, device=pos.device)
+        mine = owned[:, None, None]
+        for cache, new in ((k_cache, k), (v_cache, v)):
+            cache.index_put_((rows, slot), torch.where(mine, new[:, 0], cache[rows, slot]))
+    k_all = comm.all_gather(_kv_heads(k_cache, layout), dim=1)
+    v_all = comm.all_gather(_kv_heads(v_cache, layout), dim=1)
+    out = ops.decode_attention(q, k_all, v_all, pos + 1, softcap=cfg.attn_softcap,
                                window=window, kv_bound=kv_bound)
-    return _heads_out(out, p["wo"])
+    return _heads_out_tp(out, p["wo"], split=layout.q_split)
 
 
 def cross_attn_decode(
@@ -609,8 +717,10 @@ def moe_route(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig):
 def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
               need_aux: bool = True, scatter: bool = False):
     """Capacity-based top-k routing with index dispatch (the JAX module's
-    default path; its ``moe_decode_gather`` decode path runs only under
-    tensor-parallel sharding rules and is not ported).
+    default path), or at one token a row (``s == 1``) with the
+    ``moe_decode_gather`` lever on under the active rules, only the
+    selected experts (:func:`_moe_decode_gather`, the reference's decode
+    fast path; its dry run sets the lever, its serving rules never do).
 
     Each batch row is a group of ``s`` tokens with :func:`moe_capacity`
     slots per expert, routed by :func:`moe_route`.  A slot's rank within its expert
@@ -642,6 +752,8 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
         counts = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
             0, idx.reshape(-1), torch.ones(idx.numel(), dtype=torch.float32, device=x.device))
         aux = E * (probs.mean(dim=(0, 1)) * (counts / (b * s * K))).sum()
+    if s == 1 and opt_enabled("moe_decode_gather"):
+        return _moe_decode_gather(p, x, weights, idx), aux
 
     eid = idx.reshape(b, s * K)                                          # (b, n) slots
     pos = _positions_in_expert(eid, E)
@@ -667,6 +779,34 @@ def moe_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
     gathered = out[dst].view(b * s, K, D)
     combined = torch.matmul(weights.to(x.dtype).view(b * s, 1, K), gathered)
     return combined.view(b, s, D), aux
+
+
+def _moe_decode_gather(p: Dict[str, torch.Tensor], x: torch.Tensor, weights: torch.Tensor,
+                       idx: torch.Tensor) -> torch.Tensor:
+    """One token a row, x (b, 1, D): each row's K selected experts' weights
+    gathered, ``(b, K, D, F)`` (``(b, K, F, D)`` for ``w_down``), their three
+    products, and the outputs weighed by the routing weights cast to the
+    activation dtype: no capacity, so no slot is dropped (the reference's
+    ``moe_decode_gather`` path, ``src/repro/models/modules.py:544``).  It
+    reads K experts' weights a row where the default path reads every
+    expert once a step, so it moves fewer bytes only at few rows.  Under a
+    model group a rank holding ``E / tp`` experts gathers each row's
+    selected experts it holds (another rank's read as its first, weighted
+    zero), and :func:`row_close` sums the ranks' float32 partials."""
+    sel = idx[:, 0]                                                     # (b, K)
+    w = weights[:, 0]                                                   # (b, K) float32
+    group = comm.model_group()[1] > 1
+    if group:
+        E_loc = p["w_up"].shape[0]
+        local = sel - comm.model_rank() * E_loc
+        w = w * ((local >= 0) & (local < E_loc))
+        sel = local.clamp(0, E_loc - 1)
+    xk = x[:, None]                                                     # (b, 1, 1, D)
+    h = F.silu(torch.matmul(xk, p["w_gate"][sel])) * torch.matmul(xk, p["w_up"][sel])
+    out = torch.matmul(h, p["w_down"][sel])[:, :, 0]                    # (b, K, D)
+    if group:
+        return row_close(torch.matmul(w[:, None, :], out.float()), x.dtype)
+    return torch.matmul(w.to(x.dtype)[:, None, :], out)
 
 
 def _moe_shard(p: Dict[str, torch.Tensor], x_rows: torch.Tensor, src: torch.Tensor,

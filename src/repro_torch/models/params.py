@@ -3,7 +3,9 @@
 A model describes its parameters once as a tree (dicts and per-layer lists)
 of :class:`P` leaves.  :func:`init_params` materialises the tree on the
 target device, directly in the target dtype, from an explicit
-``torch.Generator``; :func:`from_jax` converts the pytree of
+``torch.Generator``; :func:`param_specs` gives the tree's shapes and
+dtypes as meta tensors (the dry run's weights); :func:`from_jax` converts
+the pytree of
 ``repro``'s ``model.init`` (stacked ``*blocks`` subtrees) into the port's
 layout (one dict per layer), so both packages can run identical weights;
 :func:`resnet_from_jax` does the same for ResNet-50's tree.
@@ -90,6 +92,17 @@ def init_params(defs, generator: torch.Generator, device: torch.device,
     if keep is None:
         return tree_map_defs(make, defs)
     return tree_map_defs(lambda path, p: keep(path, p, make(path, p)), defs)
+
+
+def param_specs(defs, dtype: torch.dtype, device="meta"):
+    """The def tree as tensors of its shapes, each in ``dtype`` or its leaf's
+    own, on ``device`` (``meta``: shapes and dtypes, no memory; the
+    counterpart of the reference's ``param_specs``, whose ShapeDtypeStructs
+    stand in for the weights when a program is lowered without running).
+    :func:`~repro_torch.sharding.specs.shard_params` on it gives a rank's
+    shards, again with no allocation."""
+    return tree_map_defs(lambda path, p: torch.empty(p.shape, dtype=p.dtype or dtype,
+                                                     device=device), defs)
 
 
 # leaves a mamba block keeps in float32 whatever the model dtype (JAX's

@@ -60,7 +60,7 @@ from __future__ import annotations
 import contextlib
 import re
 import time
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -229,11 +229,13 @@ def _system_event(device: torch.device, tracer: Tracer):
     """At SYSTEM level on the card, one ``system:cuda`` event for the work
     inside: its device busy ms (torch.profiler), its launches' device
     records and the launches whose device record the profiler lost (0
-    unless it failed), the launches of each hand-written kernel (the change
-    of each wrapper's counter) and the peak memory.  The work starts
-    ``WINDOW_GUARD_S`` after the profiler's window opens, the device idle,
-    behind ``PROLOGUE`` tiny kernels outside the count.  Elsewhere a
-    no-op."""
+    unless it failed), whether the work's range was found in the profile,
+    the launches of each hand-written kernel (the change of each wrapper's
+    counter) and the peak memory.  ``device_ms`` is None, not a partial
+    sum, where the range was not found or a launch inside it lost its
+    record.  The work starts ``WINDOW_GUARD_S`` after the profiler's window
+    opens, the device idle, behind ``PROLOGUE`` tiny kernels outside the
+    count.  Elsewhere a no-op."""
     if not (tracer.enabled(TraceLevel.SYSTEM) and device.type == "cuda"):
         yield
         return
@@ -252,7 +254,7 @@ def _system_event(device: torch.device, tracer: Tracer):
         with record_function(_WORK):
             yield
     launches = {name: mod.launches - before[name] for name, mod in counters.items()}
-    device_ms, records, lost, prologue_lost = _device_records(
+    device_ms, records, lost, prologue_lost, found = _device_records(
         prof.profiler.kineto_results.events())
     tracer.event(
         "system:cuda",
@@ -262,20 +264,23 @@ def _system_event(device: torch.device, tracer: Tracer):
         device_ms=device_ms,
         device_records=records,
         lost_records=lost,
+        work_range_found=found,
         prologue_lost=prologue_lost,
         launches={k: v for k, v in sorted(launches.items()) if v},
         max_memory_allocated=int(torch.cuda.max_memory_allocated(device)),
     )
 
 
-def _device_records(events) -> Tuple[float, int, int, int]:
+def _device_records(events) -> Tuple[Optional[float], int, int, int, bool]:
     """(the work's device busy ms, its device records, its launches with no
-    device record, the prologue's launches with none) in a profile's raw
-    events: each runtime or driver launch, copy or set made inside the
-    ``system:work`` range, matched to its device record by correlation id;
-    the records' durations summed (one stream: they do not overlap).  Read
-    from the raw results: the profiler's per-op tables cost ~1 s a predict
-    to build."""
+    device record, the prologue's launches with none, whether the
+    ``system:work`` range was found) in a profile's raw events: each
+    runtime or driver launch, copy or set made inside the range, matched to
+    its device record by correlation id; the records' durations summed (one
+    stream: they do not overlap).  The busy ms is None where the range is
+    missing or a launch inside it has no record: a window that lost work
+    gives no device time, never a partial one.  Read from the raw results:
+    the profiler's per-op tables cost ~1 s a predict to build."""
     from torch.autograd import DeviceType
 
     device, host = {}, []
@@ -286,14 +291,15 @@ def _device_records(events) -> Tuple[float, int, int, int]:
             host.append(e)
     work = next((e for e in host if e.name() == _WORK), None)
     if work is None:
-        return 0.0, 0, 0, 0
+        return None, 0, 0, 0, False
     launches = [e for e in host if _LAUNCH.match(e.name())]
     inside = [e for e in launches if work.start_ns() <= e.start_ns() <= work.end_ns()]
     found = [device[e.correlation_id()] for e in inside if e.correlation_id() in device]
+    lost = len(inside) - len(found)
     prologue_lost = sum(1 for e in launches
                         if e.start_ns() < work.start_ns() and e.correlation_id() not in device)
-    return (sum(e.duration_ns() for e in found) / 1e6, len(found), len(inside) - len(found),
-            prologue_lost)
+    busy = None if lost else sum(e.duration_ns() for e in found) / 1e6
+    return busy, len(found), lost, prologue_lost, True
 
 
 def _sync(device: torch.device) -> None:

@@ -7,10 +7,16 @@
 All terms in seconds for ONE step of the counted function.  The
 reference reads its costs from a compiled artifact's HLO; the port counts
 them while the function runs (:func:`~.count.count_costs`): the FLOPs and
-bytes of every aten op it dispatches and each hand-written kernel's work
-(:mod:`.work`).  The counts are per device, as the reference's: per-device
-numbers × chips = totals, and both give the same terms.  Dominant term =
-the bottleneck.
+bytes of every aten op it dispatches, each hand-written kernel's work
+(:mod:`.work`) and each collective's bytes moved (the ledger of
+:mod:`repro_torch.sharding.comm`, a real world's or a counting world's).
+The counts are per device, as the reference's: per-device numbers × chips
+= totals, and both give the same terms.  Dominant term = the bottleneck.
+
+``link_bw`` is the H100 SXM data sheet's NVLink 4 rate, 900 GB/s a card.
+A model axis of 16 spans two 8-card NVLink domains, whose link between
+them is slower, so on the production meshes the collective term is a lower
+bound.
 
 ``MODEL_FLOPS`` = 6·N·D for training (fwd+bwd), 2·N·D for inference, with
 N = active params — the "useful work" yardstick; MODEL_FLOPS/counted FLOPs
@@ -49,12 +55,16 @@ class RooflineReport:
     """The reference's report, field for field, so one renderer reads both.
 
     In the port the counter (:func:`~.count.count_costs`) fills the
-    per-device accounting and the fields the reference takes from XLA's own
-    analysis (``xla_flops``, ``xla_bytes``: the same counted FLOPs and
-    bytes, since the port has no second analysis); ``peak_memory_bytes`` is
-    ``torch.cuda.max_memory_allocated`` over the counted run (0 on the
-    CPU); the argument, output and temp sizes, which XLA's memory analysis
-    splits, are 0."""
+    per-device accounting, the collectives from its ledger, and the fields
+    the reference takes from XLA's own analysis (``xla_flops``,
+    ``xla_bytes``: the same counted FLOPs and bytes, since the port has no
+    second analysis).  Where the counted call tracked its memory
+    (:func:`~.count.count_call`) the argument, output and temp sizes are
+    its ``memory_analysis()`` fields and ``peak_memory_bytes`` their peak
+    (argument + output + temp - alias, as the reference reads XLA's);
+    elsewhere those three are 0 and ``peak_memory_bytes`` is what the
+    caller passes (``torch.cuda.max_memory_allocated`` over the run, 0 on
+    the CPU)."""
 
     arch: str
     shape: str
@@ -115,6 +125,9 @@ def roofline_from_costs(
     note: str = "",
 ) -> RooflineReport:
     """Build the report from one device's counted ``costs``."""
+    mem = costs.memory
+    if mem is not None:
+        peak_memory_bytes = mem.peak_per_device_bytes
     compute_term = costs.flops / hw.peak_flops
     memory_term = costs.memory_bytes / hw.hbm_bw
     collective_term = costs.collective_bytes / hw.link_bw
@@ -144,9 +157,9 @@ def roofline_from_costs(
         xla_flops=costs.flops,
         xla_bytes=costs.memory_bytes,
         peak_memory_bytes=float(peak_memory_bytes),
-        argument_bytes=0.0,
-        output_bytes=0.0,
-        temp_bytes=0.0,
+        argument_bytes=float(mem.argument_bytes if mem else 0),
+        output_bytes=float(mem.output_bytes if mem else 0),
+        temp_bytes=float(mem.temp_bytes if mem else 0),
         compute_term_s=compute_term,
         memory_term_s=memory_term,
         collective_term_s=collective_term,

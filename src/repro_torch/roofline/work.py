@@ -21,7 +21,9 @@ definitions are the bounds' (``PERF.md`` §6):
 bytes over the memory rate and FLOPs over the bf16 peak
 (:data:`~.model.H100_SXM`).  The adapters of the decode family and of
 ``varlen_prefill`` read the lengths to the host: only a counted pass calls
-them, never a timed one.
+them, never a timed one.  On meta tensors (the dry run), which hold no
+lengths, ``decode_attention`` counts every row at its ``kv_bound`` (the
+whole cache without one).
 """
 from __future__ import annotations
 
@@ -239,10 +241,18 @@ def attention_bwd_call(q, k, v, *, causal=True, window=None, q_offset=0, **_) ->
                                window=window, q_offset=q_offset, itemsize=q.element_size())
 
 
-def decode_attention_call(q, k_cache, v_cache, lengths, *, window=None, **_) -> Work:
+def decode_attention_call(q, k_cache, v_cache, lengths, *, window=None, kv_bound=None,
+                          **_) -> Work:
     h, d = q.shape[-2:]
-    return decode_attention(q.numel() // (h * d), h, k_cache.shape[2], d,
-                            sum(_seen(lengths, window)), itemsize=q.element_size())
+    b = q.numel() // (h * d)
+    if lengths.device.type == "meta":
+        # no lengths to read (the dry run): every row at the host-known bound
+        S = k_cache.shape[1]
+        bound = S if kv_bound is None else max(min(int(kv_bound), S), 1)
+        live = b * (min(bound, _window(window)) if _window(window) else bound)
+    else:
+        live = sum(_seen(lengths, window))
+    return decode_attention(b, h, k_cache.shape[2], d, live, itemsize=q.element_size())
 
 
 def paged_attention_call(q, k_pages, v_pages, page_table, lengths, *, window=None,

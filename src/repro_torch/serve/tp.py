@@ -2,12 +2,14 @@
 starts the ranks.
 
 :func:`serve_tp` starts ``tp`` ranks (:class:`repro_torch.launch.mesh.
-Ranks`); for each job, a model and its runs, each rank builds the model,
+Ranks`) and runs its jobs on each in order (``launch.mesh.run_jobs``).  A job is
+any callable ``(rank, device) -> result``; rank 0's results come back.
+For a :class:`ServeJob`, a model and its runs, each rank builds the model,
 takes its weight shards, opens one
 :class:`~repro_torch.serve.engine.ServingEngine` under ``serve_rules``
-for each :class:`TPRun` and serves its requests with ``serve_paged``.
-Rank 0's results come back: each run's ``PagedStats`` and, for a traced
-run, the ``tp:collective`` summary of its spans.  The weights are random
+for each :class:`TPRun` and serves its requests with ``serve_paged``; its
+result is each run's ``PagedStats`` and, for a traced run, the
+``tp:collective`` summary of its spans.  The weights are random
 from a seed (each leaf drawn whole and cut, so every tp draws the same
 model) or a parameter tree of numpy arrays in the reference's layout,
 which ``from_jax`` carries across.
@@ -15,7 +17,7 @@ which ``from_jax`` carries across.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -23,7 +25,7 @@ import torch
 from ..core.analysis import tp_summary
 from ..core.tracing import Tracer, TracingServer
 from ..kernels import kernel_counters
-from ..launch.mesh import Ranks, make_host_mesh
+from ..launch.mesh import Ranks, make_host_mesh, run_jobs
 from ..models.lm import build_model
 from ..models.params import from_jax
 from ..sharding.specs import mesh_shape, serve_rules, tp_degree
@@ -77,25 +79,30 @@ def rank_params(model, weights: Union[int, Dict[str, Any]], rules, rank: int, dt
     return from_jax(weights, device=model.device, dtype=dtype)
 
 
-def serve_job(rank: int, device: torch.device, jobs: List[tuple],
-              dtype: Optional[torch.dtype], tp: int) -> List[List[TPResult]]:
-    """The job of one rank: for each ``(cfg, weights, runs)`` of ``jobs``
-    (or ``(cfg, weights, runs, dtype)``, where the job's dtype differs
-    from ``dtype``) one model and its runs in order (see the module).
-    Each run's launch counts, peak device bytes and pool pages are
-    gathered from every rank into rank 0's result."""
-    import torch.distributed as dist
+@dataclass
+class ServeJob:
+    """One model on every rank of the world and its runs in order (see the
+    module): the config, the weights (a seed or a numpy tree, see
+    :func:`rank_params`), the :class:`TPRun` list, and the model's dtype
+    (None: ``build_model``'s default).  Each run's launch counts, peak
+    device bytes and pool pages are gathered from every rank into rank 0's
+    result."""
 
-    base = serve_rules(make_host_mesh(tp))
-    mesh = {"shape": mesh_shape(base.mesh), "type": type(base.mesh).__name__}
-    counters = kernel_counters()
-    out = []
-    for job in jobs:
-        cfg, weights, runs = job[:3]
-        model = build_model(cfg, device=device, dtype=job[3] if len(job) > 3 else dtype)
-        params = rank_params(model, weights, base, rank, model.dtype)
+    cfg: Any
+    weights: Union[int, Dict[str, Any]]
+    runs: List[TPRun]
+    dtype: Optional[torch.dtype] = None
+
+    def __call__(self, rank: int, device: torch.device) -> List[TPResult]:
+        import torch.distributed as dist
+
+        base = serve_rules(make_host_mesh(dist.get_world_size()))
+        mesh = {"shape": mesh_shape(base.mesh), "type": type(base.mesh).__name__}
+        counters = kernel_counters()
+        model = build_model(self.cfg, device=device, dtype=self.dtype)
+        params = rank_params(model, self.weights, base, rank, model.dtype)
         results = []
-        for run in runs:
+        for run in self.runs:
             rules = serve_rules(base.mesh, rs_block_outputs=run.rs_block_outputs)
             engine = ServingEngine(model, params, device=device, rules=rules, **run.engine)
             logits = engine.prompt_logits(run.probe) if run.probe is not None else None
@@ -120,19 +127,15 @@ def serve_job(rank: int, device: torch.device, jobs: List[tuple],
                 res.tp_summary = tp_summary(server.timeline("tp-serve"))
             results.append(res)
             del engine
-        out.append(results)
-        del model, params
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
-    return out
+        return results
 
 
-def serve_tp(jobs: List[tuple], tp: int, device: Union[str, torch.device] = "cuda",
-             dtype: Optional[torch.dtype] = None, timeout_s: float = 900.0,
-             wait: bool = True):
-    """Serve each ``(cfg, weights, runs)`` of ``jobs`` on ``tp`` ranks (see
-    the module): rank 0's results, a list of :class:`TPResult` a job; with
-    ``wait=False`` the :class:`~repro_torch.launch.mesh.Ranks` handle,
-    whose ``result()`` gives them."""
-    ranks = Ranks(serve_job, tp, (jobs, dtype, tp), device=device, timeout_s=timeout_s)
+def serve_tp(jobs: List[Callable], tp: int, device: Union[str, torch.device] = "cuda",
+             timeout_s: float = 900.0, wait: bool = True):
+    """Run ``jobs`` (each a :class:`ServeJob` or another callable ``(rank,
+    device) -> result``) on ``tp`` ranks (see the module): rank 0's
+    results, one a job; with ``wait=False`` the
+    :class:`~repro_torch.launch.mesh.Ranks` handle, whose ``result()``
+    gives them."""
+    ranks = Ranks(run_jobs, tp, (jobs,), device=device, timeout_s=timeout_s)
     return ranks.result() if wait else ranks

@@ -8,6 +8,8 @@ from .specs import (
     default_rules,
     heads_shard_axis,
     leaf_split,
+    leaf_splits,
+    local_shape,
     logical_pspec,
     mesh_shape,
     opt_enabled,
@@ -20,6 +22,6 @@ from .specs import (
 
 __all__ = [
     "ShardingRules", "activation_rules", "batch_axes", "default_rules", "heads_shard_axis", "leaf_split",
-    "logical_pspec", "mesh_shape", "opt_enabled", "param_pspecs", "serve_rules",
+    "leaf_splits", "local_shape", "logical_pspec", "mesh_shape", "opt_enabled", "param_pspecs", "serve_rules",
     "set_activation_rules", "shard_params", "tp_degree",
 ]

@@ -9,12 +9,20 @@ a plain ``{axis: size}`` mapping where no process group exists.  Only the
 axis sizes are read here.
 
 Batch-like logical axes shard over ("pod", "data"); tensor-parallel axes
-(heads / kv / ffn / vocab / experts / inner) over "model".  A dim that does
-not divide its mesh axes falls back to replication (granite-20b's one kv
-head, or glm4-9b's two on a 4-way model axis).  In place of the
-reference's ``PartitionSpec`` tree, :func:`param_pspecs` gives each leaf
-its split: ``(dim, mesh axis)``, or None for a replicated leaf, and
-:func:`shard_params` cuts a full parameter tree to one rank's shards.
+(heads / kv / ffn / vocab / experts / inner) over "model"; with ``fsdp``
+the weights' "embed" dims shard over the batch axes too (ZeRO-3: a layer's
+leaves are all-gathered over the data group before it runs).  A dim that
+does not divide its mesh axes falls back to replication (granite-20b's one
+kv head, or glm4-9b's two on a 4-way model axis).  In place of the
+reference's ``PartitionSpec`` tree, :func:`leaf_splits` gives each leaf
+its splits, ``((dim, mesh axes), ...)``: none for a replicated leaf, two
+for an FSDP weight that also splits over "model"; :func:`param_pspecs`
+(the serving paths' one-dim view) gives ``(dim, mesh axis)`` or None;
+:func:`local_shape` gives a rank's shard shape and :func:`shard_params`
+cuts a full parameter tree to one rank's shards.  Every function here
+reads the mesh's axis sizes only, so the production meshes
+(:func:`repro_torch.launch.mesh.make_production_mesh`, 256 and 512
+devices) are plain mappings.
 """
 from __future__ import annotations
 
@@ -45,10 +53,25 @@ def mesh_shape(mesh) -> Dict[str, int]:
 class ShardingRules:
     """One arch x mode sharding policy: logical axis -> mesh axes.
 
-    ``opts`` gates the reference's beyond-baseline levers; the port's
-    serving path reads ``rs_block_outputs`` (reduce-scatter the block
-    outputs of a packed prefill over tokens instead of all-reducing
-    them)."""
+    ``opts`` gates the reference's beyond-baseline levers, so that the
+    baseline and each lever are both reproducible:
+
+    * ``gather_kv_once``    — all-gather seq-sharded K/V once per layer
+                              instead of once per flash KV-block (the
+                              reference's training lever; the port's dense
+                              decode gathers a seq-sharded cache once per
+                              layer always, and its training shardings are
+                              not ported)
+    * ``rs_block_outputs``  — reduce-scatter the block outputs of a packed
+                              prefill over tokens instead of all-reducing
+                              them (the paged serving path)
+    * ``ssd_shard_p``       — shard the SSD head_dim (p) over "model" when
+                              the head count can't split it (not ported:
+                              the ssm and hybrid families' shardings)
+    * ``moe_decode_gather`` — the one-token MoE path computes only the
+                              selected experts
+                              (:func:`repro_torch.models.modules.moe_apply`)
+    """
 
     mesh: Any
     fsdp: bool = False          # shard weight "embed" dims over data axes
@@ -122,7 +145,7 @@ def default_rules(mesh, fsdp: bool = False) -> ShardingRules:
         "act_kv": "model",
         "act_ffn": "model",
         "seq": None,
-        "kv_seq": None,
+        "kv_seq": None,                 # "model" where kv heads don't shard (dryrun.rules_for)
         "act_experts": "model",
         "act_vocab": "model",
         "ssm_p": "model",
@@ -200,21 +223,37 @@ def logical_pspec(rules: ShardingRules, axes: Sequence[Optional[str]],
     return tuple(_dedup([rules.mesh_axes_for(a, d) for a, d in zip(axes, shape)]))
 
 
-def _split_of(path: str, spec: Tuple[MeshAxes, ...]) -> Split:
-    dims = [(i, a) for i, a in enumerate(spec) if a is not None]
-    if len(dims) > 1:
-        raise NotImplementedError(
-            f"{path}: split on {len(dims)} dims {spec}; the serving shardings cut one dim "
-            f"(the training shardings, FSDP among them, are not ported)")
-    return dims[0] if dims else None
-
-
-def leaf_split(rules: ShardingRules, p, path: str = "") -> Split:
-    """The split of one def leaf ``p`` (a :class:`~repro_torch.models.params.P`)."""
+def leaf_splits(rules: ShardingRules, p, path: str = "") -> Tuple[Tuple[int, MeshAxes], ...]:
+    """Every split of one def leaf ``p`` (a
+    :class:`~repro_torch.models.params.P`): ``(dim, mesh axes)`` for each
+    dim its logical axis puts on the mesh, in dim order (the reference's
+    ``PartitionSpec`` less its None entries)."""
     axes = p.axes if p.axes is not None else (None,) * len(p.shape)
     if len(axes) != len(p.shape):
         raise ValueError(f"{path}: axes {axes} rank != shape {p.shape}")
-    return _split_of(path, logical_pspec(rules, axes, p.shape))
+    spec = logical_pspec(rules, axes, p.shape)
+    return tuple((i, a) for i, a in enumerate(spec) if a is not None)
+
+
+def leaf_split(rules: ShardingRules, p, path: str = "") -> Split:
+    """The one split of a def leaf ``p`` on the serving paths (the paged
+    engine, which cuts one dim), or None; a leaf split on two dims (an
+    FSDP weight) raises: take :func:`leaf_splits`."""
+    splits = leaf_splits(rules, p, path)
+    if len(splits) > 1:
+        raise NotImplementedError(
+            f"{path}: split on {len(splits)} dims {splits}; the paged serving engine cuts one "
+            f"dim (FSDP weights run through the dense prefill and decode: leaf_splits)")
+    return splits[0] if splits else None
+
+
+def local_shape(rules: ShardingRules, p, path: str = "") -> Tuple[int, ...]:
+    """The shape of one rank's shard of def leaf ``p``: each split dim
+    divided by its mesh axes' size."""
+    shape = list(p.shape)
+    for dim, axes in leaf_splits(rules, p, path):
+        shape[dim] //= rules.axis_size(axes)
+    return tuple(shape)
 
 
 def param_pspecs(defs, rules: ShardingRules):
@@ -225,25 +264,31 @@ def param_pspecs(defs, rules: ShardingRules):
     return tree_map_defs(lambda path, p: leaf_split(rules, p, path), defs)
 
 
-def _coordinate(rules: ShardingRules, rank: int, axis: str) -> int:
-    """The index of ``rank`` along mesh ``axis`` (ranks laid out row-major
-    over the mesh's axes, as ``init_device_mesh`` lays them)."""
-    shape = rules.shape
-    names = list(shape)
+def coordinate(mesh, rank: int, axes: MeshAxes) -> int:
+    """The index of ``rank`` along mesh ``axes`` (one axis, or several read
+    as one, the first the slowest), with ranks laid out row-major over the
+    mesh's axes, as ``init_device_mesh`` lays them."""
+    shape = mesh_shape(mesh)
     coord = {}
-    for name in reversed(names):
+    for name in reversed(list(shape)):
         coord[name] = rank % shape[name]
         rank //= shape[name]
-    return coord[axis]
+    index = 0
+    for a in ((axes,) if isinstance(axes, str) else tuple(axes)):
+        index = index * shape[a] + coord[a]
+    return index
 
 
 def shard_params(params, rules: ShardingRules, rank: int, *, defs):
-    """One rank's shards of a full port parameter tree (from ``init_params``
-    or ``from_jax``): each split leaf cut along its dim into ``axis size``
-    equal pieces, piece ``rank``'s coordinate on that axis copied out, so
-    the full tree can be freed; a replicated leaf is kept as it is.
-    ``defs`` is the model's def tree, which carries the logical axes."""
-    splits = param_pspecs(defs, rules)
+    """One rank's shards of a full port parameter tree (from ``init_params``,
+    ``from_jax`` or :func:`~repro_torch.models.params.param_specs`): each
+    split leaf cut along each split dim into ``axes size`` equal pieces,
+    the piece at ``rank``'s coordinate copied out, so the full tree can be
+    freed; a replicated leaf is kept as it is.  ``defs`` is the model's
+    def tree, which carries the logical axes."""
+    from ..models.params import tree_map_defs
+
+    splits = tree_map_defs(lambda path, p: leaf_splits(rules, p, path), defs)
 
     def walk(node, split, path):
         if isinstance(node, dict):
@@ -255,15 +300,16 @@ def shard_params(params, rules: ShardingRules, rank: int, *, defs):
     return walk(params, splits, "")
 
 
-def shard_leaf(t: torch.Tensor, split: Split, rules: ShardingRules, rank: int) -> torch.Tensor:
-    """Rank ``rank``'s piece of one full leaf ``t`` under ``split``."""
-    if split is None:
+def shard_leaf(t: torch.Tensor, split, rules: ShardingRules, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s piece of one full leaf ``t`` under ``split``: one
+    ``(dim, mesh axes)``, a tuple of them (:func:`leaf_splits`), or None
+    (``t`` itself).  The piece is a copy, never a view that would keep the
+    whole leaf alive."""
+    if not split:
         return t
-    dim, axis = split
-    if not isinstance(axis, str):
-        raise NotImplementedError(f"a split over several mesh axes {axis}")
-    n = rules.axis_size(axis)
-    return t.chunk(n, dim=dim)[_coordinate(rules, rank, axis)].contiguous()
+    for dim, axes in ((split,) if isinstance(split[0], int) else split):
+        t = t.chunk(rules.axis_size(axes), dim=dim)[coordinate(rules.mesh, rank, axes)]
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 # ---------------------------------------------------------------------------

@@ -29,8 +29,8 @@ def _modules():
 def test_the_import_check_covers_every_entry_point():
     """The module list walks the package: the models, the drivers, the
     out-of-process agent, the fleet, the training path, the sharding rules,
-    the collectives and the rank launcher are all imported by the check
-    below."""
+    the collectives, the rank launcher and the dry run and its report are
+    all imported by the check below."""
     mods = _modules()
     for m in ("repro_torch.models.resnet", "repro_torch.models.predictor",
               "repro_torch.launch.serve", "repro_torch.launch.agent_main",
@@ -44,7 +44,8 @@ def test_the_import_check_covers_every_entry_point():
               "repro_torch.roofline.work", "repro_torch.roofline.model",
               "repro_torch.sharding", "repro_torch.sharding.specs",
               "repro_torch.sharding.comm", "repro_torch.launch.mesh",
-              "repro_torch.serve.tp"):
+              "repro_torch.serve.tp", "repro_torch.launch.dryrun",
+              "repro_torch.launch.report"):
         assert m in mods, m
 
 

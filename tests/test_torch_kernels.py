@@ -194,9 +194,17 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 
 def test_wrappers_reject_other_devices():
+    """A wrapper takes the CPU (its plain version) and CUDA (its kernel);
+    the three on the dry run's path take meta tensors too (the launcher's
+    outputs, no launch); every other device is refused."""
     x = torch.zeros(2, 16, device="meta")
+    before = rn_mod.launches
+    out = rn_mod.rmsnorm(x, torch.zeros(16, device="meta"))
+    assert out.device.type == "meta" and out.shape == x.shape and rn_mod.launches == before
+    q, kp, vp, table, lens = (torch.from_numpy(a).to("meta")
+                              for a in _paged_inputs(1, 2, 1, 8, 4, 2, [5], seed=0))
     with pytest.raises(ValueError, match="unsupported device"):
-        rn_mod.rmsnorm(x, torch.zeros(16, device="meta"))
+        pa_mod.paged_attention(q, kp, vp, table, lens)
 
 
 def test_kernel_build_stays_in_its_checkout(monkeypatch, tmp_path):

@@ -567,7 +567,8 @@ class _Event:
 def test_device_records_count_the_work_and_its_lost_launches():
     """Only the launches inside the ``system:work`` range count: the
     prologue's records stay out and its losses are counted apart; a launch
-    of the work with no device record is lost."""
+    of the work with no device record is lost, and then, as where the range
+    is missing, the window reads no device time (None)."""
     from repro_torch.models.predictor import PROLOGUE, WINDOW_GUARD_S, _device_records
 
     prologue = [_Event(False, 1, "cudaLaunchKernel", start=1),       # its record lost
@@ -578,7 +579,9 @@ def test_device_records_count_the_work_and_its_lost_launches():
             _Event(False, 5, "cudaMemsetAsync", start=13), _Event(True, 5, "Memset", 500_000),
             _Event(False, 6, "cudaDeviceSynchronize", start=14)]
     after = [_Event(False, 7, "cudaMemcpyAsync", start=30)]
-    assert _device_records(prologue + work + after) == (1.5, 2, 1, 1)
-    assert _device_records(prologue + [e for e in work if e.corr != 4]) == (1.5, 2, 0, 1)
-    assert _device_records(prologue) == (0.0, 0, 0, 0)
+    # a launch of the work lost its record: no device time, not a partial sum
+    assert _device_records(prologue + work + after) == (None, 2, 1, 1, True)
+    assert _device_records(prologue + [e for e in work if e.corr != 4]) == (1.5, 2, 0, 1, True)
+    # the work's range is missing: no device time, not 0.0
+    assert _device_records(prologue) == (None, 0, 0, 0, False)
     assert WINDOW_GUARD_S > 0 and PROLOGUE >= 64

@@ -42,7 +42,7 @@ from repro_torch.launch import serve as tlaunch
 from repro_torch.launch.mesh import make_host_mesh, mesh_name
 from repro_torch.models import build_model, from_jax
 from repro_torch.serve import engine as teng
-from repro_torch.serve.tp import TPRun, serve_tp
+from repro_torch.serve.tp import ServeJob, TPRun, serve_tp
 from repro_torch.sharding.specs import (
     heads_shard_axis,
     param_pspecs,
@@ -386,7 +386,7 @@ def test_a_failing_rank_fails_the_run():
     run = TPRun(_requests(teng, cfg), engine=dict(max_batch=3, max_seq=64, kv_dtype="int4"),
                 serve=BASE_KW)
     with pytest.raises(RuntimeError, match=r"rank \d of 2 failed(.|\n)*int4"):
-        serve_tp([(cfg, 0, [run])], 2, device="cpu", timeout_s=120.0)
+        serve_tp([ServeJob(cfg, 0, [run])], 2, device="cpu", timeout_s=120.0)
     assert not mp.active_children()
 
 
@@ -461,12 +461,12 @@ def tp2_world():
             for name, make, ekw, skw, rs, trace in scen]
     moe = models["qwen3-moe-30b-a3b"][3]
     moe_run = TPRun(_requests(teng, moe), engine=dict(max_batch=3, max_seq=64), serve=BASE_KW)
-    world2 = serve_tp([(glm, models["glm4-9b"][2], runs),
-                       (moe, models["qwen3-moe-30b-a3b"][2], [moe_run])], 2, device="cpu",
+    world2 = serve_tp([ServeJob(glm, models["glm4-9b"][2], runs),
+                       ServeJob(moe, models["qwen3-moe-30b-a3b"][2], [moe_run])], 2, device="cpu",
                       wait=False, timeout_s=300.0)
-    world4 = serve_tp([(glm, models["glm4-9b"][2],
-                        [TPRun(_requests(teng, glm), engine=dict(max_batch=3, max_seq=64),
-                               serve=BASE_KW)])], 4, device="cpu", wait=False,
+    world4 = serve_tp([ServeJob(glm, models["glm4-9b"][2],
+                                [TPRun(_requests(teng, glm), engine=dict(max_batch=3, max_seq=64),
+                                       serve=BASE_KW)])], 4, device="cpu", wait=False,
                       timeout_s=300.0)
     # tp 1: the port and the JAX engine on the same bridged weights
     base = {}

@@ -102,13 +102,13 @@ def _evaluations(torch, platform, n, seen):
 
 
 def _summary(label, rows):
-    zero = [r for r in rows if r["device_ms"] == 0]
+    zero = [r for r in rows if not r["device_ms"]]
     lost = [r for r in rows if r["lost_records"]]
     lags = [r["lag_ms"] for r in rows if r["lag_ms"]]
     losses = {}
     for r in rows:
         losses[r["prologue_lost"]] = losses.get(r["prologue_lost"], 0) + 1
-    print(f"{label}: {len(rows)} windows, {len(zero)} read 0.0 device ms, {len(lost)} lost "
+    print(f"{label}: {len(rows)} windows, {len(zero)} read no device ms (0.0 or None), {len(lost)} lost "
           f"records; prologue losses (lost: windows) {dict(sorted(losses.items()))}; device "
           f"start - host launch {min(l[0] for l in lags):.3f} to {max(l[1] for l in lags):.3f} "
           f"ms" if lags else f"{label}: {len(rows)} windows, none with a matched launch")
@@ -148,7 +148,7 @@ def _between(torch, dev, what):
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import build_model
     from repro_torch.serve.engine import ServingEngine
-    from repro_torch.serve.tp import TPRun, serve_tp
+    from repro_torch.serve.tp import ServeJob, TPRun, serve_tp
 
     cs = chip_smoke
     cfg = get_config("glm4-9b")
@@ -157,7 +157,7 @@ def _between(torch, dev, what):
     eng = dict(max_batch=cs.SLOTS, max_seq=cs.MAX_SEQ, page_size=cs.PAGE)
     kw = dict(num_slots=cs.SLOTS, page_size=cs.PAGE, prefill_budget=cs.BUDGET)
     if what == "ranks":
-        serve_tp([(cfg, cs.SEED, [TPRun(reqs, engine=eng, serve=kw)], torch.bfloat16)], cs.TP,
+        serve_tp([ServeJob(cfg, cs.SEED, [TPRun(reqs, engine=eng, serve=kw)], torch.bfloat16)], cs.TP,
                  device=dev, timeout_s=600.0)
         return
     model = build_model(cfg, device=dev, dtype=torch.bfloat16)
